@@ -3,16 +3,20 @@
 
 Run from the root of the repository: python3 chip_smoke.py
 
-It builds the DIA kernels from spmv_openmp_cuda_tpu_torch/csrc/, holds each
-kernel against its plain PyTorch version at the main path's shapes, drives
-the main path (AutoSpMV.from_csr -> model(x)) on three DIA-class proxies
-with the launch counters reset just before, checks the results against the
-f64 oracle, runs the CLI once, and times kernel and plain version with CUDA
-events. Any failure raises and exits non-zero; without a CUDA device it
-exits 1 before printing any result. The last line is one JSON object
-{"ok": true, "device": {...}}, the line before it a JSON object with one
-entry per kernel.
+It builds the CUDA kernels from spmv_openmp_cuda_tpu_torch/csrc/ (one nvcc
+per source, all at once), holds each kernel against its plain PyTorch
+version at the main path's shapes, drives the main path (AutoSpMV.from_csr
+-> model(x)) on three DIA-class and three window-class proxies at their
+published size with the launch counters reset just before, checks the
+results against the f64 oracle, runs the CLI, and times kernel, plain
+version and one PyTorch library call (cuSPARSE through torch.sparse, a
+yardstick the port never calls) with CUDA events. Any failure raises and
+exits non-zero; without a CUDA device it exits 1 before printing any result.
+The last line is one JSON object {"ok": true, "device": {...}}, the line
+before it a JSON object with one entry per kernel.
 """
+import concurrent.futures
+import dataclasses
 import json
 import os
 import subprocess
@@ -24,17 +28,33 @@ import numpy as np
 import torch
 
 T0 = time.perf_counter()
-MODES = ("PL_DIA_ROWS", "PL_DIA_BF16", "PL_DIA_RESID", "PL_DIA_RESID_BF16")
-#: mode -> proxies it is checked and timed on (the main path's shapes:
+DIA_MODES = ("PL_DIA_ROWS", "PL_DIA_BF16", "PL_DIA_RESID", "PL_DIA_RESID_BF16")
+#: DIA proxy -> modes it is checked and timed on (the main path's shapes:
 #: cube_coup_like runs PL_DIA_ROWS, raefsky1_like PL_DIA_RESID)
-CHECKS = {
+DIA_CHECKS = {
     "cube_coup_like": ("PL_DIA_ROWS", "PL_DIA_BF16"),
-    "raefsky1_like": MODES,
+    "raefsky1_like": DIA_MODES,
     "cavity10_like": ("PL_DIA_ROWS",),
 }
+#: window proxy -> modes (the JAX bench runs thermal2/fem under
+#: PL_CSR_WINDOW_BF16 and delaunay under PL_CSR_WINDOW; AutoSpMV runs
+#: PL_CSR_WINDOW)
+WINDOW_CHECKS = {
+    "thermal2_like": ("PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16"),
+    "fem_3d_thermal2_like": ("PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16"),
+    "delaunay_n12_like": ("PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16"),
+}
 #: AutoSpMV's engine for each proxy
-EXPECTED_FORMAT = {"cube_coup_like": "dia", "raefsky1_like": "dia_resid", "cavity10_like": "dia"}
-SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/dia_spmv.cu"
+EXPECTED_FORMAT = {
+    "cube_coup_like": "dia", "raefsky1_like": "dia_resid", "cavity10_like": "dia",
+    "thermal2_like": "window", "fem_3d_thermal2_like": "window",
+    "delaunay_n12_like": "window",
+}
+DIA_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/dia_spmv.cu"
+WINDOW_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/window_spmv.cu"
+#: H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -52,15 +72,37 @@ def normal_x(n: int, device, seed: int) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def slab_bytes(ops) -> int:
+    from spmv_openmp_cuda_tpu_torch.formats.window import WindowCSR
     from spmv_openmp_cuda_tpu_torch.ops.spmv_cuda import DiaResid
 
+    if isinstance(ops, WindowCSR):
+        return nbytes(ops.vals, ops.sidx, ops.gid, ops.rsrc)
     first = ops[0]
     if isinstance(first, DiaResid):
-        ts = [first.mat.data, first.rvals, first.rsidx, first.rgid, first.rsrc]
-    else:
-        ts = [first.data]
-    return sum(t.numel() * t.element_size() for t in ts)
+        return nbytes(first.mat.data, first.rvals, first.rsidx, first.rgid, first.rsrc)
+    return nbytes(first.data)
+
+
+def least_ms(moved_bytes: int, flops: int):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and f32
+    operations over the f32 rate."""
+    t_b, t_f = moved_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def library_spmv(csr, device):
+    """cuSPARSE y = A @ x through torch.sparse on the same matrix (int32
+    indices), the yardstick; the port never calls it."""
+    crow = torch.as_tensor(csr.indptr.astype(np.int32), device=device)
+    col = torch.as_tensor(csr.indices.astype(np.int32), device=device)
+    val = torch.as_tensor(csr.data, dtype=torch.float32, device=device)
+    a = torch.sparse_csr_tensor(crow, col, val, size=csr.shape)
+    return lambda v: a @ v
 
 
 def main() -> int:
@@ -70,11 +112,14 @@ def main() -> int:
     import spmv_openmp_cuda_tpu_torch as P
     from spmv_openmp_cuda_tpu_torch.cli import time_per_call
     from spmv_openmp_cuda_tpu_torch.config import LANE
+    from spmv_openmp_cuda_tpu_torch.formats import window as W
+    from spmv_openmp_cuda_tpu_torch.formats.dia import split_offsets
     from spmv_openmp_cuda_tpu_torch.io.mmio import write_mtx
     from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector
     from spmv_openmp_cuda_tpu_torch.models.auto import AutoSpMV
     from spmv_openmp_cuda_tpu_torch.ops import cuda_lib, registry
     from spmv_openmp_cuda_tpu_torch.ops import spmv_cuda as SC
+    from spmv_openmp_cuda_tpu_torch.ops import window_cuda as WC
     from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
     from spmv_openmp_cuda_tpu_torch.utils import synth
     from spmv_openmp_cuda_tpu_torch.utils.compare import vectors_diff
@@ -88,26 +133,29 @@ def main() -> int:
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     print(f"nvidia-smi: {smi}")
 
-    # -- phase 1: build --------------------------------------------------
+    # -- phase 1: build, one nvcc per source, all at once ------------------
     t = time.perf_counter()
-    path, nvcc_log = cuda_lib.build("dia_spmv")
-    log(f"phase 1: built {os.path.relpath(path)} in {time.perf_counter() - t:.1f}s")
-    for line in nvcc_log.splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        built = list(pool.map(cuda_lib.build, ("dia_spmv", "window_spmv")))
+    log(f"phase 1: built {', '.join(os.path.relpath(p) for p, _ in built)} "
+        f"in {time.perf_counter() - t:.1f}s")
+    for _path, nvcc_log in built:
+        for line in nvcc_log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
 
     # -- host set-up: the proxies at their published size ------------------
     csrs = {}
-    for name in CHECKS:
+    for name in (*DIA_CHECKS, *WINDOW_CHECKS):
         t = time.perf_counter()
         csrs[name] = P.coo_to_csr(synth.preset(name))
         m, n = csrs[name].shape
         log(f"set-up: {name} {m}x{n}, {csrs[name].nnz} nnz, generated in {time.perf_counter() - t:.1f}s")
 
     # -- phase 2: each kernel against its plain version ---------------------
-    errs = {"dia_spmv": 0.0, "dia_resid": 0.0}
+    errs = {"dia_spmv": 0.0, "dia_resid": 0.0, "window_blocks": 0.0, "window_single": 0.0}
     prepared = {}
-    for name, modes in CHECKS.items():
+    for name, modes in DIA_CHECKS.items():
         csr = csrs[name]
         x = normal_x(csr.shape[1], dev, seed=1)
         for mode in modes:
@@ -143,9 +191,47 @@ def main() -> int:
                 if not (err <= bound(yr) and y0.abs().max().item() > 0):
                     raise AssertionError(f"{name} {mode}: fringe kernel disagrees")
 
+    def check_window(label, mat, x):
+        kernel = "window_single" if mat.xdirect else "window_blocks"
+        yk = WC.window_spmv(mat, x)
+        torch.cuda.synchronize()
+        yp = WC.window_spmv_reference(mat, x)
+        err = (yk - yp).abs().max().item()
+        ok = err <= bound(yp) and yk.abs().max().item() > 0
+        errs[kernel] = max(errs[kernel], err)
+        log(f"phase 2: {label}: {kernel}_kernel max|y_k - y_p| = {err:.3e} <= {bound(yp):.3e}, "
+            f"max|y_k| = {yk.abs().max().item():.3e}: {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: {kernel}_kernel disagrees with its plain version")
+
+    for name, modes in WINDOW_CHECKS.items():
+        csr = csrs[name]
+        x = normal_x(csr.shape[1], dev, seed=1)
+        t = time.perf_counter()
+        mat = registry.get("PL_CSR_WINDOW").prepare(csr, None, P.Config(), dev)
+        prep_s = time.perf_counter() - t
+        log(f"phase 2: {name} window layout g={mat.g} k_pad={mat.k_pad} k_c={mat.k_c} "
+            f"wr={mat.wr} bps={mat.bps} nblocks={mat.nblocks} xdirect={mat.xdirect} "
+            f"shared_w={mat.shared_w}, {mat.nblocks * mat.k_pad * LANE} slots, prepare {prep_s:.1f}s")
+        for mode in modes:
+            # prepare_window_auto uses vals_dtype only in its final cast, so
+            # the bf16 operands are the f32 layout with vals cast
+            ops = mat if mode == "PL_CSR_WINDOW" else dataclasses.replace(
+                mat, vals=mat.vals.to(torch.bfloat16))
+            prepared[(name, mode)] = ops
+            check_window(f"{name} {mode}", ops, x)
+    # the third x form: a small layout forced to shared_w
+    small = P.coo_to_csr(synth.fem_like(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7))
+    for vals_dtype in (torch.float32, torch.bfloat16):
+        mat = W.prepare_window(small, g=8, bps=4, shared_w=True, vals_dtype=vals_dtype, device=dev)
+        assert mat.shared_w
+        check_window(f"fem_like 6000 shared_w {vals_dtype}", mat, normal_x(6000, dev, seed=1))
+
     # -- phase 3: the main path, counters from zero ------------------------
     SC.dia_spmv_cuda.launches = 0
     SC.dia_resid_cuda.launches = 0
+    WC.window_blocks_cuda.launches = 0
+    WC.window_single_cuda.launches = 0
     outputs = {}
     for name, csr in csrs.items():
         t = time.perf_counter()
@@ -155,7 +241,12 @@ def main() -> int:
         x_n = np.random.default_rng(3).standard_normal(csr.shape[1])
         outputs[name] = (model.format, model(x_ref), model(x_n), x_ref, x_n, prep_s)
     torch.cuda.synchronize()
-    launches = {"dia_spmv": SC.dia_spmv_cuda.launches, "dia_resid": SC.dia_resid_cuda.launches}
+    launches = {
+        "dia_spmv": SC.dia_spmv_cuda.launches,
+        "dia_resid": SC.dia_resid_cuda.launches,
+        "window_blocks": WC.window_blocks_cuda.launches,
+        "window_single": WC.window_single_cuda.launches,
+    }
     log(f"phase 3: main path launches {launches}")
     for name, (fmt, y_ref, y_n, x_ref, x_n, prep_s) in outputs.items():
         csr = csrs[name]
@@ -175,65 +266,120 @@ def main() -> int:
             f"x~N(0,1) vs f64 oracle: {rel:.3e} <= {lim:.3e}")
         if not rep.ok or not rel <= lim:
             raise AssertionError(f"{name}: wrong output")
-    if launches["dia_spmv"] == 0 or launches["dia_resid"] == 0:
+    if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
     # -- phase 4: the CLI -------------------------------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        mtx = os.path.join(tmp, "raefsky1_like.mtx")
-        write_mtx(mtx, synth.preset("raefsky1_like"))
-        proc = subprocess.run(
-            [sys.executable, "-m", "spmv_openmp_cuda_tpu_torch", mtx, "RNDVECT", "AUTO",
-             "--check", "--no-dump"],
-            capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-        )
-    print(proc.stdout.rstrip())
-    if proc.returncode != 0 or "#check: OK" not in proc.stdout or \
-            "computeMode:PL_DIA_RESID " not in proc.stdout:
-        raise AssertionError(f"CLI run failed (exit {proc.returncode}): {proc.stderr}")
-    log("phase 4: CLI AUTO --check OK")
+    for name, mode in (("raefsky1_like", "PL_DIA_RESID"), ("delaunay_n12_like", "PL_CSR_WINDOW")):
+        with tempfile.TemporaryDirectory() as tmp:
+            mtx = os.path.join(tmp, f"{name}.mtx")
+            write_mtx(mtx, synth.preset(name))
+            proc = subprocess.run(
+                [sys.executable, "-m", "spmv_openmp_cuda_tpu_torch", mtx, "RNDVECT", "AUTO",
+                 "--check", "--no-dump"],
+                capture_output=True, text=True, timeout=600,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+            )
+        print(proc.stdout.rstrip())
+        if proc.returncode != 0 or "#check: OK" not in proc.stdout or \
+                f"computeMode:{mode} " not in proc.stdout:
+            raise AssertionError(f"CLI run on {name} failed (exit {proc.returncode}): {proc.stderr}")
+        log(f"phase 4: CLI AUTO --check OK on {name} ({mode})")
 
     # -- phase 5: times ----------------------------------------------------
     print(f"times on {smi} (CUDA events, x on the device, after warm-up; "
           "per call, back to back):")
+    libs = {}
     times = {}
     for (name, mode), ops in prepared.items():
         csr = csrs[name]
         x = normal_x(csr.shape[1], dev, seed=4)
         spec = registry.get(mode)
-        if mode.startswith("PL_DIA_RESID"):
+        if mode.startswith("PL_CSR_WINDOW"):
+            plain = lambda v, o=ops: WC.window_spmv_reference(o, v)
+        elif mode.startswith("PL_DIA_RESID"):
             plain = lambda v, o=ops: SC.dia_spmv_reference(o[0].mat, v, o[1], o[0])
         else:
             plain = lambda v, o=ops: SC.dia_spmv_reference(o[0], v, o[1])
         tk = time_per_call(spec.jitted(ops), x)
         tp = time_per_call(plain, x)
+        if name not in libs:
+            lib_fn = library_spmv(csr, dev)
+            libs[name] = time_per_call(lib_fn, x)
+            del lib_fn
         times[(name, mode)] = (tk, tp)
         gb = slab_bytes(ops) / 1e9
-        print(f"  {name:15s} {mode:18s} kernel {tk * 1e3:9.4f} ms {2 * csr.nnz / tk / 1e9:8.2f} GFLOP/s "
-              f"{gb / tk:8.1f} slab GB/s | plain {tp * 1e3:9.4f} ms {2 * csr.nnz / tp / 1e9:8.2f} GFLOP/s "
-              f"| slab {gb * 1e3:.1f} MB")
+        print(f"  {name:20s} {mode:18s} kernel {tk * 1e3:9.4f} ms {2 * csr.nnz / tk / 1e9:8.2f} GFLOP/s "
+              f"{gb / tk:8.1f} slab GB/s | plain {tp * 1e3:9.4f} ms | library (cuSPARSE CSR f32) "
+              f"{libs[name] * 1e3:9.4f} ms | slab {gb * 1e3:.1f} MB")
+    # the fringe kernel alone, and its library yardstick: cuSPARSE on the
+    # fringe nnz only
+    rcsr = csrs["raefsky1_like"]
     dr, plan = prepared[("raefsky1_like", "PL_DIA_RESID")]
-    x = normal_x(csrs["raefsky1_like"].shape[1], dev, seed=5)
+    x = normal_x(rcsr.shape[1], dev, seed=5)
     y0 = torch.zeros(plan.s_pad * LANE, device=dev)
     t_rk = time_per_call(lambda v: SC.dia_resid_cuda(dr, v, y0, plan), x)
     t_rp = time_per_call(lambda v: SC.dia_resid_reference(dr, v, plan), x)
+    fringe = ~split_offsets(rcsr)
+    rows_f = rcsr.row_ids()[fringe]
+    fcsr = P.CSRMatrix(
+        shape=rcsr.shape,
+        indptr=np.r_[0, np.cumsum(np.bincount(rows_f, minlength=rcsr.shape[0]))].astype(np.int64),
+        indices=rcsr.indices[fringe], data=rcsr.data[fringe],
+    )
+    t_rl = time_per_call(library_spmv(fcsr, dev), x)
     print(f"  raefsky1_like fringe alone: kernel {t_rk * 1e3:.4f} ms | plain {t_rp * 1e3:.4f} ms "
-          f"({dr.nnz_resid} fringe nnz in {plan.nblocks}x{dr.k_pad}x{LANE} slots)")
+          f"| library {t_rl * 1e3:.4f} ms ({dr.nnz_resid} fringe nnz in "
+          f"{plan.nblocks}x{dr.k_pad}x{LANE} slots)")
     print(f"torch.cuda.max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log("phase 5: done")
 
+    # bounds: each input read once and each output written once, 2 flops
+    # per stored slot, at the shapes the main path runs
+    cube = prepared[("cube_coup_like", "PL_DIA_ROWS")][0]
+    cube_m, cube_n = csrs["cube_coup_like"].shape
+    b_rows = least_ms(nbytes(cube.data, cube.offsets_dev) + 4 * (cube_n + cube_m), 2 * cube.data.numel())
+    b_resid = least_ms(
+        nbytes(dr.rvals, dr.rsidx, dr.rgid, dr.rsrc) + 4 * rcsr.shape[1] + 2 * y0.numel() * 4,
+        2 * dr.rvals.numel(),
+    )
+
+    def window_bound(name, mode):
+        mat = prepared[(name, mode)]
+        m, n = mat.shape
+        return least_ms(slab_bytes(mat) + 4 * (n + m), 2 * mat.vals.numel())
+
+    for (name, mode) in prepared:
+        if mode.startswith("PL_CSR_WINDOW"):
+            b_ms, by = window_bound(name, mode)
+            tk, tp = times[(name, mode)]
+            print(f"  bound {name:20s} {mode:18s} {b_ms:.4f} ms ({by}); kernel at "
+                  f"{100 * b_ms / (tk * 1e3):.1f} % of it")
+    entry = {}
+    for kernel, name in (("window_blocks", "thermal2_like"), ("window_single", "delaunay_n12_like")):
+        tk, tp = times[(name, "PL_CSR_WINDOW")]
+        entry[kernel] = (tk, tp, libs[name], *window_bound(name, "PL_CSR_WINDOW"))
     t_dk, t_dp = times[("cube_coup_like", "PL_DIA_ROWS")]
     kernels = [
-        {"name": "dia_rows_kernel", "route": "cuda", "source": SOURCE,
+        {"name": "dia_rows_kernel", "route": "cuda", "source": DIA_SOURCE,
          "replaces": "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:426",
          "launches": launches["dia_spmv"], "max_abs_err": errs["dia_spmv"],
-         "ms": t_dk * 1e3, "plain_ms": t_dp * 1e3},
-        {"name": "dia_resid_kernel", "route": "cuda", "source": SOURCE,
+         "ms": t_dk * 1e3, "plain_ms": t_dp * 1e3, "bound_ms": b_rows[0],
+         "bound_by": b_rows[1], "library_ms": libs["cube_coup_like"] * 1e3},
+        {"name": "dia_resid_kernel", "route": "cuda", "source": DIA_SOURCE,
          "replaces": "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:365",
          "launches": launches["dia_resid"], "max_abs_err": errs["dia_resid"],
-         "ms": t_rk * 1e3, "plain_ms": t_rp * 1e3},
+         "ms": t_rk * 1e3, "plain_ms": t_rp * 1e3, "bound_ms": b_resid[0],
+         "bound_by": b_resid[1], "library_ms": t_rl * 1e3},
     ]
+    for kernel, line in (("window_blocks", 1062), ("window_single", 1125)):
+        tk, tp, tl, b_ms, by = entry[kernel]
+        kernels.append(
+            {"name": f"{kernel}_kernel", "route": "cuda", "source": WINDOW_SOURCE,
+             "replaces": f"spmv_openmp_cuda_tpu/formats/window.py:{line}",
+             "launches": launches[kernel], "max_abs_err": errs[kernel],
+             "ms": tk * 1e3, "plain_ms": tp * 1e3, "bound_ms": b_ms, "bound_by": by,
+             "library_ms": tl * 1e3})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -28,6 +28,7 @@ import torch
 from .config import Config
 from .formats.convert import coo_to_csr
 from .formats.dia import DiaFillError
+from .formats.window import WindowError
 from .io.mmio import read_coo
 from .io.vectors import (
     fill_rnd_vector,
@@ -38,7 +39,11 @@ from .io.vectors import (
 from .ops import registry
 
 #: AUTO's engine -> compute mode (float32), as in the JAX package's CLI.
-_AUTO_MODES = {"dia": "PL_DIA_ROWS", "dia_resid": "PL_DIA_RESID"}
+_AUTO_MODES = {
+    "dia": "PL_DIA_ROWS",
+    "dia_resid": "PL_DIA_RESID",
+    "window": "PL_CSR_WINDOW",
+}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -194,7 +199,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.perf_counter()
     try:
         operands = spec.prepare(csr, None, cfg, device)
-    except DiaFillError as e:
+    except (DiaFillError, WindowError) as e:
         # no substitute engine: the JAX package's AUTO falls back to the
         # routed engine here, which the port does not have yet
         print(f"ERROR: {e}", file=sys.stderr)

@@ -3,9 +3,11 @@
 Counterpart of spmv_openmp_cuda_tpu/models/auto.py, for the engines the port
 runs so far: diagonal-concentrated matrices go to DIA, a dense-diagonal core
 with a scattered fringe to the DIA+residual hybrid, both on the CUDA DIA
-kernels (ops/spmv_cuda.py). Every other engine of the JAX package (window,
-routed, lanes, ell_t, binned) and float64 raise NotImplementedError: the
-port never substitutes another engine for one it lacks.
+kernels (ops/spmv_cuda.py), and banded-locality matrices (unstructured FEM)
+to the windowed local-gather engine on the CUDA window kernels
+(ops/window_cuda.py). Every other engine of the JAX package (routed, lanes,
+ell_t, binned) and float64 raise NotImplementedError: the port never
+substitutes another engine for one it lacks.
 
 Usage:
     model = AutoSpMV.from_file("matrix.mtx", device="cuda")
@@ -23,17 +25,18 @@ from ..config import Config
 from ..formats.convert import coo_to_csr
 from ..formats.dia import DiaFillError, prepare_dia, split_offsets
 from ..formats.matrix import COOMatrix, CSRMatrix
+from ..formats.window import WindowError, prepare_window_auto, window_cost_scan
 from ..ops.spmv_cuda import (
     dia_spmv_cuda,
     pad_dia_for_pallas,
     plan_dia,
     prepare_dia_resid,
 )
+from ..ops.window_cuda import window_spmv
 
 #: Engines of the JAX package that the port has not brought over yet, with
 #: the ROADMAP.md queue-1 item that ports each.
 UNPORTED_FORMATS = {
-    "window": "queue 1 item 6 (window slice)",
     "routed": "queue 1 item 7 (routed slice)",
     "lanes": "queue 1 item 8 (remaining f32 modes)",
     "ell_t": "queue 1 item 8 (remaining f32 modes)",
@@ -50,11 +53,10 @@ def _unported(fmt: str, why: str = "") -> NotImplementedError:
 
 def select_format(csr: CSRMatrix, dia_fill_cap: float = 2.0) -> str:
     """Pick a storage engine from matrix structure (host-side, the JAX
-    package's policy verbatim up to its DIA decisions).
+    package's policy verbatim).
 
-    Returns "dia_resid" or "dia"; a matrix that is neither raises
-    NotImplementedError, since the window/routed engines the JAX package
-    would choose next are not ported.
+    Returns "dia_resid", "dia" or "window"; where the JAX package picks the
+    routed engine, which is not ported, it raises NotImplementedError.
     """
     m, n = csr.shape
     nnz = max(csr.nnz, 1)
@@ -84,11 +86,17 @@ def select_format(csr: CSRMatrix, dia_fill_cap: float = 2.0) -> str:
                 pass
         if offs.shape[0] <= max_offs:
             return "dia"
-    raise NotImplementedError(
-        "matrix is not DIA-class: the JAX package would pick the window or "
-        "routed engine, which are not ported to PyTorch/CUDA yet (ROADMAP.md "
-        f"{UNPORTED_FORMATS['window']}, {UNPORTED_FORMATS['routed']})"
-    )
+    # banded locality without banded structure (unstructured FEM): the
+    # window engine, when its model cost stays under the routed bar (~50
+    # ps/nnz of routing plus a fixed ~10 us pipeline; the JAX package's
+    # TPU-fitted units, kept so that both packages choose alike)
+    try:
+        best = window_cost_scan(csr)
+    except WindowError:
+        best = None
+    if best is not None and best < 50.0 * nnz + 10e6:
+        return "window"
+    raise _unported("routed", "matrix is neither DIA-class nor windowable: ")
 
 
 @dataclasses.dataclass
@@ -125,13 +133,16 @@ class AutoSpMV:
         fmt = select_format(csr) if format == "auto" else format
         if fmt in UNPORTED_FORMATS:
             raise _unported(fmt)
-        if fmt not in ("dia", "dia_resid"):
+        if fmt not in ("dia", "dia_resid", "window"):
             raise ValueError(
                 f"unknown format {format!r}; expected auto, dia, dia_resid, "
                 "window, lanes, routed, ell_t or binned"
             )
         try:
-            if fmt == "dia_resid":
+            if fmt == "window":
+                ops = prepare_window_auto(csr, dtype=cfg.torch_dtype, device=device)
+                run = window_spmv
+            elif fmt == "dia_resid":
                 ops = prepare_dia_resid(csr, dtype=cfg.torch_dtype, device=device)
 
                 def run(o, x):
@@ -145,7 +156,7 @@ class AutoSpMV:
                 def run(o, x):
                     return dia_spmv_cuda(o[0], x, o[1])
 
-        except DiaFillError as e:
+        except (DiaFillError, WindowError) as e:
             # the JAX package falls back to the routed engine here
             raise _unported("routed", f"{fmt} prepare refused the matrix ({e}); ") from e
 

@@ -1,0 +1,296 @@
+"""CUDA kernels for the windowed local-gather engine (PL_CSR_WINDOW).
+
+Counterpart of the kernel half of spmv_openmp_cuda_tpu/formats/window.py
+(window_kernel_call, _window_single_call, window_spmv) and of its registry
+hooks in spmv_openmp_cuda_tpu/ops/spmv_pallas.py. It holds the wrapper of the
+hand-written CUDA kernels in csrc/window_spmv.cu, their plain PyTorch
+version, the conversion of the JAX package's prepared layout, and the
+registry hooks of PL_CSR_WINDOW and PL_CSR_WINDOW_BF16.
+
+The wrapper launches the kernels for CUDA tensors and raises on anything it
+does not take; it runs the plain version only for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..config import LANE
+from ..formats.window import WindowCSR
+from . import cuda_lib
+from .spmv_cuda import _require, _to_tensor
+
+_SLAB_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _x_base(mat: WindowCSR, blk: torch.Tensor) -> torch.Tensor:
+    """x chunk held by window row 0 of each block, as the TPU kernels stage
+    x: 8*floor(i*g/8) - wr (standard), (i - i%bps)*g - wr (shared_w), 0
+    (xdirect)."""
+    if mat.xdirect:
+        return torch.zeros_like(blk)
+    if mat.shared_w:
+        return (blk - blk % mat.bps) * mat.g - mat.wr
+    return 8 * (blk * mat.g // 8) - mat.wr
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version of the kernels (the CPU path and the chip's check)
+# ---------------------------------------------------------------------------
+
+
+def window_spmv_reference(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch y = A @ x (f32, length m) over a prepared window layout,
+    with the semantics of the JAX package's window_spmv: slot (i, k, l) adds
+    vals * x[(x_base(i) + Q)*128 + sidx] (x is 0 outside [0, n) and is not
+    rounded; vals are upcast to f32) into row (i*g + r)*128 + l, r = 8*gid +
+    k%8 below k_c and gid above; sums over g_pad rows per block, then drops
+    the rows past g and past m."""
+    m, n = mat.shape
+    nb, kp, nkt, g = mat.nblocks, mat.k_pad, mat.n_ktiles, mat.g
+    g_pad = -(-g // 8) * 8
+    dev = x.device
+    blk = torch.arange(nb, device=dev).reshape(nb, 1, 1)
+    k = torch.arange(kp, device=dev).reshape(1, kp, 1)
+    lane = torch.arange(LANE, device=dev).reshape(1, 1, LANE)
+    res = mat.sidx.reshape(nb, kp, LANE).long()
+    # Q of each slot: rsrc viewed as (nb, n_ktiles, residue, slot row in tile)
+    qidx = ((blk * nkt + k // LANE) * LANE + res) * LANE + k % LANE
+    q = mat.rsrc.reshape(-1)[qidx].long()
+    col = (_x_base(mat, blk) + q) * LANE + res
+    inside = (col >= 0) & (col < n)
+    xv = torch.where(inside, x[col.clamp(0, max(n - 1, 0))], torch.zeros((), device=dev))
+    prod = mat.vals.reshape(nb, kp, LANE).to(torch.float32) * xv
+    gd = mat.gid.reshape(nb, kp, LANE).long()
+    r = torch.where(k < mat.k_c, 8 * gd + k % 8, gd)
+    dst = (blk * g_pad + r) * LANE + lane
+    out = torch.zeros(nb * g_pad * LANE, dtype=torch.float32, device=dev)
+    out.index_add_(0, dst.reshape(-1), prod.reshape(-1))
+    return out.reshape(nb, g_pad, LANE)[:, :g].reshape(-1)[:m]
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers (csrc/window_spmv.cu)
+# ---------------------------------------------------------------------------
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.window_blocks_launch.argtypes = [
+        i, p, p, p, p, i, i, i, i, i, i, i, p, ll, ll, p, p,
+    ]
+    lib.window_blocks_launch.restype = i
+    lib.window_single_launch.argtypes = [i, p, p, p, p, i, i, i, p, ll, ll, p, p]
+    lib.window_single_launch.restype = i
+    lib.window_error_string.argtypes = [i]
+    lib.window_error_string.restype = ctypes.c_char_p
+
+
+def _lib() -> ctypes.CDLL:
+    return cuda_lib.load("window_spmv", _bind)
+
+
+def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.window_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def _check_window(mat: WindowCSR, x: torch.Tensor) -> None:
+    """What the kernels index with: geometry, then every tensor's device,
+    dtype, shape and contiguity."""
+    m, n = mat.shape
+    g, kp = mat.g, mat.k_pad
+    if not (2 <= g <= 64 and 0 <= mat.k_c <= kp and mat.k_c % 8 == 0 and kp > 0 and kp % 8 == 0):
+        raise ValueError(f"bad window geometry g={g} k_c={mat.k_c} k_pad={kp}")
+    if mat.nblocks < 1 or mat.nblocks * g * LANE < m:
+        raise ValueError(f"{mat.nblocks} blocks of {g}x128 rows do not cover {m} rows")
+    if mat.xdirect and (mat.nblocks != 1 or -(-n // LANE) > LANE):
+        raise ValueError("an xdirect layout has one block and x of <= 128 chunk-rows")
+    if mat.shared_w and (mat.bps < 2 or g % 8):
+        raise ValueError("a shared_w layout needs bps > 1 and g % 8 == 0")
+    dev = x.device
+    rows = (mat.nblocks * kp, LANE)
+    _require(mat.vals, "mat.vals", _SLAB_DTYPES, rows, dev)
+    _require(mat.sidx, "mat.sidx", (torch.int8,), rows, dev)
+    _require(mat.gid, "mat.gid", (torch.int8,), rows, dev)
+    _require(mat.rsrc, "mat.rsrc", (torch.int8,), (mat.nblocks * mat.n_ktiles * LANE, LANE), dev)
+    _require(x, "x", (torch.float32,), (n,), dev)
+    if mat.rsrc.data_ptr() % 16:
+        raise ValueError("mat.rsrc must be 16-byte aligned (the kernels stage it in 16-byte loads)")
+
+
+def _check_cuda_args(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor, xdirect: bool) -> None:
+    _check_window(mat, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, not {x.device}")
+    _require(y, "y", (torch.float32,), (mat.shape[0],), x.device)
+    if mat.xdirect != xdirect:
+        raise ValueError(
+            f"window_{'single' if mat.xdirect else 'blocks'}_cuda runs this layout "
+            f"(xdirect={mat.xdirect})"
+        )
+
+
+def window_blocks_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y = A @ x over a multi-block (standard or shared_w) layout, into the
+    f32 y of length m: zeroes y and launches window_blocks_kernel."""
+    _check_cuda_args(mat, x, y, xdirect=False)
+    m, n = mat.shape
+    lib = _lib()
+    rc = lib.window_blocks_launch(
+        int(mat.vals.dtype == torch.bfloat16),
+        mat.vals.data_ptr(),
+        mat.sidx.data_ptr(),
+        mat.gid.data_ptr(),
+        mat.rsrc.data_ptr(),
+        mat.nblocks,
+        mat.g,
+        mat.k_pad,
+        mat.k_c,
+        mat.wr,
+        mat.bps,
+        int(mat.shared_w),
+        x.data_ptr(),
+        n,
+        m,
+        y.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _check_launch(lib, rc, "window_blocks_kernel")
+    window_blocks_cuda.launches += 1
+    return y
+
+
+window_blocks_cuda.launches = 0
+
+
+def window_single_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y = A @ x over the single-block xdirect layout, into the f32 y of
+    length m: zeroes y and launches window_single_kernel."""
+    _check_cuda_args(mat, x, y, xdirect=True)
+    m, n = mat.shape
+    lib = _lib()
+    rc = lib.window_single_launch(
+        int(mat.vals.dtype == torch.bfloat16),
+        mat.vals.data_ptr(),
+        mat.sidx.data_ptr(),
+        mat.gid.data_ptr(),
+        mat.rsrc.data_ptr(),
+        mat.g,
+        mat.k_pad,
+        mat.k_c,
+        x.data_ptr(),
+        n,
+        m,
+        y.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _check_launch(lib, rc, "window_single_kernel")
+    window_single_cuda.launches += 1
+    return y
+
+
+window_single_cuda.launches = 0
+
+
+def window_spmv(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x (f32, length m) over a prepared window layout.
+
+    CUDA tensors launch window_single_kernel (xdirect layouts) or
+    window_blocks_kernel (the others); CPU tensors take
+    window_spmv_reference. Anything else raises."""
+    if x.device.type == "cpu":
+        _check_window(mat, x)
+        return window_spmv_reference(mat, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    y = torch.empty(mat.shape[0], dtype=torch.float32, device=x.device)
+    launch = window_single_cuda if mat.xdirect else window_blocks_cuda
+    return launch(mat, x, y)
+
+
+# ---------------------------------------------------------------------------
+# Prepared state from the JAX package
+# ---------------------------------------------------------------------------
+
+
+def window_from_jax(
+    vals, sidx, gid, rsrc, shape, nnz: int, g: int, k_pad: int, wr: int,
+    nspecs: int, nblocks: int, k_c: int, bps: int, xdirect: bool,
+    shared_w: bool, device="cpu",
+) -> WindowCSR:
+    """The port's WindowCSR from the JAX package's prepared WindowCSR, given
+    as numpy arrays (bf16 bit for bit) and its static fields. Validates the
+    index ranges the kernels read with."""
+    sidx_np, gid_np, rsrc_np = (np.asarray(a) for a in (sidx, gid, rsrc))
+    if sidx_np.min(initial=0) < 0 or rsrc_np.min(initial=0) < 0:
+        raise ValueError("sidx/rsrc out of range")  # int8: max is < 128
+    nh = -(-int(g) // 8)
+    gs = gid_np.reshape(int(nblocks), int(k_pad), LANE)
+    if gs.min(initial=0) < 0 or gs[:, : int(k_c)].max(initial=0) >= nh or \
+            gs[:, int(k_c):].max(initial=0) >= g:
+        raise ValueError("gid out of range")
+    mat = WindowCSR(
+        vals=_to_tensor(vals, device),
+        sidx=_to_tensor(sidx_np, device),
+        gid=_to_tensor(gid_np, device),
+        rsrc=_to_tensor(rsrc_np, device),
+        shape=tuple(int(d) for d in shape),
+        nnz=int(nnz),
+        g=int(g),
+        k_pad=int(k_pad),
+        wr=int(wr),
+        nspecs=int(nspecs),
+        nblocks=int(nblocks),
+        k_c=int(k_c),
+        bps=int(bps),
+        xdirect=bool(xdirect),
+        shared_w=bool(shared_w),
+    )
+    _check_window(mat, torch.zeros(mat.shape[1], device=device))
+    return mat
+
+
+# ---------------------------------------------------------------------------
+# registry hook (imported by ops.registry)
+# ---------------------------------------------------------------------------
+
+
+def _register() -> None:
+    from ..formats.window import prepare_window_auto
+    from .registry import KernelSpec, register
+
+    register(
+        KernelSpec(
+            name="PL_CSR_WINDOW",
+            fmt="csr",
+            impl="cuda",
+            prepare=lambda csr, ell, cfg, device: prepare_window_auto(
+                csr, dtype=cfg.torch_dtype, device=device
+            ),
+            run=window_spmv,
+            doc="windowed local-gather engine for banded-locality matrices "
+            "(unstructured FEM): per row-block edge-colored slots, x gathered "
+            "through the Q map staged in shared memory, row sums in a "
+            "shared-memory tile per CTA",
+        )
+    )
+    register(
+        KernelSpec(
+            name="PL_CSR_WINDOW_BF16",
+            fmt="csr",
+            impl="cuda",
+            prepare=lambda csr, ell, cfg, device: prepare_window_auto(
+                csr, dtype=torch.float32, vals_dtype=torch.bfloat16, device=device
+            ),
+            run=window_spmv,
+            doc="windowed local-gather with bf16 value slabs (f32 x and "
+            "accumulate): halves the dominant slot-value stream",
+        )
+    )
+
+
+_register()

@@ -48,8 +48,8 @@ def test_select_format_agrees(name):
 def test_select_format_raises_on_power_law():
     case = ("power_law", dict(m=900, n=900, avg_nnz_per_row=4.0, seed=11))
     tcsr, jcsr = _csrs(case)
-    assert jauto.select_format(jcsr) in ("window", "routed")
-    with pytest.raises(NotImplementedError, match="window or routed"):
+    assert jauto.select_format(jcsr) == "routed"
+    with pytest.raises(NotImplementedError, match="routed"):
         tauto.select_format(tcsr)
 
 
@@ -84,7 +84,13 @@ def test_auto_spmv_from_file_matches_jax(tmp_path):
 
 def test_auto_spmv_never_substitutes_an_engine():
     csr = T.coo_to_csr(tsynth.banded(500, 500, 5, fill=0.9, seed=1))
-    for fmt in ("window", "routed", "lanes", "ell_t", "binned"):
+    # the window engine is ported: an explicit format="window" runs it
+    win = tauto.AutoSpMV.from_csr(csr, format="window", device="cpu")
+    assert win.format == "window"
+    x = np.random.default_rng(7).standard_normal(500)
+    o = serial_csr_spmv(csr, x)
+    assert np.abs(win(x).double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
+    for fmt in ("routed", "lanes", "ell_t", "binned"):
         with pytest.raises(NotImplementedError, match=fmt):
             tauto.AutoSpMV.from_csr(csr, format=fmt, device="cpu")
     with pytest.raises(ValueError, match="unknown format"):
@@ -138,4 +144,5 @@ def test_cli_refusals(raefsky_mtx, tmp_path, capsys):
         assert "no CUDA device" in capsys.readouterr().err
     assert cli.main(["--list-modes"]) == 0
     listed = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
-    assert listed == ["DIA_ROWS", "PL_DIA_ROWS", "PL_DIA_BF16", "PL_DIA_RESID", "PL_DIA_RESID_BF16"]
+    assert listed == ["DIA_ROWS", "PL_DIA_ROWS", "PL_DIA_BF16", "PL_DIA_RESID", "PL_DIA_RESID_BF16",
+                      "PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16"]

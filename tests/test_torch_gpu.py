@@ -1,4 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
+The window kernels sum a block's rows in a per-CTA tile and add the tiles
+into y with atomics, so their order of additions changes from run to run.
 
 Run on a machine with a GPU: python -m pytest -m gpu tests/test_torch_gpu.py
 Elsewhere every test skips (inside the `cuda` fixture, so that all workers
@@ -8,6 +10,8 @@ Tolerance: max |y_kernel - y_plain| <= 1e-5 * max|y_plain| + 1e-6 on
 x ~ N(0, 1): both versions read identical (f32 or bf16) values and sum in
 f32; the kernel fuses multiply-adds and orders the fringe sum its own way.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,8 +19,10 @@ import torch
 import spmv_openmp_cuda_tpu_torch as T
 from spmv_openmp_cuda_tpu_torch.config import LANE
 from spmv_openmp_cuda_tpu_torch.formats import dia as tdia
+from spmv_openmp_cuda_tpu_torch.formats import window as twin
 from spmv_openmp_cuda_tpu_torch.ops import registry
 from spmv_openmp_cuda_tpu_torch.ops import spmv_cuda as tsc
+from spmv_openmp_cuda_tpu_torch.ops import window_cuda as twc
 from spmv_openmp_cuda_tpu_torch.utils import synth
 
 pytestmark = pytest.mark.gpu
@@ -138,3 +144,82 @@ def test_fringe_kernel_reads_x_past_the_clip(cuda):
         T.csr_to_dense(csr) @ x.double().cpu().numpy(), dtype=torch.float32, device=cuda
     )
     _within(yk, o)
+
+
+#: window layouts: the three x forms (standard, shared_w, xdirect), the
+#: mod-8 fold with an overflow region, and a per-sub-block bps layout
+WINDOW_LAYOUTS = {
+    "standard": (dict(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7), dict(g=16)),
+    "overflow": (dict(m=4000, n=4000, nnz=50000, spread=600, lo=5, hi=20, seed=2),
+                 dict(g=12, cap=16, max_pad=20.0)),
+    "per_sub_bps": (dict(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7),
+                    dict(g=16, bps=4, shared_w=False)),
+    "shared_w": (dict(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7),
+                 dict(g=8, bps=4, shared_w=True)),
+    "xdirect": (dict(m=3000, n=3000, nnz=20000, spread=900, lo=4, hi=10, seed=9),
+                dict(g=24, xdirect=True)),
+}
+
+
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", list(WINDOW_LAYOUTS))
+def test_window_kernel_matches_plain(cuda, layout, vals_dtype):
+    gen_kw, kw = WINDOW_LAYOUTS[layout]
+    csr = T.coo_to_csr(synth.fem_like(**gen_kw))
+    mat = twin.prepare_window(csr, vals_dtype=vals_dtype, device=cuda, **kw)
+    assert mat.xdirect == (layout == "xdirect") and mat.shared_w == (layout == "shared_w")
+    x = _x(csr.shape[1], cuda)
+    counter = twc.window_single_cuda if mat.xdirect else twc.window_blocks_cuda
+    before = counter.launches
+    yk = twc.window_spmv(mat, x)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert yk.shape == (csr.shape[0],) and yk.dtype == torch.float32
+    _within(yk, twc.window_spmv_reference(mat, x))
+
+
+@pytest.mark.parametrize("mode", ["PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16"])
+def test_window_modes_on_delaunay(cuda, mode):
+    csr = T.coo_to_csr(synth.preset("delaunay_n12_like"))
+    ops = registry.get(mode).prepare(csr, None, T.Config(), cuda)
+    assert ops.xdirect
+    x = _x(csr.shape[1], cuda)
+    _within(registry.get(mode).jitted(ops)(x), twc.window_spmv_reference(ops, x))
+
+
+def test_window_wrapper_raises_on_what_it_does_not_take(cuda):
+    csr = T.coo_to_csr(synth.fem_like(m=3000, n=3000, nnz=30000, spread=500, lo=4, hi=16, seed=3))
+    mat = twin.prepare_window(csr, g=8, device=cuda)
+    x = _x(3000, cuda)
+    with pytest.raises(TypeError):
+        twc.window_spmv(mat, x.double())
+    with pytest.raises(TypeError):
+        twc.window_spmv(dataclasses.replace(mat, vals=mat.vals.half()), x)
+    with pytest.raises(TypeError):
+        twc.window_spmv(dataclasses.replace(mat, gid=mat.gid.int()), x)
+    with pytest.raises(ValueError):
+        twc.window_spmv(mat, x.cpu())  # slabs on the GPU, x on the CPU
+    with pytest.raises(ValueError):
+        twc.window_spmv(mat, torch.zeros(6000, device=cuda)[::2])
+    with pytest.raises(ValueError):
+        twc.window_spmv(mat, x[:-1])
+    nc = mat.vals.t().contiguous().t()
+    with pytest.raises(ValueError):
+        twc.window_spmv(dataclasses.replace(mat, vals=nc), x)
+    y = torch.zeros(3000, device=cuda)
+    with pytest.raises(ValueError):
+        twc.window_single_cuda(mat, x, y)  # a multi-block layout
+    with pytest.raises(ValueError):
+        twc.window_blocks_cuda(mat, x, y[:-1])
+
+
+def test_window_launchers_overwrite_y(cuda):
+    csr = T.coo_to_csr(synth.fem_like(m=3000, n=3000, nnz=30000, spread=500, lo=4, hi=16, seed=3))
+    x = _x(3000, cuda)
+    for mat, launch in (
+        (twin.prepare_window(csr, g=8, device=cuda), twc.window_blocks_cuda),
+        (twin.prepare_window(csr, g=24, xdirect=True, device=cuda), twc.window_single_cuda),
+    ):
+        y = torch.full((3000,), 7.0, device=cuda)
+        launch(mat, x, y)
+        _within(y, twc.window_spmv_reference(mat, x))

@@ -4,6 +4,7 @@ tolerance check must be identical, since every later comparison rests on
 them."""
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -144,7 +145,9 @@ def test_port_never_imports_jax():
     code = (
         "import sys\n"
         "import spmv_openmp_cuda_tpu_torch, spmv_openmp_cuda_tpu_torch.models.auto, "
-        "spmv_openmp_cuda_tpu_torch.cli, spmv_openmp_cuda_tpu_torch.ops.spmv_cuda\n"
+        "spmv_openmp_cuda_tpu_torch.cli, spmv_openmp_cuda_tpu_torch.ops.spmv_cuda, "
+        "spmv_openmp_cuda_tpu_torch.ops.window_cuda, spmv_openmp_cuda_tpu_torch.ops.route, "
+        "spmv_openmp_cuda_tpu_torch.formats.window\n"
         "spmv_openmp_cuda_tpu_torch.AutoSpMV\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'spmv_openmp_cuda_tpu' or m.startswith('spmv_openmp_cuda_tpu.')]\n"
@@ -155,3 +158,21 @@ def test_port_never_imports_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_name_no_jax_import():
+    """No module of the port and nothing in chip_smoke.py imports jax or the
+    JAX package, not even lazily inside a function."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|spmv_openmp_cuda_tpu)(\.|\s|$)", re.MULTILINE
+    )
+    pkg = os.path.join(REPO, "spmv_openmp_cuda_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(root, f)
+        for root, _dirs, names in os.walk(pkg)
+        for f in names
+        if f.endswith(".py")
+    ]
+    assert len(files) > 10
+    offenders = [f for f in files if pattern.search(open(f, encoding="utf-8").read())]
+    assert not offenders, offenders

@@ -1,0 +1,388 @@
+"""Window slice of the PyTorch port against the JAX package: the host prepare
+must be array-equal (same layout choice, same slabs, bf16 bit for bit), and
+the plain version of the CUDA window kernels must agree with the JAX Pallas
+kernel (interpret mode on the CPU) on the same prepared operands.
+
+Tolerance of the kernel comparisons: |y_t - y_j| <= 1e-5*|y_j| +
+1e-6*max|y_j| on x ~ N(0, 1). Both sides sum the same f32 products (bf16
+values are exact in f32); only the order of the row sums differs. Against
+the f64 oracle: 1e-5*max|y| + 1e-6 (f32 sums of <= ~30 terms)."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import spmv_openmp_cuda_tpu as J
+from spmv_openmp_cuda_tpu.formats import window as jw
+from spmv_openmp_cuda_tpu.io import native as jnative
+from spmv_openmp_cuda_tpu.models import auto as jauto
+from spmv_openmp_cuda_tpu.ops import route as jroute
+from spmv_openmp_cuda_tpu.utils import synth as jsynth
+import spmv_openmp_cuda_tpu_torch as T
+from spmv_openmp_cuda_tpu_torch import cli
+from spmv_openmp_cuda_tpu_torch.formats import window as tw
+from spmv_openmp_cuda_tpu_torch.io.mmio import write_mtx
+from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector
+from spmv_openmp_cuda_tpu_torch.models import auto as tauto
+from spmv_openmp_cuda_tpu_torch.ops import registry
+from spmv_openmp_cuda_tpu_torch.ops import route as troute
+from spmv_openmp_cuda_tpu_torch.ops import window_cuda as twc
+from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
+from spmv_openmp_cuda_tpu_torch.utils import synth as tsynth
+from spmv_openmp_cuda_tpu_torch.utils.compare import vectors_diff
+
+FEM = ("fem_like", dict(m=4000, n=4000, nnz=50000, spread=600, lo=5, hi=20, seed=2))
+FEM_BIG = ("fem_like", dict(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7))
+FEM_SINGLE = ("fem_like", dict(m=3000, n=3000, nnz=20000, spread=900, lo=4, hi=10, seed=9))
+FEM_BANDS = ("fem_like", dict(m=12000, n=12000, nnz=120000, spread=1500, lo=4, hi=14, seed=5))
+WIDE = ("banded", dict(m=900, n=1400, bandwidth=25, fill=0.9, seed=5))
+TALL = ("banded", dict(m=1400, n=900, bandwidth=25, fill=0.9, seed=6))
+BAND = ("banded", dict(m=2000, n=2000, bandwidth=35, fill=0.8, seed=1))
+DELAUNAY = ("preset", dict(name="delaunay_n12_like"))
+#: columns spread over ~160 chunks: no group size keeps the window under 128
+SCATTERED = ("random_uniform", dict(m=20000, n=20000, density=1e-4, seed=3))
+POWER_LAW = ("power_law", dict(m=900, n=900, avg_nnz_per_row=4.0, seed=11))
+
+_MEMO = {}
+
+
+def _csrs(case):
+    """(port CSR, JAX CSR) of a generator case, built once per module."""
+    key = repr(case)
+    if key not in _MEMO:
+        gen, kw = case
+        _MEMO[key] = (
+            T.coo_to_csr(getattr(tsynth, gen)(**kw)),
+            J.coo_to_csr(getattr(jsynth, gen)(**kw)),
+        )
+    return _MEMO[key]
+
+
+def _x(n, seed=1):
+    return np.random.default_rng(seed).standard_normal(n)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _jbits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return _bits(a)
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
+STATIC = ("shape", "nnz", "g", "k_pad", "wr", "nspecs", "nblocks", "k_c", "bps",
+          "xdirect", "shared_w")
+
+
+def _assert_window_equal(tmat, jmat):
+    for f in ("vals", "sidx", "gid", "rsrc"):
+        t, j = _bits(getattr(tmat, f)), _jbits(getattr(jmat, f))
+        assert t.dtype == j.dtype and t.shape == j.shape, f
+        np.testing.assert_array_equal(t, j, err_msg=f)
+    for f in STATIC:
+        assert getattr(tmat, f) == getattr(jmat, f), f
+    assert tmat.n_ktiles == jmat.n_ktiles
+
+
+def _close(y_t, y_j):
+    y_t, y_j = y_t.double().numpy(), np.asarray(y_j, np.float64)
+    assert y_t.shape == y_j.shape
+    bound = 1e-5 * np.abs(y_j) + 1e-6 * np.abs(y_j).max()
+    assert np.all(np.abs(y_t - y_j) <= bound), np.abs(y_t - y_j).max()
+
+
+def _oracle_close(y_t, csr, x):
+    o = serial_csr_spmv(csr, x)
+    assert np.abs(y_t.double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
+
+
+def _from_jax(jmat, device="cpu"):
+    return twc.window_from_jax(
+        np.asarray(jmat.vals), np.asarray(jmat.sidx), np.asarray(jmat.gid),
+        np.asarray(jmat.rsrc), jmat.shape, jmat.nnz, jmat.g, jmat.k_pad, jmat.wr,
+        jmat.nspecs, jmat.nblocks, jmat.k_c, jmat.bps, jmat.xdirect, jmat.shared_w,
+        device=device,
+    )
+
+
+def test_numpy_prepare_path():
+    # the array equality below compares the port's numpy fill with the JAX
+    # package's numpy fill; with its native library built, the JAX package
+    # fills by another path and only y is comparable
+    assert not jnative.available()
+
+
+def test_coloring_matches_jax():
+    rng = np.random.default_rng(0)
+    # a 16-regular bipartite multigraph on 64 + 64 nodes
+    left = np.repeat(np.arange(64), 16)
+    right = np.concatenate([rng.permutation(np.repeat(np.arange(64), 16))])
+    ct = troute.color_bipartite_pow2(left, right, 16)
+    np.testing.assert_array_equal(ct, jroute.color_bipartite_pow2(left, right, 16))
+    for side in (left, right):
+        assert np.unique(side * 16 + ct).shape[0] == left.shape[0]  # proper
+
+
+PREPARE_CASES = {
+    "global_cap_none": (FEM, dict(g=8, cap=None)),
+    "forced_cap_overflow": (FEM, dict(g=16, cap=8, max_pad=20.0)),
+    "cap_12_overflow": (FEM, dict(g=12, cap=16, max_pad=20.0)),
+    "auto_cap": (FEM, dict(g=10)),
+    "multiband_tuple": (FEM_BANDS, dict(g=24, cap=(16, 8), max_pad=8.0)),
+    "bps2": (FEM_BIG, dict(g=8, bps=2)),
+    "bps4_per_sub": (FEM_BIG, dict(g=16, bps=4, shared_w=False)),
+    "bps3_padded": (FEM_BIG, dict(g=16, bps=3)),
+    "shared_w": (FEM_BIG, dict(g=8, bps=4, shared_w=True)),
+    "xdirect": (FEM_SINGLE, dict(g=24, xdirect=True)),
+    "wide": (WIDE, dict(g=8)),
+    "tall": (TALL, dict(g=8)),
+    "bf16": (FEM, dict(g=16, vals_dtype="bf16")),
+}
+
+
+@pytest.mark.parametrize("name", list(PREPARE_CASES))
+def test_prepare_window_array_equal(name):
+    case, kw = PREPARE_CASES[name]
+    tcsr, jcsr = _csrs(case)
+    tkw, jkw = dict(kw), dict(kw)
+    if kw.get("vals_dtype") == "bf16":
+        tkw["vals_dtype"], jkw["vals_dtype"] = torch.bfloat16, jnp.bfloat16
+    tmat = tw.prepare_window(tcsr, **tkw)
+    jmat = jw.prepare_window(jcsr, **jkw)
+    _assert_window_equal(tmat, jmat)
+    if name == "multiband_tuple":
+        assert tmat.k_c == 8 * 24
+    if name == "shared_w":
+        assert tmat.shared_w
+
+
+def test_prepare_window_refusals_agree():
+    tcsr, jcsr = _csrs(FEM_BIG)
+    for kw in (dict(g=12, bps=2), dict(g=8, cap=(12, 4)), dict(g=8, cap=0),
+               dict(g=8, xdirect=True), dict(g=8, cap=8, bps=32, max_pad=20.0)):
+        with pytest.raises(jw.WindowError):
+            jw.prepare_window(jcsr, **kw)
+        with pytest.raises(tw.WindowError):
+            tw.prepare_window(tcsr, **kw)
+    assert tw._cap_bands(28) == jw._cap_bands(28) == (16, 8, 4)
+
+
+@pytest.mark.parametrize("name", ["fem", "fem_big", "band", "wide", "delaunay"])
+def test_prepare_window_auto_agrees(name):
+    case = {"fem": FEM, "fem_big": FEM_BIG, "band": BAND, "wide": WIDE,
+            "delaunay": DELAUNAY}[name]
+    tcsr, jcsr = _csrs(case)
+    assert tw.window_cost_scan(tcsr) == jw.window_cost_scan(jcsr)
+    for g in (8, 16):
+        assert tw.window_cost(tcsr, g) == jw.window_cost(jcsr, g)
+    tmat = tw.prepare_window_auto(tcsr)
+    _assert_window_equal(tmat, jw.prepare_window_auto(jcsr))
+    if name == "delaunay":
+        assert tmat.xdirect and tmat.nblocks == 1
+
+
+def test_prepare_window_auto_pins_agree(monkeypatch):
+    tcsr, jcsr = _csrs(FEM_BIG)
+    _assert_window_equal(tw.prepare_window_auto(tcsr, bps=2), jw.prepare_window_auto(jcsr, bps=2))
+    monkeypatch.setenv("SPMV_WINDOW_BPS", "1")
+    _assert_window_equal(tw.prepare_window_auto(tcsr), jw.prepare_window_auto(jcsr))
+
+
+@pytest.mark.parametrize("name", ["scattered", "xdirect_multiblock"])
+def test_window_error_on_the_same_inputs(name):
+    if name == "scattered":
+        tcsr, jcsr = _csrs(SCATTERED)
+        calls = [lambda w, c: w.prepare_window_auto(c), lambda w, c: w.window_cost_scan(c)]
+    else:
+        tcsr, jcsr = _csrs(FEM_BANDS)  # 12000 rows: more than one block at any g
+        calls = [lambda w, c: w.prepare_window_auto(c, xdirect=True)]
+    for call in calls:
+        with pytest.raises(jw.WindowError):
+            call(jw, jcsr)
+        with pytest.raises(tw.WindowError):
+            call(tw, tcsr)
+
+
+def test_bf16_operands_by_cast_equal_a_bf16_prepare():
+    tcsr, jcsr = _csrs(FEM)
+    f32 = tw.prepare_window_auto(tcsr)
+    b16 = tw.prepare_window_auto(tcsr, vals_dtype=torch.bfloat16)
+    cast = dataclasses.replace(f32, vals=f32.vals.to(torch.bfloat16))
+    _assert_window_equal(cast, b16)
+    _assert_window_equal(cast, jw.prepare_window_auto(jcsr, vals_dtype=jnp.bfloat16))
+
+
+KERNEL_CASES = {
+    "standard_overflow": (FEM, dict(g=12, cap=16, max_pad=20.0)),
+    "standard_bps2": (FEM_BIG, dict(g=16, bps=2, shared_w=False)),
+    "shared_w": (FEM_BIG, dict(g=8, bps=4, shared_w=True)),
+    "xdirect": (FEM_SINGLE, dict(g=24, xdirect=True)),
+    "bf16": (FEM, dict(g=16, vals_dtype="bf16")),
+    "wide": (WIDE, dict(g=8)),
+}
+
+
+@pytest.mark.parametrize("name", list(KERNEL_CASES))
+def test_reference_matches_jax_kernel(name):
+    case, kw = KERNEL_CASES[name]
+    tcsr, jcsr = _csrs(case)
+    jkw = dict(kw)
+    if kw.get("vals_dtype") == "bf16":
+        jkw["vals_dtype"] = jnp.bfloat16
+    jmat = jw.prepare_window(jcsr, **jkw)
+    x = _x(tcsr.shape[1])
+    y_j = jw.window_spmv(jmat, jnp.asarray(x, jnp.float32))
+    tmat = _from_jax(jmat)
+    y_t = twc.window_spmv(tmat, torch.as_tensor(x, dtype=torch.float32))
+    assert y_t.dtype == torch.float32 and y_t.shape == (tcsr.shape[0],)
+    _close(y_t, y_j)
+    if kw.get("vals_dtype") != "bf16":
+        _oracle_close(y_t, tcsr, x)
+    # the port's own prepare gives the same operands, so the same y
+    if kw.get("vals_dtype") == "bf16":
+        kw = dict(kw, vals_dtype=torch.bfloat16)
+    y_p = twc.window_spmv(tw.prepare_window(tcsr, **kw), torch.as_tensor(x, dtype=torch.float32))
+    assert torch.equal(y_p, y_t)
+
+
+def test_window_from_jax_checks_ranges():
+    _tcsr, jcsr = _csrs(FEM)
+    jmat = jw.prepare_window(jcsr, g=16, cap=8, max_pad=20.0)
+    ok = dict(vals=np.asarray(jmat.vals), sidx=np.asarray(jmat.sidx),
+              gid=np.asarray(jmat.gid), rsrc=np.asarray(jmat.rsrc))
+    static = {f: getattr(jmat, f) for f in STATIC}
+    mat = twc.window_from_jax(**ok, **static)
+    assert mat.g == 16 and mat.vals.dtype == torch.float32
+    for field, bad in (("sidx", -1), ("rsrc", -3), ("gid", 16)):
+        arr = ok[field].copy()
+        arr[-1, 0] = bad
+        with pytest.raises(ValueError):
+            twc.window_from_jax(**dict(ok, **{field: arr}), **static)
+    gid = ok["gid"].copy()
+    gid[0, 0] = 2  # a fold row holds gid // 8 < ceil(16/8)
+    with pytest.raises(ValueError):
+        twc.window_from_jax(**dict(ok, gid=gid), **static)
+    with pytest.raises(ValueError):
+        twc.window_from_jax(**ok, **dict(static, nblocks=static["nblocks"] + 1))
+
+
+def test_wrapper_checks_on_the_cpu():
+    tcsr, _ = _csrs(FEM)
+    mat = tw.prepare_window(tcsr, g=8)
+    x = torch.as_tensor(_x(4000), dtype=torch.float32)
+    with pytest.raises(TypeError):
+        twc.window_spmv(mat, x.double())
+    with pytest.raises(ValueError):
+        twc.window_spmv(mat, x[:-1])
+    with pytest.raises(ValueError):
+        twc.window_spmv(mat, torch.zeros(8000)[::2])
+    with pytest.raises(TypeError):
+        twc.window_spmv(dataclasses.replace(mat, sidx=mat.sidx.int()), x)
+    with pytest.raises(ValueError):
+        twc.window_spmv(dataclasses.replace(mat, k_pad=mat.k_pad + 8), x)
+    with pytest.raises(ValueError):
+        twc.window_spmv(dataclasses.replace(mat, xdirect=True), x)  # 4 blocks
+    with pytest.raises(ValueError):
+        twc.window_spmv(mat, x.to("meta"))
+    # the kernel launchers take CUDA tensors only: no plain fallback
+    y = torch.zeros(4000)
+    with pytest.raises(ValueError, match="CUDA"):
+        twc.window_blocks_cuda(mat, x, y)
+    assert twc.window_blocks_cuda.launches == twc.window_single_cuda.launches == 0
+
+
+@pytest.mark.parametrize("mode", ["PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16"])
+def test_registered_modes_on_the_cpu(mode):
+    tcsr, jcsr = _csrs(FEM)
+    spec = registry.get(mode)
+    assert spec.impl == "cuda"
+    ops = spec.prepare(tcsr, None, T.Config(), torch.device("cpu"))
+    jdt = jnp.bfloat16 if mode.endswith("BF16") else None
+    _assert_window_equal(ops, jw.prepare_window_auto(jcsr, dtype=jnp.float32, vals_dtype=jdt))
+    x = fill_rnd_vector(tcsr.shape[1], seed=4)
+    y = spec.jitted(ops)(torch.as_tensor(x, dtype=torch.float32))
+    rep = vectors_diff(y.double().numpy(), serial_csr_spmv(tcsr, x))
+    assert rep.ok, rep
+
+
+SELECT_CASES = {
+    "fem_locality": ("fem_like", dict(m=6000, n=6000, nnz=120000, spread=500, lo=10, hi=28, seed=9)),
+    "fem_small": FEM,
+    "delaunay": DELAUNAY,
+    "random_uniform": ("random_uniform", dict(m=3000, n=3000, density=0.003, seed=4)),
+    "random_scattered": SCATTERED,
+    "power_law": POWER_LAW,
+}
+
+
+@pytest.mark.parametrize("name", list(SELECT_CASES))
+def test_select_format_agrees_past_dia(name):
+    tcsr, jcsr = _csrs(SELECT_CASES[name])
+    fmt = jauto.select_format(jcsr)
+    if fmt == "routed":
+        with pytest.raises(NotImplementedError, match="routed"):
+            tauto.select_format(tcsr)
+    else:
+        assert tauto.select_format(tcsr) == fmt
+    if name.startswith("fem") or name == "delaunay":
+        assert fmt == "window"
+    if name in ("random_scattered", "power_law"):
+        assert fmt == "routed"
+
+
+def test_auto_spmv_window_matches_jax():
+    tcsr, jcsr = _csrs(SELECT_CASES["fem_locality"])
+    tm = tauto.AutoSpMV.from_csr(tcsr, device="cpu")
+    jm = jauto.AutoSpMV.from_csr(jcsr)
+    assert tm.format == jm.format == "window"
+    _assert_window_equal(tm._operands, jm._operands)
+    x = _x(tcsr.shape[1], seed=2)
+    y = tm(x)
+    assert y.shape == (tcsr.shape[0],) and y.dtype == torch.float32
+    _close(y, jm(x))
+    _oracle_close(y, tcsr, x)
+    xr = fill_rnd_vector(tcsr.shape[1], seed=2)
+    assert vectors_diff(tm(xr).double().numpy(), serial_csr_spmv(tcsr, xr)).ok
+
+
+def test_auto_spmv_window_refusal_names_routed():
+    tcsr, jcsr = _csrs(SCATTERED)
+    with pytest.raises(jw.WindowError):
+        jw.prepare_window_auto(jcsr)  # the JAX package falls back to routed
+    with pytest.raises(NotImplementedError, match="routed"):
+        tauto.AutoSpMV.from_csr(tcsr, format="window", device="cpu")
+
+
+@pytest.fixture
+def fem_mtx(tmp_path):
+    path = str(tmp_path / "fem_like.mtx")
+    gen, kw = SELECT_CASES["fem_locality"]
+    write_mtx(path, getattr(tsynth, gen)(**kw))
+    return path
+
+
+@pytest.mark.parametrize("mode", ["AUTO", "PL_CSR_WINDOW_BF16"])
+def test_cli_cpu_check_window(fem_mtx, mode, capsys, tmp_path, monkeypatch):
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    rc = cli.main([fem_mtx, "RNDVECT", mode, "--device", "cpu", "--check", "--no-dump"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "#check: OK" in out
+    want = "PL_CSR_WINDOW" if mode == "AUTO" else mode
+    line = [ln for ln in out.splitlines() if ln.startswith("computeMode:")][-1]
+    assert line.startswith(f"computeMode:{want} elapsed:")
+    if mode == "AUTO":
+        assert "#auto: format=window -> PL_CSR_WINDOW" in out
+
+
+def test_cli_window_mode_refuses_unwindowable(tmp_path, capsys):
+    path = str(tmp_path / "scattered.mtx")
+    gen, kw = SCATTERED
+    write_mtx(path, getattr(tsynth, gen)(**kw))
+    assert cli.main([path, "RNDVECT", "PL_CSR_WINDOW", "--device", "cpu", "--no-dump"]) == 1
+    assert "window" in capsys.readouterr().err
