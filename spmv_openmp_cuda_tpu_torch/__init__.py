@@ -2,9 +2,9 @@
 
 A second package beside the JAX one, for NVIDIA Hopper (H100, sm_90a): the
 same host layer (MatrixMarket ingestion, COO/CSR/ELL, the serial oracle and
-the 7e-4 check, the synthetic proxies), the DIA, DIA+residual and windowed
-local-gather engines on hand-written CUDA kernels (csrc/), and AutoSpMV and
-the CLI over them. It imports torch and numpy, never jax or the JAX package.
+the 7e-4 check, the synthetic proxies), the DIA, DIA+residual, windowed
+local-gather and Clos-routed engines on hand-written CUDA kernels (csrc/),
+and AutoSpMV and the CLI over them. It imports torch and numpy, never jax or the JAX package.
 """
 from .config import (
     AVG_TIMES_ITERATION,

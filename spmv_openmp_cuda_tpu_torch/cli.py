@@ -43,6 +43,7 @@ _AUTO_MODES = {
     "dia": "PL_DIA_ROWS",
     "dia_resid": "PL_DIA_RESID",
     "window": "PL_CSR_WINDOW",
+    "routed": "PL_CSR_ROUTED",
 }
 
 
@@ -171,11 +172,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if is_auto:
         from .models.auto import select_format
 
-        try:
-            fmt = select_format(csr)
-        except NotImplementedError as e:
-            print(f"ERROR: {e}", file=sys.stderr)
-            return 1
+        fmt = select_format(csr)
         mode = _AUTO_MODES[fmt]
         print(f"#auto: format={fmt} -> {mode}")
     spec = registry.get(mode)  # every ported mode takes CSR (no ELL yet)
@@ -200,10 +197,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     try:
         operands = spec.prepare(csr, None, cfg, device)
     except (DiaFillError, WindowError) as e:
-        # no substitute engine: the JAX package's AUTO falls back to the
-        # routed engine here, which the port does not have yet
-        print(f"ERROR: {e}", file=sys.stderr)
-        return 1
+        if not is_auto:
+            print(f"ERROR: {e}", file=sys.stderr)
+            return 1
+        # the structural guess tripped the exact prepare-time cap: fall
+        # through to the general engine, as the JAX package's AUTO does
+        mode = _AUTO_MODES["routed"]
+        print(f"#auto: {spec.name} infeasible ({e}); falling back to {mode}")
+        spec = registry.get(mode)
+        operands = spec.prepare(csr, None, cfg, device)
     f = spec.jitted(operands)
     xd = torch.as_tensor(x, dtype=cfg.torch_dtype, device=device)
     y = f(xd)

@@ -1,0 +1,687 @@
+"""Clos-routed CSR engine: the host side (PL_CSR_ROUTED).
+
+Counterpart of spmv_openmp_cuda_tpu/formats/routed.py up to its kernels: the
+heavy-row split with its cost model, the gather-slot packing, the multi-level
+reduction units, the output-assembly and products routings, and the chunked
+wrapper, numpy as there, with torch tensors in place of jnp arrays. The
+kernels that read the layout, and the dispatch of one product over them, are
+in ops/routed_cuda.py.
+
+Pipeline (all structure static, only x flows at run time):
+
+1. *Gather*: every nnz gets a slot in a 128-row gather tile of its column
+   window (16384 columns), at sublane = col % 128 and a lane chosen by the
+   products router; the slot stores the value and the column's panel in the
+   window (col // 128 % 128).
+2. *Routing*: a planned Clos permutation (ops/route.py) moves every product
+   from its gather slot to its reduction slot.
+3. *Reduce*: rows are split into subrow units of <= WCAP nnz, units are
+   sorted by length and grouped 128 to a column group of width = the group
+   max, so every unit sum is a sum down one lane of a run of rows. Long rows
+   reduce over more levels (subrow sums feed the next level's slab).
+4. *Assembly*: a second Clos permutation routes every row's final unit sum,
+   and every heavy row's sum, into natural row order.
+
+Heavy rows (at least the cost model's threshold of nnz) leave the routed
+pipeline: they form a dense bf16 row block H, y_h = H @ x, whose sums enter
+the assembly domain at planned slots. The pooled residue tiles that the JAX
+package uses where that block is too large (`_build_heavy`, consumed by the
+`_heavy_sums` kernel) are not ported: prepare raises NotImplementedError
+there. So do a schema (the multi-device path), float64 and an empty matrix.
+
+The cost model's constants are the JAX package's TPU fits, kept so that both
+packages choose the same layout array for array. No SPMV_* environment
+variable is read: the port takes the JAX defaults (dense heavy block on,
+fit_domains on).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import LANE
+from ..ops.route import PlannedPermutation, pick_t, plan_permutation, plan_row_to_slot
+from .matrix import CSRMatrix
+
+#: panels (128 columns each) per x window, and columns per window
+WINDOW_PANELS = LANE
+WINDOW_ELEMS = LANE * WINDOW_PANELS
+
+WCAP = LANE  # max unit width: one slab column group spans <= 128 rows
+
+#: rows with at least this many nnz bypass the routed pipeline entirely; it
+#: equals the nnz count that would force a third reduction level
+HEAVY_THRESHOLD = WCAP * LANE
+
+#: dense heavy block cap: (n_heavy, n_pad) bf16 must stream in under this
+#: many bytes per product to beat the pooled tiles' extra passes
+_DENSE_HEAVY_MAX_BYTES = 12 * 2**20
+
+#: pooled heavy packing groups at most this many rows per pool (the JAX
+#: package's _build_heavy; the cost model below charges pools by it)
+_HEAVY_POOL_ROWS = 96
+
+_POOLED_HEAVY = (
+    "the pooled heavy-row tiles (spmv_openmp_cuda_tpu/formats/routed.py::"
+    "_build_heavy, read by the TPU kernel _heavy_sums) are not ported to "
+    "PyTorch/CUDA yet (ROADMAP.md queue 2 item 13)"
+)
+
+
+class RoutedError(ValueError):
+    """Matrix too large for the single-domain routed engine."""
+
+
+@dataclasses.dataclass
+class RoutedCSR:
+    vals: torch.Tensor  # (rows_a, 128) f32 or bf16: gather slot values
+    pidx: torch.Tensor  # (rows_a, 128) int8: panel-in-window per slot
+    widx: torch.Tensor  # (rows_a//128,) int32: window per 128-row tile
+    perm_products: PlannedPermutation  # r1 folded: vals sit in middle lanes
+    lvl_perms: Tuple[PlannedPermutation, ...]  # prev sums -> level slab
+    # 0/1 masks zeroing slab slots that are padding inside reduce runs —
+    # the level perms backfill them with leftover (nonzero) sums
+    lvl_masks: Tuple[torch.Tensor, ...] = ()
+    perm_out: PlannedPermutation = None
+    shape: Tuple[int, int] = (0, 0)
+    nnz: int = 0
+    n_windows: int = 1
+    rows_a: int = 0
+    # level-1 reduce runs: (row0, n_groups, width, out_group0)
+    runs: Tuple[Tuple[int, int, int, int], ...] = ()
+    # per extra level: its runs tuple
+    lvl_runs: Tuple[Tuple[Tuple[int, int, int, int], ...], ...] = ()
+    out_t: int = 1
+    # dense heavy block: (n_heavy, n_pad) bf16, y_h = H @ x
+    hdense: Optional[torch.Tensor] = None
+    heavy_rows: Tuple[int, ...] = ()
+    # static copy of widx, kept for <= 128-tile domains (the JAX package's
+    # single-block gather kernels slice x windows at these offsets)
+    widx_t: Tuple[int, ...] = ()
+    # heavy sum k enters the assembly domain at (row n_sums_rows + k//128,
+    # lane heavy_lanes[k]); perm_out delivers it to y[heavy_rows[k]]
+    heavy_lanes: Tuple[int, ...] = ()
+
+
+def n_windows_for(n_cols: int, max_col_window: int, window_elems: int) -> int:
+    """Window count covering all n_cols columns (not just the populated
+    ones — trailing all-zero columns must still pad cleanly)."""
+    return max(max_col_window + 1, -(-max(n_cols, 1) // window_elems))
+
+
+def _group_units(lens: np.ndarray, child_first: Optional[np.ndarray] = None):
+    """Sort units desc by length, group 128 to a slab column-group.
+
+    With child_first (bool per unit), units consumed by the next reduction
+    level sort before final units so the next level's extraction permutation
+    only spans their (few) leading groups.
+
+    Returns (order, group_row_base, runs, n_rows): order[rank] = unit id;
+    group g holds ranks [g*128, (g+1)*128) at rows
+    [group_row_base[g], +width_g); runs are (row0, n_groups, width,
+    out_group0) maximal equal-width stretches.
+    """
+    u = lens.shape[0]
+    if child_first is None:
+        order = np.argsort(-lens, kind="stable")
+    else:
+        order = np.lexsort((-lens, np.where(child_first, 0, 1)))
+    n_groups = -(-u // LANE)
+    # per-group width = max length in the group (with two-class ordering the
+    # first element is no longer necessarily the maximum)
+    lens_sorted = np.r_[lens[order], np.zeros(n_groups * LANE - u, np.int64)]
+    widths = np.maximum(lens_sorted.reshape(n_groups, LANE).max(axis=1), 1)
+    base = np.r_[0, np.cumsum(widths)]
+    runs: List[Tuple[int, int, int, int]] = []
+    g = 0
+    while g < n_groups:
+        g2 = g
+        while g2 < n_groups and widths[g2] == widths[g]:
+            g2 += 1
+        runs.append((int(base[g]), g2 - g, int(widths[g]), g))
+        g = g2
+    return order, base, tuple(runs), int(base[-1])
+
+
+def _dense_heavy_ok(dtype, n_heavy: int, n_pad: int) -> bool:
+    return dtype == torch.float32 and n_heavy * n_pad * 2 <= _DENSE_HEAVY_MAX_BYTES
+
+
+def _pick_heavy_threshold(
+    csr: CSRMatrix, lens_full: np.ndarray, dtype=torch.float32
+) -> int:
+    """Choose the heavy/light split minimizing the JAX package's cost model
+    (slot counts of its TPU passes).
+
+    The routed permutation costs ~4 passes over the whole power-of-two
+    domain, so pushing skewed rows into the unrouted heavy path pays off
+    exactly when it drops the domain a power of two. The heavy side is the
+    cheaper of the dense bf16 row block (half-slot per element streamed) and
+    the pooled residue tiles.
+    """
+    m, n = csr.shape
+    rows = csr.row_ids().astype(np.int64)
+    cols = csr.indices.astype(np.int64)
+    w = cols // WINDOW_ELEMS
+    a = cols % LANE
+    nwin = max(int(w.max(initial=0)) + 1, 1)
+    best_thr, best_cost = HEAVY_THRESHOLD, None
+    for thr in (HEAVY_THRESHOLD, 8192, 4096, 2048, 1024, 512):
+        heavy = lens_full >= thr
+        if heavy.sum() == m:
+            heavy[np.argmin(lens_full)] = False
+        light = ~heavy[rows]
+        # light gather rows: sum over windows of 128 * max_a ceil(cnt/128)
+        cell = w[light] * LANE + a[light]
+        cnt = np.bincount(cell, minlength=nwin * LANE).reshape(nwin, LANE)
+        rows_a = int((128 * np.ceil(cnt / LANE).max(axis=1)).sum())
+        # light reduce-slab rows (exact unit grouping)
+        lens_l = np.where(heavy, 0, lens_full)
+        n_sub = np.maximum(-(-lens_l // WCAP), 1)
+        u1 = int(n_sub.sum())
+        lens1 = np.full(u1, WCAP, dtype=np.int64)
+        last = np.cumsum(n_sub) - 1
+        lens1[last] = lens_l - (n_sub - 1) * WCAP
+        srt = np.sort(lens1)[::-1]
+        widths = np.maximum(srt[:: LANE], 1)
+        rows_c = int(widths.sum())
+        try:
+            t1 = pick_t(max(rows_a, rows_c))
+        except ValueError:
+            continue
+        # heavy side: cheaper of dense bf16 block and pooled residue tiles
+        hcost = 0
+        if heavy.any():
+            hsel = heavy[rows]
+            hord = np.cumsum(heavy) - 1  # heavy ordinal per row
+            pool = hord[rows[hsel]] // _HEAVY_POOL_ROWS
+            keyh = (pool * nwin + w[hsel]) * LANE + a[hsel]
+            npools = int(pool.max(initial=0)) + 1
+            cnth = np.bincount(
+                keyh, minlength=npools * nwin * LANE
+            ).reshape(npools * nwin, LANE)
+            tiles_h = np.ceil(cnth.max(axis=1) / LANE).sum()
+            hcost = int(2 * tiles_h * LANE * LANE)
+            n_pad = -(-n // LANE) * LANE
+            n_h = int(heavy.sum())
+            if _dense_heavy_ok(dtype, n_h, n_pad):
+                hcost = min(hcost, n_h * n_pad // 2)
+        cost = hcost + rows_a * LANE + 4 * t1 * LANE * LANE
+        if best_cost is None or cost < best_cost:
+            best_thr, best_cost = thr, cost
+    return best_thr
+
+
+def prepare_routed(
+    csr: CSRMatrix,
+    dtype: torch.dtype = torch.float32,
+    heavy_threshold: Optional[int] = None,
+    vals_dtype=None,
+    schema: Optional[dict] = None,
+    device="cpu",
+) -> RoutedCSR:
+    """The JAX package's prepare_routed (schema=None), numpy verbatim, with
+    the arrays as tensors on `device`.
+
+    vals_dtype (default = dtype) is the storage type of the gather slot
+    values only; products, routing and sums stay f32. The dense heavy block
+    is bf16 in every mode, as in the JAX package, so the f32 mode rounds the
+    heavy rows' values to bf16.
+
+    Raises RoutedError where the JAX package does (domain too large, empty
+    matrix) and NotImplementedError for what the port lacks: a schema, a
+    dtype other than float32, and heavy rows that need the pooled tiles.
+    """
+    if schema is not None:
+        raise NotImplementedError(
+            "the schema'd routed prepare belongs to the single-program "
+            "multi-device path, not ported to PyTorch/CUDA yet (ROADMAP.md "
+            "queue 1 item 12)"
+        )
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"routed engine dtype {dtype}: the port runs float32 (the "
+            "double-float routed engine and its TPU kernel _gather_products_df "
+            "are ROADMAP.md queue 2 item 18)"
+        )
+    if vals_dtype is None:
+        vals_dtype = dtype
+    m, n = csr.shape
+    if csr.nnz == 0 or m == 0:
+        raise RoutedError("empty matrix")
+    rows = csr.row_ids().astype(np.int64)
+    cols = csr.indices.astype(np.int64)
+    data = csr.data
+    indptr = csr.indptr.astype(np.int64)
+    lens_full = np.diff(indptr)
+
+    # ---- heavy-row split --------------------------------------------------
+    if heavy_threshold is None:
+        heavy_threshold = _pick_heavy_threshold(csr, lens_full, dtype)
+    heavy_sel = lens_full >= heavy_threshold
+    while heavy_sel.any() and lens_full[~heavy_sel].sum() == 0:
+        # the routed pipeline needs at least one light nnz (a zero-row
+        # gather domain): demote the smallest heavy row
+        cand = np.flatnonzero(heavy_sel)
+        heavy_sel[cand[np.argmin(lens_full[cand])]] = False
+    rows_h = np.flatnonzero(heavy_sel)
+    hdense = None
+    if rows_h.size:
+        n_pad = -(-n // LANE) * LANE
+        if not _dense_heavy_ok(dtype, rows_h.size, n_pad):
+            raise NotImplementedError(
+                f"{rows_h.size} heavy rows of {n_pad} columns exceed the dense "
+                f"heavy block's {_DENSE_HEAVY_MAX_BYTES} bytes: {_POOLED_HEAVY}"
+            )
+        hd = np.zeros((rows_h.size, n_pad), dtype=np.float32)
+        row_map = np.full(m, -1, dtype=np.int64)
+        row_map[rows_h] = np.arange(rows_h.size)
+        hnz = heavy_sel[rows]
+        hd[row_map[rows[hnz]], cols[hnz]] = data[hnz]
+        hdense = hd
+        keep = ~heavy_sel[rows]
+        rows, cols, data = rows[keep], cols[keep], data[keep]
+        lens_light = np.where(heavy_sel, 0, lens_full)
+        indptr = np.r_[0, np.cumsum(lens_light)]
+        csr = CSRMatrix(
+            shape=(m, n),
+            indptr=indptr,
+            indices=cols,
+            data=data,
+        )
+    nnz = cols.shape[0]
+
+    # ---- gather-phase packing (rows fixed, lanes assigned by the router) --
+    w = cols // WINDOW_ELEMS
+    a = cols % LANE
+    p = (cols // LANE) % WINDOW_PANELS
+    nwin = n_windows_for(n, int(w.max(initial=0)), WINDOW_ELEMS)
+    # ordinal within (w, a)
+    key = w * LANE + a
+    order = np.argsort(key, kind="stable")
+    key_sorted = key[order]
+    starts = np.r_[0, np.flatnonzero(np.diff(key_sorted)) + 1]
+    run_id = np.zeros(nnz, dtype=np.int64)
+    run_id[starts] = 1
+    run_id = np.cumsum(run_id) - 1
+    j_sorted = np.arange(nnz) - starts[run_id]
+    j = np.empty(nnz, dtype=np.int64)
+    j[order] = j_sorted
+    depth = j // LANE
+    tiles_per_win = np.zeros(nwin, dtype=np.int64)
+    np.maximum.at(tiles_per_win, w, depth + 1)
+    tile_base = np.r_[0, np.cumsum(tiles_per_win)]
+    n_tiles = int(tile_base[-1])
+    rows_a = n_tiles * LANE
+    row_a = (tile_base[w] + depth) * LANE + a  # slot row per nnz; lane TBD
+
+    # ---- reduction units (multi-level row splitting) ----------------------
+    lens = np.diff(csr.indptr).astype(np.int64)
+    ordinal = np.arange(nnz) - csr.indptr[rows].astype(np.int64)
+    # level-1 units: subrows of <= WCAP nnz, in row-major order
+    n_sub = np.maximum(-(-lens // WCAP), 1)
+    sub_base = np.r_[0, np.cumsum(n_sub)]  # unit id = sub_base[r] + o//WCAP
+    u1 = int(sub_base[-1])
+    unit_of_nnz = sub_base[rows] + ordinal // WCAP
+    k_of_nnz = ordinal % WCAP
+    # exact per-unit lengths: full WCAP except each row's last subrow
+    # (zero-length rows get a single length-0 unit)
+    lens1 = np.full(u1, WCAP, dtype=np.int64)
+    last = sub_base[1:] - 1
+    lens1[last] = lens - (n_sub - 1) * WCAP
+
+    # units consumed by level 2 (subunits of split rows) sort first
+    is_child1 = np.repeat(n_sub > 1, n_sub)
+    order1, base1, runs1, rows_c = _group_units(lens1, child_first=is_child1)
+    rank1 = np.empty(u1, dtype=np.int64)
+    rank1[order1] = np.arange(u1)
+    n_child = [int(is_child1.sum())]  # per level: #units feeding the next
+
+    # ---- pass 1: unit/group structure for every reduction level -----------
+    # (in-group lanes are NOT fixed here — the output-assembly router assigns
+    # them so its own first lane-perm stage folds away entirely)
+    levels = []  # per extra level: dict of structure arrays
+    level_groups = [-(-u1 // LANE)]
+    # map each original row to (level, unit id within that level)
+    final_level = np.zeros(m, dtype=np.int64)
+    final_unit = sub_base[:-1].copy()  # rows with one subrow: that unit
+    parents = np.flatnonzero(n_sub > 1)
+    child_counts = n_sub
+    child_first = sub_base[:-1]
+    level = 0
+    while parents.size:
+        level += 1
+        plens_full = child_counts[parents]
+        nsub2 = np.maximum(-(-plens_full // WCAP), 1)
+        sb2 = np.r_[0, np.cumsum(nsub2)]
+        u2 = int(sb2[-1])
+        lens2 = np.full(u2, WCAP, dtype=np.int64)
+        last2 = sb2[1:] - 1
+        lens2[last2] = plens_full - (nsub2 - 1) * WCAP
+        is_child2 = np.repeat(nsub2 > 1, nsub2)
+        order2, base2, runs2, rows2 = _group_units(lens2, child_first=is_child2)
+        rank2 = np.empty(u2, dtype=np.int64)
+        rank2[order2] = np.arange(u2)
+        n_child.append(int(is_child2.sum()))
+        # one element per (unit, k<len): its source is a child unit at the
+        # previous level
+        el_unit = np.repeat(np.arange(u2), lens2)
+        el_start = np.r_[0, np.cumsum(lens2)]
+        el_k = np.arange(int(el_start[-1])) - el_start[el_unit]
+        unit_parent = np.repeat(np.arange(parents.shape[0]), nsub2)
+        src_unit = (
+            child_first[parents][unit_parent[el_unit]]
+            + (el_unit - sb2[unit_parent[el_unit]]) * WCAP
+            + el_k
+        )
+        levels.append(
+            dict(
+                u=u2, rank=rank2, base=base2, runs=runs2, rows=rows2,
+                el_unit=el_unit, el_k=el_k, src_unit=src_unit,
+            )
+        )
+        level_groups.append(-(-u2 // LANE))
+        done = nsub2 == 1
+        final_level[parents[done]] = level
+        final_unit[parents[done]] = sb2[:-1][done]
+        still = np.flatnonzero(~done)
+        parents_next = parents[still]
+        child_counts_next = np.zeros(
+            max(int(parents.max(initial=0)) + 1, m), dtype=np.int64
+        )
+        child_first_next = np.zeros_like(child_counts_next)
+        child_counts_next[parents_next] = nsub2[still]
+        child_first_next[parents_next] = sb2[:-1][still]
+        child_counts = child_counts_next
+        child_first = child_first_next
+        parents = parents_next
+        if level > 8:
+            raise RoutedError("row splitting failed to converge")
+
+    # ---- pass 2: output assembly routing assigns every in-group lane ------
+    # elements = all units of all levels (every sums row has exactly 128
+    # incl. pads); finals route to y rows, the rest to the pad region
+    group_offs = np.r_[0, np.cumsum(level_groups)]
+    total = int(group_offs[-1]) * LANE
+    # dense heavy sums enter the assembly domain as extra source rows after
+    # the level groups and route straight to their y rows
+    n_hroute = rows_h.size if hdense is not None else 0
+    h_extra_rows = -(-n_hroute // LANE) if n_hroute else 0
+    out_rows = max(
+        -(-total // LANE) + h_extra_rows, -(-m // LANE)
+    )
+    t_out = pick_t(out_rows)
+    h_out = t_out * LANE
+    dom_o = h_out * LANE
+    all_ranks = [rank1] + [lv["rank"] for lv in levels]
+    src_rows_lvl = [
+        group_offs[k] + r // LANE for k, r in enumerate(all_ranks)
+    ]
+    unit_src_row = np.concatenate(src_rows_lvl)
+    unit_offs = np.r_[0, np.cumsum([r.shape[0] for r in all_ranks])]
+    # dst: finals -> y row; everything else -> free slots
+    dst_unit = np.full(unit_src_row.shape[0], -1, dtype=np.int64)
+    fin_ids = unit_offs[final_level] + final_unit
+    dst_unit[fin_ids] = np.arange(m)
+    if n_hroute:
+        # heavy rows' (empty, zero-sum) final units yield their y slot to
+        # the routed heavy sums
+        dst_unit[fin_ids[rows_h]] = -1
+        heavy_src = int(group_offs[-1]) + np.arange(n_hroute) // LANE
+        unit_src_row = np.r_[unit_src_row, heavy_src]
+        dst_unit = np.r_[dst_unit, rows_h]
+    # pad elements fill every domain row to exactly 128
+    cnt_row_o = np.bincount(unit_src_row, minlength=h_out)
+    pad_rows_o = np.repeat(np.arange(h_out), LANE - cnt_row_o)
+    src_all_o = np.r_[unit_src_row, pad_rows_o]
+    dst_all_o = np.full(src_all_o.shape[0], -1, dtype=np.int64)
+    dst_all_o[: dst_unit.shape[0]] = dst_unit
+    used_o = np.zeros(dom_o, dtype=bool)
+    used_o[np.arange(m)] = True
+    dst_all_o[dst_all_o < 0] = np.flatnonzero(~used_o)
+    perm_out, m_out = plan_row_to_slot(src_all_o, dst_all_o, t_out, device=device)
+    heavy_lanes = (
+        tuple(
+            int(v)
+            for v in m_out[
+                unit_src_row.shape[0] - n_hroute : unit_src_row.shape[0]
+            ]
+        )
+        if n_hroute
+        else ()
+    )
+    # in-group lane of every unit, per level
+    lanes_lvl = [
+        m_out[unit_offs[k] : unit_offs[k + 1]] for k in range(len(all_ranks))
+    ]
+    pos_lvl = [
+        (r // LANE) * LANE + lanes_lvl[k] for k, r in enumerate(all_ranks)
+    ]
+
+    # ---- pass 3: lane-dependent structures --------------------------------
+    slot_c = (
+        (base1[rank1[unit_of_nnz] // LANE] + k_of_nnz) * LANE
+        + lanes_lvl[0][unit_of_nnz]
+    )
+
+    # products permutation (source lanes assigned by its own router)
+    dom_rows = max(rows_a, rows_c)
+    try:
+        t1 = pick_t(dom_rows)
+    except ValueError as e:
+        raise RoutedError(str(e)) from e
+    h1 = t1 * LANE
+    dom = h1 * LANE
+    cnt_row = np.zeros(h1, dtype=np.int64)
+    np.add.at(cnt_row, row_a, 1)
+    pad_rows = np.repeat(np.arange(h1), LANE - cnt_row)
+    src_row_all = np.r_[row_a, pad_rows]
+    used_dst = np.zeros(dom, dtype=bool)
+    used_dst[slot_c] = True
+    dst_all = np.r_[slot_c, np.flatnonzero(~used_dst)]
+    perm_products, m_all = plan_row_to_slot(src_row_all, dst_all, t1, device=device)
+    lane_a = m_all[:nnz]  # the router's lane assignment for each nnz
+
+    # level permutations: prev sums -> level slab
+    lvl_gather: List = []
+    lvl_runs: List[Tuple] = []
+    for k, lv in enumerate(levels):
+        gidx = np.full(lv["rows"] * LANE, -1, dtype=np.int64)
+        dst_rows = lv["base"][lv["rank"][lv["el_unit"]] // LANE] + lv["el_k"]
+        gidx[dst_rows * LANE + lanes_lvl[k + 1][lv["el_unit"]]] = pos_lvl[k][
+            lv["src_unit"]
+        ]
+        # with child-first ordering the previous level's child sums occupy
+        # only its leading groups — the extraction domain shrinks to those
+        prev_rows = -(-max(n_child[k], 1) // LANE)
+        t_k = pick_t(max(prev_rows, lv["rows"]))
+        dom_k = t_k * LANE * LANE
+        dst_k = np.full(dom_k, -1, dtype=np.int64)
+        real = gidx >= 0
+        dst_k[gidx[real]] = np.flatnonzero(real)
+        used_k = np.zeros(dom_k, dtype=bool)
+        used_k[np.flatnonzero(real)] = True
+        dst_k[dst_k < 0] = np.flatnonzero(~used_k)
+        mask_k = np.zeros((t_k * LANE, LANE), dtype=np.float32)
+        mask_k.reshape(-1)[np.flatnonzero(real)] = 1.0
+        lvl_gather.append((plan_permutation(dst_k, t_k, device=device), mask_k))
+        lvl_runs.append(lv["runs"])
+
+    # ---- device arrays ----------------------------------------------------
+    # pidx holds panel ids < 128, stored int8; pad tiles beyond rows_a are
+    # never materialized — the gather kernel emits their zeros directly
+    vals = np.zeros((rows_a, LANE), dtype=np.float64)
+    pidx = np.zeros((rows_a, LANE), dtype=np.int8)
+    vals[row_a, lane_a] = csr.data
+    pidx[row_a, lane_a] = p
+    widx = np.repeat(np.arange(nwin, dtype=np.int32), tiles_per_win)
+    return RoutedCSR(
+        vals=torch.from_numpy(vals).to(vals_dtype).to(device),
+        pidx=torch.from_numpy(pidx).to(device),
+        widx=torch.from_numpy(widx).to(device),
+        hdense=torch.from_numpy(hdense).to(torch.bfloat16).to(device)
+        if hdense is not None
+        else None,
+        heavy_rows=tuple(int(r) for r in rows_h),
+        heavy_lanes=heavy_lanes,
+        perm_products=perm_products,
+        lvl_perms=tuple(pk for pk, _mk in lvl_gather),
+        lvl_masks=tuple(torch.from_numpy(mk).to(device) for _pk, mk in lvl_gather),
+        perm_out=perm_out,
+        shape=(m, n),
+        nnz=nnz,
+        n_windows=nwin,
+        rows_a=rows_a,
+        widx_t=tuple(int(v) for v in widx) if rows_a <= 128 * LANE else (),
+        runs=runs1,
+        lvl_runs=tuple(lvl_runs),
+        out_t=t_out,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Chunked wrapper: matrices beyond the single permutation domain
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RoutedChunks:
+    """Row-block decomposition into independent routed engines — the scale
+    path for matrices whose nnz exceed one (128*128)-row routing domain."""
+
+    chunks: Tuple[RoutedCSR, ...]
+    bounds: Tuple[int, ...]  # row boundaries, len = n_chunks + 1
+    shape: Tuple[int, int] = (0, 0)
+    nnz: int = 0
+
+
+def _sub_csr(csr: CSRMatrix, r0: int, r1: int) -> CSRMatrix:
+    i0, i1 = int(csr.indptr[r0]), int(csr.indptr[r1])
+    return CSRMatrix(
+        shape=(r1 - r0, csr.shape[1]),
+        indptr=(csr.indptr[r0 : r1 + 1] - i0).astype(np.int64),
+        indices=csr.indices[i0:i1],
+        data=csr.data[i0:i1],
+    )
+
+
+def _predict_domain_rows(csr: CSRMatrix, r0: int, r1: int) -> int:
+    """Predicted permutation-domain rows max(rows_a, rows_c) for the light
+    path of rows [r0, r1) (ignores the heavy split — exact for FEM-degree
+    matrices, a safe overestimate otherwise)."""
+    i0, i1 = int(csr.indptr[r0]), int(csr.indptr[r1])
+    cols = csr.indices[i0:i1].astype(np.int64)
+    if cols.size == 0:
+        return 1
+    w = cols // WINDOW_ELEMS
+    a = cols % LANE
+    cell = (w - w.min()) * LANE + a
+    cnt = np.bincount(cell)
+    # tiles per window = max over residues of ceil(cnt/128); rows = 128/tile
+    nwin = int(w.max() - w.min()) + 1
+    cnt2 = np.zeros(nwin * LANE, dtype=np.int64)
+    cnt2[: cnt.shape[0]] = cnt
+    rows_a = int(
+        (128 * np.ceil(cnt2.reshape(nwin, LANE) / LANE).max(axis=1)).sum()
+    )
+    lens = np.diff(csr.indptr[r0 : r1 + 1]).astype(np.int64)
+    n_sub = np.maximum(-(-lens // WCAP), 1)
+    u1 = int(n_sub.sum())
+    lens1 = np.full(u1, WCAP, dtype=np.int64)
+    last = np.cumsum(n_sub) - 1
+    lens1[last] = lens - (n_sub - 1) * WCAP
+    srt = np.sort(lens1)[::-1]
+    rows_c = int(np.maximum(srt[::LANE], 1).sum())
+    return max(rows_a, rows_c, 1)
+
+
+def _fit_chunk_bounds(csr: CSRMatrix, target_rows: int = 8064) -> List[int]:
+    """Chunk boundaries chosen so each chunk's predicted permutation domain
+    fills its power-of-two tile grid (pick_t rounds rows up to the next
+    power of two <= 128 tiles; aim just under the boundary)."""
+    m = csr.shape[0]
+    bounds = [0]
+    while bounds[-1] < m:
+        r0 = bounds[-1]
+        lo, hi = r0 + 1, m
+        # exponential probe then bisection on the end row
+        step = max((m - r0) // 8, 1)
+        r = min(r0 + step, m)
+        while r < m and _predict_domain_rows(csr, r0, r) < target_rows:
+            lo = r
+            r = min(r + step, m)
+            step *= 2
+        hi = r
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if _predict_domain_rows(csr, r0, mid) <= target_rows:
+                lo = mid
+            else:
+                hi = mid - 1
+        bounds.append(max(lo, r0 + 1))
+    return bounds
+
+
+def prepare_routed_chunked(
+    csr: CSRMatrix, dtype: torch.dtype = torch.float32, chunk_nnz: int = 700_000,
+    vals_dtype=None, fit_domains: bool = True, device="cpu",
+) -> RoutedChunks:
+    """Split rows into blocks whose routing domains fill a t <= 64 tile grid
+    (fit_domains, the default: boundaries by bisection on the predicted
+    domain size) and prepare a routed engine per block (recursive halving if
+    a block still exceeds its domain). fit_domains=False takes the greedy
+    <= chunk_nnz split."""
+    m = csr.shape[0]
+    lens = np.diff(csr.indptr)
+    if fit_domains:
+        bounds = _fit_chunk_bounds(csr)
+    else:
+        bounds = [0]
+        acc = 0
+        for r in range(m):
+            ln = int(lens[r])
+            if acc + min(ln, HEAVY_THRESHOLD) > chunk_nnz and r > bounds[-1]:
+                bounds.append(r)
+                acc = 0
+            acc += min(ln, HEAVY_THRESHOLD)
+        bounds.append(m)
+    chunks = []
+    final_bounds = [0]
+    stack = [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)][::-1]
+    while stack:
+        r0, r1 = stack.pop()
+        try:
+            chunks.append(
+                prepare_routed(
+                    _sub_csr(csr, r0, r1), dtype=dtype, vals_dtype=vals_dtype,
+                    device=device,
+                )
+            )
+            final_bounds.append(r1)
+        except RoutedError:
+            if r1 - r0 <= 1:
+                raise
+            mid = (r0 + r1) // 2
+            stack.append((mid, r1))
+            stack.append((r0, mid))
+    return RoutedChunks(
+        chunks=tuple(chunks),
+        bounds=tuple(final_bounds),
+        shape=csr.shape,
+        nnz=csr.nnz,
+    )
+
+
+def prepare_routed_auto(
+    csr: CSRMatrix, dtype: torch.dtype = torch.float32, vals_dtype=None, device="cpu"
+):
+    """RoutedCSR when one domain suffices, RoutedChunks otherwise."""
+    try:
+        return prepare_routed(csr, dtype=dtype, vals_dtype=vals_dtype, device=device)
+    except RoutedError:
+        return prepare_routed_chunked(
+            csr, dtype=dtype, vals_dtype=vals_dtype, device=device
+        )

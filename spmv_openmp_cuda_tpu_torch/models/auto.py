@@ -5,9 +5,13 @@ runs so far: diagonal-concentrated matrices go to DIA, a dense-diagonal core
 with a scattered fringe to the DIA+residual hybrid, both on the CUDA DIA
 kernels (ops/spmv_cuda.py), and banded-locality matrices (unstructured FEM)
 to the windowed local-gather engine on the CUDA window kernels
-(ops/window_cuda.py). Every other engine of the JAX package (routed, lanes,
-ell_t, binned) and float64 raise NotImplementedError: the port never
-substitutes another engine for one it lacks.
+(ops/window_cuda.py), and every other matrix, and every DIA or window
+refusal, to the Clos-routed engine on the CUDA routed kernels
+(ops/routed_cuda.py), as in the JAX package. The explicit engines the port
+lacks (lanes, ell_t, binned) and float64 raise NotImplementedError, and so
+does a matrix that even the chunked routed engine refuses (the JAX package
+falls back to binned there): the port never substitutes another engine for
+one it lacks.
 
 Usage:
     model = AutoSpMV.from_file("matrix.mtx", device="cuda")
@@ -25,7 +29,9 @@ from ..config import Config
 from ..formats.convert import coo_to_csr
 from ..formats.dia import DiaFillError, prepare_dia, split_offsets
 from ..formats.matrix import COOMatrix, CSRMatrix
+from ..formats.routed import RoutedError
 from ..formats.window import WindowError, prepare_window_auto, window_cost_scan
+from ..ops.routed_cuda import prepare_routed_chain, routed_chain_spmv
 from ..ops.spmv_cuda import (
     dia_spmv_cuda,
     pad_dia_for_pallas,
@@ -37,7 +43,6 @@ from ..ops.window_cuda import window_spmv
 #: Engines of the JAX package that the port has not brought over yet, with
 #: the ROADMAP.md queue-1 item that ports each.
 UNPORTED_FORMATS = {
-    "routed": "queue 1 item 7 (routed slice)",
     "lanes": "queue 1 item 8 (remaining f32 modes)",
     "ell_t": "queue 1 item 8 (remaining f32 modes)",
     "binned": "queue 1 item 8 (remaining f32 modes)",
@@ -55,8 +60,7 @@ def select_format(csr: CSRMatrix, dia_fill_cap: float = 2.0) -> str:
     """Pick a storage engine from matrix structure (host-side, the JAX
     package's policy verbatim).
 
-    Returns "dia_resid", "dia" or "window"; where the JAX package picks the
-    routed engine, which is not ported, it raises NotImplementedError.
+    Returns "dia_resid", "dia", "window" or "routed".
     """
     m, n = csr.shape
     nnz = max(csr.nnz, 1)
@@ -96,7 +100,7 @@ def select_format(csr: CSRMatrix, dia_fill_cap: float = 2.0) -> str:
         best = None
     if best is not None and best < 50.0 * nnz + 10e6:
         return "window"
-    raise _unported("routed", "matrix is neither DIA-class nor windowable: ")
+    return "routed"
 
 
 @dataclasses.dataclass
@@ -133,7 +137,7 @@ class AutoSpMV:
         fmt = select_format(csr) if format == "auto" else format
         if fmt in UNPORTED_FORMATS:
             raise _unported(fmt)
-        if fmt not in ("dia", "dia_resid", "window"):
+        if fmt not in ("dia", "dia_resid", "window", "routed"):
             raise ValueError(
                 f"unknown format {format!r}; expected auto, dia, dia_resid, "
                 "window, lanes, routed, ell_t or binned"
@@ -148,7 +152,7 @@ class AutoSpMV:
                 def run(o, x):
                     return dia_spmv_cuda(o[0].mat, x, o[1], resid=o[0])
 
-            else:
+            elif fmt == "dia":
                 mat = prepare_dia(csr, dtype=cfg.torch_dtype, device=device)
                 plan = plan_dia(mat)
                 ops = (pad_dia_for_pallas(mat, plan), plan)
@@ -156,9 +160,16 @@ class AutoSpMV:
                 def run(o, x):
                     return dia_spmv_cuda(o[0], x, o[1])
 
-        except (DiaFillError, WindowError) as e:
-            # the JAX package falls back to the routed engine here
-            raise _unported("routed", f"{fmt} prepare refused the matrix ({e}); ") from e
+        except (DiaFillError, WindowError):
+            fmt = "routed"  # the general fallback, as in the JAX package
+        if fmt == "routed":
+            try:
+                ops = prepare_routed_chain(csr, dtype=cfg.torch_dtype, device=device)
+            except RoutedError as e:
+                raise _unported(
+                    "binned", f"even the chunked routed engine refused the matrix ({e}); "
+                ) from e
+            run = routed_chain_spmv
 
         def fn(x):
             return run(ops, torch.as_tensor(x, dtype=torch.float32, device=device))

@@ -4,8 +4,9 @@ Counterpart of spmv_openmp_cuda_tpu/ops/registry.py (reference: the
 function-pointer registries of src/include/SpMV.h:130-159 and the
 COMPUTE_MODE string dispatch, SpMV.h:27-59), restricted to the modes the port
 runs so far: DIA_ROWS (plain torch), the CUDA DIA modes PL_DIA_ROWS,
-PL_DIA_BF16, PL_DIA_RESID and PL_DIA_RESID_BF16, and the CUDA window modes
-PL_CSR_WINDOW and PL_CSR_WINDOW_BF16. Mode names are the JAX
+PL_DIA_BF16, PL_DIA_RESID and PL_DIA_RESID_BF16, the CUDA window modes
+PL_CSR_WINDOW and PL_CSR_WINDOW_BF16, and the CUDA routed modes
+PL_CSR_ROUTED and PL_CSR_ROUTED_BF16. Mode names are the JAX
 package's, so logs of both packages read the same.
 
 Uniform ABI: every kernel is described by a KernelSpec whose
@@ -70,3 +71,4 @@ def names() -> List[str]:
 
 from . import spmv_cuda  # noqa: E402,F401  (registers the DIA modes on import)
 from . import window_cuda  # noqa: E402,F401  (registers the window modes)
+from . import routed_cuda  # noqa: E402,F401  (registers the routed modes)

@@ -1,0 +1,1090 @@
+"""CUDA kernels and dispatch of the Clos-routed engine (PL_CSR_ROUTED).
+
+Counterpart of the kernel half of spmv_openmp_cuda_tpu/formats/routed.py
+(`_gather_w1`, `_gather_products`, `_w3_r3_reduce`, `_perm_reduce_t1`,
+`_reduce_runs_fused`, `_hdense_mv`, and `routed_spmv` with its chunked and
+auto forms, all one `routed_spmv` here), of the permutation application in spmv_openmp_cuda_tpu/ops/route.py
+(`_whole_w_call`, `_tiled_call`, `apply_*`) and of the routed registry hooks
+in spmv_openmp_cuda_tpu/ops/spmv_pallas.py. It holds the wrappers of the four
+hand-written CUDA kernels in csrc/routed_spmv.cu, their plain PyTorch
+versions, the conversion of the JAX package's prepared layout, and the modes
+PL_CSR_ROUTED and PL_CSR_ROUTED_BF16.
+
+One product is a chain of stages, built once per prepared matrix
+(`build_chain`): gather+W1 (A) -> SW.W2.SW^-1 (B) -> W3.R3.reduce (C) ->
+[levels: C, or B, B, C] -> zero the assembly tail -> heavy rows (D) ->
+output permutation (B: W1, SW.W2.SW^-1, W3.R3 into y). On a CUDA device the
+chain is encoded once as a program that csrc/routed_spmv.cu enqueues in one
+call (its one entry point; each single-kernel wrapper runs a one-op program
+through it, and it counts the launches it made); on the CPU each stage runs
+its plain version. The chain differs from
+the JAX package's routed_spmv in two deliberate ways:
+
+- The JAX package picks between TPU kernels by VMEM size
+  (`_W3_FUSED_MAX_ROWS`, `_FUSED_REDUCE_MAX_ROWS`,
+  `_W3_FUSED_MASKED_MAX_ROWS`, the h1 > 8192 branch, `_WHOLE_MAX_T`). The
+  port has no such limit: every domain and every level runs the same
+  gather -> SW.W2.SW^-1 -> W3.R3.reduce chain, and one W-stage kernel serves
+  every t <= 128.
+- Small domains (the JAX `small_ok` test) run the same staged chain; the
+  JAX package fuses them into one launch (`_routed_small_spmv`, not ported
+  as a fused kernel yet: ROADMAP.md queue 2 item 9). The function is the
+  chain's, on the same operands; only the launch count differs.
+
+The wrappers launch the kernels for CUDA tensors and raise on anything they
+do not take; the plain versions run only for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config import LANE
+from ..formats.routed import (
+    _POOLED_HEAVY,
+    WINDOW_ELEMS,
+    RoutedChunks,
+    RoutedCSR,
+    prepare_routed_auto,
+)
+from . import cuda_lib
+from .route import PlannedPermutation
+from .spmv_cuda import _require, _to_tensor
+
+_SLAB_DTYPES = (torch.float32, torch.bfloat16)
+_IDX = (torch.int8,)
+_F32 = (torch.float32,)
+
+#: reduce-kernel modes: how slab row rr, lane l reads its element
+MODE_DIRECT, MODE_W3, MODE_T1 = 0, 1, 2
+
+#: heavy blocks above these sizes take a dense f32 matmul, as the JAX
+#: package leaves them to an XLA dot (formats/routed.py:1027)
+_HDENSE_KERNEL_MAX_ROWS = 64
+_HDENSE_KERNEL_MAX_BYTES = 6 * 2**20
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the kernels (the CPU path and the chip's check)
+# ---------------------------------------------------------------------------
+
+
+def _take_lanes(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """R stage: out[p, l] = a[p, idx[p, l]]."""
+    return torch.gather(a, 1, idx.long())
+
+
+def _w_tiles(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """W stage: out[T*128 + j, l] = a[T*128 + w[T*128 + l, j], l]."""
+    nt = a.shape[0] // LANE
+    wi = w.long().reshape(nt, LANE, LANE).transpose(1, 2)
+    return torch.gather(a.reshape(nt, LANE, LANE), 1, wi).reshape(nt * LANE, LANE)
+
+
+def _sw(a: torch.Tensor, t: int) -> torch.Tensor:
+    """Row t*128 + s -> row s*T + t."""
+    return a.reshape(t, LANE, LANE).transpose(0, 1).reshape(t * LANE, LANE)
+
+
+def _sw_inv(a: torch.Tensor, t: int) -> torch.Tensor:
+    """Row s*T + t -> row t*128 + s."""
+    return a.reshape(LANE, t, LANE).transpose(0, 1).reshape(t * LANE, LANE)
+
+
+def _rows(src: torch.Tensor, src_rows: int, n_rows: int) -> torch.Tensor:
+    """The first n_rows rows of src, rows from src_rows on read as zero."""
+    k = min(src_rows, n_rows, src.shape[0])
+    out = torch.zeros(n_rows, LANE, dtype=torch.float32, device=src.device)
+    out[:k] = src[:k]
+    return out
+
+
+def pack_x_windows_flat(x: torch.Tensor, nwin: int) -> torch.Tensor:
+    """x -> transposed window stack: rows [w*128, (w+1)*128) hold window w
+    as (residue, panel), xw[w*128 + s, p] = x[w*16384 + p*128 + s] (zero
+    past n). The JAX package's x layout, used by the plain version only."""
+    xp = torch.nn.functional.pad(x.to(torch.float32), (0, nwin * WINDOW_ELEMS - x.shape[0]))
+    return xp.reshape(nwin, LANE, LANE).transpose(1, 2).reshape(nwin * LANE, LANE)
+
+
+def gather_reference(vals, pidx, widx, w1, n_tiles: int, x: torch.Tensor) -> torch.Tensor:
+    """Plain kernel A: (n_tiles*128, 128) f32, tile i < n_real = products
+    vals * x[widx[i]*16384 + pidx*128 + s] (s = row in tile), rows permuted
+    by w1 when given; tiles from n_real on are zero."""
+    n_real = vals.shape[0] // LANE
+    nwin = max(-(-x.shape[0] // WINDOW_ELEMS), 1)
+    xw = pack_x_windows_flat(x, nwin)
+    s = torch.arange(LANE, device=x.device).repeat(n_real)
+    wrow = widx.long().repeat_interleave(LANE) * LANE + s
+    prod = vals.to(torch.float32) * torch.gather(xw[wrow], 1, pidx.long())
+    if w1 is not None:
+        prod = _w_tiles(prod, w1[: n_real * LANE])
+    return torch.cat([prod, prod.new_zeros((n_tiles - n_real) * LANE, LANE)])
+
+
+def w_stage_reference(src, src_rows: int, r, w, ra, t: int, sw: bool, n_tiles: int) -> torch.Tensor:
+    """Plain kernel B over n_tiles tiles: R (r) . SW . W (w) . SW^-1 . R
+    (ra), the SW maps only when sw (then n_tiles == t); input rows from
+    src_rows on read as zero. Returns the (n_tiles*128, 128) result."""
+    h = n_tiles * LANE
+    a = _rows(src, src_rows, h)
+    if r is not None:
+        a = _take_lanes(a, r[:h])
+    if sw:
+        a = _sw(a, t)
+    a = _w_tiles(a, w[:h])
+    if sw:
+        a = _sw_inv(a, t)
+    if ra is not None:
+        a = _take_lanes(a, ra[:h])
+    return a
+
+
+def _n_groups(runs) -> int:
+    return runs[-1][3] + runs[-1][1]
+
+
+def _reduce_runs(g: torch.Tensor, runs) -> torch.Tensor:
+    out = g.new_empty(_n_groups(runs), LANE)
+    for row0, ng, width, g0 in runs:
+        out[g0 : g0 + ng] = g[row0 : row0 + ng * width].reshape(ng, width, LANE).sum(1)
+    return out
+
+
+def perm_reduce_reference(src, src_rows: int, mode: int, W, r1, r3, mask, runs) -> torch.Tensor:
+    """Plain kernel C: per group of runs (row0, n_groups, width, g0), the
+    width-row sums of g = mask * S gathered by r3, where S is src (direct),
+    src through the W3 stage W (w3), or src through r1 and wc (t = 1);
+    src rows from src_rows on read as zero. Returns (n_groups, 128)."""
+    h = r3.shape[0]
+    a = _rows(src, src_rows, h)
+    if mode == MODE_W3:
+        a = _w_tiles(a, W)
+    elif mode == MODE_T1:
+        a = _w_tiles(_take_lanes(a, r1), W)
+    g = _take_lanes(a, r3)
+    if mask is not None:
+        g = g * mask
+    return _reduce_runs(g, runs)
+
+
+def hdense_reference(hdense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain kernel D: y_h[k] = sum_c f32(H[k, c]) * x[c] (x zero past n)."""
+    xb = torch.nn.functional.pad(x.to(torch.float32), (0, hdense.shape[1] - x.shape[0]))
+    return (hdense.to(torch.float32) * xb).sum(1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers (csrc/routed_spmv.cu)
+# ---------------------------------------------------------------------------
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.routed_chain_launch.argtypes = [p, i, p, ll, p, p, p, p]
+    lib.routed_chain_launch.restype = i
+    lib.routed_error_string.argtypes = [i]
+    lib.routed_error_string.restype = ctypes.c_char_p
+
+
+def _lib() -> ctypes.CDLL:
+    return cuda_lib.load("routed_spmv", _bind)
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _on_cuda(*ts) -> torch.device:
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev}")
+    if any(t is not None and t.device != dev for t in ts):
+        raise ValueError("every operand must lie on one CUDA device")
+    return dev
+
+
+# Programs of csrc/routed_spmv.cu::routed_chain_launch, the one entry point
+# of the kernels: a whole product (the chain, encoded once) and each single
+# stage (the wrappers below) run through it, and it counts the launches it
+# made. An op is its code and its operands as int64: ints, tensors by
+# address, Bufs tagged in the top byte (1 scratch, 2 y) with a byte offset.
+_OP_GATHER, _OP_W_STAGE, _OP_REDUCE, _OP_HDENSE, _OP_ZERO = 1, 2, 3, 4, 5
+_TAGS = {"s": 1, "y": 2}
+
+
+def _aligned(t, align: int):
+    """t, checked to be align-byte aligned: the kernels read w1 and w (index
+    rows) with 4-byte loads, groups with 8-byte and hdense with 16-byte
+    ones; every other operand with scalar loads."""
+    if isinstance(t, torch.Tensor) and t.data_ptr() % align:
+        raise ValueError(f"an operand read with {align}-byte loads is not {align}-byte aligned")
+    return t
+
+
+def _operand(v) -> int:
+    if v is None:
+        return 0
+    if isinstance(v, torch.Tensor):
+        return v.data_ptr()
+    if isinstance(v, Buf):
+        return (_TAGS[v.kind] << 56) | (v.off * 4)
+    return int(v)
+
+
+def _op(code: int, *args) -> List[int]:
+    return [code] + [_operand(a) for a in args]
+
+
+def _gather_op(vals, pidx, widx, w1, n_tiles: int, out) -> List[int]:
+    return _op(_OP_GATHER, vals.dtype == torch.bfloat16, vals, pidx, widx, _aligned(w1, 4),
+               vals.shape[0] // LANE, n_tiles, out)
+
+
+def _w_stage_op(src, src_rows: int, r, w, ra, t: int, sw: bool, n_tiles: int, out,
+                out_limit: int) -> List[int]:
+    return _op(_OP_W_STAGE, src, src_rows, r, _aligned(w, 4), ra, t, sw, n_tiles, out, out_limit)
+
+
+def _reduce_op(src, src_rows: int, mode: int, W, r1, r3, mask, groups, out) -> List[int]:
+    return _op(_OP_REDUCE, src, src_rows, mode, W, r1, r3, mask, _aligned(groups, 8),
+               groups.shape[0], out)
+
+
+def _hdense_op(hdense, target, out) -> List[int]:
+    return _op(_OP_HDENSE, _aligned(hdense, 16), hdense.shape[0], hdense.shape[1], target, out)
+
+
+def _run_program(prog: np.ndarray, x: Optional[torch.Tensor], y: Optional[int],
+                 scratch: Optional[int], dev: torch.device) -> None:
+    """Enqueue prog on dev's current stream; the counters gain the launches
+    the C side made (those enqueued before an error too); an error raises."""
+    lib = _lib()
+    counts = np.zeros(len(_COUNTERS), dtype=np.int32)
+    rc = lib.routed_chain_launch(
+        prog.ctypes.data, prog.shape[0], None if x is None else x.data_ptr(),
+        0 if x is None else x.shape[0], y, scratch, counts.ctypes.data, _stream(dev),
+    )
+    for fn, c in zip(_COUNTERS.values(), counts.tolist()):
+        fn.launches += c
+    if rc != 0:
+        msg = lib.routed_error_string(rc).decode()
+        raise RuntimeError(f"routed kernels: launch failed: CUDA error {rc} ({msg})")
+
+
+def _run_op(op: List[int], x: Optional[torch.Tensor], dev: torch.device) -> None:
+    _run_program(np.asarray(op, dtype=np.int64), x, None, None, dev)
+
+
+def routed_gather_cuda(vals, pidx, widx, w1, n_tiles: int, x, out) -> torch.Tensor:
+    """Kernel A into out (>= n_tiles*128*128 f32): the products of the
+    vals.shape[0]//128 gather tiles, W1-permuted when w1 is given, then
+    zero tiles."""
+    dev = _on_cuda(x, vals, pidx, widx, w1, out)
+    _check_gather(vals, pidx, widx, w1, n_tiles, x, out)
+    _run_op(_gather_op(vals, pidx, widx, w1, n_tiles, out), x, dev)
+    return out
+
+
+routed_gather_cuda.launches = 0
+
+
+def routed_w_stage_cuda(src, src_rows: int, r, w, ra, t: int, sw: bool, n_tiles: int, out,
+                        out_limit: int) -> torch.Tensor:
+    """Kernel B into out: the first out_limit elements of the W stage's
+    (n_tiles*128, 128) result."""
+    dev = _on_cuda(src, r, w, ra, out)
+    _check_w_stage(src, src_rows, r, w, ra, t, sw, n_tiles, out, out_limit)
+    _run_op(_w_stage_op(src, src_rows, r, w, ra, t, sw, n_tiles, out, out_limit), None, dev)
+    return out
+
+
+routed_w_stage_cuda.launches = 0
+
+
+def routed_perm_reduce_cuda(src, src_rows: int, mode: int, W, r1, r3, mask, groups, out) -> torch.Tensor:
+    """Kernel C into out (n_groups, 128): groups is the (n_groups, 2) int32
+    table of (first slab row, width)."""
+    dev = _on_cuda(src, W, r1, r3, mask, groups, out)
+    _check_perm_reduce(src, src_rows, mode, W, r1, r3, mask, groups, out)
+    _run_op(_reduce_op(src, src_rows, mode, W, r1, r3, mask, groups, out), None, dev)
+    return out
+
+
+routed_perm_reduce_cuda.launches = 0
+
+
+def routed_hdense_cuda(hdense, x, target, out) -> torch.Tensor:
+    """Kernel D: out.view(-1)[target[k]] += H[k] . x (out zeroed by the
+    caller)."""
+    dev = _on_cuda(x, hdense, target, out)
+    _check_hdense(hdense, x, target, out)
+    _run_op(_hdense_op(hdense, target, out), x, dev)
+    return out
+
+
+routed_hdense_cuda.launches = 0
+
+
+#: launches of each kernel, as csrc/routed_spmv.cu counted them (in the
+#: order of its counts array)
+_COUNTERS = {
+    "gather": routed_gather_cuda,
+    "w_stage": routed_w_stage_cuda,
+    "perm_reduce": routed_perm_reduce_cuda,
+    "hdense": routed_hdense_cuda,
+}
+
+
+# ---------------------------------------------------------------------------
+# Checks (what the kernels index with)
+# ---------------------------------------------------------------------------
+
+
+def _idx(t, name, rows, dev):
+    if t is not None:
+        _require(t, name, _IDX, (rows, LANE), dev)
+
+
+def _check_out(out, name, n_elems, dev):
+    if out is None:  # the plain versions allocate their own
+        return
+    if out.device != dev or out.dtype != torch.float32 or not out.is_contiguous() \
+            or out.numel() < n_elems:
+        raise ValueError(f"{name} must be a contiguous f32 tensor of >= {n_elems} elements on {dev}")
+
+
+def _check_gather(vals, pidx, widx, w1, n_tiles, x, out):
+    dev = x.device
+    rows_a = vals.shape[0]
+    n_real = rows_a // LANE
+    if rows_a % LANE or not 1 <= n_real <= n_tiles <= LANE:
+        raise ValueError(f"{rows_a} gather rows do not fit {n_tiles} tiles of 128 rows")
+    _require(vals, "vals", _SLAB_DTYPES, (rows_a, LANE), dev)
+    _require(pidx, "pidx", _IDX, (rows_a, LANE), dev)
+    _require(widx, "widx", (torch.int32,), (n_real,), dev)
+    _idx(w1, "w1", n_tiles * LANE, dev)
+    _require(x, "x", _F32, (x.shape[0],), dev)
+    _check_out(out, "out", n_tiles * LANE * LANE, dev)
+
+
+def _check_w_stage(src, src_rows, r, w, ra, t, sw, n_tiles, out, out_limit):
+    dev = src.device
+    h = n_tiles * LANE
+    if not 1 <= n_tiles <= LANE or (sw and n_tiles != t) or t < 1 or LANE % t:
+        raise ValueError(f"bad W stage geometry n_tiles={n_tiles} t={t} sw={sw}")
+    if not 0 <= src_rows <= src.shape[0] or src.dim() != 2 or src.shape[1] != LANE \
+            or src.dtype != torch.float32 or not src.is_contiguous():
+        raise ValueError(f"src must be a contiguous (rows, 128) f32 tensor with >= {src_rows} rows")
+    for name, a in (("r", r), ("w", w), ("ra", ra)):
+        _idx(a, name, h, dev)
+    _check_out(out, "out", min(out_limit, h * LANE), dev)
+
+
+def _check_perm_reduce(src, src_rows, mode, W, r1, r3, mask, groups, out):
+    dev = src.device
+    h = r3.shape[0]
+    if mode not in (MODE_DIRECT, MODE_W3, MODE_T1) or h % LANE or not 0 < h <= LANE * LANE:
+        raise ValueError(f"bad reduce mode {mode} or slab rows {h}")
+    if (mode == MODE_T1 and (h != LANE or r1 is None)) or (mode != MODE_DIRECT and W is None):
+        raise ValueError(f"reduce mode {mode} needs W (and r1 on a one-tile level)")
+    if not 0 <= src_rows <= src.shape[0] or src.dim() != 2 or src.shape[1] != LANE \
+            or src.dtype != torch.float32 or not src.is_contiguous():
+        raise ValueError(f"src must be a contiguous (rows, 128) f32 tensor with >= {src_rows} rows")
+    if mode == MODE_W3 and src_rows < h:
+        raise ValueError("a W3 reduce reads the whole slab")
+    for name, a in (("r3", r3), ("W", W), ("r1", r1)):
+        _idx(a, name, h, dev)
+    if mask is not None:
+        _require(mask, "mask", _F32, (h, LANE), dev)
+    g = groups.shape[0]
+    _require(groups, "groups", (torch.int32,), (g, 2), dev)
+    _check_out(out, "out", g * LANE, dev)
+
+
+def _check_hdense(hdense, x, target, out):
+    dev = x.device
+    n_h, n_pad = hdense.shape
+    if n_pad % LANE or n_pad < x.shape[0] or n_h < 1:
+        raise ValueError(f"heavy block {tuple(hdense.shape)} does not cover x of {x.shape[0]}")
+    _require(hdense, "hdense", (torch.bfloat16,), (n_h, n_pad), dev)
+    _require(target, "target", (torch.int32,), (n_h,), dev)
+    _check_out(out, "out", -(-n_h // LANE) * LANE, dev)
+
+
+# ---------------------------------------------------------------------------
+# Single-kernel operations (the TPU kernels' counterparts, by device)
+# ---------------------------------------------------------------------------
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def w_stage(x, w, r=None, ra=None, sw: bool = False, t: int = 1, n_tiles: Optional[int] = None,
+            src_rows: Optional[int] = None) -> torch.Tensor:
+    """One W stage over x (rows, 128) f32, kernel B's function: the JAX
+    package's _whole_w_call(x, w, r, r_after) and _tiled_call kernels, and
+    with sw the SW . W2 . SW^-1 middle (apply_sw_w2_sw)."""
+    n_tiles = x.shape[0] // LANE if n_tiles is None else n_tiles
+    src_rows = x.shape[0] if src_rows is None else src_rows
+    if _device_of(x) == "cpu":
+        _check_w_stage(x, src_rows, r, w, ra, t, sw, n_tiles, None, 0)
+        return w_stage_reference(x, src_rows, r, w, ra, t, sw, n_tiles)
+    out = torch.empty(n_tiles * LANE, LANE, dtype=torch.float32, device=x.device)
+    return routed_w_stage_cuda(x, src_rows, r, w, ra, t, sw, n_tiles, out, out.numel())
+
+
+def apply_w_stage(w, x) -> torch.Tensor:
+    """One W stage over a row-aligned slice of a domain; w is the matching
+    row slice of the stage array."""
+    return w_stage(x, w)
+
+
+def apply_sw_w2_sw(plan: PlannedPermutation, x2) -> torch.Tensor:
+    """SW . W2 . SW^-1 for callers that applied W1 themselves."""
+    return w_stage(x2, plan.w2, sw=True, t=plan.t)
+
+
+def apply_permutation_to_mid(plan: PlannedPermutation, x) -> torch.Tensor:
+    """R1, W1, SW, W2, SW^-1: the returned x5 still needs W3 and R3."""
+    return apply_sw_w2_sw(plan, w_stage(x, plan.w1, r=plan.r1))
+
+
+def apply_permutation_from_w1(plan: PlannedPermutation, x2, skip_r3: bool = False) -> torch.Tensor:
+    """SW . W2 . SW^-1 . W3 [. R3] for callers that already applied W1."""
+    return w_stage(apply_sw_w2_sw(plan, x2), plan.w3, ra=None if skip_r3 else plan.r3)
+
+
+def apply_permutation(plan: PlannedPermutation, x, skip_r3: bool = False) -> torch.Tensor:
+    """y[dst_of[slot]] = x[slot] for the planned bijection; x is (H, 128).
+    With skip_r3 the last lane permutation is left to the caller:
+    true[h, l] == returned[h, r3[h, l]]."""
+    ra = None if skip_r3 else plan.r3
+    if plan.t == 1 and plan.wc is not None:
+        return w_stage(x, plan.wc, r=plan.r1, ra=ra)
+    return w_stage(apply_permutation_to_mid(plan, x), plan.w3, ra=ra)
+
+
+def routed_gather(mat: RoutedCSR, x: torch.Tensor, w1: bool = True) -> torch.Tensor:
+    """Kernel A's function: with w1, the JAX package's _gather_w1 ((h1, 128)
+    products, W1-permuted, pad tiles zero); without, its _gather_products
+    ((rows_a, 128) products in panel order)."""
+    n_real = mat.vals.shape[0] // LANE
+    n_tiles = mat.perm_products.t if w1 else n_real
+    w = mat.perm_products.w1 if w1 else None
+    if _device_of(x) == "cpu":
+        _check_gather(mat.vals, mat.pidx, mat.widx, w, n_tiles, x, None)
+        return gather_reference(mat.vals, mat.pidx, mat.widx, w, n_tiles, x)
+    out = torch.empty(n_tiles * LANE, LANE, dtype=torch.float32, device=x.device)
+    return routed_gather_cuda(mat.vals, mat.pidx, mat.widx, w, n_tiles, x, out)
+
+
+def groups_table(runs, device) -> torch.Tensor:
+    """(n_groups, 2) int32 (first slab row, width) of every output group of
+    runs (row0, n_groups, width, g0)."""
+    tab = np.zeros((_n_groups(runs), 2), dtype=np.int32)
+    for row0, ng, width, g0 in runs:
+        tab[g0 : g0 + ng, 0] = row0 + np.arange(ng) * width
+        tab[g0 : g0 + ng, 1] = width
+    return torch.from_numpy(tab).to(device)
+
+
+def perm_reduce(src, runs, r3, mode: int = MODE_W3, W=None, r1=None, mask=None,
+                src_rows: Optional[int] = None) -> torch.Tensor:
+    """Kernel C's function, (n_groups, 128) group sums: mode MODE_W3 is the
+    JAX package's _w3_r3_reduce (W = w3), MODE_T1 its _perm_reduce_t1 and
+    the fused level (W = wc, r1), MODE_DIRECT its _reduce_runs_fused."""
+    src_rows = src.shape[0] if src_rows is None else src_rows
+    groups = groups_table(runs, src.device)
+    if _device_of(src) == "cpu":
+        _check_perm_reduce(src, src_rows, mode, W, r1, r3, mask, groups, None)
+        return perm_reduce_reference(src, src_rows, mode, W, r1, r3, mask, runs)
+    out = torch.empty(groups.shape[0], LANE, dtype=torch.float32, device=src.device)
+    return routed_perm_reduce_cuda(src, src_rows, mode, W, r1, r3, mask, groups, out)
+
+
+def _heavy_targets(mat: RoutedCSR) -> np.ndarray:
+    n_h = mat.hdense.shape[0]
+    return (np.arange(n_h) // LANE * LANE + np.asarray(mat.heavy_lanes, np.int64)).astype(np.int32)
+
+
+def _hdense_in_kernel(hdense: torch.Tensor) -> bool:
+    return hdense.shape[0] <= _HDENSE_KERNEL_MAX_ROWS and \
+        hdense.numel() * 2 <= _HDENSE_KERNEL_MAX_BYTES
+
+
+def hdense_mv(mat: RoutedCSR, x: torch.Tensor, placed: bool = False) -> torch.Tensor:
+    """Kernel D's function, the JAX package's _hdense_mv: y_h = H @ x (f32,
+    length n_heavy), or with placed the (rows, 128) assembly rows holding
+    sum k at (k // 128, heavy_lanes[k]). Blocks of more than 64 rows or
+    6 MB take a dense f32 matmul, as the JAX package takes an XLA dot."""
+    n_h = mat.hdense.shape[0]
+    rows = max(-(-n_h // LANE), 1)
+    if placed:
+        target = torch.from_numpy(_heavy_targets(mat)).to(x.device)
+    else:
+        target = torch.arange(n_h, dtype=torch.int32, device=x.device)
+    out = torch.zeros(rows * LANE, dtype=torch.float32, device=x.device)
+    if not _hdense_in_kernel(mat.hdense):
+        out[target.long()] = _hdense_matmul(mat.hdense, x)
+    elif _device_of(x) == "cpu":
+        _check_hdense(mat.hdense, x, target, None)
+        out[target.long()] += hdense_reference(mat.hdense, x)
+    else:
+        routed_hdense_cuda(mat.hdense, x, target, out)
+    return out.reshape(rows, LANE) if placed else out[:n_h]
+
+
+def _hdense_matmul(hdense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    xb = torch.nn.functional.pad(x.to(torch.float32), (0, hdense.shape[1] - x.shape[0]))
+    return torch.matmul(hdense.to(torch.float32), xb)
+
+
+# ---------------------------------------------------------------------------
+# The chain: one product as a list of stages over a call's buffers
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Buf:
+    """A place in a call's buffers: kind "s" (scratch) or "y", at an f32
+    element offset."""
+
+    kind: str
+    off: int = 0
+
+    def at(self, elems: int) -> "Buf":
+        return Buf(self.kind, self.off + elems)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GatherStage:  # kernel A
+    vals: torch.Tensor
+    pidx: torch.Tensor
+    widx: torch.Tensor
+    w1: Optional[torch.Tensor]
+    n_tiles: int
+    out: Buf
+
+    kernel = "gather"
+
+    def out_elems(self) -> int:
+        return self.n_tiles * LANE * LANE
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class WStage:  # kernel B
+    src: Buf
+    src_rows: int
+    r: Optional[torch.Tensor]
+    w: torch.Tensor
+    ra: Optional[torch.Tensor]
+    t: int
+    sw: bool
+    n_tiles: int
+    out: Buf
+    out_limit: int
+
+    kernel = "w_stage"
+
+    def out_elems(self) -> int:
+        return min(self.out_limit, self.n_tiles * LANE * LANE)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ReduceStage:  # kernel C
+    src: Buf
+    src_rows: int
+    mode: int
+    W: Optional[torch.Tensor]
+    r1: Optional[torch.Tensor]
+    r3: torch.Tensor
+    mask: Optional[torch.Tensor]
+    groups: torch.Tensor
+    runs: tuple
+    out: Buf
+
+    kernel = "perm_reduce"
+
+    def out_elems(self) -> int:
+        return self.groups.shape[0] * LANE
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class HDenseStage:  # kernel D, or a dense f32 matmul for large blocks
+    hdense: torch.Tensor
+    target: torch.Tensor
+    out: Buf
+
+    @property
+    def kernel(self):
+        return "hdense" if _hdense_in_kernel(self.hdense) else None
+
+    def out_elems(self) -> int:
+        return -(-self.hdense.shape[0] // LANE) * LANE
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ZeroStage:
+    out: Buf
+    n: int
+
+    kernel = None
+
+    def out_elems(self) -> int:
+        return self.n
+
+
+Stage = Union[GatherStage, WStage, ReduceStage, HDenseStage, ZeroStage]
+
+
+def _domain_stages(mat: RoutedCSR, y: Buf, alloc) -> List[Stage]:
+    """The stages of one domain's product, y[0:m] written at y."""
+    dev = mat.vals.device
+    pp, po = mat.perm_products, mat.perm_out
+    h1, m = pp.h, mat.shape[0]
+    x2, x5, dom = alloc(h1), alloc(h1), alloc(po.h)
+    stages: List[Stage] = [
+        GatherStage(mat.vals, mat.pidx, mat.widx, pp.w1, pp.t, x2),
+        WStage(x2, h1, None, pp.w2, None, pp.t, True, pp.t, x5, h1 * LANE),
+        ReduceStage(x5, h1, MODE_W3, pp.w3, None, pp.r3, None, groups_table(mat.runs, dev),
+                    mat.runs, dom),
+    ]
+    level_groups = [_n_groups(mat.runs)] + [_n_groups(r) for r in mat.lvl_runs]
+    offs = np.r_[0, np.cumsum(level_groups)]
+    for k, (perm, mask, runs) in enumerate(zip(mat.lvl_perms, mat.lvl_masks, mat.lvl_runs)):
+        prev, prev_rows = dom.at(int(offs[k]) * LANE), min(level_groups[k], perm.h)
+        out = dom.at(int(offs[k + 1]) * LANE)
+        groups = groups_table(runs, dev)
+        if perm.t == 1:
+            # the JAX package's _perm_reduce_t1, and the level it fuses into
+            # _w3_r3_reduce: r1 . wc . r3, mask, run sums in one launch
+            stages.append(ReduceStage(prev, prev_rows, MODE_T1, perm.wc, perm.r1, perm.r3, mask,
+                                      groups, runs, out))
+        else:
+            la, lb = alloc(perm.h), alloc(perm.h)
+            stages += [
+                WStage(prev, prev_rows, perm.r1, perm.w1, None, perm.t, False, perm.t, la,
+                       perm.h * LANE),
+                WStage(la, perm.h, None, perm.w2, None, perm.t, True, perm.t, lb, perm.h * LANE),
+                ReduceStage(lb, perm.h, MODE_W3, perm.w3, None, perm.r3, mask, groups, runs, out),
+            ]
+    tail = int(offs[-1])
+    stages.append(ZeroStage(dom.at(tail * LANE), (po.h - tail) * LANE))
+    if mat.hdense is not None:
+        target = torch.from_numpy(_heavy_targets(mat)).to(dev)
+        stages.append(HDenseStage(mat.hdense, target, dom.at(tail * LANE)))
+    # output permutation; the JAX package applies its W1 to the leading
+    # full tiles inside _w3_r3_reduce and to the tail on its own: applying
+    # W1 once over the whole assembly domain gives the same x2_o
+    if po.t == 1:
+        stages.append(WStage(dom, po.h, None, po.wc, po.r3, 1, False, 1, y, m))
+    else:
+        o1, o2 = alloc(po.h), alloc(po.h)
+        stages += [
+            WStage(dom, po.h, None, po.w1, None, po.t, False, po.t, o1, po.h * LANE),
+            WStage(o1, po.h, None, po.w2, None, po.t, True, po.t, o2, po.h * LANE),
+            WStage(o2, po.h, None, po.w3, po.r3, po.t, False, po.t, y, m),
+        ]
+    return stages
+
+
+@dataclasses.dataclass
+class RoutedChain:
+    """A prepared routed product: the stages over a call's buffers, the
+    scratch they need, and (on a CUDA device) their encoded program."""
+
+    mat: Union[RoutedCSR, RoutedChunks]
+    stages: Tuple[Stage, ...]
+    scratch_elems: int
+    shape: Tuple[int, int]
+    device: torch.device
+    #: per product: the launches of each kernel the stages plan (the
+    #: counters hold those the C side made)
+    counts: Dict[str, int]
+    #: the CUDA program: segments of int64 arrays, a large heavy block's
+    #: matmul stage between them
+    segments: Tuple = ()
+
+    @property
+    def nnz(self) -> int:
+        return self.mat.nnz
+
+
+def _check_domain(mat: RoutedCSR) -> None:
+    """Geometry of a prepared domain: what the chain's kernels index with
+    (index value ranges come from prepare, or are checked by
+    routed_from_jax)."""
+    dev = mat.vals.device
+    m, n = mat.shape
+    pp, po = mat.perm_products, mat.perm_out
+    rows_a = mat.vals.shape[0]
+    if not mat.runs or rows_a != mat.rows_a or rows_a % LANE or rows_a > pp.h:
+        raise ValueError(f"gather rows {rows_a} do not fit the products domain of {pp.h} rows")
+    if -(-max(n, 1) // WINDOW_ELEMS) != mat.n_windows:
+        raise ValueError(f"{mat.n_windows} windows do not cover {n} columns")
+    for name, plan in (("perm_products", pp), ("perm_out", po)):
+        _check_plan(plan, name, dev)
+    if po.h * LANE < m:
+        raise ValueError(f"the output domain of {po.h} rows does not cover {m} rows")
+    levels = [mat.runs, *mat.lvl_runs]
+    slab_rows = [pp.h] + [p.h for p in mat.lvl_perms]
+    if not len(mat.lvl_perms) == len(mat.lvl_masks) == len(mat.lvl_runs):
+        raise ValueError("one perm, mask and runs tuple per level")
+    for k, (runs, h) in enumerate(zip(levels, slab_rows)):
+        g = 0
+        for row0, ng, width, g0 in runs:
+            if g0 != g or ng < 1 or not 1 <= width <= LANE or row0 < 0 or row0 + ng * width > h:
+                raise ValueError(f"level {k} runs {runs} do not fit its slab of {h} rows")
+            g += ng
+        if k:
+            plan = mat.lvl_perms[k - 1]
+            _check_plan(plan, f"lvl_perms[{k - 1}]", dev)
+            _require(mat.lvl_masks[k - 1], f"lvl_masks[{k - 1}]", _F32, (plan.h, LANE), dev)
+    total = sum(_n_groups(r) for r in levels)
+    n_h = 0 if mat.hdense is None else mat.hdense.shape[0]
+    if mat.hdense is not None:
+        if len(mat.heavy_lanes) != n_h or len(mat.heavy_rows) != n_h:
+            raise ValueError("a dense heavy block needs one placed lane per heavy row")
+        if not all(0 <= v < LANE for v in mat.heavy_lanes):
+            raise ValueError("heavy_lanes out of range")
+        if mat.hdense.shape[1] != -(-n // LANE) * LANE:
+            raise ValueError(f"heavy block {tuple(mat.hdense.shape)} for {n} columns")
+        _require(mat.hdense, "hdense", (torch.bfloat16,), tuple(mat.hdense.shape), dev)
+    if total + -(-n_h // LANE) > po.h:
+        raise ValueError(f"{total} sums rows and the heavy rows exceed the output domain")
+    _require(mat.vals, "vals", _SLAB_DTYPES, (rows_a, LANE), dev)
+    _require(mat.pidx, "pidx", _IDX, (rows_a, LANE), dev)
+    _require(mat.widx, "widx", (torch.int32,), (rows_a // LANE,), dev)
+    # index values: int8 arrays in [0, 128), windows in [0, n_windows)
+    idx = [mat.pidx] + [a for p in (pp, po, *mat.lvl_perms) for a in
+                        (p.r1, p.w1, p.w2, p.w3, p.r3, p.wc) if a is not None]
+    if any(bool((a < 0).any()) for a in idx) or bool((mat.widx < 0).any()) \
+            or bool((mat.widx >= mat.n_windows).any()):
+        raise ValueError("an index array holds values out of range")
+
+
+def _check_plan(plan: PlannedPermutation, name: str, dev) -> None:
+    if not (1 <= plan.t <= LANE and LANE % plan.t == 0):
+        raise ValueError(f"{name}: bad tile count {plan.t}")
+    for f in ("w1", "w2", "w3", "r3", "r1", "wc"):
+        a = getattr(plan, f)
+        if a is not None:
+            _require(a, f"{name}.{f}", _IDX, (plan.h, LANE), dev)
+    if plan.t == 1 and plan.wc is None:
+        raise ValueError(f"{name}: a one-tile plan carries its composed wc")
+
+
+def build_chain(mat: Union[RoutedCSR, RoutedChunks]) -> RoutedChain:
+    """Check a prepared matrix once and lay out its product: every domain's
+    stages, chunk after chunk into y at its row bound, over one scratch
+    buffer that the chunks reuse in turn (the stages run in stream order)."""
+    domains = mat.chunks if isinstance(mat, RoutedChunks) else (mat,)
+    bounds = mat.bounds if isinstance(mat, RoutedChunks) else (0, mat.shape[0])
+    if len(bounds) != len(domains) + 1 or bounds[0] != 0 or bounds[-1] != mat.shape[0]:
+        raise ValueError(f"chunk bounds {bounds} do not cover {mat.shape[0]} rows")
+    stages: List[Stage] = []
+    scratch = 0
+    for dmat, r0, r1 in zip(domains, bounds[:-1], bounds[1:]):
+        if dmat.shape != (r1 - r0, mat.shape[1]):
+            raise ValueError(f"chunk of shape {dmat.shape} between rows {r0} and {r1}")
+        _check_domain(dmat)
+        used = [0]
+
+        def alloc(rows: int) -> Buf:
+            buf = Buf("s", used[0])
+            used[0] += rows * LANE
+            return buf
+
+        stages += _domain_stages(dmat, Buf("y", r0), alloc)
+        scratch = max(scratch, used[0])
+    dev = domains[0].vals.device
+    counts = {k: sum(s.kernel == k for s in stages) for k in _COUNTERS}
+    chain = RoutedChain(
+        mat=mat, stages=tuple(stages), scratch_elems=scratch, shape=tuple(mat.shape),
+        device=dev, counts=counts,
+    )
+    if dev.type == "cuda":
+        chain.segments = _encode(chain.stages)
+    return chain
+
+
+def _encode(stages: Sequence[Stage]) -> tuple:
+    """The chain as programs: int64 arrays, with a large heavy block's
+    matmul stage between two of them."""
+    segments, prog = [], []
+    for s in stages:
+        if isinstance(s, HDenseStage) and s.kernel is None:
+            if prog:
+                segments.append(np.asarray(prog, dtype=np.int64))
+                prog = []
+            segments.append(s)
+            continue
+        if isinstance(s, GatherStage):
+            prog += _gather_op(s.vals, s.pidx, s.widx, s.w1, s.n_tiles, s.out)
+        elif isinstance(s, WStage):
+            prog += _w_stage_op(s.src, s.src_rows, s.r, s.w, s.ra, s.t, s.sw, s.n_tiles, s.out,
+                                s.out_limit)
+        elif isinstance(s, ReduceStage):
+            prog += _reduce_op(s.src, s.src_rows, s.mode, s.W, s.r1, s.r3, s.mask, s.groups, s.out)
+        elif isinstance(s, HDenseStage):
+            prog += _hdense_op(s.hdense, s.target, s.out)
+        else:
+            prog += _op(_OP_ZERO, s.out, s.n * 4)
+    if prog:
+        segments.append(np.asarray(prog, dtype=np.int64))
+    return tuple(segments)
+
+
+def _view(bufs: Dict[str, torch.Tensor], b: Buf, n: int) -> torch.Tensor:
+    return bufs[b.kind][b.off : b.off + n]
+
+
+def run_stage(stage: Stage, bufs: Dict[str, torch.Tensor], plain: bool) -> None:
+    """Run one stage over the buffers {"s": scratch, "x": x, "y": y}: its
+    kernel through its wrapper, or with plain=True its plain version (on
+    any device)."""
+    x = bufs["x"]
+    n_out = stage.out_elems()
+    out = _view(bufs, stage.out, n_out)
+    if isinstance(stage, ZeroStage):
+        out.zero_()
+    elif isinstance(stage, GatherStage):
+        if plain:
+            out.copy_(gather_reference(stage.vals, stage.pidx, stage.widx, stage.w1,
+                                       stage.n_tiles, x).reshape(-1))
+        else:
+            routed_gather_cuda(stage.vals, stage.pidx, stage.widx, stage.w1, stage.n_tiles, x, out)
+    elif isinstance(stage, WStage):
+        src = bufs[stage.src.kind][stage.src.off :].reshape(-1, LANE)
+        if plain:
+            out.copy_(w_stage_reference(src, stage.src_rows, stage.r, stage.w, stage.ra, stage.t,
+                                        stage.sw, stage.n_tiles).reshape(-1)[:n_out])
+        else:
+            routed_w_stage_cuda(src, stage.src_rows, stage.r, stage.w, stage.ra, stage.t,
+                                stage.sw, stage.n_tiles, out, stage.out_limit)
+    elif isinstance(stage, ReduceStage):
+        src = bufs[stage.src.kind][stage.src.off :].reshape(-1, LANE)
+        if plain:
+            out.copy_(perm_reduce_reference(src, stage.src_rows, stage.mode, stage.W, stage.r1,
+                                            stage.r3, stage.mask, stage.runs).reshape(-1))
+        else:
+            routed_perm_reduce_cuda(src, stage.src_rows, stage.mode, stage.W, stage.r1, stage.r3,
+                                    stage.mask, stage.groups, out)
+    elif stage.kernel is None:
+        out[stage.target.long()] += _hdense_matmul(stage.hdense, x)
+    elif plain:
+        out[stage.target.long()] += hdense_reference(stage.hdense, x)
+    else:
+        routed_hdense_cuda(stage.hdense, x, stage.target, out)
+
+
+def _buffers(chain: RoutedChain, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    m, n = chain.shape
+    _require(x, "x", _F32, (n,), chain.device)
+    return {
+        "x": x,
+        "y": torch.empty(m, dtype=torch.float32, device=x.device),
+        "s": torch.empty(chain.scratch_elems, dtype=torch.float32, device=x.device),
+    }
+
+
+def routed_spmv_reference(chain: RoutedChain, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch y = A @ x (f32, length m) over a prepared chain, stage
+    by stage with the kernels' plain versions, on any device. The scratch
+    starts as NaN, so a stage that read what no stage wrote would show."""
+    bufs = _buffers(chain, x)
+    bufs["s"].fill_(float("nan"))
+    for stage in chain.stages:
+        run_stage(stage, bufs, plain=True)
+    return bufs["y"]
+
+
+def routed_chain_spmv(chain: RoutedChain, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x (f32, length m) over a prepared chain. CUDA tensors launch
+    the whole chain in one call of csrc/routed_spmv.cu (a large heavy
+    block's matmul between two calls); CPU tensors take
+    routed_spmv_reference. Anything else raises."""
+    if _device_of(x) == "cpu":
+        return routed_spmv_reference(chain, x)
+    bufs = _buffers(chain, x)
+    for seg in chain.segments:
+        if isinstance(seg, HDenseStage):
+            run_stage(seg, bufs, plain=False)
+        else:
+            _run_program(seg, x, bufs["y"].data_ptr(), bufs["s"].data_ptr(), x.device)
+    return bufs["y"]
+
+
+def compare_stages(chain: RoutedChain, x: torch.Tensor):
+    """Each stage's kernel against its plain version on the same inputs: the
+    chain runs with the plain versions, and before each stage a copy of the
+    buffers runs the stage's kernel. Yields (stage, kernel output, plain
+    output) for every stage that launches a kernel (CUDA tensors only)."""
+    bufs = _buffers(chain, x)
+    bufs["s"].fill_(float("nan"))
+    for stage in chain.stages:
+        if stage.kernel is not None:
+            copy = {k: v.clone() for k, v in bufs.items()}
+            run_stage(stage, copy, plain=False)
+        run_stage(stage, bufs, plain=True)
+        if stage.kernel is not None:
+            n = stage.out_elems()
+            yield stage, _view(copy, stage.out, n), _view(bufs, stage.out, n)
+
+
+def stored_csr(csr, chain: RoutedChain):
+    """csr with its values as the prepared layout stores them: the dense
+    heavy block's rows rounded to bf16 (as prepare rounds them, through
+    f32), and with bf16 gather values every other value rounded to bf16
+    too. The f64 oracle on this matrix is what a routed product should
+    match; its gap to the exact matrix is a property of the layout."""
+    from ..formats.matrix import CSRMatrix
+
+    mats = chain.mat.chunks if isinstance(chain.mat, RoutedChunks) else (chain.mat,)
+    bounds = chain.mat.bounds if isinstance(chain.mat, RoutedChunks) else (0, csr.shape[0])
+    heavy = np.zeros(csr.shape[0], dtype=bool)
+    for mat, r0 in zip(mats, bounds):
+        heavy[np.asarray(mat.heavy_rows, dtype=np.int64) + r0] = True
+    on_heavy = np.repeat(heavy, np.diff(csr.indptr))
+    data = np.asarray(csr.data, dtype=np.float64).copy()
+    if mats[0].vals.dtype == torch.bfloat16:
+        light = torch.from_numpy(data[~on_heavy]).to(torch.bfloat16)
+        data[~on_heavy] = light.to(torch.float64).numpy()
+    hv = torch.from_numpy(data[on_heavy].astype(np.float32)).to(torch.bfloat16)
+    data[on_heavy] = hv.to(torch.float64).numpy()
+    return CSRMatrix(shape=csr.shape, indptr=csr.indptr, indices=csr.indices, data=data)
+
+
+def routed_spmv(mat, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x over a prepared RoutedCSR or RoutedChunks (builds its chain;
+    build the chain once with build_chain, or prepare_routed_chain, for
+    repeated products) or over a chain."""
+    if not isinstance(mat, RoutedChain):
+        mat = build_chain(mat)
+    return routed_chain_spmv(mat, x)
+
+
+def prepare_routed_chain(csr, dtype=torch.float32, vals_dtype=None, device="cpu") -> RoutedChain:
+    """prepare_routed_auto, then build_chain: the operands of the routed
+    modes and of AutoSpMV."""
+    return build_chain(
+        prepare_routed_auto(csr, dtype=dtype, vals_dtype=vals_dtype, device=device)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Prepared state from the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _plan_from_jax(plan, device) -> PlannedPermutation:
+    """plan: a dict (or object) of numpy stage arrays r1, w1, w2, w3, r3, wc
+    and the int t."""
+    get = plan.get if isinstance(plan, dict) else lambda k: getattr(plan, k)
+    arrays = {f: None if get(f) is None else _to_tensor(get(f), device)
+              for f in ("r1", "w1", "w2", "w3", "r3", "wc")}
+    return PlannedPermutation(t=int(get("t")), **arrays)
+
+
+def routed_from_jax(
+    vals, pidx, widx, perm_products, lvl_perms, lvl_masks, perm_out, shape, nnz: int,
+    n_windows: int, rows_a: int, runs, lvl_runs, out_t: int, hdense=None, heavy_rows=(),
+    widx_t=(), heavy_lanes=(), hvals=None, device="cpu",
+) -> RoutedCSR:
+    """The port's RoutedCSR from the JAX package's prepared RoutedCSR, given
+    as numpy arrays (bf16 bit for bit) and its static fields; each plan is a
+    dict (or object) of numpy stage arrays and t. Validates the index ranges
+    the kernels read with and the geometry (as build_chain does). A JAX
+    layout with pooled heavy tiles (hvals) raises NotImplementedError."""
+    if hvals is not None:
+        raise NotImplementedError(_POOLED_HEAVY)
+    masks = []
+    for mk in lvl_masks:
+        mk = np.asarray(mk, dtype=np.float32)
+        if not np.isin(mk, (0.0, 1.0)).all():
+            raise ValueError("level masks hold 0 or 1")
+        masks.append(_to_tensor(mk, device))
+    mat = RoutedCSR(
+        vals=_to_tensor(vals, device),
+        pidx=_to_tensor(pidx, device),
+        widx=_to_tensor(np.asarray(widx).astype(np.int32), device),
+        perm_products=_plan_from_jax(perm_products, device),
+        lvl_perms=tuple(_plan_from_jax(p, device) for p in lvl_perms),
+        lvl_masks=tuple(masks),
+        perm_out=_plan_from_jax(perm_out, device),
+        shape=tuple(int(d) for d in shape),
+        nnz=int(nnz),
+        n_windows=int(n_windows),
+        rows_a=int(rows_a),
+        runs=tuple(tuple(int(v) for v in r) for r in runs),
+        lvl_runs=tuple(tuple(tuple(int(v) for v in r) for r in lr) for lr in lvl_runs),
+        out_t=int(out_t),
+        hdense=None if hdense is None else _to_tensor(hdense, device),
+        heavy_rows=tuple(int(r) for r in heavy_rows),
+        widx_t=tuple(int(v) for v in widx_t),
+        heavy_lanes=tuple(int(v) for v in heavy_lanes),
+    )
+    if mat.out_t != mat.perm_out.t:
+        raise ValueError(f"out_t {mat.out_t} != perm_out.t {mat.perm_out.t}")
+    _check_domain(mat)
+    return mat
+
+
+def routed_chunks_from_jax(chunks: Sequence[dict], bounds, shape, nnz: int,
+                           device="cpu") -> RoutedChunks:
+    """The chunked form: one routed_from_jax keyword set per chunk."""
+    out = RoutedChunks(
+        chunks=tuple(routed_from_jax(**c, device=device) for c in chunks),
+        bounds=tuple(int(b) for b in bounds), shape=tuple(int(d) for d in shape), nnz=int(nnz),
+    )
+    build_chain(out)  # checks the chunk bounds against the chunks
+    return out
+
+
+# ---------------------------------------------------------------------------
+# registry hook (imported by ops.registry)
+# ---------------------------------------------------------------------------
+
+
+def _register() -> None:
+    from .registry import KernelSpec, register
+
+    register(
+        KernelSpec(
+            name="PL_CSR_ROUTED",
+            fmt="csr",
+            impl="cuda",
+            prepare=lambda csr, ell, cfg, device: prepare_routed_chain(
+                csr, dtype=cfg.torch_dtype, device=device
+            ),
+            run=routed_chain_spmv,
+            doc="Clos-routed CSR: products gathered per window tile, a planned "
+            "Clos permutation to width-binned reduction slabs, run sums per "
+            "lane, a second permutation into row order; the fully general "
+            "engine for power-law and scattered matrices",
+        )
+    )
+    register(
+        KernelSpec(
+            name="PL_CSR_ROUTED_BF16",
+            fmt="csr",
+            impl="cuda",
+            prepare=lambda csr, ell, cfg, device: prepare_routed_chain(
+                csr, dtype=torch.float32, vals_dtype=torch.bfloat16, device=device
+            ),
+            run=routed_chain_spmv,
+            doc="Clos-routed CSR with bf16 gather-slot values (f32 products, "
+            "routing and sums): halves the gather's value stream",
+        )
+    )
+
+
+_register()

@@ -46,11 +46,11 @@ def test_select_format_agrees(name):
 
 
 def test_select_format_raises_on_power_law():
+    # the routed engine is ported: both packages pick it
     case = ("power_law", dict(m=900, n=900, avg_nnz_per_row=4.0, seed=11))
     tcsr, jcsr = _csrs(case)
     assert jauto.select_format(jcsr) == "routed"
-    with pytest.raises(NotImplementedError, match="routed"):
-        tauto.select_format(tcsr)
+    assert tauto.select_format(tcsr) == "routed"
 
 
 @pytest.mark.parametrize(
@@ -90,17 +90,24 @@ def test_auto_spmv_never_substitutes_an_engine():
     x = np.random.default_rng(7).standard_normal(500)
     o = serial_csr_spmv(csr, x)
     assert np.abs(win(x).double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
-    for fmt in ("routed", "lanes", "ell_t", "binned"):
+    # so is the routed engine
+    routed = tauto.AutoSpMV.from_csr(csr, format="routed", device="cpu")
+    assert routed.format == "routed"
+    assert np.abs(routed(x).double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
+    for fmt in ("lanes", "ell_t", "binned"):
         with pytest.raises(NotImplementedError, match=fmt):
             tauto.AutoSpMV.from_csr(csr, format=fmt, device="cpu")
     with pytest.raises(ValueError, match="unknown format"):
         tauto.AutoSpMV.from_csr(csr, format="csr", device="cpu")
     with pytest.raises(NotImplementedError, match="float64"):
         tauto.AutoSpMV.from_csr(csr, cfg=Config(dtype="float64"), device="cpu")
-    # DIA fill budget exceeded: the JAX package falls back to routed here
+    # DIA fill budget exceeded: the routed engine takes over, as in the JAX
+    # package
     rnd = T.coo_to_csr(tsynth.random_uniform(400, 400, 0.02, seed=3))
-    with pytest.raises(NotImplementedError, match="routed"):
-        tauto.AutoSpMV.from_csr(rnd, format="dia", device="cpu")
+    fell = tauto.AutoSpMV.from_csr(rnd, format="dia", device="cpu")
+    assert fell.format == "routed"
+    o = serial_csr_spmv(rnd, x[:400])
+    assert np.abs(fell(x[:400]).double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tauto.AutoSpMV.from_csr(csr, device="cuda")
@@ -137,12 +144,13 @@ def test_cli_refusals(raefsky_mtx, tmp_path, capsys):
     assert cli.main([raefsky_mtx, "RNDVECT", "CSR_ROWS", "--device", "cpu"]) == 1
     rnd = str(tmp_path / "rnd.mtx")
     write_mtx(rnd, tsynth.power_law(900, 900, 4.0, seed=11))
-    assert cli.main([rnd, "RNDVECT", "AUTO", "--device", "cpu", "--no-dump"]) == 1
-    assert "not ported" in capsys.readouterr().err
+    # a power-law matrix is no refusal any more: AUTO runs the routed engine
+    assert cli.main([rnd, "RNDVECT", "AUTO", "--device", "cpu", "--no-dump", "--check"]) == 0
+    assert "#auto: format=routed -> PL_CSR_ROUTED" in capsys.readouterr().out
     if not torch.cuda.is_available():
         assert cli.main([raefsky_mtx, "RNDVECT", "--no-dump"]) == 1
         assert "no CUDA device" in capsys.readouterr().err
     assert cli.main(["--list-modes"]) == 0
     listed = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
     assert listed == ["DIA_ROWS", "PL_DIA_ROWS", "PL_DIA_BF16", "PL_DIA_RESID", "PL_DIA_RESID_BF16",
-                      "PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16"]
+                      "PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16", "PL_CSR_ROUTED", "PL_CSR_ROUTED_BF16"]

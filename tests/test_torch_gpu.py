@@ -223,3 +223,117 @@ def test_window_launchers_overwrite_y(cuda):
         y = torch.full((3000,), 7.0, device=cuda)
         launch(mat, x, y)
         _within(y, twc.window_spmv_reference(mat, x))
+
+
+#: routed layouts: a t = 1 level, a dense heavy row, a > 64-row heavy block
+#: (matmul), a small domain (t <= 4), and a chunked matrix
+def _routed_heavy_many():
+    rng = np.random.default_rng(51)
+    rows = np.concatenate([np.full(600, r) for r in range(70)] + [rng.integers(70, 200, 1500)])
+    cols = np.concatenate([rng.choice(8000, 600, replace=False) for _ in range(70)]
+                          + [rng.integers(0, 8000, 1500)])
+    rows, cols = np.unique(np.stack([rows, cols]), axis=1)
+    return T.COOMatrix((200, 8000), rows, cols, rng.standard_normal(rows.shape[0])), 512
+
+
+def _routed_spiked():
+    rng = np.random.default_rng(31)
+    rows = np.r_[np.zeros(20000, np.int64), rng.integers(0, 3000, 5000)]
+    cols = np.r_[rng.choice(30000, 20000, replace=False), rng.integers(0, 30000, 5000)]
+    return T.sort_coo(T.COOMatrix((3000, 30000), rows, cols, rng.standard_normal(rows.shape[0]))), None
+
+
+ROUTED_LAYOUTS = {
+    "level": lambda: (synth.power_law(4000, 4000, avg_nnz_per_row=5.0, alpha=1.6, seed=17), None),
+    "spiked": _routed_spiked,
+    "heavy_many": _routed_heavy_many,
+    "small": lambda: (synth.random_uniform(9000, 9000, density=5e-4, seed=7), None),
+}
+
+
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", list(ROUTED_LAYOUTS))
+def test_routed_kernels_match_plain(cuda, layout, vals_dtype):
+    from spmv_openmp_cuda_tpu_torch.formats import routed as trt
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    coo, thr = ROUTED_LAYOUTS[layout]()
+    csr = T.coo_to_csr(coo)
+    mat = trt.prepare_routed(csr, heavy_threshold=thr, vals_dtype=vals_dtype, device=cuda)
+    chain = trc.build_chain(mat)
+    x = _x(csr.shape[1], cuda)
+    seen = set()
+    for stage, yk, yp in trc.compare_stages(chain, x):
+        torch.cuda.synchronize()
+        seen.add(stage.kernel)
+        if stage.kernel in ("gather", "w_stage"):
+            assert torch.equal(yk, yp), stage  # data movement and products
+        else:
+            _within(yk, yp)
+    assert {"gather", "w_stage", "perm_reduce"} <= seen
+    assert ("hdense" in seen) == (layout == "spiked")
+    before = {k: fn.launches for k, fn in trc._COUNTERS.items()}
+    y = trc.routed_chain_spmv(chain, x)
+    torch.cuda.synchronize()
+    # the counters gain what csrc/routed_spmv.cu launched: the plan's stages
+    assert {k: fn.launches - before[k] for k, fn in trc._COUNTERS.items()} == chain.counts
+    assert y.shape == (csr.shape[0],) and y.dtype == torch.float32
+    _within(y, trc.routed_spmv_reference(chain, x))
+
+
+def test_routed_chunked_chain(cuda):
+    from spmv_openmp_cuda_tpu_torch.formats import routed as trt
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    csr = T.coo_to_csr(synth.power_law(6000, 6000, avg_nnz_per_row=6.0, alpha=1.5, seed=9))
+    mat = trt.prepare_routed_chunked(csr, chunk_nnz=3000, fit_domains=False, device=cuda)
+    assert len(mat.chunks) >= 3
+    # a chunk's last W stage writes y from a row bound that is not a
+    # multiple of 4 (an output 4-byte aligned only)
+    assert any(b % 4 for b in mat.bounds)
+    chain = trc.build_chain(mat)
+    x = _x(6000, cuda)
+    for stage, yk, yp in trc.compare_stages(chain, x):
+        torch.cuda.synchronize()
+        if stage.kernel in ("gather", "w_stage"):
+            assert torch.equal(yk, yp), stage
+        else:
+            _within(yk, yp)
+    _within(trc.routed_chain_spmv(chain, x), trc.routed_spmv_reference(chain, x))
+
+
+def test_routed_auto_spmv_on_caida(cuda):
+    from spmv_openmp_cuda_tpu_torch.models.auto import AutoSpMV
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+    from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
+
+    csr = T.coo_to_csr(synth.preset("caida_like"))
+    model = AutoSpMV.from_csr(csr, device="cuda")
+    assert model.format == "routed"
+    x = np.random.default_rng(3).standard_normal(csr.shape[1])
+    y = model(x).double().cpu().numpy()
+    o = serial_csr_spmv(trc.stored_csr(csr, model._operands), x)
+    assert np.abs(y - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
+
+
+def test_routed_wrappers_raise_on_what_they_do_not_take(cuda):
+    from spmv_openmp_cuda_tpu_torch.formats import routed as trt
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    csr = T.coo_to_csr(synth.power_law(4000, 4000, avg_nnz_per_row=5.0, alpha=1.6, seed=17))
+    chain = trc.build_chain(trt.prepare_routed(csr, device=cuda))
+    x = _x(4000, cuda)
+    with pytest.raises(TypeError):
+        trc.routed_chain_spmv(chain, x.double())
+    with pytest.raises(ValueError):
+        trc.routed_chain_spmv(chain, x.cpu())  # operands on the GPU, x on the CPU
+    with pytest.raises(ValueError):
+        trc.routed_chain_spmv(chain, x[:-1])
+    mat = chain.mat
+    out = torch.empty(mat.perm_products.h * LANE, device=cuda)
+    with pytest.raises(ValueError):
+        trc.routed_gather_cuda(mat.vals, mat.pidx, mat.widx, mat.perm_products.w1,
+                               mat.perm_products.t, x, out[:-1])
+    with pytest.raises(ValueError):
+        trc.routed_w_stage_cuda(out.reshape(-1, LANE), 10**6, None, mat.perm_products.w2, None,
+                                mat.perm_products.t, True, mat.perm_products.t, out, out.numel())

@@ -147,7 +147,8 @@ def test_port_never_imports_jax():
         "import spmv_openmp_cuda_tpu_torch, spmv_openmp_cuda_tpu_torch.models.auto, "
         "spmv_openmp_cuda_tpu_torch.cli, spmv_openmp_cuda_tpu_torch.ops.spmv_cuda, "
         "spmv_openmp_cuda_tpu_torch.ops.window_cuda, spmv_openmp_cuda_tpu_torch.ops.route, "
-        "spmv_openmp_cuda_tpu_torch.formats.window\n"
+        "spmv_openmp_cuda_tpu_torch.formats.window, spmv_openmp_cuda_tpu_torch.formats.routed, "
+        "spmv_openmp_cuda_tpu_torch.ops.routed_cuda\n"
         "spmv_openmp_cuda_tpu_torch.AutoSpMV\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'spmv_openmp_cuda_tpu' or m.startswith('spmv_openmp_cuda_tpu.')]\n"

@@ -324,11 +324,7 @@ SELECT_CASES = {
 def test_select_format_agrees_past_dia(name):
     tcsr, jcsr = _csrs(SELECT_CASES[name])
     fmt = jauto.select_format(jcsr)
-    if fmt == "routed":
-        with pytest.raises(NotImplementedError, match="routed"):
-            tauto.select_format(tcsr)
-    else:
-        assert tauto.select_format(tcsr) == fmt
+    assert tauto.select_format(tcsr) == fmt
     if name.startswith("fem") or name == "delaunay":
         assert fmt == "window"
     if name in ("random_scattered", "power_law"):
@@ -354,8 +350,15 @@ def test_auto_spmv_window_refusal_names_routed():
     tcsr, jcsr = _csrs(SCATTERED)
     with pytest.raises(jw.WindowError):
         jw.prepare_window_auto(jcsr)  # the JAX package falls back to routed
-    with pytest.raises(NotImplementedError, match="routed"):
-        tauto.AutoSpMV.from_csr(tcsr, format="window", device="cpu")
+    with pytest.raises(tw.WindowError):
+        tw.prepare_window_auto(tcsr)
+    # and so does the port, with the routed engine
+    tm = tauto.AutoSpMV.from_csr(tcsr, format="window", device="cpu")
+    jm = jauto.AutoSpMV.from_csr(jcsr, format="window")
+    assert tm.format == jm.format == "routed"
+    x = _x(tcsr.shape[1], seed=3)
+    _close(tm(x), jm(x))
+    _oracle_close(tm(x), tcsr, x)
 
 
 @pytest.fixture
