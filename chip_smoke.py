@@ -7,14 +7,23 @@ It builds the CUDA kernels from spmv_openmp_cuda_tpu_torch/csrc/ (one nvcc
 per source, all at once), holds each kernel against its plain PyTorch
 version at the main path's shapes, drives the main path (AutoSpMV.from_csr
 -> model(x)) on three DIA-class, three window-class and two routed proxies
-at their published size with the launch counters reset just before, checks
-the results against the f64 oracle (for the routed engine, the oracle of the
-matrix as its layout stores it: heavy rows in bf16), runs the CLI, and times
-kernel, plain version and one PyTorch library call (cuSPARSE through
-torch.sparse, a yardstick the port never calls) with CUDA events; the routed
-kernels alone are timed inside CUDA graphs, so that the host's launch cost
-does not hide their device time. Any failure raises and exits non-zero;
-without a CUDA device it exits 1 before printing any result.
+at their published size, first in float32 and then in float64 (the
+double-float kernels of csrc/df_spmv.cu), each pass with the launch counters
+reset just before and read just after, checks the results against the f64
+oracle (for the f32 routed engine, the oracle of the matrix as its layout
+stores it: heavy rows in bf16; the df layouts keep every value as an (hi,
+lo) pair, so float64 is held to the exact matrix), runs the CLI in both
+dtypes, and times kernel, plain version and one PyTorch library call
+(cuSPARSE through torch.sparse, f32 or f64, a yardstick the port never
+calls) with CUDA events; the routed kernels alone are timed inside CUDA
+graphs, so that the host's launch cost does not hide their device time.
+Any failure raises and exits non-zero; without a CUDA device it exits 1
+before printing any result.
+
+Tolerances: f32 kernels against their plain versions 1e-5 * max|y| + 1e-6
+(f32 sums in another order); df kernels 1e-12 * max|y| (both (hi, lo) f32
+pairs); f64 results against the exact oracle 1e-11 * max|y| (1e-10 for the
+chunked routed path), which a contracted TwoProduct or TwoSum (~1e-7) fails.
 The last line is one JSON object {"ok": true, "device": {...}}, the line
 before it a JSON object with one entry per kernel.
 """
@@ -61,6 +70,13 @@ ROUTED_MODES = ("PL_CSR_ROUTED", "PL_CSR_ROUTED_BF16")
 DIA_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/dia_spmv.cu"
 WINDOW_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/window_spmv.cu"
 ROUTED_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/routed_spmv.cu"
+DF_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/df_spmv.cu"
+#: float64 mode of each format (AutoSpMV and CLI AUTO at --dtype float64)
+F64_MODES = {"dia": "PL_DIA_F64", "dia_resid": "PL_DIA_RESID_F64",
+             "window": "PL_CSR_WINDOW_F64", "routed": "PL_CSR_ROUTED_F64"}
+#: f32 operations per stored slot of a df kernel: TwoProduct with an FMA
+#: error (3), the cross terms (4), a TwoSum (6) and the low words (2)
+DF_FLOPS_PER_SLOT = 15
 #: routed kernel -> (name in csrc/routed_spmv.cu, the TPU kernel it replaces)
 ROUTED_KERNELS = {
     "gather": ("routed_gather_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:959"),
@@ -83,9 +99,32 @@ def bound(y_ref: torch.Tensor) -> float:
     return 1e-5 * y_ref.abs().max().item() + 1e-6
 
 
+def df_bound(y_ref: torch.Tensor) -> float:
+    """Two double-float results of the same pairs, summed in another order:
+    1e-12 * max|y_ref|."""
+    return 1e-12 * y_ref.abs().max().item()
+
+
+def check_df(label: str, yk: torch.Tensor, yp: torch.Tensor, errs: dict, key: str) -> None:
+    """A df kernel's f64 output against its plain version's."""
+    torch.cuda.synchronize()
+    err = (yk - yp).abs().max().item()
+    ok = yk.dtype == torch.float64 and err <= df_bound(yp) and yk.abs().max().item() > 0
+    errs[key] = max(errs.get(key, 0.0), err)
+    log(f"phase 2: {label}: max|y_k - y_p| = {err:.3e} <= {df_bound(yp):.3e}, "
+        f"max|y_k| = {yk.abs().max().item():.3e}: {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel disagrees with its plain version")
+
+
 def normal_x(n: int, device, seed: int) -> torch.Tensor:
     x = np.random.default_rng(seed).standard_normal(n)
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def normal_x64(n: int, device, seed: int) -> torch.Tensor:
+    x = np.random.default_rng(seed).standard_normal(n)
+    return torch.as_tensor(x, dtype=torch.float64, device=device)
 
 
 def nbytes(*ts) -> int:
@@ -162,12 +201,12 @@ def least_ms(moved_bytes: int, flops: int):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def library_spmv(csr, device):
+def library_spmv(csr, device, dtype=torch.float32):
     """cuSPARSE y = A @ x through torch.sparse on the same matrix (int32
-    indices), the yardstick; the port never calls it."""
+    indices, f32 or f64 values), the yardstick; the port never calls it."""
     crow = torch.as_tensor(csr.indptr.astype(np.int32), device=device)
     col = torch.as_tensor(csr.indices.astype(np.int32), device=device)
-    val = torch.as_tensor(csr.data, dtype=torch.float32, device=device)
+    val = torch.as_tensor(csr.data, dtype=dtype, device=device)
     a = torch.sparse_csr_tensor(crow, col, val, size=csr.shape)
     return lambda v: a @ v
 
@@ -185,6 +224,7 @@ def main() -> int:
     from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector
     from spmv_openmp_cuda_tpu_torch.models.auto import AutoSpMV
     from spmv_openmp_cuda_tpu_torch.ops import cuda_lib, registry
+    from spmv_openmp_cuda_tpu_torch.ops import dfloat as DF
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
     from spmv_openmp_cuda_tpu_torch.ops import spmv_cuda as SC
     from spmv_openmp_cuda_tpu_torch.ops import window_cuda as WC
@@ -204,7 +244,7 @@ def main() -> int:
     # -- phase 1: build, one nvcc per source, all at once ------------------
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        built = list(pool.map(cuda_lib.build, ("dia_spmv", "window_spmv", "routed_spmv")))
+        built = list(pool.map(cuda_lib.build, ("dia_spmv", "window_spmv", "routed_spmv", "df_spmv")))
     log(f"phase 1: built {', '.join(os.path.relpath(p) for p, _ in built)} "
         f"in {time.perf_counter() - t:.1f}s")
     for _path, nvcc_log in built:
@@ -271,29 +311,6 @@ def main() -> int:
             f"max|y_k| = {yk.abs().max().item():.3e}: {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label}: {kernel}_kernel disagrees with its plain version")
-
-    for name, modes in WINDOW_CHECKS.items():
-        csr = csrs[name]
-        x = normal_x(csr.shape[1], dev, seed=1)
-        t = time.perf_counter()
-        mat = registry.get("PL_CSR_WINDOW").prepare(csr, None, P.Config(), dev)
-        prep_s = time.perf_counter() - t
-        log(f"phase 2: {name} window layout g={mat.g} k_pad={mat.k_pad} k_c={mat.k_c} "
-            f"wr={mat.wr} bps={mat.bps} nblocks={mat.nblocks} xdirect={mat.xdirect} "
-            f"shared_w={mat.shared_w}, {mat.nblocks * mat.k_pad * LANE} slots, prepare {prep_s:.1f}s")
-        for mode in modes:
-            # prepare_window_auto uses vals_dtype only in its final cast, so
-            # the bf16 operands are the f32 layout with vals cast
-            ops = mat if mode == "PL_CSR_WINDOW" else dataclasses.replace(
-                mat, vals=mat.vals.to(torch.bfloat16))
-            prepared[(name, mode)] = ops
-            check_window(f"{name} {mode}", ops, x)
-    # the third x form: a small layout forced to shared_w
-    small = P.coo_to_csr(synth.fem_like(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7))
-    for vals_dtype in (torch.float32, torch.bfloat16):
-        mat = W.prepare_window(small, g=8, bps=4, shared_w=True, vals_dtype=vals_dtype, device=dev)
-        assert mat.shared_w
-        check_window(f"fem_like 6000 shared_w {vals_dtype}", mat, normal_x(6000, dev, seed=1))
 
     # routed: each stage's kernel against its plain version, caida_like in
     # both modes (the bf16 operands are the f32 layout with vals cast, as
@@ -397,24 +414,171 @@ def main() -> int:
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
+    # -- phase 3, float64: the main path on the df kernels, counters from zero
+    cfg64 = P.Config(dtype="float64")
+    df_counters = {
+        "dia_df": SC.dia_spmv_df_cuda, "dia_resid_df": SC.dia_resid_df_cuda,
+        "window_df": WC.window_df_cuda, "routed_df_gather": RC.routed_df_gather_cuda,
+    }
+    f32_counters = {
+        "dia_spmv": SC.dia_spmv_cuda, "dia_resid": SC.dia_resid_cuda,
+        "window_blocks": WC.window_blocks_cuda, "window_single": WC.window_single_cuda,
+        **RC._COUNTERS,
+    }
+    for fn in (*df_counters.values(), *f32_counters.values()):
+        fn.launches = 0
+    outputs64 = {}
+    models64 = {}
+    for name, csr in csrs.items():
+        t = time.perf_counter()
+        model = models64[name] = AutoSpMV.from_csr(csr, cfg=cfg64, device="cuda")
+        prep_s = time.perf_counter() - t
+        x_ref = fill_rnd_vector(csr.shape[1], seed=2)
+        x_n = np.random.default_rng(3).standard_normal(csr.shape[1])
+        outputs64[name] = (model.format, model(x_ref), model(x_n), x_ref, x_n, prep_s)
+    torch.cuda.synchronize()
+    launches64 = {k: fn.launches for k, fn in df_counters.items()}
+    also = {k: fn.launches for k, fn in f32_counters.items() if fn.launches}
+    log(f"phase 3 (float64): main path launches {launches64}; f32 kernels in it {also} "
+        "(the W stages move each plane of the df routed products)")
+    for name, (fmt, y_ref, y_n, x_ref, x_n, prep_s) in outputs64.items():
+        csr = csrs[name]
+        if fmt != EXPECTED_FORMAT[name]:
+            raise AssertionError(f"{name}: AutoSpMV (float64) picked {fmt}, expected {EXPECTED_FORMAT[name]}")
+        for y in (y_ref, y_n):
+            if y.shape != (csr.shape[0],) or y.dtype != torch.float64 or y.device.type != "cuda":
+                raise AssertionError(f"{name}: float64 output {y.shape} {y.dtype} {y.device}")
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"{name}: non-finite float64 output")
+        ops = models64[name]._operands
+        chunked = isinstance(ops, RC.RoutedDFChain) and len(ops.domains) > 1
+        rep = vectors_diff(y_ref.cpu().numpy(), serial_csr_spmv(csr, x_ref))
+        o = serial_csr_spmv(csr, x_n)
+        rel = np.abs(y_n.cpu().numpy() - o).max() / np.abs(o).max()
+        lim = 1e-10 if chunked else 1e-11
+        log(f"phase 3 (float64): {name} -> {fmt} ({F64_MODES[fmt]}{', chunked' if chunked else ''}), "
+            f"prepare+upload {prep_s:.1f}s; reference protocol: {'OK' if rep.ok else 'FAIL'} "
+            f"maxAbsDiff={rep.max_abs_diff:.3e}; x~N(0,1) vs the exact f64 oracle: "
+            f"{rel:.3e} * max|y| <= {lim:.0e}")
+        if not rep.ok or not rel <= lim:
+            raise AssertionError(f"{name}: wrong float64 output")
+    if not all(launches64.values()):
+        raise AssertionError(f"a df kernel of the main path never launched: {launches64}")
+
+    # -- phase 2, continued: the window and df kernels against their plain
+    # versions on the main paths' own operands (no second prepare)
+    # K1: the double-float DIA kernels on the f64 main path's operands
+    # (cavity10 and cube_coup run PL_DIA_F64, raefsky1 PL_DIA_RESID_F64)
+    prepared_df = {}
+    for name in ("cavity10_like", "raefsky1_like", "cube_coup_like"):
+        csr = csrs[name]
+        mode = F64_MODES[EXPECTED_FORMAT[name]]
+        x64 = normal_x64(csr.shape[1], dev, seed=1)
+        ops = prepared_df[name] = models64[name]._operands
+        if mode == "PL_DIA_RESID_F64":
+            dr, plan = ops
+            mat, yp = dr.mat, SC.dia_spmv_df_reference(dr.mat, x64, plan, dr)
+        else:
+            (mat, plan), dr = ops, None
+            yp = SC.dia_spmv_df_reference(mat, x64, plan)
+        check_df(f"{name} {mode} dia_df_kernel (bs={plan.bs}, nblocks={plan.nblocks}, "
+                 f"{len(mat.offsets)} diagonals)",
+                 registry.get(mode).jitted(ops)(x64), yp, errs, "dia_df")
+        if dr is not None:
+            xh, xl = DF.split_f64_t(x64)
+            yh = torch.zeros(plan.s_pad * LANE, device=dev)
+            yl = torch.zeros_like(yh)
+            SC.dia_resid_df_cuda(dr, xh, xl, yh, yl, plan)
+            check_df(f"{name} dia_resid_df_kernel alone ({dr.nnz_resid} fringe nnz)",
+                     DF.df_combine64(yh, yl),
+                     DF.df_combine64(*SC.dia_resid_df_reference(dr, xh, xl, plan)), errs, "dia_resid_df")
+
+    for name, modes in WINDOW_CHECKS.items():
+        csr = csrs[name]
+        x = normal_x(csr.shape[1], dev, seed=1)
+        # the f32 and f64 main paths' layouts (the same one: the layout does
+        # not depend on the values, and the f32 values are the df hi plane)
+        mat = models[name]._operands
+        mat_df = prepared_df[name] = models64[name]._operands
+        if not torch.equal(mat.vals, mat_df.vals) or not torch.equal(mat.rsrc, mat_df.rsrc):
+            raise AssertionError(f"{name}: the f32 window layout is not the df layout's hi plane")
+        log(f"phase 2: {name} window layout g={mat.g} k_pad={mat.k_pad} k_c={mat.k_c} "
+            f"wr={mat.wr} bps={mat.bps} nblocks={mat.nblocks} xdirect={mat.xdirect} "
+            f"shared_w={mat.shared_w}, {mat.nblocks * mat.k_pad * LANE} slots")
+        for mode in modes:
+            # prepare_window_auto uses vals_dtype only in its final cast, so
+            # the bf16 operands are the f32 layout with vals cast
+            ops = mat if mode == "PL_CSR_WINDOW" else dataclasses.replace(
+                mat, vals=mat.vals.to(torch.bfloat16))
+            prepared[(name, mode)] = ops
+            check_window(f"{name} {mode}", ops, x)
+        x64 = normal_x64(csr.shape[1], dev, seed=1)
+        check_df(f"{name} PL_CSR_WINDOW_F64 window_df_kernel", WC.window_spmv(mat_df, x64),
+                 WC.window_spmv_df_reference(mat_df, x64), errs, "window_df")
+    # the third x form: a small layout forced to shared_w
+    small = P.coo_to_csr(synth.fem_like(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7))
+    for vals_dtype in (torch.float32, torch.bfloat16):
+        mat = W.prepare_window(small, g=8, bps=4, shared_w=True, vals_dtype=vals_dtype, device=dev)
+        assert mat.shared_w
+        check_window(f"fem_like 6000 shared_w {vals_dtype}", mat, normal_x(6000, dev, seed=1))
+    mat = W.prepare_window(small, g=8, bps=4, shared_w=True, df=True, device=dev)
+    x64 = normal_x64(6000, dev, seed=1)
+    check_df("fem_like 6000 shared_w window_df_kernel", WC.window_spmv(mat, x64),
+             WC.window_spmv_df_reference(mat, x64), errs, "window_df")
+
+    # K3 on caida_like: the df gather alone (products are exact in both:
+    # the kernel's FMA error is the plain Veltkamp error), then the whole df
+    # product against its plain chain
+    csr = csrs[ROUTED_CHECK]
+    dchain = prepared_df[ROUTED_CHECK] = models64[ROUTED_CHECK]._operands
+    mdf = dchain.domains[0].mdf
+    log(f"phase 2: {ROUTED_CHECK} df routed layout rows_a={mdf.mat.rows_a} "
+        f"t1={mdf.mat.perm_products.t} levels={[p.t for p in mdf.mat.lvl_perms]} "
+        f"heavy rows {len(mdf.heavy_rows_df)} in a (hi, lo) block")
+    x64 = normal_x64(csr.shape[1], dev, seed=1)
+    xh, xl = DF.split_f64_t(x64)
+    gk, gp = RC.routed_df_gather(mdf, xh, xl), RC.routed_df_gather(mdf, xh, xl, plain=True)
+    torch.cuda.synchronize()
+    err = max((gk[0] - gp[0]).abs().max().item(), (gk[1] - gp[1]).abs().max().item())
+    errs["routed_df_gather"] = err
+    exact = torch.equal(gk[0], gp[0]) and torch.equal(gk[1], gp[1])
+    log(f"phase 2: {ROUTED_CHECK}: routed_df_gather_kernel {gk[0].numel()} pairs: max|k - p| = "
+        f"{err:.3e} (bit for bit): {'OK' if exact else 'FAIL'}")
+    if not exact:
+        raise AssertionError("routed_df_gather_kernel disagrees with its plain version")
+    check_df(f"{ROUTED_CHECK} PL_CSR_ROUTED_F64 whole df product vs its plain chain",
+             RC.routed_df_spmv(dchain, x64), RC.routed_df_spmv(dchain, x64, plain=True), errs,
+             "routed_df")
+
     # -- phase 4: the CLI -------------------------------------------------
-    for name, mode in (("raefsky1_like", "PL_DIA_RESID"), ("delaunay_n12_like", "PL_CSR_WINDOW"),
-                       (ROUTED_CHECK, "PL_CSR_ROUTED")):
-        with tempfile.TemporaryDirectory() as tmp:
-            mtx = os.path.join(tmp, f"{name}.mtx")
+    cli_runs = (
+        ("raefsky1_like", "AUTO", [], "PL_DIA_RESID", None),
+        ("delaunay_n12_like", "AUTO", [], "PL_CSR_WINDOW", None),
+        (ROUTED_CHECK, "AUTO", [], "PL_CSR_ROUTED", "#auto: format=routed -> PL_CSR_ROUTED"),
+        ("raefsky1_like", "AUTO", ["--dtype", "float64"], "PL_DIA_RESID_F64",
+         "#auto: format=dia_resid -> PL_DIA_RESID_F64"),
+        (ROUTED_CHECK, "AUTO", ["--dtype", "float64"], "PL_CSR_ROUTED_F64",
+         "#auto: format=routed -> PL_CSR_ROUTED_F64"),
+        ("raefsky1_like", "PL_DIA_ROWS", ["--dtype", "float64"], "PL_DIA_F64",
+         "#dtype: float64 unsupported by CUDA mode PL_DIA_ROWS; remapping to PL_DIA_F64"),
+    )
+    mtx_dir = tempfile.TemporaryDirectory()
+    for name, arg, extra, mode, line in cli_runs:
+        mtx = os.path.join(mtx_dir.name, f"{name}.mtx")
+        if not os.path.exists(mtx):
             write_mtx(mtx, synth.preset(name))
-            proc = subprocess.run(
-                [sys.executable, "-m", "spmv_openmp_cuda_tpu_torch", mtx, "RNDVECT", "AUTO",
-                 "--check", "--no-dump"],
-                capture_output=True, text=True, timeout=600,
-                cwd=os.path.dirname(os.path.abspath(__file__)),
-            )
+        proc = subprocess.run(
+            [sys.executable, "-m", "spmv_openmp_cuda_tpu_torch", mtx, "RNDVECT", arg,
+             "--check", "--no-dump", *extra],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
         print(proc.stdout.rstrip())
         if proc.returncode != 0 or "#check: OK" not in proc.stdout or \
-                f"computeMode:{mode} " not in proc.stdout or \
-                (mode == "PL_CSR_ROUTED" and "#auto: format=routed -> PL_CSR_ROUTED" not in proc.stdout):
+                f"computeMode:{mode} " not in proc.stdout or (line and line not in proc.stdout):
             raise AssertionError(f"CLI run on {name} failed (exit {proc.returncode}): {proc.stderr}")
-        log(f"phase 4: CLI AUTO --check OK on {name} ({mode})")
+        log(f"phase 4: CLI {arg} {' '.join(extra)} --check OK on {name} ({mode})")
+    mtx_dir.cleanup()
 
     # -- phase 5: times ----------------------------------------------------
     print(f"times on {smi} (CUDA events, x on the device, after warm-up; "
@@ -508,6 +672,107 @@ def main() -> int:
     chain_bytes = sum(stage_cost(s, csr.shape[1])[0] for s in chain32.stages)
     print(f"  {ROUTED_CHECK} chain of stages moves {chain_bytes / 1e6:.3f} MB per product: bound "
           f"{least_ms(chain_bytes, 0)[0]:.4f} ms")
+    # the two TPU kernels the chain does not take (W1 off, W3 off), timed on
+    # caida_like's operands, and the heavy rows' library yardstick
+    mat = chain32.mat
+    n_real = mat.vals.shape[0] // 128
+    out = torch.empty(n_real * 128 * 128, device=dev)
+    t8 = graph_ms(lambda: RC.routed_gather_cuda(mat.vals, mat.pidx, mat.widx, None, n_real, x, out))
+    t8p = time_per_call(lambda v: RC.gather_reference(mat.vals, mat.pidx, mat.widx, None, n_real, v), x)
+    b8 = least_ms(nbytes(mat.vals, mat.pidx, mat.widx) + 4 * csr.shape[1] + 4 * out.numel(),
+                  mat.vals.numel())
+    st = next(s for s in chain32.stages if isinstance(s, RC.ReduceStage) and s.mode == RC.MODE_W3)
+    src = bufs[st.src.kind][st.src.off:].reshape(-1, 128)
+    out14 = torch.empty(st.groups.shape[0] * 128, device=dev)
+    t14 = graph_ms(lambda: RC.routed_perm_reduce_cuda(src, st.src_rows, RC.MODE_DIRECT, None, None,
+                                                      st.r3, st.mask, st.groups, out14))
+    t14p = time_per_call(lambda v: RC.perm_reduce_reference(src, st.src_rows, RC.MODE_DIRECT, None,
+                                                             None, st.r3, st.mask, st.runs), x)
+    h14 = st.r3.shape[0]
+    b14 = least_ms(4 * 128 * min(st.src_rows, h14) + nbytes(st.r3, st.groups) + 4 * out14.numel(),
+                   sum(ng * w for _r0, ng, w, _g0 in st.runs) * 128)
+    hd32 = mat.hdense.float()
+    xpad = torch.nn.functional.pad(x, (0, hd32.shape[1] - x.shape[0]))
+    t10l = graph_ms(lambda: torch.mv(hd32, xpad))
+    print(f"  {ROUTED_CHECK} routed_gather_kernel, W1 off ({n_real} tiles, _gather_products): "
+          f"{t8 * 1e3:.2f} us in a graph | plain {t8p * 1e3:.4f} ms | bound {b8[0] * 1e3:.2f} us")
+    print(f"  {ROUTED_CHECK} routed_perm_reduce_kernel, W3 off ({st.groups.shape[0]} groups, "
+          f"_reduce_runs_fused): {t14 * 1e3:.2f} us in a graph | plain {t14p * 1e3:.4f} ms | "
+          f"bound {b14[0] * 1e3:.2f} us")
+    print(f"  {ROUTED_CHECK} heavy rows, library: torch.mv on the {tuple(hd32.shape)} block in f32 "
+          f"{t10l * 1e3:.2f} us in a graph")
+
+    # -- float64: the df kernels at the main path's shapes ------------------
+    print(f"float64 (double-float) times on {smi} (f64 x in, f64 y out, through the "
+          "wrapper; cuSPARSE CSR in float64 as the library):")
+    df_times = {}
+
+    def df_time(key, label, fn, plain, x64, lib, moved, slots):
+        """Per call through the wrapper (as the f32 rows), and the same call
+        in a CUDA graph (device time: the wrapper's split and combine
+        kernels included, its host cost not)."""
+        tk = time_per_call(fn, x64)
+        tg = graph_ms(lambda: fn(x64))
+        tp = time_per_call(plain, x64)
+        tl = time_per_call(lib, x64) if lib is not None else None
+        b_ms, by = least_ms(moved, DF_FLOPS_PER_SLOT * slots)
+        df_times[key] = (tk * 1e3, tp * 1e3, b_ms, by, None if tl is None else tl * 1e3)
+        print(f"  {label}: kernel {tk * 1e3:9.4f} ms per call ({tg:.4f} ms in a CUDA graph) | plain "
+              f"{tp * 1e3:9.4f} ms | library {'-' if tl is None else f'{tl * 1e3:9.4f} ms'} | bound "
+              f"{b_ms:.4f} ms ({by}, {moved / 1e6:.1f} MB); graphed kernel at "
+              f"{100 * b_ms / tg:.1f} % of it")
+
+    cm, cn = csrs["cube_coup_like"].shape
+    cube_df, cube_plan = prepared_df["cube_coup_like"]
+    x64 = normal_x64(cn, dev, seed=4)
+    df_time("dia_df", "cube_coup_like PL_DIA_F64 dia_df_kernel",
+            lambda v: SC.dia_spmv_df_cuda(cube_df, v, cube_plan),
+            lambda v: SC.dia_spmv_df_reference(cube_df, v, cube_plan), x64,
+            library_spmv(csrs["cube_coup_like"], dev, torch.float64),
+            nbytes(cube_df.data, cube_df.data_lo, cube_df.offsets_dev) + 8 * (cn + cm),
+            cube_df.data.numel())
+    rdr, rplan = prepared_df["raefsky1_like"]
+    x64 = normal_x64(rcsr.shape[1], dev, seed=5)
+    rxh, rxl = DF.split_f64_t(x64)
+    yh0 = torch.zeros(rplan.s_pad * LANE, device=dev)
+    yl0 = torch.zeros_like(yh0)
+    df_time("dia_resid_df", "raefsky1_like fringe alone dia_resid_df_kernel",
+            lambda v: SC.dia_resid_df_cuda(rdr, rxh, rxl, yh0, yl0, rplan),
+            lambda v: SC.dia_resid_df_reference(rdr, rxh, rxl, rplan), x64,
+            library_spmv(fcsr, dev, torch.float64),
+            nbytes(rdr.rvals, rdr.rvals_lo, rdr.rsidx, rdr.rgid, rdr.rsrc) + 8 * rcsr.shape[1]
+            + 2 * 8 * yh0.numel(), rdr.rvals.numel())
+    for name in ("thermal2_like", "delaunay_n12_like", "fem_3d_thermal2_like"):
+        wm = prepared_df[name]
+        wmm, wn = wm.shape
+        x64 = normal_x64(wn, dev, seed=4)
+        df_time(f"window_df {name}", f"{name} PL_CSR_WINDOW_F64 window_df_kernel"
+                f"{' (xdirect)' if wm.xdirect else ''}",
+                lambda v, o=wm: WC.window_spmv(o, v), lambda v, o=wm: WC.window_spmv_df_reference(o, v),
+                x64, library_spmv(csrs[name], dev, torch.float64),
+                slab_bytes(wm) + nbytes(wm.vals_lo) + 8 * (wn + wmm), wm.vals.numel())
+    # K3 alone in a CUDA graph, then the whole df product, on caida_like
+    x64 = normal_x64(csr.shape[1], dev, seed=4)
+    xh, xl = DF.split_f64_t(x64)
+    dm = mdf.mat
+    t_k3 = dm.perm_products.t
+    oh = torch.empty(t_k3 * 128 * 128, device=dev)
+    ol = torch.empty_like(oh)
+    k3_ms = graph_ms(lambda: RC.routed_df_gather_cuda(dm.vals, mdf.vals_lo, dm.pidx, dm.widx, t_k3,
+                                                      xh, xl, oh, ol))
+    k3_plain = time_per_call(lambda v: RC.routed_df_gather(mdf, xh, xl, plain=True), x64) * 1e3
+    k3_bound = least_ms(nbytes(dm.vals, mdf.vals_lo, dm.pidx, dm.widx, oh, ol) + 8 * csr.shape[1],
+                        DF_FLOPS_PER_SLOT * dm.vals.numel())
+    df_times["routed_df_gather"] = (k3_ms, k3_plain, *k3_bound, None)
+    print(f"  {ROUTED_CHECK} routed_df_gather_kernel alone: {k3_ms * 1e3:.2f} us in a graph | plain "
+          f"{k3_plain:.4f} ms | bound {k3_bound[0] * 1e3:.2f} us ({k3_bound[1]})")
+    t_dp = time_per_call(lambda v: RC.routed_df_spmv(dchain, v), x64)
+    t_dg = graph_ms(lambda: RC.routed_df_spmv(dchain, x64), reps=5, replays=5) / 1e3
+    t_dpp = time_per_call(lambda v: RC.routed_df_spmv(dchain, v, plain=True), x64)
+    t_dl = time_per_call(library_spmv(csr, dev, torch.float64), x64)
+    print(f"  {ROUTED_CHECK} PL_CSR_ROUTED_F64 whole df product: {t_dp * 1e3:.4f} ms per call "
+          f"({t_dg * 1e3:.4f} ms in a CUDA graph) {2 * csr.nnz / t_dp / 1e9:.2f} GFLOP/s | plain "
+          f"{t_dpp * 1e3:.4f} ms | library (cuSPARSE CSR f64) {t_dl * 1e3:.4f} ms")
     print(f"torch.cuda.max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log("phase 5: done")
 
@@ -564,6 +829,18 @@ def main() -> int:
             {"name": kname, "route": "cuda", "source": ROUTED_SOURCE, "replaces": replaces,
              "launches": launches[kernel], "max_abs_err": errs[kernel], "ms": ms, "plain_ms": pms,
              "bound_ms": b_ms, "bound_by": by, "library_ms": lib if kernel == "w_stage" else None})
+    for key, kname, replaces in (
+        ("dia_df", "dia_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:628"),
+        ("dia_resid_df", "dia_resid_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:546"),
+        ("window_df thermal2_like", "window_df_kernel", "spmv_openmp_cuda_tpu/formats/window.py:1062"),
+        ("routed_df_gather", "routed_df_gather_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1882"),
+    ):
+        ms, pms, b_ms, by, lib = df_times[key]
+        counter = key.split()[0]
+        kernels.append(
+            {"name": kname, "route": "cuda", "source": DF_SOURCE, "replaces": replaces,
+             "launches": launches64[counter], "max_abs_err": errs[counter], "ms": ms,
+             "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": lib})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

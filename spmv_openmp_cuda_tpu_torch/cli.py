@@ -3,7 +3,7 @@
 Counterpart of spmv_openmp_cuda_tpu/cli.py (reference: src/main.cu:66-283):
   usage: python -m spmv_openmp_cuda_tpu_torch <matrix.mtx[.gz|.xz|.bz2|.zip]>
          <vectorFile | RNDVECT> [AUTO|COMPUTE_MODE] [--check] [--no-dump]
-         [--list-modes] [--device cuda|cpu]
+         [--list-modes] [--device cuda|cpu] [--dtype float32|float64]
 parses the matrix, loads or generates the dense vector, runs the selected
 mode, dumps the output vector (raw + text) under TMPDIR, and prints the same
 `#auto:`, `#matrix:`, `#check:` and `computeMode:... elapsed:...
@@ -12,7 +12,11 @@ reads both.
 
 The device defaults to cuda; without a CUDA device that default is an error,
 never a silent run on the CPU (`--device cpu` runs the kernels' plain
-PyTorch versions).
+PyTorch versions). `--dtype float64` (or SPMV_DTYPE=float64) runs the
+double-float modes (`*_F64`): AUTO maps every engine to its df mode, and an
+explicit f32 CUDA mode is remapped as in the JAX package (PL_DIA_ROWS and
+PL_DIA_BF16 to PL_DIA_F64) or refused where the JAX package's substitute is
+not ported.
 """
 from __future__ import annotations
 
@@ -38,13 +42,19 @@ from .io.vectors import (
 )
 from .ops import registry
 
-#: AUTO's engine -> compute mode (float32), as in the JAX package's CLI.
+#: AUTO's engine -> compute mode (float32, float64), as in the JAX
+#: package's CLI.
 _AUTO_MODES = {
-    "dia": "PL_DIA_ROWS",
-    "dia_resid": "PL_DIA_RESID",
-    "window": "PL_CSR_WINDOW",
-    "routed": "PL_CSR_ROUTED",
+    "dia": ("PL_DIA_ROWS", "PL_DIA_F64"),
+    "dia_resid": ("PL_DIA_RESID", "PL_DIA_RESID_F64"),
+    "window": ("PL_CSR_WINDOW", "PL_CSR_WINDOW_F64"),
+    "routed": ("PL_CSR_ROUTED", "PL_CSR_ROUTED_F64"),
 }
+
+#: float64 under an explicit f32 CUDA mode: the JAX package's CLI remaps
+#: these to PL_DIA_F64 and every other one of the port's f32 CUDA modes to
+#: CSR_ROWS_BINNED, which the port lacks
+_F64_REMAP = {"PL_DIA_ROWS": "PL_DIA_F64", "PL_DIA_BF16": "PL_DIA_F64"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -75,10 +85,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--list-modes", action="store_true", help="list kernels and exit")
     p.add_argument("--no-dump", action="store_true", help="skip output vector dumps")
     p.add_argument("--check", action="store_true", help="verify against serial oracle")
+    p.add_argument("--dtype", choices=["float32", "float64"], default=None,
+                   help="compute dtype (default: SPMV_DTYPE, else float32); "
+                   "float64 runs the double-float modes")
     # flags of the JAX package's CLI that are not ported yet: accepted so
     # that they fail with a clear message instead of a usage error
-    p.add_argument("--dtype", choices=["float32", "float64"], default=None,
-                   help="compute dtype (float64: not ported yet)")
     p.add_argument("--env", action="store_true", help="not ported yet")
     p.add_argument("--profile", metavar="DIR", default=None, help="not ported yet")
     p.add_argument("--testtests", action="store_true", help="not ported yet")
@@ -122,7 +133,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     unported = [
         flag
         for flag, used in (
-            ("--dtype float64", args.dtype == "float64"),
             ("--env", args.env),
             ("--profile", args.profile),
             ("--testtests", args.testtests),
@@ -144,9 +154,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = Config.from_env()
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
-    if cfg.dtype != "float32":
-        print(f"ERROR: dtype {cfg.dtype}: not ported yet (float32 only)", file=sys.stderr)
+    if cfg.dtype not in ("float32", "float64"):
+        print(f"ERROR: dtype {cfg.dtype}: the port runs float32 and float64", file=sys.stderr)
         return 1
+    f64 = cfg.dtype == "float64"
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print(
@@ -173,9 +184,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .models.auto import select_format
 
         fmt = select_format(csr)
-        mode = _AUTO_MODES[fmt]
+        mode = _AUTO_MODES[fmt][f64]
         print(f"#auto: format={fmt} -> {mode}")
     spec = registry.get(mode)  # every ported mode takes CSR (no ELL yet)
+    if f64 and spec.impl == "cuda" and not spec.f64:
+        if mode not in _F64_REMAP:
+            print(
+                f"ERROR: float64 under {mode}: the JAX package runs CSR_ROWS_BINNED there, "
+                "which is not ported to PyTorch/CUDA yet (ROADMAP.md queue 1 item 8)",
+                file=sys.stderr,
+            )
+            return 1
+        print(f"#dtype: float64 unsupported by CUDA mode {mode}; remapping to {_F64_REMAP[mode]}")
+        mode = _F64_REMAP[mode]
+        spec = registry.get(mode)
     parse_time = time.perf_counter() - t0
     m, n = csr.shape
     print(f"#matrix: {os.path.basename(args.matrix)} {m} {n} {csr.nnz} {csr.max_row_nz} (parse {parse_time:.3f}s)")
@@ -202,12 +224,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 1
         # the structural guess tripped the exact prepare-time cap: fall
         # through to the general engine, as the JAX package's AUTO does
-        mode = _AUTO_MODES["routed"]
+        mode = _AUTO_MODES["routed"][f64]
         print(f"#auto: {spec.name} infeasible ({e}); falling back to {mode}")
         spec = registry.get(mode)
         operands = spec.prepare(csr, None, cfg, device)
     f = spec.jitted(operands)
-    xd = torch.as_tensor(x, dtype=cfg.torch_dtype, device=device)
+    # the df modes take x in f64 whatever the configured dtype
+    xd = torch.as_tensor(x, dtype=torch.float64 if spec.f64 else cfg.torch_dtype, device=device)
     y = f(xd)
     if device.type == "cuda":
         torch.cuda.synchronize(device)

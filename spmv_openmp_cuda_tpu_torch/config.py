@@ -64,8 +64,8 @@ class Config:
     block_rows: int = 256
     block_width: int = 128
     pallas_block_n: int = 2048
-    #: Compute dtype. The port runs float32 only so far; float64 is accepted
-    #: here and refused by the engines that have not been ported.
+    #: Compute dtype: float32, or float64 for the double-float engines
+    #: (SPMV_DTYPE overrides).
     dtype: str = "float32"
     avg_times_iteration: int = AVG_TIMES_ITERATION
     schedule: str = "static"

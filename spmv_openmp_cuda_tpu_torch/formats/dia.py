@@ -100,6 +100,56 @@ def prepare_dia(
     return make_device_dia(slab.to(device), uniq, (m, n), csr.nnz, pad_sub)
 
 
+@dataclasses.dataclass
+class DeviceDIADF:
+    """Double-float DIA: the f64 diagonal slab as an (hi, lo) pair of f32
+    slabs (ops/dfloat.py), fields otherwise those of DeviceDIA."""
+
+    data: torch.Tensor  # (D, S, LANE) f32: hi words
+    data_lo: torch.Tensor  # (D, S, LANE) f32: lo words
+    offsets: Tuple[int, ...]
+    offsets_dev: torch.Tensor  # (D,) int32
+    shape: Tuple[int, int] = (0, 0)
+    nnz: int = 0
+    pad_sub: int = 0
+
+    def as_dia(self) -> DeviceDIA:
+        """DeviceDIA view of the hi slab (for the plan and pad geometry)."""
+        return DeviceDIA(
+            data=self.data, offsets=self.offsets, offsets_dev=self.offsets_dev,
+            shape=self.shape, nnz=self.nnz, pad_sub=self.pad_sub,
+        )
+
+
+def make_device_dia_df(
+    data: torch.Tensor, data_lo: torch.Tensor, offsets, shape, nnz: int, pad_sub: int
+) -> DeviceDIADF:
+    """DeviceDIADF over an (hi, lo) slab pair already on its device."""
+    dia = make_device_dia(data, offsets, shape, nnz, pad_sub)
+    return DeviceDIADF(
+        data=data, data_lo=data_lo, offsets=dia.offsets, offsets_dev=dia.offsets_dev,
+        shape=dia.shape, nnz=dia.nnz, pad_sub=dia.pad_sub,
+    )
+
+
+def prepare_dia_df(
+    csr: CSRMatrix, max_fill_ratio: float = 3.0, device="cpu"
+) -> DeviceDIADF:
+    """The JAX package's prepare_dia_df: the f64 slab split into (hi, lo)."""
+    from ..ops.dfloat import split_f64
+
+    m, n = csr.shape
+    data, uniq, pad_sub = _dia_host_slab(csr, max_fill_ratio)
+    d, m_pad = data.shape
+    hi, lo = split_f64(data)
+    shape3 = (d, m_pad // LANE, LANE)
+    return make_device_dia_df(
+        torch.from_numpy(hi.reshape(shape3)).to(device),
+        torch.from_numpy(lo.reshape(shape3)).to(device),
+        uniq, (m, n), csr.nnz, pad_sub,
+    )
+
+
 def split_offsets(
     csr: CSRMatrix,
     max_fill_ratio: float = 3.0,

@@ -27,7 +27,13 @@ pipeline: they form a dense bf16 row block H, y_h = H @ x, whose sums enter
 the assembly domain at planned slots. The pooled residue tiles that the JAX
 package uses where that block is too large (`_build_heavy`, consumed by the
 `_heavy_sums` kernel) are not ported: prepare raises NotImplementedError
-there. So do a schema (the multi-device path), float64 and an empty matrix.
+there. So does a schema (the multi-device path); an empty matrix raises
+RoutedError.
+
+The double-float (float64) engine (`prepare_routed_df`, RoutedDF) is two
+float32 layouts of the same structure, one over the hi and one over the lo
+words of the values (slot placement does not depend on the values), with
+heavy rows, where they fit, in a dense (hi, lo) f32 block.
 
 The cost model's constants are the JAX package's TPU fits, kept so that both
 packages choose the same layout array for array. No SPMV_* environment
@@ -224,7 +230,25 @@ def prepare_routed(
     device="cpu",
 ) -> RoutedCSR:
     """The JAX package's prepare_routed (schema=None), numpy verbatim, with
-    the arrays as tensors on `device`.
+    the arrays as tensors on `device` (see _prepare_routed_placed)."""
+    return _prepare_routed_placed(
+        csr, dtype, heavy_threshold, vals_dtype, schema, device
+    )[0]
+
+
+def _prepare_routed_placed(
+    csr: CSRMatrix,
+    dtype: torch.dtype = torch.float32,
+    heavy_threshold: Optional[int] = None,
+    vals_dtype=None,
+    schema: Optional[dict] = None,
+    device="cpu",
+    probe: bool = False,
+):
+    """(RoutedCSR, row_a, lane_a): the prepare, and the gather slot (row_a,
+    lane_a) of every light nnz, in CSR order. With probe, only the domain
+    test: None, or the RoutedError of a domain too large (the pooled heavy
+    tiles then need no port: their rows leave the domain either way).
 
     vals_dtype (default = dtype) is the storage type of the gather slot
     values only; products, routing and sums stay f32. The dense heavy block
@@ -243,9 +267,8 @@ def prepare_routed(
         )
     if dtype != torch.float32:
         raise NotImplementedError(
-            f"routed engine dtype {dtype}: the port runs float32 (the "
-            "double-float routed engine and its TPU kernel _gather_products_df "
-            "are ROADMAP.md queue 2 item 18)"
+            f"routed engine dtype {dtype}: each plane of the layout is float32 "
+            "(float64 runs the double-float engine, prepare_routed_df)"
         )
     if vals_dtype is None:
         vals_dtype = dtype
@@ -271,17 +294,18 @@ def prepare_routed(
     hdense = None
     if rows_h.size:
         n_pad = -(-n // LANE) * LANE
-        if not _dense_heavy_ok(dtype, rows_h.size, n_pad):
-            raise NotImplementedError(
-                f"{rows_h.size} heavy rows of {n_pad} columns exceed the dense "
-                f"heavy block's {_DENSE_HEAVY_MAX_BYTES} bytes: {_POOLED_HEAVY}"
-            )
-        hd = np.zeros((rows_h.size, n_pad), dtype=np.float32)
-        row_map = np.full(m, -1, dtype=np.int64)
-        row_map[rows_h] = np.arange(rows_h.size)
-        hnz = heavy_sel[rows]
-        hd[row_map[rows[hnz]], cols[hnz]] = data[hnz]
-        hdense = hd
+        if not probe:
+            if not _dense_heavy_ok(dtype, rows_h.size, n_pad):
+                raise NotImplementedError(
+                    f"{rows_h.size} heavy rows of {n_pad} columns exceed the dense "
+                    f"heavy block's {_DENSE_HEAVY_MAX_BYTES} bytes: {_POOLED_HEAVY}"
+                )
+            hd = np.zeros((rows_h.size, n_pad), dtype=np.float32)
+            row_map = np.full(m, -1, dtype=np.int64)
+            row_map[rows_h] = np.arange(rows_h.size)
+            hnz = heavy_sel[rows]
+            hd[row_map[rows[hnz]], cols[hnz]] = data[hnz]
+            hdense = hd
         keep = ~heavy_sel[rows]
         rows, cols, data = rows[keep], cols[keep], data[keep]
         lens_light = np.where(heavy_sel, 0, lens_full)
@@ -336,6 +360,13 @@ def prepare_routed(
     # units consumed by level 2 (subunits of split rows) sort first
     is_child1 = np.repeat(n_sub > 1, n_sub)
     order1, base1, runs1, rows_c = _group_units(lens1, child_first=is_child1)
+    if probe:
+        # the test the products permutation makes below (pick_t)
+        try:
+            pick_t(max(rows_a, rows_c))
+        except ValueError as e:
+            raise RoutedError(str(e)) from e
+        return None
     rank1 = np.empty(u1, dtype=np.int64)
     rank1[order1] = np.arange(u1)
     n_child = [int(is_child1.sum())]  # per level: #units feeding the next
@@ -518,7 +549,7 @@ def prepare_routed(
     vals[row_a, lane_a] = csr.data
     pidx[row_a, lane_a] = p
     widx = np.repeat(np.arange(nwin, dtype=np.int32), tiles_per_win)
-    return RoutedCSR(
+    mat = RoutedCSR(
         vals=torch.from_numpy(vals).to(vals_dtype).to(device),
         pidx=torch.from_numpy(pidx).to(device),
         widx=torch.from_numpy(widx).to(device),
@@ -540,6 +571,7 @@ def prepare_routed(
         lvl_runs=tuple(lvl_runs),
         out_t=t_out,
     )
+    return mat, row_a, lane_a
 
 
 # ---------------------------------------------------------------------------
@@ -625,6 +657,42 @@ def _fit_chunk_bounds(csr: CSRMatrix, target_rows: int = 8064) -> List[int]:
     return bounds
 
 
+def _initial_bounds(csr: CSRMatrix, chunk_nnz: int, fit_domains: bool) -> List[int]:
+    if fit_domains:
+        return _fit_chunk_bounds(csr)
+    lens = np.diff(csr.indptr)
+    bounds = [0]
+    acc = 0
+    for r in range(csr.shape[0]):
+        ln = int(lens[r])
+        if acc + min(ln, HEAVY_THRESHOLD) > chunk_nnz and r > bounds[-1]:
+            bounds.append(r)
+            acc = 0
+        acc += min(ln, HEAVY_THRESHOLD)
+    bounds.append(csr.shape[0])
+    return bounds
+
+
+def _split_rows(csr: CSRMatrix, bounds, prepare):
+    """(prepare of each row block, final bounds): a block whose prepare
+    raises RoutedError is halved, recursively."""
+    out = []
+    final_bounds = [0]
+    stack = [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)][::-1]
+    while stack:
+        r0, r1 = stack.pop()
+        try:
+            out.append(prepare(_sub_csr(csr, r0, r1)))
+            final_bounds.append(r1)
+        except RoutedError:
+            if r1 - r0 <= 1:
+                raise
+            mid = (r0 + r1) // 2
+            stack.append((mid, r1))
+            stack.append((r0, mid))
+    return out, tuple(final_bounds)
+
+
 def prepare_routed_chunked(
     csr: CSRMatrix, dtype: torch.dtype = torch.float32, chunk_nnz: int = 700_000,
     vals_dtype=None, fit_domains: bool = True, device="cpu",
@@ -634,45 +702,22 @@ def prepare_routed_chunked(
     domain size) and prepare a routed engine per block (recursive halving if
     a block still exceeds its domain). fit_domains=False takes the greedy
     <= chunk_nnz split."""
-    m = csr.shape[0]
-    lens = np.diff(csr.indptr)
-    if fit_domains:
-        bounds = _fit_chunk_bounds(csr)
-    else:
-        bounds = [0]
-        acc = 0
-        for r in range(m):
-            ln = int(lens[r])
-            if acc + min(ln, HEAVY_THRESHOLD) > chunk_nnz and r > bounds[-1]:
-                bounds.append(r)
-                acc = 0
-            acc += min(ln, HEAVY_THRESHOLD)
-        bounds.append(m)
-    chunks = []
-    final_bounds = [0]
-    stack = [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)][::-1]
-    while stack:
-        r0, r1 = stack.pop()
-        try:
-            chunks.append(
-                prepare_routed(
-                    _sub_csr(csr, r0, r1), dtype=dtype, vals_dtype=vals_dtype,
-                    device=device,
-                )
-            )
-            final_bounds.append(r1)
-        except RoutedError:
-            if r1 - r0 <= 1:
-                raise
-            mid = (r0 + r1) // 2
-            stack.append((mid, r1))
-            stack.append((r0, mid))
-    return RoutedChunks(
-        chunks=tuple(chunks),
-        bounds=tuple(final_bounds),
-        shape=csr.shape,
-        nnz=csr.nnz,
+    chunks, bounds = _split_rows(
+        csr, _initial_bounds(csr, chunk_nnz, fit_domains),
+        lambda sub: prepare_routed(sub, dtype=dtype, vals_dtype=vals_dtype, device=device),
     )
+    return RoutedChunks(chunks=tuple(chunks), bounds=bounds, shape=csr.shape, nnz=csr.nnz)
+
+
+def routed_chunk_bounds(
+    csr: CSRMatrix, chunk_nnz: int = 700_000, fit_domains: bool = True
+) -> Tuple[int, ...]:
+    """The row bounds of prepare_routed_chunked (float32), found by the
+    domain test alone, without building the blocks' layouts."""
+    return _split_rows(
+        csr, _initial_bounds(csr, chunk_nnz, fit_domains),
+        lambda sub: _prepare_routed_placed(sub, probe=True),
+    )[1]
 
 
 def prepare_routed_auto(
@@ -685,3 +730,99 @@ def prepare_routed_auto(
         return prepare_routed_chunked(
             csr, dtype=dtype, vals_dtype=vals_dtype, device=device
         )
+
+
+# ---------------------------------------------------------------------------
+# Double-float (float64) routed engine
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RoutedDF:
+    """Routed operands in double-float: the hi words ride mat.vals, the lo
+    words vals_lo (the same slot placement). Heavy rows, where the dense
+    (hi, lo) f32 block fits _DF_HDENSE_MAX_BYTES, leave the routed pipeline
+    (y_h by a compensated dense row dot); otherwise they reduce over the
+    multi-level runs like any row."""
+
+    mat: RoutedCSR
+    vals_lo: torch.Tensor  # (rows_a, 128) f32
+    hdense_hi: Optional[torch.Tensor] = None  # (n_heavy, n_pad) f32
+    hdense_lo: Optional[torch.Tensor] = None
+    heavy_rows_df: Tuple[int, ...] = ()
+
+    @property
+    def shape(self):
+        return self.mat.shape
+
+    @property
+    def nnz(self):
+        return self.mat.nnz
+
+
+#: dense f64 heavy-block budget (bytes, as (hi, lo) f32 pairs); beyond it the
+#: heavy rows reduce over the multi-level runs
+_DF_HDENSE_MAX_BYTES = 256 * 2**20
+
+
+def prepare_routed_df(csr: CSRMatrix, device="cpu") -> RoutedDF:
+    """The JAX package's prepare_routed_df: the heavy rows into a dense
+    (hi, lo) block when it fits the budget, then the routed layout of the
+    light rows over the hi words, and the lo words at the same slots (the
+    JAX package runs a second, structure-identical prepare for them)."""
+    from ..ops.dfloat import split_f64
+
+    m, n = csr.shape
+    lens_full = np.diff(csr.indptr.astype(np.int64))
+    thr = _pick_heavy_threshold(csr, lens_full, torch.float32)
+    heavy_sel = lens_full >= thr
+    n_pad = -(-n // LANE) * LANE
+    hdense = (None, None)
+    heavy_rows: Tuple[int, ...] = ()
+    if heavy_sel.any() and (
+        int(heavy_sel.sum()) * n_pad * 8 <= _DF_HDENSE_MAX_BYTES
+        and lens_full[~heavy_sel].sum() > 0
+    ):
+        rows_h = np.flatnonzero(heavy_sel)
+        rows_all = csr.row_ids().astype(np.int64)
+        hd = np.zeros((rows_h.size, n_pad), dtype=np.float64)
+        row_map = np.full(m, -1, dtype=np.int64)
+        row_map[rows_h] = np.arange(rows_h.size)
+        hnz = heavy_sel[rows_all]
+        hd[row_map[rows_all[hnz]], csr.indices[hnz]] = csr.data[hnz]
+        hdense = tuple(torch.from_numpy(a).to(device) for a in split_f64(hd))
+        heavy_rows = tuple(int(r) for r in rows_h)
+        keep = ~hnz
+        csr = CSRMatrix(
+            shape=(m, n),
+            indptr=np.r_[0, np.cumsum(np.where(heavy_sel, 0, lens_full))],
+            indices=csr.indices[keep],
+            data=csr.data[keep],
+        )
+    hi, lo = split_f64(csr.data)
+    mat, row_a, lane_a = _prepare_routed_placed(
+        CSRMatrix(shape=csr.shape, indptr=csr.indptr, indices=csr.indices, data=hi),
+        heavy_threshold=1 << 60,
+        device=device,
+    )
+    vals_lo = np.zeros((mat.rows_a, LANE), dtype=np.float32)
+    vals_lo[row_a, lane_a] = lo
+    return RoutedDF(
+        mat=mat, vals_lo=torch.from_numpy(vals_lo).to(device),
+        hdense_hi=hdense[0], hdense_lo=hdense[1], heavy_rows_df=heavy_rows,
+    )
+
+
+def prepare_routed_df_auto(csr: CSRMatrix, device="cpu"):
+    """RoutedDF for one domain, RoutedChunks of RoutedDF otherwise: the
+    chunk bounds of the float32 chunked prepare, each chunk df-prepared (the
+    JAX package's prepare_routed_df_auto)."""
+    try:
+        return prepare_routed_df(csr, device=device)
+    except RoutedError:
+        bounds = routed_chunk_bounds(csr)
+        chunks = tuple(
+            prepare_routed_df(_sub_csr(csr, r0, r1), device=device)
+            for r0, r1 in zip(bounds[:-1], bounds[1:])
+        )
+        return RoutedChunks(chunks=chunks, bounds=bounds, shape=csr.shape, nnz=csr.nnz)

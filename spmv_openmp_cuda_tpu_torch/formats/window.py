@@ -19,15 +19,17 @@ package's, fitted on a TPU v5e, and are kept unchanged so that the port
 chooses the same layout array for array (the tests hold it so). Refitting
 g, cap and bps for the H100 is later work.
 
-Not ported here: the double-float (f64) window mode (`df`, `vals_lo`) and the
-native C++ scan/fill helpers; the numpy paths below are the JAX package's own
+The double-float (f64) mode (`df=True`) stores the slot values as an (hi,
+lo) f32 pair, `vals` and `vals_lo`; the layout does not depend on the values,
+so the hi plane equals the f32 mode's `vals`. Not ported here: the native
+C++ scan/fill helpers; the numpy paths below are the JAX package's own
 fallbacks, and the ones it runs when its native library is not built.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +66,9 @@ class WindowCSR:
     xdirect: bool = False
     # bps > 1 with Q baked relative to the union window of the bps blocks
     shared_w: bool = False
+    # double-float mode: the f32 lo words of the f64 slot values (vals then
+    # holds the hi words); the engine takes x and returns y in f64
+    vals_lo: Optional[torch.Tensor] = None
 
     @property
     def n_ktiles(self) -> int:
@@ -373,10 +378,11 @@ def prepare_window(
     csr: CSRMatrix, g: int = 8, dtype: torch.dtype = torch.float32,
     vals_dtype=None, max_pad: float = 4.5, cap="auto", bps: int = 1,
     xdirect: bool = False, base=None, shared_w: bool | None = None,
-    device="cpu",
+    device="cpu", df: bool = False,
 ) -> WindowCSR:
     """Slot slabs and Q map for group size g, array for array the JAX
-    package's prepare_window; the slabs are uploaded to `device`."""
+    package's prepare_window; the slabs are uploaded to `device`. df=True
+    splits the slot values into the (hi, lo) f32 pair (dtype is ignored)."""
     if vals_dtype is None:
         vals_dtype = dtype
     m, n = csr.shape
@@ -469,8 +475,16 @@ def prepare_window(
         gslab = _ext(gslab, k_pad)
         rsrc = _ext(rsrc, n_ktiles * LANE)
 
+    if df:
+        from ..ops.dfloat import split_f64
+
+        vhi, vlo = split_f64(vals)
+        vals_t, vals_lo_t = torch.from_numpy(vhi).to(device), torch.from_numpy(vlo).to(device)
+    else:
+        vals_t, vals_lo_t = torch.from_numpy(vals).to(vals_dtype).to(device), None
     return WindowCSR(
-        vals=torch.from_numpy(vals).to(vals_dtype).to(device),
+        vals=vals_t,
+        vals_lo=vals_lo_t,
         sidx=torch.from_numpy(sidx).to(device),
         gid=torch.from_numpy(gslab).to(device),
         rsrc=torch.from_numpy(rsrc).to(device),
@@ -564,11 +578,11 @@ _AUTO_SHORTLIST = 5
 def prepare_window_auto(
     csr: CSRMatrix, dtype: torch.dtype = torch.float32, vals_dtype=None,
     max_pad: float = 4.5, bps: int | None = None, xdirect: bool | None = None,
-    device="cpu",
+    device="cpu", df: bool = False,
 ) -> WindowCSR:
     """Pick group size g, packing cap and blocks-per-step by the cost model
     (the JAX package's prepare_window_auto). bps=None follows the policy;
-    an explicit bps pins it."""
+    an explicit bps pins it. df=True prepares the double-float mode."""
     policy = str(bps) if bps is not None else _bps_policy()
     base = _base_fields(csr)
     by_g = {}
@@ -601,7 +615,7 @@ def prepare_window_auto(
         mat = _try_prepare_auto(
             csr, g, cap, bps_pick, dtype, vals_dtype, max_pad,
             eligible if xdirect is None else xdirect,
-            base, bps_auto=policy == "auto", device=device,
+            base, bps_auto=policy == "auto", device=device, df=df,
         )
         if mat is None:
             continue
@@ -617,7 +631,7 @@ def prepare_window_auto(
 
 def _try_prepare_auto(
     csr, g, cap, bps_pick, dtype, vals_dtype, max_pad, xdirect, base,
-    bps_auto=True, device="cpu",
+    bps_auto=True, device="cpu", df=False,
 ):
     # the exact peel can land just over the per-step row cap at the chosen
     # bps: halve bps until it fits, only when the auto policy chose bps (a
@@ -628,7 +642,7 @@ def _try_prepare_auto(
             return prepare_window(
                 csr, g=g, dtype=dtype, vals_dtype=vals_dtype,
                 max_pad=max_pad, cap=cap, bps=b, xdirect=xdirect,
-                base=base, device=device,
+                base=base, device=device, df=df,
             )
         except WindowError:
             if not bps_auto:

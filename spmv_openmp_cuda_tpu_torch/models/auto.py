@@ -7,15 +7,19 @@ kernels (ops/spmv_cuda.py), and banded-locality matrices (unstructured FEM)
 to the windowed local-gather engine on the CUDA window kernels
 (ops/window_cuda.py), and every other matrix, and every DIA or window
 refusal, to the Clos-routed engine on the CUDA routed kernels
-(ops/routed_cuda.py), as in the JAX package. The explicit engines the port
-lacks (lanes, ell_t, binned) and float64 raise NotImplementedError, and so
-does a matrix that even the chunked routed engine refuses (the JAX package
-falls back to binned there): the port never substitutes another engine for
-one it lacks.
+(ops/routed_cuda.py), as in the JAX package. At float64 the same formats
+run the double-float engines (ops/dfloat.py; the CUDA kernels of
+csrc/df_spmv.cu), with the same fallbacks to the df routed engine. The
+explicit engines the port lacks (lanes, ell_t, binned) raise
+NotImplementedError, and so does a matrix that even the chunked routed
+engine refuses (the JAX package falls back to binned there): the port never
+substitutes another engine for one it lacks.
 
 Usage:
     model = AutoSpMV.from_file("matrix.mtx", device="cuda")
     y = model(x)                                       # float32 tensor on the GPU
+    model64 = AutoSpMV.from_file("matrix.mtx", cfg=Config(dtype="float64"))
+    y64 = model64(x)                                   # float64 tensor on the GPU
 """
 from __future__ import annotations
 
@@ -31,11 +35,18 @@ from ..formats.dia import DiaFillError, prepare_dia, split_offsets
 from ..formats.matrix import COOMatrix, CSRMatrix
 from ..formats.routed import RoutedError
 from ..formats.window import WindowError, prepare_window_auto, window_cost_scan
-from ..ops.routed_cuda import prepare_routed_chain, routed_chain_spmv
+from ..ops.routed_cuda import (
+    prepare_routed_chain,
+    prepare_routed_df_chain,
+    routed_chain_spmv,
+    routed_df_spmv,
+)
 from ..ops.spmv_cuda import (
     dia_spmv_cuda,
+    dia_spmv_df_cuda,
     pad_dia_for_pallas,
     plan_dia,
+    prepare_dia_df_pallas,
     prepare_dia_resid,
 )
 from ..ops.window_cuda import window_spmv
@@ -129,11 +140,11 @@ class AutoSpMV:
             raise RuntimeError(
                 "device cuda requested but torch.cuda.is_available() is False"
             )
-        if cfg.dtype != "float32":
+        if cfg.dtype not in ("float32", "float64"):
             raise NotImplementedError(
-                f"dtype {cfg.dtype} is not ported yet: the port runs float32 "
-                "(ROADMAP.md queue 1 item 9 ports the double-float engines)"
+                f"dtype {cfg.dtype}: the port runs float32 and float64"
             )
+        f64 = cfg.dtype == "float64"
         fmt = select_format(csr) if format == "auto" else format
         if fmt in UNPORTED_FORMATS:
             raise _unported(fmt)
@@ -142,37 +153,47 @@ class AutoSpMV:
                 f"unknown format {format!r}; expected auto, dia, dia_resid, "
                 "window, lanes, routed, ell_t or binned"
             )
+        dia_run = dia_spmv_df_cuda if f64 else dia_spmv_cuda
         try:
             if fmt == "window":
-                ops = prepare_window_auto(csr, dtype=cfg.torch_dtype, device=device)
+                ops = prepare_window_auto(
+                    csr, dtype=torch.float32 if f64 else cfg.torch_dtype, device=device, df=f64
+                )
                 run = window_spmv
             elif fmt == "dia_resid":
-                ops = prepare_dia_resid(csr, dtype=cfg.torch_dtype, device=device)
+                ops = prepare_dia_resid(csr, dtype=cfg.torch_dtype, device=device, df=f64)
 
                 def run(o, x):
-                    return dia_spmv_cuda(o[0].mat, x, o[1], resid=o[0])
+                    return dia_run(o[0].mat, x, o[1], resid=o[0])
 
             elif fmt == "dia":
-                mat = prepare_dia(csr, dtype=cfg.torch_dtype, device=device)
-                plan = plan_dia(mat)
-                ops = (pad_dia_for_pallas(mat, plan), plan)
+                if f64:
+                    ops = prepare_dia_df_pallas(csr, device=device)
+                else:
+                    mat = prepare_dia(csr, dtype=cfg.torch_dtype, device=device)
+                    plan = plan_dia(mat)
+                    ops = (pad_dia_for_pallas(mat, plan), plan)
 
                 def run(o, x):
-                    return dia_spmv_cuda(o[0], x, o[1])
+                    return dia_run(o[0], x, o[1])
 
         except (DiaFillError, WindowError):
-            fmt = "routed"  # the general fallback, as in the JAX package
+            fmt = "routed"  # the general fallback (df routed at float64), as in the JAX package
         if fmt == "routed":
             try:
-                ops = prepare_routed_chain(csr, dtype=cfg.torch_dtype, device=device)
+                if f64:
+                    ops = prepare_routed_df_chain(csr, device=device)
+                else:
+                    ops = prepare_routed_chain(csr, dtype=cfg.torch_dtype, device=device)
             except RoutedError as e:
                 raise _unported(
                     "binned", f"even the chunked routed engine refused the matrix ({e}); "
                 ) from e
-            run = routed_chain_spmv
+            run = routed_df_spmv if f64 else routed_chain_spmv
+        x_dtype = torch.float64 if f64 else torch.float32
 
         def fn(x):
-            return run(ops, torch.as_tensor(x, dtype=torch.float32, device=device))
+            return run(ops, torch.as_tensor(x, dtype=x_dtype, device=device))
 
         return cls(
             format=fmt,
@@ -195,6 +216,6 @@ class AutoSpMV:
         return cls.from_coo(read_coo(path), **kw)
 
     def __call__(self, x) -> torch.Tensor:
-        """y = A @ x for numpy or tensor x: a float32 tensor of length m on
-        the model's device."""
+        """y = A @ x for numpy or tensor x: a tensor of length m on the
+        model's device, float32, or float64 for a float64 model."""
         return self._fn(x)

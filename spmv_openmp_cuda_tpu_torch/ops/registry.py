@@ -5,9 +5,10 @@ function-pointer registries of src/include/SpMV.h:130-159 and the
 COMPUTE_MODE string dispatch, SpMV.h:27-59), restricted to the modes the port
 runs so far: DIA_ROWS (plain torch), the CUDA DIA modes PL_DIA_ROWS,
 PL_DIA_BF16, PL_DIA_RESID and PL_DIA_RESID_BF16, the CUDA window modes
-PL_CSR_WINDOW and PL_CSR_WINDOW_BF16, and the CUDA routed modes
-PL_CSR_ROUTED and PL_CSR_ROUTED_BF16. Mode names are the JAX
-package's, so logs of both packages read the same.
+PL_CSR_WINDOW and PL_CSR_WINDOW_BF16, the CUDA routed modes PL_CSR_ROUTED
+and PL_CSR_ROUTED_BF16, and the double-float (float64) modes PL_DIA_F64,
+PL_DIA_RESID_F64, PL_CSR_WINDOW_F64 and PL_CSR_ROUTED_F64. Mode names are
+the JAX package's, so logs of both packages read the same.
 
 Uniform ABI: every kernel is described by a KernelSpec whose
   prepare(csr, ell, cfg, device) -> operands (host prepare + upload)
@@ -31,6 +32,9 @@ class KernelSpec:
     prepare: Callable  # (csr, ell, cfg, device) -> operands
     run: Callable  # (operands, x) -> y
     doc: str = ""
+    #: double-precision semantics: takes a float64 x and returns float64
+    #: (the double-float engines)
+    f64: bool = False
 
     def jitted(self, operands) -> Callable:
         """Closure over prepared operands: x -> y. PyTorch runs eagerly, so

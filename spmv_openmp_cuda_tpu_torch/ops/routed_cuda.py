@@ -8,7 +8,11 @@ auto forms, all one `routed_spmv` here), of the permutation application in spmv_
 in spmv_openmp_cuda_tpu/ops/spmv_pallas.py. It holds the wrappers of the four
 hand-written CUDA kernels in csrc/routed_spmv.cu, their plain PyTorch
 versions, the conversion of the JAX package's prepared layout, and the modes
-PL_CSR_ROUTED and PL_CSR_ROUTED_BF16.
+PL_CSR_ROUTED and PL_CSR_ROUTED_BF16; and the double-float engine of
+PL_CSR_ROUTED_F64 (`routed_df_spmv`): the df gather kernel of
+csrc/df_spmv.cu (`_gather_products_df`), every permutation on each plane
+through kernel B, and the JAX package's XLA-level TwoSum reduce trees and
+dense heavy-row dot as torch ops (`_reduce_runs_df`, `_df_dense_rowdot`).
 
 One product is a chain of stages, built once per prepared matrix
 (`build_chain`): gather+W1 (A) -> SW.W2.SW^-1 (B) -> W3.R3.reduce (C) ->
@@ -49,9 +53,11 @@ from ..formats.routed import (
     WINDOW_ELEMS,
     RoutedChunks,
     RoutedCSR,
+    RoutedDF,
     prepare_routed_auto,
+    prepare_routed_df_auto,
 )
-from . import cuda_lib
+from . import cuda_lib, dfloat
 from .route import PlannedPermutation
 from .spmv_cuda import _require, _to_tensor
 
@@ -1050,6 +1056,276 @@ def routed_chunks_from_jax(chunks: Sequence[dict], bounds, shape, nnz: int,
 
 
 # ---------------------------------------------------------------------------
+# Double-float (float64) engine
+# ---------------------------------------------------------------------------
+
+
+def routed_df_gather_reference(vals, vals_lo, pidx, widx, n_tiles: int, xh, xl) -> dfloat.Pair:
+    """Plain df gather (the JAX package's _gather_products_df, padded to
+    n_tiles tiles): (n_tiles*128, 128) (hi, lo) products (vals, vals_lo) * x
+    at widx[i]*16384 + pidx*128 + s, no W1; tiles from n_real on are zero."""
+    n_real = vals.shape[0] // LANE
+    nwin = max(-(-xh.shape[0] // WINDOW_ELEMS), 1)
+    s = torch.arange(LANE, device=xh.device).repeat(n_real)
+    wrow = widx.long().repeat_interleave(LANE) * LANE + s
+    gh, gl = (torch.gather(pack_x_windows_flat(xs, nwin)[wrow], 1, pidx.long()) for xs in (xh, xl))
+    ph, pe = dfloat.two_prod(vals, gh)
+    pl = pe + (vals * gl + vals_lo * gh)
+    pad = ph.new_zeros((n_tiles - n_real) * LANE, LANE)
+    return torch.cat([ph, pad]), torch.cat([pl, pad])
+
+
+def routed_df_gather_cuda(vals, vals_lo, pidx, widx, n_tiles: int, xh, xl, oh, ol) -> dfloat.Pair:
+    """Kernel K3 (routed_df_gather_kernel) into oh, ol (n_tiles*128*128 f32
+    each): the df products of the gather tiles, then zero tiles."""
+    dev = _on_cuda(xh, xl, vals, vals_lo, pidx, widx, oh, ol)
+    _check_gather(vals, pidx, widx, None, n_tiles, xh, oh)
+    _require(vals, "vals", _F32, tuple(vals.shape), dev)
+    _require(vals_lo, "vals_lo", _F32, tuple(vals.shape), dev)
+    _require(xl, "xl", _F32, tuple(xh.shape), dev)
+    _check_out(ol, "ol", n_tiles * LANE * LANE, dev)
+    rc = dfloat.df_lib().routed_df_gather_launch(
+        vals.data_ptr(), vals_lo.data_ptr(), pidx.data_ptr(), widx.data_ptr(),
+        vals.shape[0] // LANE, n_tiles, xh.data_ptr(), xl.data_ptr(), xh.shape[0],
+        oh.data_ptr(), ol.data_ptr(), _stream(dev),
+    )
+    dfloat.check_launch(rc, "routed_df_gather_kernel")
+    routed_df_gather_cuda.launches += 1
+    return oh, ol
+
+
+routed_df_gather_cuda.launches = 0
+
+
+def routed_df_gather(mdf: RoutedDF, xh, xl, plain: bool = False) -> dfloat.Pair:
+    """The df products over the products domain, (h1, 128) per plane: K3 on
+    a CUDA device, its plain version on the CPU or with plain=True."""
+    mat = mdf.mat
+    n_tiles = mat.perm_products.t
+    if plain or _device_of(xh) == "cpu":
+        _check_gather(mat.vals, mat.pidx, mat.widx, None, n_tiles, xh, None)
+        return routed_df_gather_reference(mat.vals, mdf.vals_lo, mat.pidx, mat.widx, n_tiles, xh, xl)
+    oh = torch.empty(n_tiles * LANE, LANE, dtype=torch.float32, device=xh.device)
+    ol = torch.empty_like(oh)
+    return routed_df_gather_cuda(mat.vals, mdf.vals_lo, mat.pidx, mat.widx, n_tiles, xh, xl, oh, ol)
+
+
+def _permute(plan: PlannedPermutation, a: torch.Tensor, plain: bool) -> torch.Tensor:
+    """apply_permutation over the whole (plan.h, 128) domain; with plain the
+    W stages' plain versions on any device."""
+    if not plain:
+        return apply_permutation(plan, a)
+    h = plan.h
+    if plan.t == 1 and plan.wc is not None:
+        return w_stage_reference(a, h, plan.r1, plan.wc, plan.r3, 1, False, 1)
+    a = w_stage_reference(a, h, plan.r1, plan.w1, None, 1, False, plan.t)
+    a = w_stage_reference(a, h, None, plan.w2, None, plan.t, True, plan.t)
+    return w_stage_reference(a, h, None, plan.w3, plan.r3, 1, False, plan.t)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DFReduce:
+    """The JAX package's _reduce_runs_df over one slab, vectorised: the
+    `width` rows of every output group, zero-padded to a power of two and
+    laid out by padded size, largest first (so each group starts at a
+    multiple of its size), are summed by rounds of adjacent-pair TwoSums over
+    the whole layout. A zero pair adds exactly nothing, so each group's sum
+    is the JAX package's pairwise tree over its rows, bit for bit."""
+
+    idx: torch.Tensor  # (layout rows,) int64: slab row, or h for a zero row
+    active: Tuple[int, ...]  # per round: the leading rows that pair up
+    inv: torch.Tensor  # (n_groups,) int64: layout row of output group g
+
+
+def df_reduce_plan(runs, h: int, device) -> DFReduce:
+    """The DFReduce of runs (row0, n_groups, width, g0) over an h-row slab."""
+    rows0, widths = [], []
+    for row0, ng, width, _g0 in runs:
+        rows0 += [row0 + j * width for j in range(ng)]
+        widths += [width] * ng
+    sizes = np.array([1 << (int(w) - 1).bit_length() for w in widths], dtype=np.int64)
+    order = np.argsort(-sizes, kind="stable")
+    idx = []
+    for g in order:
+        rows = np.full(int(sizes[g]), h, dtype=np.int64)
+        rows[: widths[g]] = rows0[g] + np.arange(widths[g])
+        idx.append(rows)
+    cur = sizes[order]
+    active = []
+    while cur.max(initial=1) > 1:
+        active.append(int(cur[cur > 1].sum()))
+        cur = np.maximum(cur // 2, 1)
+    inv = np.empty(len(order), dtype=np.int64)
+    inv[order] = np.arange(len(order))
+    return DFReduce(
+        idx=torch.from_numpy(np.concatenate(idx)).to(device), active=tuple(active),
+        inv=torch.from_numpy(inv).to(device),
+    )
+
+
+def reduce_runs_df(sh, sl, plan: DFReduce, mask=None) -> dfloat.Pair:
+    """(n_groups, 128) (hi, lo) group sums of the slab pair (sh, sl), masked
+    first when mask is given."""
+    if mask is not None:
+        sh, sl = sh * mask, sl * mask
+    zero = sh.new_zeros(1, LANE)
+    h = torch.cat([sh, zero]).index_select(0, plan.idx)
+    lo = torch.cat([sl, zero]).index_select(0, plan.idx)
+    for a in plan.active:
+        ph, pl = dfloat.df_add(h[0:a:2], lo[0:a:2], h[1:a:2], lo[1:a:2])
+        h, lo = torch.cat([ph, h[a:]]), torch.cat([pl, lo[a:]])
+    return h.index_select(0, plan.inv), lo.index_select(0, plan.inv)
+
+
+def df_dense_rowdot(hh, hl, xh, xl) -> dfloat.Pair:
+    """(n_h,) (hi, lo) row sums of a dense (hi, lo) block times an (hi, lo)
+    vector (x zero past its length): TwoProduct and cross terms, columns
+    padded to a power of two, then the halves added by TwoSum (the JAX
+    package's _df_dense_rowdot)."""
+    n = hh.shape[1]
+    xh = torch.nn.functional.pad(xh, (0, n - xh.shape[0]))
+    xl = torch.nn.functional.pad(xl, (0, n - xl.shape[0]))
+    ph, pe = dfloat.two_prod(hh, xh[None, :])
+    pl = pe + (hh * xl[None, :] + hl * xh[None, :])
+    p2 = 1 << (n - 1).bit_length()
+    ph = torch.nn.functional.pad(ph, (0, p2 - n))
+    pl = torch.nn.functional.pad(pl, (0, p2 - n))
+    while p2 > 1:
+        half = p2 // 2
+        s, e = dfloat.two_sum(ph[:, :half], ph[:, half:p2])
+        pl = pl[:, :half] + pl[:, half:p2] + e
+        ph, p2 = s, half
+    return ph[:, 0], pl[:, 0]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DFDomain:
+    """One domain of a df product: its operands and reduce plans."""
+
+    mdf: RoutedDF
+    l1: DFReduce
+    levels: Tuple[DFReduce, ...]
+    heavy_idx: Optional[torch.Tensor]  # (n_heavy,) int64 rows of y
+
+
+@dataclasses.dataclass
+class RoutedDFChain:
+    """A prepared df routed product (a RoutedDF or RoutedChunks of them),
+    checked once, with its reduce plans on the device."""
+
+    mat: Union[RoutedDF, RoutedChunks]
+    domains: Tuple[DFDomain, ...]
+    bounds: Tuple[int, ...]
+    shape: Tuple[int, int]
+    device: torch.device
+
+    @property
+    def nnz(self) -> int:
+        return self.mat.nnz
+
+
+def _check_df(mdf: RoutedDF) -> None:
+    mat = mdf.mat
+    dev = mat.vals.device
+    if mat.hdense is not None:
+        raise ValueError("a df layout keeps its heavy rows in hdense_hi/hdense_lo")
+    _check_domain(mat)
+    _require(mat.vals, "vals", _F32, tuple(mat.vals.shape), dev)
+    _require(mdf.vals_lo, "vals_lo", _F32, tuple(mat.vals.shape), dev)
+    n_h = len(mdf.heavy_rows_df)
+    if (mdf.hdense_hi is None) != (n_h == 0) or (mdf.hdense_lo is None) != (n_h == 0):
+        raise ValueError("a dense heavy pair needs one heavy row per block row")
+    if n_h:
+        shape = (n_h, -(-mat.shape[1] // LANE) * LANE)
+        _require(mdf.hdense_hi, "hdense_hi", _F32, shape, dev)
+        _require(mdf.hdense_lo, "hdense_lo", _F32, shape, dev)
+        if not all(0 <= r < mat.shape[0] for r in mdf.heavy_rows_df):
+            raise ValueError("heavy_rows_df out of range")
+
+
+def build_df_chain(mat: Union[RoutedDF, RoutedChunks]) -> RoutedDFChain:
+    """Check a prepared df layout once and plan its reduces."""
+    domains = mat.chunks if isinstance(mat, RoutedChunks) else (mat,)
+    bounds = mat.bounds if isinstance(mat, RoutedChunks) else (0, mat.shape[0])
+    if len(bounds) != len(domains) + 1 or bounds[0] != 0 or bounds[-1] != mat.shape[0]:
+        raise ValueError(f"chunk bounds {bounds} do not cover {mat.shape[0]} rows")
+    out = []
+    for mdf, r0, r1 in zip(domains, bounds[:-1], bounds[1:]):
+        if not isinstance(mdf, RoutedDF) or mdf.shape != (r1 - r0, mat.shape[1]):
+            raise ValueError(f"the chunk between rows {r0} and {r1} is no RoutedDF of that shape")
+        _check_df(mdf)
+        dm = mdf.mat
+        dev = dm.vals.device
+        out.append(DFDomain(
+            mdf=mdf,
+            l1=df_reduce_plan(dm.runs, dm.perm_products.h, dev),
+            levels=tuple(df_reduce_plan(r, p.h, dev) for r, p in zip(dm.lvl_runs, dm.lvl_perms)),
+            heavy_idx=torch.tensor(mdf.heavy_rows_df, dtype=torch.long, device=dev)
+            if mdf.heavy_rows_df else None,
+        ))
+    return RoutedDFChain(mat=mat, domains=tuple(out), bounds=tuple(bounds),
+                         shape=tuple(mat.shape), device=domains[0].mat.vals.device)
+
+
+def _df_domain(d: DFDomain, xh, xl, plain: bool) -> torch.Tensor:
+    """f64 y of one domain: the JAX package's _routed_df_32, then the heavy
+    rows' dense sums in their rows."""
+    mat = d.mdf.mat
+    ph, pl = routed_df_gather(d.mdf, xh, xl, plain)
+    pp = mat.perm_products
+    sums = [reduce_runs_df(_permute(pp, ph, plain), _permute(pp, pl, plain), d.l1)]
+    for perm, mask, plan in zip(mat.lvl_perms, mat.lvl_masks, d.levels):
+        prev = [_rows(s, s.shape[0], perm.h) for s in sums[-1]]
+        sums.append(reduce_runs_df(*(_permute(perm, a, plain) for a in prev), plan, mask=mask))
+    po = mat.perm_out
+    ys = []
+    for k in range(2):
+        flat = torch.cat([s[k] for s in sums])
+        ys.append(_permute(po, _rows(flat, flat.shape[0], po.h), plain).reshape(-1)[: mat.shape[0]])
+    y = dfloat.df_combine64(*ys)
+    if d.heavy_idx is not None:
+        y[d.heavy_idx] = dfloat.df_combine64(
+            *df_dense_rowdot(d.mdf.hdense_hi, d.mdf.hdense_lo, xh, xl)
+        )
+    return y
+
+
+def routed_df_spmv(chain: RoutedDFChain, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """y = A @ x in double-float (f64 in and out, length m) over a prepared
+    df chain. CUDA tensors launch routed_df_gather_kernel and the W-stage
+    kernel on each plane (with plain=True every stage's plain version runs
+    instead); CPU tensors take the plain versions. Anything else raises."""
+    _device_of(x)
+    _require(x, "x", (torch.float64,), (chain.shape[1],), chain.device)
+    xh, xl = dfloat.split_f64_t(x)
+    ys = [_df_domain(d, xh, xl, plain) for d in chain.domains]
+    return ys[0] if len(ys) == 1 else torch.cat(ys)
+
+
+def prepare_routed_df_chain(csr, device="cpu") -> RoutedDFChain:
+    """prepare_routed_df_auto, then build_df_chain: the operands of
+    PL_CSR_ROUTED_F64 and of AutoSpMV at float64."""
+    return build_df_chain(prepare_routed_df_auto(csr, device=device))
+
+
+def routed_df_from_jax(mat: dict, vals_lo, hdense_hi=None, hdense_lo=None,
+                       heavy_rows_df=(), device="cpu") -> RoutedDF:
+    """The port's RoutedDF from the JAX package's: mat is the routed_from_jax
+    keyword set of its RoutedCSR (the hi words), the rest its df fields as
+    numpy arrays. Validated as build_df_chain does."""
+    def conv(a):
+        return None if a is None else _to_tensor(a, device)
+
+    mdf = RoutedDF(
+        mat=routed_from_jax(**mat, device=device), vals_lo=conv(vals_lo),
+        hdense_hi=conv(hdense_hi), hdense_lo=conv(hdense_lo),
+        heavy_rows_df=tuple(int(r) for r in heavy_rows_df),
+    )
+    _check_df(mdf)
+    return mdf
+
+
+# ---------------------------------------------------------------------------
 # registry hook (imported by ops.registry)
 # ---------------------------------------------------------------------------
 
@@ -1083,6 +1359,20 @@ def _register() -> None:
             run=routed_chain_spmv,
             doc="Clos-routed CSR with bf16 gather-slot values (f32 products, "
             "routing and sums): halves the gather's value stream",
+        )
+    )
+    register(
+        KernelSpec(
+            name="PL_CSR_ROUTED_F64",
+            fmt="csr",
+            impl="cuda",
+            prepare=lambda csr, ell, cfg, device: prepare_routed_df_chain(csr, device=device),
+            run=routed_df_spmv,
+            doc="double-precision Clos-routed CSR: (hi, lo) value and product "
+            "slabs (a TwoProduct gather kernel), every permutation stage on "
+            "each plane, TwoSum reduce trees; heavy rows in a dense (hi, lo) "
+            "block with a compensated row dot",
+            f64=True,
         )
     )
 

@@ -2,9 +2,10 @@
 
 Counterpart of spmv_openmp_cuda_tpu/ops/spmv_pallas.py for the DIA modes.
 It holds the block plan and the DIA+residual prepare (host numpy, array for
-array the JAX package's), the wrapper of the hand-written CUDA kernels in
-csrc/dia_spmv.cu, their plain PyTorch version, and the registry hook for the
-five DIA modes.
+array the JAX package's), the wrappers of the hand-written CUDA kernels in
+csrc/dia_spmv.cu (f32/bf16) and of the double-float ones in csrc/df_spmv.cu
+(float64: dia_df_kernel, dia_resid_df_kernel), their plain PyTorch versions,
+and the registry hook for the seven DIA modes.
 
 The wrapper launches the kernels for CUDA tensors and raises on anything it
 does not take; it runs the plain version only for tensors on the CPU.
@@ -21,12 +22,15 @@ import torch
 from ..config import LANE, SUBLANE
 from ..formats.dia import (
     DeviceDIA,
+    DeviceDIADF,
     DiaFillError,
     diagonal_sum,
     make_device_dia,
+    make_device_dia_df,
+    prepare_dia_df,
 )
 from ..formats.matrix import CSRMatrix, _ceil_to
-from . import cuda_lib
+from . import cuda_lib, dfloat
 
 _SLAB_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -74,19 +78,49 @@ def pad_dia_for_pallas(mat: DeviceDIA, plan: DiaPlan) -> DeviceDIA:
     return dataclasses.replace(mat, data=data)
 
 
+#: the df plans' per-plane slab budget: the (hi, lo) pair keeps two f32
+#: planes of a diagonal block resident on the TPU, so half the f32 kernel's
+#: 2 << 20 (kept so that the layouts match the JAX package's)
+DF_DIA_VMEM_BUDGET = 1 << 20
+
+
+def pad_dia_df_for_pallas(mat: DeviceDIADF, plan: DiaPlan) -> DeviceDIADF:
+    """pad_dia_for_pallas for the (hi, lo) pair."""
+    d, s, _ = mat.data.shape
+    if s == plan.s_pad:
+        return mat
+    pad = (0, 0, 0, plan.s_pad - s)
+    return dataclasses.replace(
+        mat, data=torch.nn.functional.pad(mat.data, pad),
+        data_lo=torch.nn.functional.pad(mat.data_lo, pad),
+    )
+
+
+def prepare_dia_df_pallas(
+    csr: CSRMatrix, max_fill_ratio: float = 3.0, device="cpu"
+) -> Tuple[DeviceDIADF, DiaPlan]:
+    """(DeviceDIADF, plan) for PL_DIA_F64, the JAX package's
+    prepare_dia_df_pallas (the halved per-plane budget)."""
+    mat = prepare_dia_df(csr, max_fill_ratio=max_fill_ratio, device=device)
+    plan = plan_dia(mat.as_dia(), vmem_budget=DF_DIA_VMEM_BUDGET)
+    return pad_dia_df_for_pallas(mat, plan), plan
+
+
 @dataclasses.dataclass
 class DiaResid:
     """DIA + windowed-residual hybrid (band + scattered fringe, e.g.
-    raefsky1): the dense-offset core is a DeviceDIA, the fringe nnz are
-    slots (block i, slot row k, lane l) in the JAX package's layout."""
+    raefsky1): the dense-offset core is a DeviceDIA (a DeviceDIADF in the
+    double-float mode, with rvals_lo set), the fringe nnz are slots (block
+    i, slot row k, lane l) in the JAX package's layout."""
 
     mat: DeviceDIA
-    rvals: torch.Tensor  # (nblocks*k_pad, 128) f32 or bf16
+    rvals: torch.Tensor  # (nblocks*k_pad, 128) f32 or bf16 (df: hi words)
     rsidx: torch.Tensor  # (nblocks*k_pad, 128) int8: column % 128
     rgid: torch.Tensor  # (nblocks*k_pad, 128) int8: row group within block
     rsrc: torch.Tensor  # (nblocks*n_ktiles*8, 128) int32: window row per slot row
     k_pad: int = 16
     nnz_resid: int = 0
+    rvals_lo: Optional[torch.Tensor] = None  # df mode: f32 lo words
 
     @property
     def n_ktiles(self) -> int:
@@ -99,12 +133,15 @@ def prepare_dia_resid(
     dia_dtype: Optional[torch.dtype] = None,
     vals_dtype: Optional[torch.dtype] = None,
     device="cpu",
+    df: bool = False,
 ) -> Tuple[DiaResid, DiaPlan]:
     """(DiaResid, plan): dense-offset DIA core + windowed residual fringe,
-    array for array the JAX package's prepare_dia_resid (f32/bf16 modes).
+    array for array the JAX package's prepare_dia_resid.
 
     dia_dtype/vals_dtype default to dtype; bfloat16 halves the slab bytes
-    (accumulation stays f32)."""
+    (accumulation stays f32). df=True builds the double-float hybrid: a
+    DeviceDIADF core (the df plan budget) and (hi, lo) fringe values; dtype
+    is then ignored."""
     from ..formats.dia import prepare_dia, split_offsets
 
     dia_dtype = dia_dtype or dtype
@@ -120,9 +157,14 @@ def prepare_dia_resid(
         indices=csr.indices[keep],
         data=csr.data[keep],
     )
-    mat = prepare_dia(kept, dtype=dia_dtype, device=device)
-    plan = plan_dia(mat, max_bs=42)
-    mat = pad_dia_for_pallas(mat, plan)
+    if df:
+        mat = prepare_dia_df(kept, device=device)
+        plan = plan_dia(mat.as_dia(), vmem_budget=DF_DIA_VMEM_BUDGET, max_bs=42)
+        mat = pad_dia_df_for_pallas(mat, plan)
+    else:
+        mat = prepare_dia(kept, dtype=dia_dtype, device=device)
+        plan = plan_dia(mat, max_bs=42)
+        mat = pad_dia_for_pallas(mat, plan)
     bs, ps, nblocks = plan.bs, mat.pad_sub, plan.nblocks
 
     rows_r = rows_all[~keep]
@@ -174,14 +216,20 @@ def prepare_dia_resid(
         lo, hi = t * LANE, min((t + 1) * LANE, k_pad)
         seg[:, : hi - lo] = rsrc_rows.reshape(nblocks, k_pad)[:, lo:hi]
         rsrc.reshape(nblocks, n_ktiles, 8, LANE)[:, t, 0, :] = seg
+    if df:
+        rhi, rlo = dfloat.split_f64(rvals)
+        rvals_t, rvals_lo_t = torch.from_numpy(rhi).to(device), torch.from_numpy(rlo).to(device)
+    else:
+        rvals_t, rvals_lo_t = torch.from_numpy(rvals).to(vals_dtype).to(device), None
     dr = DiaResid(
         mat=mat,
-        rvals=torch.from_numpy(rvals).to(vals_dtype).to(device),
+        rvals=rvals_t,
         rsidx=torch.from_numpy(rsidx).to(device),
         rgid=torch.from_numpy(rgid).to(device),
         rsrc=torch.from_numpy(rsrc).to(device),
         k_pad=k_pad,
         nnz_resid=int(rows_r.shape[0]),
+        rvals_lo=rvals_lo_t,
     )
     return dr, plan
 
@@ -284,21 +332,28 @@ def _check_dia(mat: DeviceDIA, x: torch.Tensor, plan: DiaPlan) -> None:
     dev = x.device
     if plan.bs * plan.nblocks != plan.s_pad:
         raise ValueError(f"inconsistent plan {plan}")
+    if isinstance(mat, DeviceDIADF):
+        raise TypeError("a DeviceDIADF runs through dia_spmv_df_cuda (float64)")
     _require(mat.data, "mat.data", _SLAB_DTYPES, (d, plan.s_pad, LANE), dev)
     _require(mat.offsets_dev, "mat.offsets_dev", (torch.int32,), (d,), dev)
     _require(x, "x", (torch.float32,), (mat.shape[1],), dev)
 
 
 def _check_resid(resid: DiaResid, plan: DiaPlan, dev) -> None:
+    """The fringe operands; a df fringe (rvals_lo set) holds two f32 value
+    planes and a shared-memory tile of pairs."""
     rows = (plan.nblocks * resid.k_pad, LANE)
-    _require(resid.rvals, "resid.rvals", _SLAB_DTYPES, rows, dev)
+    df = resid.rvals_lo is not None
+    _require(resid.rvals, "resid.rvals", (torch.float32,) if df else _SLAB_DTYPES, rows, dev)
+    if df:
+        _require(resid.rvals_lo, "resid.rvals_lo", (torch.float32,), rows, dev)
     _require(resid.rsidx, "resid.rsidx", (torch.int8,), rows, dev)
     _require(resid.rgid, "resid.rgid", (torch.int8,), rows, dev)
     _require(
         resid.rsrc, "resid.rsrc", (torch.int32,),
         (plan.nblocks * resid.n_ktiles * 8, LANE), dev,
     )
-    if plan.bs * LANE * 4 > 48 << 10:
+    if plan.bs * LANE * 4 * (2 if df else 1) > 48 << 10:
         raise ValueError(f"block height bs={plan.bs} exceeds the fringe kernel's shared memory")
 
 
@@ -385,6 +440,165 @@ dia_spmv_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Double-float (float64) DIA: plain versions and the csrc/df_spmv.cu wrappers
+# ---------------------------------------------------------------------------
+
+
+def _x_window_plane(xs: torch.Tensor, pad_sub: int, plan: DiaPlan) -> torch.Tensor:
+    """One f32 plane of x in the flat window of (nblocks + 2) * bs row
+    groups (see _x_window; held to the window's end, never rounded)."""
+    xk = torch.zeros((plan.nblocks + 2) * plan.bs * LANE, dtype=torch.float32, device=xs.device)
+    base = pad_sub * LANE
+    part = xs[: xk.shape[0] - base]
+    xk[base : base + part.shape[0]] = part
+    return xk
+
+
+def dia_resid_df_reference(
+    resid: DiaResid, xh: torch.Tensor, xl: torch.Tensor, plan: DiaPlan
+) -> dfloat.Pair:
+    """Fringe sums over all s_pad*LANE rows as an (hi, lo) pair: slot (i, k,
+    l) adds (rvals, rvals_lo) * x at window row i*bs + rsrc_row(i, k), lane
+    rsidx, into row (i*bs + rgid)*LANE + l; each row's slots are summed by a
+    compensated tree over k (the JAX kernel's masked trees)."""
+    nb, bs, kp = plan.nblocks, plan.bs, resid.k_pad
+    ps = resid.mat.pad_sub
+    xkh, xkl = _x_window_plane(xh, ps, plan), _x_window_plane(xl, ps, plan)
+    q = resid.rsrc.reshape(nb, resid.n_ktiles, 8, LANE)[:, :, 0, :]
+    q = q.reshape(nb, resid.n_ktiles * LANE)[:, :kp].long()
+    blk = torch.arange(nb, device=xh.device).reshape(nb, 1, 1)
+    src = (blk * bs + q[:, :, None]) * LANE + resid.rsidx.reshape(nb, kp, LANE).long()
+    vh, vl = resid.rvals.reshape(nb, kp, LANE), resid.rvals_lo.reshape(nb, kp, LANE)
+    gh, gl = xkh[src], xkl[src]
+    ph, pe = dfloat.two_prod(vh, gh)
+    pl = pe + (vh * gl + vl * gh)
+    gid = resid.rgid.reshape(nb, kp, LANE)
+    out_h = torch.zeros(nb, bs, LANE, dtype=torch.float32, device=xh.device)
+    out_l = torch.zeros_like(out_h)
+    zero = torch.zeros((), dtype=torch.float32, device=xh.device)
+    for gg in range(bs):
+        sel = gid == gg
+        out_h[:, gg], out_l[:, gg] = dfloat.df_tree_sum(
+            torch.where(sel, ph, zero), torch.where(sel, pl, zero), dim=1
+        )
+    return out_h.reshape(-1), out_l.reshape(-1)
+
+
+def dia_spmv_df_pair_reference(
+    mat: DeviceDIADF, xh: torch.Tensor, xl: torch.Tensor, plan: DiaPlan,
+    resid: Optional[DiaResid] = None,
+) -> dfloat.Pair:
+    """(hi, lo) over all s_pad*LANE rows: df_mul_acc over the diagonals in
+    ascending offset order, then the fringe sums df-added."""
+    d, s, _ = mat.data.shape
+    rows = s * LANE
+    xkh = _x_window_plane(xh, mat.pad_sub, plan)
+    xkl = _x_window_plane(xl, mat.pad_sub, plan)
+    hi, lo = mat.data.reshape(d, rows), mat.data_lo.reshape(d, rows)
+    base = mat.pad_sub * LANE
+    acc_h = torch.zeros(rows, dtype=torch.float32, device=xh.device)
+    acc_l = torch.zeros_like(acc_h)
+    for k, off in enumerate(mat.offsets):
+        sl = slice(base + off, base + off + rows)
+        acc_h, acc_l = dfloat.df_mul_acc(acc_h, acc_l, hi[k], lo[k], xkh[sl], xkl[sl])
+    if resid is not None:
+        acc_h, acc_l = dfloat.df_add(acc_h, acc_l, *dia_resid_df_reference(resid, xh, xl, plan))
+    return acc_h, acc_l
+
+
+def dia_spmv_df_reference(
+    mat: DeviceDIADF, x: torch.Tensor, plan: DiaPlan, resid: Optional[DiaResid] = None
+) -> torch.Tensor:
+    """Plain PyTorch y = A @ x (f64, length m) with the semantics of the JAX
+    package's dia_spmv_pallas_df: x split into (hi, lo), the pair summed as
+    dia_spmv_df_pair_reference, one f64 combine (x is read to the window's
+    end, as in dia_spmv_reference)."""
+    xh, xl = dfloat.split_f64_t(x)
+    yh, yl = dia_spmv_df_pair_reference(mat, xh, xl, plan, resid)
+    m = mat.shape[0]
+    return dfloat.df_combine64(yh[:m], yl[:m])
+
+
+def _check_dia_df(mat: DeviceDIADF, x: torch.Tensor, plan: DiaPlan) -> None:
+    d = len(mat.offsets)
+    dev = x.device
+    if plan.bs * plan.nblocks != plan.s_pad:
+        raise ValueError(f"inconsistent plan {plan}")
+    if not isinstance(mat, DeviceDIADF):
+        raise TypeError("the double-float DIA kernels take a DeviceDIADF")
+    for name, t in (("mat.data", mat.data), ("mat.data_lo", mat.data_lo)):
+        _require(t, name, (torch.float32,), (d, plan.s_pad, LANE), dev)
+    _require(mat.offsets_dev, "mat.offsets_dev", (torch.int32,), (d,), dev)
+    _require(x, "x", (torch.float64,), (mat.shape[1],), dev)
+
+
+def dia_resid_df_cuda(
+    resid: DiaResid, xh: torch.Tensor, xl: torch.Tensor, yh: torch.Tensor,
+    yl: torch.Tensor, plan: DiaPlan,
+) -> None:
+    """(yh, yl) += the fringe sums (all s_pad*LANE rows, f32 planes), in
+    place: launches dia_resid_df_kernel (CUDA tensors only)."""
+    dev = xh.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev}")
+    _check_resid(resid, plan, dev)
+    n = resid.mat.shape[1]
+    for name, t in (("xh", xh), ("xl", xl)):
+        _require(t, name, (torch.float32,), (n,), dev)
+    for name, t in (("yh", yh), ("yl", yl)):
+        _require(t, name, (torch.float32,), (plan.s_pad * LANE,), dev)
+    rc = dfloat.df_lib().dia_resid_df_launch(
+        resid.rvals.data_ptr(), resid.rvals_lo.data_ptr(), resid.rsidx.data_ptr(),
+        resid.rgid.data_ptr(), resid.rsrc.data_ptr(), plan.nblocks, plan.bs, resid.k_pad,
+        resid.n_ktiles, resid.mat.pad_sub, xh.data_ptr(), xl.data_ptr(), n,
+        yh.data_ptr(), yl.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    dfloat.check_launch(rc, "dia_resid_df_kernel")
+    dia_resid_df_cuda.launches += 1
+
+
+dia_resid_df_cuda.launches = 0
+
+
+def dia_spmv_df_cuda(
+    mat: DeviceDIADF, x: torch.Tensor, plan: DiaPlan, resid: Optional[DiaResid] = None
+) -> torch.Tensor:
+    """y = A @ x in double-float (f64 in and out, length m) over a
+    plan-padded DeviceDIADF, plus the df residual fringe when `resid` is
+    given.
+
+    CUDA tensors launch dia_df_kernel (and dia_resid_df_kernel on the same
+    stream); CPU tensors take dia_spmv_df_reference. Anything else raises."""
+    _check_dia_df(mat, x, plan)
+    if resid is not None:
+        if resid.mat is not mat:
+            raise ValueError("resid.mat must be the DeviceDIADF passed as mat")
+        _check_resid(resid, plan, x.device)
+    if x.device.type == "cpu":
+        return dia_spmv_df_reference(mat, x, plan, resid)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    xh, xl = dfloat.split_f64_t(x)
+    rows = plan.s_pad * LANE
+    yh = torch.empty(rows, dtype=torch.float32, device=x.device)
+    yl = torch.empty_like(yh)
+    rc = dfloat.df_lib().dia_df_launch(
+        mat.data.data_ptr(), mat.data_lo.data_ptr(), mat.offsets_dev.data_ptr(),
+        len(mat.offsets), rows, xh.data_ptr(), xl.data_ptr(), x.shape[0],
+        yh.data_ptr(), yl.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    dfloat.check_launch(rc, "dia_df_kernel")
+    dia_spmv_df_cuda.launches += 1
+    if resid is not None:
+        dia_resid_df_cuda(resid, xh, xl, yh, yl, plan)
+    m = mat.shape[0]
+    return dfloat.df_combine64(yh[:m], yl[:m])
+
+
+dia_spmv_df_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Prepared state from the JAX package
 # ---------------------------------------------------------------------------
 
@@ -412,18 +626,31 @@ def from_jax_operands(
     rsrc=None,
     k_pad: Optional[int] = None,
     nnz_resid: Optional[int] = None,
+    data_lo=None,
+    rvals_lo=None,
     device="cpu",
 ) -> Tuple[DeviceDIA, DiaPlan, Optional[DiaResid]]:
     """The port's (DeviceDIA, plan, DiaResid or None) from the JAX package's
     prepared DIA operands, given as numpy arrays and their static fields
     (DeviceDIA data/offsets/shape/nnz/pad_sub, DiaPallasPlan bs/nblocks/
     s_pad, and for the hybrid DiaResid rvals/rsidx/rgid/rsrc/k_pad/
-    nnz_resid). Validates what the kernels index with."""
+    nnz_resid). The double-float operands (DeviceDIADF's data_lo, DiaResid's
+    rvals_lo) give a DeviceDIADF core. Validates what the kernels index
+    with."""
     plan = DiaPlan(bs=int(bs), nblocks=int(nblocks), s_pad=int(s_pad))
     offsets = [int(o) for o in offsets]
     if offsets and max(abs(o) for o in offsets) > pad_sub * LANE:
         raise ValueError("an offset exceeds the pad_sub reach")
-    mat = make_device_dia(_to_tensor(data, device), offsets, shape, nnz, pad_sub)
+    if data_lo is None:
+        mat = make_device_dia(_to_tensor(data, device), offsets, shape, nnz, pad_sub)
+    else:
+        mat = make_device_dia_df(
+            _to_tensor(data, device), _to_tensor(data_lo, device), offsets, shape, nnz, pad_sub
+        )
+        if mat.data_lo.shape != mat.data.shape:
+            raise ValueError("data_lo must have the shape of data")
+    if (rvals_lo is None) != (data_lo is None or rvals is None):
+        raise ValueError("a double-float hybrid carries both data_lo and rvals_lo")
     if tuple(mat.data.shape) != (len(offsets), plan.s_pad, LANE):
         raise ValueError(f"data shape {tuple(mat.data.shape)} does not match the plan {plan}")
     if rvals is None:
@@ -441,6 +668,7 @@ def from_jax_operands(
         rsrc=_to_tensor(rsrc_np, device),
         k_pad=int(k_pad),
         nnz_resid=int(nnz_resid),
+        rvals_lo=None if rvals_lo is None else _to_tensor(rvals_lo, device),
     )
     _check_resid(resid, plan, mat.data.device)
     return mat, plan, resid
@@ -535,6 +763,37 @@ def _register() -> None:
             prepare=_mk_prep_resid(torch.bfloat16),
             run=_run_resid,
             doc="DIA + residual hybrid with bf16 slabs (f32 accumulate)",
+        )
+    )
+
+    def _run_resid_df(ops, x):
+        dr, plan = ops
+        return dia_spmv_df_cuda(dr.mat, x, plan, resid=dr)
+
+    register(
+        KernelSpec(
+            name="PL_DIA_RESID_F64",
+            fmt="csr",
+            impl="cuda",
+            prepare=lambda csr, ell, cfg, device: prepare_dia_resid(csr, df=True, device=device),
+            run=_run_resid_df,
+            doc="double-precision DIA + residual hybrid: double-float diagonal "
+            "core and df fringe slots (TwoProduct, TwoSum into owned rows) in "
+            "two CUDA kernels",
+            f64=True,
+        )
+    )
+    register(
+        KernelSpec(
+            name="PL_DIA_F64",
+            fmt="csr",
+            impl="cuda",
+            prepare=lambda csr, ell, cfg, device: prepare_dia_df_pallas(csr, device=device),
+            run=lambda ops, x: dia_spmv_df_cuda(ops[0], x, ops[1]),
+            doc="double-precision DIA: slabs and x as (hi, lo) double-float "
+            "pairs, an error-compensated CUDA diagonal kernel (Dekker "
+            "TwoProduct + Knuth TwoSum), f64 combine at the end",
+            f64=True,
         )
     )
 

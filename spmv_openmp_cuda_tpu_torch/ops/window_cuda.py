@@ -2,10 +2,12 @@
 
 Counterpart of the kernel half of spmv_openmp_cuda_tpu/formats/window.py
 (window_kernel_call, _window_single_call, window_spmv) and of its registry
-hooks in spmv_openmp_cuda_tpu/ops/spmv_pallas.py. It holds the wrapper of the
-hand-written CUDA kernels in csrc/window_spmv.cu, their plain PyTorch
-version, the conversion of the JAX package's prepared layout, and the
-registry hooks of PL_CSR_WINDOW and PL_CSR_WINDOW_BF16.
+hooks in spmv_openmp_cuda_tpu/ops/spmv_pallas.py. It holds the wrappers of the
+hand-written CUDA kernels in csrc/window_spmv.cu (f32/bf16 values) and of
+the double-float one in csrc/df_spmv.cu (float64, window_df_kernel), their
+plain PyTorch versions, the conversion of the JAX package's prepared layout,
+and the registry hooks of PL_CSR_WINDOW, PL_CSR_WINDOW_BF16 and
+PL_CSR_WINDOW_F64.
 
 The wrapper launches the kernels for CUDA tensors and raises on anything it
 does not take; it runs the plain version only for tensors on the CPU.
@@ -19,7 +21,7 @@ import torch
 
 from ..config import LANE
 from ..formats.window import WindowCSR
-from . import cuda_lib
+from . import cuda_lib, dfloat
 from .spmv_cuda import _require, _to_tensor
 
 _SLAB_DTYPES = (torch.float32, torch.bfloat16)
@@ -48,20 +50,14 @@ def window_spmv_reference(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
     rounded; vals are upcast to f32) into row (i*g + r)*128 + l, r = 8*gid +
     k%8 below k_c and gid above; sums over g_pad rows per block, then drops
     the rows past g and past m."""
-    m, n = mat.shape
-    nb, kp, nkt, g = mat.nblocks, mat.k_pad, mat.n_ktiles, mat.g
+    m = mat.shape[0]
+    nb, kp, g = mat.nblocks, mat.k_pad, mat.g
     g_pad = -(-g // 8) * 8
     dev = x.device
     blk = torch.arange(nb, device=dev).reshape(nb, 1, 1)
     k = torch.arange(kp, device=dev).reshape(1, kp, 1)
     lane = torch.arange(LANE, device=dev).reshape(1, 1, LANE)
-    res = mat.sidx.reshape(nb, kp, LANE).long()
-    # Q of each slot: rsrc viewed as (nb, n_ktiles, residue, slot row in tile)
-    qidx = ((blk * nkt + k // LANE) * LANE + res) * LANE + k % LANE
-    q = mat.rsrc.reshape(-1)[qidx].long()
-    col = (_x_base(mat, blk) + q) * LANE + res
-    inside = (col >= 0) & (col < n)
-    xv = torch.where(inside, x[col.clamp(0, max(n - 1, 0))], torch.zeros((), device=dev))
+    (xv,) = _slot_x(mat, (x,), dev)
     prod = mat.vals.reshape(nb, kp, LANE).to(torch.float32) * xv
     gd = mat.gid.reshape(nb, kp, LANE).long()
     r = torch.where(k < mat.k_c, 8 * gd + k % 8, gd)
@@ -71,8 +67,73 @@ def window_spmv_reference(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(nb, g_pad, LANE)[:, :g].reshape(-1)[:m]
 
 
+def _slot_x(mat: WindowCSR, planes, dev):
+    """The x value(s) each slot reads, (nb, k_pad, 128) per plane: x at
+    (x_base(i) + Q)*128 + sidx, 0 outside [0, n)."""
+    n = mat.shape[1]
+    nb, kp, nkt = mat.nblocks, mat.k_pad, mat.n_ktiles
+    blk = torch.arange(nb, device=dev).reshape(nb, 1, 1)
+    k = torch.arange(kp, device=dev).reshape(1, kp, 1)
+    res = mat.sidx.reshape(nb, kp, LANE).long()
+    qidx = ((blk * nkt + k // LANE) * LANE + res) * LANE + k % LANE
+    q = mat.rsrc.reshape(-1)[qidx].long()
+    col = (_x_base(mat, blk) + q) * LANE + res
+    inside = (col >= 0) & (col < n)
+    col = col.clamp(0, max(n - 1, 0))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return [torch.where(inside, p[col], zero) for p in planes]
+
+
+def window_spmv_df_pair_reference(
+    mat: WindowCSR, xh: torch.Tensor, xl: torch.Tensor
+) -> dfloat.Pair:
+    """(hi, lo) of y (length m) over a double-float layout, with the JAX
+    package's df window kernel's order: df products of the slots, then per
+    block the mod-8 folded rows (row 8h + k%8 of slot rows k < k_c with gid
+    h) as compensated trees over the 8-row chunks, and the overflow rows
+    (k >= k_c, row gid) as trees over 8-row chunks and then the 8 rows,
+    df-added to them."""
+    m = mat.shape[0]
+    nb, kp, g, kc = mat.nblocks, mat.k_pad, mat.g, mat.k_c
+    g_pad = -(-g // 8) * 8
+    dev = xh.device
+    gh, gl = _slot_x(mat, (xh, xl), dev)
+    vh = mat.vals.reshape(nb, kp, LANE)
+    vl = mat.vals_lo.reshape(nb, kp, LANE)
+    ph, pe = dfloat.two_prod(vh, gh)
+    pl = pe + (vh * gl + vl * gh)
+    gd = mat.gid.reshape(nb, kp, LANE).long()
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    out_h = torch.zeros(nb, g_pad, LANE, dtype=torch.float32, device=dev)
+    out_l = torch.zeros_like(out_h)
+    if kc:
+        shape8 = (nb, kc // 8, 8, LANE)
+        ch, cl, cg = ph[:, :kc].reshape(shape8), pl[:, :kc].reshape(shape8), gd[:, :kc].reshape(shape8)
+        for h in range(g_pad // 8):
+            sel = cg == h
+            out_h[:, 8 * h : 8 * h + 8], out_l[:, 8 * h : 8 * h + 8] = dfloat.df_tree_sum(
+                torch.where(sel, ch, zero), torch.where(sel, cl, zero), dim=1
+            )
+    if kp > kc:
+        shape8 = (nb, (kp - kc) // 8, 8, LANE)
+        vh8, vl8, vg = ph[:, kc:].reshape(shape8), pl[:, kc:].reshape(shape8), gd[:, kc:].reshape(shape8)
+        for gg in range(g):
+            sel = vg == gg
+            t8 = dfloat.df_tree_sum(torch.where(sel, vh8, zero), torch.where(sel, vl8, zero), dim=1)
+            rh, rl = dfloat.df_tree_sum(*t8, dim=1)
+            out_h[:, gg], out_l[:, gg] = dfloat.df_add(out_h[:, gg], out_l[:, gg], rh, rl)
+    return (out_h[:, :g].reshape(-1)[:m], out_l[:, :g].reshape(-1)[:m])
+
+
+def window_spmv_df_reference(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch y = A @ x (f64, length m) over a double-float layout:
+    x split into (hi, lo), window_spmv_df_pair_reference, one f64 combine
+    (the JAX package's window_spmv on a df layout)."""
+    return dfloat.df_combine64(*window_spmv_df_pair_reference(mat, *dfloat.split_f64_t(x)))
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel wrappers (csrc/window_spmv.cu)
+# CUDA kernel wrappers (csrc/window_spmv.cu, csrc/df_spmv.cu)
 # ---------------------------------------------------------------------------
 
 
@@ -100,7 +161,14 @@ def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def _check_window(mat: WindowCSR, x: torch.Tensor) -> None:
     """What the kernels index with: geometry, then every tensor's device,
-    dtype, shape and contiguity."""
+    dtype, shape and contiguity (a df layout: two f32 value planes and an
+    f64 x)."""
+    _check_layout(mat, x.device)
+    _require(x, "x", (torch.float64 if mat.vals_lo is not None else torch.float32,),
+             (mat.shape[1],), x.device)
+
+
+def _check_layout(mat: WindowCSR, dev) -> None:
     m, n = mat.shape
     g, kp = mat.g, mat.k_pad
     if not (2 <= g <= 64 and 0 <= mat.k_c <= kp and mat.k_c % 8 == 0 and kp > 0 and kp % 8 == 0):
@@ -111,18 +179,21 @@ def _check_window(mat: WindowCSR, x: torch.Tensor) -> None:
         raise ValueError("an xdirect layout has one block and x of <= 128 chunk-rows")
     if mat.shared_w and (mat.bps < 2 or g % 8):
         raise ValueError("a shared_w layout needs bps > 1 and g % 8 == 0")
-    dev = x.device
     rows = (mat.nblocks * kp, LANE)
-    _require(mat.vals, "mat.vals", _SLAB_DTYPES, rows, dev)
+    df = mat.vals_lo is not None
+    _require(mat.vals, "mat.vals", (torch.float32,) if df else _SLAB_DTYPES, rows, dev)
+    if df:
+        _require(mat.vals_lo, "mat.vals_lo", (torch.float32,), rows, dev)
     _require(mat.sidx, "mat.sidx", (torch.int8,), rows, dev)
     _require(mat.gid, "mat.gid", (torch.int8,), rows, dev)
     _require(mat.rsrc, "mat.rsrc", (torch.int8,), (mat.nblocks * mat.n_ktiles * LANE, LANE), dev)
-    _require(x, "x", (torch.float32,), (n,), dev)
     if mat.rsrc.data_ptr() % 16:
         raise ValueError("mat.rsrc must be 16-byte aligned (the kernels stage it in 16-byte loads)")
 
 
 def _check_cuda_args(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor, xdirect: bool) -> None:
+    if mat.vals_lo is not None:
+        raise TypeError("a double-float layout runs through window_df_cuda")
     _check_window(mat, x)
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {x.device}")
@@ -196,17 +267,62 @@ def window_single_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torc
 window_single_cuda.launches = 0
 
 
+def window_df_cuda(
+    mat: WindowCSR, xh: torch.Tensor, xl: torch.Tensor, yh: torch.Tensor, yl: torch.Tensor
+) -> None:
+    """(yh, yl) (f32 planes of length m) = A @ x over a double-float layout
+    of any x form, x given as its (hi, lo) f32 planes: launches
+    window_df_kernel (and, when a block's slot rows are split over CTAs,
+    window_df_combine_kernel). Overwrites every element of y."""
+    m, n = mat.shape
+    dev = xh.device
+    if mat.vals_lo is None:
+        raise TypeError("window_df_cuda runs a double-float layout (vals_lo set)")
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev}")
+    _check_layout(mat, dev)
+    for name, t, size in (("xh", xh, n), ("xl", xl, n), ("yh", yh, m), ("yl", yl, m)):
+        _require(t, name, (torch.float32,), (size,), dev)
+    lib = dfloat.df_lib()
+    scratch = torch.empty(
+        max(lib.window_df_scratch_elems(mat.nblocks, mat.k_pad, mat.g), 1),
+        dtype=torch.float32, device=dev,
+    )
+    xmode = 1 if mat.xdirect else 2 if mat.shared_w else 0
+    rc = lib.window_df_launch(
+        mat.vals.data_ptr(), mat.vals_lo.data_ptr(), mat.sidx.data_ptr(), mat.gid.data_ptr(),
+        mat.rsrc.data_ptr(), mat.nblocks, mat.g, mat.k_pad, mat.k_c, mat.wr, mat.bps, xmode,
+        xh.data_ptr(), xl.data_ptr(), n, m, yh.data_ptr(), yl.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    dfloat.check_launch(rc, "window_df_kernel")
+    window_df_cuda.launches += 1
+
+
+window_df_cuda.launches = 0
+
+
 def window_spmv(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x (f32, length m) over a prepared window layout.
+    """y = A @ x (length m) over a prepared window layout: f32, or f64 for
+    a double-float layout (vals_lo set, x f64).
 
     CUDA tensors launch window_single_kernel (xdirect layouts) or
-    window_blocks_kernel (the others); CPU tensors take
-    window_spmv_reference. Anything else raises."""
+    window_blocks_kernel (the others), or window_df_kernel for a df layout;
+    CPU tensors take window_spmv_reference or window_spmv_df_reference.
+    Anything else raises."""
+    df = mat.vals_lo is not None
     if x.device.type == "cpu":
         _check_window(mat, x)
-        return window_spmv_reference(mat, x)
+        return window_spmv_df_reference(mat, x) if df else window_spmv_reference(mat, x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if df:
+        _require(x, "x", (torch.float64,), (mat.shape[1],), x.device)
+        xh, xl = dfloat.split_f64_t(x)
+        yh = torch.empty(mat.shape[0], dtype=torch.float32, device=x.device)
+        yl = torch.empty_like(yh)
+        window_df_cuda(mat, xh, xl, yh, yl)
+        return dfloat.df_combine64(yh, yl)
     y = torch.empty(mat.shape[0], dtype=torch.float32, device=x.device)
     launch = window_single_cuda if mat.xdirect else window_blocks_cuda
     return launch(mat, x, y)
@@ -220,11 +336,12 @@ def window_spmv(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
 def window_from_jax(
     vals, sidx, gid, rsrc, shape, nnz: int, g: int, k_pad: int, wr: int,
     nspecs: int, nblocks: int, k_c: int, bps: int, xdirect: bool,
-    shared_w: bool, device="cpu",
+    shared_w: bool, vals_lo=None, device="cpu",
 ) -> WindowCSR:
     """The port's WindowCSR from the JAX package's prepared WindowCSR, given
-    as numpy arrays (bf16 bit for bit) and its static fields. Validates the
-    index ranges the kernels read with."""
+    as numpy arrays (bf16 bit for bit) and its static fields; vals_lo (the
+    double-float mode's lo words) gives a df layout. Validates the index
+    ranges the kernels read with."""
     sidx_np, gid_np, rsrc_np = (np.asarray(a) for a in (sidx, gid, rsrc))
     if sidx_np.min(initial=0) < 0 or rsrc_np.min(initial=0) < 0:
         raise ValueError("sidx/rsrc out of range")  # int8: max is < 128
@@ -249,8 +366,10 @@ def window_from_jax(
         bps=int(bps),
         xdirect=bool(xdirect),
         shared_w=bool(shared_w),
+        vals_lo=None if vals_lo is None else _to_tensor(vals_lo, device),
     )
-    _check_window(mat, torch.zeros(mat.shape[1], device=device))
+    x_dtype = torch.float32 if vals_lo is None else torch.float64
+    _check_window(mat, torch.zeros(mat.shape[1], dtype=x_dtype, device=device))
     return mat
 
 
@@ -289,6 +408,22 @@ def _register() -> None:
             run=window_spmv,
             doc="windowed local-gather with bf16 value slabs (f32 x and "
             "accumulate): halves the dominant slot-value stream",
+        )
+    )
+    register(
+        KernelSpec(
+            name="PL_CSR_WINDOW_F64",
+            fmt="csr",
+            impl="cuda",
+            prepare=lambda csr, ell, cfg, device: prepare_window_auto(
+                csr, df=True, device=device
+            ),
+            run=window_spmv,
+            doc="double-precision windowed local-gather: slot values and x as "
+            "(hi, lo) double-float pairs, TwoProduct gather products and "
+            "TwoSum row sums in one CUDA kernel (chunk partials combined in a "
+            "fixed order, no atomics)",
+            f64=True,
         )
     )
 

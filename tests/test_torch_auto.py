@@ -99,8 +99,12 @@ def test_auto_spmv_never_substitutes_an_engine():
             tauto.AutoSpMV.from_csr(csr, format=fmt, device="cpu")
     with pytest.raises(ValueError, match="unknown format"):
         tauto.AutoSpMV.from_csr(csr, format="csr", device="cpu")
-    with pytest.raises(NotImplementedError, match="float64"):
-        tauto.AutoSpMV.from_csr(csr, cfg=Config(dtype="float64"), device="cpu")
+    # float64 runs the double-float engines; an engine the port lacks still
+    # raises at float64
+    f64 = tauto.AutoSpMV.from_csr(csr, cfg=Config(dtype="float64"), device="cpu")
+    assert f64.format == "dia" and f64(x).dtype == torch.float64
+    with pytest.raises(NotImplementedError, match="lanes"):
+        tauto.AutoSpMV.from_csr(csr, cfg=Config(dtype="float64"), format="lanes", device="cpu")
     # DIA fill budget exceeded: the routed engine takes over, as in the JAX
     # package
     rnd = T.coo_to_csr(tsynth.random_uniform(400, 400, 0.02, seed=3))
@@ -137,7 +141,7 @@ def test_cli_cpu_check(raefsky_mtx, mode, capsys, tmp_path, monkeypatch):
 
 
 def test_cli_refusals(raefsky_mtx, tmp_path, capsys):
-    for extra in (["--dtype", "float64"], ["--profile", str(tmp_path)], ["--testtests"],
+    for extra in (["--profile", str(tmp_path)], ["--testtests"],
                   ["--save-prepared", str(tmp_path / "p.npz")], ["--env"]):
         assert cli.main([raefsky_mtx, "RNDVECT", "--device", "cpu", *extra]) == 1
         assert "not ported yet" in capsys.readouterr().err
@@ -153,4 +157,6 @@ def test_cli_refusals(raefsky_mtx, tmp_path, capsys):
     assert cli.main(["--list-modes"]) == 0
     listed = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
     assert listed == ["DIA_ROWS", "PL_DIA_ROWS", "PL_DIA_BF16", "PL_DIA_RESID", "PL_DIA_RESID_BF16",
-                      "PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16", "PL_CSR_ROUTED", "PL_CSR_ROUTED_BF16"]
+                      "PL_DIA_RESID_F64", "PL_DIA_F64", "PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16",
+                      "PL_CSR_WINDOW_F64", "PL_CSR_ROUTED", "PL_CSR_ROUTED_BF16",
+                      "PL_CSR_ROUTED_F64"]

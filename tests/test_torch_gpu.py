@@ -9,6 +9,7 @@ collect the same tests).
 Tolerance: max |y_kernel - y_plain| <= 1e-5 * max|y_plain| + 1e-6 on
 x ~ N(0, 1): both versions read identical (f32 or bf16) values and sum in
 f32; the kernel fuses multiply-adds and orders the fringe sum its own way.
+The double-float kernels (end of the file) are held to 1e-12 * max|y|.
 """
 import dataclasses
 
@@ -337,3 +338,86 @@ def test_routed_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         trc.routed_w_stage_cuda(out.reshape(-1, LANE), 10**6, None, mat.perm_products.w2, None,
                                 mat.perm_products.t, True, mat.perm_products.t, out, out.numel())
+
+
+# ---------------------------------------------------------------------------
+# double-float (float64) kernels of csrc/df_spmv.cu against their plain
+# versions: max |y_kernel - y_plain| <= 1e-12 * max|y_plain| (both (hi, lo)
+# f32 pairs; they differ in summation order and the cross terms' rounding),
+# and within 1e-11 * max|y| of the exact f64 oracle (1e-10 chunked), which a
+# contracted TwoProduct or TwoSum (~1e-7) would fail.
+# ---------------------------------------------------------------------------
+
+
+def _df_within(yk, yp, csr, x, oracle_bound=1e-11):
+    from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
+
+    assert yk.dtype == torch.float64 and yk.device.type == "cuda"
+    scale = yp.abs().max().item()
+    assert (yk - yp).abs().max().item() <= 1e-12 * scale
+    o = serial_csr_spmv(csr, x)
+    assert np.abs(yk.cpu().numpy() - o).max() <= oracle_bound * np.abs(o).max()
+
+
+@pytest.mark.parametrize(
+    "mode,coo",
+    [
+        ("PL_DIA_F64", lambda: synth.preset("cavity10_like")),
+        ("PL_DIA_RESID_F64", lambda: synth.preset("raefsky1_like")),
+        ("PL_DIA_F64", lambda: synth.banded(3000, 3000, 30, fill=1.0, exact_nnz=185000, seed=0)),
+        ("PL_DIA_RESID_F64", lambda: synth.banded(3000, 3000, 30, fill=1.0, exact_nnz=185000, seed=0)),
+    ],
+)
+def test_dia_df_kernel_matches_plain(cuda, mode, coo):
+    csr = T.coo_to_csr(coo())
+    spec = registry.get(mode)
+    ops = spec.prepare(csr, None, T.Config(dtype="float64"), cuda)
+    x = np.random.default_rng(5).standard_normal(csr.shape[1])
+    xd = torch.as_tensor(x, device=cuda)
+    before = tsc.dia_spmv_df_cuda.launches
+    yk = spec.jitted(ops)(xd)
+    torch.cuda.synchronize()
+    assert tsc.dia_spmv_df_cuda.launches == before + 1
+    if mode == "PL_DIA_RESID_F64":
+        dr, plan = ops
+        yp = tsc.dia_spmv_df_reference(dr.mat, xd, plan, dr)
+    else:
+        yp = tsc.dia_spmv_df_reference(ops[0], xd, ops[1])
+    _df_within(yk, yp, csr, x)
+
+
+@pytest.mark.parametrize("layout", list(WINDOW_LAYOUTS))
+def test_window_df_kernel_matches_plain(cuda, layout):
+    gen_kw, kw = WINDOW_LAYOUTS[layout]
+    csr = T.coo_to_csr(synth.fem_like(**gen_kw))
+    mat = twin.prepare_window(csr, df=True, device=cuda, **kw)
+    x = np.random.default_rng(8).standard_normal(csr.shape[1])
+    xd = torch.as_tensor(x, device=cuda)
+    before = twc.window_df_cuda.launches
+    yk = twc.window_spmv(mat, xd)
+    torch.cuda.synchronize()
+    assert twc.window_df_cuda.launches == before + 1
+    _df_within(yk, twc.window_spmv_df_reference(mat, xd), csr, x)
+
+
+@pytest.mark.parametrize("layout", ["level", "spiked", "small"])
+def test_routed_df_kernel_matches_plain(cuda, layout):
+    from spmv_openmp_cuda_tpu_torch.ops import dfloat as tdf
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    coo, _thr = ROUTED_LAYOUTS[layout]()
+    csr = T.coo_to_csr(coo)
+    chain = trc.prepare_routed_df_chain(csr, device=cuda)
+    x = np.random.default_rng(3).standard_normal(csr.shape[1])
+    xd = torch.as_tensor(x, device=cuda)
+    xh, xl = tdf.split_f64_t(xd)
+    mdf = chain.domains[0].mdf
+    gk, gp = trc.routed_df_gather(mdf, xh, xl), trc.routed_df_gather(mdf, xh, xl, plain=True)
+    torch.cuda.synchronize()
+    # products: the kernel's exact FMA error equals the plain Veltkamp error
+    assert torch.equal(gk[0], gp[0]) and torch.equal(gk[1], gp[1])
+    before = trc.routed_df_gather_cuda.launches
+    yk = trc.routed_df_spmv(chain, xd)
+    torch.cuda.synchronize()
+    assert trc.routed_df_gather_cuda.launches == before + len(chain.domains)
+    _df_within(yk, trc.routed_df_spmv(chain, xd, plain=True), csr, x)
