@@ -17,13 +17,25 @@ dtypes, and times kernel, plain version and one PyTorch library call
 (cuSPARSE through torch.sparse, f32 or f64, a yardstick the port never
 calls) with CUDA events; the routed kernels alone are timed inside CUDA
 graphs, so that the host's launch cost does not hide their device time.
+
+The CSR/ELL mode matrix (csr_ell_slice) follows: ell_t_kernel (csrc/
+ell_spmv.cu) on sg_like and thermal2_like and lanes_kernel (csrc/
+lanes_spmv.cu) on four small proxies and a four-window matrix against their
+plain versions, each rerun bitwise equal; then that slice's main path with
+its own counters from zero: the harness over all 26 modes on
+delaunay_n12_like and over the mode matrix on sg_like (SG's published
+size), its log printed and read back by parse_log, every mode that prepares
+ok:1 and within the relative bound on x ~ N(0, 1); the CLI's explicit modes;
+float64 binned against the exact oracle; then the two kernels' times.
+
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing any result.
 
 Tolerances: f32 kernels against their plain versions 1e-5 * max|y| + 1e-6
 (f32 sums in another order); df kernels 1e-12 * max|y| (both (hi, lo) f32
 pairs); f64 results against the exact oracle 1e-11 * max|y| (1e-10 for the
-chunked routed path), which a contracted TwoProduct or TwoSum (~1e-7) fails.
+chunked routed path), which a contracted TwoProduct or TwoSum (~1e-7) fails;
+in the harness, modes that store bf16 values 2^-7 * max(|A||x|) more.
 The last line is one JSON object {"ok": true, "device": {...}}, the line
 before it a JSON object with one entry per kernel.
 """
@@ -71,6 +83,28 @@ DIA_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/dia_spmv.cu"
 WINDOW_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/window_spmv.cu"
 ROUTED_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/routed_spmv.cu"
 DF_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/df_spmv.cu"
+ELL_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/ell_spmv.cu"
+LANES_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/lanes_spmv.cu"
+#: the CSR/ELL mode matrix: the reference's OpenMP strategy matrix as torch
+#: ops, the binned slabs, and the two CUDA kernels' modes
+CSR_ELL_MODES = [
+    "CSR_ROWS", "CSR_ROWS_GROUPS", "CSR_TILES", "CSR_TILES_ALLOCD", "ELL_ROWS",
+    "ELL_ROWS_GROUPS", "ELL_TILES", "ELL_ROWS_T", "ELL_ROWS_NOSIMD", "ELL_ROWS_NORL",
+    "CSR_ROWS_BINNED", "PL_ELL_ROWS_T", "PL_CSR_LANES",
+]
+#: harness matrix -> modes run, and the modes whose prepare must refuse it
+#: (DiaFillError; LanesError past 64 row groups), as in the JAX harness.
+#: sg_like (SG's published size) runs the mode matrix beside its AUTO engine
+#: (PL_CSR_WINDOW) and two DIA modes that refuse it
+HARNESS_RUNS = {
+    "delaunay_n12_like": (None, ("DIA_ROWS", "PL_DIA_ROWS", "PL_DIA_BF16", "PL_DIA_RESID",
+                                 "PL_DIA_RESID_BF16", "PL_DIA_RESID_F64", "PL_DIA_F64")),
+    "sg_like": ((*CSR_ELL_MODES, "PL_CSR_WINDOW", "DIA_ROWS", "PL_DIA_ROWS"),
+                ("PL_CSR_LANES", "DIA_ROWS", "PL_DIA_ROWS")),
+}
+#: lane-gather proxies (at most 64 row groups) and the transposed-ELL ones
+LANES_CHECKS = ("delaunay_n12_like", "raefsky1_like", "cavity10_like", "west2021_like")
+ELL_T_CHECKS = ("sg_like", "thermal2_like")
 #: float64 mode of each format (AutoSpMV and CLI AUTO at --dtype float64)
 F64_MODES = {"dia": "PL_DIA_F64", "dia_resid": "PL_DIA_RESID_F64",
              "window": "PL_CSR_WINDOW_F64", "routed": "PL_CSR_ROUTED_F64"}
@@ -211,6 +245,213 @@ def library_spmv(csr, device, dtype=torch.float32):
     return lambda v: a @ v
 
 
+def bf16_ratio_limit(csr, x: np.ndarray) -> float:
+    """check_ratio limit of a mode that stores values (and, for PL_DIA_BF16,
+    x) in bf16: each product is off by at most 2^-7 of |a||x| (two roundings
+    to 8 significant bits), on top of the f32 bound 1e-5*max|o| + 1e-6."""
+    from spmv_openmp_cuda_tpu_torch.formats.matrix import CSRMatrix
+    from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
+
+    o = serial_csr_spmv(csr, x)
+    a = serial_csr_spmv(CSRMatrix(csr.shape, csr.indptr, csr.indices, np.abs(csr.data)), np.abs(x))
+    f32 = 1e-5 * np.abs(o).max() + 1e-6
+    return (1.01 * 2.0 ** -7 * a.max() + f32) / f32
+
+
+def csr_ell_slice(dev, smi: str, csrs: dict):
+    """The CSR/ELL mode matrix: ell_t_kernel and lanes_kernel against their
+    plain versions (phase 2), the slice's main path with its launch counters
+    from zero (phase 3: the harness over all 26 modes on delaunay_n12_like
+    and over the mode matrix on sg_like at SG's published size, then the
+    CLI's explicit modes; float64 binned), and their times (phase 5).
+    Returns the kernels' entries of the JSON line."""
+    import contextlib
+    import io
+
+    import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch import cli
+    from spmv_openmp_cuda_tpu_torch.bench.harness import format_log, run_all
+    from spmv_openmp_cuda_tpu_torch.bench.parse_log import parse_lines
+    from spmv_openmp_cuda_tpu_torch.cli import time_per_call
+    from spmv_openmp_cuda_tpu_torch.formats.lanes import prepare_lanes_small
+    from spmv_openmp_cuda_tpu_torch.formats.matrix import device_ell
+    from spmv_openmp_cuda_tpu_torch.io.mmio import write_mtx
+    from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector
+    from spmv_openmp_cuda_tpu_torch.models.auto import AutoSpMV
+    from spmv_openmp_cuda_tpu_torch.ops import ell_cuda as EC
+    from spmv_openmp_cuda_tpu_torch.ops import lanes_cuda as LC
+    from spmv_openmp_cuda_tpu_torch.ops import registry
+    from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
+    from spmv_openmp_cuda_tpu_torch.utils import synth
+
+    mats = {name: csrs[name] for name in ("delaunay_n12_like", "raefsky1_like", "cavity10_like",
+                                          "thermal2_like")}
+    for name in ("sg_like", "west2021_like"):
+        t = time.perf_counter()
+        mats[name] = P.coo_to_csr(synth.preset(name))
+        m, n = mats[name].shape
+        log(f"set-up: {name} {m}x{n}, {mats[name].nnz} nnz, max row {mats[name].max_row_nz}, "
+            f"generated in {time.perf_counter() - t:.1f}s")
+    ells = {name: P.coo_to_ell(P.csr_to_coo(mats[name]))
+            for name in ("sg_like", "thermal2_like", "delaunay_n12_like")}
+
+    # -- phase 2: the two kernels against their plain versions -------------
+    errs = {"ell_t": 0.0, "lanes": 0.0}
+
+    def check(kernel, label, fn, plain, x):
+        yk, yk2 = fn(x), fn(x)
+        torch.cuda.synchronize()
+        yp = plain(x)
+        err = (yk - yp).abs().max().item()
+        same = torch.equal(yk, yk2)
+        ok = err <= bound(yp) and yk.abs().max().item() > 0 and same
+        errs[kernel] = max(errs[kernel], err)
+        log(f"phase 2: {label}: {kernel}_kernel max|y_k - y_p| = {err:.3e} <= {bound(yp):.3e}, "
+            f"rerun bitwise equal: {same}: {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: {kernel}_kernel disagrees with its plain version")
+
+    ell_ops = {}
+    for name in ELL_T_CHECKS:
+        mat = ell_ops[name] = device_ell(ells[name], transposed=True, device=dev)
+        check("ell_t", f"{name} PL_ELL_ROWS_T (W_pad {mat.data.shape[0]}, M_pad {mat.data.shape[1]})",
+              lambda v, o=mat: EC.ell_t_cuda(o, v), lambda v, o=mat: EC.ell_t_reference(o, v),
+              normal_x(mats[name].shape[1], dev, seed=1))
+    lanes_ops = {}
+    wide = P.coo_to_csr(synth.random_uniform(4096, 50000, density=3e-4, seed=1))
+    for name, csr in [(n, mats[n]) for n in LANES_CHECKS] + [("random_uniform 4096x50000", wide)]:
+        mat = lanes_ops[name] = prepare_lanes_small(csr, device=dev)
+        check("lanes", f"{name} PL_CSR_LANES ({mat.vals.shape[0]} slot rows, {len(mat.window_tiles)} "
+              f"windows, G={mat.n_groups})", lambda v, o=mat: LC.lanes_cuda(o, v),
+              lambda v, o=mat: LC.lanes_reference(o, v), normal_x(csr.shape[1], dev, seed=1))
+
+    # -- phase 3: the slice's main path, counters from zero -----------------
+    EC.ell_t_cuda.launches = 0
+    LC.lanes_cuda.launches = 0
+    cfg = P.Config()
+    reports = {}
+    for name, (modes, refused) in HARNESS_RUNS.items():
+        csr = mats[name]
+        modes = list(modes or registry.names())
+        x = fill_rnd_vector(csr.shape[1], seed=0)
+        xn = np.random.default_rng(3).standard_normal(csr.shape[1])
+        t = time.perf_counter()
+        rep = reports[name] = run_all(csr, ells.get(name) or P.coo_to_ell(P.csr_to_coo(csr)), x, cfg,
+                                      kernels=modes, name=name, device="cuda", x_check=xn)
+        text = format_log(rep, cfg)
+        print(text)
+        rows = parse_lines(text.splitlines())
+        if [r["funcID"] for r in rows] != modes or rows[0]["backend"] != "cuda":
+            raise AssertionError(f"{name}: parse_log does not read the harness log back")
+        bf16_lim = bf16_ratio_limit(csr, xn)
+        for r in rep.results:
+            if (r.error is not None) != (r.kernel in refused):
+                raise AssertionError(f"{name} {r.kernel}: error {r.error!r}, expected a refusal: "
+                                     f"{r.kernel in refused}")
+            if r.error is not None:
+                continue
+            lim = bf16_lim if r.kernel.endswith("BF16") else 1.0
+            if not r.ok or not r.check_ratio <= lim:
+                raise AssertionError(f"{name} {r.kernel}: ok {r.ok}, x~N(0,1) check {r.check_ratio:.3e} "
+                                     f"of the bound (limit {lim:.1f})")
+        det0 = [r.kernel for r in rep.results if r.error is None and not r.deterministic]
+        log(f"phase 3: harness on {name}: {len(modes)} modes in {time.perf_counter() - t:.1f}s, "
+            f"{sum(r.error is None for r in rep.results)} prepared, all ok:1 and within the "
+            f"x~N(0,1) bound (bf16 storage: {bf16_lim:.1f}x it); refused as expected: "
+            f"{[r.kernel for r in rep.results if r.error]}; det:0 for {det0}; parse_log read "
+            f"{len(rows)} rows")
+    # the CLI's explicit modes, in this process so that the counters see them
+    cli_runs = (
+        ("CSR_ROWS", [], "CSR_ROWS", None), ("ELL_ROWS", [], "ELL_ROWS", None),
+        ("PL_ELL_ROWS_T", [], "PL_ELL_ROWS_T", None), ("PL_CSR_LANES", [], "PL_CSR_LANES", None),
+        ("PL_CSR_WINDOW", ["--dtype", "float64"], "CSR_ROWS_BINNED",
+         "#dtype: float64 unsupported by CUDA mode PL_CSR_WINDOW; remapping to CSR_ROWS_BINNED"),
+    )
+    with tempfile.TemporaryDirectory() as d:
+        mtx = os.path.join(d, "delaunay_n12_like.mtx")
+        write_mtx(mtx, synth.preset("delaunay_n12_like"))
+        for arg, extra, mode, line in cli_runs:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([mtx, "RNDVECT", arg, "--check", "--no-dump", *extra])
+            out = buf.getvalue()
+            print(out.rstrip())
+            if rc != 0 or "#check: OK" not in out or f"computeMode:{mode} " not in out or \
+                    (line and line not in out):
+                raise AssertionError(f"CLI {arg} {extra} on delaunay_n12_like failed (exit {rc})")
+            log(f"phase 3: CLI {arg} {' '.join(extra)} --check OK ({mode})")
+    torch.cuda.synchronize()
+    launches = {"ell_t": EC.ell_t_cuda.launches, "lanes": LC.lanes_cuda.launches}
+    log(f"phase 3: the CSR/ELL slice's main path launches {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the CSR/ELL slice never launched: {launches}")
+    # float64: the binned engine, native f64 torch ops, against the exact oracle
+    for name in ("sg_like", "thermal2_like"):
+        csr = mats[name]
+        t = time.perf_counter()
+        model = AutoSpMV.from_csr(csr, cfg=P.Config(dtype="float64"), format="binned", device="cuda")
+        prep_s = time.perf_counter() - t
+        xn = np.random.default_rng(3).standard_normal(csr.shape[1])
+        y = model(xn)
+        if model.format != "binned" or y.dtype != torch.float64 or y.shape != (csr.shape[0],) or \
+                not torch.isfinite(y).all():
+            raise AssertionError(f"{name}: float64 binned output {model.format} {y.dtype} {y.shape}")
+        o = serial_csr_spmv(csr, xn)
+        rel = np.abs(y.cpu().numpy() - o).max() / np.abs(o).max()
+        log(f"phase 3 (float64): {name} AutoSpMV(format='binned'), prepare+upload {prep_s:.1f}s: "
+            f"{rel:.3e} * max|y| of the exact oracle <= 1e-11")
+        if not rel <= 1e-11:
+            raise AssertionError(f"{name}: wrong float64 binned output")
+
+    # -- phase 5: times ----------------------------------------------------
+    print(f"CSR/ELL slice times on {smi} (CUDA events, per call through the wrapper, after "
+          "warm-up; graph = the same call in a CUDA graph, device time):")
+    times = {}
+    for kernel, name, mat, fn, plain, moved, flops in (
+        *(("ell_t", n, ell_ops[n], EC.ell_t_cuda, EC.ell_t_reference,
+           nbytes(ell_ops[n].data, ell_ops[n].cols), 2 * ell_ops[n].data.numel()) for n in ELL_T_CHECKS),
+        *(("lanes", n, lanes_ops[n], LC.lanes_cuda, LC.lanes_reference,
+           nbytes(lanes_ops[n].vals, lanes_ops[n].pidx, lanes_ops[n].gid, lanes_ops[n].tile_win),
+           2 * lanes_ops[n].vals.numel()) for n in LANES_CHECKS),
+    ):
+        csr = mats[name]
+        m, n = csr.shape
+        x = normal_x(n, dev, seed=4)
+        tk = time_per_call(lambda v: fn(mat, v), x)
+        tg = graph_ms(lambda: fn(mat, x)) / 1e3
+        tp = time_per_call(lambda v: plain(mat, v), x)
+        tl = time_per_call(library_spmv(csr, dev), x)
+        b_ms, by = least_ms(moved + 4 * (n + m), flops)
+        times[(kernel, name)] = (tk, tp, tl, b_ms, by)
+        print(f"  {name:20s} {kernel}_kernel {tk * 1e3:8.4f} ms per call ({tg * 1e3:.4f} ms in a graph, "
+              f"host {max(tk - tg, 0) * 1e6:.1f} us) | plain {tp * 1e3:8.4f} ms | library (cuSPARSE "
+              f"CSR f32) {tl * 1e3:8.4f} ms | bound {b_ms:.5f} ms ({by}, {(moved + 4 * (n + m)) / 1e6:.2f} "
+              f"MB); graphed kernel at {100 * b_ms / (tg * 1e3):.1f} % of it")
+    sg = mats["sg_like"]
+    rm = device_ell(ells["sg_like"], device=dev)
+    print(f"  sg_like ELL slabs: row-major {tuple(rm.data.shape)} {nbytes(rm.data, rm.cols) / 1e6:.1f} MB "
+          f"against transposed {tuple(ell_ops['sg_like'].data.shape)} "
+          f"{nbytes(ell_ops['sg_like'].data, ell_ops['sg_like'].cols) / 1e6:.1f} MB and "
+          f"{12 * sg.nnz / 1e6:.1f} MB of CSR values and columns")
+    del rm
+    tl = times[("ell_t", "sg_like")][2]
+    print(f"  sg_like modes, harness internal time per call (library cuSPARSE {tl * 1e3:.4f} ms):")
+    for r in reports["sg_like"].results:
+        if r.error is None:
+            print(f"    {r.kernel:18s} [{r.impl}] {r.internal_time_avg * 1e3:8.4f} ms  "
+                  f"{r.gflops:8.2f} GFLOP/s  {r.internal_time_avg / tl:6.2f}x cuSPARSE  det:{int(r.deterministic)}")
+    out = []
+    for kernel, name, source, replaces in (
+        ("ell_t", "sg_like", ELL_SOURCE, "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:78"),
+        ("lanes", "delaunay_n12_like", LANES_SOURCE, "spmv_openmp_cuda_tpu/formats/lanes.py:170"),
+    ):
+        tk, tp, tl, b_ms, by = times[(kernel, name)]
+        out.append({"name": f"{kernel}_kernel", "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches[kernel], "max_abs_err": errs[kernel], "ms": tk * 1e3,
+                    "plain_ms": tp * 1e3, "bound_ms": b_ms, "bound_by": by, "library_ms": tl * 1e3})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -244,7 +485,8 @@ def main() -> int:
     # -- phase 1: build, one nvcc per source, all at once ------------------
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        built = list(pool.map(cuda_lib.build, ("dia_spmv", "window_spmv", "routed_spmv", "df_spmv")))
+        built = list(pool.map(cuda_lib.build, ("dia_spmv", "window_spmv", "routed_spmv", "df_spmv",
+                                                "ell_spmv", "lanes_spmv")))
     log(f"phase 1: built {', '.join(os.path.relpath(p) for p, _ in built)} "
         f"in {time.perf_counter() - t:.1f}s")
     for _path, nvcc_log in built:
@@ -841,6 +1083,8 @@ def main() -> int:
             {"name": kname, "route": "cuda", "source": DF_SOURCE, "replaces": replaces,
              "launches": launches64[counter], "max_abs_err": errs[counter], "ms": ms,
              "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": lib})
+    kernels.extend(csr_ell_slice(dev, smi, csrs))
+    log("done")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,14 @@
 """spmv_openmp_cuda_tpu_torch — the PyTorch/CUDA port of spmv_openmp_cuda_tpu.
 
 A second package beside the JAX one, for NVIDIA Hopper (H100, sm_90a): the
-same host layer (MatrixMarket ingestion, COO/CSR/ELL, the serial oracle and
-the 7e-4 check, the synthetic proxies), the DIA, DIA+residual, windowed
-local-gather and Clos-routed engines on hand-written CUDA kernels (csrc/),
-and AutoSpMV and the CLI over them. It imports torch and numpy, never jax or the JAX package.
+same host layer (MatrixMarket ingestion, COO/CSR/ELL and their device forms,
+the partitioners, the serial oracle and the 7e-4 check, the synthetic
+proxies), the JAX registry's 26 modes under the same names (the DIA,
+DIA+residual, windowed local-gather, Clos-routed, transposed-ELL and
+lane-gather engines and the double-float ones on hand-written CUDA kernels
+in csrc/; the reference's CSR/ELL strategy matrix and the binned slabs as
+torch ops), AutoSpMV, the CLI, and the oracle-checked harness, sweep and log
+reducer (bench/). It imports torch and numpy, never jax or the JAX package.
 """
 from .config import (
     AVG_TIMES_ITERATION,

@@ -2,21 +2,26 @@
 
 Counterpart of spmv_openmp_cuda_tpu/cli.py (reference: src/main.cu:66-283):
   usage: python -m spmv_openmp_cuda_tpu_torch <matrix.mtx[.gz|.xz|.bz2|.zip]>
-         <vectorFile | RNDVECT> [AUTO|COMPUTE_MODE] [--check] [--no-dump]
+         <vectorFile | RNDVECT> [COMPUTE_MODE|AUTO] [--check] [--no-dump]
          [--list-modes] [--device cuda|cpu] [--dtype float32|float64]
-parses the matrix, loads or generates the dense vector, runs the selected
-mode, dumps the output vector (raw + text) under TMPDIR, and prints the same
-`#auto:`, `#matrix:`, `#check:` and `computeMode:... elapsed:...
-elapsedInternal:... GFLOPS:...` lines as the JAX package, so one log reducer
-reads both.
+         [--env] [--profile DIR] [--testtests]
+parses the matrix into the mode's format (CSR, or ELL for the ELL modes,
+with the ELL_MAX_ENTRIES cap), loads or generates the dense vector, runs the
+selected mode (CSR_ROWS by default, as in the JAX package), dumps the output
+vector (raw + text) under TMPDIR, and prints the same `#auto:`, `#matrix:`,
+`#check:` and `computeMode:... elapsed:... elapsedInternal:... GFLOPS:...`
+lines as the JAX package, so one log reducer reads both.
 
 The device defaults to cuda; without a CUDA device that default is an error,
 never a silent run on the CPU (`--device cpu` runs the kernels' plain
 PyTorch versions). `--dtype float64` (or SPMV_DTYPE=float64) runs the
-double-float modes (`*_F64`): AUTO maps every engine to its df mode, and an
-explicit f32 CUDA mode is remapped as in the JAX package (PL_DIA_ROWS and
-PL_DIA_BF16 to PL_DIA_F64) or refused where the JAX package's substitute is
-not ported.
+double-precision modes: AUTO maps every engine to its double-float mode
+(`*_F64`), and an explicit f32 CUDA mode is remapped as in the JAX package:
+PL_DIA_ROWS and PL_DIA_BF16 to PL_DIA_F64, PL_ELL_ROWS_T to ELL_ROWS_T, every
+other one to CSR_ROWS_BINNED (native f64 torch ops). `--env` prints the
+runtime, `--profile DIR` writes a torch.profiler trace of the timed calls,
+`--testtests` diffs the serial oracle against the dense one and exits.
+`--save-prepared`/`--load-prepared` are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,12 +30,12 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Callable, List, Optional
+from typing import List, Optional
 
 import torch
 
 from .config import Config
-from .formats.convert import coo_to_csr
+from .formats.convert import EllSizeError, coo_to_csr, coo_to_ell
 from .formats.dia import DiaFillError
 from .formats.window import WindowError
 from .io.mmio import read_coo
@@ -41,6 +46,7 @@ from .io.vectors import (
     write_vector_str,
 )
 from .ops import registry
+from .utils.profiling import profiler_trace, time_per_call
 
 #: AUTO's engine -> compute mode (float32, float64), as in the JAX
 #: package's CLI.
@@ -51,10 +57,15 @@ _AUTO_MODES = {
     "routed": ("PL_CSR_ROUTED", "PL_CSR_ROUTED_F64"),
 }
 
-#: float64 under an explicit f32 CUDA mode: the JAX package's CLI remaps
-#: these to PL_DIA_F64 and every other one of the port's f32 CUDA modes to
-#: CSR_ROWS_BINNED, which the port lacks
-_F64_REMAP = {"PL_DIA_ROWS": "PL_DIA_F64", "PL_DIA_BF16": "PL_DIA_F64"}
+#: float64 under an explicit f32 CUDA mode, as the JAX package's CLI remaps
+#: its Pallas modes: these to their double-precision twins, every other one
+#: to CSR_ROWS_BINNED (native f64 torch ops)
+_F64_REMAP = {
+    "PL_DIA_ROWS": "PL_DIA_F64",
+    "PL_DIA_BF16": "PL_DIA_F64",
+    "PL_ELL_ROWS_T": "ELL_ROWS_T",
+}
+_F64_FALLBACK = "CSR_ROWS_BINNED"
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -71,8 +82,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument(
         "compute_mode",
         nargs="?",
-        default="AUTO",
-        help=f"AUTO (structure-driven selection, the default) or one of: "
+        default="CSR_ROWS",
+        help=f"AUTO (structure-driven selection) or one of (default CSR_ROWS): "
         f"{', '.join(registry.names())}",
     )
     p.add_argument(
@@ -88,40 +99,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["float32", "float64"], default=None,
                    help="compute dtype (default: SPMV_DTYPE, else float32); "
                    "float64 runs the double-float modes")
+    p.add_argument("--env", action="store_true",
+                   help="print the runtime (torch, CUDA devices, env overrides) and exit")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler trace of the timed calls to DIR/trace.json")
+    p.add_argument("--testtests", action="store_true",
+                   help="TESTTESTS mode (reference SpMV_test.cu:227-236): diff the serial "
+                   "oracle against the dense-GEMV oracle on this matrix and exit")
     # flags of the JAX package's CLI that are not ported yet: accepted so
     # that they fail with a clear message instead of a usage error
-    p.add_argument("--env", action="store_true", help="not ported yet")
-    p.add_argument("--profile", metavar="DIR", default=None, help="not ported yet")
-    p.add_argument("--testtests", action="store_true", help="not ported yet")
     p.add_argument("--save-prepared", metavar="PATH", help="not ported yet")
     p.add_argument("--load-prepared", metavar="PATH", help="not ported yet")
     return p
-
-
-def time_per_call(f: Callable, x: torch.Tensor, min_seconds: float = 0.2) -> float:
-    """Seconds per call of f(x) over a back-to-back run after warm-up: CUDA
-    events on a GPU, the host clock on the CPU."""
-    cuda = x.device.type == "cuda"
-
-    def run(reps: int) -> float:
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                f(x)
-            stop.record()
-            torch.cuda.synchronize(x.device)
-            return start.elapsed_time(stop) / 1e3
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            f(x)
-        return time.perf_counter() - t0
-
-    run(3)  # warm-up
-    probe = max(run(10) / 10, 1e-7)
-    reps = int(min(max(min_seconds / probe, 10), 10_000))
-    return run(reps) / reps
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -130,12 +119,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         for s in registry.all_kernels():
             print(f"{s.name:24s} [{s.impl}/{s.fmt}] {s.doc}")
         return 0
+    if args.env:
+        from .utils.envinfo import format_info
+
+        print(format_info())
+        return 0
     unported = [
         flag
         for flag, used in (
-            ("--env", args.env),
-            ("--profile", args.profile),
-            ("--testtests", args.testtests),
             ("--save-prepared", args.save_prepared),
             ("--load-prepared", args.load_prepared),
         )
@@ -186,18 +177,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         fmt = select_format(csr)
         mode = _AUTO_MODES[fmt][f64]
         print(f"#auto: format={fmt} -> {mode}")
-    spec = registry.get(mode)  # every ported mode takes CSR (no ELL yet)
+    spec = registry.get(mode)
     if f64 and spec.impl == "cuda" and not spec.f64:
-        if mode not in _F64_REMAP:
-            print(
-                f"ERROR: float64 under {mode}: the JAX package runs CSR_ROWS_BINNED there, "
-                "which is not ported to PyTorch/CUDA yet (ROADMAP.md queue 1 item 8)",
-                file=sys.stderr,
-            )
-            return 1
-        print(f"#dtype: float64 unsupported by CUDA mode {mode}; remapping to {_F64_REMAP[mode]}")
-        mode = _F64_REMAP[mode]
+        # the CUDA kernels of these modes are f32: remap to a double-precision
+        # mode, as the JAX package's CLI does (AUTO maps f64 the same way)
+        mode = _F64_REMAP.get(mode, _F64_FALLBACK)
+        print(f"#dtype: float64 unsupported by CUDA mode {spec.name}; remapping to {mode}")
         spec = registry.get(mode)
+    ell = None
+    if spec.fmt == "ell":
+        try:
+            ell = coo_to_ell(coo, max_entries=cfg.ell_max_entries)
+        except EllSizeError as e:
+            print(f"ERROR: {e}", file=sys.stderr)
+            return 1
     parse_time = time.perf_counter() - t0
     m, n = csr.shape
     print(f"#matrix: {os.path.basename(args.matrix)} {m} {n} {csr.nnz} {csr.max_row_nz} (parse {parse_time:.3f}s)")
@@ -215,19 +208,29 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
             return 1
 
+    if args.testtests:
+        # TESTTESTS: validate the serial oracle against the dense-GEMV
+        # oracle and exit (reference SpMV_test.cu:227-236)
+        from .ops.oracle import oracle_vs_oracle
+
+        rep = oracle_vs_oracle(csr, x)
+        print(f"#testtests: {'OK' if rep.ok else 'FAIL'} maxAbsDiff={rep.max_abs_diff:.3e}")
+        return 0 if rep.ok else 2
+
     t0 = time.perf_counter()
     try:
-        operands = spec.prepare(csr, None, cfg, device)
+        operands = spec.prepare(csr, ell, cfg, device)
     except (DiaFillError, WindowError) as e:
         if not is_auto:
             print(f"ERROR: {e}", file=sys.stderr)
             return 1
         # the structural guess tripped the exact prepare-time cap: fall
         # through to the general engine, as the JAX package's AUTO does
-        mode = _AUTO_MODES["routed"][f64]
+        # (CSR_ROWS_BINNED at float64)
+        mode = _F64_FALLBACK if f64 else _AUTO_MODES["routed"][0]
         print(f"#auto: {spec.name} infeasible ({e}); falling back to {mode}")
         spec = registry.get(mode)
-        operands = spec.prepare(csr, None, cfg, device)
+        operands = spec.prepare(csr, ell, cfg, device)
     f = spec.jitted(operands)
     # the df modes take x in f64 whatever the configured dtype
     xd = torch.as_tensor(x, dtype=torch.float64 if spec.f64 else cfg.torch_dtype, device=device)
@@ -235,7 +238,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0  # prepare + upload + first call
-    elapsed_internal = time_per_call(f, xd)
+    with profiler_trace(args.profile):
+        elapsed_internal = time_per_call(f, xd)
+    if args.profile:
+        print(f"#profile: torch.profiler trace written to {os.path.join(args.profile, 'trace.json')}")
     y_host = y.double().cpu().numpy()[:m]
 
     if args.check:

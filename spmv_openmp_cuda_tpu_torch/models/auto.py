@@ -1,19 +1,21 @@
 """High-level SpMV model with automatic format selection.
 
-Counterpart of spmv_openmp_cuda_tpu/models/auto.py, for the engines the port
-runs so far: diagonal-concentrated matrices go to DIA, a dense-diagonal core
-with a scattered fringe to the DIA+residual hybrid, both on the CUDA DIA
-kernels (ops/spmv_cuda.py), and banded-locality matrices (unstructured FEM)
-to the windowed local-gather engine on the CUDA window kernels
+Counterpart of spmv_openmp_cuda_tpu/models/auto.py, with every format the
+JAX one accepts: diagonal-concentrated matrices go to DIA, a dense-diagonal
+core with a scattered fringe to the DIA+residual hybrid, both on the CUDA DIA
+kernels (ops/spmv_cuda.py), banded-locality matrices (unstructured FEM) to
+the windowed local-gather engine on the CUDA window kernels
 (ops/window_cuda.py), and every other matrix, and every DIA or window
 refusal, to the Clos-routed engine on the CUDA routed kernels
-(ops/routed_cuda.py), as in the JAX package. At float64 the same formats
-run the double-float engines (ops/dfloat.py; the CUDA kernels of
-csrc/df_spmv.cu), with the same fallbacks to the df routed engine. The
-explicit engines the port lacks (lanes, ell_t, binned) raise
-NotImplementedError, and so does a matrix that even the chunked routed
-engine refuses (the JAX package falls back to binned there): the port never
-substitutes another engine for one it lacks.
+(ops/routed_cuda.py), as in the JAX package. The explicit formats stay
+available: lanes (the lane-gather engine, ops/lanes_cuda.py; a LanesError
+falls back to routed), ell_t (transposed ELL slabs, ops/ell_cuda.py; an
+EllSizeError falls back to binned) and binned (the width-class slabs,
+formats/binned.py), which also takes a matrix that even the chunked routed
+engine refuses. At float64 the same formats run the double-float engines
+(ops/dfloat.py; the CUDA kernels of csrc/df_spmv.cu) with the same
+fallbacks; lanes maps to binned, and ell_t and binned run native f64 torch
+ops.
 
 Usage:
     model = AutoSpMV.from_file("matrix.mtx", device="cuda")
@@ -30,11 +32,15 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..formats.convert import coo_to_csr
+from ..formats.binned import binned_spmv, prepare_binned_csr
+from ..formats.convert import EllSizeError, coo_to_csr, coo_to_ell, csr_to_coo
 from ..formats.dia import DiaFillError, prepare_dia, split_offsets
-from ..formats.matrix import COOMatrix, CSRMatrix
+from ..formats.lanes import LanesError, prepare_lanes_small
+from ..formats.matrix import COOMatrix, CSRMatrix, device_ell
 from ..formats.routed import RoutedError
 from ..formats.window import WindowError, prepare_window_auto, window_cost_scan
+from ..ops.ell_cuda import ell_t_cuda
+from ..ops.lanes_cuda import lanes_cuda
 from ..ops.routed_cuda import (
     prepare_routed_chain,
     prepare_routed_df_chain,
@@ -49,22 +55,10 @@ from ..ops.spmv_cuda import (
     prepare_dia_df_pallas,
     prepare_dia_resid,
 )
+from ..ops.spmv_torch import ell_rows_transposed
 from ..ops.window_cuda import window_spmv
 
-#: Engines of the JAX package that the port has not brought over yet, with
-#: the ROADMAP.md queue-1 item that ports each.
-UNPORTED_FORMATS = {
-    "lanes": "queue 1 item 8 (remaining f32 modes)",
-    "ell_t": "queue 1 item 8 (remaining f32 modes)",
-    "binned": "queue 1 item 8 (remaining f32 modes)",
-}
-
-
-def _unported(fmt: str, why: str = "") -> NotImplementedError:
-    return NotImplementedError(
-        f"{why}the {fmt} engine is not ported to PyTorch/CUDA yet "
-        f"(ROADMAP.md {UNPORTED_FORMATS[fmt]})"
-    )
+FORMATS = ("dia", "dia_resid", "window", "lanes", "routed", "ell_t", "binned")
 
 
 def select_format(csr: CSRMatrix, dia_fill_cap: float = 2.0) -> str:
@@ -146,13 +140,13 @@ class AutoSpMV:
             )
         f64 = cfg.dtype == "float64"
         fmt = select_format(csr) if format == "auto" else format
-        if fmt in UNPORTED_FORMATS:
-            raise _unported(fmt)
-        if fmt not in ("dia", "dia_resid", "window", "routed"):
+        if fmt not in FORMATS:
             raise ValueError(
                 f"unknown format {format!r}; expected auto, dia, dia_resid, "
                 "window, lanes, routed, ell_t or binned"
             )
+        if f64 and fmt == "lanes":
+            fmt = "binned"  # the lane-gather kernel is f32, as in the JAX package
         dia_run = dia_spmv_df_cuda if f64 else dia_spmv_cuda
         try:
             if fmt == "window":
@@ -179,17 +173,33 @@ class AutoSpMV:
 
         except (DiaFillError, WindowError):
             fmt = "routed"  # the general fallback (df routed at float64), as in the JAX package
+        if fmt == "lanes":
+            try:
+                ops = prepare_lanes_small(csr, dtype=cfg.torch_dtype, device=device)
+                run = lanes_cuda
+            except LanesError:
+                fmt = "routed"
         if fmt == "routed":
             try:
                 if f64:
                     ops = prepare_routed_df_chain(csr, device=device)
                 else:
                     ops = prepare_routed_chain(csr, dtype=cfg.torch_dtype, device=device)
-            except RoutedError as e:
-                raise _unported(
-                    "binned", f"even the chunked routed engine refused the matrix ({e}); "
-                ) from e
-            run = routed_df_spmv if f64 else routed_chain_spmv
+                run = routed_df_spmv if f64 else routed_chain_spmv
+            except RoutedError:
+                fmt = "binned"  # even the chunked routed engine refused it
+        if fmt == "ell_t":
+            try:
+                ell = coo_to_ell(csr_to_coo(csr), max_entries=cfg.ell_max_entries)
+                ops = device_ell(ell, dtype=cfg.torch_dtype, transposed=True, device=device)
+                # the CUDA transposed-ELL kernel in f32; native f64 torch ops
+                # at float64 (the JAX package runs ELL_ROWS_T's XLA op)
+                run = ell_rows_transposed if f64 else ell_t_cuda
+            except EllSizeError:
+                fmt = "binned"
+        if fmt == "binned":
+            ops = prepare_binned_csr(csr, dtype=cfg.torch_dtype, device=device)
+            run = binned_spmv
         x_dtype = torch.float64 if f64 else torch.float32
 
         def fn(x):

@@ -2,13 +2,21 @@
 
 Counterpart of spmv_openmp_cuda_tpu/ops/registry.py (reference: the
 function-pointer registries of src/include/SpMV.h:130-159 and the
-COMPUTE_MODE string dispatch, SpMV.h:27-59), restricted to the modes the port
-runs so far: DIA_ROWS (plain torch), the CUDA DIA modes PL_DIA_ROWS,
-PL_DIA_BF16, PL_DIA_RESID and PL_DIA_RESID_BF16, the CUDA window modes
-PL_CSR_WINDOW and PL_CSR_WINDOW_BF16, the CUDA routed modes PL_CSR_ROUTED
-and PL_CSR_ROUTED_BF16, and the double-float (float64) modes PL_DIA_F64,
-PL_DIA_RESID_F64, PL_CSR_WINDOW_F64 and PL_CSR_ROUTED_F64. Mode names are
-the JAX package's, so logs of both packages read the same.
+COMPUTE_MODE string dispatch, SpMV.h:27-59), with the JAX package's 26
+modes under the same names, formats and f64 flags, so logs of both packages
+read the same:
+
+- plain torch (impl "torch", the JAX package's XLA modes): the reference's
+  OpenMP strategy matrix CSR_ROWS, CSR_ROWS_GROUPS, CSR_TILES,
+  CSR_TILES_ALLOCD, ELL_ROWS, ELL_ROWS_GROUPS, ELL_TILES, ELL_ROWS_T,
+  ELL_ROWS_NOSIMD, ELL_ROWS_NORL (ops/spmv_torch.py), CSR_ROWS_BINNED
+  (formats/binned.py) and DIA_ROWS;
+- hand-written CUDA (impl "cuda", the JAX package's Pallas modes): the DIA
+  modes PL_DIA_ROWS, PL_DIA_BF16, PL_DIA_RESID, PL_DIA_RESID_BF16,
+  PL_ELL_ROWS_T, PL_CSR_LANES, the window modes PL_CSR_WINDOW and
+  PL_CSR_WINDOW_BF16, the routed modes PL_CSR_ROUTED and
+  PL_CSR_ROUTED_BF16, and the double-float (float64) modes PL_DIA_F64,
+  PL_DIA_RESID_F64, PL_CSR_WINDOW_F64 and PL_CSR_ROUTED_F64.
 
 Uniform ABI: every kernel is described by a KernelSpec whose
   prepare(csr, ell, cfg, device) -> operands (host prepare + upload)
@@ -73,6 +81,9 @@ def names() -> List[str]:
     return list(_REGISTRY)
 
 
+from . import spmv_torch  # noqa: E402,F401  (registers the plain-torch CSR/ELL modes)
 from . import spmv_cuda  # noqa: E402,F401  (registers the DIA modes on import)
+from . import ell_cuda  # noqa: E402,F401  (registers PL_ELL_ROWS_T)
+from . import lanes_cuda  # noqa: E402,F401  (registers PL_CSR_LANES)
 from . import window_cuda  # noqa: E402,F401  (registers the window modes)
 from . import routed_cuda  # noqa: E402,F401  (registers the routed modes)

@@ -1,12 +1,14 @@
 """AutoSpMV and the CLI of the PyTorch port against the JAX package, on the
-CPU (the kernels' plain versions). Engines the port lacks must raise, never
-run a substitute."""
+CPU (the kernels' plain versions). Every format the JAX package accepts runs
+its own engine; an engine's refusal falls back where the JAX package's
+does, never elsewhere."""
 import numpy as np
 import pytest
 import torch
 
 import spmv_openmp_cuda_tpu as J
 from spmv_openmp_cuda_tpu.models import auto as jauto
+from spmv_openmp_cuda_tpu.ops import registry as jreg
 from spmv_openmp_cuda_tpu.utils import synth as jsynth
 import spmv_openmp_cuda_tpu_torch as T
 from spmv_openmp_cuda_tpu_torch import cli
@@ -94,17 +96,23 @@ def test_auto_spmv_never_substitutes_an_engine():
     routed = tauto.AutoSpMV.from_csr(csr, format="routed", device="cpu")
     assert routed.format == "routed"
     assert np.abs(routed(x).double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
+    # so are lanes, ell_t and binned (the last two the reference-shaped
+    # layouts): each format runs its own engine
     for fmt in ("lanes", "ell_t", "binned"):
-        with pytest.raises(NotImplementedError, match=fmt):
-            tauto.AutoSpMV.from_csr(csr, format=fmt, device="cpu")
+        model = tauto.AutoSpMV.from_csr(csr, format=fmt, device="cpu")
+        assert model.format == fmt
+        y = model(x)
+        assert y.dtype == torch.float32 and y.shape == (500,)
+        assert np.abs(y.double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
     with pytest.raises(ValueError, match="unknown format"):
         tauto.AutoSpMV.from_csr(csr, format="csr", device="cpu")
-    # float64 runs the double-float engines; an engine the port lacks still
-    # raises at float64
+    # float64 runs the double-float engines; lanes (an f32 kernel) maps to
+    # the f64 binned engine, as in the JAX package
     f64 = tauto.AutoSpMV.from_csr(csr, cfg=Config(dtype="float64"), device="cpu")
     assert f64.format == "dia" and f64(x).dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="lanes"):
-        tauto.AutoSpMV.from_csr(csr, cfg=Config(dtype="float64"), format="lanes", device="cpu")
+    lanes64 = tauto.AutoSpMV.from_csr(csr, cfg=Config(dtype="float64"), format="lanes", device="cpu")
+    assert lanes64.format == "binned"
+    assert np.abs(lanes64(x).numpy() - o).max() <= 1e-12 * np.abs(o).max()
     # DIA fill budget exceeded: the routed engine takes over, as in the JAX
     # package
     rnd = T.coo_to_csr(tsynth.random_uniform(400, 400, 0.02, seed=3))
@@ -141,22 +149,27 @@ def test_cli_cpu_check(raefsky_mtx, mode, capsys, tmp_path, monkeypatch):
 
 
 def test_cli_refusals(raefsky_mtx, tmp_path, capsys):
-    for extra in (["--profile", str(tmp_path)], ["--testtests"],
-                  ["--save-prepared", str(tmp_path / "p.npz")], ["--env"]):
+    for extra in (["--save-prepared", str(tmp_path / "p.npz")],
+                  ["--load-prepared", str(tmp_path / "p.npz")]):
         assert cli.main([raefsky_mtx, "RNDVECT", "--device", "cpu", *extra]) == 1
         assert "not ported yet" in capsys.readouterr().err
-    assert cli.main([raefsky_mtx, "RNDVECT", "CSR_ROWS", "--device", "cpu"]) == 1
+    # CSR_ROWS is ported, and the default mode, as in the JAX package
+    assert cli.main([raefsky_mtx, "RNDVECT", "--device", "cpu", "--no-dump"]) == 0
+    assert "computeMode:CSR_ROWS " in capsys.readouterr().out
     rnd = str(tmp_path / "rnd.mtx")
     write_mtx(rnd, tsynth.power_law(900, 900, 4.0, seed=11))
     # a power-law matrix is no refusal any more: AUTO runs the routed engine
     assert cli.main([rnd, "RNDVECT", "AUTO", "--device", "cpu", "--no-dump", "--check"]) == 0
     assert "#auto: format=routed -> PL_CSR_ROUTED" in capsys.readouterr().out
+    # an explicit mode whose exact prepare refuses the matrix exits 1
+    assert cli.main([rnd, "RNDVECT", "PL_DIA_ROWS", "--device", "cpu", "--no-dump"]) == 1
+    assert "ERROR:" in capsys.readouterr().err
     if not torch.cuda.is_available():
         assert cli.main([raefsky_mtx, "RNDVECT", "--no-dump"]) == 1
         assert "no CUDA device" in capsys.readouterr().err
     assert cli.main(["--list-modes"]) == 0
     listed = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
-    assert listed == ["DIA_ROWS", "PL_DIA_ROWS", "PL_DIA_BF16", "PL_DIA_RESID", "PL_DIA_RESID_BF16",
-                      "PL_DIA_RESID_F64", "PL_DIA_F64", "PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16",
-                      "PL_CSR_WINDOW_F64", "PL_CSR_ROUTED", "PL_CSR_ROUTED_BF16",
-                      "PL_CSR_ROUTED_F64"]
+    assert sorted(listed) == sorted(jreg.names())
+    assert listed[:11] == ["CSR_ROWS", "CSR_ROWS_GROUPS", "CSR_TILES", "CSR_TILES_ALLOCD",
+                           "ELL_ROWS", "ELL_ROWS_GROUPS", "ELL_TILES", "ELL_ROWS_T",
+                           "ELL_ROWS_NOSIMD", "ELL_ROWS_NORL", "CSR_ROWS_BINNED"]

@@ -385,9 +385,13 @@ def test_auto_spmv_f64_falls_back_to_the_df_routed_engine():
     assert model.format == "routed" and isinstance(model._operands, trc.RoutedDFChain)
     x = _x(400)
     assert _rel(model(x), serial_csr_spmv(rnd, x)) < 1e-11
-    for fmt in ("lanes", "ell_t", "binned"):
-        with pytest.raises(NotImplementedError, match=fmt):
-            tauto.AutoSpMV.from_csr(rnd, cfg=Config(dtype="float64"), format=fmt, device="cpu")
+    # the explicit formats run native f64 torch engines; lanes (an f32
+    # kernel) maps to binned, as in the JAX package
+    for fmt, want in (("lanes", "binned"), ("ell_t", "ell_t"), ("binned", "binned")):
+        model = tauto.AutoSpMV.from_csr(rnd, cfg=Config(dtype="float64"), format=fmt, device="cpu")
+        assert model.format == want
+        y = model(x)
+        assert y.dtype == torch.float64 and _rel(y, serial_csr_spmv(rnd, x)) < 1e-11
 
 
 @pytest.fixture
@@ -421,12 +425,13 @@ def test_cli_f64_remaps_and_refusals(raefsky_mtx, capsys):
     assert "#dtype: float64 unsupported by CUDA mode PL_DIA_ROWS; remapping to PL_DIA_F64" in out
     assert "#check: OK" in out and "computeMode:PL_DIA_F64 " in out
     # the JAX package sends every other f32 CUDA mode to CSR_ROWS_BINNED,
-    # which the port lacks: no substitute engine, exit 1
+    # native f64
     rc = cli.main([raefsky_mtx, "RNDVECT", "PL_CSR_WINDOW", "--dtype", "float64", "--device", "cpu",
-                   "--no-dump"])
-    err = capsys.readouterr().err
-    assert rc == 1
-    assert "CSR_ROWS_BINNED" in err and "queue 1 item 8" in err
+                   "--check", "--no-dump"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "#dtype: float64 unsupported by CUDA mode PL_CSR_WINDOW; remapping to CSR_ROWS_BINNED" in out
+    assert "#check: OK" in out and "computeMode:CSR_ROWS_BINNED " in out
     # DIA_ROWS is plain torch: it runs in f64 as the JAX package's XLA mode does
     rc = cli.main([raefsky_mtx, "RNDVECT", "DIA_ROWS", "--dtype", "float64", "--device", "cpu",
                    "--check", "--no-dump"])

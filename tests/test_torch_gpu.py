@@ -421,3 +421,108 @@ def test_routed_df_kernel_matches_plain(cuda, layout):
     torch.cuda.synchronize()
     assert trc.routed_df_gather_cuda.launches == before + len(chain.domains)
     _df_within(yk, trc.routed_df_spmv(chain, xd, plain=True), csr, x)
+
+
+# ---------------------------------------------------------------------------
+# PL_ELL_ROWS_T and PL_CSR_LANES (csrc/ell_spmv.cu, csrc/lanes_spmv.cu); no
+# atomics in either, so a rerun gives the same bits
+# ---------------------------------------------------------------------------
+
+ELL_T_CASES = {
+    "sg_like_rows": lambda: synth.fem_like(m=20000, n=20000, nnz=300000, spread=2048, lo=6, hi=26, seed=2),
+    "power_law": lambda: synth.power_law(5000, 7000, 6.0, seed=4),
+}
+LANES_CASES = {
+    "delaunay_n12_like": lambda: synth.preset("delaunay_n12_like"),
+    "west2021_like": lambda: synth.preset("west2021_like"),
+    "raefsky1_like": lambda: synth.preset("raefsky1_like"),
+    # four x windows, n not a multiple of 16384: the last window's empty
+    # slots point past n
+    "wide": lambda: synth.random_uniform(4096, 50000, density=3e-4, seed=1),
+}
+
+
+def _oracle_within(yk, csr, x):
+    from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
+
+    o = serial_csr_spmv(csr, x.double().cpu().numpy())
+    assert np.abs(yk.double().cpu().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
+
+
+@pytest.mark.parametrize("case", list(ELL_T_CASES))
+def test_ell_t_kernel_matches_plain(cuda, case):
+    from spmv_openmp_cuda_tpu_torch.formats.matrix import device_ell
+    from spmv_openmp_cuda_tpu_torch.ops import ell_cuda as tec
+
+    coo = ELL_T_CASES[case]()
+    csr = T.coo_to_csr(coo)
+    mat = device_ell(T.coo_to_ell(coo), transposed=True, device=cuda)
+    x = _x(csr.shape[1], cuda)
+    before = tec.ell_t_cuda.launches
+    yk = tec.ell_t_cuda(mat, x)
+    torch.cuda.synchronize()
+    assert tec.ell_t_cuda.launches == before + 1
+    assert yk.shape == (csr.shape[0],) and yk.dtype == torch.float32
+    _within(yk, tec.ell_t_reference(mat, x))
+    _oracle_within(yk, csr, x)
+    assert torch.equal(yk, tec.ell_t_cuda(mat, x))
+
+
+@pytest.mark.parametrize("case", list(LANES_CASES))
+def test_lanes_kernel_matches_plain(cuda, case):
+    from spmv_openmp_cuda_tpu_torch.formats.lanes import prepare_lanes_small
+    from spmv_openmp_cuda_tpu_torch.ops import lanes_cuda as tlc
+
+    csr = T.coo_to_csr(LANES_CASES[case]())
+    mat = prepare_lanes_small(csr, device=cuda)
+    if case == "wide":
+        assert len(mat.window_tiles) == 4 and csr.shape[1] % (128 * 128)
+    x = _x(csr.shape[1], cuda)
+    before = tlc.lanes_cuda.launches
+    yk = tlc.lanes_cuda(mat, x)
+    torch.cuda.synchronize()
+    assert tlc.lanes_cuda.launches == before + 1
+    _within(yk, tlc.lanes_reference(mat, x))
+    _oracle_within(yk, csr, x)
+    assert torch.equal(yk, tlc.lanes_cuda(mat, x))
+
+
+def test_ell_t_and_lanes_wrappers_raise_on_the_card(cuda):
+    from spmv_openmp_cuda_tpu_torch.formats.lanes import prepare_lanes_small
+    from spmv_openmp_cuda_tpu_torch.formats.matrix import device_ell
+    from spmv_openmp_cuda_tpu_torch.ops import ell_cuda as tec
+    from spmv_openmp_cuda_tpu_torch.ops import lanes_cuda as tlc
+
+    coo = synth.random_uniform(1000, 1000, density=5e-3, seed=3)
+    csr = T.coo_to_csr(coo)
+    x = _x(1000, cuda)
+    ell = device_ell(T.coo_to_ell(coo), transposed=True, device=cuda)
+    with pytest.raises(TypeError):
+        tec.ell_t_cuda(ell, x.double())
+    with pytest.raises(ValueError):
+        tec.ell_t_cuda(ell, x.cpu())  # operands on the card, x on the CPU
+    lanes = prepare_lanes_small(csr, device=cuda)
+    with pytest.raises(TypeError):
+        tlc.lanes_cuda(lanes, x.half())
+    with pytest.raises(ValueError):
+        tlc.lanes_cuda(dataclasses.replace(lanes, n_groups=65), x)
+
+
+def test_new_modes_through_the_harness(cuda):
+    from spmv_openmp_cuda_tpu_torch.bench.harness import run_all
+
+    names = ["CSR_ROWS", "CSR_ROWS_GROUPS", "CSR_TILES", "CSR_TILES_ALLOCD", "ELL_ROWS",
+             "ELL_ROWS_GROUPS", "ELL_TILES", "ELL_ROWS_T", "ELL_ROWS_NOSIMD", "ELL_ROWS_NORL",
+             "CSR_ROWS_BINNED", "PL_ELL_ROWS_T", "PL_CSR_LANES"]
+    coo = synth.preset("delaunay_n12_like")
+    csr, ell = T.coo_to_csr(coo), T.coo_to_ell(coo)
+    xn = np.random.default_rng(5).standard_normal(csr.shape[1])
+    for dtype in ("float32", "float64"):
+        cfg = T.Config(avg_times_iteration=2, dtype=dtype)
+        rep = run_all(csr, ell, xn, cfg, kernels=names, device="cuda", x_check=xn)
+        for r in rep.results:
+            if dtype == "float64" and r.kernel.startswith("PL_"):
+                assert r.error is not None  # f32 kernels: the CLI remaps them
+                continue
+            assert r.error is None and r.ok and r.deterministic, (r.kernel, r.error)
+            assert r.check_ratio <= 1.0, (r.kernel, r.check_ratio)

@@ -148,7 +148,13 @@ def test_port_never_imports_jax():
         "spmv_openmp_cuda_tpu_torch.cli, spmv_openmp_cuda_tpu_torch.ops.spmv_cuda, "
         "spmv_openmp_cuda_tpu_torch.ops.window_cuda, spmv_openmp_cuda_tpu_torch.ops.route, "
         "spmv_openmp_cuda_tpu_torch.formats.window, spmv_openmp_cuda_tpu_torch.formats.routed, "
-        "spmv_openmp_cuda_tpu_torch.ops.routed_cuda\n"
+        "spmv_openmp_cuda_tpu_torch.ops.routed_cuda, spmv_openmp_cuda_tpu_torch.ops.spmv_torch, "
+        "spmv_openmp_cuda_tpu_torch.ops.ell_cuda, spmv_openmp_cuda_tpu_torch.ops.lanes_cuda, "
+        "spmv_openmp_cuda_tpu_torch.formats.binned, spmv_openmp_cuda_tpu_torch.formats.lanes, "
+        "spmv_openmp_cuda_tpu_torch.partition.partitioners, "
+        "spmv_openmp_cuda_tpu_torch.bench.harness, spmv_openmp_cuda_tpu_torch.bench.sweep, "
+        "spmv_openmp_cuda_tpu_torch.bench.parse_log, spmv_openmp_cuda_tpu_torch.utils.envinfo, "
+        "spmv_openmp_cuda_tpu_torch.utils.profiling\n"
         "spmv_openmp_cuda_tpu_torch.AutoSpMV\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'spmv_openmp_cuda_tpu' or m.startswith('spmv_openmp_cuda_tpu.')]\n"
