@@ -6,17 +6,23 @@ Run from the root of the repository: python3 chip_smoke.py
 It builds the CUDA kernels from spmv_openmp_cuda_tpu_torch/csrc/ (one nvcc
 per source, all at once), holds each kernel against its plain PyTorch
 version at the main path's shapes, drives the main path (AutoSpMV.from_csr
--> model(x)) on three DIA-class, three window-class and two routed proxies
-at their published size, first in float32 and then in float64 (the
-double-float kernels of csrc/df_spmv.cu), each pass with the launch counters
-reset just before and read just after, checks the results against the f64
-oracle (for the f32 routed engine, the oracle of the matrix as its layout
-stores it: heavy rows in bf16; the df layouts keep every value as an (hi,
-lo) pair, so float64 is held to the exact matrix), runs the CLI in both
+-> model(x)) on three DIA-class, three window-class and three routed proxies
+(webbase_like's heavy rows in pooled tiles, kernel E) at their published
+size, first in float32 and then in float64 (the double-float kernels of
+csrc/df_spmv.cu; webbase_like in float32 only), each pass with the launch
+counters reset just before and read just after, every product rerun on the
+same x and held bitwise equal, checks the results against the f64 oracle
+(for the f32 routed engine, the oracle of the matrix as its layout stores
+it: dense-block heavy rows in bf16; the df layouts keep every value as an
+(hi, lo) pair, so float64 is held to the exact matrix), runs the CLI in both
 dtypes, and times kernel, plain version and one PyTorch library call
 (cuSPARSE through torch.sparse, f32 or f64, a yardstick the port never
 calls) with CUDA events; the routed kernels alone are timed inside CUDA
 graphs, so that the host's launch cost does not hide their device time.
+The small kernel (one launch per product of a routed domain of t <= 4
+tiles) is checked and timed against the staged chain on delaunay_n12_like,
+west2021_like and a 9000-row matrix; PL_CSR_ROUTED_BF16's pooled tiles and
+the CLI's AUTO run on a 200,000-row matrix whose heavy rows pool.
 
 The CSR/ELL mode matrix (csr_ell_slice) follows: ell_t_kernel (csrc/
 ell_spmv.cu) on sg_like and thermal2_like and lanes_kernel (csrc/
@@ -25,7 +31,8 @@ plain versions, each rerun bitwise equal; then that slice's main path with
 its own counters from zero: the harness over all 26 modes on
 delaunay_n12_like and over the mode matrix on sg_like (SG's published
 size), its log printed and read back by parse_log, every mode that prepares
-ok:1 and within the relative bound on x ~ N(0, 1); the CLI's explicit modes;
+ok:1, det:1 and within the relative bound on x ~ N(0, 1); the CLI's
+explicit modes;
 float64 binned against the exact oracle; then the two kernels' times.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -73,11 +80,19 @@ EXPECTED_FORMAT = {
     "cube_coup_like": "dia", "raefsky1_like": "dia_resid", "cavity10_like": "dia",
     "thermal2_like": "window", "fem_3d_thermal2_like": "window",
     "delaunay_n12_like": "window", "caida_like": "routed", "sg_rand_like": "routed",
+    "webbase_like": "routed",
 }
 #: routed proxies: caida_like is checked kernel by kernel and timed (the JAX
 #: bench runs it under PL_CSR_ROUTED_BF16, AutoSpMV under PL_CSR_ROUTED);
-#: sg_rand_like (three chunks) runs the main path only
+#: sg_rand_like (three chunks) runs the main path only; webbase_like (one
+#: domain, 193 heavy rows in pooled tiles) is prepared once, by AutoSpMV in
+#: float32, and that chain serves its checks and times
 ROUTED_CHECK = "caida_like"
+POOLED_CHECK = "webbase_like"
+#: float32 only: the float64 product of webbase_like is not run here
+F32_ONLY = ("webbase_like",)
+#: routed domains of t <= 4 tiles, run by the small kernel (one launch)
+SMALL_CHECKS = ("delaunay_n12_like", "west2021_like", "random_uniform 9000")
 ROUTED_MODES = ("PL_CSR_ROUTED", "PL_CSR_ROUTED_BF16")
 DIA_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/dia_spmv.cu"
 WINDOW_SOURCE = "spmv_openmp_cuda_tpu_torch/csrc/window_spmv.cu"
@@ -117,10 +132,32 @@ ROUTED_KERNELS = {
     "w_stage": ("routed_w_stage_kernel", "spmv_openmp_cuda_tpu/ops/route.py:347"),
     "perm_reduce": ("routed_perm_reduce_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1239"),
     "hdense": ("routed_hdense_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1060"),
+    "heavy": ("routed_heavy_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1134"),
+    "small": ("routed_small_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1440"),
 }
 #: H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+
+
+def pooled_heavy_matrix(m: int, n: int, n_heavy: int, per_row: int, bg_nnz: int, seed: int):
+    """n_heavy rows of per_row distinct columns, then bg_nnz scattered
+    entries in the other rows: with n_heavy * n * 2 bytes over the dense
+    block's 12 MB, the routed prepare pools the heavy rows."""
+    import spmv_openmp_cuda_tpu_torch as P
+
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([np.full(per_row, r) for r in range(n_heavy)]
+                          + [rng.integers(n_heavy, m, bg_nnz)])
+    cols = np.concatenate([rng.choice(n, per_row, replace=False) for _ in range(n_heavy)]
+                          + [rng.integers(0, n, bg_nnz)])
+    rows, cols = np.unique(np.stack([rows, cols]), axis=1)
+    return P.COOMatrix((m, n), rows, cols, rng.standard_normal(rows.shape[0]))
+
+
+#: the medium matrix with pooled heavy rows (PL_CSR_ROUTED_BF16, CLI AUTO)
+MEDIUM = "pooled_200000"
+MEDIUM_ARGS = dict(m=200_000, n=200_000, n_heavy=40, per_row=17_000, bg_nnz=400_000, seed=1)
 
 
 def log(msg: str) -> None:
@@ -201,7 +238,26 @@ def stage_cost(stage, n_x: int):
     if isinstance(stage, RC.HDenseStage):
         return nbytes(stage.hdense, stage.target) + 4 * n_x + 4 * stage.hdense.shape[0], \
             2 * stage.hdense.numel()
+    if isinstance(stage, RC.HeavyStage):
+        return heavy_cost(stage, n_x)
+    if isinstance(stage, RC.SmallStage):
+        # the gather tiles, the composed maps, C's groups, x and y (its
+        # assembly scratch between the two passes stays in L2)
+        g, red = stage.staged[0], stage.staged[2]
+        ins = nbytes(g.vals, g.pidx, g.widx, stage.slab_src, stage.out_src, red.groups)
+        return ins + 4 * n_x + out, sum(ng * w for _r0, ng, w, _g0 in red.runs) * 128 + g.vals.numel()
     return out, 0
+
+
+def heavy_cost(stage, n_x: int, cols=None):
+    """(bytes, flops) of kernel E: the tiles (hvals, hpidx, hlo, hhi, hwidx),
+    the slot map, x where the heavy rows read it (cols, their distinct
+    columns, when given; else all of x) and each heavy row's sum written
+    once; 2 flops per stored slot."""
+    x_bytes = 4 * (n_x if cols is None else cols)
+    return nbytes(stage.hvals, stage.hpidx, stage.hlo, stage.hhi, stage.hwidx, stage.slot_ptr,
+                  stage.slot_idx, stage.rows) + x_bytes + 4 * stage.rows.numel(), \
+        2 * stage.hvals.numel()
 
 
 def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
@@ -281,17 +337,12 @@ def csr_ell_slice(dev, smi: str, csrs: dict):
     from spmv_openmp_cuda_tpu_torch.ops import ell_cuda as EC
     from spmv_openmp_cuda_tpu_torch.ops import lanes_cuda as LC
     from spmv_openmp_cuda_tpu_torch.ops import registry
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
     from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
     from spmv_openmp_cuda_tpu_torch.utils import synth
 
     mats = {name: csrs[name] for name in ("delaunay_n12_like", "raefsky1_like", "cavity10_like",
-                                          "thermal2_like")}
-    for name in ("sg_like", "west2021_like"):
-        t = time.perf_counter()
-        mats[name] = P.coo_to_csr(synth.preset(name))
-        m, n = mats[name].shape
-        log(f"set-up: {name} {m}x{n}, {mats[name].nnz} nnz, max row {mats[name].max_row_nz}, "
-            f"generated in {time.perf_counter() - t:.1f}s")
+                                          "thermal2_like", "sg_like", "west2021_like")}
     ells = {name: P.coo_to_ell(P.csr_to_coo(mats[name]))
             for name in ("sg_like", "thermal2_like", "delaunay_n12_like")}
 
@@ -326,8 +377,10 @@ def csr_ell_slice(dev, smi: str, csrs: dict):
               lambda v, o=mat: LC.lanes_reference(o, v), normal_x(csr.shape[1], dev, seed=1))
 
     # -- phase 3: the slice's main path, counters from zero -----------------
+    # (PL_CSR_ROUTED and _BF16 on delaunay_n12_like run the small kernel)
     EC.ell_t_cuda.launches = 0
     LC.lanes_cuda.launches = 0
+    RC.routed_small_cuda.launches = 0
     cfg = P.Config()
     reports = {}
     for name, (modes, refused) in HARNESS_RUNS.items():
@@ -356,10 +409,11 @@ def csr_ell_slice(dev, smi: str, csrs: dict):
                                      f"of the bound (limit {lim:.1f})")
         det0 = [r.kernel for r in rep.results if r.error is None and not r.deterministic]
         log(f"phase 3: harness on {name}: {len(modes)} modes in {time.perf_counter() - t:.1f}s, "
-            f"{sum(r.error is None for r in rep.results)} prepared, all ok:1 and within the "
+            f"{sum(r.error is None for r in rep.results)} prepared, all ok:1, det:1 and within the "
             f"x~N(0,1) bound (bf16 storage: {bf16_lim:.1f}x it); refused as expected: "
-            f"{[r.kernel for r in rep.results if r.error]}; det:0 for {det0}; parse_log read "
-            f"{len(rows)} rows")
+            f"{[r.kernel for r in rep.results if r.error]}; parse_log read {len(rows)} rows")
+        if det0:
+            raise AssertionError(f"{name}: a rerun of {det0} is not bitwise equal (det:0)")
     # the CLI's explicit modes, in this process so that the counters see them
     cli_runs = (
         ("CSR_ROWS", [], "CSR_ROWS", None), ("ELL_ROWS", [], "ELL_ROWS", None),
@@ -381,7 +435,8 @@ def csr_ell_slice(dev, smi: str, csrs: dict):
                 raise AssertionError(f"CLI {arg} {extra} on delaunay_n12_like failed (exit {rc})")
             log(f"phase 3: CLI {arg} {' '.join(extra)} --check OK ({mode})")
     torch.cuda.synchronize()
-    launches = {"ell_t": EC.ell_t_cuda.launches, "lanes": LC.lanes_cuda.launches}
+    launches = {"ell_t": EC.ell_t_cuda.launches, "lanes": LC.lanes_cuda.launches,
+                "small": RC.routed_small_cuda.launches}
     log(f"phase 3: the CSR/ELL slice's main path launches {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the CSR/ELL slice never launched: {launches}")
@@ -449,7 +504,7 @@ def csr_ell_slice(dev, smi: str, csrs: dict):
         out.append({"name": f"{kernel}_kernel", "route": "cuda", "source": source, "replaces": replaces,
                     "launches": launches[kernel], "max_abs_err": errs[kernel], "ms": tk * 1e3,
                     "plain_ms": tp * 1e3, "bound_ms": b_ms, "bound_by": by, "library_ms": tl * 1e3})
-    return out
+    return out, launches["small"]
 
 
 def main() -> int:
@@ -495,12 +550,20 @@ def main() -> int:
                 print("  ptxas:", line.strip())
 
     # -- host set-up: the proxies at their published size ------------------
-    csrs = {}
-    for name in (*DIA_CHECKS, *WINDOW_CHECKS, ROUTED_CHECK, "sg_rand_like"):
+    # csrs: the main path's proxies; extra: the other matrices checked here
+    csrs, extra = {}, {}
+    gens = [(name, lambda name=name: synth.preset(name), csrs)
+            for name in (*DIA_CHECKS, *WINDOW_CHECKS, ROUTED_CHECK, "sg_rand_like", POOLED_CHECK)]
+    gens += [(name, lambda name=name: synth.preset(name), extra) for name in ("sg_like", "west2021_like")]
+    gens += [(MEDIUM, lambda: pooled_heavy_matrix(**MEDIUM_ARGS), extra),
+             ("random_uniform 9000", lambda: synth.random_uniform(9000, 9000, density=5e-4, seed=7), extra)]
+    for name, gen, into in gens:
         t = time.perf_counter()
-        csrs[name] = P.coo_to_csr(synth.preset(name))
-        m, n = csrs[name].shape
-        log(f"set-up: {name} {m}x{n}, {csrs[name].nnz} nnz, generated in {time.perf_counter() - t:.1f}s")
+        into[name] = P.coo_to_csr(gen())
+        m, n = into[name].shape
+        log(f"set-up: {name} {m}x{n}, {into[name].nnz} nnz, max row {into[name].max_row_nz}, "
+            f"generated in {time.perf_counter() - t:.1f}s")
+    mats = {**csrs, **extra}
 
     # -- phase 2: each kernel against its plain version ---------------------
     errs = {"dia_spmv": 0.0, "dia_resid": 0.0, "window_blocks": 0.0, "window_single": 0.0}
@@ -596,11 +659,57 @@ def main() -> int:
     x = normal_x(csr.shape[1], dev, seed=1)
     for mode, chain in routed_chains.items():
         check_routed(f"{ROUTED_CHECK} {mode}", chain, x)
-    small = P.coo_to_csr(synth.random_uniform(9000, 9000, density=5e-4, seed=7))
-    schain = RC.prepare_routed_chain(small, device=dev)
-    assert schain.mat.perm_products.t <= 4 and schain.mat.out_t <= 4, "not a small domain"
-    check_routed(f"random_uniform 9000 (t={schain.mat.perm_products.t}, staged chain)", schain,
-                 normal_x(9000, dev, seed=1))
+    # the small kernel: one launch per product where the JAX package runs
+    # _routed_small_spmv, against its plain version (the staged chain's) and
+    # beside the staged CUDA chain on the same operands
+    small_chains = {}
+    for name in SMALL_CHECKS:
+        for mode in ("PL_CSR_ROUTED",) if name != "delaunay_n12_like" else ROUTED_MODES:
+            chain = registry.get(mode).prepare(mats[name], None, P.Config(), dev)
+            staged = RC.build_chain(chain.mat, fuse_small=False)
+            mat = chain.mat
+            if chain.counts != {**{k: 0 for k in RC._COUNTERS}, "small": 1}:
+                raise AssertionError(f"{name} {mode}: not one small-kernel launch: {chain.counts}")
+            small_chains[(name, mode)] = (chain, staged)
+            x = normal_x(mats[name].shape[1], dev, seed=1)
+            label = f"{name} {mode} (t={mat.perm_products.t}, out_t={mat.out_t})"
+            check_routed(f"{label}, small kernel", chain, x)
+            check_routed(f"{label}, staged chain ({sum(staged.counts.values())} launches)", staged, x)
+            ys, yg = RC.routed_chain_spmv(chain, x), RC.routed_chain_spmv(staged, x)
+            torch.cuda.synchronize()
+            err = (ys - yg).abs().max().item()
+            log(f"phase 2: {label}: small kernel vs staged CUDA chain {err:.3e} "
+                f"(the same sums in the same order: bit for bit {torch.equal(ys, yg)})")
+            if not err <= bound(yg):
+                raise AssertionError(f"{label}: the small kernel disagrees with the staged chain")
+    # PL_CSR_ROUTED_BF16's pooled tiles (bf16 hvals) on the medium matrix
+    t = time.perf_counter()
+    mchain = registry.get("PL_CSR_ROUTED_BF16").prepare(mats[MEDIUM], None, P.Config(), dev)
+    mm = mchain.mat
+    log(f"phase 2: {MEDIUM} PL_CSR_ROUTED_BF16 layout t1={mm.perm_products.t} out_t={mm.out_t} "
+        f"heavy rows {len(mm.heavy_rows)} in {mm.hvals.shape[0] // LANE} pooled tiles "
+        f"(hvals {mm.hvals.dtype}), planned launches {mchain.counts}, prepare "
+        f"{time.perf_counter() - t:.1f}s")
+    if mm.hvals is None or mm.hvals.dtype != torch.bfloat16 or mchain.counts["heavy"] != 1:
+        raise AssertionError(f"{MEDIUM}: no bf16 pooled heavy tiles")
+    check_routed(f"{MEDIUM} PL_CSR_ROUTED_BF16", mchain, normal_x(mats[MEDIUM].shape[1], dev, seed=1))
+    xn = np.random.default_rng(3).standard_normal(mats[MEDIUM].shape[1])
+    y1 = RC.routed_chain_spmv(mchain, torch.as_tensor(xn, dtype=torch.float32, device=dev))
+    y2 = RC.routed_chain_spmv(mchain, torch.as_tensor(xn, dtype=torch.float32, device=dev))
+    o = serial_csr_spmv(RC.stored_csr(mats[MEDIUM], mchain), xn)
+    err = np.abs(y1.double().cpu().numpy() - o).max()
+    log(f"phase 2: {MEDIUM} PL_CSR_ROUTED_BF16 vs the f64 oracle (as stored, bf16): {err:.3e} <= "
+        f"{1e-5 * np.abs(o).max() + 1e-6:.3e}; rerun bitwise equal {torch.equal(y1, y2)}")
+    if not (err <= 1e-5 * np.abs(o).max() + 1e-6 and torch.equal(y1, y2)):
+        raise AssertionError(f"{MEDIUM}: wrong PL_CSR_ROUTED_BF16 output")
+    del mchain, mm, y1, y2
+
+    def rerun_equal(label, model, x, y):
+        """A second product on the same x gives the same bits."""
+        y2 = model(x)
+        if not torch.equal(y, y2):
+            raise AssertionError(f"{label}: a rerun on the same x is not bitwise equal "
+                                 f"(max diff {(y - y2).abs().max().item():.3e})")
 
     # -- phase 3: the main path, counters from zero ------------------------
     SC.dia_spmv_cuda.launches = 0
@@ -618,6 +727,7 @@ def main() -> int:
         x_ref = fill_rnd_vector(csr.shape[1], seed=2)
         x_n = np.random.default_rng(3).standard_normal(csr.shape[1])
         outputs[name] = (model.format, model(x_ref), model(x_n), x_ref, x_n, prep_s)
+        rerun_equal(name, model, x_n, outputs[name][2])
     torch.cuda.synchronize()
     launches = {
         "dia_spmv": SC.dia_spmv_cuda.launches,
@@ -626,7 +736,7 @@ def main() -> int:
         "window_single": WC.window_single_cuda.launches,
         **{k: fn.launches for k, fn in RC._COUNTERS.items()},
     }
-    log(f"phase 3: main path launches {launches}")
+    log(f"phase 3: main path launches {launches}; every product's rerun bitwise equal")
     for name, (fmt, y_ref, y_n, x_ref, x_n, prep_s) in outputs.items():
         csr = csrs[name]
         if fmt != EXPECTED_FORMAT[name]:
@@ -646,15 +756,29 @@ def main() -> int:
         gap = ""
         if fmt == "routed":
             exact = np.abs(y_n.double().cpu().numpy() - serial_csr_spmv(csr, x_n)).max()
-            gap = f"; gap to the exact matrix {exact:.3e} (stored bf16 heavy rows, not asserted)"
+            gap = f"; gap to the exact matrix {exact:.3e} (dense-block heavy rows in bf16, not asserted)"
         log(f"phase 3: {name} -> {fmt}, prepare+upload {prep_s:.1f}s; reference protocol: "
             f"{'OK' if rep.ok else 'FAIL'} maxAbsDiff={rep.max_abs_diff:.3e}; "
             f"x~N(0,1) vs f64 oracle{' (as stored)' if fmt == 'routed' else ''}: "
             f"{rel:.3e} <= {lim:.3e}{gap}")
         if not rep.ok or not rel <= lim:
             raise AssertionError(f"{name}: wrong output")
-    if not all(launches.values()):
+    # the small kernel's main path is the harness cell on delaunay_n12_like
+    # (csr_ell_slice): AutoSpMV takes no small routed domain here
+    if not all(v for k, v in launches.items() if k != "small"):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+
+    # -- phase 2, continued: webbase_like's chain (the main path's operands)
+    # stage by stage against the plain versions, kernel E against
+    # heavy_sums_reference among them
+    wchain = models[POOLED_CHECK]._operands
+    wm = wchain.mat
+    log(f"phase 2: {POOLED_CHECK} routed layout rows_a={wm.rows_a} t1={wm.perm_products.t} "
+        f"out_t={wm.out_t} levels={[p.t for p in wm.lvl_perms]} heavy rows {len(wm.heavy_rows)} "
+        f"({int(np.diff(csrs[POOLED_CHECK].indptr)[list(wm.heavy_rows)].sum())} nnz) in "
+        f"{wm.hvals.shape[0] // LANE} pooled tiles over {len(set(wm.hwidx.tolist()))} windows, "
+        f"planned launches per product {wchain.counts}, prepare {outputs[POOLED_CHECK][5]:.1f}s")
+    check_routed(f"{POOLED_CHECK} PL_CSR_ROUTED", wchain, normal_x(csrs[POOLED_CHECK].shape[1], dev, seed=1))
 
     # -- phase 3, float64: the main path on the df kernels, counters from zero
     cfg64 = P.Config(dtype="float64")
@@ -672,17 +796,21 @@ def main() -> int:
     outputs64 = {}
     models64 = {}
     for name, csr in csrs.items():
+        if name in F32_ONLY:
+            continue
         t = time.perf_counter()
         model = models64[name] = AutoSpMV.from_csr(csr, cfg=cfg64, device="cuda")
         prep_s = time.perf_counter() - t
         x_ref = fill_rnd_vector(csr.shape[1], seed=2)
         x_n = np.random.default_rng(3).standard_normal(csr.shape[1])
         outputs64[name] = (model.format, model(x_ref), model(x_n), x_ref, x_n, prep_s)
+        rerun_equal(f"{name} (float64)", model, x_n, outputs64[name][2])
     torch.cuda.synchronize()
     launches64 = {k: fn.launches for k, fn in df_counters.items()}
     also = {k: fn.launches for k, fn in f32_counters.items() if fn.launches}
     log(f"phase 3 (float64): main path launches {launches64}; f32 kernels in it {also} "
-        "(the W stages move each plane of the df routed products)")
+        "(the W stages move each plane of the df routed products); every product's rerun "
+        f"bitwise equal; not run in float64: {list(F32_ONLY)}")
     for name, (fmt, y_ref, y_n, x_ref, x_n, prep_s) in outputs64.items():
         csr = csrs[name]
         if fmt != EXPECTED_FORMAT[name]:
@@ -797,6 +925,7 @@ def main() -> int:
         ("raefsky1_like", "AUTO", [], "PL_DIA_RESID", None),
         ("delaunay_n12_like", "AUTO", [], "PL_CSR_WINDOW", None),
         (ROUTED_CHECK, "AUTO", [], "PL_CSR_ROUTED", "#auto: format=routed -> PL_CSR_ROUTED"),
+        (MEDIUM, "AUTO", [], "PL_CSR_ROUTED", "#auto: format=routed -> PL_CSR_ROUTED"),
         ("raefsky1_like", "AUTO", ["--dtype", "float64"], "PL_DIA_RESID_F64",
          "#auto: format=dia_resid -> PL_DIA_RESID_F64"),
         (ROUTED_CHECK, "AUTO", ["--dtype", "float64"], "PL_CSR_ROUTED_F64",
@@ -808,7 +937,7 @@ def main() -> int:
     for name, arg, extra, mode, line in cli_runs:
         mtx = os.path.join(mtx_dir.name, f"{name}.mtx")
         if not os.path.exists(mtx):
-            write_mtx(mtx, synth.preset(name))
+            write_mtx(mtx, pooled_heavy_matrix(**MEDIUM_ARGS) if name == MEDIUM else synth.preset(name))
         proc = subprocess.run(
             [sys.executable, "-m", "spmv_openmp_cuda_tpu_torch", mtx, "RNDVECT", arg,
              "--check", "--no-dump", *extra],
@@ -943,6 +1072,71 @@ def main() -> int:
           f"bound {b14[0] * 1e3:.2f} us")
     print(f"  {ROUTED_CHECK} heavy rows, library: torch.mv on the {tuple(hd32.shape)} block in f32 "
           f"{t10l * 1e3:.2f} us in a graph")
+    del hd32, xpad
+
+    # webbase_like: the product (per call, graphed, plain chain, cuSPARSE),
+    # then kernel E alone in a CUDA graph with its bound, and cuSPARSE on
+    # the heavy rows alone as its yardstick
+    wcsr = csrs[POOLED_CHECK]
+    x = normal_x(wcsr.shape[1], dev, seed=4)
+    t_wk = time_per_call(lambda v: RC.routed_chain_spmv(wchain, v), x)
+    t_wg = graph_ms(lambda: RC.routed_chain_spmv(wchain, x), reps=10) / 1e3
+    t_wp = time_per_call(lambda v: RC.routed_spmv_reference(wchain, v), x)
+    t_wl = time_per_call(library_spmv(wcsr, dev), x)
+    w_bytes = sum(stage_cost(st, wcsr.shape[1])[0] for st in wchain.stages)
+    print(f"  {POOLED_CHECK:20s} PL_CSR_ROUTED      chain {t_wk * 1e3:9.4f} ms per call "
+          f"({t_wg * 1e3:.4f} ms in a CUDA graph) {2 * wcsr.nnz / t_wk / 1e9:8.2f} GFLOP/s | plain "
+          f"{t_wp * 1e3:9.4f} ms | library (cuSPARSE CSR f32) {t_wl * 1e3:9.4f} ms | chain moves "
+          f"{w_bytes / 1e6:.3f} MB: bound {least_ms(w_bytes, 0)[0]:.4f} ms")
+    bufs = RC._buffers(wchain, x)
+    for stage in wchain.stages:  # valid inputs for every stage
+        RC.run_stage(stage, bufs, plain=True)
+    for i, stage in enumerate(wchain.stages):
+        ms = graph_ms(lambda s=stage: RC.run_stage(s, bufs, plain=False)) if stage.kernel else 0.0
+        b, f = stage_cost(stage, wcsr.shape[1])
+        print(f"  {POOLED_CHECK} stage {i:2d} {type(stage).__name__:12s} "
+              f"{ROUTED_KERNELS[stage.kernel][0] if stage.kernel else '(memset)':26s} {ms * 1e3:8.2f} us "
+              f"in a graph | {b / 1e6:7.3f} MB, bound {least_ms(b, f)[0] * 1e3:6.2f} us")
+    est = wchain.stages[-1]
+    assert isinstance(est, RC.HeavyStage)
+    e_args = (est.hvals, est.hpidx, est.hwidx, est.hlo, est.hhi, est.slot_ptr, est.slot_idx)
+    e_ms = graph_ms(lambda: RC.run_stage(est, bufs, plain=False))
+    e_plain = time_per_call(lambda v: RC.heavy_sums_reference(*e_args, v), x) * 1e3
+    on_heavy = np.repeat(np.isin(np.arange(wcsr.shape[0]), wm.heavy_rows), np.diff(wcsr.indptr))
+    h_cols = np.unique(wcsr.indices[on_heavy]).size
+    e_bound = least_ms(*heavy_cost(est, wcsr.shape[1], cols=h_cols))
+    hcsr = P.CSRMatrix(
+        shape=wcsr.shape,
+        indptr=np.r_[0, np.cumsum(np.where(np.isin(np.arange(wcsr.shape[0]), wm.heavy_rows),
+                                           np.diff(wcsr.indptr), 0))].astype(np.int64),
+        indices=wcsr.indices[on_heavy], data=wcsr.data[on_heavy],
+    )
+    e_lib = time_per_call(library_spmv(hcsr, dev), x) * 1e3
+    print(f"  {POOLED_CHECK} routed_heavy_kernel alone ({est.hvals.shape[0] // LANE} tiles, "
+          f"{len(wm.heavy_rows)} rows, {int(on_heavy.sum())} nnz, {h_cols} distinct columns): "
+          f"{e_ms * 1e3:.2f} us in a graph | plain {e_plain:.4f} ms | bound {e_bound[0] * 1e3:.2f} us "
+          f"({e_bound[1]}, {heavy_cost(est, wcsr.shape[1], cols=h_cols)[0] / 1e6:.2f} MB) | library "
+          f"(cuSPARSE on the heavy rows alone) {e_lib * 1e3:.2f} us")
+    del bufs, hcsr
+
+    # the small kernel against the staged chain it replaces (the same
+    # operands), and cuSPARSE
+    small_times = {}
+    for (name, mode), (chain, staged) in small_chains.items():
+        scsr = mats[name]
+        xs = normal_x(scsr.shape[1], dev, seed=4)
+        tk = time_per_call(lambda v, c=chain: RC.routed_chain_spmv(c, v), xs)
+        tg = graph_ms(lambda c=chain: RC.routed_chain_spmv(c, xs)) / 1e3
+        tsk = time_per_call(lambda v, c=staged: RC.routed_chain_spmv(c, v), xs)
+        tsg = graph_ms(lambda c=staged: RC.routed_chain_spmv(c, xs)) / 1e3
+        tp = time_per_call(lambda v, c=chain: RC.routed_spmv_reference(c, v), xs)
+        tl = time_per_call(library_spmv(scsr, dev), xs)
+        b_ms, by = least_ms(*stage_cost(chain.stages[0], scsr.shape[1]))
+        small_times[(name, mode)] = (tk, tg, tp, tl, b_ms, by)
+        print(f"  {name:20s} {mode:18s} small kernel {tk * 1e3:8.4f} ms per call ({tg * 1e3:.4f} ms "
+              f"in a graph, 1 launch) | staged chain {tsk * 1e3:8.4f} ms ({tsg * 1e3:.4f} ms graphed, "
+              f"{sum(staged.counts.values())} launches + a memset) | plain {tp * 1e3:.4f} ms | library "
+              f"(cuSPARSE CSR f32) {tl * 1e3:.4f} ms | bound {b_ms * 1e3:.2f} us ({by})")
 
     # -- float64: the df kernels at the main path's shapes ------------------
     print(f"float64 (double-float) times on {smi} (f64 x in, f64 y out, through the "
@@ -1065,6 +1259,8 @@ def main() -> int:
              "ms": tk * 1e3, "plain_ms": tp * 1e3, "bound_ms": b_ms, "bound_by": by,
              "library_ms": tl * 1e3})
     for kernel, (kname, replaces) in ROUTED_KERNELS.items():
+        if kernel in ("heavy", "small"):
+            continue  # timed on webbase_like and on delaunay_n12_like below
         ms, pms, b, f, lib = per_kernel[kernel]
         b_ms, by = least_ms(b, f)
         kernels.append(
@@ -1083,7 +1279,21 @@ def main() -> int:
             {"name": kname, "route": "cuda", "source": DF_SOURCE, "replaces": replaces,
              "launches": launches64[counter], "max_abs_err": errs[counter], "ms": ms,
              "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": lib})
-    kernels.extend(csr_ell_slice(dev, smi, csrs))
+    kernels.append(
+        {"name": ROUTED_KERNELS["heavy"][0], "route": "cuda", "source": ROUTED_SOURCE,
+         "replaces": ROUTED_KERNELS["heavy"][1], "launches": launches["heavy"],
+         "max_abs_err": errs["heavy"], "ms": e_ms, "plain_ms": e_plain, "bound_ms": e_bound[0],
+         "bound_by": e_bound[1], "library_ms": e_lib})
+    slice_kernels, small_launches = csr_ell_slice(dev, smi, mats)
+    kernels.extend(slice_kernels)
+    tk, tg, tp, tl, b_ms, by = small_times[("delaunay_n12_like", "PL_CSR_ROUTED")]
+    kernels.append(
+        {"name": ROUTED_KERNELS["small"][0], "route": "cuda", "source": ROUTED_SOURCE,
+         "replaces": ROUTED_KERNELS["small"][1], "launches": small_launches,
+         "max_abs_err": errs["small"], "ms": tg * 1e3, "plain_ms": tp * 1e3, "bound_ms": b_ms,
+         "bound_by": by, "library_ms": tl * 1e3})
+    if not small_launches:
+        raise AssertionError("the small kernel never launched on its main path (the harness cell)")
     log("done")
     print(smi)
     print(json.dumps({"kernels": kernels}))

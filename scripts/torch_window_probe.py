@@ -5,8 +5,8 @@ Run from the root of the repository: python3 scripts/torch_window_probe.py
 
 It builds spmv_openmp_cuda_tpu_torch/csrc/window_spmv.cu as it is and in
 probe variants, each made by a text substitution in a build copy that takes
-away or changes one part of the work (the x gather, the closing atomics,
-the slot rows per CTA), and times window_spmv on the window proxies with
+away or changes one part of the work (the x gather, the partial tiles of
+blocks split over CTAs, the slot rows per CTA), and times window_spmv on the window proxies with
 CUDA events, variant by variant in turns (as_is first and last, to show the
 spread). A variant that computes something else is a probe only: its y is
 not checked. Needs nvcc and a CUDA device; prints one line per (proxy,
@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 VARIANTS = {
     "as_is": [],
     "no_x_gather": [("__ldg(x + col)", "1.f")],
-    "no_closing_atomics": [("atomicAdd(y + row, v)", "y[row] = v")],
+    "no_partial_tiles": [("for (int r = 0; r < g; ++r) out[r * kLane] = tile[r * kLane + l];", "")],
     "rows_16": [("while (rows < g && rows < kMaxRows) rows *= 2;", "")],
     "rows_64": [("while (rows < g && rows < kMaxRows) rows *= 2;", "rows = kMaxRows;")],
 }

@@ -12,6 +12,13 @@
 //   routed_perm_reduce_kernel  (C) <- _w3_r3_reduce (:1239), _perm_reduce_t1
 //                                     (:1274), _reduce_runs_fused (:1310)
 //   routed_hdense_kernel       (D) <- _hdense_mv (:1060)
+//   routed_heavy_kernel        (E) <- _heavy_sums (:1134), the pooled heavy
+//                                     tiles
+//   routed_small_kernel            <- _routed_small_spmv (:1440): A, B, C
+//                                     and the output permutation of a small
+//                                     domain in one launch
+//   routed_row_sums_kernel         closes D and E: per heavy row, its
+//                                     partial sums added in a fixed order
 //
 // Layout: every slab is (rows, 128) f32, row-major; index arrays are (rows,
 // 128) int8 with values in [0, 128). A W stage permutes, for each lane, the
@@ -35,11 +42,33 @@
 //     Wide groups (width 128) take 128 times the work of narrow ones; they
 //     come first in the group order, so they start first.
 //   - D splits each heavy row over CTAs of 4096 columns: 16-byte loads of
-//     bf16 H, per-thread sums of 16 products, a shuffle tree per CTA and one
-//     atomicAdd per CTA into the zeroed slot of the row's sum.
-// x is read by global column behind a bounds test against n (no padded
-// window stack is built). Products and data movement are exact, so A and B
-// equal their plain versions bit for bit; C and D sum in another order.
+//     bf16 H, per-thread sums of 16 products, a shuffle tree per CTA, whose
+//     sum goes to a scratch slot of its own; routed_row_sums_kernel then
+//     adds a row's slots in CTA order into the row's (zeroed) sum.
+//   - E takes one CTA per pooled tile (T*128 + a, l): its 128 x 128
+//     products, x gathered by global column, are staged in shared memory;
+//     the residues' runs (lanes (hlo, hhi] of row slot j) are summed each by
+//     one thread, four threads per residue over disjoint slot quarters, the
+//     sum left in the run's last lane; then each slot's runs are added over
+//     the residues in order. The slot sums go to scratch, and
+//     routed_row_sums_kernel adds each heavy row's slots (in slot order)
+//     into y. The TPU's cumsum by triangular matmul and its differences are
+//     a device of the MXU; the sums here are direct. Bound: bytes (hvals,
+//     hpidx, hlo, hhi and x, ~27 MB per product on webbase_like).
+//   - The small kernel composes the chain. Its permutations are static, so
+//     build_chain runs element ids through them (the plain W stages): each
+//     reduce-slab slot knows the gather slot whose product it holds, and
+//     each row of y the output element of C it receives. One thread per row
+//     of y then takes C's run sum of that element over products computed in
+//     place (A's arithmetic, C's order): one pass, no slab in between, no
+//     barrier, as many CTAs as y needs. (Stages run one after another in
+//     one CTA, as the TPU kernel runs them in VMEM, are bound by that one
+//     SM's issue rate.)
+// Nothing closes with atomics: every sum is taken in an order fixed by the
+// layout, so a rerun is bitwise equal. x is read by global column behind a
+// bounds test against n (no padded window stack is built). Products and
+// data movement are exact, so A and B equal their plain versions bit for
+// bit; C, D and E sum in another order.
 //
 // routed_chain_launch is the one entry point: it enqueues a program of these
 // launches and memsets (a whole product, built once per prepared matrix, or
@@ -57,18 +86,33 @@ constexpr int kPitch = kLane + 4;     // bytes per staged index row (+4: spreads
 constexpr int kThreads = 256;
 constexpr long long kWindowElems = 128LL * 128;
 constexpr int kHChunk = kThreads * 8 * 2;  // columns of H per CTA of D
+constexpr int kHeavyThreads = 512;         // E: 4 threads per residue
+constexpr int kPPitch = kLane + 1;         // floats per staged product row of E
+constexpr int kSmallBatch = 8;             // slab rows whose loads a thread issues together
+constexpr int kRowWarps = 8;               // heavy rows per CTA of the row sums
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Stage n_rows rows of a (., 128) int8 index array, row-contiguous 4-byte
-// loads, into shared rows of pitch kPitch.
-__device__ __forceinline__ void stage_index_rows(const int8_t* __restrict__ src, int n_rows,
+// Stage kRows rows of a (., 128) int8 index array, row-contiguous 4-byte
+// loads, into shared rows of pitch kPitch, by kT threads: all of a thread's
+// loads are issued before its first store.
+template <int kRows, int kT>
+__device__ __forceinline__ void stage_index_rows(const int8_t* __restrict__ src,
                                                  unsigned char* dst) {
-  for (int c = threadIdx.x; c < n_rows * (kLane / 4); c += blockDim.x) {
-    const int r = c / (kLane / 4), wd = c % (kLane / 4);
-    const uint32_t v = reinterpret_cast<const uint32_t*>(src + (long long)r * kLane)[wd];
-    reinterpret_cast<uint32_t*>(dst + r * kPitch)[wd] = v;
+  constexpr int kWords = kRows * (kLane / 4), kW = kWords / kT;
+  static_assert(kWords % kT == 0, "whole rounds of the CTA's threads");
+  uint32_t v[kW];
+#pragma unroll
+  for (int u = 0; u < kW; ++u) {
+    const int c = threadIdx.x + u * kT;
+    v[u] = reinterpret_cast<const uint32_t*>(src + (long long)(c / (kLane / 4)) * kLane)
+        [c % (kLane / 4)];
+  }
+#pragma unroll
+  for (int u = 0; u < kW; ++u) {
+    const int c = threadIdx.x + u * kT;
+    reinterpret_cast<uint32_t*>(dst + (c / (kLane / 4)) * kPitch)[c % (kLane / 4)] = v[u];
   }
 }
 
@@ -104,7 +148,8 @@ routed_gather_kernel(const T* __restrict__ vals, const int8_t* __restrict__ pidx
     const float xv = (col >= 0 && col < n_x) ? __ldg(x + col) : 0.f;
     prod[s * kBand + lb] = to_f32(vals[e]) * xv;
   }
-  if (w1 != nullptr) stage_index_rows(w1 + base + (long long)band * kBand * kLane, kBand, ws);
+  if (w1 != nullptr)
+    stage_index_rows<kBand, kThreads>(w1 + base + (long long)band * kBand * kLane, ws);
   __syncthreads();
   for (int j = r0; j < kLane; j += kRowStep) {
     const int s = w1 != nullptr ? (int)reinterpret_cast<const int8_t*>(ws)[lb * kPitch + j] : j;
@@ -119,6 +164,9 @@ routed_gather_kernel(const T* __restrict__ vals, const int8_t* __restrict__ pidx
 //   A4[p]    = A3[q] at p = sw ? (q % t)*128 + q / t : q
 //   out[p, l] = A4[p, ra ? ra[p, l] : l], written where p*128 + l < out_limit
 // kWhole: one CTA per tile (needed for ra); else one per (tile, lane band).
+// Each thread takes kN elements, kB at a time whose loads are all issued
+// before any of them is used (a loop that waits on each load in turn runs
+// at one load latency per element).
 template <bool kWhole>
 __global__ void __launch_bounds__(kThreads)
 routed_w_stage_kernel(const float* __restrict__ in, int in_rows, const int8_t* __restrict__ r,
@@ -126,33 +174,54 @@ routed_w_stage_kernel(const float* __restrict__ in, int in_rows, const int8_t* _
                       int sw, float* __restrict__ out, long long out_limit) {
   constexpr int L = kWhole ? kLane : kBand;
   constexpr int kBands = kLane / L;
+  constexpr int kN = kLane * L / kThreads;
+  constexpr int kB = kN < 16 ? kN : 16;
+  static_assert(kLane * L % kThreads == 0 && kN % kB == 0, "whole batches of the CTA");
   extern __shared__ __align__(16) unsigned char smem[];
   float* stage = reinterpret_cast<float*>(smem);       // [128][L]
   unsigned char* ws = smem + kLane * L * sizeof(float);  // [L][kPitch]
   const int tq = blockIdx.x / kBands;
   const int lane0 = (blockIdx.x % kBands) * L;
-  for (int c = threadIdx.x; c < kLane * L; c += kThreads) {
-    const int s = c / L, lb = c % L;
-    const int q = tq * kLane + s;
-    const int p = sw ? (q % t) * kLane + q / t : q;
-    float v = 0.f;
-    if (p < in_rows) {
-      const int l = lane0 + lb;
-      const int src_l = r != nullptr ? (int)r[(long long)p * kLane + l] : l;
-      v = in[(long long)p * kLane + src_l];
+#pragma unroll 1
+  for (int k0 = 0; k0 < kN; k0 += kB) {
+    float v[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int c = threadIdx.x + (k0 + u) * kThreads;
+      const int q = tq * kLane + c / L;
+      const int p = sw ? (q % t) * kLane + q / t : q;
+      v[u] = 0.f;
+      if (p < in_rows) {
+        const int l = lane0 + c % L;
+        const int src_l = r != nullptr ? (int)r[(long long)p * kLane + l] : l;
+        v[u] = in[(long long)p * kLane + src_l];
+      }
     }
-    stage[s * L + lb] = v;
+#pragma unroll
+    for (int u = 0; u < kB; ++u) stage[threadIdx.x + (k0 + u) * kThreads] = v[u];  // [c/L][c%L]
   }
-  stage_index_rows(w + ((long long)tq * kLane + lane0) * kLane, L, ws);
+  stage_index_rows<L, kThreads>(w + ((long long)tq * kLane + lane0) * kLane, ws);
   __syncthreads();
-  for (int c = threadIdx.x; c < kLane * L; c += kThreads) {
-    const int j = c / L, lb = c % L;
-    const int q = tq * kLane + j;
-    const int p = sw ? (q % t) * kLane + q / t : q;
-    const long long o = (long long)p * kLane + lane0 + lb;
-    const int m = (kWhole && ra != nullptr) ? (int)ra[o] : lb;
-    const int src = (int)reinterpret_cast<const int8_t*>(ws)[m * kPitch + j];
-    if (o < out_limit) out[o] = stage[src * L + m];
+#pragma unroll 1
+  for (int k0 = 0; k0 < kN; k0 += kB) {
+    int m[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int c = threadIdx.x + (k0 + u) * kThreads;
+      const int q = tq * kLane + c / L;
+      const int p = sw ? (q % t) * kLane + q / t : q;
+      m[u] = (kWhole && ra != nullptr) ? (int)ra[(long long)p * kLane + lane0 + c % L] : c % L;
+    }
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int c = threadIdx.x + (k0 + u) * kThreads;
+      const int j = c / L;
+      const int q = tq * kLane + j;
+      const int p = sw ? (q % t) * kLane + q / t : q;
+      const long long o = (long long)p * kLane + lane0 + c % L;
+      const int src = (int)reinterpret_cast<const int8_t*>(ws)[m[u] * kPitch + j];
+      if (o < out_limit) out[o] = stage[src * L + m[u]];
+    }
   }
 }
 
@@ -195,12 +264,11 @@ routed_perm_reduce_kernel(const float* __restrict__ src, int src_rows, int mode,
   out[(long long)gi * kLane + l] = acc;
 }
 
-// D: out[target[k]] += sum over this CTA's columns c of f32(H[k, c]) * x[c]
-// (x is zero past n_x; n_pad is a multiple of 128).
+// D: part[k*gridDim.x + blockIdx.x] = sum over this CTA's columns c of
+// f32(H[k, c]) * x[c] (x is zero past n_x; n_pad is a multiple of 128).
 __global__ void __launch_bounds__(kThreads)
 routed_hdense_kernel(const __nv_bfloat16* __restrict__ H, long long n_pad,
-                     const float* __restrict__ x, long long n_x,
-                     const int32_t* __restrict__ target, float* __restrict__ out) {
+                     const float* __restrict__ x, long long n_x, float* __restrict__ part) {
   const int k = blockIdx.y;
   const __nv_bfloat16* h = H + (long long)k * n_pad;
   float acc = 0.f;
@@ -218,14 +286,161 @@ routed_hdense_kernel(const __nv_bfloat16* __restrict__ H, long long n_pad,
     }
   }
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-  __shared__ float part[kThreads / 32];
-  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = acc;
+  __shared__ float warp_sums[kThreads / 32];
+  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = acc;
   __syncthreads();
   if (threadIdx.x < 32) {
-    float v = threadIdx.x < kThreads / 32 ? part[threadIdx.x] : 0.f;
+    float v = threadIdx.x < kThreads / 32 ? warp_sums[threadIdx.x] : 0.f;
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (threadIdx.x == 0) atomicAdd(out + target[k], v);
+    if (threadIdx.x == 0) part[(long long)k * gridDim.x + blockIdx.x] = v;
   }
+}
+
+// D's and E's close, one warp per heavy row k: out[dst[k]] += the sum of
+// part at the row's entries [b, e) (ptr[k], ptr[k + 1], or k*seg, (k+1)*seg
+// without ptr), through idx where given, lane by lane and then by a fixed
+// shuffle tree.
+__global__ void __launch_bounds__(kRowWarps * 32)
+routed_row_sums_kernel(const float* __restrict__ part, const int32_t* __restrict__ ptr,
+                       const int32_t* __restrict__ idx, int seg,
+                       const int32_t* __restrict__ dst, int n_rows, float* __restrict__ out) {
+  const int k = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (k >= n_rows) return;  // a whole warp
+  const long long b = ptr != nullptr ? ptr[k] : (long long)k * seg;
+  const long long e = ptr != nullptr ? ptr[k + 1] : (long long)(k + 1) * seg;
+  float acc = 0.f;
+  for (long long i = b + lane; i < e; i += 32) acc += part[idx != nullptr ? idx[i] : i];
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if (lane == 0) out[dst[k]] += acc;
+}
+
+// E: tile T's slot sums part[T*128 + j] = sum over residues a, in order, of
+// the lanes (hlo, hhi] of row T*128 + a in slot j, each lane l holding
+// hvals[T*128 + a, l] * x[hwidx[T]*16384 + hpidx[T*128 + a, l]*128 + a]
+// (-1: no term; the runs of one residue are disjoint and nonempty).
+template <typename T>
+__global__ void __launch_bounds__(kHeavyThreads, 2)
+routed_heavy_kernel(const T* __restrict__ hvals, const int8_t* __restrict__ hpidx,
+                    const int32_t* __restrict__ hwidx, const int8_t* __restrict__ hlo,
+                    const int8_t* __restrict__ hhi, const float* __restrict__ x, long long n_x,
+                    float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* P = reinterpret_cast<float*>(smem);                          // [128][kPPitch]
+  unsigned char* lo_s = smem + kLane * kPPitch * sizeof(float);       // [128][kPitch]
+  unsigned char* hi_s = lo_s + kLane * kPitch;                        // [128][kPitch]
+  float* red = reinterpret_cast<float*>(hi_s + kLane * kPitch);       // [4][128]
+  constexpr int kQuarters = kHeavyThreads / kLane;
+  const int tile = blockIdx.x;
+  const long long base = (long long)tile * kLane * kLane;
+  const long long xw = (long long)hwidx[tile] * kWindowElems;
+  {
+    const int l = threadIdx.x % kLane;
+#pragma unroll 8
+    for (int a = threadIdx.x / kLane; a < kLane; a += kQuarters) {
+      const long long e = base + (long long)a * kLane + l;
+      const long long col = xw + (long long)hpidx[e] * kLane + a;
+      const float xv = (col >= 0 && col < n_x) ? __ldg(x + col) : 0.f;
+      P[a * kPPitch + l] = to_f32(hvals[e]) * xv;
+    }
+  }
+  stage_index_rows<kLane, kHeavyThreads>(hlo + base, lo_s);
+  stage_index_rows<kLane, kHeavyThreads>(hhi + base, hi_s);
+  __syncthreads();
+  const int lane = threadIdx.x % kLane, quarter = threadIdx.x / kLane;
+  {  // residue `lane`, slots of this quarter: each run's sum into its last lane
+    float* pa = P + lane * kPPitch;
+    const signed char* lo_a = reinterpret_cast<const signed char*>(lo_s) + lane * kPitch;
+    const signed char* hi_a = reinterpret_cast<const signed char*>(hi_s) + lane * kPitch;
+    for (int j = quarter * (kLane / kQuarters); j < (quarter + 1) * (kLane / kQuarters); ++j) {
+      const int hi = hi_a[j];
+      if (hi < 0) continue;
+      float acc = 0.f;
+      for (int c = lo_a[j] + 1; c <= hi; ++c) acc += pa[c];
+      pa[hi] = acc;
+    }
+  }
+  __syncthreads();
+  {  // slot `lane`, residues of this quarter in order
+    const signed char* hi_j = reinterpret_cast<const signed char*>(hi_s) + lane;
+    float acc = 0.f;
+    for (int a = quarter * (kLane / kQuarters); a < (quarter + 1) * (kLane / kQuarters); ++a) {
+      const int hi = hi_j[a * kPitch];
+      if (hi >= 0) acc += P[a * kPPitch + hi];
+    }
+    red[quarter * kLane + lane] = acc;
+  }
+  __syncthreads();
+  if (threadIdx.x < kLane) {
+    float acc = red[threadIdx.x];
+    for (int q = 1; q < kQuarters; ++q) acc += red[q * kLane + threadIdx.x];
+    part[(long long)tile * kLane + threadIdx.x] = acc;
+  }
+}
+
+size_t heavy_smem() {
+  return (size_t)kLane * kPPitch * sizeof(float) + 2 * (size_t)kLane * kPitch +
+         (size_t)(kHeavyThreads / kLane) * kLane * sizeof(float);
+}
+
+// The small kernel's operands (routed_cuda.py::SmallStage): the gather
+// tiles, the chain's permutations composed into slab_src (reduce-slab slot
+// -> gather slot, -1: a pad tile's zero) and out_src (y row -> C's output
+// element gi*128 + l, -1: the zeroed assembly tail), and C's groups.
+struct SmallArgs {
+  const void* vals;
+  const int8_t* pidx;
+  const int32_t* widx;
+  const int32_t* slab_src;
+  const int2* groups;
+  const int32_t* out_src;
+  float* y;
+  long long m;
+};
+
+// The product of gather slot s (A's element before its W1), 0 for s < 0.
+template <typename T>
+__device__ __forceinline__ float gather_product(const T* __restrict__ vals,
+                                                const int8_t* __restrict__ pidx,
+                                                const int32_t* __restrict__ widx, int s,
+                                                const float* __restrict__ x, long long n_x) {
+  if (s < 0) return 0.f;
+  const long long col = (long long)widx[s / (kLane * kLane)] * kWindowElems +
+                        (long long)pidx[s] * kLane + (s / kLane) % kLane;
+  const float xv = (col >= 0 && col < n_x) ? __ldg(x + col) : 0.f;
+  return to_f32(vals[s]) * xv;
+}
+
+// The small kernel, one thread per row i of y: C's run sum of the element
+// out_src[i] (group gi, lane l), over the products that the composed
+// permutation brings to the group's slab rows, computed in place and added
+// in C's order (so y equals the staged chain's bit for bit), kSmallBatch
+// rows' loads in flight at a time.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+routed_small_kernel(SmallArgs a, const float* __restrict__ x, long long n_x) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= a.m) return;
+  const int e = a.out_src[i];
+  float acc = 0.f;
+  if (e >= 0) {
+    const int2 g = a.groups[e / kLane];  // (first slab row, width)
+    const int l = e % kLane;
+    for (int k0 = 0; k0 < g.y; k0 += kSmallBatch) {
+      int src[kSmallBatch];
+      float v[kSmallBatch];
+#pragma unroll
+      for (int u = 0; u < kSmallBatch; ++u)
+        src[u] = k0 + u < g.y ? a.slab_src[(g.x + k0 + u) * kLane + l] : -1;
+#pragma unroll
+      for (int u = 0; u < kSmallBatch; ++u)
+        v[u] = gather_product(static_cast<const T*>(a.vals), a.pidx, a.widx, src[u], x, n_x);
+#pragma unroll
+      for (int u = 0; u < kSmallBatch; ++u)
+        if (k0 + u < g.y) acc += v[u];
+    }
+  }
+  a.y[i] = acc;
 }
 
 size_t w_stage_smem(bool whole) {
@@ -275,11 +490,60 @@ int perm_reduce_launch(const float* src, int src_rows, int mode, const int8_t* W
   return (int)cudaGetLastError();
 }
 
+int row_sums_launch(const float* part, const int32_t* ptr, const int32_t* idx, int seg,
+                    const int32_t* dst, int n_rows, float* out, cudaStream_t st) {
+  routed_row_sums_kernel<<<(unsigned)((n_rows + kRowWarps - 1) / kRowWarps), kRowWarps * 32, 0,
+                           st>>>(part, ptr, idx, seg, dst, n_rows, out);
+  return (int)cudaGetLastError();
+}
+
+// part: n_h * ceil(n_pad / kHChunk) f32 of scratch
 int hdense_launch(const void* H, int n_h, long long n_pad, const float* x, long long n_x,
-                  const int32_t* target, float* out, cudaStream_t st) {
-  const dim3 grid((unsigned)((n_pad + kHChunk - 1) / kHChunk), (unsigned)n_h);
-  routed_hdense_kernel<<<grid, kThreads, 0, st>>>((const __nv_bfloat16*)H, n_pad, x, n_x,
-                                                  target, out);
+                  const int32_t* target, float* out, float* part, cudaStream_t st) {
+  const int n_cta = (int)((n_pad + kHChunk - 1) / kHChunk);
+  routed_hdense_kernel<<<dim3((unsigned)n_cta, (unsigned)n_h), kThreads, 0, st>>>(
+      (const __nv_bfloat16*)H, n_pad, x, n_x, part);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return row_sums_launch(part, nullptr, nullptr, n_cta, target, n_h, out, st);
+}
+
+// part: n_tiles * 128 f32 of scratch
+int heavy_launch(int vals_bf16, const void* hvals, const int8_t* hpidx, const int32_t* hwidx,
+                 const int8_t* hlo, const int8_t* hhi, int n_tiles, const int32_t* slot_ptr,
+                 const int32_t* slot_idx, const int32_t* rows, int n_h, const float* x,
+                 long long n_x, float* part, float* out, cudaStream_t st) {
+  const size_t smem = heavy_smem();
+  // above 48 KB of dynamic shared memory; the attribute is per device, so
+  // it is set on every launch (cheap, and allowed during graph capture)
+  cudaError_t e;
+  if (vals_bf16) {
+    e = cudaFuncSetAttribute(routed_heavy_kernel<__nv_bfloat16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      routed_heavy_kernel<__nv_bfloat16><<<(unsigned)n_tiles, kHeavyThreads, smem, st>>>(
+          (const __nv_bfloat16*)hvals, hpidx, hwidx, hlo, hhi, x, n_x, part);
+  } else {
+    e = cudaFuncSetAttribute(routed_heavy_kernel<float>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      routed_heavy_kernel<float><<<(unsigned)n_tiles, kHeavyThreads, smem, st>>>(
+          (const float*)hvals, hpidx, hwidx, hlo, hhi, x, n_x, part);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return row_sums_launch(part, slot_ptr, slot_idx, 0, rows, n_h, out, st);
+}
+
+int small_launch(int vals_bf16, const SmallArgs& a, const float* x, long long n_x,
+                 cudaStream_t st) {
+  const unsigned grid = (unsigned)((a.m + kThreads - 1) / kThreads);
+  if (vals_bf16) {
+    routed_small_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a, x, n_x);
+  } else {
+    routed_small_kernel<float><<<grid, kThreads, 0, st>>>(a, x, n_x);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -301,8 +565,11 @@ void* resolve(long long v, const Bases& b) {
   }
 }
 
-enum Op { kOpGather = 1, kOpWStage = 2, kOpReduce = 3, kOpHDense = 4, kOpZero = 5 };
-constexpr int kOpWords[] = {0, 9, 11, 11, 6, 3};  // by op: the op and its operands
+enum Op {
+  kOpGather = 1, kOpWStage = 2, kOpReduce = 3, kOpHDense = 4, kOpZero = 5, kOpHeavy = 6,
+  kOpSmall = 7
+};
+constexpr int kOpWords[] = {0, 9, 11, 11, 7, 3, 14, 10};  // by op: the op and its operands
 
 }  // namespace
 
@@ -310,9 +577,11 @@ extern "C" {
 
 // Runs the len-entry program prog (ops with their operands, see
 // routed_cuda.py::_op) on the stream: A (gather), B (W stage), C (perm
-// reduce), D (heavy rows) and memsets. counts[0..3] (host memory) gains one
-// for each launch of A, B, C, D that was enqueued without error. Returns
-// the first error, or 0; nothing after it is enqueued.
+// reduce), D (dense heavy rows), E (pooled heavy tiles), the small kernel
+// and memsets. counts[0..5] (host memory) gains one for each op of A, B, C,
+// D, E and the small kernel that was enqueued without error (D and E: the
+// kernel and its row sums). Returns the first error, or 0; nothing after it
+// is enqueued.
 int routed_chain_launch(const long long* prog, int len, const float* x, long long n_x,
                         float* y, void* scratch, int* counts, void* stream) {
   const Bases b{(char*)scratch, (char*)y};
@@ -321,7 +590,7 @@ int routed_chain_launch(const long long* prog, int len, const float* x, long lon
   int i = 0;
   while (i < len) {
     const long long op = prog[i];
-    if (op < kOpGather || op > kOpZero || i + kOpWords[op] > len) return (int)cudaErrorInvalidValue;
+    if (op < kOpGather || op > kOpSmall || i + kOpWords[op] > len) return (int)cudaErrorInvalidValue;
     int rc, kernel = -1;
     switch ((int)op) {
       case kOpGather:  // vals_bf16 vals pidx widx w1 n_real n_tiles out
@@ -345,14 +614,37 @@ int routed_chain_launch(const long long* prog, int len, const float* x, long lon
                                 st);
         kernel = 2;
         break;
-      case kOpHDense:  // H n_h n_pad target out
+      case kOpHDense:  // H n_h n_pad target out part
         rc = hdense_launch(P(i + 1), (int)prog[i + 2], prog[i + 3], x, n_x,
-                           (const int32_t*)P(i + 4), (float*)P(i + 5), st);
+                           (const int32_t*)P(i + 4), (float*)P(i + 5), (float*)P(i + 6), st);
         kernel = 3;
         break;
       case kOpZero:  // ptr bytes
         rc = (int)cudaMemsetAsync(P(i + 1), 0, (size_t)prog[i + 2], st);
         break;
+      case kOpHeavy:  // vals_bf16 hvals hpidx hwidx hlo hhi n_tiles slot_ptr slot_idx rows
+                      // n_h part out
+        rc = heavy_launch((int)prog[i + 1], P(i + 2), (const int8_t*)P(i + 3),
+                          (const int32_t*)P(i + 4), (const int8_t*)P(i + 5),
+                          (const int8_t*)P(i + 6), (int)prog[i + 7], (const int32_t*)P(i + 8),
+                          (const int32_t*)P(i + 9), (const int32_t*)P(i + 10),
+                          (int)prog[i + 11], x, n_x, (float*)P(i + 12), (float*)P(i + 13), st);
+        kernel = 4;
+        break;
+      case kOpSmall: {  // vals_bf16 vals pidx widx slab_src groups out_src y m
+        SmallArgs a;
+        a.vals = P(i + 2);
+        a.pidx = (const int8_t*)P(i + 3);
+        a.widx = (const int32_t*)P(i + 4);
+        a.slab_src = (const int32_t*)P(i + 5);
+        a.groups = (const int2*)P(i + 6);
+        a.out_src = (const int32_t*)P(i + 7);
+        a.y = (float*)P(i + 8);
+        a.m = prog[i + 9];
+        rc = small_launch((int)prog[i + 1], a, x, n_x, st);
+        kernel = 5;
+        break;
+      }
       default:
         return (int)cudaErrorInvalidValue;
     }

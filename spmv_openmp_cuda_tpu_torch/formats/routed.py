@@ -23,12 +23,14 @@ Pipeline (all structure static, only x flows at run time):
    and every heavy row's sum, into natural row order.
 
 Heavy rows (at least the cost model's threshold of nnz) leave the routed
-pipeline: they form a dense bf16 row block H, y_h = H @ x, whose sums enter
-the assembly domain at planned slots. The pooled residue tiles that the JAX
-package uses where that block is too large (`_build_heavy`, consumed by the
-`_heavy_sums` kernel) are not ported: prepare raises NotImplementedError
-there. So does a schema (the multi-device path); an empty matrix raises
-RoutedError.
+pipeline. Where it fits 12 MB, they form a dense bf16 row block H, y_h = H @
+x, whose sums enter the assembly domain at planned slots. Otherwise they go
+into pooled residue tiles (`_build_heavy`): every heavy nnz of a column window
+takes a slot at sublane col % 128 of a 128-lane tile, the rows of a pool
+sorted along the lanes, so that each (tile, residue, row) is a run of lanes;
+the tiles' products summed per run and per row are added into y at the heavy
+rows, which the light pipeline leaves zero. A schema (the multi-device path)
+raises NotImplementedError; an empty matrix raises RoutedError.
 
 The double-float (float64) engine (`prepare_routed_df`, RoutedDF) is two
 float32 layouts of the same structure, one over the hi and one over the lo
@@ -66,15 +68,9 @@ HEAVY_THRESHOLD = WCAP * LANE
 #: many bytes per product to beat the pooled tiles' extra passes
 _DENSE_HEAVY_MAX_BYTES = 12 * 2**20
 
-#: pooled heavy packing groups at most this many rows per pool (the JAX
-#: package's _build_heavy; the cost model below charges pools by it)
+#: pooled heavy packing groups at most this many rows per pool, so that a
+#: tile's distinct rows fit its 128 row slots
 _HEAVY_POOL_ROWS = 96
-
-_POOLED_HEAVY = (
-    "the pooled heavy-row tiles (spmv_openmp_cuda_tpu/formats/routed.py::"
-    "_build_heavy, read by the TPU kernel _heavy_sums) are not ported to "
-    "PyTorch/CUDA yet (ROADMAP.md queue 2 item 13)"
-)
 
 
 class RoutedError(ValueError):
@@ -101,6 +97,16 @@ class RoutedCSR:
     # per extra level: its runs tuple
     lvl_runs: Tuple[Tuple[Tuple[int, int, int, int], ...], ...] = ()
     out_t: int = 1
+    # pooled heavy tiles (_build_heavy), n_tiles of (128 residues, 128 lanes):
+    hvals: Optional[torch.Tensor] = None  # (n_tiles*128, 128) vals dtype
+    hpidx: Optional[torch.Tensor] = None  # (n_tiles*128, 128) int8 panel
+    hwidx: Optional[torch.Tensor] = None  # (n_tiles,) int32 window per tile
+    # (n_heavy, n_tiles*128) 0/1 numpy, on the host: row slot -> heavy row
+    hreduce: Optional[np.ndarray] = None
+    # (n_tiles*128, 128) int8: the run of row slot j in residue a of tile T
+    # is lanes (hlo, hhi] of row T*128 + a; -1 = no term
+    hlo: Optional[torch.Tensor] = None
+    hhi: Optional[torch.Tensor] = None
     # dense heavy block: (n_heavy, n_pad) bf16, y_h = H @ x
     hdense: Optional[torch.Tensor] = None
     heavy_rows: Tuple[int, ...] = ()
@@ -154,6 +160,96 @@ def _group_units(lens: np.ndarray, child_first: Optional[np.ndarray] = None):
 
 def _dense_heavy_ok(dtype, n_heavy: int, n_pad: int) -> bool:
     return dtype == torch.float32 and n_heavy * n_pad * 2 <= _DENSE_HEAVY_MAX_BYTES
+
+
+def _build_heavy(rows_h, csr: CSRMatrix):
+    """Pooled residue tiles for the heavy rows (the JAX package's
+    _build_heavy, numpy verbatim).
+
+    All heavy nnz of a window pool together: per residue a (the slot
+    sublane, = col % 128), entries sort by row and take consecutive lanes k
+    across however many 128-lane tiles the window's deepest residue needs.
+    Each (row, window, residue) run is a contiguous k range, so per tile a
+    row's partial sum is the sum of the lanes (hlo, hhi] of each residue
+    (int8, -1 = no term) in the row's slot j. Returns hvals (f64), hpidx,
+    hwidx, the (n_heavy, n_tiles*128) 0/1 slot -> row matrix, hlo, hhi.
+    """
+    n_h = len(rows_h)
+    ri_all, cols_all, data_all = [], [], []
+    for ri, r in enumerate(rows_h):
+        i0, i1 = int(csr.indptr[r]), int(csr.indptr[r + 1])
+        ri_all.append(np.full(i1 - i0, ri, dtype=np.int64))
+        cols_all.append(csr.indices[i0:i1].astype(np.int64))
+        data_all.append(csr.data[i0:i1])
+    ri = np.concatenate(ri_all)
+    cols = np.concatenate(cols_all)
+    data = np.concatenate(data_all)
+    w = cols // WINDOW_ELEMS
+    a = cols % LANE
+    p = (cols // LANE) % WINDOW_PANELS
+    pool = ri // _HEAVY_POOL_ROWS  # cap rows per pool (row-slot lanes = 128)
+
+    # ordinals k within each (pool, window, residue), entries sorted by row
+    order = np.lexsort((ri, a, w, pool))
+    sp, sw, sa, sri = pool[order], w[order], a[order], ri[order]
+    key = (sp * (int(w.max(initial=0)) + 1) + sw) * LANE + sa
+    starts = np.r_[0, np.flatnonzero(np.diff(key)) + 1]
+    rid = np.zeros(key.shape[0], dtype=np.int64)
+    rid[starts] = 1
+    rid = np.cumsum(rid) - 1
+    k = np.arange(key.shape[0]) - starts[rid]
+
+    # tiles per (pool, window): deepest pooled residue
+    pw_ids, pw_inv = np.unique(key // LANE, return_inverse=True)
+    lanes_pw = np.zeros(pw_ids.shape[0], dtype=np.int64)
+    np.maximum.at(lanes_pw, pw_inv, k + 1)
+    tiles_pw = -(-lanes_pw // LANE)
+    tile_base = np.r_[0, np.cumsum(tiles_pw)]
+    n_tiles = int(tile_base[-1])
+    tg = tile_base[pw_inv] + k // LANE  # global tile per entry
+
+    hvals = np.zeros((n_tiles * LANE, LANE), dtype=np.float64)
+    hpidx = np.zeros((n_tiles * LANE, LANE), dtype=np.int8)
+    hvals[tg * LANE + sa, k % LANE] = data[order]
+    hpidx[tg * LANE + sa, k % LANE] = p[order]
+    hwidx = np.repeat(pw_ids % (int(w.max(initial=0)) + 1), tiles_pw).astype(
+        np.int32
+    )
+
+    # per-(pool, window, residue, row) runs -> per-tile row-slot bounds
+    key2 = key * n_h + sri
+    starts2 = np.r_[0, np.flatnonzero(np.diff(key2)) + 1, key2.shape[0]]
+    hlo = np.full((n_tiles * LANE, LANE), -1, dtype=np.int8)
+    hhi = np.full((n_tiles * LANE, LANE), -1, dtype=np.int8)
+    slot_of: dict = {}  # (tile, ri) -> row-slot lane j
+    slots_used = np.zeros(n_tiles, dtype=np.int64)
+    owner_ri: List[int] = []  # flat (tile*128 + j) -> ri
+    owner_pos: List[int] = []
+    for s0 in range(starts2.shape[0] - 1):
+        lo_, hi_ = int(starts2[s0]), int(starts2[s0 + 1])
+        if lo_ == hi_:
+            continue
+        a_ = int(sa[lo_])
+        ri_ = int(sri[lo_])
+        klo, khi = int(k[lo_]), int(k[hi_ - 1]) + 1
+        base_t = int(tile_base[pw_inv[lo_]])
+        for tl in range(klo // LANE, -(-khi // LANE)):
+            t_ = base_t + tl
+            j = slot_of.get((t_, ri_))
+            if j is None:
+                j = int(slots_used[t_])
+                slots_used[t_] += 1
+                slot_of[(t_, ri_)] = j
+                owner_ri.append(ri_)
+                owner_pos.append(t_ * LANE + j)
+            l0 = max(klo - tl * LANE, 0)
+            l1 = min(khi - tl * LANE, LANE)
+            hlo[t_ * LANE + a_, j] = l0 - 1
+            hhi[t_ * LANE + a_, j] = l1 - 1
+    reduce_mat = np.zeros((n_h, n_tiles * LANE), dtype=np.float64)
+    reduce_mat[np.asarray(owner_ri, dtype=np.int64),
+               np.asarray(owner_pos, dtype=np.int64)] = 1.0
+    return hvals, hpidx, hwidx, reduce_mat, hlo, hhi
 
 
 def _pick_heavy_threshold(
@@ -247,17 +343,17 @@ def _prepare_routed_placed(
 ):
     """(RoutedCSR, row_a, lane_a): the prepare, and the gather slot (row_a,
     lane_a) of every light nnz, in CSR order. With probe, only the domain
-    test: None, or the RoutedError of a domain too large (the pooled heavy
-    tiles then need no port: their rows leave the domain either way).
+    test: None, or the RoutedError of a domain too large (the heavy rows
+    leave the domain whatever holds them, so no heavy layout is built).
 
     vals_dtype (default = dtype) is the storage type of the gather slot
-    values only; products, routing and sums stay f32. The dense heavy block
-    is bf16 in every mode, as in the JAX package, so the f32 mode rounds the
-    heavy rows' values to bf16.
+    values and of the pooled heavy tiles; products, routing and sums stay
+    f32. The dense heavy block is bf16 in every mode, as in the JAX package,
+    so the f32 mode rounds the heavy rows' values to bf16 where they fit it.
 
     Raises RoutedError where the JAX package does (domain too large, empty
-    matrix) and NotImplementedError for what the port lacks: a schema, a
-    dtype other than float32, and heavy rows that need the pooled tiles.
+    matrix) and NotImplementedError for what the port lacks: a schema, and
+    a dtype other than float32.
     """
     if schema is not None:
         raise NotImplementedError(
@@ -291,15 +387,12 @@ def _prepare_routed_placed(
         cand = np.flatnonzero(heavy_sel)
         heavy_sel[cand[np.argmin(lens_full[cand])]] = False
     rows_h = np.flatnonzero(heavy_sel)
-    hdense = None
+    hdense = heavy = None
     if rows_h.size:
         n_pad = -(-n // LANE) * LANE
-        if not probe:
-            if not _dense_heavy_ok(dtype, rows_h.size, n_pad):
-                raise NotImplementedError(
-                    f"{rows_h.size} heavy rows of {n_pad} columns exceed the dense "
-                    f"heavy block's {_DENSE_HEAVY_MAX_BYTES} bytes: {_POOLED_HEAVY}"
-                )
+        if not probe and not _dense_heavy_ok(dtype, rows_h.size, n_pad):
+            heavy = _build_heavy(rows_h, csr)
+        elif not probe:
             hd = np.zeros((rows_h.size, n_pad), dtype=np.float32)
             row_map = np.full(m, -1, dtype=np.int64)
             row_map[rows_h] = np.arange(rows_h.size)
@@ -549,10 +642,22 @@ def _prepare_routed_placed(
     vals[row_a, lane_a] = csr.data
     pidx[row_a, lane_a] = p
     widx = np.repeat(np.arange(nwin, dtype=np.int32), tiles_per_win)
+    pooled = {}
+    if heavy is not None:
+        hvals, hpidx, hwidx, hreduce, hlo, hhi = heavy
+        pooled = dict(
+            hvals=torch.from_numpy(hvals).to(vals_dtype).to(device),
+            hpidx=torch.from_numpy(hpidx).to(device),
+            hwidx=torch.from_numpy(hwidx).to(device),
+            hreduce=hreduce.astype(np.float32),
+            hlo=torch.from_numpy(hlo).to(device),
+            hhi=torch.from_numpy(hhi).to(device),
+        )
     mat = RoutedCSR(
         vals=torch.from_numpy(vals).to(vals_dtype).to(device),
         pidx=torch.from_numpy(pidx).to(device),
         widx=torch.from_numpy(widx).to(device),
+        **pooled,
         hdense=torch.from_numpy(hdense).to(torch.bfloat16).to(device)
         if hdense is not None
         else None,

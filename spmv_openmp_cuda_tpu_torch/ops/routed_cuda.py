@@ -2,10 +2,11 @@
 
 Counterpart of the kernel half of spmv_openmp_cuda_tpu/formats/routed.py
 (`_gather_w1`, `_gather_products`, `_w3_r3_reduce`, `_perm_reduce_t1`,
-`_reduce_runs_fused`, `_hdense_mv`, and `routed_spmv` with its chunked and
-auto forms, all one `routed_spmv` here), of the permutation application in spmv_openmp_cuda_tpu/ops/route.py
+`_reduce_runs_fused`, `_hdense_mv`, `_heavy_sums`, `_routed_small_spmv`, and
+`routed_spmv` with its chunked and auto forms, all one `routed_spmv` here),
+of the permutation application in spmv_openmp_cuda_tpu/ops/route.py
 (`_whole_w_call`, `_tiled_call`, `apply_*`) and of the routed registry hooks
-in spmv_openmp_cuda_tpu/ops/spmv_pallas.py. It holds the wrappers of the four
+in spmv_openmp_cuda_tpu/ops/spmv_pallas.py. It holds the wrappers of the six
 hand-written CUDA kernels in csrc/routed_spmv.cu, their plain PyTorch
 versions, the conversion of the JAX package's prepared layout, and the modes
 PL_CSR_ROUTED and PL_CSR_ROUTED_BF16; and the double-float engine of
@@ -16,24 +17,20 @@ dense heavy-row dot as torch ops (`_reduce_runs_df`, `_df_dense_rowdot`).
 
 One product is a chain of stages, built once per prepared matrix
 (`build_chain`): gather+W1 (A) -> SW.W2.SW^-1 (B) -> W3.R3.reduce (C) ->
-[levels: C, or B, B, C] -> zero the assembly tail -> heavy rows (D) ->
-output permutation (B: W1, SW.W2.SW^-1, W3.R3 into y). On a CUDA device the
-chain is encoded once as a program that csrc/routed_spmv.cu enqueues in one
-call (its one entry point; each single-kernel wrapper runs a one-op program
-through it, and it counts the launches it made); on the CPU each stage runs
-its plain version. The chain differs from
-the JAX package's routed_spmv in two deliberate ways:
-
-- The JAX package picks between TPU kernels by VMEM size
-  (`_W3_FUSED_MAX_ROWS`, `_FUSED_REDUCE_MAX_ROWS`,
-  `_W3_FUSED_MASKED_MAX_ROWS`, the h1 > 8192 branch, `_WHOLE_MAX_T`). The
-  port has no such limit: every domain and every level runs the same
-  gather -> SW.W2.SW^-1 -> W3.R3.reduce chain, and one W-stage kernel serves
-  every t <= 128.
-- Small domains (the JAX `small_ok` test) run the same staged chain; the
-  JAX package fuses them into one launch (`_routed_small_spmv`, not ported
-  as a fused kernel yet: ROADMAP.md queue 2 item 9). The function is the
-  chain's, on the same operands; only the launch count differs.
+[levels: C, or B, B, C] -> zero the assembly tail -> dense heavy rows (D)
+-> output permutation (B: W1, SW.W2.SW^-1, W3.R3 into y) -> pooled heavy
+tiles (E, added into y at the heavy rows). A small domain (the JAX
+package's `small_ok` test) is one stage instead, the small kernel, which
+runs A, B, C and the output permutation in one launch (`SmallStage`; its
+plain version is the staged chain's). On a CUDA device the chain is encoded
+once as a program that csrc/routed_spmv.cu enqueues in one call (its one
+entry point; each single-kernel wrapper runs a one-op program through it,
+and it counts the launches it made); on the CPU each stage runs its plain
+version. The JAX package picks between TPU kernels by VMEM size
+(`_W3_FUSED_MAX_ROWS`, `_FUSED_REDUCE_MAX_ROWS`, `_W3_FUSED_MASKED_MAX_ROWS`,
+the h1 > 8192 branch, `_WHOLE_MAX_T`). The port has no such limit: every
+other domain and every level runs the same gather -> SW.W2.SW^-1 ->
+W3.R3.reduce chain, and one W-stage kernel serves every t <= 128.
 
 The wrappers launch the kernels for CUDA tensors and raise on anything they
 do not take; the plain versions run only for tensors on the CPU.
@@ -49,7 +46,6 @@ import torch
 
 from ..config import LANE
 from ..formats.routed import (
-    _POOLED_HEAVY,
     WINDOW_ELEMS,
     RoutedChunks,
     RoutedCSR,
@@ -72,6 +68,14 @@ MODE_DIRECT, MODE_W3, MODE_T1 = 0, 1, 2
 #: package leaves them to an XLA dot (formats/routed.py:1027)
 _HDENSE_KERNEL_MAX_ROWS = 64
 _HDENSE_KERNEL_MAX_BYTES = 6 * 2**20
+
+#: the small kernel's domains: at most 4 tiles each way, and the JAX
+#: package's 2 MB of f32 x windows (32 windows)
+_SMALL_MAX_T = 4
+_SMALL_MAX_WINDOWS = 2 * 2**20 // (WINDOW_ELEMS * 4)
+
+#: D's columns per CTA (csrc/routed_spmv.cu kHChunk): one partial sum each
+_HCHUNK = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +188,31 @@ def hdense_reference(hdense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (hdense.to(torch.float32) * xb).sum(1)
 
 
+def heavy_sums_reference(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx,
+                         x: torch.Tensor) -> torch.Tensor:
+    """Plain kernel E, the JAX package's _heavy_sums formula in f32: per
+    pooled tile, the products hvals * x[hwidx*16384 + hpidx*128 + a] (a =
+    row in tile), their inclusive cumsum along the lanes, its differences at
+    each row slot's (hlo, hhi] bounds (-1: no term) summed over the
+    residues, then each heavy row's slot sums (slot_idx[slot_ptr[k] :
+    slot_ptr[k + 1]]). Returns (n_heavy,) f32."""
+    n_tiles = hvals.shape[0] // LANE
+    nwin = max(-(-x.shape[0] // WINDOW_ELEMS), 1)
+    xw = pack_x_windows_flat(x, nwin)
+    s = torch.arange(LANE, device=x.device).repeat(n_tiles)
+    wrow = hwidx.long().repeat_interleave(LANE) * LANE + s
+    prod = hvals.to(torch.float32) * torch.gather(xw[wrow], 1, hpidx.long())
+    c = torch.cumsum(prod, dim=1)
+    lo, hi = hlo.long(), hhi.long()
+    t_hi = torch.gather(c, 1, hi.clamp(min=0)) * (hi >= 0)
+    t_lo = torch.gather(c, 1, lo.clamp(min=0)) * (lo >= 0)
+    slots = (t_hi - t_lo).reshape(n_tiles, LANE, LANE).sum(1).reshape(-1)
+    n_h = slot_ptr.shape[0] - 1
+    owner = torch.repeat_interleave(torch.arange(n_h, device=x.device), torch.diff(slot_ptr.long()))
+    out = torch.zeros(n_h, dtype=torch.float32, device=x.device)
+    return out.index_add_(0, owner, slots[slot_idx.long()])
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers (csrc/routed_spmv.cu)
 # ---------------------------------------------------------------------------
@@ -219,14 +248,14 @@ def _on_cuda(*ts) -> torch.device:
 # stage (the wrappers below) run through it, and it counts the launches it
 # made. An op is its code and its operands as int64: ints, tensors by
 # address, Bufs tagged in the top byte (1 scratch, 2 y) with a byte offset.
-_OP_GATHER, _OP_W_STAGE, _OP_REDUCE, _OP_HDENSE, _OP_ZERO = 1, 2, 3, 4, 5
+_OP_GATHER, _OP_W_STAGE, _OP_REDUCE, _OP_HDENSE, _OP_ZERO, _OP_HEAVY, _OP_SMALL = range(1, 8)
 _TAGS = {"s": 1, "y": 2}
 
 
 def _aligned(t, align: int):
-    """t, checked to be align-byte aligned: the kernels read w1 and w (index
-    rows) with 4-byte loads, groups with 8-byte and hdense with 16-byte
-    ones; every other operand with scalar loads."""
+    """t, checked to be align-byte aligned: the kernels read w1, w, hlo and
+    hhi (index rows) with 4-byte loads, groups with 8-byte and hdense with
+    16-byte ones; every other operand with scalar loads."""
     if isinstance(t, torch.Tensor) and t.data_ptr() % align:
         raise ValueError(f"an operand read with {align}-byte loads is not {align}-byte aligned")
     return t
@@ -261,8 +290,25 @@ def _reduce_op(src, src_rows: int, mode: int, W, r1, r3, mask, groups, out) -> L
                groups.shape[0], out)
 
 
-def _hdense_op(hdense, target, out) -> List[int]:
-    return _op(_OP_HDENSE, _aligned(hdense, 16), hdense.shape[0], hdense.shape[1], target, out)
+def _hdense_op(hdense, target, out, part) -> List[int]:
+    return _op(_OP_HDENSE, _aligned(hdense, 16), hdense.shape[0], hdense.shape[1], target, out,
+               part)
+
+
+def _hdense_part_elems(hdense) -> int:
+    return hdense.shape[0] * -(-hdense.shape[1] // _HCHUNK)
+
+
+def _heavy_op(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, part, out) -> List[int]:
+    return _op(_OP_HEAVY, hvals.dtype == torch.bfloat16, hvals, hpidx, hwidx, _aligned(hlo, 4),
+               _aligned(hhi, 4), hvals.shape[0] // LANE, slot_ptr, slot_idx, rows,
+               rows.shape[0], part, out)
+
+
+def _small_op(stage: "SmallStage") -> List[int]:
+    g, red = stage.staged[0], stage.staged[2]
+    return _op(_OP_SMALL, g.vals.dtype == torch.bfloat16, g.vals, g.pidx, g.widx, stage.slab_src,
+               _aligned(red.groups, 8), stage.out_src, stage.out, stage.out_elems())
 
 
 def _run_program(prog: np.ndarray, x: Optional[torch.Tensor], y: Optional[int],
@@ -324,16 +370,51 @@ def routed_perm_reduce_cuda(src, src_rows: int, mode: int, W, r1, r3, mask, grou
 routed_perm_reduce_cuda.launches = 0
 
 
-def routed_hdense_cuda(hdense, x, target, out) -> torch.Tensor:
-    """Kernel D: out.view(-1)[target[k]] += H[k] . x (out zeroed by the
-    caller)."""
-    dev = _on_cuda(x, hdense, target, out)
+def routed_hdense_cuda(hdense, x, target, out, part=None) -> torch.Tensor:
+    """Kernel D: out.view(-1)[target[k]] += H[k] . x (each row's CTA sums
+    added once, in a fixed order; part is their f32 scratch, allocated when
+    not given)."""
+    dev = _on_cuda(x, hdense, target, out, part)
     _check_hdense(hdense, x, target, out)
-    _run_op(_hdense_op(hdense, target, out), x, dev)
+    if part is None:
+        part = torch.empty(_hdense_part_elems(hdense), dtype=torch.float32, device=dev)
+    _check_out(part, "part", _hdense_part_elems(hdense), dev)
+    _run_op(_hdense_op(hdense, target, out, part), x, dev)
     return out
 
 
 routed_hdense_cuda.launches = 0
+
+
+def routed_heavy_cuda(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, x, out,
+                      part=None) -> torch.Tensor:
+    """Kernel E: out[rows[k]] += heavy row k's sum over the pooled tiles
+    (heavy_sums_reference's function, each run summed directly; part is the
+    (n_tiles*128,) f32 scratch of the slot sums, allocated when not
+    given)."""
+    dev = _on_cuda(x, hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, out, part)
+    _check_heavy(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, x, out)
+    if part is None:
+        part = torch.empty(hvals.shape[0], dtype=torch.float32, device=dev)
+    _check_out(part, "part", hvals.shape[0], dev)
+    _run_op(_heavy_op(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, part, out), x, dev)
+    return out
+
+
+routed_heavy_cuda.launches = 0
+
+
+def routed_small_cuda(stage: "SmallStage", x, y) -> torch.Tensor:
+    """The small kernel: a small domain's whole product (A, B, C and the
+    output permutation of stage.staged, composed) in one launch, into the
+    chain's y buffer at the stage's offset."""
+    dev = _on_cuda(x, y, stage.slab_src, stage.out_src)
+    _check_out(y, "y", stage.out.off + stage.out_elems(), dev)
+    _run_program(np.asarray(_small_op(stage), dtype=np.int64), x, y.data_ptr(), None, dev)
+    return y
+
+
+routed_small_cuda.launches = 0
 
 
 #: launches of each kernel, as csrc/routed_spmv.cu counted them (in the
@@ -343,6 +424,8 @@ _COUNTERS = {
     "w_stage": routed_w_stage_cuda,
     "perm_reduce": routed_perm_reduce_cuda,
     "hdense": routed_hdense_cuda,
+    "heavy": routed_heavy_cuda,
+    "small": routed_small_cuda,
 }
 
 
@@ -420,6 +503,26 @@ def _check_hdense(hdense, x, target, out):
     _require(hdense, "hdense", (torch.bfloat16,), (n_h, n_pad), dev)
     _require(target, "target", (torch.int32,), (n_h,), dev)
     _check_out(out, "out", -(-n_h // LANE) * LANE, dev)
+
+
+def _check_heavy(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, x, out):
+    dev = x.device
+    rows_h = hvals.shape[0]
+    n_tiles = rows_h // LANE
+    if rows_h % LANE or n_tiles < 1:
+        raise ValueError(f"{rows_h} heavy tile rows are not whole 128-row tiles")
+    _require(hvals, "hvals", _SLAB_DTYPES, (rows_h, LANE), dev)
+    for name, a in (("hpidx", hpidx), ("hlo", hlo), ("hhi", hhi)):
+        _require(a, name, _IDX, (rows_h, LANE), dev)
+    _require(hwidx, "hwidx", (torch.int32,), (n_tiles,), dev)
+    n_h = rows.shape[0]
+    _require(rows, "rows", (torch.int32,), (n_h,), dev)
+    _require(slot_ptr, "slot_ptr", (torch.int32,), (n_h + 1,), dev)
+    _require(slot_idx, "slot_idx", (torch.int32,), (slot_idx.shape[0],), dev)
+    _require(x, "x", _F32, (x.shape[0],), dev)
+    if out is not None and (out.device != dev or out.dtype != torch.float32 or out.dim() != 1
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous 1-d f32 tensor on {dev}")
 
 
 # ---------------------------------------------------------------------------
@@ -628,6 +731,7 @@ class HDenseStage:  # kernel D, or a dense f32 matmul for large blocks
     hdense: torch.Tensor
     target: torch.Tensor
     out: Buf
+    part: Optional[Buf] = None  # D's per-CTA sums (the kernel only)
 
     @property
     def kernel(self):
@@ -635,6 +739,45 @@ class HDenseStage:  # kernel D, or a dense f32 matmul for large blocks
 
     def out_elems(self) -> int:
         return -(-self.hdense.shape[0] // LANE) * LANE
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class HeavyStage:  # kernel E: the pooled heavy tiles, added into y
+    hvals: torch.Tensor
+    hpidx: torch.Tensor
+    hwidx: torch.Tensor
+    hlo: torch.Tensor
+    hhi: torch.Tensor
+    slot_ptr: torch.Tensor  # (n_heavy + 1,) int32: heavy row k's slots are
+    slot_idx: torch.Tensor  # slot_idx[slot_ptr[k] : slot_ptr[k + 1]]
+    rows: torch.Tensor  # (n_heavy,) int32 rows of the domain's y
+    part: Buf  # the (n_tiles*128,) slot sums
+    out: Buf  # the domain's y
+    m: int
+
+    kernel = "heavy"
+
+    def out_elems(self) -> int:
+        return self.m
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SmallStage:  # the small kernel: staged's A, B, C and output stages
+    staged: tuple  # the staged chain it replaces (its plain version)
+    # the chain's permutations composed: reduce-slab slot (row, lane) holds
+    # the product of gather slot slab_src[row*128 + lane] (-1: none), and
+    # y[i] is C's output element out_src[i] (group*128 + lane; -1: zero)
+    slab_src: torch.Tensor  # (h1*128,) int32
+    out_src: torch.Tensor  # (m,) int32
+
+    kernel = "small"
+
+    @property
+    def out(self) -> Buf:
+        return self.staged[-1].out
+
+    def out_elems(self) -> int:
+        return self.staged[-1].out_elems()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -648,11 +791,66 @@ class ZeroStage:
         return self.n
 
 
-Stage = Union[GatherStage, WStage, ReduceStage, HDenseStage, ZeroStage]
+Stage = Union[GatherStage, WStage, ReduceStage, HDenseStage, HeavyStage, SmallStage, ZeroStage]
 
 
-def _domain_stages(mat: RoutedCSR, y: Buf, alloc) -> List[Stage]:
-    """The stages of one domain's product, y[0:m] written at y."""
+def small_ok(mat: RoutedCSR) -> bool:
+    """The JAX package's test for its one-kernel small domain
+    (formats/routed.py::routed_spmv): t <= 4 tiles each way, an output plan
+    with more than one tile or a composed wc and no r1, no levels, no heavy
+    rows, one static window per gather tile and at most 2 MB of x
+    windows."""
+    pp, po = mat.perm_products, mat.perm_out
+    return (
+        len(mat.widx_t) == mat.vals.shape[0] // LANE
+        and pp.t <= _SMALL_MAX_T
+        and po.t <= _SMALL_MAX_T
+        and (po.t > 1 or po.wc is not None)
+        and po.r1 is None
+        and not mat.lvl_perms
+        and mat.hvals is None
+        and mat.hdense is None
+        and mat.n_windows <= _SMALL_MAX_WINDOWS
+    )
+
+
+def _small_maps(mat: RoutedCSR, staged) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SmallStage's slab_src and out_src: element ids (exact in f32 below
+    2^24) run through the staged chain's permutations, the plain W stages;
+    the gather's pad tiles and the assembly tail carry -1."""
+    gather, w2, red, _zero, *outs = staged
+    dev = gather.vals.device
+    h1 = gather.n_tiles * LANE
+    n_real = gather.vals.shape[0] // LANE
+    ids = torch.arange(h1 * LANE, dtype=torch.float32, device=dev).reshape(h1, LANE)
+    x2 = torch.cat([_w_tiles(ids[: n_real * LANE], gather.w1[: n_real * LANE]),
+                    ids.new_full(((gather.n_tiles - n_real) * LANE, LANE), -1.0)])
+    slab = w_stage_reference(x2, h1, None, w2.w, None, w2.t, True, w2.n_tiles)
+    slab = w_stage_reference(slab, h1, None, red.W, red.r3, w2.t, False, w2.n_tiles)
+    ho = outs[0].n_tiles * LANE
+    dom = torch.arange(ho * LANE, dtype=torch.float32, device=dev)
+    dom[red.groups.shape[0] * LANE:] = -1.0
+    dom = dom.reshape(ho, LANE)
+    for st in outs:
+        dom = w_stage_reference(dom, ho, st.r, st.w, st.ra, st.t, st.sw, st.n_tiles)
+    m = outs[-1].out_limit
+    return (slab.reshape(-1).to(torch.int32), dom.reshape(-1)[:m].to(torch.int32).contiguous())
+
+
+def heavy_slot_map(hreduce: np.ndarray, device):
+    """(slot_ptr, slot_idx) int32 tensors from the (n_heavy, n_tiles*128)
+    0/1 slot -> row matrix: heavy row k's slots, in slot order, are
+    slot_idx[slot_ptr[k] : slot_ptr[k + 1]]."""
+    k, slot = np.nonzero(hreduce)
+    ptr = np.r_[0, np.cumsum(np.bincount(k, minlength=hreduce.shape[0]))]
+    return (torch.from_numpy(ptr.astype(np.int32)).to(device),
+            torch.from_numpy(slot.astype(np.int32)).to(device))
+
+
+def _domain_stages(mat: RoutedCSR, y: Buf, alloc, fuse_small: bool = True) -> List[Stage]:
+    """The stages of one domain's product, y[0:m] written at y: one
+    SmallStage for a small domain (unless fuse_small is False), else the
+    staged chain."""
     dev = mat.vals.device
     pp, po = mat.perm_products, mat.perm_out
     h1, m = pp.h, mat.shape[0]
@@ -686,7 +884,8 @@ def _domain_stages(mat: RoutedCSR, y: Buf, alloc) -> List[Stage]:
     stages.append(ZeroStage(dom.at(tail * LANE), (po.h - tail) * LANE))
     if mat.hdense is not None:
         target = torch.from_numpy(_heavy_targets(mat)).to(dev)
-        stages.append(HDenseStage(mat.hdense, target, dom.at(tail * LANE)))
+        part = alloc(-(-_hdense_part_elems(mat.hdense) // LANE))
+        stages.append(HDenseStage(mat.hdense, target, dom.at(tail * LANE), part))
     # output permutation; the JAX package applies its W1 to the leading
     # full tiles inside _w3_r3_reduce and to the tail on its own: applying
     # W1 once over the whole assembly domain gives the same x2_o
@@ -699,6 +898,14 @@ def _domain_stages(mat: RoutedCSR, y: Buf, alloc) -> List[Stage]:
             WStage(o1, po.h, None, po.w2, None, po.t, True, po.t, o2, po.h * LANE),
             WStage(o2, po.h, None, po.w3, po.r3, po.t, False, po.t, y, m),
         ]
+    if mat.hvals is not None:
+        # heavy rows carry no light nnz: the output permutation left them 0
+        slot_ptr, slot_idx = heavy_slot_map(mat.hreduce, dev)
+        rows = torch.tensor(mat.heavy_rows, dtype=torch.int32, device=dev)
+        stages.append(HeavyStage(mat.hvals, mat.hpidx, mat.hwidx, mat.hlo, mat.hhi, slot_ptr,
+                                 slot_idx, rows, alloc(mat.hvals.shape[0] // LANE), y, m))
+    if fuse_small and small_ok(mat):
+        return [SmallStage(tuple(stages), *_small_maps(mat, stages))]
     return stages
 
 
@@ -738,6 +945,8 @@ def _check_domain(mat: RoutedCSR) -> None:
         raise ValueError(f"{mat.n_windows} windows do not cover {n} columns")
     for name, plan in (("perm_products", pp), ("perm_out", po)):
         _check_plan(plan, name, dev)
+        if plan.r1 is not None:
+            raise ValueError(f"{name}: its router folds r1 into the lanes it assigns (r1 is None)")
     if po.h * LANE < m:
         raise ValueError(f"the output domain of {po.h} rows does not cover {m} rows")
     levels = [mat.runs, *mat.lvl_runs]
@@ -756,6 +965,8 @@ def _check_domain(mat: RoutedCSR) -> None:
             _require(mat.lvl_masks[k - 1], f"lvl_masks[{k - 1}]", _F32, (plan.h, LANE), dev)
     total = sum(_n_groups(r) for r in levels)
     n_h = 0 if mat.hdense is None else mat.hdense.shape[0]
+    if mat.hvals is not None:
+        _check_pooled(mat)
     if mat.hdense is not None:
         if len(mat.heavy_lanes) != n_h or len(mat.heavy_rows) != n_h:
             raise ValueError("a dense heavy block needs one placed lane per heavy row")
@@ -772,9 +983,35 @@ def _check_domain(mat: RoutedCSR) -> None:
     # index values: int8 arrays in [0, 128), windows in [0, n_windows)
     idx = [mat.pidx] + [a for p in (pp, po, *mat.lvl_perms) for a in
                         (p.r1, p.w1, p.w2, p.w3, p.r3, p.wc) if a is not None]
-    if any(bool((a < 0).any()) for a in idx) or bool((mat.widx < 0).any()) \
-            or bool((mat.widx >= mat.n_windows).any()):
+    wins = [mat.widx]
+    if mat.hvals is not None:
+        idx.append(mat.hpidx)
+        wins.append(mat.hwidx)
+    if any(bool((a < 0).any()) for a in idx) or \
+            any(bool((w < 0).any()) or bool((w >= mat.n_windows).any()) for w in wins):
         raise ValueError("an index array holds values out of range")
+
+
+def _check_pooled(mat: RoutedCSR) -> None:
+    """Geometry of the pooled heavy tiles, and the slot -> row matrix: 0/1,
+    at most one row per slot, one matrix row per heavy row."""
+    dev = mat.vals.device
+    if mat.hdense is not None:
+        raise ValueError("heavy rows in both a dense block and pooled tiles")
+    rows_h = mat.hvals.shape[0]
+    n_h = len(mat.heavy_rows)
+    if any(a is None for a in (mat.hpidx, mat.hwidx, mat.hlo, mat.hhi, mat.hreduce)) \
+            or rows_h % LANE or rows_h == 0 or n_h == 0:
+        raise ValueError("pooled heavy tiles need hvals, hpidx, hwidx, hreduce, hlo and hhi")
+    _require(mat.hvals, "hvals", _SLAB_DTYPES, (rows_h, LANE), dev)
+    for name in ("hpidx", "hlo", "hhi"):
+        _require(getattr(mat, name), name, _IDX, (rows_h, LANE), dev)
+    _require(mat.hwidx, "hwidx", (torch.int32,), (rows_h // LANE,), dev)
+    hr = np.asarray(mat.hreduce)
+    if hr.shape != (n_h, rows_h) or not np.isin(hr, (0.0, 1.0)).all() or (hr.sum(0) > 1).any():
+        raise ValueError(f"hreduce must be ({n_h}, {rows_h}) of 0/1, one row per slot at most")
+    if not all(0 <= r < mat.shape[0] for r in mat.heavy_rows):
+        raise ValueError("heavy_rows out of range")
 
 
 def _check_plan(plan: PlannedPermutation, name: str, dev) -> None:
@@ -788,10 +1025,12 @@ def _check_plan(plan: PlannedPermutation, name: str, dev) -> None:
         raise ValueError(f"{name}: a one-tile plan carries its composed wc")
 
 
-def build_chain(mat: Union[RoutedCSR, RoutedChunks]) -> RoutedChain:
+def build_chain(mat: Union[RoutedCSR, RoutedChunks], fuse_small: bool = True) -> RoutedChain:
     """Check a prepared matrix once and lay out its product: every domain's
     stages, chunk after chunk into y at its row bound, over one scratch
-    buffer that the chunks reuse in turn (the stages run in stream order)."""
+    buffer that the chunks reuse in turn (the stages run in stream order).
+    fuse_small=False plans small domains as the staged chain too (the
+    small kernel's A/B)."""
     domains = mat.chunks if isinstance(mat, RoutedChunks) else (mat,)
     bounds = mat.bounds if isinstance(mat, RoutedChunks) else (0, mat.shape[0])
     if len(bounds) != len(domains) + 1 or bounds[0] != 0 or bounds[-1] != mat.shape[0]:
@@ -809,7 +1048,7 @@ def build_chain(mat: Union[RoutedCSR, RoutedChunks]) -> RoutedChain:
             used[0] += rows * LANE
             return buf
 
-        stages += _domain_stages(dmat, Buf("y", r0), alloc)
+        stages += _domain_stages(dmat, Buf("y", r0), alloc, fuse_small)
         scratch = max(scratch, used[0])
     dev = domains[0].vals.device
     counts = {k: sum(s.kernel == k for s in stages) for k in _COUNTERS}
@@ -841,7 +1080,12 @@ def _encode(stages: Sequence[Stage]) -> tuple:
         elif isinstance(s, ReduceStage):
             prog += _reduce_op(s.src, s.src_rows, s.mode, s.W, s.r1, s.r3, s.mask, s.groups, s.out)
         elif isinstance(s, HDenseStage):
-            prog += _hdense_op(s.hdense, s.target, s.out)
+            prog += _hdense_op(s.hdense, s.target, s.out, s.part)
+        elif isinstance(s, HeavyStage):
+            prog += _heavy_op(s.hvals, s.hpidx, s.hwidx, s.hlo, s.hhi, s.slot_ptr, s.slot_idx,
+                              s.rows, s.part, s.out)
+        elif isinstance(s, SmallStage):
+            prog += _small_op(s)
         else:
             prog += _op(_OP_ZERO, s.out, s.n * 4)
     if prog:
@@ -862,6 +1106,19 @@ def run_stage(stage: Stage, bufs: Dict[str, torch.Tensor], plain: bool) -> None:
     out = _view(bufs, stage.out, n_out)
     if isinstance(stage, ZeroStage):
         out.zero_()
+    elif isinstance(stage, SmallStage):
+        if plain:
+            for s in stage.staged:
+                run_stage(s, bufs, plain=True)
+        else:
+            routed_small_cuda(stage, x, bufs["y"])
+    elif isinstance(stage, HeavyStage):
+        args = (stage.hvals, stage.hpidx, stage.hwidx, stage.hlo, stage.hhi, stage.slot_ptr,
+                stage.slot_idx)
+        if plain:
+            out[stage.rows.long()] += heavy_sums_reference(*args, x)
+        else:
+            routed_heavy_cuda(*args, stage.rows, x, out, _view(bufs, stage.part, stage.hvals.shape[0]))
     elif isinstance(stage, GatherStage):
         if plain:
             out.copy_(gather_reference(stage.vals, stage.pidx, stage.widx, stage.w1,
@@ -889,7 +1146,8 @@ def run_stage(stage: Stage, bufs: Dict[str, torch.Tensor], plain: bool) -> None:
     elif plain:
         out[stage.target.long()] += hdense_reference(stage.hdense, x)
     else:
-        routed_hdense_cuda(stage.hdense, x, stage.target, out)
+        routed_hdense_cuda(stage.hdense, x, stage.target, out,
+                           _view(bufs, stage.part, _hdense_part_elems(stage.hdense)))
 
 
 def _buffers(chain: RoutedChain, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -947,25 +1205,32 @@ def compare_stages(chain: RoutedChain, x: torch.Tensor):
 
 
 def stored_csr(csr, chain: RoutedChain):
-    """csr with its values as the prepared layout stores them: the dense
+    """csr with its values as the prepared layout stores them: a dense
     heavy block's rows rounded to bf16 (as prepare rounds them, through
-    f32), and with bf16 gather values every other value rounded to bf16
-    too. The f64 oracle on this matrix is what a routed product should
-    match; its gap to the exact matrix is a property of the layout."""
+    f32); the light rows and the pooled heavy tiles' rows at the gather
+    values' type (rounded to bf16 in the bf16 mode, exact in the f32 mode).
+    The f64 oracle on this matrix is what a routed product should match;
+    its gap to the exact matrix is a property of the layout."""
     from ..formats.matrix import CSRMatrix
 
     mats = chain.mat.chunks if isinstance(chain.mat, RoutedChunks) else (chain.mat,)
     bounds = chain.mat.bounds if isinstance(chain.mat, RoutedChunks) else (0, csr.shape[0])
-    heavy = np.zeros(csr.shape[0], dtype=bool)
-    for mat, r0 in zip(mats, bounds):
-        heavy[np.asarray(mat.heavy_rows, dtype=np.int64) + r0] = True
-    on_heavy = np.repeat(heavy, np.diff(csr.indptr))
     data = np.asarray(csr.data, dtype=np.float64).copy()
-    if mats[0].vals.dtype == torch.bfloat16:
-        light = torch.from_numpy(data[~on_heavy]).to(torch.bfloat16)
-        data[~on_heavy] = light.to(torch.float64).numpy()
-    hv = torch.from_numpy(data[on_heavy].astype(np.float32)).to(torch.bfloat16)
-    data[on_heavy] = hv.to(torch.float64).numpy()
+    lens = np.diff(csr.indptr)
+
+    def bf16(rows, via):
+        sel = np.repeat(rows, lens)
+        data[sel] = torch.from_numpy(data[sel].astype(via)).to(torch.bfloat16).double().numpy()
+
+    for mat, r0, r1 in zip(mats, bounds[:-1], bounds[1:]):
+        dense = np.zeros(csr.shape[0], dtype=bool)
+        if mat.hdense is not None:
+            dense[np.asarray(mat.heavy_rows, dtype=np.int64) + r0] = True
+        bf16(dense, np.float32)
+        if mat.vals.dtype == torch.bfloat16:
+            rest = np.zeros(csr.shape[0], dtype=bool)
+            rest[r0:r1] = True
+            bf16(rest & ~dense, np.float64)
     return CSRMatrix(shape=csr.shape, indptr=csr.indptr, indices=csr.indices, data=data)
 
 
@@ -1000,18 +1265,51 @@ def _plan_from_jax(plan, device) -> PlannedPermutation:
     return PlannedPermutation(t=int(get("t")), **arrays)
 
 
+def _pooled_from_jax(hvals, hpidx, hwidx, hreduce, hlo, hhi, device) -> dict:
+    """The pooled heavy tiles' fields, with the bounds kernel E sums
+    between checked: hlo and hhi in [-1, 128), every run (hlo, hhi] of a
+    residue nonempty and disjoint from the others (_check_pooled checks the
+    rest, as for a prepared layout)."""
+    if hlo is None or hhi is None:
+        raise ValueError(
+            "pooled heavy tiles without hlo/hhi are the JAX package's legacy owner layout, "
+            "on the do-not-port list (ROADMAP.md queue 1)"
+        )
+    hlo, hhi = np.asarray(hlo), np.asarray(hhi)
+    if min(hlo.min(initial=0), hhi.min(initial=0)) < -1:
+        raise ValueError("hlo/hhi out of range")  # int8: max is < 128
+    lo, hi = hlo.astype(np.int64), hhi.astype(np.int64)
+    used = hi >= 0
+    if (lo[~used] != -1).any() or (lo[used] >= hi[used]).any():
+        raise ValueError("hlo/hhi: a slot's run (hlo, hhi] must be nonempty, or both -1")
+    # runs of one residue row are disjoint: no lane is covered twice
+    cover = np.zeros((hi.shape[0], LANE + 1), dtype=np.int64)
+    r = np.nonzero(used)[0]
+    np.add.at(cover, (r, lo[used] + 1), 1)
+    np.add.at(cover, (r, hi[used] + 1), -1)
+    if (np.cumsum(cover, axis=1) > 1).any():
+        raise ValueError("hlo/hhi: the runs of a residue overlap")
+    return dict(
+        hvals=_to_tensor(hvals, device), hpidx=_to_tensor(hpidx, device),
+        hwidx=_to_tensor(np.asarray(hwidx).astype(np.int32), device),
+        hreduce=np.asarray(hreduce, dtype=np.float32),
+        hlo=_to_tensor(hlo, device), hhi=_to_tensor(hhi, device),
+    )
+
+
 def routed_from_jax(
     vals, pidx, widx, perm_products, lvl_perms, lvl_masks, perm_out, shape, nnz: int,
     n_windows: int, rows_a: int, runs, lvl_runs, out_t: int, hdense=None, heavy_rows=(),
-    widx_t=(), heavy_lanes=(), hvals=None, device="cpu",
+    widx_t=(), heavy_lanes=(), hvals=None, hpidx=None, hwidx=None, hreduce=None, hlo=None,
+    hhi=None, device="cpu",
 ) -> RoutedCSR:
     """The port's RoutedCSR from the JAX package's prepared RoutedCSR, given
     as numpy arrays (bf16 bit for bit) and its static fields; each plan is a
     dict (or object) of numpy stage arrays and t. Validates the index ranges
-    the kernels read with and the geometry (as build_chain does). A JAX
-    layout with pooled heavy tiles (hvals) raises NotImplementedError."""
-    if hvals is not None:
-        raise NotImplementedError(_POOLED_HEAVY)
+    the kernels read with and the geometry (as build_chain does), the
+    pooled heavy tiles (hvals, hpidx, hwidx, hreduce, hlo, hhi) included."""
+    pooled = {} if hvals is None else _pooled_from_jax(hvals, hpidx, hwidx, hreduce, hlo, hhi,
+                                                         device)
     masks = []
     for mk in lvl_masks:
         mk = np.asarray(mk, dtype=np.float32)
@@ -1037,6 +1335,7 @@ def routed_from_jax(
         heavy_rows=tuple(int(r) for r in heavy_rows),
         widx_t=tuple(int(v) for v in widx_t),
         heavy_lanes=tuple(int(v) for v in heavy_lanes),
+        **pooled,
     )
     if mat.out_t != mat.perm_out.t:
         raise ValueError(f"out_t {mat.out_t} != perm_out.t {mat.perm_out.t}")

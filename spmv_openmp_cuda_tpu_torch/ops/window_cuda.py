@@ -140,11 +140,13 @@ def window_spmv_df_reference(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.window_blocks_launch.argtypes = [
-        i, p, p, p, p, i, i, i, i, i, i, i, p, ll, ll, p, p,
+        i, p, p, p, p, i, i, i, i, i, i, i, p, ll, ll, p, p, p,
     ]
     lib.window_blocks_launch.restype = i
-    lib.window_single_launch.argtypes = [i, p, p, p, p, i, i, i, p, ll, ll, p, p]
+    lib.window_single_launch.argtypes = [i, p, p, p, p, i, i, i, p, ll, ll, p, p, p]
     lib.window_single_launch.restype = i
+    lib.window_scratch_elems.argtypes = [i, i, i]
+    lib.window_scratch_elems.restype = ll
     lib.window_error_string.argtypes = [i]
     lib.window_error_string.restype = ctypes.c_char_p
 
@@ -191,6 +193,13 @@ def _check_layout(mat: WindowCSR, dev) -> None:
         raise ValueError("mat.rsrc must be 16-byte aligned (the kernels stage it in 16-byte loads)")
 
 
+def _scratch(lib: ctypes.CDLL, nblocks: int, mat: WindowCSR, dev) -> torch.Tensor:
+    """The partial tiles of blocks split over CTAs (csrc/window_spmv.cu
+    closes them in chunk order)."""
+    n = lib.window_scratch_elems(nblocks, mat.k_pad, mat.g)
+    return torch.empty(max(n, 1), dtype=torch.float32, device=dev)
+
+
 def _check_cuda_args(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor, xdirect: bool) -> None:
     if mat.vals_lo is not None:
         raise TypeError("a double-float layout runs through window_df_cuda")
@@ -207,10 +216,13 @@ def _check_cuda_args(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor, xdirect: 
 
 def window_blocks_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """y = A @ x over a multi-block (standard or shared_w) layout, into the
-    f32 y of length m: zeroes y and launches window_blocks_kernel."""
+    f32 y of length m: launches window_blocks_kernel (and, where a block's
+    slot rows are split over CTAs, window_combine_kernel). Overwrites every
+    element of y."""
     _check_cuda_args(mat, x, y, xdirect=False)
     m, n = mat.shape
     lib = _lib()
+    part = _scratch(lib, mat.nblocks, mat, x.device)
     rc = lib.window_blocks_launch(
         int(mat.vals.dtype == torch.bfloat16),
         mat.vals.data_ptr(),
@@ -228,6 +240,7 @@ def window_blocks_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torc
         n,
         m,
         y.data_ptr(),
+        part.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _check_launch(lib, rc, "window_blocks_kernel")
@@ -240,10 +253,13 @@ window_blocks_cuda.launches = 0
 
 def window_single_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """y = A @ x over the single-block xdirect layout, into the f32 y of
-    length m: zeroes y and launches window_single_kernel."""
+    length m: launches window_single_kernel (and window_combine_kernel when
+    the block's slot rows are split over CTAs). Overwrites every element of
+    y."""
     _check_cuda_args(mat, x, y, xdirect=True)
     m, n = mat.shape
     lib = _lib()
+    part = _scratch(lib, 1, mat, x.device)
     rc = lib.window_single_launch(
         int(mat.vals.dtype == torch.bfloat16),
         mat.vals.data_ptr(),
@@ -257,6 +273,7 @@ def window_single_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torc
         n,
         m,
         y.data_ptr(),
+        part.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _check_launch(lib, rc, "window_single_kernel")
@@ -394,7 +411,7 @@ def _register() -> None:
             doc="windowed local-gather engine for banded-locality matrices "
             "(unstructured FEM): per row-block edge-colored slots, x gathered "
             "through the Q map staged in shared memory, row sums in a "
-            "shared-memory tile per CTA",
+            "shared-memory tile per CTA, split blocks closed in chunk order",
         )
     )
     register(

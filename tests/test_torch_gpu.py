@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
-The window kernels sum a block's rows in a per-CTA tile and add the tiles
-into y with atomics, so their order of additions changes from run to run.
+No kernel closes a sum with atomics: a rerun on the same x is bitwise equal
+(test_reruns_are_bitwise_equal).
 
 Run on a machine with a GPU: python -m pytest -m gpu tests/test_torch_gpu.py
 Elsewhere every test skips (inside the `cuda` fixture, so that all workers
@@ -244,11 +244,25 @@ def _routed_spiked():
     return T.sort_coo(T.COOMatrix((3000, 30000), rows, cols, rng.standard_normal(rows.shape[0]))), None
 
 
+def _routed_pooled():
+    # 40 heavy rows of 200,000 columns: a dense block would pass 12 MB, so
+    # they go into pooled tiles (kernel E)
+    rng = np.random.default_rng(1)
+    rows = np.concatenate([np.full(17000, r) for r in range(40)] + [rng.integers(40, 3000, 12000)])
+    cols = np.concatenate([rng.choice(200000, 17000, replace=False) for _ in range(40)]
+                          + [rng.integers(0, 200000, 12000)])
+    rows, cols = np.unique(np.stack([rows, cols]), axis=1)
+    return T.COOMatrix((3000, 200000), rows, cols, rng.standard_normal(rows.shape[0])), None
+
+
 ROUTED_LAYOUTS = {
     "level": lambda: (synth.power_law(4000, 4000, avg_nnz_per_row=5.0, alpha=1.6, seed=17), None),
     "spiked": _routed_spiked,
     "heavy_many": _routed_heavy_many,
+    "pooled": _routed_pooled,
+    # t <= 4: the small kernel, one launch per product
     "small": lambda: (synth.random_uniform(9000, 9000, density=5e-4, seed=7), None),
+    "small_t2": lambda: (synth.preset("delaunay_n12_like"), None),
 }
 
 
@@ -271,8 +285,12 @@ def test_routed_kernels_match_plain(cuda, layout, vals_dtype):
             assert torch.equal(yk, yp), stage  # data movement and products
         else:
             _within(yk, yp)
-    assert {"gather", "w_stage", "perm_reduce"} <= seen
+    if layout.startswith("small"):
+        assert seen == {"small"} and chain.counts["small"] == 1
+    else:
+        assert {"gather", "w_stage", "perm_reduce"} <= seen
     assert ("hdense" in seen) == (layout == "spiked")
+    assert ("heavy" in seen) == (layout == "pooled")
     before = {k: fn.launches for k, fn in trc._COUNTERS.items()}
     y = trc.routed_chain_spmv(chain, x)
     torch.cuda.synchronize()
@@ -338,6 +356,69 @@ def test_routed_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         trc.routed_w_stage_cuda(out.reshape(-1, LANE), 10**6, None, mat.perm_products.w2, None,
                                 mat.perm_products.t, True, mat.perm_products.t, out, out.numel())
+
+
+def test_reruns_are_bitwise_equal(cuda):
+    """Two products on the same x give the same bits: the window kernels
+    with a block's slot rows split over CTAs (closed in chunk order), D with
+    a heavy row split over CTAs, E and the small kernel."""
+    from spmv_openmp_cuda_tpu_torch.formats import routed as trt
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    runs = []
+    for mode in ("PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16"):
+        for coo in (synth.preset("delaunay_n12_like"),
+                    synth.fem_like(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7)):
+            csr = T.coo_to_csr(coo)
+            ops = registry.get(mode).prepare(csr, None, T.Config(), cuda)
+            runs.append((f"{mode} {csr.shape}", registry.get(mode).jitted(ops), csr.shape[1]))
+    for layout in ("spiked", "pooled", "small"):
+        coo, thr = ROUTED_LAYOUTS[layout]()
+        csr = T.coo_to_csr(coo)
+        chain = trc.build_chain(trt.prepare_routed(csr, heavy_threshold=thr, device=cuda))
+        runs.append((layout, lambda v, c=chain: trc.routed_chain_spmv(c, v), csr.shape[1]))
+    for label, fn, n in runs:
+        x = _x(n, cuda)
+        a, b = fn(x), fn(x)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), label
+
+
+def test_split_window_blocks_close_in_chunk_order(cuda):
+    # delaunay's single block is split over CTAs: the partial tiles go to
+    # scratch and window_combine_kernel adds them; y is overwritten
+    csr = T.coo_to_csr(synth.preset("delaunay_n12_like"))
+    mat = twin.prepare_window_auto(csr, device=cuda)
+    assert mat.xdirect and twc._lib().window_scratch_elems(1, mat.k_pad, mat.g) > 0
+    x = _x(csr.shape[1], cuda)
+    y = torch.full((csr.shape[0],), float("nan"), device=cuda)
+    twc.window_single_cuda(mat, x, y)
+    _within(y, twc.window_spmv_reference(mat, x))
+
+
+def test_heavy_and_small_wrappers_on_the_card(cuda):
+    from spmv_openmp_cuda_tpu_torch.formats import routed as trt
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    coo, _ = _routed_pooled()
+    csr = T.coo_to_csr(coo)
+    mat = trt.prepare_routed(csr, device=cuda)
+    st = trc.build_chain(mat).stages[-1]
+    assert isinstance(st, trc.HeavyStage)
+    x = _x(csr.shape[1], cuda)
+    args = (st.hvals, st.hpidx, st.hwidx, st.hlo, st.hhi, st.slot_ptr, st.slot_idx)
+    y = torch.zeros(csr.shape[0], device=cuda)
+    before = trc.routed_heavy_cuda.launches
+    trc.routed_heavy_cuda(*args, st.rows, x, y)
+    torch.cuda.synchronize()
+    assert trc.routed_heavy_cuda.launches == before + 1
+    want = torch.zeros_like(y)
+    want[st.rows.long()] = trc.heavy_sums_reference(*args, x)
+    _within(y, want)
+    with pytest.raises(TypeError):
+        trc.routed_heavy_cuda(st.hvals.half(), *args[1:], st.rows, x, y)
+    with pytest.raises(ValueError):
+        trc.routed_heavy_cuda(*args, st.rows, x, y, part=torch.empty(10, device=cuda))
 
 
 # ---------------------------------------------------------------------------

@@ -167,12 +167,21 @@ def _plan_equal(tp, jp, what):
             _equal(a, b, f"{what}.{f}")
 
 
+POOLED = ("hvals", "hpidx", "hwidx", "hreduce", "hlo", "hhi")
+
+
 def _routed_equal(tm, jm):
     for f in ("vals", "pidx", "widx"):
         _equal(getattr(tm, f), getattr(jm, f), f)
-    assert (tm.hdense is None) == (jm.hdense is None) and jm.hvals is None
+    assert (tm.hdense is None) == (jm.hdense is None)
     if tm.hdense is not None:
         _equal(tm.hdense, jm.hdense, "hdense")
+    for f in POOLED:
+        a, b = getattr(tm, f), getattr(jm, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            # hreduce: the port keeps the 0/1 matrix on the host in f32
+            _equal(a, b if f != "hreduce" else np.asarray(b, np.float32), f)
     _plan_equal(tm.perm_products, jm.perm_products, "perm_products")
     _plan_equal(tm.perm_out, jm.perm_out, "perm_out")
     assert len(tm.lvl_perms) == len(jm.lvl_perms)
@@ -253,10 +262,17 @@ def test_prepare_routed_auto_agrees():
 
 def test_prepare_raises_what_the_port_lacks(monkeypatch):
     tcsr, jcsr = _csrs("heavy_many")
-    # a dense heavy block over the cap needs the pooled tiles: shrink the cap
+    # a dense heavy block over the cap takes the pooled tiles, as in the
+    # JAX package: shrink both caps
     monkeypatch.setattr(tr, "_DENSE_HEAVY_MAX_BYTES", 1000)
-    with pytest.raises(NotImplementedError, match="_heavy_sums"):
-        tr.prepare_routed(tcsr, heavy_threshold=512)
+    monkeypatch.setattr(jr, "_DENSE_HEAVY_MAX_BYTES", 1000)
+    tm = tr.prepare_routed(tcsr, heavy_threshold=512)
+    jm = jr.prepare_routed(jcsr, heavy_threshold=512)
+    assert tm.hdense is None and tm.hvals is not None and len(tm.heavy_rows) == 70
+    _routed_equal(tm, jm)
+    x = _x(tcsr.shape[1], seed=9)
+    _close(trc.routed_spmv(tm, torch.as_tensor(x, dtype=torch.float32)),
+           jr.routed_spmv(jm, jnp.asarray(x, jnp.float32)))
     monkeypatch.undo()
     with pytest.raises(NotImplementedError, match="multi-device"):
         tr.prepare_routed(tcsr, schema={"rows_a": 128})
@@ -284,8 +300,8 @@ def _fields(jm):
     f = {k: getattr(jm, k) for k in (
         "vals", "pidx", "widx", "perm_products", "lvl_perms", "lvl_masks", "perm_out", "shape",
         "nnz", "n_windows", "rows_a", "runs", "lvl_runs", "out_t", "hdense", "heavy_rows",
-        "widx_t", "heavy_lanes", "hvals")}
-    for k in ("vals", "pidx", "widx", "hdense"):
+        "widx_t", "heavy_lanes", *POOLED)}
+    for k in ("vals", "pidx", "widx", "hdense", *POOLED):
         f[k] = None if f[k] is None else np.asarray(f[k])
     return f
 
@@ -447,9 +463,13 @@ def test_small_domain_chain_matches_the_fused_jax_kernel():
     x = _x(tcsr.shape[1], seed=7)
     y_j = jr._routed_small_spmv(jm, _xw(jm, x))
     chain = trc.build_chain(tm)
-    # the staged chain: A, B (SW.W2.SW^-1), C, then the output permutation
-    assert chain.counts["gather"] == 1 and chain.counts["perm_reduce"] == 1
+    # one launch of the small kernel; its plain version is the staged chain
+    assert [type(s).__name__ for s in chain.stages] == ["SmallStage"]
+    assert chain.counts["small"] == 1 and sum(chain.counts.values()) == 1
+    staged = trc.build_chain(tm, fuse_small=False)
+    assert staged.counts["gather"] == 1 and staged.counts["perm_reduce"] == 1
     y_t = trc.routed_chain_spmv(chain, torch.as_tensor(x, dtype=torch.float32))
+    assert torch.equal(y_t, trc.routed_chain_spmv(staged, torch.as_tensor(x, dtype=torch.float32)))
     _close(y_t, np.asarray(y_j)[: tcsr.shape[0]])
     o = serial_csr_spmv(tcsr, x)
     assert np.abs(y_t.double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
@@ -488,7 +508,7 @@ def test_program_encoding_matches_the_interpreter():
         i += words[int(prog[i])]
     assert i == len(prog)
     codes = {trc.GatherStage: 1, trc.WStage: 2, trc.ReduceStage: 3, trc.HDenseStage: 4,
-             trc.ZeroStage: 5}
+             trc.ZeroStage: 5, trc.HeavyStage: 6, trc.SmallStage: 7}
     assert ops == [codes[type(s)] for s in chain.stages]
     last = chain.stages[-1]
     assert last.out.kind == "y" and int(prog[-2]) >> 56 == 2  # the output permutation into y
@@ -497,7 +517,7 @@ def test_program_encoding_matches_the_interpreter():
     assert list(prog[: words[1]]) == trc._gather_op(g.vals, g.pidx, g.widx, g.w1, g.n_tiles, g.out)
     # operands read with vector loads must be aligned for them
     with pytest.raises(ValueError, match="aligned"):
-        trc._hdense_op(torch.zeros(2, 2 * LANE + 4, dtype=torch.bfloat16)[:, 4:], None, None)
+        trc._hdense_op(torch.zeros(2, 2 * LANE + 4, dtype=torch.bfloat16)[:, 4:], None, None, None)
 
 
 def test_chain_is_the_same_for_every_domain_size():
@@ -539,7 +559,8 @@ def test_routed_from_jax_checks_ranges():
         trc.routed_from_jax(**dict(ok, runs=ok["runs"] + ((10**6, 1, 1, 10**6),)))
     with pytest.raises(ValueError):
         trc.routed_from_jax(**dict(ok, lvl_masks=(np.full((LANE, LANE), 2.0, np.float32),)))
-    with pytest.raises(NotImplementedError, match="_heavy_sums"):
+    # pooled heavy tiles without hlo/hhi: the JAX package's legacy layout
+    with pytest.raises(ValueError, match="do-not-port"):
         trc.routed_from_jax(**dict(ok, hvals=np.zeros((LANE, LANE), np.float32)))
 
 
