@@ -19,6 +19,12 @@ dtypes, and times kernel, plain version and one PyTorch library call
 (cuSPARSE through torch.sparse, f32 or f64, a yardstick the port never
 calls) with CUDA events; the routed kernels alone are timed inside CUDA
 graphs, so that the host's launch cost does not hide their device time.
+The window kernels (csrc/window_spmv.cu, df_spmv.cu's window_df_kernel)
+run one launch per product in every dtype: a CTA per block on
+thermal2_like, thread-block clusters on fem_3d_thermal2_like and
+delaunay_n12_like; phase 2 holds each layout (the three x forms, g = 64, a
+128-row x window) against its plain version, one launch and a bitwise rerun
+per product, and phase 5 times them per call and in a CUDA graph.
 The small kernel (one launch per product of a routed domain of t <= 4
 tiles) is checked and timed against the staged chain on delaunay_n12_like,
 west2021_like and a 9000-row matrix; PL_CSR_ROUTED_BF16's pooled tiles and
@@ -604,18 +610,38 @@ def main() -> int:
                 if not (err <= bound(yr) and y0.abs().max().item() > 0):
                     raise AssertionError(f"{name} {mode}: fringe kernel disagrees")
 
+    def window_launch(label, mat, x, counter):
+        """One product through window_spmv: one launch of its kernel, a rerun
+        bitwise equal; returns y and the launch plan."""
+        before = counter.launches
+        yk, y2 = WC.window_spmv(mat, x), WC.window_spmv(mat, x)
+        torch.cuda.synchronize()
+        if counter.launches != before + 2 or not torch.equal(yk, y2):
+            raise AssertionError(f"{label}: {counter.launches - before} launches for two products, "
+                                 f"rerun bitwise equal {torch.equal(yk, y2)}")
+        return yk, WC._plan(mat, mat.vals.device)
+
     def check_window(label, mat, x):
         kernel = "window_single" if mat.xdirect else "window_blocks"
-        yk = WC.window_spmv(mat, x)
-        torch.cuda.synchronize()
+        yk, plan = window_launch(label, mat, x, getattr(WC, f"{kernel}_cuda"))
         yp = WC.window_spmv_reference(mat, x)
         err = (yk - yp).abs().max().item()
         ok = err <= bound(yp) and yk.abs().max().item() > 0
         errs[kernel] = max(errs[kernel], err)
-        log(f"phase 2: {label}: {kernel}_kernel max|y_k - y_p| = {err:.3e} <= {bound(yp):.3e}, "
-            f"max|y_k| = {yk.abs().max().item():.3e}: {'OK' if ok else 'FAIL'}")
+        log(f"phase 2: {label}: {kernel}_kernel ({plan.cluster} CTA(s) per block, "
+            f"{plan.win_rows} x rows, ring {plan.depth}, {plan.smem} B shared) max|y_k - y_p| = {err:.3e} "
+            f"<= {bound(yp):.3e}, max|y_k| = {yk.abs().max().item():.3e}, one launch, rerun "
+            f"bitwise equal: {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label}: {kernel}_kernel disagrees with its plain version")
+        return plan
+
+    def check_window_df(label, mat, x64):
+        yk, plan = window_launch(label, mat, x64, WC.window_df_cuda)
+        check_df(f"{label} window_df_kernel ({plan.cluster} CTA(s) per block, f64 x in, f64 y "
+                 "out, one launch, rerun bitwise equal)", yk, WC.window_spmv_df_reference(mat, x64),
+                 errs, "window_df")
+        return plan
 
     # routed: each stage's kernel against its plain version, caida_like in
     # both modes (the bf16 operands are the f32 layout with vals cast, as
@@ -881,10 +907,13 @@ def main() -> int:
             ops = mat if mode == "PL_CSR_WINDOW" else dataclasses.replace(
                 mat, vals=mat.vals.to(torch.bfloat16))
             prepared[(name, mode)] = ops
-            check_window(f"{name} {mode}", ops, x)
+            plan = check_window(f"{name} {mode}", ops, x)
+            # thermal2's 400 blocks fill the card a CTA each; fem's 29 and
+            # delaunay's one block are split over thread-block clusters
+            if (plan.cluster == 1) != (name == "thermal2_like"):
+                raise AssertionError(f"{name}: launch plan {plan}")
         x64 = normal_x64(csr.shape[1], dev, seed=1)
-        check_df(f"{name} PL_CSR_WINDOW_F64 window_df_kernel", WC.window_spmv(mat_df, x64),
-                 WC.window_spmv_df_reference(mat_df, x64), errs, "window_df")
+        check_window_df(f"{name} PL_CSR_WINDOW_F64", mat_df, x64)
     # the third x form: a small layout forced to shared_w
     small = P.coo_to_csr(synth.fem_like(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7))
     for vals_dtype in (torch.float32, torch.bfloat16):
@@ -892,9 +921,21 @@ def main() -> int:
         assert mat.shared_w
         check_window(f"fem_like 6000 shared_w {vals_dtype}", mat, normal_x(6000, dev, seed=1))
     mat = W.prepare_window(small, g=8, bps=4, shared_w=True, df=True, device=dev)
-    x64 = normal_x64(6000, dev, seed=1)
-    check_df("fem_like 6000 shared_w window_df_kernel", WC.window_spmv(mat, x64),
-             WC.window_spmv_df_reference(mat, x64), errs, "window_df")
+    check_window_df("fem_like 6000 shared_w", mat, normal_x64(6000, dev, seed=1))
+    # g = 64: a standard layout, and an xdirect one with a 128-row x window
+    # (the largest shared memory a CTA takes: 205 KB in df)
+    for label, gen, kw in (
+        ("fem_like 20000 g=64", dict(m=20000, n=20000, nnz=120000, spread=1500, lo=4, hi=10, seed=6),
+         dict(g=64)),
+        ("fem_like 8192x16384 g=64 xdirect", dict(m=8192, n=16384, nnz=60000, spread=3000, lo=4,
+                                                  hi=12, seed=6), dict(g=64, xdirect=True)),
+    ):
+        gcsr = P.coo_to_csr(synth.fem_like(**gen))
+        for vals_dtype in (torch.float32, torch.bfloat16):
+            mat = W.prepare_window(gcsr, vals_dtype=vals_dtype, device=dev, **kw)
+            check_window(f"{label} {vals_dtype}", mat, normal_x(gcsr.shape[1], dev, seed=1))
+        mat = W.prepare_window(gcsr, df=True, device=dev, **kw)
+        check_window_df(label, mat, normal_x64(gcsr.shape[1], dev, seed=1))
 
     # K3 on caida_like: the df gather alone (products are exact in both:
     # the kernel's FMA error is the plain Veltkamp error), then the whole df
@@ -974,7 +1015,11 @@ def main() -> int:
             del lib_fn
         times[(name, mode)] = (tk, tp)
         gb = slab_bytes(ops) / 1e9
-        print(f"  {name:20s} {mode:18s} kernel {tk * 1e3:9.4f} ms {2 * csr.nnz / tk / 1e9:8.2f} GFLOP/s "
+        graphed = ""
+        if mode.startswith("PL_CSR_WINDOW"):
+            graphed = f" ({graph_ms(lambda f=spec.jitted(ops): f(x)):.4f} ms in a CUDA graph)"
+        print(f"  {name:20s} {mode:18s} kernel {tk * 1e3:9.4f} ms{graphed} "
+              f"{2 * csr.nnz / tk / 1e9:8.2f} GFLOP/s "
               f"{gb / tk:8.1f} slab GB/s | plain {tp * 1e3:9.4f} ms | library (cuSPARSE CSR f32) "
               f"{libs[name] * 1e3:9.4f} ms | slab {gb * 1e3:.1f} MB")
     # the fringe kernel alone, and its library yardstick: cuSPARSE on the
@@ -1145,8 +1190,9 @@ def main() -> int:
 
     def df_time(key, label, fn, plain, x64, lib, moved, slots):
         """Per call through the wrapper (as the f32 rows), and the same call
-        in a CUDA graph (device time: the wrapper's split and combine
-        kernels included, its host cost not)."""
+        in a CUDA graph (device time: any split and combine kernels of the
+        wrapper included, its host cost not; the window product is one
+        launch)."""
         tk = time_per_call(fn, x64)
         tg = graph_ms(lambda: fn(x64))
         tp = time_per_call(plain, x64)

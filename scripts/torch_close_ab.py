@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of the PyTorch/CUDA port on one GPU: the window
-kernels (PL_CSR_WINDOW and PL_CSR_WINDOW_BF16 on thermal2_like and
-delaunay_n12_like), the dense heavy-row kernel D and the W-stage kernel B
-(caida_like's chain), and the PL_CSR_ROUTED product on caida_like and on
-two small domains (delaunay_n12_like, a 9000-row random matrix), each per
-call through its wrapper and in a CUDA graph, and whether a rerun on the
-same x is bitwise equal.
+kernels (PL_CSR_WINDOW, PL_CSR_WINDOW_BF16 and PL_CSR_WINDOW_F64 on
+thermal2_like, fem_3d_thermal2_like and delaunay_n12_like), the dense
+heavy-row kernel D and the W-stage kernel B (caida_like's chain), and the
+PL_CSR_ROUTED product on caida_like and on two small domains
+(delaunay_n12_like, a 9000-row random matrix), each per call through its
+wrapper and in a CUDA graph, whether a rerun on the same x is bitwise equal,
+and, for the window products, the share of the bound: the bytes the product
+must move (the layout's arrays and x read once, y written once) over 3.35
+TB/s, against the graphed time. The F64 operands are the f32 layout with a
+zero lo plane (the df layout's shape and bytes, without a second prepare).
 
     python3 scripts/torch_close_ab.py PARENT_DIR CHANGE_DIR
 
@@ -20,8 +24,10 @@ import subprocess
 import sys
 import time
 
-PROXIES = ("thermal2_like", "delaunay_n12_like")
-MODES = ("PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16")  # both run by window_spmv
+PROXIES = ("thermal2_like", "fem_3d_thermal2_like", "delaunay_n12_like")
+MODES = ("PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16", "PL_CSR_WINDOW_F64")  # all run by window_spmv
+#: H100 SXM data sheet: the HBM rate
+HBM_BYTES_PER_S = 3.35e12
 
 
 def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
@@ -66,20 +72,28 @@ def one(tree: str) -> dict:
     out = {}
     for name in PROXIES:
         csr = P.coo_to_csr(synth.preset(name))
-        x = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
-                            dtype=torch.float32, device=dev)
+        xn = np.random.default_rng(4).standard_normal(csr.shape[1])
         spec = registry.get("PL_CSR_WINDOW")
         mat = spec.prepare(csr, None, P.Config(), dev)
         for mode in MODES:
             # the bf16 layout is the f32 one with vals cast, as prepare makes it
-            ops = mat if mode == "PL_CSR_WINDOW" else dataclasses.replace(
-                mat, vals=mat.vals.to(torch.bfloat16))
-            fn = spec.jitted(ops)
+            ops = {"PL_CSR_WINDOW": mat,
+                   "PL_CSR_WINDOW_BF16": dataclasses.replace(mat, vals=mat.vals.to(torch.bfloat16)),
+                   "PL_CSR_WINDOW_F64": dataclasses.replace(mat, vals_lo=torch.zeros_like(mat.vals)),
+                   }[mode]
+            df = mode == "PL_CSR_WINDOW_F64"
+            x = torch.as_tensor(xn, dtype=torch.float64 if df else torch.float32, device=dev)
+            fn = registry.get(mode).jitted(ops)
             a, b = fn(x), fn(x)
             torch.cuda.synchronize()
-            out[f"{name} {mode}"] = {"ms": time_per_call(fn, x) * 1e3,
-                                     "graph_ms": graph_ms(lambda: fn(x)),
-                                     "rerun_equal": bool(torch.equal(a, b))}
+            moved = sum(t.numel() * t.element_size() for t in (ops.vals, ops.vals_lo, ops.sidx,
+                                                                ops.gid, ops.rsrc) if t is not None)
+            moved += x.element_size() * sum(csr.shape)
+            tg = graph_ms(lambda: fn(x))
+            out[f"{name} {mode}"] = {"ms": time_per_call(fn, x) * 1e3, "graph_ms": tg,
+                                     "rerun_equal": bool(torch.equal(a, b)),
+                                     "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                                     "bound_share": moved / HBM_BYTES_PER_S * 1e3 / tg}
     csr = P.coo_to_csr(synth.preset("caida_like"))
     mat = RC.prepare_routed_chain(csr, device=dev).mat
     x = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
@@ -149,15 +163,20 @@ def main(argv) -> int:
         runs[tree].append(res)
         print(f"{tree} ({time.perf_counter() - t:.0f}s): {json.dumps(res)}", flush=True)
     print(f"mean of two runs per tree, on {smi} (ms per call through the wrapper | ms in a CUDA "
-          "graph | rerun bitwise equal):")
+          "graph | rerun bitwise equal | graphed share of the bound):")
     for key in runs[parent][0]:
         cells = []
         for tree in (parent, change):
-            r = [run[key] for run in runs[tree]]
+            r = [run[key] for run in runs[tree] if key in run]
             eq = [v["rerun_equal"] for v in r]
-            cells.append(f"{sum(v['ms'] for v in r) / 2:.4f} | {sum(v['graph_ms'] for v in r) / 2:.4f} | "
-                         f"{'-' if None in eq else all(eq)}")
-        print(f"  {key:42s} parent {cells[0]}   change {cells[1]}")
+            share = [v["bound_share"] for v in r if "bound_share" in v]
+            cells.append(f"{sum(v['ms'] for v in r) / len(r):.4f} | "
+                         f"{sum(v['graph_ms'] for v in r) / len(r):.4f} | "
+                         f"{'-' if None in eq else all(eq)} | "
+                         f"{f'{100 * sum(share) / len(share):.1f} %' if share else '-'}")
+        bound = runs[change][0][key].get("bound_ms")
+        print(f"  {key:46s} parent {cells[0]}   change {cells[1]}"
+              + (f"   (bound {bound:.4f} ms)" if bound else ""))
     return 0
 
 

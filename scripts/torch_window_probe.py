@@ -3,16 +3,18 @@
 
 Run from the root of the repository: python3 scripts/torch_window_probe.py
 
-It builds spmv_openmp_cuda_tpu_torch/csrc/window_spmv.cu as it is and in
-probe variants, each made by a text substitution in a build copy that takes
-away or changes one part of the work (the x gather, the partial tiles of
-blocks split over CTAs, the slot rows per CTA), and times window_spmv on the window proxies with
-CUDA events, variant by variant in turns (as_is first and last, to show the
-spread). A variant that computes something else is a probe only: its y is
-not checked. Needs nvcc and a CUDA device; prints one line per (proxy,
-variant) and a JSON summary last.
+It builds spmv_openmp_cuda_tpu_torch/csrc/window_spmv.cu (with
+csrc/window_tile.cuh inlined) as it is and in probe variants, each made by a
+text substitution in a build copy that takes away or changes one part of
+the work (the x window's staging, the slot rows, the overflow rows, the
+depth of the cp.async ring), and times window_spmv on the window proxies per call with CUDA
+events and in a CUDA graph, variant by variant in turns (as_is first and
+last, to show the spread). A variant that computes something else is a
+probe only: its y is not checked. Needs nvcc and a CUDA device; prints one
+line per (proxy, variant) and a JSON summary last.
 """
 import argparse
+import concurrent.futures
 import ctypes
 import json
 import os
@@ -25,17 +27,29 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-#: variant -> substitutions (old, new) in csrc/window_spmv.cu
+#: variant -> substitutions (old, new) in csrc/window_spmv.cu + window_tile.cuh
 VARIANTS = {
     "as_is": [],
-    "no_x_gather": [("__ldg(x + col)", "1.f")],
-    "no_partial_tiles": [("for (int r = 0; r < g; ++r) out[r * kLane] = tile[r * kLane + l];", "")],
-    "rows_16": [("while (rows < g && rows < kMaxRows) rows *= 2;", "")],
-    "rows_64": [("while (rows < g && rows < kMaxRows) rows *= 2;", "rows = kMaxRows;")],
+    "no_x_stage": [("stage_x(xs, a.x, a.n_x, x_base * kLane, a.win_rows * kLane, bar);",
+                    "__syncthreads();")],
+    "no_slot_rows": [("      slot_row<T>(", "      if (false) slot_row<T>("),
+                     ("      overflow_lane<T>(", "      if (false) overflow_lane<T>(")],
+    "no_overflow": [("      overflow_lane<T>(", "      if (false) overflow_lane<T>(")],
+    # a shallower ring inside the plan's (deeper) allocation
+    "depth_4": [("constexpr int kDepth = 8;", "constexpr int kDepth = 4;"),
+                ("depth != kDepth", "false")],
+    "depth_2": [("constexpr int kDepth = 8;", "constexpr int kDepth = 2;"),
+                ("depth != kDepth", "false")],
+    # every copy through L1 (cp.async.ca), the 16-byte ones too
+    "ca_16": [("  if (kBytes == 16)\n", "  if (false)\n")],
 }
 
 
 def build_variant(src: str, subs, out_dir: str, name: str, nvcc: str, flags) -> str:
+    from spmv_openmp_cuda_tpu_torch.ops import cuda_lib
+
+    header = (cuda_lib.SRC_DIR / "window_tile.cuh").read_text()
+    src = src.replace('#include "window_tile.cuh"', header)
     for old, new in subs:
         if old not in src:
             raise ValueError(f"variant {name}: {old!r} not in the source")
@@ -46,6 +60,28 @@ def build_variant(src: str, subs, out_dir: str, name: str, nvcc: str, flags) -> 
         f.write(src)
     subprocess.run([nvcc, *flags, "-o", so, cu], check=True, capture_output=True, text=True)
     return so
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device ms per call: reps calls captured in one CUDA graph, replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * reps)
 
 
 def profile_calls(fn, calls: int) -> dict:
@@ -100,10 +136,12 @@ def main() -> int:
     src = (cuda_lib.SRC_DIR / "window_spmv.cu").read_text()
     flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     libs = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for name in dict.fromkeys(names):
-            lib = ctypes.CDLL(build_variant(src, VARIANTS[name], tmp, name,
-                                            cuda_lib.nvcc_path(), flags))
+    with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor() as pool:
+        uniq = list(dict.fromkeys(names))
+        paths = pool.map(lambda n: build_variant(src, VARIANTS[n], tmp, n, cuda_lib.nvcc_path(),
+                                                 flags), uniq)
+        for name, path in zip(uniq, paths):
+            lib = ctypes.CDLL(path)
             WC._bind(lib)
             libs[name] = lib
     order = names + ([names[0]] if len(names) > 1 else [])
@@ -118,10 +156,11 @@ def main() -> int:
         for turn, name in enumerate(order):
             cuda_lib._LIBS["window_spmv"] = libs[name]
             ms = time_per_call(lambda v: WC.window_spmv(mat, v), x) * 1e3
-            out.setdefault(proxy, {}).setdefault(name, []).append(ms)
+            gms = graph_ms(lambda: WC.window_spmv(mat, x))
+            out.setdefault(proxy, {}).setdefault(name, []).append([ms, gms])
             print(f"{proxy:20s} g={mat.g} k_pad={mat.k_pad} nblocks={mat.nblocks} "
-                  f"turn {turn}: {name:20s} {ms:.4f} ms ({slots / ms / 1e6:.1f} G slots/s)",
-                  flush=True)
+                  f"turn {turn}: {name:20s} {ms:.4f} ms per call, {gms:.4f} ms graphed "
+                  f"({slots / gms / 1e6:.1f} G slots/s)", flush=True)
         # device time by kernel name over 200 back-to-back calls of as_is
         cuda_lib._LIBS["window_spmv"] = libs[names[0]]
         busy = profile_calls(lambda: WC.window_spmv(mat, x), 200)

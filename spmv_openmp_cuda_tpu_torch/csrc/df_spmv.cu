@@ -6,7 +6,7 @@
 //                             (pallas_call at :628), its diagonal sum (:530-545)
 //   dia_resid_df_kernel    <- the same kernel's residual fringe (:546-595)
 //   window_df_kernel       <- formats/window.py::window_kernel_call (:1062)
-//   (+ window_df_combine_kernel)  and _window_single_call (:1125) in their df
+//                             and _window_single_call (:1125) in their df
 //                             mode (vals_lo, xp2_lo / x2d_lo): the body is
 //                             _gather_reduce_block's df branches (:868-951)
 //   routed_df_gather_kernel <- formats/routed.py::_gather_products_df (:1882)
@@ -38,32 +38,27 @@
 //     one owner: no atomics. dia_resid_df_kernel adds the fringe afterwards,
 //     one CTA per TPU block and one thread per lane, each thread owning its
 //     lane's rows in a shared-memory pair tile (as dia_resid_kernel).
-//   - window_df_kernel: the f32 window kernel closes with one global
-//     atomicAdd per partial sum, because several CTAs share a block. An
-//     atomicAdd on the hi word would throw its rounding error away. So here
-//     a CTA either owns all slot rows of its block and writes the block's
-//     rows itself (when the blocks alone give >= 2 CTAs per SM, e.g.
-//     thermal2_like), or the block's slot rows are split into chunks, each
-//     CTA writes its partial (hi, lo) tile to scratch, and
-//     window_df_combine_kernel adds the chunks of each row with TwoSum in
-//     chunk order. Either way the result does not depend on scheduling.
-//     The Q map is staged in shared memory per 16 to 64 slot rows.
+//   - window_df_kernel: window_spmv.cu's design with pairs (a CTA, or a
+//     thread-block cluster, per block; warp j owns the tile rows r % 8 == j,
+//     so every cell has one writer in a fixed order and a rerun is bitwise
+//     equal; the overflow rows copied once per CTA; the cluster's tiles are
+//     TwoSum-added in rank order through distributed shared memory). One
+//     launch per product: it stages the f64 x window with one bulk copy,
+//     splits it in place into (hi, lo) pairs exactly as
+//     ops/dfloat.py::split_f64_t does, and writes y in f64 as hi + lo
+//     (df_combine64), so the wrapper neither splits x nor combines y. Shared memory: the x window <= 128 KB, the pair tile <=
+//     64 KB, the Q chunk 8.5 KB, a cp.async ring of 4 stages of 40 bytes
+//     per thread (2 where the window and tile leave no room for 4).
 //   - routed_df_gather_kernel: one thread per slot of the gather tiles
 //     (coalesced value and index reads, x gathered by global column), pad
 //     tiles written as zeros. It takes no W1: the products permutation runs
 //     on each plane through routed_w_stage_kernel (exact data movement).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "window_tile.cuh"
 
 namespace {
 
-constexpr int kLane = 128;
-constexpr int kThreads = 256;
-constexpr int kQPitch = kLane + 4;       // bytes per staged Q row (+4: spreads banks)
-constexpr int kMinRows = 16;             // one 16-byte vector per staged Q row
-constexpr int kSubRows = 64;             // slot rows per Q staging
-constexpr int kBatch = 8;                // slot rows whose loads are issued together
-constexpr long long kTargetCtas = 2 * 132;  // two CTAs per SM of an H100
+using wtile::kLane;
+using wtile::kThreads;
 constexpr long long kWindowElems = 128LL * 128;
 
 // ---- double-float primitives (never contracted) --------------------------
@@ -186,129 +181,210 @@ dia_resid_df_kernel(const float* __restrict__ rvh, const float* __restrict__ rvl
 
 // ---- window ---------------------------------------------------------------
 
-// Slot rows per CTA: the least power of two >= k_pad (one CTA per block),
-// halved (down to 16) while the grid would give fewer than two CTAs per SM.
-int df_rows_per_cta(int nblocks, int k_pad) {
-  int rows = kMinRows;
-  while (rows < k_pad) rows *= 2;
-  while (rows > kMinRows && (long long)nblocks * ((k_pad + rows - 1) / rows) < kTargetCtas)
-    rows /= 2;
-  return rows;
-}
+struct WinDfArgs {
+  const float* vh;
+  const float* vl;
+  const int8_t* sidx;
+  const int8_t* gid;
+  const int8_t* rsrc;
+  const double* x;
+  double* y;
+  long long n_x, m;
+  int g, k_pad, k_c, n_kt, wr, bps, xmode, step, win_rows;
+};
 
-__host__ __device__ __forceinline__ int g_pad_of(int g) { return ((g + 7) / 8) * 8; }
-
-size_t window_df_smem(int g, int rows) {
-  const int sub = rows < kSubRows ? rows : kSubRows;
-  return (size_t)2 * g_pad_of(g) * kLane * sizeof(float) + (size_t)sub * kQPitch;
-}
-
-// One CTA: block blk, slot rows [chunk*rows, min((chunk+1)*rows, k_pad)),
-// one thread per lane l; slot (blk, k, l) adds (vh, vl) * x[(x_base + Q)*128
-// + sidx] into row r = k < k_c ? 8*gid + k%8 : gid of the block (rows r >= g
-// are padding). With n_chunks == 1 the CTA writes rows r < g of y itself;
-// otherwise its (g_pad, 128) partial pair tile goes to scratch.
-__global__ void __launch_bounds__(kLane)
-window_df_kernel(const float* __restrict__ vh, const float* __restrict__ vl,
-                 const int8_t* __restrict__ sidx, const int8_t* __restrict__ gid,
-                 const int8_t* __restrict__ rsrc, int g, int k_pad, int k_c, int n_kt, int rows,
-                 int n_chunks, int wr, int bps, int xmode, const float* __restrict__ xh,
-                 const float* __restrict__ xl, long long n_x, long long m,
-                 float* __restrict__ yh, float* __restrict__ yl, float* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int g_pad = g_pad_of(g);
-  float* th = reinterpret_cast<float*>(smem);  // (g_pad, 128) hi words
-  float* tl = th + g_pad * kLane;              // (g_pad, 128) lo words
-  int8_t* qs = reinterpret_cast<int8_t*>(tl + g_pad * kLane);
-  const int blk = blockIdx.x / n_chunks;
-  const int chunk = blockIdx.x % n_chunks;
-  const int l = threadIdx.x;
-  // x chunk held by window row 0: 8*floor(blk*g/8) - wr (standard), 0
-  // (xdirect), (blk - blk%bps)*g - wr (shared_w)
-  const long long x_base = xmode == 1 ? 0LL
-                           : xmode == 2 ? (long long)(blk - blk % bps) * g - wr
-                                        : 8LL * (((long long)blk * g) / 8) - wr;
-  for (int r = 0; r < g_pad; ++r) {
-    th[r * kLane + l] = 0.f;
-    tl[r * kLane + l] = 0.f;
-  }
-  const int k0 = chunk * rows;
-  const int k1 = min(k0 + rows, k_pad);
-  const int sub = rows < kSubRows ? rows : kSubRows;  // divides rows and 128
-  const long long slot0 = (long long)blk * k_pad * kLane + l;
-  for (int ks = k0; ks < k1; ks += sub) {
-    // stage Q[res, ks%128 : ks%128 + sub] of tile ks/128 as qs[kk][res]
-    const int8_t* qt = rsrc + ((long long)blk * n_kt + ks / kLane) * kLane * kLane;
-    const int vecs = sub / 16;
-    __syncthreads();  // the previous staging is no longer read
-    for (int c = l; c < kLane * vecs; c += kLane) {
-      const int res = c / vecs, v = c % vecs;
-      const uint4 w = *reinterpret_cast<const uint4*>(qt + res * kLane + ks % kLane + v * 16);
-      const int8_t* b = reinterpret_cast<const int8_t*>(&w);
+// One mod-8 slot row k (Q chunk c0) of this thread's 4 lanes, from its ring
+// stage: each lane's product pair TwoSum-added into row 8*gid + w of the
+// tile, which warp w owns.
+__device__ __forceinline__ void df_slot_row(float4 vh4, float4 vl4, char4 sc, char4 gc, int k,
+                                            int c0, int g_pad, const float2* xs, float2* tile,
+                                            const int8_t* qs) {
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const float hv[4] = {vh4.x, vh4.y, vh4.z, vh4.w};
+  const float lv[4] = {vl4.x, vl4.y, vl4.z, vl4.w};
+  const int8_t sv[4] = {sc.x, sc.y, sc.z, sc.w};
+  const int8_t gv[4] = {gc.x, gc.y, gc.z, gc.w};
 #pragma unroll
-      for (int j = 0; j < 16; ++j) qs[(v * 16 + j) * kQPitch + res] = b[j];
+  for (int i = 0; i < 4; ++i) {
+    const int r = 8 * (int)gv[i] + w;
+    if (r >= g_pad) continue;
+    const int res = sv[i];
+    // Q < win_rows: ops/window_cuda.py checks it once per layout
+    const float2 xv = xs[qs[res * wtile::kQPitch + (k - c0)] * kLane + res];
+    float ph, pl;
+    df_prod(hv[i], lv[i], xv.x, xv.y, ph, pl);
+    float2& c = tile[r * kLane + i * 32 + t];
+    df_add(c.x, c.y, ph, pl);
+  }
+}
+
+// One overflow slot row k, its 128 lanes from the loader's ring slots (the
+// f32 kernel's overflow_lane): warp w takes lane 4t + w%4 and TwoSum-adds it
+// into row gid if gid % 2 == w/4.
+__device__ __forceinline__ void df_overflow_lane(const float* rh, const float* rl,
+                                                 const int8_t* rs, const int8_t* rg, int k,
+                                                 int c0, int g_pad, const float2* xs,
+                                                 float2* tile, const int8_t* qs) {
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5, i = w & 3;
+  const int e = 4 * t + i;
+  const int r = rg[e];
+  if ((r & 1) != (w >> 2) || r >= g_pad) return;
+  const int res = rs[e];
+  const float2 xv = xs[qs[res * wtile::kQPitch + (k - c0)] * kLane + res];
+  float ph, pl;
+  df_prod(rh[e], rl[e], xv.x, xv.y, ph, pl);
+  float2& c = tile[r * kLane + i * 32 + t];
+  df_add(c.x, c.y, ph, pl);
+}
+
+// One CTA: block blk, slot rows [rank*rows, min((rank+1)*rows, k_pad)); the
+// design of window_spmv.cu with (hi, lo) pairs and a ring of D stages: the
+// x window staged as f64 by the bulk copy and split in place into (hi, lo)
+// f32 pairs (bitwise ops/dfloat.py::split_f64_t), a tile of pairs, y
+// written as hi + lo in f64 (bitwise df_combine64).
+template <int D>
+__global__ void __launch_bounds__(wtile::kThreads, 2)
+window_df_kernel(WinDfArgs a, int csize) {
+  namespace cg = cooperative_groups;
+  using namespace wtile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int g_pad = g_pad_of(a.g);
+  double* xd = reinterpret_cast<double*>(smem);
+  float2* xs = reinterpret_cast<float2*>(smem);  // the same bytes, split
+  float2* tile = xs + a.win_rows * kLane;
+  int8_t* qs = reinterpret_cast<int8_t*>(tile + g_pad * kLane);
+  float4* ringh = reinterpret_cast<float4*>(qs + kQBytes);  // [D][kThreads]
+  float4* ringl = ringh + D * kThreads;
+  char4* rings = reinterpret_cast<char4*>(ringl + D * kThreads);
+  char4* ringg = rings + D * kThreads;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ringg + D * kThreads);
+  const int blk = a.xmode == 1 ? 0 : blockIdx.x / csize;
+  const int rank = blockIdx.x % csize;
+  const int tid = threadIdx.x, t = tid & 31, w = tid >> 5;
+  const long long x_base = x_base_of(a.xmode, blk, a.g, a.wr, a.bps);
+  const int k0 = rank_start(rank, a.step, a.k_c, a.k_pad);
+  const int k1 = rank == csize - 1 ? a.k_pad : rank_start(rank + 1, a.step, a.k_c, a.k_pad);
+  const WarpRows rows(k0, k1, a.k_c, w);
+  const long long base = (long long)blk * a.k_pad * kLane + 4 * t;
+
+  // the ring and the Q chunks as in window_spmv.cu
+  int queued = 0;
+  auto enqueue = [&]() {
+    if (queued < rows.total) {
+      const long long off = base + (long long)rows.row(queued) * kLane;
+      const int slot = (queued % D) * kThreads + tid;
+      cp_async<16>(ringh + slot, a.vh + off);
+      cp_async<16>(ringl + slot, a.vl + off);
+      cp_async<4>(rings + slot, a.sidx + off);
+      cp_async<4>(ringg + slot, a.gid + off);
+    }
+    cp_async_commit();
+    ++queued;
+  };
+  for (int j = 0; j < D; ++j) enqueue();
+  int q_c0 = -1, next_c0 = k0 / kQRows * kQRows;
+  uint4 qv[kQVecs];
+  if (next_c0 < k1) load_q(qv, a.rsrc, blk, a.n_kt, next_c0);
+  auto stage_next_q = [&]() {
+    __syncthreads();  // the split window, the previous chunk's Q and tile updates
+    store_q(qs, qv);
+    q_c0 = next_c0;
+    next_c0 += kQRows;
+    if (next_c0 < k1) load_q(qv, a.rsrc, blk, a.n_kt, next_c0);
+    __syncthreads();
+  };
+  for (int e = tid; e < g_pad * kLane; e += kThreads) tile[e] = make_float2(0.f, 0.f);
+  stage_x(xd, a.x, a.n_x, x_base * kLane, a.win_rows * kLane, bar);
+  for (int e = tid; e < a.win_rows * kLane; e += kThreads) {
+    const double v = xd[e];  // each thread rewrites the 8 bytes it read
+    const float h = (float)v;
+    xs[e] = make_float2(h, (float)(v - (double)h));
+  }
+  __syncthreads();  // the split window
+
+  int j = 0;
+  while (next_c0 < rows.m8) {
+    stage_next_q();
+    for (; j < rows.n8 && rows.row(j) < q_c0 + kQRows; ++j) {
+      cp_async_wait<D - 1>();
+      const int slot = (j % D) * kThreads + tid;
+      df_slot_row(ringh[slot], ringl[slot], rings[slot], ringg[slot], rows.row(j), q_c0, g_pad,
+                  xs, tile, qs);
+      enqueue();
+    }
+  }
+  for (int s0 = rows.ov0; s0 < k1; s0 += 8 * D) {
+    const int s1 = min(s0 + 8 * D, k1);
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int k = s0; k < s1; ++k) {
+      if (q_c0 < 0 || k >= q_c0 + kQRows) stage_next_q();
+      const int b = rows.overflow_base<D>(k);
+      df_overflow_lane(reinterpret_cast<const float*>(ringh + b),
+                       reinterpret_cast<const float*>(ringl + b),
+                       reinterpret_cast<const int8_t*>(rings + b),
+                       reinterpret_cast<const int8_t*>(ringg + b), k, q_c0, g_pad, xs, tile, qs);
     }
     __syncthreads();
-    const int ke = min(ks + sub, k1);
-    for (int kb = ks; kb < ke; kb += kBatch) {
-      float ph[kBatch], pl[kBatch];
-      int rr[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int k = kb + u;
-        const long long s = slot0 + (long long)k * kLane;
-        const int res = sidx[s];
-        const int q = qs[(k - ks) * kQPitch + res];
-        float gh, gl;
-        x_pair(xh, xl, (x_base + q) * kLane + res, n_x, gh, gl);
-        const int gd = gid[s];
-        rr[u] = k < k_c ? 8 * gd + (k & 7) : gd;
-        df_prod(vh[s], vl[s], gh, gl, ph[u], pl[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (rr[u] < g_pad) df_add(th[rr[u] * kLane + l], tl[rr[u] * kLane + l], ph[u], pl[u]);
-    }
+    for (int i = 0; i < D; ++i) enqueue();
   }
-  if (n_chunks == 1) {
-    const long long row0 = (long long)blk * g * kLane + l;
-    for (int r = 0; r < g; ++r) {
-      const long long row = row0 + (long long)r * kLane;
-      if (row < m) {
-        yh[row] = th[r * kLane + l];
-        yl[row] = tl[r * kLane + l];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const long long row0 = (long long)blk * a.g * kLane;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (csize > 1) cluster.sync();
+  for (int r = rank + csize * w; r < a.g; r += csize * kWarps) {
+    float2 v[4];
+    const float2* t0 = csize > 1 ? cluster.map_shared_rank(tile, 0) : tile;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = t0[r * kLane + i * 32 + t];
+    for (int s = 1; s < csize; ++s) {
+      const float2* ts = cluster.map_shared_rank(tile, s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 o = ts[r * kLane + i * 32 + t];
+        df_add(v[i].x, v[i].y, o.x, o.y);
       }
     }
-  } else {
-    const long long tile = (long long)g_pad * kLane;
-    float* ph_out = part + (long long)blockIdx.x * tile;
-    float* pl_out = part + (long long)gridDim.x * tile + (long long)blockIdx.x * tile;
-    for (int r = 0; r < g_pad; ++r) {
-      ph_out[r * kLane + l] = th[r * kLane + l];
-      pl_out[r * kLane + l] = tl[r * kLane + l];
+    const long long row = row0 + (long long)r * kLane + 4 * t;
+    double out[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i] = (double)v[i].x + (double)v[i].y;
+    if (row + 3 < a.m) {
+      reinterpret_cast<double2*>(a.y + row)[0] = make_double2(out[0], out[1]);
+      reinterpret_cast<double2*>(a.y + row)[1] = make_double2(out[2], out[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (row + i < a.m) a.y[row + i] = out[i];
     }
   }
+  if (csize > 1) cluster.sync();  // no CTA leaves while its tile is read
 }
 
-// (yh, yl)[(blk*g + r)*128 + l] = sum over chunks c, in order, of the
-// partial tiles (blk*n_chunks + c) at (r, l); r < g, rows < m
-__global__ void __launch_bounds__(kThreads)
-window_df_combine_kernel(const float* __restrict__ part, int nblocks, int g, int n_chunks,
-                         long long m, float* __restrict__ yh, float* __restrict__ yl) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long per_blk = (long long)g * kLane;
-  if (idx >= (long long)nblocks * per_blk) return;
-  const long long row = idx;  // = (blk*g + r)*128 + l
-  if (row >= m) return;
-  const int blk = (int)(idx / per_blk);
-  const long long rl = idx % per_blk;  // r*128 + l
-  const long long tile = (long long)g_pad_of(g) * kLane;
-  const long long planes = (long long)nblocks * n_chunks * tile;
-  const float* p = part + (long long)blk * n_chunks * tile + rl;
-  float h = 0.f, lo = 0.f;
-  for (int c = 0; c < n_chunks; ++c) df_add(h, lo, p[c * tile], p[planes + c * tile]);
-  yh[row] = h;
-  yl[row] = lo;
+template <int D>
+cudaError_t window_df_launch_d(const WinDfArgs& a, int nblocks, int csize, int smem,
+                               cudaStream_t st) {
+  // above 48 KB of dynamic shared memory; the attribute is per device, so
+  // it is set on every launch (cheap, allowed in graph capture)
+  cudaError_t e = cudaFuncSetAttribute(window_df_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)nblocks * csize));
+  cfg.blockDim = dim3(wtile::kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = csize > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, window_df_kernel<D>, a, csize);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // ---- routed ---------------------------------------------------------------
@@ -366,39 +442,31 @@ int dia_resid_df_launch(const float* rvh, const float* rvl, const int8_t* rsidx,
   return (int)cudaGetLastError();
 }
 
-// f32 elements of the scratch window_df_launch needs (0: none).
-long long window_df_scratch_elems(int nblocks, int k_pad, int g) {
-  const int rows = df_rows_per_cta(nblocks, k_pad);
-  const int n_chunks = (k_pad + rows - 1) / rows;
-  if (n_chunks == 1) return 0;
-  return 2LL * nblocks * n_chunks * g_pad_of(g) * kLane;
-}
-
-// (yh, yl) (length m) = the window sums of nblocks blocks; xmode 0 standard,
-// 1 xdirect, 2 shared_w x staging; scratch holds window_df_scratch_elems
-// f32. Overwrites every row of y; returns the first launch error, or 0.
+// y (f64, length m) = the window sums of nblocks blocks of a double-float
+// layout (vh, vl: the (hi, lo) value planes), x in f64; xmode 0 standard,
+// 1 xdirect, 2 shared_w. One launch: the launch plan of window_spmv.cu's
+// window_launch (ops/window_cuda.py::launch_plan: a ring of depth 4, 2 or
+// 1; smem with 8-byte x and tile elements). Writes every
+// row of y; returns cudaErrorInvalidValue for a plan it does not take, else
+// the launch's error, or 0.
 int window_df_launch(const float* vh, const float* vl, const int8_t* sidx, const int8_t* gid,
                      const int8_t* rsrc, int nblocks, int g, int k_pad, int k_c, int wr, int bps,
-                     int xmode, const float* xh, const float* xl, long long n_x, long long m,
-                     float* yh, float* yl, float* scratch, void* stream) {
+                     int xmode, const double* x, long long n_x, long long m, double* y,
+                     int csize, int step, int win_rows, int depth, int smem, void* stream) {
+  using namespace wtile;
+  const bool csize_ok = csize == 1 || csize == 2 || csize == 4 || csize == kMaxCluster;
+  const long long cost = k_c + (long long)kOverflowCost * (k_pad - k_c);
+  if (!csize_ok || step <= 0 || (long long)csize * step < cost || win_rows < 1 ||
+      win_rows > kLane || (depth != 1 && depth != 2 && depth != 4) ||
+      (size_t)smem != window_smem_bytes(g, win_rows, 8, 8, 32, depth) ||
+      (xmode == 1 && nblocks != 1))
+    return (int)cudaErrorInvalidValue;
+  WinDfArgs a{vh, vl, sidx, gid, rsrc, x, y, n_x, m, g, k_pad, k_c, (k_pad + kLane - 1) / kLane,
+              wr, bps, xmode, step, win_rows};
   const cudaStream_t st = (cudaStream_t)stream;
-  const int n_kt = (k_pad + kLane - 1) / kLane;
-  const int rows = df_rows_per_cta(nblocks, k_pad);
-  const int n_chunks = (k_pad + rows - 1) / rows;
-  const size_t smem = window_df_smem(g, rows);
-  // above 48 KB of dynamic shared memory for g > 40; the attribute is per
-  // device, so it is set on every launch (cheap, allowed in graph capture)
-  const cudaError_t e = cudaFuncSetAttribute(
-      window_df_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  window_df_kernel<<<(unsigned)((long long)nblocks * n_chunks), kLane, smem, st>>>(
-      vh, vl, sidx, gid, rsrc, g, k_pad, k_c, n_kt, rows, n_chunks, wr, bps, xmode, xh, xl, n_x,
-      m, yh, yl, scratch);
-  cudaError_t rc = cudaGetLastError();
-  if (rc != cudaSuccess || n_chunks == 1) return (int)rc;
-  window_df_combine_kernel<<<blocks_for((long long)nblocks * g * kLane), kThreads, 0, st>>>(
-      scratch, nblocks, g, n_chunks, m, yh, yl);
-  return (int)cudaGetLastError();
+  return (int)(depth == 4   ? window_df_launch_d<4>(a, nblocks, csize, smem, st)
+               : depth == 2 ? window_df_launch_d<2>(a, nblocks, csize, smem, st)
+                            : window_df_launch_d<1>(a, nblocks, csize, smem, st));
 }
 
 // (oh, ol) (n_tiles*128 rows of 128): the df products of the n_real gather

@@ -3,12 +3,11 @@
 //
 // Replaces the TPU kernels of spmv_openmp_cuda_tpu/formats/window.py:
 //   window_blocks_kernel <- window_kernel_call (pallas_call at :1062; its
-//                           body is _gather_reduce_block, :835-951), the
+//                           body is _gather_reduce_block, :834-951), the
 //                           standard and shared_w x staging;
 //   window_single_kernel <- _window_single_call (pallas_call at :1125), the
 //                           single-block layout that addresses x directly
-//                           (xdirect);
-//   (+ window_combine_kernel, the fixed-order close of split blocks).
+//                           (xdirect).
 // Both compute, for every slot (block i, slot row k < k_pad, lane l):
 //   Q   = rsrc[(i*n_kt + k/128)*128 + sidx[i,k,l], k%128]   (window row)
 //   col = (x_base(i) + Q)*128 + sidx[i,k,l]                  (x read as 0
@@ -19,247 +18,303 @@
 // (shared_w) or 0 (xdirect): the chunk of x that window row 0 holds in the
 // TPU kernel's staging. x is never rounded: only vals may be bf16.
 //
-// What bounds it: 2 flops per slot against vals (4 or 2 B) + sidx + gid
-// (1 + 1 B) per slot, the Q map (1 B per slot row and residue), x and y:
-// bytes, never arithmetic. The TPU kernel's block is a VMEM-sizing unit, not
-// a unit of parallelism here (the FEM_3D_thermal2 proxy has 29 blocks, the
-// delaunay proxy one), so:
-//   - each CTA takes one block and a chunk of `rows` slot rows (16, 32 or
-//     64: about g, so that short chunks spread the work over many CTAs
-//     while the partial tiles stay under one value per slot; smaller when the
-//     matrix has few blocks, so that at least ~2 CTAs per SM run), and one
-//     thread per lane l;
-//   - every slot (i, k, l) adds into lane l of block i, so thread l owns
-//     column l of the CTA's g_pad x 128 f32 tile in shared memory and sums
-//     into it without atomics or barriers. A CTA that holds all slot rows
-//     of its block writes the block's rows of y itself; where several CTAs
-//     share a block, each writes its tile's g rows to a scratch slot of its
-//     own and window_combine_kernel adds a block's chunks in chunk order.
-//     No atomics: a rerun gives the same y bit for bit, as on the TPU (the
-//     price is the partial tiles' round trip through L2);
-//   - the Q map is read at (sidx, k), which scatters a warp over a 16 KB
-//     int8 tile: each CTA first stages its (128 x rows) slice of the tile
-//     transposed in shared memory with 16-byte coalesced loads, then reads
-//     it per slot from there;
-//   - vals/sidx/gid of one slot row are read by 128 consecutive threads
-//     (coalesced); x is gathered through the read-only cache (__ldg).
+// What bounds it: bytes. 2 flops per slot against vals (4 or 2 B) + sidx +
+// gid (1 + 1 B) per slot, the Q map (1 B per slot row and residue), x once
+// and y once: thermal2_like moves ~100 MB for 17 MFLOP.
+//
+// The design (csrc/window_tile.cuh holds the staging):
+//   - A block per CTA, or per thread-block cluster. One CTA of 256 threads
+//     computes a whole block of the TPU's grid and writes its g rows of y:
+//     no partial tiles in global memory and no second launch. Where the
+//     blocks alone cannot fill the card (FEM_3D_thermal2's 29, delaunay's
+//     one), the block's slot rows are split over the `cluster` CTAs of a
+//     thread-block cluster (2, 4 or 8; the launch plan is
+//     ops/window_cuda.py::launch_plan), in ranges of equal cost to a warp
+//     (window_tile.cuh::rank_start: an overflow row costs a warp four times
+//     what a mod-8 row does, since every warp reads it); each CTA sums its rows
+//     into its own shared-memory tile, and after a cluster barrier CTA
+//     `rank` adds the tiles of rows r = rank, rank + cluster, ... in rank
+//     order through distributed shared memory and writes them to y.
+//   - The mod-8 fold is the unit of parallelism. A slot row k < k_c adds
+//     only into rows r = 8*gid + k%8, so warp j takes the slot rows k % 8 ==
+//     j and adds into the rows r % 8 == j of the one (g_pad, 128) tile: each
+//     cell has one writer, in slot-row order, and no atomics. The overflow
+//     rows k >= k_c (any r) come after a barrier: each warp loads one in
+//     eight of them, and warp j reads lanes 4t + j%4 of every one in shared
+//     memory and adds the slots whose r % 2 == j/4, again one writer per
+//     cell. So a rerun on the same x gives the same y bit for bit.
+//   - The x window is staged in shared memory once per CTA with one bulk
+//     asynchronous copy (cp.async.bulk + mbarrier), as the TPU kernel stages
+//     it into VMEM: win_rows = 8*nspecs rows (8*ns_tot for shared_w, the x
+//     chunks for xdirect) of 128 values, <= 64 KB. ops/window_cuda.py checks
+//     once per layout that every Q lies inside the staged rows.
+//   - The Q map is staged per 64 slot rows (kQRows), residue-major with a
+//     68-byte pitch, so that a warp's lookups at one slot row spread banks;
+//     the next chunk's 16-byte loads are in flight while a chunk runs.
+//   - Each thread takes 4 lanes of a slot row: vals 16 bytes (f32) or 8
+//     (bf16), sidx and gid 4 bytes each. The bytes reach shared memory by
+//     cp.async into a ring of kDepth (8) stages per thread, so that 8 slot
+//     rows per thread are in flight without holding registers (6 per row
+//     and thread, were they loaded into registers). A thread reads back only
+//     its own copies of its mod-8 rows, so those need no barrier.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "window_tile.cuh"
 
 namespace {
 
-constexpr int kLane = 128;
-constexpr int kQPitch = kLane + 4;  // bytes per staged Q row (+4: spreads banks)
-constexpr int kMaxRows = 64;        // slot rows per CTA
-constexpr int kMinRows = 16;        // one 16-byte vector per Q row
-constexpr int kBatch = 8;           // slot rows whose loads are issued together
-constexpr long long kTargetCtas = 2 * 132;  // two CTAs per SM of an H100
+using namespace wtile;
+namespace cg = cooperative_groups;
+
+struct Vals4 {
+  float v[4];
+};
+
+struct Args {
+  const void* vals;
+  const int8_t* sidx;
+  const int8_t* gid;
+  const int8_t* rsrc;
+  const float* x;
+  float* y;
+  long long n_x, m;
+  int g, k_pad, k_c, n_kt, wr, bps, xmode, step, win_rows;
+};
+
+constexpr int kDepth = 8;  // slot rows a thread has in flight (cp.async ring stages)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// One CTA: block blk, slot rows [chunk*rows, min((chunk+1)*rows, k_pad)).
-template <typename T>
-__device__ __forceinline__ void window_body(
-    const T* __restrict__ vals, const int8_t* __restrict__ sidx,
-    const int8_t* __restrict__ gid, const int8_t* __restrict__ rsrc,
-    int blk, int chunk, long long x_base, int g, int k_pad, int k_c,
-    int n_kt, int rows, const float* __restrict__ x, long long n_x,
-    long long m, float* __restrict__ y, float* __restrict__ part, int n_chunks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int g_pad = ((g + 7) / 8) * 8;
-  float* tile = reinterpret_cast<float*>(smem);  // (g_pad, 128)
-  int8_t* qs = reinterpret_cast<int8_t*>(smem + g_pad * kLane * sizeof(float));
-  const int l = threadIdx.x;
-  const int k0 = chunk * rows;
-  const int k1 = min(k0 + rows, k_pad);
-  const int kk0 = k0 % kLane;  // rows divides 128: the chunk lies in one tile
+__device__ __forceinline__ Vals4 ring_vals(const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  return {{a.x, a.y, a.z, a.w}};
+}
 
-  // stage Q[res, kk0 : kk0 + rows] of tile k0/128 as qs[kk][res]
-  const int8_t* qt = rsrc + ((long long)blk * n_kt + k0 / kLane) * kLane * kLane;
-  const int vecs = rows / 16;
-  for (int c = l; c < kLane * vecs; c += kLane) {
-    const int res = c / vecs, v = c % vecs;
-    const uint4 w = *reinterpret_cast<const uint4*>(qt + res * kLane + kk0 + v * 16);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&w);
+__device__ __forceinline__ Vals4 ring_vals(const __nv_bfloat16* p) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&a.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&a.y);
+  return {{__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi)}};
+}
+
+// One mod-8 slot row k (Q chunk c0) of this thread's 4 lanes, from its ring
+// stage: each lane's product added into row 8*gid + w of the tile, which
+// warp w owns.
+template <typename T>
+__device__ __forceinline__ void slot_row(const T* rv, char4 sc, char4 gc, int k, int c0,
+                                         int g_pad, const float* xs, float* tile,
+                                         const int8_t* qs) {
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const Vals4 v = ring_vals(rv);
+  const int8_t sv[4] = {sc.x, sc.y, sc.z, sc.w};
+  const int8_t gv[4] = {gc.x, gc.y, gc.z, gc.w};
 #pragma unroll
-    for (int j = 0; j < 16; ++j) qs[(v * 16 + j) * kQPitch + res] = b[j];
+  for (int i = 0; i < 4; ++i) {
+    const int r = 8 * (int)gv[i] + w;
+    if (r >= g_pad) continue;
+    const int res = sv[i];
+    // Q < win_rows: ops/window_cuda.py checks it once per layout
+    const int q = qs[res * kQPitch + (k - c0)];
+    tile[r * kLane + i * 32 + t] += v.v[i] * xs[q * kLane + res];
   }
-  for (int r = 0; r < g_pad; ++r) tile[r * kLane + l] = 0.f;
+}
+
+// One overflow slot row k (Q chunk c0), its 128 lanes from the loader's ring
+// slots (vals from rv, sidx and gid bytes from rs and rg): warp w takes lane
+// 4t + w%4 and adds it into row gid of the tile if gid % 2 == w/4, so each
+// cell has one writer and no warp scans more than a quarter of the lanes.
+template <typename T>
+__device__ __forceinline__ void overflow_lane(const T* rv, const int8_t* rs, const int8_t* rg,
+                                              int k, int c0, int g_pad, const float* xs,
+                                              float* tile, const int8_t* qs) {
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5, i = w & 3;
+  const int e = 4 * t + i;
+  const int r = rg[e];
+  if ((r & 1) != (w >> 2) || r >= g_pad) return;
+  const int res = rs[e];
+  const int q = qs[res * kQPitch + (k - c0)];
+  tile[r * kLane + i * 32 + t] += to_f32(rv[e]) * xs[q * kLane + res];
+}
+
+// One CTA: block blk, CTA `rank` of its cluster (window_tile.cuh::rank_start).
+template <typename T>
+__device__ __forceinline__ void window_body(const Args& a, int blk, int rank, int csize) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int g_pad = g_pad_of(a.g);
+  float* xs = reinterpret_cast<float*>(smem);
+  float* tile = xs + a.win_rows * kLane;
+  int8_t* qs = reinterpret_cast<int8_t*>(tile + g_pad * kLane);
+  T* ringv = reinterpret_cast<T*>(qs + kQBytes);  // [kDepth][kThreads][4]
+  char4* rings = reinterpret_cast<char4*>(ringv + kDepth * kThreads * 4);
+  char4* ringg = rings + kDepth * kThreads;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ringg + kDepth * kThreads);
+  const int tid = threadIdx.x, t = tid & 31, w = tid >> 5;
+  const long long x_base = x_base_of(a.xmode, blk, a.g, a.wr, a.bps);
+  const int k0 = rank_start(rank, a.step, a.k_c, a.k_pad);
+  const int k1 = rank == csize - 1 ? a.k_pad : rank_start(rank + 1, a.step, a.k_c, a.k_pad);
+  const WarpRows rows(k0, k1, a.k_c, w);
+  const long long base = (long long)blk * a.k_pad * kLane + 4 * t;
+  const T* vals = static_cast<const T*>(a.vals);
+
+  // the ring: row j of this warp's sequence (WarpRows) into stage j %
+  // kDepth, one commit group per row (empty past the last), so that
+  // wait<kDepth - 1> always means "row j has landed"
+  int queued = 0;
+  auto enqueue = [&]() {
+    if (queued < rows.total) {
+      const long long off = base + (long long)rows.row(queued) * kLane;
+      const int slot = (queued % kDepth) * kThreads + tid;
+      cp_async<4 * sizeof(T)>(ringv + 4 * slot, vals + off);
+      cp_async<4>(rings + slot, a.sidx + off);
+      cp_async<4>(ringg + slot, a.gid + off);
+    }
+    cp_async_commit();
+    ++queued;
+  };
+  for (int j = 0; j < kDepth; ++j) enqueue();
+  // the Q chunk in qs (none yet), and the one whose loads are in qv
+  int q_c0 = -1, next_c0 = k0 / kQRows * kQRows;
+  uint4 qv[kQVecs];
+  if (next_c0 < k1) load_q(qv, a.rsrc, blk, a.n_kt, next_c0);
+  auto stage_next_q = [&]() {  // called by every thread: barriers inside
+    __syncthreads();           // the previous chunk's Q and tile updates are done
+    store_q(qs, qv);
+    q_c0 = next_c0;
+    next_c0 += kQRows;
+    if (next_c0 < k1) load_q(qv, a.rsrc, blk, a.n_kt, next_c0);
+    __syncthreads();
+  };
+  for (int e = tid; e < g_pad * kLane; e += kThreads) tile[e] = 0.f;
+  stage_x(xs, a.x, a.n_x, x_base * kLane, a.win_rows * kLane, bar);
+
+  // the mod-8 rows, chunk by chunk: warp w's own rows, one writer per cell
+  int j = 0;
+  while (next_c0 < rows.m8) {
+    stage_next_q();
+    for (; j < rows.n8 && rows.row(j) < q_c0 + kQRows; ++j) {
+      cp_async_wait<kDepth - 1>();
+      const int slot = (j % kDepth) * kThreads + tid;
+      slot_row<T>(ringv + 4 * slot, rings[slot], ringg[slot], rows.row(j), q_c0, g_pad, xs,
+                  tile, qs);
+      enqueue();
+    }
+  }
+  // the overflow rows, 8*kDepth at a time: each warp's share of them is
+  // already in its ring (queued behind its mod-8 rows); after a barrier
+  // every warp reads its quarter of the lanes of every row from the
+  // loader's stage, in row order
+  for (int s0 = rows.ov0; s0 < k1; s0 += 8 * kDepth) {
+    const int s1 = min(s0 + 8 * kDepth, k1);
+    cp_async_wait<0>();
+    __syncthreads();  // every warp's rows have landed; the mod-8 adds are done
+    for (int k = s0; k < s1; ++k) {
+      if (q_c0 < 0 || k >= q_c0 + kQRows) stage_next_q();
+      const int b = rows.overflow_base<kDepth>(k);
+      overflow_lane<T>(ringv + 4 * b, reinterpret_cast<const int8_t*>(rings + b),
+                       reinterpret_cast<const int8_t*>(ringg + b), k, q_c0, g_pad, xs, tile, qs);
+    }
+    __syncthreads();  // the stages are read: refill them
+    for (int i = 0; i < kDepth; ++i) enqueue();
+  }
+  cp_async_wait<0>();
   __syncthreads();
 
-  // slot rows in batches (k_pad and rows are multiples of kBatch): every
-  // load and x gather of a batch is issued before its tile updates, which
-  // the compiler cannot tell apart from the staged Q (both live in smem)
-  // and would otherwise wait on, one gather at a time
-  const long long slot0 = (long long)blk * k_pad * kLane + l;
-  for (int kb = k0; kb < k1; kb += kBatch) {
-    float p[kBatch];
-    int r[kBatch];
+  // y rows r of this CTA: all g (no cluster), or r % csize == rank, each the
+  // cluster's tiles added in rank order
+  const long long row0 = (long long)blk * a.g * kLane;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (csize > 1) cluster.sync();
+  for (int r = rank + csize * w; r < a.g; r += csize * kWarps) {
+    float v[4];
+    const float* t0 = csize > 1 ? cluster.map_shared_rank(tile, 0) : tile;
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int k = kb + u;
-      const long long s = slot0 + (long long)k * kLane;
-      const int res = sidx[s];
-      const int q = qs[(k - k0) * kQPitch + res];
-      const long long col = (x_base + q) * kLane + res;
-      const float xv = (col >= 0 && col < n_x) ? __ldg(x + col) : 0.f;
-      const int gd = gid[s];
-      r[u] = k < k_c ? 8 * gd + (k & 7) : gd;
-      p[u] = to_f32(vals[s]) * xv;
-    }
+    for (int i = 0; i < 4; ++i) v[i] = t0[r * kLane + i * 32 + t];
+    for (int s = 1; s < csize; ++s) {
+      const float* ts = cluster.map_shared_rank(tile, s);
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      if (r[u] < g_pad) tile[r[u] * kLane + l] += p[u];
-  }
-
-  if (n_chunks == 1) {
-    const long long row0 = (long long)blk * g * kLane + l;
-    for (int r = 0; r < g; ++r) {
-      const long long row = row0 + (long long)r * kLane;
-      if (row < m) y[row] = tile[r * kLane + l];
+      for (int i = 0; i < 4; ++i) v[i] += ts[r * kLane + i * 32 + t];
     }
-  } else {
-    float* out = part + ((long long)blk * n_chunks + chunk) * g * kLane + l;
-    for (int r = 0; r < g; ++r) out[r * kLane] = tile[r * kLane + l];
+    const long long row = row0 + (long long)r * kLane + 4 * t;
+    if (row + 3 < a.m) {
+      *reinterpret_cast<float4*>(a.y + row) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (row + i < a.m) a.y[row + i] = v[i];
+    }
   }
-}
-
-// y[(blk*g + r)*128 + l] = the chunks' partial tiles of block blk at (r, l),
-// added in chunk order, for every row < m.
-__global__ void __launch_bounds__(256)
-window_combine_kernel(const float* __restrict__ part, int nblocks, int g, int n_chunks,
-                      long long m, float* __restrict__ y) {
-  const long long row = (long long)blockIdx.x * 256 + threadIdx.x;
-  const long long per_blk = (long long)g * kLane;
-  if (row >= m || row >= (long long)nblocks * per_blk) return;
-  const float* p = part + (row / per_blk) * n_chunks * per_blk + row % per_blk;
-  float acc = 0.f;
-  for (int c = 0; c < n_chunks; ++c) acc += p[c * per_blk];
-  y[row] = acc;
+  if (csize > 1) cluster.sync();  // no CTA leaves while its tile is read
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kLane)
-window_blocks_kernel(const T* __restrict__ vals, const int8_t* __restrict__ sidx,
-                     const int8_t* __restrict__ gid, const int8_t* __restrict__ rsrc,
-                     int g, int k_pad, int k_c, int n_kt, int rows, int n_chunks,
-                     int wr, int bps, int shared_w, const float* __restrict__ x,
-                     long long n_x, long long m, float* __restrict__ y,
-                     float* __restrict__ part) {
-  const int blk = blockIdx.x / n_chunks;
-  const int chunk = blockIdx.x % n_chunks;
-  const long long x_base = shared_w ? (long long)(blk - blk % bps) * g - wr
-                                    : 8LL * (((long long)blk * g) / 8) - wr;
-  window_body<T>(vals, sidx, gid, rsrc, blk, chunk, x_base, g, k_pad, k_c,
-                 n_kt, rows, x, n_x, m, y, part, n_chunks);
+__global__ void __launch_bounds__(kThreads, 2) window_blocks_kernel(Args a, int csize) {
+  window_body<T>(a, blockIdx.x / csize, blockIdx.x % csize, csize);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kLane)
-window_single_kernel(const T* __restrict__ vals, const int8_t* __restrict__ sidx,
-                     const int8_t* __restrict__ gid, const int8_t* __restrict__ rsrc,
-                     int g, int k_pad, int k_c, int n_kt, int rows,
-                     const float* __restrict__ x, long long n_x, long long m,
-                     float* __restrict__ y, float* __restrict__ part) {
-  window_body<T>(vals, sidx, gid, rsrc, 0, blockIdx.x, 0, g, k_pad, k_c, n_kt,
-                 rows, x, n_x, m, y, part, gridDim.x);
+__global__ void __launch_bounds__(kThreads, 2) window_single_kernel(Args a, int csize) {
+  window_body<T>(a, 0, blockIdx.x % csize, csize);
 }
 
-// Slot rows per CTA: the least power of two >= g in [16, 64], so that a
-// CTA's partial tile (g rows) is at most one value per slot it sums; then
-// halved (down to 16) while the grid would give fewer than two CTAs per SM.
-int rows_per_cta(int nblocks, int k_pad, int g) {
-  int rows = kMinRows;
-  while (rows < g && rows < kMaxRows) rows *= 2;
-  while (rows > kMinRows &&
-         (long long)nblocks * ((k_pad + rows - 1) / rows) < kTargetCtas)
-    rows /= 2;
-  return rows;
-}
-
-size_t smem_bytes(int g, int rows) {
-  return (size_t)((g + 7) / 8) * 8 * kLane * sizeof(float) + (size_t)rows * kQPitch;
-}
-
-int chunks_of(int nblocks, int k_pad, int g) {
-  const int rows = rows_per_cta(nblocks, k_pad, g);
-  return (k_pad + rows - 1) / rows;
-}
-
-// After the window kernel: the combine, where blocks are split into chunks.
-int combine(const float* part, int nblocks, int g, int n_chunks, long long m, float* y,
-            cudaStream_t st) {
-  cudaError_t rc = cudaGetLastError();
-  if (rc != cudaSuccess || n_chunks == 1) return (int)rc;
-  window_combine_kernel<<<(unsigned)((m + 255) / 256), 256, 0, st>>>(part, nblocks, g,
-                                                                       n_chunks, m, y);
-  return (int)cudaGetLastError();
+template <typename T>
+cudaError_t launch(const Args& a, int nblocks, int csize, size_t smem, cudaStream_t st) {
+  void (*kernel)(Args, int) = a.xmode == 1 ? window_single_kernel<T> : window_blocks_kernel<T>;
+  // above 48 KB of dynamic shared memory; the attribute is per device, so
+  // it is set on every launch (cheap, allowed in graph capture)
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)nblocks * csize));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = csize > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, a, csize);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// f32 elements of the scratch a launch over nblocks blocks needs (0: none).
-long long window_scratch_elems(int nblocks, int k_pad, int g) {
-  const int n_chunks = chunks_of(nblocks, k_pad, g);
-  return n_chunks == 1 ? 0 : (long long)nblocks * n_chunks * g * kLane;
+// y (f32, length m) = the window sums of nblocks blocks; vals f32
+// (vals_bf16 == 0) or bf16; xmode 0 standard, 1 xdirect (one block), 2
+// shared_w. The launch plan (ops/window_cuda.py::launch_plan): csize CTAs
+// per block (1, or a cluster of 2, 4 or 8), CTA rank taking the slot rows
+// from rank_start(rank, step, ...) (csize*step >= the block's cost),
+// win_rows staged x rows (<= 128, and above every Q of rsrc), a ring of
+// `depth` (8) stages, and smem bytes of dynamic shared memory
+// (window_smem_bytes). Writes every row
+// of y; returns cudaErrorInvalidValue for a plan it does not take, else the
+// launch's error, or 0.
+int window_launch(int vals_bf16, const void* vals, const int8_t* sidx, const int8_t* gid,
+                  const int8_t* rsrc, int nblocks, int g, int k_pad, int k_c, int wr, int bps,
+                  int xmode, const float* x, long long n_x, long long m, float* y, int csize,
+                  int step, int win_rows, int depth, int smem, void* stream) {
+  const bool csize_ok = csize == 1 || csize == 2 || csize == 4 || csize == kMaxCluster;
+  const int vals_bytes = vals_bf16 ? 8 : 16;
+  const long long cost = k_c + (long long)kOverflowCost * (k_pad - k_c);
+  if (!csize_ok || step <= 0 || (long long)csize * step < cost || win_rows < 1 ||
+      win_rows > kLane || depth != kDepth ||
+      (size_t)smem != window_smem_bytes(g, win_rows, 4, 4, vals_bytes, depth) ||
+      (xmode == 1 && nblocks != 1))
+    return (int)cudaErrorInvalidValue;
+  Args a{vals, sidx, gid, rsrc, x, y, n_x, m, g, k_pad, k_c, (k_pad + kLane - 1) / kLane,
+         wr, bps, xmode, step, win_rows};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = vals_bf16 ? launch<__nv_bfloat16>(a, nblocks, csize, smem, st)
+                                  : launch<float>(a, nblocks, csize, smem, st);
+  return (int)e;
 }
 
-// y (f32, length m) = the window sums of nblocks blocks with the standard
-// (shared_w == 0) or shared_w x staging; vals is f32 (vals_bf16 == 0) or
-// bf16; k_pad is a multiple of 8; part holds window_scratch_elems f32.
-// Writes every row of y; returns the first launch error, or 0.
-int window_blocks_launch(int vals_bf16, const void* vals, const int8_t* sidx,
-                         const int8_t* gid, const int8_t* rsrc, int nblocks, int g,
-                         int k_pad, int k_c, int wr, int bps, int shared_w,
-                         const float* x, long long n_x, long long m, float* y,
-                         float* part, void* stream) {
-  const int n_kt = (k_pad + kLane - 1) / kLane;
-  const int rows = rows_per_cta(nblocks, k_pad, g);
-  const int n_chunks = (k_pad + rows - 1) / rows;
-  const unsigned grid = (unsigned)((long long)nblocks * n_chunks);
-  const size_t smem = smem_bytes(g, rows);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (vals_bf16) {
-    window_blocks_kernel<__nv_bfloat16><<<grid, kLane, smem, st>>>(
-        (const __nv_bfloat16*)vals, sidx, gid, rsrc, g, k_pad, k_c, n_kt, rows,
-        n_chunks, wr, bps, shared_w, x, n_x, m, y, part);
-  } else {
-    window_blocks_kernel<float><<<grid, kLane, smem, st>>>(
-        (const float*)vals, sidx, gid, rsrc, g, k_pad, k_c, n_kt, rows, n_chunks,
-        wr, bps, shared_w, x, n_x, m, y, part);
-  }
-  return combine(part, nblocks, g, n_chunks, m, y, st);
-}
-
-// The same sums for the single-block xdirect layout (window row Q is x
-// chunk Q).
-int window_single_launch(int vals_bf16, const void* vals, const int8_t* sidx,
-                         const int8_t* gid, const int8_t* rsrc, int g, int k_pad,
-                         int k_c, const float* x, long long n_x, long long m,
-                         float* y, float* part, void* stream) {
-  const int n_kt = (k_pad + kLane - 1) / kLane;
-  const int rows = rows_per_cta(1, k_pad, g);
-  const int n_chunks = (k_pad + rows - 1) / rows;
-  const size_t smem = smem_bytes(g, rows);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (vals_bf16) {
-    window_single_kernel<__nv_bfloat16><<<(unsigned)n_chunks, kLane, smem, st>>>(
-        (const __nv_bfloat16*)vals, sidx, gid, rsrc, g, k_pad, k_c, n_kt, rows,
-        x, n_x, m, y, part);
-  } else {
-    window_single_kernel<float><<<(unsigned)n_chunks, kLane, smem, st>>>(
-        (const float*)vals, sidx, gid, rsrc, g, k_pad, k_c, n_kt, rows, x, n_x,
-        m, y, part);
-  }
-  return combine(part, 1, g, n_chunks, m, y, st);
-}
-
-const char* window_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+const char* window_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface. It is compiled with nvcc
 for sm_90a into a shared library under the package's `_build/` directory
 (listed in .gitignore) at first use, and loaded with ctypes. The library's
-file name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing is built at import
+file name carries a hash of the source, the headers of csrc/ and the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. Nothing is built at import
 time: a machine without nvcc or a GPU imports this module freely.
 """
 from __future__ import annotations
@@ -50,7 +51,9 @@ def build(name: str) -> Tuple[str, str]:
     register, shared-memory and spill report for every kernel.
     """
     src = SRC_DIR / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the headers of csrc/ are part of every source's hash
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    tag = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{name}_{tag.hexdigest()[:12]}.so"
     log = lib.with_suffix(".log")
     if not lib.exists():

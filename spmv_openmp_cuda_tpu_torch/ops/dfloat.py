@@ -134,11 +134,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dia_resid_df_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, ll, p, p, p]
     lib.dia_resid_df_launch.restype = i
     lib.window_df_launch.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, i, i, p, p, ll, ll, p, p, p, p,
+        p, p, p, p, p, i, i, i, i, i, i, i, p, ll, ll, p, i, i, i, i, i, p,
     ]
     lib.window_df_launch.restype = i
-    lib.window_df_scratch_elems.argtypes = [i, i, i]
-    lib.window_df_scratch_elems.restype = ll
     lib.routed_df_gather_launch.argtypes = [p, p, p, p, i, i, p, p, ll, p, p, p]
     lib.routed_df_gather_launch.restype = i
     lib.df_error_string.argtypes = [i]

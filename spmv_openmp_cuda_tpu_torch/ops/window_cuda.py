@@ -5,16 +5,21 @@ Counterpart of the kernel half of spmv_openmp_cuda_tpu/formats/window.py
 hooks in spmv_openmp_cuda_tpu/ops/spmv_pallas.py. It holds the wrappers of the
 hand-written CUDA kernels in csrc/window_spmv.cu (f32/bf16 values) and of
 the double-float one in csrc/df_spmv.cu (float64, window_df_kernel), their
-plain PyTorch versions, the conversion of the JAX package's prepared layout,
-and the registry hooks of PL_CSR_WINDOW, PL_CSR_WINDOW_BF16 and
-PL_CSR_WINDOW_F64.
+plain PyTorch versions, their launch plan (launch_plan: CTAs per block,
+slot rows per CTA, staged x rows, shared memory), the conversion of the JAX
+package's prepared layout, and the registry hooks of PL_CSR_WINDOW,
+PL_CSR_WINDOW_BF16 and PL_CSR_WINDOW_F64.
 
 The wrapper launches the kernels for CUDA tensors and raises on anything it
-does not take; it runs the plain version only for tensors on the CPU.
+does not take; it runs the plain version only for tensors on the CPU. A
+product is one launch in every dtype. The layout's tensors are checked and
+its plan computed at its first launch and kept on the layout while its
+fields stay the same objects; x and y are checked at every call.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -133,20 +138,133 @@ def window_spmv_df_reference(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The kernels' launch plan
+# ---------------------------------------------------------------------------
+
+
+#: H100 SXM: streaming multiprocessors, the shared memory of one SM and
+#: the most one CTA may use (bytes), and what the card reserves per CTA
+SMS = 132
+SM_SMEM = 233_472
+CTA_SMEM_MAX = 232_448
+CTA_SMEM_RESERVED = 1024
+#: csrc/window_tile.cuh: threads per CTA (warp j takes the slot rows k % 8
+#: == j), slot rows per staged Q chunk and its bytes per residue, the
+#: largest (portable) cluster
+THREADS = 256
+Q_ROWS, Q_PITCH = 64, 68
+MAX_CLUSTER = 8
+#: value kind -> (bytes per staged x element, per tile accumulator, of one
+#: thread's values per slot row, the cp.async ring depths the kernel takes
+#: (deepest first), CTAs per SM its __launch_bounds__ leave registers for)
+_KINDS = {"f32": (4, 4, 16, (8,), 2), "bf16": (4, 4, 8, (8,), 2), "df": (8, 8, 32, (4, 2, 1), 2)}
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How csrc/window_spmv.cu (f32, bf16) and df_spmv.cu (df) run a layout:
+    `cluster` CTAs per block (1, or a thread-block cluster of 2, 4 or 8) of
+    THREADS threads, CTA rank summing the slot rows from rank_start(rank,
+    step, ...) on (cost `step` each); `win_rows` x rows staged in shared
+    memory; a cp.async ring of `depth` slot rows per thread; `smem` bytes of
+    dynamic shared memory per CTA."""
+
+    cluster: int
+    step: int
+    win_rows: int
+    depth: int
+    smem: int
+    threads: int = THREADS
+
+
+#: csrc/window_tile.cuh: what an overflow slot row costs a warp, in eighths
+#: of a slot row (a warp adds one mod-8 row in eight, and a quarter of the
+#: lanes of every overflow row)
+OVERFLOW_COST = 4
+
+
+def rank_start(rank: int, step: int, k_c: int, k_pad: int) -> int:
+    """First slot row of CTA `rank` of a cluster (window_tile.cuh's
+    rank_start): the block's slot rows split in ranges of equal cost to a
+    warp, each starting at a multiple of 8."""
+    u = rank * step
+    k = u if u <= k_c else k_c + (u - k_c) // OVERFLOW_COST
+    return min(-(-k // 8) * 8, k_pad)
+
+
+def rank_ranges(plan: LaunchPlan, k_pad: int, k_c: int):
+    """[(k0, k1)] of the plan's CTAs of one block."""
+    starts = [rank_start(r, plan.step, k_c, k_pad) for r in range(plan.cluster)]
+    return list(zip(starts, starts[1:] + [k_pad]))
+
+
+def window_rows(mat: WindowCSR) -> int:
+    """x rows (chunks of 128) of a block's window, as the TPU kernels stage
+    them: 8*nspecs, 8*ns_tot for shared_w (the union window of bps blocks),
+    the chunks of x for xdirect; at most 128 (formats/window.py caps the
+    window there)."""
+    if mat.xdirect:
+        rows = -(-mat.shape[1] // LANE)
+    elif mat.shared_w:
+        rows = 8 * ((mat.bps - 1) * (mat.g // 8) + mat.nspecs)
+    else:
+        rows = 8 * mat.nspecs
+    return max(1, min(rows, LANE))
+
+
+def smem_bytes(g: int, win_rows: int, kind: str, depth: int) -> int:
+    """Dynamic shared memory of one CTA (csrc/window_tile.cuh's
+    window_smem_bytes): the x window, the (g_pad, 128) tile, the Q chunk,
+    the ring and the mbarrier."""
+    xb, ab, vb, _, _ = _KINDS[kind]
+    g_pad = -(-g // 8) * 8
+    return (win_rows * LANE * xb + g_pad * LANE * ab + LANE * Q_PITCH
+            + depth * THREADS * (vb + 8) + 16)
+
+
+def launch_plan(nblocks: int, k_pad: int, k_c: int, g: int, win_rows: int, kind: str,
+                sms: int = SMS) -> LaunchPlan:
+    """For each ring depth that fits a CTA: one CTA per block while the
+    blocks fill the card, else each block's slot rows split over a cluster
+    of 2, 4 or 8 CTAs, doubled while twice the CTAs would still all be
+    resident at once and each keeps >= 16 slot rows. The depth whose grid
+    takes the fewest waves of resident CTAs wins, the deeper one on a tie
+    (thermal2_like's double-float product: a ring of 1 leaves room for two
+    CTAs per SM, 2 waves where a ring of 4 takes 4). Raises ValueError if no
+    ring fits the shared memory a CTA may use."""
+    depths, per_sm_regs = _KINDS[kind][3], _KINDS[kind][4]
+    cost = k_c + OVERFLOW_COST * (k_pad - k_c)
+    best = None
+    for depth in depths:
+        smem = smem_bytes(g, win_rows, kind, depth)
+        if smem > CTA_SMEM_MAX:
+            continue
+        resident = sms * min(per_sm_regs, SM_SMEM // (smem + CTA_SMEM_RESERVED))
+        cluster = 1
+        while (cluster < MAX_CLUSTER and nblocks * 2 * cluster <= resident
+               and -(-k_pad // (2 * cluster)) >= 16):
+            cluster *= 2
+        waves = -(-nblocks * cluster // resident)
+        if best is None or waves < best[0]:
+            best = (waves, LaunchPlan(cluster=cluster, step=-(-cost // cluster),
+                                      win_rows=win_rows, depth=depth, smem=smem))
+    if best is None:
+        raise ValueError(f"a window CTA needs {smem_bytes(g, win_rows, kind, depths[-1])} bytes "
+                         f"of shared memory (> {CTA_SMEM_MAX})")
+    return best[1]
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrappers (csrc/window_spmv.cu, csrc/df_spmv.cu)
 # ---------------------------------------------------------------------------
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.window_blocks_launch.argtypes = [
-        i, p, p, p, p, i, i, i, i, i, i, i, p, ll, ll, p, p, p,
+    lib.window_launch.argtypes = [
+        i, p, p, p, p, i, i, i, i, i, i, i, p, ll, ll, p, i, i, i, i, i, p,
     ]
-    lib.window_blocks_launch.restype = i
-    lib.window_single_launch.argtypes = [i, p, p, p, p, i, i, i, p, ll, ll, p, p, p]
-    lib.window_single_launch.restype = i
-    lib.window_scratch_elems.argtypes = [i, i, i]
-    lib.window_scratch_elems.restype = ll
+    lib.window_launch.restype = i
     lib.window_error_string.argtypes = [i]
     lib.window_error_string.restype = ctypes.c_char_p
 
@@ -189,61 +307,76 @@ def _check_layout(mat: WindowCSR, dev) -> None:
     _require(mat.sidx, "mat.sidx", (torch.int8,), rows, dev)
     _require(mat.gid, "mat.gid", (torch.int8,), rows, dev)
     _require(mat.rsrc, "mat.rsrc", (torch.int8,), (mat.nblocks * mat.n_ktiles * LANE, LANE), dev)
-    if mat.rsrc.data_ptr() % 16:
-        raise ValueError("mat.rsrc must be 16-byte aligned (the kernels stage it in 16-byte loads)")
+    for name, t in (("mat.vals", mat.vals), ("mat.vals_lo", mat.vals_lo), ("mat.rsrc", mat.rsrc),
+                    ("mat.sidx", mat.sidx), ("mat.gid", mat.gid)):
+        if dev.type == "cuda" and t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels read it in vectors)")
 
 
-def _scratch(lib: ctypes.CDLL, nblocks: int, mat: WindowCSR, dev) -> torch.Tensor:
-    """The partial tiles of blocks split over CTAs (csrc/window_spmv.cu
-    closes them in chunk order)."""
-    n = lib.window_scratch_elems(nblocks, mat.k_pad, mat.g)
-    return torch.empty(max(n, 1), dtype=torch.float32, device=dev)
+def _plan(mat: WindowCSR, dev) -> LaunchPlan:
+    """The layout's launch plan on CUDA device dev, its tensors checked once
+    and the plan kept on mat while its fields are the same objects."""
+    tensors = (mat.vals, mat.vals_lo, mat.sidx, mat.gid, mat.rsrc)
+    geometry = (dev, mat.shape, mat.g, mat.k_pad, mat.k_c, mat.wr, mat.nspecs, mat.nblocks,
+                mat.bps, mat.xdirect, mat.shared_w)
+    hit = mat.__dict__.get("_cuda_plan")
+    if hit is not None and hit[1] == geometry and all(a is b for a, b in zip(hit[0], tensors)):
+        return hit[2]
+    _check_layout(mat, dev)
+    kind = "df" if mat.vals_lo is not None else "bf16" if mat.vals.dtype == torch.bfloat16 else "f32"
+    win_rows = window_rows(mat)
+    # the kernels read every Q from the staged x rows (one sync, here only)
+    lo, hi = torch.aminmax(mat.rsrc)
+    if int(lo) < 0 or int(hi) >= win_rows:
+        raise ValueError(f"mat.rsrc holds window rows outside [0, {win_rows})")
+    plan = launch_plan(mat.nblocks, mat.k_pad, mat.k_c, mat.g, win_rows, kind,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    mat.__dict__["_cuda_plan"] = (tensors, geometry, plan)
+    return plan
 
 
-def _check_cuda_args(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor, xdirect: bool) -> None:
+def _check_io(t: torch.Tensor, name: str, dtype, size: int, dev) -> None:
+    _require(t, name, (dtype,), (size,), dev)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (the kernels move it in 16-byte copies)")
+
+
+def _launch_f32(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor, xdirect: bool) -> None:
     if mat.vals_lo is not None:
         raise TypeError("a double-float layout runs through window_df_cuda")
-    _check_window(mat, x)
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {x.device}")
-    _require(y, "y", (torch.float32,), (mat.shape[0],), x.device)
     if mat.xdirect != xdirect:
         raise ValueError(
             f"window_{'single' if mat.xdirect else 'blocks'}_cuda runs this layout "
             f"(xdirect={mat.xdirect})"
         )
+    m, n = mat.shape
+    dev = x.device
+    plan = _plan(mat, dev)
+    _check_io(x, "x", torch.float32, n, dev)
+    _check_io(y, "y", torch.float32, m, dev)
+    lib = _lib()
+    rc = lib.window_launch(
+        int(mat.vals.dtype == torch.bfloat16), mat.vals.data_ptr(), mat.sidx.data_ptr(),
+        mat.gid.data_ptr(), mat.rsrc.data_ptr(), mat.nblocks, mat.g, mat.k_pad, mat.k_c, mat.wr,
+        mat.bps, _xmode(mat), x.data_ptr(), n, m, y.data_ptr(), plan.cluster, plan.step,
+        plan.win_rows, plan.depth, plan.smem, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check_launch(lib, rc, f"window_{'single' if xdirect else 'blocks'}_kernel")
+
+
+def _xmode(mat: WindowCSR) -> int:
+    """The kernels' x form: 0 standard, 1 xdirect, 2 shared_w."""
+    return 1 if mat.xdirect else 2 if mat.shared_w else 0
 
 
 def window_blocks_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """y = A @ x over a multi-block (standard or shared_w) layout, into the
-    f32 y of length m: launches window_blocks_kernel (and, where a block's
-    slot rows are split over CTAs, window_combine_kernel). Overwrites every
-    element of y."""
-    _check_cuda_args(mat, x, y, xdirect=False)
-    m, n = mat.shape
-    lib = _lib()
-    part = _scratch(lib, mat.nblocks, mat, x.device)
-    rc = lib.window_blocks_launch(
-        int(mat.vals.dtype == torch.bfloat16),
-        mat.vals.data_ptr(),
-        mat.sidx.data_ptr(),
-        mat.gid.data_ptr(),
-        mat.rsrc.data_ptr(),
-        mat.nblocks,
-        mat.g,
-        mat.k_pad,
-        mat.k_c,
-        mat.wr,
-        mat.bps,
-        int(mat.shared_w),
-        x.data_ptr(),
-        n,
-        m,
-        y.data_ptr(),
-        part.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _check_launch(lib, rc, "window_blocks_kernel")
+    f32 y of length m: one launch of window_blocks_kernel (a CTA, or a
+    thread-block cluster, per block; launch_plan). Overwrites every element
+    of y."""
+    _launch_f32(mat, x, y, xdirect=False)
     window_blocks_cuda.launches += 1
     return y
 
@@ -253,30 +386,9 @@ window_blocks_cuda.launches = 0
 
 def window_single_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """y = A @ x over the single-block xdirect layout, into the f32 y of
-    length m: launches window_single_kernel (and window_combine_kernel when
-    the block's slot rows are split over CTAs). Overwrites every element of
-    y."""
-    _check_cuda_args(mat, x, y, xdirect=True)
-    m, n = mat.shape
-    lib = _lib()
-    part = _scratch(lib, 1, mat, x.device)
-    rc = lib.window_single_launch(
-        int(mat.vals.dtype == torch.bfloat16),
-        mat.vals.data_ptr(),
-        mat.sidx.data_ptr(),
-        mat.gid.data_ptr(),
-        mat.rsrc.data_ptr(),
-        mat.g,
-        mat.k_pad,
-        mat.k_c,
-        x.data_ptr(),
-        n,
-        m,
-        y.data_ptr(),
-        part.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _check_launch(lib, rc, "window_single_kernel")
+    length m: one launch of window_single_kernel (its slot rows split over a
+    thread-block cluster; launch_plan). Overwrites every element of y."""
+    _launch_f32(mat, x, y, xdirect=True)
     window_single_cuda.launches += 1
     return y
 
@@ -284,36 +396,28 @@ def window_single_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torc
 window_single_cuda.launches = 0
 
 
-def window_df_cuda(
-    mat: WindowCSR, xh: torch.Tensor, xl: torch.Tensor, yh: torch.Tensor, yl: torch.Tensor
-) -> None:
-    """(yh, yl) (f32 planes of length m) = A @ x over a double-float layout
-    of any x form, x given as its (hi, lo) f32 planes: launches
-    window_df_kernel (and, when a block's slot rows are split over CTAs,
-    window_df_combine_kernel). Overwrites every element of y."""
-    m, n = mat.shape
-    dev = xh.device
+def window_df_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y (f64, length m) = A @ x (x f64) over a double-float layout of any x
+    form: one launch of window_df_kernel, which splits x into (hi, lo) pairs
+    and combines y as hi + lo itself. Overwrites every element of y."""
     if mat.vals_lo is None:
         raise TypeError("window_df_cuda runs a double-float layout (vals_lo set)")
+    dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev}")
-    _check_layout(mat, dev)
-    for name, t, size in (("xh", xh, n), ("xl", xl, n), ("yh", yh, m), ("yl", yl, m)):
-        _require(t, name, (torch.float32,), (size,), dev)
-    lib = dfloat.df_lib()
-    scratch = torch.empty(
-        max(lib.window_df_scratch_elems(mat.nblocks, mat.k_pad, mat.g), 1),
-        dtype=torch.float32, device=dev,
-    )
-    xmode = 1 if mat.xdirect else 2 if mat.shared_w else 0
-    rc = lib.window_df_launch(
+    m, n = mat.shape
+    plan = _plan(mat, dev)
+    _check_io(x, "x", torch.float64, n, dev)
+    _check_io(y, "y", torch.float64, m, dev)
+    rc = dfloat.df_lib().window_df_launch(
         mat.vals.data_ptr(), mat.vals_lo.data_ptr(), mat.sidx.data_ptr(), mat.gid.data_ptr(),
-        mat.rsrc.data_ptr(), mat.nblocks, mat.g, mat.k_pad, mat.k_c, mat.wr, mat.bps, xmode,
-        xh.data_ptr(), xl.data_ptr(), n, m, yh.data_ptr(), yl.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        mat.rsrc.data_ptr(), mat.nblocks, mat.g, mat.k_pad, mat.k_c, mat.wr, mat.bps,
+        _xmode(mat), x.data_ptr(), n, m, y.data_ptr(), plan.cluster, plan.step, plan.win_rows,
+        plan.depth, plan.smem, torch.cuda.current_stream(dev).cuda_stream,
     )
     dfloat.check_launch(rc, "window_df_kernel")
     window_df_cuda.launches += 1
+    return y
 
 
 window_df_cuda.launches = 0
@@ -324,9 +428,9 @@ def window_spmv(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
     a double-float layout (vals_lo set, x f64).
 
     CUDA tensors launch window_single_kernel (xdirect layouts) or
-    window_blocks_kernel (the others), or window_df_kernel for a df layout;
-    CPU tensors take window_spmv_reference or window_spmv_df_reference.
-    Anything else raises."""
+    window_blocks_kernel (the others), or window_df_kernel for a df layout:
+    one launch each; CPU tensors take window_spmv_reference or
+    window_spmv_df_reference. Anything else raises."""
     df = mat.vals_lo is not None
     if x.device.type == "cpu":
         _check_window(mat, x)
@@ -334,12 +438,7 @@ def window_spmv(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if df:
-        _require(x, "x", (torch.float64,), (mat.shape[1],), x.device)
-        xh, xl = dfloat.split_f64_t(x)
-        yh = torch.empty(mat.shape[0], dtype=torch.float32, device=x.device)
-        yl = torch.empty_like(yh)
-        window_df_cuda(mat, xh, xl, yh, yl)
-        return dfloat.df_combine64(yh, yl)
+        return window_df_cuda(mat, x, torch.empty(mat.shape[0], dtype=torch.float64, device=x.device))
     y = torch.empty(mat.shape[0], dtype=torch.float32, device=x.device)
     launch = window_single_cuda if mat.xdirect else window_blocks_cuda
     return launch(mat, x, y)
@@ -409,9 +508,10 @@ def _register() -> None:
             ),
             run=window_spmv,
             doc="windowed local-gather engine for banded-locality matrices "
-            "(unstructured FEM): per row-block edge-colored slots, x gathered "
-            "through the Q map staged in shared memory, row sums in a "
-            "shared-memory tile per CTA, split blocks closed in chunk order",
+            "(unstructured FEM): per row-block edge-colored slots, the x window "
+            "and the Q map staged in shared memory, row sums in one "
+            "shared-memory tile per block (mod-8 row classes per warp), a "
+            "thread-block cluster per block where blocks are few",
         )
     )
     register(
@@ -438,8 +538,8 @@ def _register() -> None:
             run=window_spmv,
             doc="double-precision windowed local-gather: slot values and x as "
             "(hi, lo) double-float pairs, TwoProduct gather products and "
-            "TwoSum row sums in one CUDA kernel (chunk partials combined in a "
-            "fixed order, no atomics)",
+            "TwoSum row sums in one CUDA launch that takes f64 x and writes "
+            "f64 y (fixed-order sums, no atomics)",
             f64=True,
         )
     )

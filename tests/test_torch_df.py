@@ -235,6 +235,24 @@ def test_window_df_prepare_and_plain_match_jax(name):
     assert _rel(y_t, serial_csr_spmv(tcsr, x)) < 1e-11
 
 
+@pytest.mark.parametrize("name", list(WINDOW))
+def test_window_df_f64_in_f64_out(name):
+    """window_spmv on a df layout takes f64 x and returns f64 y: bit for bit
+    df_combine64 of window_spmv_df_pair_reference on split_f64_t(x), the
+    split window_df_kernel makes in shared memory (hi = f32(x), lo = f32(x -
+    hi)) and the combine it writes y with (hi + lo in f64)."""
+    tcsr, tm, _ = _window_prepared(name)
+    xn = _x(tcsr.shape[1], seed=9)
+    x = torch.from_numpy(xn)
+    y = twc.window_spmv(tm, x)
+    assert y.dtype == torch.float64 and y.shape == (tcsr.shape[0],)
+    xh, xl = tdf.split_f64_t(x)
+    assert torch.equal(y, tdf.df_combine64(*twc.window_spmv_df_pair_reference(tm, xh, xl)))
+    hi = xn.astype(np.float32)
+    assert np.array_equal(xh.numpy(), hi)
+    assert np.array_equal(xl.numpy(), (xn - hi.astype(np.float64)).astype(np.float32))
+
+
 def test_window_f32_layout_is_the_df_hi_plane():
     """prepare_window's dtype enters only the final cast, and the split's hi
     word is f32(v): the f32 operands are the df layout without vals_lo."""
@@ -311,7 +329,8 @@ def test_df_bindings_match_the_source():
                 for p in params.split(",")]
         assert getattr(lib, name).argtypes == want, name
     assert set(sigs) >= {"dia_df_launch", "dia_resid_df_launch", "window_df_launch",
-                         "window_df_scratch_elems", "routed_df_gather_launch"}
+                         "routed_df_gather_launch"}
+    assert "window_df_scratch_elems" not in sigs  # one launch, no scratch
 
 
 def test_df_wrappers_check_on_the_cpu():
@@ -332,8 +351,8 @@ def test_df_wrappers_check_on_the_cpu():
     with pytest.raises(TypeError):
         twc.window_single_cuda(wm, torch.zeros(wcsr.shape[1]), torch.zeros(wcsr.shape[0]))
     with pytest.raises(ValueError, match="CUDA"):
-        z = torch.zeros(wcsr.shape[1])
-        twc.window_df_cuda(wm, z, z, z, z)
+        twc.window_df_cuda(wm, torch.zeros(wcsr.shape[1], dtype=torch.float64),
+                           torch.zeros(wcsr.shape[0], dtype=torch.float64))
     for fn in (tsc.dia_spmv_df_cuda, tsc.dia_resid_df_cuda, twc.window_df_cuda):
         assert fn.launches == 0
 

@@ -148,8 +148,17 @@ def test_fringe_kernel_reads_x_past_the_clip(cuda):
 
 
 #: window layouts: the three x forms (standard, shared_w, xdirect), the
-#: mod-8 fold with an overflow region, and a per-sub-block bps layout
+#: mod-8 fold with an overflow region (k_c < k_pad) and without one (k_c ==
+#: k_pad), a per-sub-block bps layout, g = 8, 24, 40 and 64, and the largest
+#: shared memory a CTA takes (g = 64 and a 128-row x window: 205 KB in df)
 WINDOW_LAYOUTS = {
+    "g8": (dict(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7), dict(g=8)),
+    "g24": (dict(m=9000, n=9000, nnz=90000, spread=900, lo=4, hi=16, seed=5), dict(g=24)),
+    "g40": (dict(m=12000, n=12000, nnz=100000, spread=1200, lo=4, hi=14, seed=4), dict(g=40)),
+    "g64_x128": (dict(m=8192, n=16384, nnz=60000, spread=3000, lo=4, hi=12, seed=6),
+                 dict(g=64, xdirect=True)),
+    "full_k_c": (dict(m=6000, n=6000, nnz=30000, spread=300, lo=3, hi=7, seed=3),
+                 dict(g=8, cap=16, max_pad=20.0)),
     "standard": (dict(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7), dict(g=16)),
     "overflow": (dict(m=4000, n=4000, nnz=50000, spread=600, lo=5, hi=20, seed=2),
                  dict(g=12, cap=16, max_pad=20.0)),
@@ -168,7 +177,9 @@ def test_window_kernel_matches_plain(cuda, layout, vals_dtype):
     gen_kw, kw = WINDOW_LAYOUTS[layout]
     csr = T.coo_to_csr(synth.fem_like(**gen_kw))
     mat = twin.prepare_window(csr, vals_dtype=vals_dtype, device=cuda, **kw)
-    assert mat.xdirect == (layout == "xdirect") and mat.shared_w == (layout == "shared_w")
+    assert mat.xdirect == (layout in ("xdirect", "g64_x128"))
+    assert mat.shared_w == (layout == "shared_w")
+    assert (mat.k_c == mat.k_pad) == (layout == "full_k_c")
     x = _x(csr.shape[1], cuda)
     counter = twc.window_single_cuda if mat.xdirect else twc.window_blocks_cuda
     before = counter.launches
@@ -385,15 +396,49 @@ def test_reruns_are_bitwise_equal(cuda):
 
 
 def test_split_window_blocks_close_in_chunk_order(cuda):
-    # delaunay's single block is split over CTAs: the partial tiles go to
-    # scratch and window_combine_kernel adds them; y is overwritten
+    # delaunay's single block is split over a thread-block cluster: the CTAs
+    # add their tiles in rank order through distributed shared memory, in
+    # one launch; y is overwritten
     csr = T.coo_to_csr(synth.preset("delaunay_n12_like"))
     mat = twin.prepare_window_auto(csr, device=cuda)
-    assert mat.xdirect and twc._lib().window_scratch_elems(1, mat.k_pad, mat.g) > 0
+    assert mat.xdirect and twc._plan(mat, mat.vals.device).cluster == twc.MAX_CLUSTER
     x = _x(csr.shape[1], cuda)
     y = torch.full((csr.shape[0],), float("nan"), device=cuda)
+    before = twc.window_single_cuda.launches
     twc.window_single_cuda(mat, x, y)
+    assert twc.window_single_cuda.launches == before + 1
     _within(y, twc.window_spmv_reference(mat, x))
+
+
+@pytest.mark.parametrize("df", [False, True])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_window_cluster_sizes(cuda, monkeypatch, cluster, df):
+    """Every CTAs-per-block count gives the plain version's y in one launch,
+    and a rerun the same bits: 1 (a CTA per block) and clusters of 2, 4
+    and 8 CTAs on one layout with an overflow region."""
+    gen_kw, kw = WINDOW_LAYOUTS["overflow"]
+    csr = T.coo_to_csr(synth.fem_like(**gen_kw))
+    mat = twin.prepare_window(csr, df=df, device=cuda, **kw)
+    auto = twc.launch_plan
+
+    def forced(nblocks, k_pad, k_c, *args):
+        step = -(-(k_c + twc.OVERFLOW_COST * (k_pad - k_c)) // cluster)
+        return dataclasses.replace(auto(nblocks, k_pad, k_c, *args), cluster=cluster, step=step)
+
+    monkeypatch.setattr(twc, "launch_plan", forced)
+    assert twc._plan(mat, mat.vals.device).cluster == cluster
+    xn = np.random.default_rng(5).standard_normal(csr.shape[1])
+    x = torch.as_tensor(xn, dtype=torch.float64 if df else torch.float32, device=cuda)
+    counter = twc.window_df_cuda if df else twc.window_blocks_cuda
+    before = counter.launches
+    a, b = twc.window_spmv(mat, x), twc.window_spmv(mat, x)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(a, b)
+    if df:
+        _df_within(a, twc.window_spmv_df_reference(mat, x), csr, xn)
+    else:
+        _within(a, twc.window_spmv_reference(mat, x))
 
 
 def test_heavy_and_small_wrappers_on_the_card(cuda):

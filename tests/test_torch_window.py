@@ -389,3 +389,117 @@ def test_cli_window_mode_refuses_unwindowable(tmp_path, capsys):
     write_mtx(path, getattr(tsynth, gen)(**kw))
     assert cli.main([path, "RNDVECT", "PL_CSR_WINDOW", "--device", "cpu", "--no-dump"]) == 1
     assert "window" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' launch plan (ops/window_cuda.py::launch_plan), held on
+# the CPU: csrc/window_spmv.cu and df_spmv.cu take it as they are given it
+# ---------------------------------------------------------------------------
+
+#: the three window proxies' shapes at a small size: thermal2_like's and
+#: fem_3d_thermal2_like's generators with fewer rows, delaunay_n12_like whole
+PROXY_SMALL = {
+    "thermal2_like": ("fem_like", dict(m=20000, n=20000, nnz=140000, spread=2048, lo=1, hi=11,
+                                       seed=0)),
+    "fem_3d_thermal2_like": ("fem_like", dict(m=8000, n=8000, nnz=190000, spread=1024, lo=13,
+                                              hi=27, seed=0)),
+    "delaunay_n12_like": DELAUNAY,
+}
+
+
+def _kernel_rows(plan, k_pad, k_c):
+    """(rank, warp, slot row, mod-8) of every slot row the kernels load, in
+    their loops' order: CTA `rank` of a block takes its rank_ranges range;
+    warp w loads the rows k < k_c with k % 8 == w (and adds them), then one
+    in eight of the rows k >= k_c, (k - ov0) % 8 == w, which the whole CTA
+    reads (warp w adding lanes 4t + w % 4 whose row % 2 == w // 4)."""
+    out = []
+    for rank, (k0, k1) in enumerate(twc.rank_ranges(plan, k_pad, k_c)):
+        assert k0 % 8 == 0
+        ov0 = max(k0, k_c)
+        for w in range(plan.threads // 32):
+            out += [(rank, w, k, True) for k in range(k0 + w, min(k1, k_c), 8)]
+            out += [(rank, w, k, False) for k in range(ov0 + w, k1, 8)]
+    return out
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "df"])
+def test_launch_plan_fits_shared_memory(kind):
+    """Every group size of the auto ladder and every window of <= 16 staged
+    8-row blocks (nspecs; the 128-row cap) fits a CTA's 232,448 bytes, at any
+    block count."""
+    for g in tw._G_LADDER:
+        for nspecs in range(1, 17):
+            for nblocks, k_pad in ((1, 288), (29, 1088), (400, 256), (5000, 2048)):
+                plan = twc.launch_plan(nblocks, k_pad, k_pad - 64, g, 8 * nspecs, kind)
+                assert plan.smem == twc.smem_bytes(g, 8 * nspecs, kind, plan.depth) <= 232_448
+                assert plan.depth in ((8,) if kind != "df" else (4, 2, 1))
+                assert plan.cluster in (1, 2, 4, 8) and plan.threads == 256
+                cost = k_pad - 64 + twc.OVERFLOW_COST * 64
+                assert plan.cluster * plan.step >= cost
+    # the largest: g = 64, a 128-row window of f64 x, a pair tile, a ring of
+    # two stages of 40 bytes per thread (four would not fit)
+    assert twc.smem_bytes(64, 128, "df", 2) == 225_808 < 232_448 < twc.smem_bytes(64, 128, "df", 4)
+    assert twc.launch_plan(1, 544, 512, 64, 128, "df").depth == 2
+    # thermal2_like in df: a ring of 1 fits two CTAs per SM (2 waves of 400
+    # blocks), a ring of 4 one (4 waves)
+    assert twc.launch_plan(400, 256, 224, 24, 64, "df").depth == 1
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "df"])
+@pytest.mark.parametrize("proxy", list(PROXY_SMALL))
+def test_launch_plan_covers_every_slot_row_once(proxy, kind):
+    tcsr, _ = _csrs(PROXY_SMALL[proxy])
+    mat = tw.prepare_window_auto(tcsr)
+    # the plan at this layout's shape, and at the full-size proxies' (the
+    # shapes of the main path: thermal2 400 blocks of k_pad 256, fem 29 of
+    # 1088, delaunay one of 288)
+    full = {"thermal2_like": (400, 256, 24), "fem_3d_thermal2_like": (29, 1088, 40),
+            "delaunay_n12_like": (1, 288, 32)}[proxy]
+    for nblocks, k_pad, g, k_c in ((mat.nblocks, mat.k_pad, mat.g, mat.k_c),
+                                   (*full, full[1] - 64)):
+        plan = twc.launch_plan(nblocks, k_pad, k_c, g, twc.window_rows(mat), kind)
+        rows = _kernel_rows(plan, k_pad, k_c)
+        assert sorted(k for _r, _w, k, _m8 in rows) == list(range(k_pad))
+        assert all(k % 8 == w for _r, w, k, m8 in rows if m8)
+        # a warp's loads of one CTA never outrun the others' by more than
+        # one mod-8 row and one overflow row
+        for rank in range(plan.cluster):
+            per_warp = [sum(1 for r, v, _k, _m in rows if r == rank and v == w) for w in range(8)]
+            assert max(per_warp) - min(per_warp) <= 2
+        assert all((k < k_c) == m8 for _r, _w, k, m8 in rows)
+    # a CTA per block where the blocks fill the card, a cluster of 8 where
+    # they are few
+    nblocks, k_pad, g = full
+    plan = twc.launch_plan(nblocks, k_pad, k_pad - 64, g, 64, "f32")
+    assert plan.cluster == (1 if proxy == "thermal2_like" else 8)
+    # the ranges cost a warp about the same: mod-8 rows 1/8 each, overflow
+    # rows OVERFLOW_COST/8 each (within one 8-row step of either kind)
+    costs = [min(k1, k_pad - 64) - min(k0, k_pad - 64)
+             + twc.OVERFLOW_COST * (max(k1, k_pad - 64) - max(k0, k_pad - 64))
+             for k0, k1 in twc.rank_ranges(plan, k_pad, k_pad - 64)]
+    assert max(costs) - min(costs) <= 2 * 8 * twc.OVERFLOW_COST
+
+
+@pytest.mark.parametrize("proxy", list(PROXY_SMALL))
+def test_mod8_groups_write_disjoint_rows(proxy):
+    """Warp j of a CTA adds the slot rows k < k_c with k % 8 == j into rows r
+    = 8*gid + j, and the overflow slots whose row r = gid has r % 8 == j: so
+    the eight warps' target rows are disjoint, and every tile cell has one
+    writer."""
+    tcsr, _ = _csrs(PROXY_SMALL[proxy])
+    mat = tw.prepare_window_auto(tcsr)
+    nb, kp, kc = mat.nblocks, mat.k_pad, mat.k_c
+    g_pad = -(-mat.g // 8) * 8
+    gid = mat.gid.reshape(nb, kp, 128).long()
+    vals = mat.vals.reshape(nb, kp, 128)
+    k = torch.arange(kp).reshape(1, kp, 1).expand(nb, kp, 128)
+    r = torch.where(k < kc, 8 * gid + k % 8, gid)
+    warp = torch.where(k < kc, k % 8, r % 8)
+    live = vals != 0
+    assert kc > 0 and (r[live] < g_pad).all()
+    targets = [set(r[live & (warp == j)].tolist()) for j in range(8)]
+    for j in range(8):
+        assert all(t % 8 == j for t in targets[j])
+        for i in range(j):
+            assert not targets[i] & targets[j]
