@@ -26,14 +26,16 @@ delaunay_n12_like; phase 2 holds each layout (the three x forms, g = 64, a
 128-row x window) against its plain version, one launch and a bitwise rerun
 per product, and phase 5 times them per call and in a CUDA graph.
 The small kernel (one launch per product of a routed domain of t <= 4
-tiles) is checked and timed against the staged chain on delaunay_n12_like,
-west2021_like and a 9000-row matrix; PL_CSR_ROUTED_BF16's pooled tiles and
+tiles, over per-row slot lists, no scratch) is held bit for bit against the
+staged chain and timed beside it on delaunay_n12_like, west2021_like and a
+9000-row matrix; PL_CSR_ROUTED_BF16's pooled tiles and
 the CLI's AUTO run on a 200,000-row matrix whose heavy rows pool.
 
 The CSR/ELL mode matrix (csr_ell_slice) follows: ell_t_kernel (csrc/
 ell_spmv.cu) on sg_like and thermal2_like and lanes_kernel (csrc/
-lanes_spmv.cu) on four small proxies and a four-window matrix against their
-plain versions, each rerun bitwise equal; then that slice's main path with
+lanes_spmv.cu, one launch per product) on four small proxies, a four-window
+matrix and a G = 64 matrix against their plain versions, each rerun bitwise
+equal; then that slice's main path with
 its own counters from zero: the harness over all 26 modes on
 delaunay_n12_like and over the mode matrix on sg_like (SG's published
 size), its log printed and read back by parse_log, every mode that prepares
@@ -247,11 +249,10 @@ def stage_cost(stage, n_x: int):
     if isinstance(stage, RC.HeavyStage):
         return heavy_cost(stage, n_x)
     if isinstance(stage, RC.SmallStage):
-        # the gather tiles, the composed maps, C's groups, x and y (its
-        # assembly scratch between the two passes stays in L2)
-        g, red = stage.staged[0], stage.staged[2]
-        ins = nbytes(g.vals, g.pidx, g.widx, stage.slab_src, stage.out_src, red.groups)
-        return ins + 4 * n_x + out, sum(ng * w for _r0, ng, w, _g0 in red.runs) * 128 + g.vals.numel()
+        # the gather tiles, the per-row slot lists, x and y; a multiply and
+        # an add per listed slot
+        ins = nbytes(stage.vals, stage.pidx, stage.widx, stage.row_ptr, stage.row_slots)
+        return ins + 4 * n_x + out, 2 * stage.row_slots.numel()
     return out, 0
 
 
@@ -376,11 +377,17 @@ def csr_ell_slice(dev, smi: str, csrs: dict):
               normal_x(mats[name].shape[1], dev, seed=1))
     lanes_ops = {}
     wide = P.coo_to_csr(synth.random_uniform(4096, 50000, density=3e-4, seed=1))
-    for name, csr in [(n, mats[n]) for n in LANES_CHECKS] + [("random_uniform 4096x50000", wide)]:
+    g64 = P.coo_to_csr(synth.random_uniform(8192, 8192, density=5e-4, seed=2))
+    for name, csr in [(n, mats[n]) for n in LANES_CHECKS] + [("random_uniform 4096x50000", wide),
+                                                             ("random_uniform 8192 (G=64)", g64)]:
         mat = lanes_ops[name] = prepare_lanes_small(csr, device=dev)
+        before = LC.lanes_cuda.launches
         check("lanes", f"{name} PL_CSR_LANES ({mat.vals.shape[0]} slot rows, {len(mat.window_tiles)} "
-              f"windows, G={mat.n_groups})", lambda v, o=mat: LC.lanes_cuda(o, v),
-              lambda v, o=mat: LC.lanes_reference(o, v), normal_x(csr.shape[1], dev, seed=1))
+              f"windows, G={mat.n_groups}, plan {LC._plan(mat, mat.vals.device)})",
+              lambda v, o=mat: LC.lanes_cuda(o, v), lambda v, o=mat: LC.lanes_reference(o, v),
+              normal_x(csr.shape[1], dev, seed=1))
+        if LC.lanes_cuda.launches != before + 2:  # the product and its rerun: one launch each
+            raise AssertionError(f"{name}: a lanes product is not one launch")
 
     # -- phase 3: the slice's main path, counters from zero -----------------
     # (PL_CSR_ROUTED and _BF16 on delaunay_n12_like run the small kernel)
@@ -686,8 +693,8 @@ def main() -> int:
     for mode, chain in routed_chains.items():
         check_routed(f"{ROUTED_CHECK} {mode}", chain, x)
     # the small kernel: one launch per product where the JAX package runs
-    # _routed_small_spmv, against its plain version (the staged chain's) and
-    # beside the staged CUDA chain on the same operands
+    # _routed_small_spmv, against its plain version and, bit for bit, the
+    # staged CUDA chain on the same operands
     small_chains = {}
     for name in SMALL_CHECKS:
         for mode in ("PL_CSR_ROUTED",) if name != "delaunay_n12_like" else ROUTED_MODES:
@@ -703,11 +710,13 @@ def main() -> int:
             check_routed(f"{label}, staged chain ({sum(staged.counts.values())} launches)", staged, x)
             ys, yg = RC.routed_chain_spmv(chain, x), RC.routed_chain_spmv(staged, x)
             torch.cuda.synchronize()
-            err = (ys - yg).abs().max().item()
-            log(f"phase 2: {label}: small kernel vs staged CUDA chain {err:.3e} "
-                f"(the same sums in the same order: bit for bit {torch.equal(ys, yg)})")
-            if not err <= bound(yg):
-                raise AssertionError(f"{label}: the small kernel disagrees with the staged chain")
+            same = torch.equal(ys, yg)
+            log(f"phase 2: {label}: small kernel vs staged CUDA chain: bit for bit {same} (the "
+                f"same products added in the same order; {chain.stages[0].row_slots.numel()} "
+                f"listed slots, no scratch: {chain.scratch_elems == 0})")
+            if not same or chain.scratch_elems:
+                raise AssertionError(f"{label}: the small kernel is not the staged chain bit for "
+                                     "bit, or its chain holds scratch")
     # PL_CSR_ROUTED_BF16's pooled tiles (bf16 hvals) on the medium matrix
     t = time.perf_counter()
     mchain = registry.get("PL_CSR_ROUTED_BF16").prepare(mats[MEDIUM], None, P.Config(), dev)
@@ -1179,7 +1188,7 @@ def main() -> int:
         b_ms, by = least_ms(*stage_cost(chain.stages[0], scsr.shape[1]))
         small_times[(name, mode)] = (tk, tg, tp, tl, b_ms, by)
         print(f"  {name:20s} {mode:18s} small kernel {tk * 1e3:8.4f} ms per call ({tg * 1e3:.4f} ms "
-              f"in a graph, 1 launch) | staged chain {tsk * 1e3:8.4f} ms ({tsg * 1e3:.4f} ms graphed, "
+              f"in a graph, 1 launch, host {max(tk - tg, 0) * 1e6:.1f} us) | staged chain {tsk * 1e3:8.4f} ms ({tsg * 1e3:.4f} ms graphed, "
               f"{sum(staged.counts.values())} launches + a memset) | plain {tp * 1e3:.4f} ms | library "
               f"(cuSPARSE CSR f32) {tl * 1e3:.4f} ms | bound {b_ms * 1e3:.2f} us ({by})")
 

@@ -2,13 +2,15 @@
 """A/B of two checkouts of the PyTorch/CUDA port on one GPU: the window
 kernels (PL_CSR_WINDOW, PL_CSR_WINDOW_BF16 and PL_CSR_WINDOW_F64 on
 thermal2_like, fem_3d_thermal2_like and delaunay_n12_like), the dense
-heavy-row kernel D and the W-stage kernel B (caida_like's chain), and the
-PL_CSR_ROUTED product on caida_like and on two small domains
-(delaunay_n12_like, a 9000-row random matrix), each per call through its
+heavy-row kernel D and the W-stage kernel B (caida_like's chain), the
+PL_CSR_ROUTED product on caida_like and on three small domains
+(delaunay_n12_like, west2021_like, a 9000-row random matrix: the small
+kernel), and the PL_CSR_LANES product (lanes_kernel) on delaunay_n12_like,
+raefsky1_like, cavity10_like and west2021_like, each per call through its
 wrapper and in a CUDA graph, whether a rerun on the same x is bitwise equal,
-and, for the window products, the share of the bound: the bytes the product
-must move (the layout's arrays and x read once, y written once) over 3.35
-TB/s, against the graphed time. The F64 operands are the f32 layout with a
+and, for the window and lanes products, the share of the bound: the bytes
+the product must move (the layout's arrays and x read once, y written once)
+over 3.35 TB/s, against the graphed time. The F64 operands are the f32 layout with a
 zero lo plane (the df layout's shape and bytes, without a second prepare).
 
     python3 scripts/torch_close_ab.py PARENT_DIR CHANGE_DIR
@@ -25,6 +27,7 @@ import sys
 import time
 
 PROXIES = ("thermal2_like", "fem_3d_thermal2_like", "delaunay_n12_like")
+LANES_PROXIES = ("delaunay_n12_like", "raefsky1_like", "cavity10_like", "west2021_like")
 MODES = ("PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16", "PL_CSR_WINDOW_F64")  # all run by window_spmv
 #: H100 SXM data sheet: the HBM rate
 HBM_BYTES_PER_S = 3.35e12
@@ -127,6 +130,7 @@ def one(tree: str) -> dict:
     # whole routed products (small domains: the staged chain in a parent
     # without the small kernel)
     for name, coo in (("caida_like", None), ("delaunay_n12_like", synth.preset("delaunay_n12_like")),
+                      ("west2021_like", synth.preset("west2021_like")),
                       ("random_uniform 9000", synth.random_uniform(9000, 9000, density=5e-4, seed=7))):
         c = chain if coo is None else RC.prepare_routed_chain(P.coo_to_csr(coo), device=dev)
         xc = x if coo is None else torch.as_tensor(
@@ -137,6 +141,24 @@ def one(tree: str) -> dict:
             "ms": time_per_call(lambda v, c=c: RC.routed_chain_spmv(c, v), xc) * 1e3,
             "graph_ms": graph_ms(lambda c=c, xc=xc: RC.routed_chain_spmv(c, xc)),
             "rerun_equal": bool(torch.equal(a, b))}
+    # lane-gather products (PL_CSR_LANES)
+    spec = registry.get("PL_CSR_LANES")
+    for name in LANES_PROXIES:
+        csr = P.coo_to_csr(synth.preset(name))
+        ops = spec.prepare(csr, None, P.Config(), dev)
+        fn = spec.jitted(ops)
+        xl = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
+                             dtype=torch.float32, device=dev)
+        a, b = fn(xl), fn(xl)
+        torch.cuda.synchronize()
+        moved = sum(t.numel() * t.element_size() for t in (ops.vals, ops.pidx, ops.gid,
+                                                            ops.tile_win))
+        moved += 4 * sum(csr.shape)
+        tg = graph_ms(lambda: fn(xl))
+        out[f"{name} PL_CSR_LANES product"] = {
+            "ms": time_per_call(fn, xl) * 1e3, "graph_ms": tg, "rerun_equal": bool(torch.equal(a, b)),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "bound_share": moved / HBM_BYTES_PER_S * 1e3 / tg}
     return out
 
 

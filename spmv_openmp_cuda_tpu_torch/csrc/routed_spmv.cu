@@ -56,14 +56,22 @@
 //     a device of the MXU; the sums here are direct. Bound: bytes (hvals,
 //     hpidx, hlo, hhi and x, ~27 MB per product on webbase_like).
 //   - The small kernel composes the chain. Its permutations are static, so
-//     build_chain runs element ids through them (the plain W stages): each
-//     reduce-slab slot knows the gather slot whose product it holds, and
-//     each row of y the output element of C it receives. One thread per row
-//     of y then takes C's run sum of that element over products computed in
-//     place (A's arithmetic, C's order): one pass, no slab in between, no
-//     barrier, as many CTAs as y needs. (Stages run one after another in
-//     one CTA, as the TPU kernel runs them in VMEM, are bound by that one
-//     SM's issue rate.)
+//     build_chain runs element ids through them (the plain W stages) and
+//     folds in C's groups: each row i of y gets the gather slots whose
+//     products C adds into it, in C's order, as a per-row slot list
+//     (row_slots[row_ptr[i] .. row_ptr[i+1]), at most h1*128 int32). The
+//     kSmallLanes threads of a row then load a round of 16 of its slots
+//     (each thread four), the slots' values and panels, then x: three
+//     dependent round trips after row_ptr, no slab in between, no barrier,
+//     CTAs of 64 threads so that the rows spread over many SMs. The
+//     products pass by shuffle, and each of the row's threads adds them one
+//     at a time in list order. Products and adds are __fmul_rn/__fadd_rn
+//     (never contracted into an FMA), as A multiplies and C adds, so y
+//     equals the staged chain's bit for bit. Bound: latency, the scattered
+//     loads of the slots' operands and of x (delaunay's ~0.6 MB stay in
+//     L2): four threads per row keep four times the loads in flight that
+//     one thread would. (Stages run one after another in one CTA, as the
+//     TPU kernel runs them in VMEM, are bound by that one SM's issue rate.)
 // Nothing closes with atomics: every sum is taken in an order fixed by the
 // layout, so a rerun is bitwise equal. x is read by global column behind a
 // bounds test against n (no padded window stack is built). Products and
@@ -88,7 +96,9 @@ constexpr long long kWindowElems = 128LL * 128;
 constexpr int kHChunk = kThreads * 8 * 2;  // columns of H per CTA of D
 constexpr int kHeavyThreads = 512;         // E: 4 threads per residue
 constexpr int kPPitch = kLane + 1;         // floats per staged product row of E
-constexpr int kSmallBatch = 8;             // slab rows whose loads a thread issues together
+constexpr int kSmallLanes = 4;             // threads per row of y of the small kernel
+constexpr int kSmallBatch = 4;             // list slots whose loads such a thread issues together
+constexpr int kSmallThreads = 64;          // threads per CTA of the small kernel
 constexpr int kRowWarps = 8;               // heavy rows per CTA of the row sums
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -384,63 +394,70 @@ size_t heavy_smem() {
 }
 
 // The small kernel's operands (routed_cuda.py::SmallStage): the gather
-// tiles, the chain's permutations composed into slab_src (reduce-slab slot
-// -> gather slot, -1: a pad tile's zero) and out_src (y row -> C's output
-// element gi*128 + l, -1: the zeroed assembly tail), and C's groups.
+// tiles and the per-row slot lists, row i of y summing the products of the
+// gather slots row_slots[row_ptr[i] .. row_ptr[i+1]) in that order.
 struct SmallArgs {
   const void* vals;
   const int8_t* pidx;
   const int32_t* widx;
-  const int32_t* slab_src;
-  const int2* groups;
-  const int32_t* out_src;
+  const int32_t* row_ptr;
+  const int32_t* row_slots;
   float* y;
   long long m;
 };
 
-// The product of gather slot s (A's element before its W1), 0 for s < 0.
+// The small kernel, kSmallLanes threads per row i of y: the products of its
+// list's gather slots (A's arithmetic: vals * x at the slot's column, x zero
+// past n_x), added one at a time from +0 in list order (C's order). Per
+// round of kSmallLanes*kSmallBatch slots, thread j loads slots u*kSmallLanes
+// + j (u < kSmallBatch) and their operands, all in flight together; the
+// products then pass by shuffle, so that every thread of the row adds them
+// in list order, and thread 0 writes y[i].
 template <typename T>
-__device__ __forceinline__ float gather_product(const T* __restrict__ vals,
-                                                const int8_t* __restrict__ pidx,
-                                                const int32_t* __restrict__ widx, int s,
-                                                const float* __restrict__ x, long long n_x) {
-  if (s < 0) return 0.f;
-  const long long col = (long long)widx[s / (kLane * kLane)] * kWindowElems +
-                        (long long)pidx[s] * kLane + (s / kLane) % kLane;
-  const float xv = (col >= 0 && col < n_x) ? __ldg(x + col) : 0.f;
-  return to_f32(vals[s]) * xv;
-}
-
-// The small kernel, one thread per row i of y: C's run sum of the element
-// out_src[i] (group gi, lane l), over the products that the composed
-// permutation brings to the group's slab rows, computed in place and added
-// in C's order (so y equals the staged chain's bit for bit), kSmallBatch
-// rows' loads in flight at a time.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSmallThreads)
 routed_small_kernel(SmallArgs a, const float* __restrict__ x, long long n_x) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= a.m) return;
-  const int e = a.out_src[i];
+  constexpr int kL = kSmallLanes, kRound = kSmallLanes * kSmallBatch;
+  const long long gt = (long long)blockIdx.x * kSmallThreads + threadIdx.x;
+  const long long i = gt / kL;
+  const int j = (int)(gt % kL);
+  if (i >= a.m) return;  // a row's threads leave together
+  const unsigned row_mask = ((1u << kL) - 1) << (threadIdx.x % 32 / kL * kL);
+  const T* __restrict__ vals = static_cast<const T*>(a.vals);
+  const int p0 = __ldg(a.row_ptr + i), p1 = __ldg(a.row_ptr + i + 1);
   float acc = 0.f;
-  if (e >= 0) {
-    const int2 g = a.groups[e / kLane];  // (first slab row, width)
-    const int l = e % kLane;
-    for (int k0 = 0; k0 < g.y; k0 += kSmallBatch) {
-      int src[kSmallBatch];
-      float v[kSmallBatch];
+  for (int p = p0; p < p1; p += kRound) {
+    int s[kSmallBatch];
 #pragma unroll
-      for (int u = 0; u < kSmallBatch; ++u)
-        src[u] = k0 + u < g.y ? a.slab_src[(g.x + k0 + u) * kLane + l] : -1;
-#pragma unroll
-      for (int u = 0; u < kSmallBatch; ++u)
-        v[u] = gather_product(static_cast<const T*>(a.vals), a.pidx, a.widx, src[u], x, n_x);
-#pragma unroll
-      for (int u = 0; u < kSmallBatch; ++u)
-        if (k0 + u < g.y) acc += v[u];
+    for (int u = 0; u < kSmallBatch; ++u) {
+      const int q = p + u * kL + j;
+      s[u] = q < p1 ? __ldg(a.row_slots + q) : -1;
     }
+    float v[kSmallBatch];
+    long long col[kSmallBatch];
+#pragma unroll
+    for (int u = 0; u < kSmallBatch; ++u) {
+      if (s[u] >= 0) {
+        v[u] = to_f32(vals[s[u]]);
+        col[u] = (long long)__ldg(a.widx + s[u] / (kLane * kLane)) * kWindowElems +
+                 (long long)a.pidx[s[u]] * kLane + (s[u] / kLane) % kLane;
+      } else {
+        v[u] = 0.f;
+        col[u] = -1;
+      }
+    }
+    float prod[kSmallBatch];
+#pragma unroll
+    for (int u = 0; u < kSmallBatch; ++u)
+      prod[u] = __fmul_rn(v[u], (col[u] >= 0 && col[u] < n_x) ? __ldg(x + col[u]) : 0.f);
+#pragma unroll
+    for (int u = 0; u < kSmallBatch; ++u)
+#pragma unroll
+      for (int jj = 0; jj < kL; ++jj) {
+        const float o = __shfl_sync(row_mask, prod[u], jj, kL);
+        if (p + u * kL + jj < p1) acc = __fadd_rn(acc, o);
+      }
   }
-  a.y[i] = acc;
+  if (j == 0) a.y[i] = acc;
 }
 
 size_t w_stage_smem(bool whole) {
@@ -538,11 +555,12 @@ int heavy_launch(int vals_bf16, const void* hvals, const int8_t* hpidx, const in
 
 int small_launch(int vals_bf16, const SmallArgs& a, const float* x, long long n_x,
                  cudaStream_t st) {
-  const unsigned grid = (unsigned)((a.m + kThreads - 1) / kThreads);
+  if (a.m <= 0) return 0;
+  const unsigned grid = (unsigned)((a.m * kSmallLanes + kSmallThreads - 1) / kSmallThreads);
   if (vals_bf16) {
-    routed_small_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a, x, n_x);
+    routed_small_kernel<__nv_bfloat16><<<grid, kSmallThreads, 0, st>>>(a, x, n_x);
   } else {
-    routed_small_kernel<float><<<grid, kThreads, 0, st>>>(a, x, n_x);
+    routed_small_kernel<float><<<grid, kSmallThreads, 0, st>>>(a, x, n_x);
   }
   return (int)cudaGetLastError();
 }
@@ -569,7 +587,7 @@ enum Op {
   kOpGather = 1, kOpWStage = 2, kOpReduce = 3, kOpHDense = 4, kOpZero = 5, kOpHeavy = 6,
   kOpSmall = 7
 };
-constexpr int kOpWords[] = {0, 9, 11, 11, 7, 3, 14, 10};  // by op: the op and its operands
+constexpr int kOpWords[] = {0, 9, 11, 11, 7, 3, 14, 9};  // by op: the op and its operands
 
 }  // namespace
 
@@ -631,16 +649,15 @@ int routed_chain_launch(const long long* prog, int len, const float* x, long lon
                           (int)prog[i + 11], x, n_x, (float*)P(i + 12), (float*)P(i + 13), st);
         kernel = 4;
         break;
-      case kOpSmall: {  // vals_bf16 vals pidx widx slab_src groups out_src y m
+      case kOpSmall: {  // vals_bf16 vals pidx widx row_ptr row_slots y m
         SmallArgs a;
         a.vals = P(i + 2);
         a.pidx = (const int8_t*)P(i + 3);
         a.widx = (const int32_t*)P(i + 4);
-        a.slab_src = (const int32_t*)P(i + 5);
-        a.groups = (const int2*)P(i + 6);
-        a.out_src = (const int32_t*)P(i + 7);
-        a.y = (float*)P(i + 8);
-        a.m = prog[i + 9];
+        a.row_ptr = (const int32_t*)P(i + 5);
+        a.row_slots = (const int32_t*)P(i + 6);
+        a.y = (float*)P(i + 7);
+        a.m = prog[i + 8];
         rc = small_launch((int)prog[i + 1], a, x, n_x, st);
         kernel = 5;
         break;

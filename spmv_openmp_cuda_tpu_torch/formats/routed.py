@@ -118,6 +118,15 @@ class RoutedCSR:
     heavy_lanes: Tuple[int, ...] = ()
 
 
+def pack_x_windows_flat(x: torch.Tensor, nwin: int) -> torch.Tensor:
+    """x -> transposed window stack: rows [w*128, (w+1)*128) hold window w
+    as (residue, panel), xw[w*128 + s, p] = x[w*16384 + p*128 + s] (zero
+    past n). The JAX package's x layout, used by the plain versions
+    of the kernels only."""
+    xp = torch.nn.functional.pad(x.to(torch.float32), (0, nwin * WINDOW_ELEMS - x.shape[0]))
+    return xp.reshape(nwin, LANE, LANE).transpose(1, 2).reshape(nwin * LANE, LANE)
+
+
 def n_windows_for(n_cols: int, max_col_window: int, window_elems: int) -> int:
     """Window count covering all n_cols columns (not just the populated
     ones — trailing all-zero columns must still pad cleanly)."""

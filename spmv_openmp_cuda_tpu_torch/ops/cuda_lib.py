@@ -18,6 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Callable, Dict, Tuple
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -85,3 +87,9 @@ def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
         bind(lib)
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def current_stream(dev: torch.device) -> int:
+    """The raw handle of dev's current CUDA stream, on which the kernels
+    launch (without building a torch.cuda.Stream object per call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)

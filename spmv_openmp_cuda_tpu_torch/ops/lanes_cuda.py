@@ -2,27 +2,32 @@
 
 Counterpart of the kernel half of spmv_openmp_cuda_tpu/formats/lanes.py
 (lanes_small_spmv) and of its registry hook: the wrapper of the
-hand-written kernels in csrc/lanes_spmv.cu (lanes_kernel and its
-fixed-order combine, f32), their plain PyTorch version, the conversion of
-the JAX package's prepared LanesSmall, and the mode.
+hand-written kernel in csrc/lanes_spmv.cu (lanes_kernel, f32, one launch
+per product), its plain PyTorch version, its launch plan (launch_plan: the
+thread-block cluster per band of 32 lanes, the slot rows per warp), the
+conversion of the JAX package's prepared LanesSmall, and the mode.
 
-The wrapper launches the kernels for CUDA tensors and raises on anything it
-does not take; it runs the plain version only for tensors on the CPU.
+The wrapper launches the kernel for CUDA tensors and raises on anything it
+does not take; it runs the plain version only for tensors on the CPU. The
+layout's tensors are checked and its plan made at its first launch and kept
+on the layout while its fields stay the same objects; x is checked at every
+call.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..config import LANE
 from ..formats.lanes import LanesError, LanesSmall, tile_windows
+from ..formats.routed import pack_x_windows_flat
 from . import cuda_lib
-from .routed_cuda import pack_x_windows_flat
 from .spmv_cuda import _require, _to_tensor
 
-#: row groups the kernel's shared-memory tile holds (G * 128 f32 <= 32 KB)
+#: row groups a warp's shared-memory tile holds (G * 32 f32 <= 8 KB)
 MAX_GROUPS = 64
 
 
@@ -40,12 +45,46 @@ def lanes_reference(mat: LanesSmall, x: torch.Tensor) -> torch.Tensor:
     return acc.reshape(-1)[: mat.shape[0]]
 
 
+#: csrc/lanes_spmv.cu: bands of 32 lanes, warps per CTA, slot rows per
+#: batch (a warp's ranges are whole batches), the largest cluster
+BANDS, WARPS, BATCH, MAX_CLUSTER = LANE // 32, 8, 16, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How csrc/lanes_spmv.cu runs a layout: `cluster` CTAs per band of 32
+    lanes (1, or a thread-block cluster of 2, 4 or 8), of WARPS warps
+    each; warp wg = rank*WARPS + w takes the batches of BATCH slot rows
+    [wg*step, (wg+1)*step); `smem` bytes of dynamic shared memory (smem_bytes)."""
+
+    cluster: int
+    step: int
+    smem: int
+
+
+def launch_plan(n_rows: int, n_groups: int) -> LaunchPlan:
+    """The cluster doubles (up to 8) while its warps are fewer than the
+    batches of slot rows; the batches are then split evenly over the band's
+    warps."""
+    batches = n_rows // BATCH
+    cluster = 1
+    while cluster < MAX_CLUSTER and batches > cluster * WARPS:
+        cluster *= 2
+    return LaunchPlan(cluster=cluster, step=-(-batches // (cluster * WARPS)),
+                      smem=smem_bytes(n_groups, cluster))
+
+
+def smem_bytes(n_groups: int, cluster: int) -> int:
+    """csrc/lanes_spmv.cu's lanes_smem: a (G, 32) f32 tile per warp, and
+    the inbox of the close (a slot per rank of the row groups the CTA
+    writes)."""
+    return (WARPS * n_groups + cluster * -(-n_groups // cluster)) * 32 * 4
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lanes_launch.argtypes = [p, p, p, p, ll, i, p, ll, ll, p, p, p]
+    lib.lanes_launch.argtypes = [p, p, p, p, i, i, p, ll, ll, p, i, i, i, p]
     lib.lanes_launch.restype = i
-    lib.lanes_rows_per_cta.argtypes = []
-    lib.lanes_rows_per_cta.restype = i
     lib.lanes_error_string.argtypes = [i]
     lib.lanes_error_string.restype = ctypes.c_char_p
 
@@ -54,49 +93,58 @@ def _lib() -> ctypes.CDLL:
     return cuda_lib.load("lanes_spmv", _bind)
 
 
-def _check(mat: LanesSmall, x: torch.Tensor) -> None:
+def _check_layout(mat: LanesSmall, dev) -> None:
     ks = mat.vals.shape[0]
     if ks % LANE or ks == 0:
         raise ValueError(f"{ks} slot rows: not whole tiles")
     if not 0 < mat.n_groups <= MAX_GROUPS or mat.n_groups * LANE < mat.shape[0]:
         raise ValueError(f"n_groups={mat.n_groups} for {mat.shape[0]} rows (at most {MAX_GROUPS})")
-    dev = x.device
     _require(mat.vals, "mat.vals", (torch.float32,), (ks, LANE), dev)
     _require(mat.pidx, "mat.pidx", (torch.int32,), (ks, LANE), dev)
     _require(mat.gid, "mat.gid", (torch.int32,), (ks, LANE), dev)
     _require(mat.tile_win, "mat.tile_win", (torch.int32,), (ks // LANE,), dev)
-    _require(x, "x", (torch.float32,), (mat.shape[1],), dev)
+
+
+def _check(mat: LanesSmall, x: torch.Tensor) -> None:
+    _check_layout(mat, x.device)
+    _require(x, "x", (torch.float32,), (mat.shape[1],), x.device)
+
+
+def _plan(mat: LanesSmall, dev) -> LaunchPlan:
+    """The layout's launch plan on CUDA device dev, its tensors checked once
+    and the plan kept on mat while its fields are the same objects."""
+    tensors = (mat.vals, mat.pidx, mat.gid, mat.tile_win)
+    geometry = (dev, mat.shape, mat.n_groups)
+    hit = mat.__dict__.get("_cuda_plan")
+    if hit is not None and hit[1] == geometry and all(a is b for a, b in zip(hit[0], tensors)):
+        return hit[2]
+    _check_layout(mat, dev)
+    plan = launch_plan(mat.vals.shape[0], mat.n_groups)
+    mat.__dict__["_cuda_plan"] = (tensors, geometry, plan)
+    return plan
 
 
 def lanes_cuda(mat: LanesSmall, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x (f32, length m) over a lane-gather layout.
 
-    CUDA tensors launch lanes_kernel and its combine; CPU tensors take
+    CUDA tensors launch lanes_kernel (one launch; the layout checked and its
+    plan made at its first launch, x at every call); CPU tensors take
     lanes_reference. Anything else raises."""
-    _check(mat, x)
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
+        _check(mat, x)
         return lanes_reference(mat, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    plan = _plan(mat, dev)
+    m, n = mat.shape
+    _require(x, "x", (torch.float32,), (n,), dev)
+    y = torch.empty(m, dtype=torch.float32, device=dev)
     lib = _lib()
-    ks = mat.vals.shape[0]
-    n_parts = -(-ks // lib.lanes_rows_per_cta())
-    m = mat.shape[0]
-    partials = torch.empty(n_parts * mat.n_groups * LANE, dtype=torch.float32, device=x.device)
-    y = torch.empty(m, dtype=torch.float32, device=x.device)
     rc = lib.lanes_launch(
-        mat.vals.data_ptr(),
-        mat.pidx.data_ptr(),
-        mat.gid.data_ptr(),
-        mat.tile_win.data_ptr(),
-        ks,
-        mat.n_groups,
-        x.data_ptr(),
-        x.shape[0],
-        m,
-        partials.data_ptr(),
-        y.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        mat.vals.data_ptr(), mat.pidx.data_ptr(), mat.gid.data_ptr(), mat.tile_win.data_ptr(),
+        mat.vals.shape[0], mat.n_groups, x.data_ptr(), n, m, y.data_ptr(), plan.cluster,
+        plan.step, plan.smem, cuda_lib.current_stream(dev),
     )
     if rc != 0:
         raise RuntimeError(
@@ -157,9 +205,9 @@ def _register() -> None:
             ),
             run=lanes_cuda,
             doc="CUDA lane-gather engine for small unstructured matrices "
-            "(G <= 64 row groups): x gathered by column, per-CTA row-group "
-            "sums in shared memory (thread = lane, no atomics), partials "
-            "combined in a fixed order",
+            "(G <= 64 row groups): x gathered by column, one launch, bands "
+            "of 32 lanes over thread-block clusters, per-warp row-group sums "
+            "in shared memory closed in a fixed order (no atomics)",
         )
     )
 

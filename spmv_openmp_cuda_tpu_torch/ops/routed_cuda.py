@@ -21,8 +21,9 @@ One product is a chain of stages, built once per prepared matrix
 -> output permutation (B: W1, SW.W2.SW^-1, W3.R3 into y) -> pooled heavy
 tiles (E, added into y at the heavy rows). A small domain (the JAX
 package's `small_ok` test) is one stage instead, the small kernel, which
-runs A, B, C and the output permutation in one launch (`SmallStage`; its
-plain version is the staged chain's). On a CUDA device the chain is encoded
+runs A, B, C and the output permutation in one launch over per-row slot
+lists composed at build time (`SmallStage`; its plain version,
+`small_reference`, equals the staged chain's bit for bit). On a CUDA device the chain is encoded
 once as a program that csrc/routed_spmv.cu enqueues in one call (its one
 entry point; each single-kernel wrapper runs a one-op program through it,
 and it counts the launches it made); on the CPU each stage runs its plain
@@ -50,6 +51,7 @@ from ..formats.routed import (
     RoutedChunks,
     RoutedCSR,
     RoutedDF,
+    pack_x_windows_flat,
     prepare_routed_auto,
     prepare_routed_df_auto,
 )
@@ -111,14 +113,6 @@ def _rows(src: torch.Tensor, src_rows: int, n_rows: int) -> torch.Tensor:
     out = torch.zeros(n_rows, LANE, dtype=torch.float32, device=src.device)
     out[:k] = src[:k]
     return out
-
-
-def pack_x_windows_flat(x: torch.Tensor, nwin: int) -> torch.Tensor:
-    """x -> transposed window stack: rows [w*128, (w+1)*128) hold window w
-    as (residue, panel), xw[w*128 + s, p] = x[w*16384 + p*128 + s] (zero
-    past n). The JAX package's x layout, used by the plain version only."""
-    xp = torch.nn.functional.pad(x.to(torch.float32), (0, nwin * WINDOW_ELEMS - x.shape[0]))
-    return xp.reshape(nwin, LANE, LANE).transpose(1, 2).reshape(nwin * LANE, LANE)
 
 
 def gather_reference(vals, pidx, widx, w1, n_tiles: int, x: torch.Tensor) -> torch.Tensor:
@@ -213,6 +207,29 @@ def heavy_sums_reference(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx,
     return out.index_add_(0, owner, slots[slot_idx.long()])
 
 
+def small_reference(vals, pidx, widx, row_ptr, row_slots, x: torch.Tensor) -> torch.Tensor:
+    """Plain small kernel: y[i] (f32, length m) = the products of the gather
+    slots row_slots[row_ptr[i] : row_ptr[i + 1]] (A's arithmetic: vals * x
+    at the slot's column, x zero past n) added one at a time in list order
+    from +0, as C adds a group's slab rows."""
+    m = row_ptr.shape[0] - 1
+    y = torch.zeros(m, dtype=torch.float32, device=x.device)
+    if row_slots.numel() == 0:
+        return y
+    s = row_slots.long()
+    n = x.shape[0]
+    col = (widx.long()[s // (LANE * LANE)] * WINDOW_ELEMS + pidx.reshape(-1).long()[s] * LANE
+           + (s // LANE) % LANE)
+    xv = torch.where(col < n, x[col.clamp(max=max(n - 1, 0))], torch.zeros((), device=x.device))
+    prod = vals.reshape(-1)[s].to(torch.float32) * xv
+    ptr = row_ptr.long()
+    lens = ptr[1:] - ptr[:-1]
+    for k in range(int(lens.max())):
+        at = (ptr[:-1] + k).clamp(max=s.shape[0] - 1)
+        y = torch.where(lens > k, y + prod[at], y)
+    return y
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers (csrc/routed_spmv.cu)
 # ---------------------------------------------------------------------------
@@ -228,10 +245,6 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _lib() -> ctypes.CDLL:
     return cuda_lib.load("routed_spmv", _bind)
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _on_cuda(*ts) -> torch.device:
@@ -306,30 +319,41 @@ def _heavy_op(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, part, out
 
 
 def _small_op(stage: "SmallStage") -> List[int]:
-    g, red = stage.staged[0], stage.staged[2]
-    return _op(_OP_SMALL, g.vals.dtype == torch.bfloat16, g.vals, g.pidx, g.widx, stage.slab_src,
-               _aligned(red.groups, 8), stage.out_src, stage.out, stage.out_elems())
+    return _op(_OP_SMALL, stage.vals.dtype == torch.bfloat16, stage.vals, stage.pidx, stage.widx,
+               stage.row_ptr, stage.row_slots, stage.out, stage.out_elems())
 
 
-def _run_program(prog: np.ndarray, x: Optional[torch.Tensor], y: Optional[int],
-                 scratch: Optional[int], dev: torch.device) -> None:
-    """Enqueue prog on dev's current stream; the counters gain the launches
-    the C side made (those enqueued before an error too); an error raises."""
-    lib = _lib()
-    counts = np.zeros(len(_COUNTERS), dtype=np.int32)
-    rc = lib.routed_chain_launch(
-        prog.ctypes.data, prog.shape[0], None if x is None else x.data_ptr(),
-        0 if x is None else x.shape[0], y, scratch, counts.ctypes.data, _stream(dev),
-    )
-    for fn, c in zip(_COUNTERS.values(), counts.tolist()):
-        fn.launches += c
-    if rc != 0:
-        msg = lib.routed_error_string(rc).decode()
-        raise RuntimeError(f"routed kernels: launch failed: CUDA error {rc} ({msg})")
+class Program:
+    """A program of csrc/routed_spmv.cu::routed_chain_launch, made once: its
+    int64 words and the host array the C side counts its launches into."""
+
+    def __init__(self, words):
+        self.words = np.ascontiguousarray(words, dtype=np.int64)
+        self.counts = (ctypes.c_int * len(_COUNTERS))()
+        self._addr = (self.words.ctypes.data, ctypes.addressof(self.counts))
+
+    def run(self, x: Optional[torch.Tensor], y: int, scratch: int, dev: torch.device) -> None:
+        """Enqueue the program on dev's current stream; the counters gain
+        the launches the C side made (those enqueued before an error too);
+        an error raises."""
+        lib = _lib()
+        rc = lib.routed_chain_launch(
+            self._addr[0], self.words.shape[0], 0 if x is None else x.data_ptr(),
+            0 if x is None else x.shape[0], y, scratch, self._addr[1],
+            cuda_lib.current_stream(dev),
+        )
+        counts = self.counts
+        for i, fn in enumerate(_COUNTER_FNS):
+            if counts[i]:
+                fn.launches += counts[i]
+                counts[i] = 0
+        if rc != 0:
+            msg = lib.routed_error_string(rc).decode()
+            raise RuntimeError(f"routed kernels: launch failed: CUDA error {rc} ({msg})")
 
 
 def _run_op(op: List[int], x: Optional[torch.Tensor], dev: torch.device) -> None:
-    _run_program(np.asarray(op, dtype=np.int64), x, None, None, dev)
+    Program(op).run(x, 0, 0, dev)
 
 
 def routed_gather_cuda(vals, pidx, widx, w1, n_tiles: int, x, out) -> torch.Tensor:
@@ -406,11 +430,11 @@ routed_heavy_cuda.launches = 0
 
 def routed_small_cuda(stage: "SmallStage", x, y) -> torch.Tensor:
     """The small kernel: a small domain's whole product (A, B, C and the
-    output permutation of stage.staged, composed) in one launch, into the
-    chain's y buffer at the stage's offset."""
-    dev = _on_cuda(x, y, stage.slab_src, stage.out_src)
+    output permutation, composed into per-row slot lists) in one launch,
+    into the chain's y buffer at the stage's offset."""
+    dev = _on_cuda(x, y, stage.row_ptr, stage.row_slots)
     _check_out(y, "y", stage.out.off + stage.out_elems(), dev)
-    _run_program(np.asarray(_small_op(stage), dtype=np.int64), x, y.data_ptr(), None, dev)
+    Program(_small_op(stage)).run(x, y.data_ptr(), 0, dev)
     return y
 
 
@@ -427,6 +451,7 @@ _COUNTERS = {
     "heavy": routed_heavy_cuda,
     "small": routed_small_cuda,
 }
+_COUNTER_FNS = tuple(_COUNTERS.values())
 
 
 # ---------------------------------------------------------------------------
@@ -762,22 +787,21 @@ class HeavyStage:  # kernel E: the pooled heavy tiles, added into y
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class SmallStage:  # the small kernel: staged's A, B, C and output stages
-    staged: tuple  # the staged chain it replaces (its plain version)
-    # the chain's permutations composed: reduce-slab slot (row, lane) holds
-    # the product of gather slot slab_src[row*128 + lane] (-1: none), and
-    # y[i] is C's output element out_src[i] (group*128 + lane; -1: zero)
-    slab_src: torch.Tensor  # (h1*128,) int32
-    out_src: torch.Tensor  # (m,) int32
+class SmallStage:  # the small kernel: a small domain's A, B, C and output stages
+    vals: torch.Tensor  # the gather tiles
+    pidx: torch.Tensor
+    widx: torch.Tensor
+    # the chain's permutations and C's groups composed: row i of y is the
+    # sum, in C's order, of the products of the gather slots
+    # row_slots[row_ptr[i] : row_ptr[i + 1]]
+    row_ptr: torch.Tensor  # (m + 1,) int32
+    row_slots: torch.Tensor  # (row_ptr[m],) int32, at most h1*128
+    out: Buf  # the domain's y
 
     kernel = "small"
 
-    @property
-    def out(self) -> Buf:
-        return self.staged[-1].out
-
     def out_elems(self) -> int:
-        return self.staged[-1].out_elems()
+        return self.row_ptr.shape[0] - 1
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -814,10 +838,15 @@ def small_ok(mat: RoutedCSR) -> bool:
     )
 
 
-def _small_maps(mat: RoutedCSR, staged) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SmallStage's slab_src and out_src: element ids (exact in f32 below
-    2^24) run through the staged chain's permutations, the plain W stages;
-    the gather's pad tiles and the assembly tail carry -1."""
+def _small_lists(staged) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SmallStage's row_ptr and row_slots. Element ids (exact in f32 below
+    2^24) run through the staged chain's permutations (the plain W stages)
+    give each reduce-slab slot the gather slot whose product it holds (-1:
+    a pad tile) and each row of y the output element of C it receives (-1:
+    the zeroed assembly tail). C's groups then give row i, at element
+    group*128 + lane, its slab rows row0 .. row0 + width - 1 at that lane,
+    in C's order; the pad slots are dropped (their zero product leaves a sum
+    that starts at +0 as it is)."""
     gather, w2, red, _zero, *outs = staged
     dev = gather.vals.device
     h1 = gather.n_tiles * LANE
@@ -834,7 +863,18 @@ def _small_maps(mat: RoutedCSR, staged) -> Tuple[torch.Tensor, torch.Tensor]:
     for st in outs:
         dom = w_stage_reference(dom, ho, st.r, st.w, st.ra, st.t, st.sw, st.n_tiles)
     m = outs[-1].out_limit
-    return (slab.reshape(-1).to(torch.int32), dom.reshape(-1)[:m].to(torch.int32).contiguous())
+    slab = slab.reshape(-1).long().cpu().numpy()
+    e = dom.reshape(-1)[:m].long().cpu().numpy()
+    groups = red.groups.long().cpu().numpy()
+    gi = np.where(e >= 0, e // LANE, 0)
+    width = np.where(e >= 0, groups[gi, 1], 0)
+    rows = np.repeat(np.arange(m), width)
+    k = np.arange(rows.shape[0]) - np.repeat(np.cumsum(width) - width, width)
+    src = slab[(groups[gi, 0][rows] + k) * LANE + e[rows] % LANE]
+    keep = src >= 0
+    ptr = np.r_[0, np.cumsum(np.bincount(rows[keep], minlength=m))]
+    return (torch.from_numpy(ptr.astype(np.int32)).to(dev),
+            torch.from_numpy(src[keep].astype(np.int32)).to(dev))
 
 
 def heavy_slot_map(hreduce: np.ndarray, device):
@@ -905,7 +945,8 @@ def _domain_stages(mat: RoutedCSR, y: Buf, alloc, fuse_small: bool = True) -> Li
         stages.append(HeavyStage(mat.hvals, mat.hpidx, mat.hwidx, mat.hlo, mat.hhi, slot_ptr,
                                  slot_idx, rows, alloc(mat.hvals.shape[0] // LANE), y, m))
     if fuse_small and small_ok(mat):
-        return [SmallStage(tuple(stages), *_small_maps(mat, stages))]
+        g = stages[0]
+        return [SmallStage(g.vals, g.pidx, g.widx, *_small_lists(stages), y)]
     return stages
 
 
@@ -922,8 +963,8 @@ class RoutedChain:
     #: per product: the launches of each kernel the stages plan (the
     #: counters hold those the C side made)
     counts: Dict[str, int]
-    #: the CUDA program: segments of int64 arrays, a large heavy block's
-    #: matmul stage between them
+    #: the CUDA program: Programs, a large heavy block's matmul stage
+    #: between them
     segments: Tuple = ()
 
     @property
@@ -1048,8 +1089,10 @@ def build_chain(mat: Union[RoutedCSR, RoutedChunks], fuse_small: bool = True) ->
             used[0] += rows * LANE
             return buf
 
-        stages += _domain_stages(dmat, Buf("y", r0), alloc, fuse_small)
-        scratch = max(scratch, used[0])
+        dstages = _domain_stages(dmat, Buf("y", r0), alloc, fuse_small)
+        stages += dstages
+        if not isinstance(dstages[0], SmallStage):  # the small kernel needs no scratch
+            scratch = max(scratch, used[0])
     dev = domains[0].vals.device
     counts = {k: sum(s.kernel == k for s in stages) for k in _COUNTERS}
     chain = RoutedChain(
@@ -1057,7 +1100,8 @@ def build_chain(mat: Union[RoutedCSR, RoutedChunks], fuse_small: bool = True) ->
         device=dev, counts=counts,
     )
     if dev.type == "cuda":
-        chain.segments = _encode(chain.stages)
+        chain.segments = tuple(Program(s) if isinstance(s, np.ndarray) else s
+                               for s in _encode(chain.stages))
     return chain
 
 
@@ -1108,8 +1152,8 @@ def run_stage(stage: Stage, bufs: Dict[str, torch.Tensor], plain: bool) -> None:
         out.zero_()
     elif isinstance(stage, SmallStage):
         if plain:
-            for s in stage.staged:
-                run_stage(s, bufs, plain=True)
+            out.copy_(small_reference(stage.vals, stage.pidx, stage.widx, stage.row_ptr,
+                                      stage.row_slots, x))
         else:
             routed_small_cuda(stage, x, bufs["y"])
     elif isinstance(stage, HeavyStage):
@@ -1178,13 +1222,17 @@ def routed_chain_spmv(chain: RoutedChain, x: torch.Tensor) -> torch.Tensor:
     routed_spmv_reference. Anything else raises."""
     if _device_of(x) == "cpu":
         return routed_spmv_reference(chain, x)
-    bufs = _buffers(chain, x)
+    m, n = chain.shape
+    _require(x, "x", _F32, (n,), chain.device)
+    y = torch.empty(m, dtype=torch.float32, device=x.device)
+    s = torch.empty(chain.scratch_elems, dtype=torch.float32, device=x.device) \
+        if chain.scratch_elems else None
     for seg in chain.segments:
         if isinstance(seg, HDenseStage):
-            run_stage(seg, bufs, plain=False)
+            run_stage(seg, {"x": x, "y": y, "s": s}, plain=False)
         else:
-            _run_program(seg, x, bufs["y"].data_ptr(), bufs["s"].data_ptr(), x.device)
-    return bufs["y"]
+            seg.run(x, y.data_ptr(), 0 if s is None else s.data_ptr(), x.device)
+    return y
 
 
 def compare_stages(chain: RoutedChain, x: torch.Tensor):
@@ -1386,7 +1434,7 @@ def routed_df_gather_cuda(vals, vals_lo, pidx, widx, n_tiles: int, xh, xl, oh, o
     rc = dfloat.df_lib().routed_df_gather_launch(
         vals.data_ptr(), vals_lo.data_ptr(), pidx.data_ptr(), widx.data_ptr(),
         vals.shape[0] // LANE, n_tiles, xh.data_ptr(), xl.data_ptr(), xh.shape[0],
-        oh.data_ptr(), ol.data_ptr(), _stream(dev),
+        oh.data_ptr(), ol.data_ptr(), cuda_lib.current_stream(dev),
     )
     dfloat.check_launch(rc, "routed_df_gather_kernel")
     routed_df_gather_cuda.launches += 1

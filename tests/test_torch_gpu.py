@@ -466,6 +466,38 @@ def test_heavy_and_small_wrappers_on_the_card(cuda):
         trc.routed_heavy_cuda(*args, st.rows, x, y, part=torch.empty(10, device=cuda))
 
 
+#: small routed domains (the small kernel): proxy, mode
+SMALL_CASES = {
+    "delaunay_n12_like": (lambda: synth.preset("delaunay_n12_like"), "PL_CSR_ROUTED"),
+    "delaunay_n12_like_bf16": (lambda: synth.preset("delaunay_n12_like"), "PL_CSR_ROUTED_BF16"),
+    "west2021_like": (lambda: synth.preset("west2021_like"), "PL_CSR_ROUTED"),
+    "random_uniform_9000": (lambda: synth.random_uniform(9000, 9000, density=5e-4, seed=7),
+                            "PL_CSR_ROUTED"),
+}
+
+
+@pytest.mark.parametrize("case", list(SMALL_CASES))
+def test_small_kernel_equals_the_staged_chain(cuda, case):
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    coo, mode = SMALL_CASES[case]
+    csr = T.coo_to_csr(coo())
+    chain = registry.get(mode).prepare(csr, None, T.Config(), cuda)
+    staged = trc.build_chain(chain.mat, fuse_small=False)
+    assert chain.counts == {**{k: 0 for k in trc._COUNTERS}, "small": 1}
+    assert chain.scratch_elems == 0 and staged.scratch_elems > 0
+    x = _x(csr.shape[1], cuda)
+    before = trc.routed_small_cuda.launches
+    # one launch that allocates nothing but y
+    y, held = _allocated_by(lambda: trc.routed_chain_spmv(chain, x), cuda)
+    assert trc.routed_small_cuda.launches == before + 1
+    assert held == _block(4 * csr.shape[0])
+    # the same products added in the same order as the staged CUDA chain
+    assert torch.equal(y, trc.routed_chain_spmv(staged, x))
+    assert torch.equal(y, trc.routed_chain_spmv(chain, x))
+    _within(y, trc.routed_spmv_reference(chain, x))
+
+
 # ---------------------------------------------------------------------------
 # double-float (float64) kernels of csrc/df_spmv.cu against their plain
 # versions: max |y_kernel - y_plain| <= 1e-12 * max|y_plain| (both (hi, lo)
@@ -562,10 +594,27 @@ LANES_CASES = {
     "delaunay_n12_like": lambda: synth.preset("delaunay_n12_like"),
     "west2021_like": lambda: synth.preset("west2021_like"),
     "raefsky1_like": lambda: synth.preset("raefsky1_like"),
+    "cavity10_like": lambda: synth.preset("cavity10_like"),
     # four x windows, n not a multiple of 16384: the last window's empty
     # slots point past n
     "wide": lambda: synth.random_uniform(4096, 50000, density=3e-4, seed=1),
+    # G = 64 row groups: 64 KB of warp tiles per CTA
+    "g64": lambda: synth.random_uniform(8192, 8192, density=5e-4, seed=2),
 }
+
+
+def _allocated_by(fn, dev):
+    """(fn's result, the bytes it left allocated on dev)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated(dev) - before
+
+
+def _block(nbytes):
+    """The caching allocator's size for nbytes: a multiple of 512."""
+    return -(-nbytes // 512) * 512
 
 
 def _oracle_within(yk, csr, x):
@@ -603,11 +652,16 @@ def test_lanes_kernel_matches_plain(cuda, case):
     mat = prepare_lanes_small(csr, device=cuda)
     if case == "wide":
         assert len(mat.window_tiles) == 4 and csr.shape[1] % (128 * 128)
+    if case == "g64":
+        assert mat.n_groups == 64
     x = _x(csr.shape[1], cuda)
     before = tlc.lanes_cuda.launches
-    yk = tlc.lanes_cuda(mat, x)
-    torch.cuda.synchronize()
+    # one launch, and no buffer but y: no partial tiles in global memory
+    yk, held = _allocated_by(lambda: tlc.lanes_cuda(mat, x), cuda)
     assert tlc.lanes_cuda.launches == before + 1
+    assert held == _block(4 * csr.shape[0])
+    plan = tlc._plan(mat, x.device)
+    assert plan.cluster * tlc.WARPS * plan.step * tlc.BATCH >= mat.vals.shape[0]
     _within(yk, tlc.lanes_reference(mat, x))
     _oracle_within(yk, csr, x)
     assert torch.equal(yk, tlc.lanes_cuda(mat, x))

@@ -32,6 +32,7 @@ from spmv_openmp_cuda_tpu_torch.io.mmio import write_mtx
 from spmv_openmp_cuda_tpu_torch.ops import registry  # noqa: F401  (imports the ops in order)
 from spmv_openmp_cuda_tpu_torch.formats import routed as tr
 from spmv_openmp_cuda_tpu_torch.models import auto as tauto
+from spmv_openmp_cuda_tpu_torch.ops import lanes_cuda as tlc
 from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
 from spmv_openmp_cuda_tpu_torch.ops import window_cuda as twc
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
@@ -394,6 +395,30 @@ def test_small_stage_where_jax_takes_the_small_kernel(shape):
         _close(y, jr.routed_spmv(jm, jnp.asarray(x.numpy(), jnp.float32)))
 
 
+#: the SMALL_SHAPES whose domain has no levels and no heavy rows: the
+#: staged chain is gather, W2, reduce and the output permutation, which
+#: compose into per-row slot lists (small_ok holds for the first three)
+LIST_SHAPES = ["9000", "6000", "25000", "t_over_4", "windows"]
+
+
+@pytest.mark.parametrize("shape", LIST_SHAPES)
+def test_small_lists_give_the_staged_chain_bit_for_bit(shape):
+    tcsr, tm, jm = _small_prepared(shape)
+    staged = trc.build_chain(tm, fuse_small=False)
+    g = staged.stages[0]
+    row_ptr, row_slots = trc._small_lists(staged.stages)
+    assert row_ptr.shape == (tcsr.shape[0] + 1,) and row_slots.numel() <= tm.perm_products.h * LANE
+    x = torch.as_tensor(_x(tcsr.shape[1], seed=4), dtype=torch.float32)
+    # a plain torch loop over the lists in C's order: the staged chain's
+    # plain result, bit for bit
+    y = trc.small_reference(g.vals, g.pidx, g.widx, row_ptr, row_slots, x)
+    assert torch.equal(y, trc.routed_spmv_reference(staged, x))
+    if SMALL_SHAPES[shape][1]:  # the JAX package takes _routed_small_spmv
+        _close(y, jr.routed_spmv(jm, jnp.asarray(x.numpy(), jnp.float32)))
+    o = serial_csr_spmv(tcsr, x.double().numpy())
+    assert np.abs(y.double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
+
+
 def test_small_stage_on_a_forced_clause():
     # a layout without static windows (widx_t) fails the JAX test; the
     # port's refuses a products or output plan with r1 (its router folds it)
@@ -413,15 +438,21 @@ def test_small_program_parses():
     src = open(os.path.join(os.path.dirname(trc.__file__), "..", "csrc", "routed_spmv.cu")).read()
     words = [int(v) for v in re.search(r"kOpWords\[\] = \{([^}]*)\}", src).group(1).split(",")]
     (prog,) = trc._encode(chain.stages)
-    assert int(prog[0]) == 7 and words[7] == len(prog)
-    # operands: the y it writes (tag 2) and m; no scratch
-    assert int(prog[-2]) >> 56 == 2 and int(prog[-1]) == tm.shape[0]
-    assert not any(int(v) >> 56 == 1 for v in prog[1:])
-    # the composed maps: every y row from the assembly domain, every slab
-    # slot from a gather slot or a pad tile (-1)
+    assert int(prog[0]) == 7 and words[7] == len(prog) == 9
     st = chain.stages[0]
-    assert st.out_src.shape == (tm.shape[0],) and st.slab_src.shape == (tm.perm_products.h * LANE,)
-    assert int(st.out_src.min()) >= 0 and int(st.slab_src.max()) < tm.vals.numel()
+    # operands: the gather tiles, the per-row slot lists, the y it writes
+    # (tag 2) and m; no scratch, and the chain allocates none
+    assert [int(v) for v in prog[2:7]] == [t.data_ptr() for t in (st.vals, st.pidx, st.widx,
+                                                                   st.row_ptr, st.row_slots)]
+    assert int(prog[-2]) >> 56 == 2 and int(prog[-1]) == tm.shape[0]
+    assert not any(int(v) >> 56 == 1 for v in prog[1:]) and chain.scratch_elems == 0
+    # the composed lists: one per row of y, each a run of real gather slots,
+    # at most one slot per slab slot (h1*128)
+    ptr, slots = st.row_ptr, st.row_slots
+    assert ptr.shape == (tm.shape[0] + 1,) and ptr.dtype == slots.dtype == torch.int32
+    assert int(ptr[0]) == 0 and bool((ptr[1:] >= ptr[:-1]).all()) and int(ptr[-1]) == slots.numel()
+    assert slots.numel() <= tm.perm_products.h * LANE
+    assert int(slots.min()) >= 0 and int(slots.max()) < tm.vals.numel()
 
 
 def test_new_wrappers_take_cuda_tensors_only():
@@ -443,6 +474,7 @@ def test_new_wrappers_take_cuda_tensors_only():
 @pytest.mark.parametrize("mod,src,names", [
     (trc, "routed_spmv.cu", {"routed_chain_launch", "routed_error_string"}),
     (twc, "window_spmv.cu", {"window_launch", "window_error_string"}),
+    (tlc, "lanes_spmv.cu", {"lanes_launch", "lanes_error_string"}),
 ])
 def test_bindings_match_the_source(mod, src, names):
     """The sources are compiled only on a machine with nvcc: hold each C

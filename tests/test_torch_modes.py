@@ -306,6 +306,80 @@ def test_lanes_from_jax(name):
                            j.shape, j.nnz, j.n_groups)
 
 
+#: lane-gather layouts of G = 1, 32 and 64 row groups, each over one x
+#: window and over four (n > 3*16384)
+LANES_PLAN_SHAPES = [(m, n) for m in (100, 4096, 8192) for n in (3000, 50000)]
+
+
+def _lanes_pair(m, n):
+    coo = synth.random_uniform(m, n, density=3.0 / n, seed=m + n)
+    tcsr = T.coo_to_csr(coo)
+    jcsr = J.CSRMatrix(shape=tcsr.shape, indptr=tcsr.indptr, indices=tcsr.indices, data=tcsr.data)
+    return tcsr, tlanes.prepare_lanes_small(tcsr), jcsr
+
+
+def _warp_rows(plan, n_rows):
+    """[(band, warp, slot rows)] of every warp of the launch, as
+    csrc/lanes_spmv.cu's lanes_kernel walks them."""
+    out = []
+    for band in range(tlc.BANDS):
+        for wg in range(plan.cluster * tlc.WARPS):
+            q0 = wg * plan.step
+            q1 = min(q0 + plan.step, n_rows // tlc.BATCH)
+            out.append((band, wg, range(q0 * tlc.BATCH, max(q0, q1) * tlc.BATCH)))
+    return out
+
+
+@pytest.mark.parametrize("m,n", LANES_PLAN_SHAPES)
+def test_lanes_launch_plan_covers_every_slot_row_once(m, n):
+    _, mat, _ = _lanes_pair(m, n)
+    assert mat.n_groups == -(-m // 128) and len(mat.window_tiles) == (1 if n <= 16384 else 4)
+    ks = mat.vals.shape[0]
+    cpu = torch.device("cpu")
+    plan = tlc._plan(mat, cpu)
+    # what csrc/lanes_spmv.cu::lanes_launch checks
+    assert plan.cluster in (1, 2, 4, 8) and plan.step >= 1
+    assert plan.cluster * tlc.WARPS * plan.step * tlc.BATCH >= ks
+    assert plan.smem == tlc.smem_bytes(mat.n_groups, plan.cluster) <= 232_448
+    assert plan.smem >= (tlc.WARPS + 1) * mat.n_groups * 32 * 4
+    seen = np.zeros((tlc.BANDS, ks), dtype=np.int64)
+    for band, _wg, rows in _warp_rows(plan, ks):
+        # whole batches of 16 slot rows, so that none crosses a 128-row tile
+        assert rows.start % tlc.BATCH == 0 and len(rows) % tlc.BATCH == 0
+        seen[band, rows.start : rows.stop] += 1
+    assert (seen == 1).all()
+    # the plan is kept on the layout while its fields are the same objects
+    assert tlc._plan(mat, cpu) is plan
+    assert tlc._plan(dataclasses.replace(mat, pidx=mat.pidx.clone()), cpu) == plan
+    with pytest.raises(ValueError):
+        tlc._plan(dataclasses.replace(mat, n_groups=65), cpu)
+
+
+def test_lanes_launch_plan_fills_the_card_on_delaunay():
+    # delaunay_n12_like: 896 slot rows, G = 32 -> clusters of 8 CTAs of 8
+    # warps for each of the 4 bands (256 warps), one 16-row batch per warp
+    mat = tlanes.prepare_lanes_small(T.coo_to_csr(synth.preset("delaunay_n12_like")))
+    assert (mat.vals.shape[0], mat.n_groups) == (896, 32)
+    plan = tlc.launch_plan(896, 32)
+    assert (plan.cluster, plan.step) == (8, 1)
+    assert len(_warp_rows(plan, 896)) == tlc.BANDS * 8 * tlc.WARPS == 256
+
+
+@pytest.mark.parametrize("m,n", LANES_PLAN_SHAPES)
+def test_lanes_plain_matches_jax_at_the_plan_shapes(m, n):
+    # the JAX kernel in interpret mode takes 7-35 s at G >= 32 over four
+    # windows or at G = 64: there the exact oracle alone holds the port
+    tcsr, mat, jcsr = _lanes_pair(m, n)
+    x = _x(n, seed=2)
+    y_t = tlc.lanes_cuda(mat, torch.as_tensor(x, dtype=torch.float32))
+    assert y_t.shape == (m,)
+    if m <= 128 or (m <= 4096 and n <= 16384):
+        _close(y_t, jlanes.lanes_small_spmv(jlanes.prepare_lanes_small(jcsr),
+                                            jnp.asarray(x, jnp.float32)))
+    o = serial_csr_spmv(tcsr, x)
+    assert np.abs(y_t.double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
+
+
 @pytest.mark.parametrize("name", ["ragged", "banded"])
 def test_ell_from_jax(name):
     _, (_, jcsr, jell) = _both(name)
