@@ -19,6 +19,13 @@ dtypes, and times kernel, plain version and one PyTorch library call
 (cuSPARSE through torch.sparse, f32 or f64, a yardstick the port never
 calls) with CUDA events; the routed kernels alone are timed inside CUDA
 graphs, so that the host's launch cost does not hide their device time.
+The DIA+residual product (PL_DIA_RESID, _BF16 and _F64) is one launch of
+dia_resid_kernel or dia_resid_df_kernel (band and fringe together, f64 in
+and out): phase 2 holds it against its plain version on raefsky1_like, a
+200,000-row banded check matrix and a 3000 x 6000 band whose fringe reads x
+past the JAX window's clip, one launch and a bitwise rerun per product, and
+phase 5 times the whole product per call and in a CUDA graph against
+cuSPARSE on the whole matrix.
 The window kernels (csrc/window_spmv.cu, df_spmv.cu's window_df_kernel)
 run one launch per product in every dtype: a CTA per block on
 thermal2_like, thread-block clusters on fem_3d_thermal2_like and
@@ -128,6 +135,42 @@ HARNESS_RUNS = {
 #: lane-gather proxies (at most 64 row groups) and the transposed-ELL ones
 LANES_CHECKS = ("delaunay_n12_like", "raefsky1_like", "cavity10_like", "west2021_like")
 ELL_T_CHECKS = ("sg_like", "thermal2_like")
+#: the DIA+residual check matrices beside raefsky1_like: a 200,000-row band
+#: (61 diagonals, 38 TPU blocks, 201,015 fringe nnz: the band streams from
+#: HBM) and a 3000 x 6000 band with two fringe entries past the JAX window's
+#: clip of x
+RESID_BIG = "banded_200000"
+RESID_CLIP = "banded_3000x6000_past_clip"
+RESID_MODES = ("PL_DIA_RESID", "PL_DIA_RESID_BF16", "PL_DIA_RESID_F64")
+
+
+def wide_band_with_far_fringe():
+    """A 3000 x 6000 band with two fringe entries (columns 4300, 5000) past
+    the JAX window's clip of x at (S + pad_sub) * 128 = 4224."""
+    import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch.utils import synth
+
+    band = synth.banded(3000, 3000, 30, fill=1.0, seed=0)
+    rows = np.r_[band.rows, [2998, 2999]]
+    cols = np.r_[band.cols, [4300, 5000]]
+    vals = np.r_[band.vals, [2.0, 1.0]]
+    return P.sort_coo(P.COOMatrix((3000, 6000), rows, cols, vals))
+
+
+def resid_cost(dr, n_x: int, df: bool):
+    """(bytes, flops) of one DIA+residual product: the slab's rows < m (both
+    planes in df) and the offsets, the per-row fringe lists, x and y, each
+    once; 2 flops per slab slot and fringe entry (DF_FLOPS_PER_SLOT in df)."""
+    mat = dr.mat
+    d, m = len(mat.offsets), mat.shape[0]
+    planes = 2 if df else 1
+    lists = nbytes(dr.row_ptr, dr.fr_val, dr.fr_col, *((dr.fr_lo,) if df else ()))
+    moved = planes * d * m * mat.data.element_size() + nbytes(mat.offsets_dev) + lists
+    moved += (8 if df else 4) * (n_x + m)
+    slots = d * m + dr.fr_col.numel()
+    return moved, (DF_FLOPS_PER_SLOT if df else 2) * slots
+
+
 #: float64 mode of each format (AutoSpMV and CLI AUTO at --dtype float64)
 F64_MODES = {"dia": "PL_DIA_F64", "dia_resid": "PL_DIA_RESID_F64",
              "window": "PL_CSR_WINDOW_F64", "routed": "PL_CSR_ROUTED_F64"}
@@ -528,7 +571,6 @@ def main() -> int:
     from spmv_openmp_cuda_tpu_torch.cli import time_per_call
     from spmv_openmp_cuda_tpu_torch.config import LANE
     from spmv_openmp_cuda_tpu_torch.formats import window as W
-    from spmv_openmp_cuda_tpu_torch.formats.dia import split_offsets
     from spmv_openmp_cuda_tpu_torch.io.mmio import write_mtx
     from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector
     from spmv_openmp_cuda_tpu_torch.models.auto import AutoSpMV
@@ -568,6 +610,9 @@ def main() -> int:
     gens = [(name, lambda name=name: synth.preset(name), csrs)
             for name in (*DIA_CHECKS, *WINDOW_CHECKS, ROUTED_CHECK, "sg_rand_like", POOLED_CHECK)]
     gens += [(name, lambda name=name: synth.preset(name), extra) for name in ("sg_like", "west2021_like")]
+    gens += [(RESID_BIG, lambda: synth.banded(200_000, 200_000, 30, fill=1.0, exact_nnz=12_400_000,
+                                              seed=0), extra),
+             (RESID_CLIP, wide_band_with_far_fringe, extra)]
     gens += [(MEDIUM, lambda: pooled_heavy_matrix(**MEDIUM_ARGS), extra),
              ("random_uniform 9000", lambda: synth.random_uniform(9000, 9000, density=5e-4, seed=7), extra)]
     for name, gen, into in gens:
@@ -579,8 +624,36 @@ def main() -> int:
     mats = {**csrs, **extra}
 
     # -- phase 2: each kernel against its plain version ---------------------
-    errs = {"dia_spmv": 0.0, "dia_resid": 0.0, "window_blocks": 0.0, "window_single": 0.0}
+    errs = {"dia_spmv": 0.0, "dia_resid": 0.0, "dia_resid_df": 0.0, "window_blocks": 0.0,
+            "window_single": 0.0}
     prepared = {}
+
+    def check_resid(label, dr, plan, x):
+        """One DIA+residual product through its wrapper: one launch, a rerun
+        bitwise equal, against the plain version."""
+        df = x.dtype == torch.float64
+        wrap = SC.dia_resid_spmv_df_cuda if df else SC.dia_resid_spmv_cuda
+        before = wrap.launches
+        yk, y2 = wrap(dr, x, plan), wrap(dr, x, plan)
+        torch.cuda.synchronize()
+        if wrap.launches != before + 2 or not torch.equal(yk, y2):
+            raise AssertionError(f"{label}: {wrap.launches - before} launches for two products, "
+                                 f"rerun bitwise equal {torch.equal(yk, y2)}")
+        kernel = "dia_resid_df" if df else "dia_resid"
+        what = (f"{label} {kernel}_kernel ({SC._resid_plan(dr, plan, x.device)} threads per row, "
+                f"{dr.nnz_resid} fringe nnz, one launch, rerun bitwise equal)")
+        if df:
+            check_df(what, yk, SC.dia_spmv_df_reference(dr.mat, x, plan, dr), errs, kernel)
+            return
+        yp = SC.dia_spmv_reference(dr.mat, x, plan, dr)
+        err = (yk - yp).abs().max().item()
+        ok = err <= bound(yp) and yk.abs().max().item() > 0
+        errs[kernel] = max(errs[kernel], err)
+        log(f"phase 2: {what}: max|y_k - y_p| = {err:.3e} <= {bound(yp):.3e}: "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: {kernel}_kernel disagrees with its plain version")
+
     for name, modes in DIA_CHECKS.items():
         csr = csrs[name]
         x = normal_x(csr.shape[1], dev, seed=1)
@@ -590,13 +663,12 @@ def main() -> int:
             ops = spec.prepare(csr, None, P.Config(), dev)
             prep_s = time.perf_counter() - t
             prepared[(name, mode)] = ops
+            if mode.startswith("PL_DIA_RESID"):
+                check_resid(f"{name} {mode}, prepare {prep_s:.1f}s:", *ops, x)
+                continue
             yk = spec.jitted(ops)(x)
             torch.cuda.synchronize()
-            if mode.startswith("PL_DIA_RESID"):
-                dr, plan = ops
-                yp = SC.dia_spmv_reference(dr.mat, x, plan, dr)
-            else:
-                yp = SC.dia_spmv_reference(ops[0], x, ops[1])
+            yp = SC.dia_spmv_reference(ops[0], x, ops[1])
             err = (yk - yp).abs().max().item()
             ok = err <= bound(yp) and yk.abs().max().item() > 0
             errs["dia_spmv"] = max(errs["dia_spmv"], err)
@@ -605,17 +677,33 @@ def main() -> int:
                 f"{'OK' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} {mode}: kernel disagrees with its plain version")
-            if mode.startswith("PL_DIA_RESID"):
-                dr, plan = ops
-                y0 = torch.zeros(plan.s_pad * LANE, device=dev)
-                SC.dia_resid_cuda(dr, x, y0, plan)
-                yr = SC.dia_resid_reference(dr, x, plan)
-                err = (y0 - yr).abs().max().item()
-                errs["dia_resid"] = max(errs["dia_resid"], err)
-                log(f"phase 2: {name} {mode} fringe kernel alone: {err:.3e} <= {bound(yr):.3e}, "
-                    f"{dr.nnz_resid} fringe nnz")
-                if not (err <= bound(yr) and y0.abs().max().item() > 0):
-                    raise AssertionError(f"{name} {mode}: fringe kernel disagrees")
+    # the two check matrices in the three DIA+residual modes. The 200,000-row
+    # band is prepared once, in df: its hi planes are what the f32 prepare
+    # makes (every value rounded to f32, the same plan), bf16 their cast
+    resid_ops = {}
+    t = time.perf_counter()
+    big64, big_plan = SC.prepare_dia_resid(mats[RESID_BIG], df=True, device=dev)
+    big_prep_s = time.perf_counter() - t
+    if SC.plan_dia(big64.mat.as_dia(), max_bs=42) != big_plan:
+        raise AssertionError(f"{RESID_BIG}: the f32 plan differs from the df plan {big_plan}")
+    for dt in (torch.float32, torch.bfloat16):
+        mat = big64.mat.as_dia()
+        mat = dataclasses.replace(mat, data=mat.data.to(dt))
+        dr = dataclasses.replace(big64, mat=mat, rvals=big64.rvals.to(dt), rvals_lo=None)
+        resid_ops[(RESID_BIG, "PL_DIA_RESID" if dt == torch.float32 else "PL_DIA_RESID_BF16")] = (
+            SC.with_fringe_lists(dr, big_plan), big_plan)
+    resid_ops[(RESID_BIG, "PL_DIA_RESID_F64")] = (big64, big_plan)
+    log(f"phase 2: {RESID_BIG}: {len(big64.mat.offsets)} diagonals, bs={big_plan.bs}, "
+        f"nblocks={big_plan.nblocks}, {big64.nnz_resid} fringe nnz (k_pad {big64.k_pad}), "
+        f"df prepare {big_prep_s:.1f}s")
+    for mode in RESID_MODES:
+        resid_ops[(RESID_CLIP, mode)] = registry.get(mode).prepare(
+            mats[RESID_CLIP], None, P.Config(dtype="float64" if mode.endswith("F64") else "float32"),
+            dev)
+    for (name, mode), (dr, plan) in resid_ops.items():
+        n = mats[name].shape[1]
+        x = normal_x64(n, dev, seed=1) if mode.endswith("F64") else normal_x(n, dev, seed=1)
+        check_resid(f"{name} {mode}:", dr, plan, x)
 
     def window_launch(label, mat, x, counter):
         """One product through window_spmv: one launch of its kernel, a rerun
@@ -748,7 +836,7 @@ def main() -> int:
 
     # -- phase 3: the main path, counters from zero ------------------------
     SC.dia_spmv_cuda.launches = 0
-    SC.dia_resid_cuda.launches = 0
+    SC.dia_resid_spmv_cuda.launches = 0
     WC.window_blocks_cuda.launches = 0
     WC.window_single_cuda.launches = 0
     for fn in RC._COUNTERS.values():
@@ -766,7 +854,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {
         "dia_spmv": SC.dia_spmv_cuda.launches,
-        "dia_resid": SC.dia_resid_cuda.launches,
+        "dia_resid": SC.dia_resid_spmv_cuda.launches,
         "window_blocks": WC.window_blocks_cuda.launches,
         "window_single": WC.window_single_cuda.launches,
         **{k: fn.launches for k, fn in RC._COUNTERS.items()},
@@ -802,6 +890,12 @@ def main() -> int:
     # (csr_ell_slice): AutoSpMV takes no small routed domain here
     if not all(v for k, v in launches.items() if k != "small"):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    # one launch per hybrid product: three products (x_ref, x_n, the rerun)
+    # per dia_resid proxy
+    hybrid = 3 * sum(fmt == "dia_resid" for fmt, *_ in outputs.values())
+    if launches["dia_resid"] != hybrid:
+        raise AssertionError(f"{launches['dia_resid']} dia_resid_kernel launches for {hybrid} "
+                             "DIA+residual products")
 
     # -- phase 2, continued: webbase_like's chain (the main path's operands)
     # stage by stage against the plain versions, kernel E against
@@ -818,11 +912,11 @@ def main() -> int:
     # -- phase 3, float64: the main path on the df kernels, counters from zero
     cfg64 = P.Config(dtype="float64")
     df_counters = {
-        "dia_df": SC.dia_spmv_df_cuda, "dia_resid_df": SC.dia_resid_df_cuda,
+        "dia_df": SC.dia_spmv_df_cuda, "dia_resid_df": SC.dia_resid_spmv_df_cuda,
         "window_df": WC.window_df_cuda, "routed_df_gather": RC.routed_df_gather_cuda,
     }
     f32_counters = {
-        "dia_spmv": SC.dia_spmv_cuda, "dia_resid": SC.dia_resid_cuda,
+        "dia_spmv": SC.dia_spmv_cuda, "dia_resid": SC.dia_resid_spmv_cuda,
         "window_blocks": WC.window_blocks_cuda, "window_single": WC.window_single_cuda,
         **RC._COUNTERS,
     }
@@ -869,6 +963,10 @@ def main() -> int:
             raise AssertionError(f"{name}: wrong float64 output")
     if not all(launches64.values()):
         raise AssertionError(f"a df kernel of the main path never launched: {launches64}")
+    hybrid64 = 3 * sum(fmt == "dia_resid" for fmt, *_ in outputs64.values())
+    if launches64["dia_resid_df"] != hybrid64 or also.get("dia_resid"):
+        raise AssertionError(f"{launches64['dia_resid_df']} dia_resid_df_kernel launches for "
+                             f"{hybrid64} DIA+residual products (f32 kernels: {also})")
 
     # -- phase 2, continued: the window and df kernels against their plain
     # versions on the main paths' own operands (no second prepare)
@@ -881,22 +979,14 @@ def main() -> int:
         x64 = normal_x64(csr.shape[1], dev, seed=1)
         ops = prepared_df[name] = models64[name]._operands
         if mode == "PL_DIA_RESID_F64":
-            dr, plan = ops
-            mat, yp = dr.mat, SC.dia_spmv_df_reference(dr.mat, x64, plan, dr)
-        else:
-            (mat, plan), dr = ops, None
-            yp = SC.dia_spmv_df_reference(mat, x64, plan)
+            check_resid(f"{name} {mode} (the main path's operands, bs={ops[1].bs}, "
+                        f"{len(ops[0].mat.offsets)} diagonals):", *ops, x64)
+            continue
+        mat, plan = ops
         check_df(f"{name} {mode} dia_df_kernel (bs={plan.bs}, nblocks={plan.nblocks}, "
                  f"{len(mat.offsets)} diagonals)",
-                 registry.get(mode).jitted(ops)(x64), yp, errs, "dia_df")
-        if dr is not None:
-            xh, xl = DF.split_f64_t(x64)
-            yh = torch.zeros(plan.s_pad * LANE, device=dev)
-            yl = torch.zeros_like(yh)
-            SC.dia_resid_df_cuda(dr, xh, xl, yh, yl, plan)
-            check_df(f"{name} dia_resid_df_kernel alone ({dr.nnz_resid} fringe nnz)",
-                     DF.df_combine64(yh, yl),
-                     DF.df_combine64(*SC.dia_resid_df_reference(dr, xh, xl, plan)), errs, "dia_resid_df")
+                 registry.get(mode).jitted(ops)(x64), SC.dia_spmv_df_reference(mat, x64, plan),
+                 errs, "dia_df")
 
     for name, modes in WINDOW_CHECKS.items():
         csr = csrs[name]
@@ -1007,13 +1097,13 @@ def main() -> int:
     libs = {}
     times = {}
     for (name, mode), ops in prepared.items():
+        if mode.startswith("PL_DIA_RESID"):
+            continue  # the whole DIA+residual product, below
         csr = csrs[name]
         x = normal_x(csr.shape[1], dev, seed=4)
         spec = registry.get(mode)
         if mode.startswith("PL_CSR_WINDOW"):
             plain = lambda v, o=ops: WC.window_spmv_reference(o, v)
-        elif mode.startswith("PL_DIA_RESID"):
-            plain = lambda v, o=ops: SC.dia_spmv_reference(o[0].mat, v, o[1], o[0])
         else:
             plain = lambda v, o=ops: SC.dia_spmv_reference(o[0], v, o[1])
         tk = time_per_call(spec.jitted(ops), x)
@@ -1031,25 +1121,30 @@ def main() -> int:
               f"{2 * csr.nnz / tk / 1e9:8.2f} GFLOP/s "
               f"{gb / tk:8.1f} slab GB/s | plain {tp * 1e3:9.4f} ms | library (cuSPARSE CSR f32) "
               f"{libs[name] * 1e3:9.4f} ms | slab {gb * 1e3:.1f} MB")
-    # the fringe kernel alone, and its library yardstick: cuSPARSE on the
-    # fringe nnz only
-    rcsr = csrs["raefsky1_like"]
-    dr, plan = prepared[("raefsky1_like", "PL_DIA_RESID")]
-    x = normal_x(rcsr.shape[1], dev, seed=5)
-    y0 = torch.zeros(plan.s_pad * LANE, device=dev)
-    t_rk = time_per_call(lambda v: SC.dia_resid_cuda(dr, v, y0, plan), x)
-    t_rp = time_per_call(lambda v: SC.dia_resid_reference(dr, v, plan), x)
-    fringe = ~split_offsets(rcsr)
-    rows_f = rcsr.row_ids()[fringe]
-    fcsr = P.CSRMatrix(
-        shape=rcsr.shape,
-        indptr=np.r_[0, np.cumsum(np.bincount(rows_f, minlength=rcsr.shape[0]))].astype(np.int64),
-        indices=rcsr.indices[fringe], data=rcsr.data[fringe],
-    )
-    t_rl = time_per_call(library_spmv(fcsr, dev), x)
-    print(f"  raefsky1_like fringe alone: kernel {t_rk * 1e3:.4f} ms | plain {t_rp * 1e3:.4f} ms "
-          f"| library {t_rl * 1e3:.4f} ms ({dr.nnz_resid} fringe nnz in "
-          f"{plan.nblocks}x{dr.k_pad}x{LANE} slots)")
+    # the whole DIA+residual product (f32 and bf16; f64 with the df kernels
+    # below) on raefsky1_like (the main path's operands) and the
+    # 200,000-row band: per call, graphed, plain, cuSPARSE on the whole
+    # matrix in f32, and the bound
+    resid_times = {}
+    for name in ("raefsky1_like", RESID_BIG):
+        csr = mats[name]
+        lib_fn = library_spmv(csr, dev)
+        x = normal_x(csr.shape[1], dev, seed=4)
+        t_lib = time_per_call(lib_fn, x)
+        del lib_fn
+        for mode in RESID_MODES[:2]:
+            dr, plan = prepared[(name, mode)] if name == "raefsky1_like" else resid_ops[(name, mode)]
+            tk = time_per_call(lambda v, o=dr, p=plan: SC.dia_resid_spmv_cuda(o, v, p), x)
+            tg = graph_ms(lambda o=dr, p=plan: SC.dia_resid_spmv_cuda(o, x, p))
+            tp = time_per_call(lambda v, o=dr, p=plan: SC.dia_spmv_reference(o.mat, v, p, o), x)
+            moved, flops = resid_cost(dr, csr.shape[1], df=False)
+            b_ms, by = least_ms(moved, flops)
+            resid_times[(name, mode)] = (tk, tp, t_lib, b_ms, by)
+            print(f"  {name:20s} {mode:18s} dia_resid_kernel {tk * 1e3:9.4f} ms per call ({tg:.4f} ms "
+                  f"in a CUDA graph, 1 launch, {SC._resid_plan(dr, plan, x.device)} threads per row) "
+                  f"{2 * csr.nnz / tk / 1e9:8.2f} GFLOP/s | plain {tp * 1e3:9.4f} ms | library (cuSPARSE "
+                  f"CSR f32, whole matrix) {t_lib * 1e3:9.4f} ms | bound {b_ms:.5f} ms ({by}, "
+                  f"{moved / 1e6:.3f} MB); graphed kernel at {100 * b_ms / tg:.1f} % of it")
     # routed: per product (chain eager and graphed, plain chain, cuSPARSE),
     # then each kernel alone inside a CUDA graph, on caida_like's operands
     csr = csrs[ROUTED_CHECK]
@@ -1222,17 +1317,15 @@ def main() -> int:
             library_spmv(csrs["cube_coup_like"], dev, torch.float64),
             nbytes(cube_df.data, cube_df.data_lo, cube_df.offsets_dev) + 8 * (cn + cm),
             cube_df.data.numel())
-    rdr, rplan = prepared_df["raefsky1_like"]
-    x64 = normal_x64(rcsr.shape[1], dev, seed=5)
-    rxh, rxl = DF.split_f64_t(x64)
-    yh0 = torch.zeros(rplan.s_pad * LANE, device=dev)
-    yl0 = torch.zeros_like(yh0)
-    df_time("dia_resid_df", "raefsky1_like fringe alone dia_resid_df_kernel",
-            lambda v: SC.dia_resid_df_cuda(rdr, rxh, rxl, yh0, yl0, rplan),
-            lambda v: SC.dia_resid_df_reference(rdr, rxh, rxl, rplan), x64,
-            library_spmv(fcsr, dev, torch.float64),
-            nbytes(rdr.rvals, rdr.rvals_lo, rdr.rsidx, rdr.rgid, rdr.rsrc) + 8 * rcsr.shape[1]
-            + 2 * 8 * yh0.numel(), rdr.rvals.numel())
+    for name in ("raefsky1_like", RESID_BIG):
+        rdr, rplan = prepared_df[name] if name == "raefsky1_like" else resid_ops[(name, "PL_DIA_RESID_F64")]
+        n = mats[name].shape[1]
+        moved, flops = resid_cost(rdr, n, df=True)
+        df_time(f"dia_resid_df {name}", f"{name} PL_DIA_RESID_F64 dia_resid_df_kernel (whole product)",
+                lambda v, o=rdr, p=rplan: SC.dia_resid_spmv_df_cuda(o, v, p),
+                lambda v, o=rdr, p=rplan: SC.dia_spmv_df_reference(o.mat, v, p, o),
+                normal_x64(n, dev, seed=5), library_spmv(mats[name], dev, torch.float64), moved,
+                flops // DF_FLOPS_PER_SLOT)
     for name in ("thermal2_like", "delaunay_n12_like", "fem_3d_thermal2_like"):
         wm = prepared_df[name]
         wmm, wn = wm.shape
@@ -1272,10 +1365,6 @@ def main() -> int:
     cube = prepared[("cube_coup_like", "PL_DIA_ROWS")][0]
     cube_m, cube_n = csrs["cube_coup_like"].shape
     b_rows = least_ms(nbytes(cube.data, cube.offsets_dev) + 4 * (cube_n + cube_m), 2 * cube.data.numel())
-    b_resid = least_ms(
-        nbytes(dr.rvals, dr.rsidx, dr.rgid, dr.rsrc) + 4 * rcsr.shape[1] + 2 * y0.numel() * 4,
-        2 * dr.rvals.numel(),
-    )
 
     def window_bound(name, mode):
         mat = prepared[(name, mode)]
@@ -1300,10 +1389,13 @@ def main() -> int:
          "ms": t_dk * 1e3, "plain_ms": t_dp * 1e3, "bound_ms": b_rows[0],
          "bound_by": b_rows[1], "library_ms": libs["cube_coup_like"] * 1e3},
         {"name": "dia_resid_kernel", "route": "cuda", "source": DIA_SOURCE,
-         "replaces": "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:365",
+         "replaces": "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:426",
          "launches": launches["dia_resid"], "max_abs_err": errs["dia_resid"],
-         "ms": t_rk * 1e3, "plain_ms": t_rp * 1e3, "bound_ms": b_resid[0],
-         "bound_by": b_resid[1], "library_ms": t_rl * 1e3},
+         "ms": resid_times[("raefsky1_like", "PL_DIA_RESID")][0] * 1e3,
+         "plain_ms": resid_times[("raefsky1_like", "PL_DIA_RESID")][1] * 1e3,
+         "bound_ms": resid_times[("raefsky1_like", "PL_DIA_RESID")][3],
+         "bound_by": resid_times[("raefsky1_like", "PL_DIA_RESID")][4],
+         "library_ms": resid_times[("raefsky1_like", "PL_DIA_RESID")][2] * 1e3},
     ]
     for kernel, line in (("window_blocks", 1062), ("window_single", 1125)):
         tk, tp, tl, b_ms, by = entry[kernel]
@@ -1324,7 +1416,7 @@ def main() -> int:
              "bound_ms": b_ms, "bound_by": by, "library_ms": lib if kernel == "w_stage" else None})
     for key, kname, replaces in (
         ("dia_df", "dia_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:628"),
-        ("dia_resid_df", "dia_resid_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:546"),
+        ("dia_resid_df raefsky1_like", "dia_resid_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:628"),
         ("window_df thermal2_like", "window_df_kernel", "spmv_openmp_cuda_tpu/formats/window.py:1062"),
         ("routed_df_gather", "routed_df_gather_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1882"),
     ):

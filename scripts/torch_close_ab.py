@@ -5,25 +5,35 @@ thermal2_like, fem_3d_thermal2_like and delaunay_n12_like), the dense
 heavy-row kernel D and the W-stage kernel B (caida_like's chain), the
 PL_CSR_ROUTED product on caida_like and on three small domains
 (delaunay_n12_like, west2021_like, a 9000-row random matrix: the small
-kernel), and the PL_CSR_LANES product (lanes_kernel) on delaunay_n12_like,
-raefsky1_like, cavity10_like and west2021_like, each per call through its
-wrapper and in a CUDA graph, whether a rerun on the same x is bitwise equal,
-and, for the window and lanes products, the share of the bound: the bytes
-the product must move (the layout's arrays and x read once, y written once)
-over 3.35 TB/s, against the graphed time. The F64 operands are the f32 layout with a
-zero lo plane (the df layout's shape and bytes, without a second prepare).
+kernel), the PL_CSR_LANES product (lanes_kernel) on delaunay_n12_like,
+raefsky1_like, cavity10_like and west2021_like, the DIA+residual product
+(PL_DIA_RESID, _BF16 and _F64) on raefsky1_like and on a 200,000-row banded
+check matrix, and the DIA products whose kernels a DIA+residual change
+leaves as they are (PL_DIA_ROWS on cube_coup_like and cavity10_like,
+PL_DIA_F64 on cube_coup_like), each per call through its wrapper and in a
+CUDA graph, whether a rerun on the same x is bitwise equal, and, for the
+window, lanes and DIA products, the share of the bound: the bytes the
+product must move (the layout's arrays and x read once, y written once)
+over 3.35 TB/s, against the graphed time. The window F64 operands are the
+f32 layout with a zero lo plane (the df layout's shape and bytes, without a
+second prepare); the 200,000-row band is prepared once in df, its f32
+operands are the hi planes (what the f32 prepare makes) and bf16 their
+cast. The two large matrices are generated by the first run and kept in a
+temporary directory for the other three.
 
     python3 scripts/torch_close_ab.py PARENT_DIR CHANGE_DIR
 
 runs each checkout in a process of its own (its package on the path, its
 kernels built from its csrc/) in the order parent, change, change, parent,
 and prints each run's numbers and the mean of the two runs of each tree.
-`--one DIR` runs one checkout and prints one JSON line. Needs a CUDA device.
+`--one DIR [CACHE_DIR]` runs one checkout and prints one JSON line. Needs a
+CUDA device.
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 PROXIES = ("thermal2_like", "fem_3d_thermal2_like", "delaunay_n12_like")
@@ -31,6 +41,10 @@ LANES_PROXIES = ("delaunay_n12_like", "raefsky1_like", "cavity10_like", "west202
 MODES = ("PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16", "PL_CSR_WINDOW_F64")  # all run by window_spmv
 #: H100 SXM data sheet: the HBM rate
 HBM_BYTES_PER_S = 3.35e12
+#: the DIA+residual check matrix: 61 diagonals, 38 TPU blocks, 201,015
+#: fringe nnz (the band streams from HBM)
+RESID_BIG = "banded_200000"
+RESID_MODES = ("PL_DIA_RESID", "PL_DIA_RESID_BF16", "PL_DIA_RESID_F64")
 
 
 def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
@@ -57,7 +71,115 @@ def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(stop) / (replays * reps)
 
 
-def one(tree: str) -> dict:
+def cached_csr(name: str, cache) -> "CSRMatrix":
+    """The named matrix (a preset, or RESID_BIG), from cache/<name>.npz when
+    an earlier run of this A/B left it there."""
+    import numpy as np
+
+    import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch.utils import synth
+
+    path = os.path.join(cache, f"{name}.npz") if cache else None
+    if path and os.path.exists(path):
+        z = np.load(path)
+        return P.CSRMatrix(tuple(int(d) for d in z["shape"]), z["indptr"], z["indices"], z["data"])
+    if name == RESID_BIG:
+        coo = synth.banded(200_000, 200_000, 30, fill=1.0, exact_nnz=12_400_000, seed=0)
+    else:
+        coo = synth.preset(name)
+    csr = P.coo_to_csr(coo)
+    if path:
+        np.savez(path, shape=np.asarray(csr.shape), indptr=csr.indptr, indices=csr.indices,
+                 data=csr.data)
+    return csr
+
+
+def _timed(out: dict, key: str, fn, x, moved: int) -> None:
+    """out[key]: per call, graphed, rerun bitwise equal, the bound of
+    `moved` bytes and its graphed share."""
+    import torch
+
+    from spmv_openmp_cuda_tpu_torch.utils.profiling import time_per_call
+
+    a, b = fn(x), fn(x)
+    torch.cuda.synchronize()
+    tg = graph_ms(lambda: fn(x))
+    out[key] = {"ms": time_per_call(fn, x) * 1e3, "graph_ms": tg,
+                "rerun_equal": bool(torch.equal(a, b)),
+                "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                "bound_share": moved / HBM_BYTES_PER_S * 1e3 / tg}
+
+
+def resid_products(dev, cache) -> dict:
+    """The DIA+residual products on raefsky1_like and RESID_BIG."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch.ops import registry
+    from spmv_openmp_cuda_tpu_torch.ops import spmv_cuda as SC
+
+    derive = getattr(SC, "with_fringe_lists", lambda dr, plan: dr)  # a tree without lists
+    out = {}
+    for name in ("raefsky1_like", RESID_BIG):
+        csr = cached_csr(name, cache)
+        m, n = csr.shape
+        if name == RESID_BIG:
+            big64, plan = SC.prepare_dia_resid(csr, df=True, device=dev)
+            ops = {"PL_DIA_RESID_F64": (big64, plan)}
+            for mode, dt in (("PL_DIA_RESID", torch.float32), ("PL_DIA_RESID_BF16", torch.bfloat16)):
+                mat = big64.mat.as_dia()
+                mat = dataclasses.replace(mat, data=mat.data.to(dt))
+                ops[mode] = (derive(dataclasses.replace(big64, mat=mat, rvals=big64.rvals.to(dt),
+                                                        rvals_lo=None), plan), plan)
+        else:
+            ops = {mode: registry.get(mode).prepare(
+                csr, None, P.Config(dtype="float64" if mode.endswith("F64") else "float32"), dev)
+                for mode in RESID_MODES}
+        xn = np.random.default_rng(4).standard_normal(n)
+        for mode in RESID_MODES:
+            dr, plan = ops[mode]
+            df = mode.endswith("F64")
+            x = torch.as_tensor(xn, dtype=torch.float64 if df else torch.float32, device=dev)
+            d = len(dr.mat.offsets)
+            # the slab's rows < m (both planes in df), the per-row fringe
+            # lists (row_ptr, value words, column), x and y
+            moved = (2 if df else 1) * d * m * dr.mat.data.element_size() + 4 * d
+            moved += 4 * (m + 1) + (12 if df else 8) * dr.nnz_resid + x.element_size() * (n + m)
+            _timed(out, f"{name} {mode} product", registry.get(mode).jitted(ops[mode]), x, moved)
+        del ops
+    return out
+
+
+def dia_rows_products(dev, cache) -> dict:
+    """The DIA products whose kernels a DIA+residual change leaves as they
+    are."""
+    import numpy as np
+    import torch
+
+    import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch.ops import registry
+
+    out = {}
+    for name, mode in (("cube_coup_like", "PL_DIA_ROWS"), ("cavity10_like", "PL_DIA_ROWS"),
+                       ("cube_coup_like", "PL_DIA_F64")):
+        csr = cached_csr(name, cache)
+        df = mode == "PL_DIA_F64"
+        mat, plan = ops = registry.get(mode).prepare(
+            csr, None, P.Config(dtype="float64" if df else "float32"), dev)
+        x = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
+                            dtype=torch.float64 if df else torch.float32, device=dev)
+        moved = sum(t.numel() * t.element_size() for t in (
+            mat.data, mat.offsets_dev, *((mat.data_lo,) if df else ())))
+        _timed(out, f"{name} {mode} product", registry.get(mode).jitted(ops), x,
+               moved + x.element_size() * sum(csr.shape))
+        del mat, ops
+    return out
+
+
+def one(tree: str, cache=None) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -159,12 +281,14 @@ def one(tree: str) -> dict:
             "ms": time_per_call(fn, xl) * 1e3, "graph_ms": tg, "rerun_equal": bool(torch.equal(a, b)),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
             "bound_share": moved / HBM_BYTES_PER_S * 1e3 / tg}
+    out.update(resid_products(dev, cache))
+    out.update(dia_rows_products(dev, cache))
     return out
 
 
 def main(argv) -> int:
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(argv[1])))
+        print(json.dumps(one(*argv[1:3])))
         return 0
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
@@ -174,9 +298,10 @@ def main(argv) -> int:
     print(f"nvidia-smi: {smi}")
     parent, change = argv
     runs = {parent: [], change: []}
+    cache = tempfile.TemporaryDirectory()
     for tree in (parent, change, change, parent):
         t = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree, cache.name],
                               capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
@@ -184,6 +309,7 @@ def main(argv) -> int:
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         runs[tree].append(res)
         print(f"{tree} ({time.perf_counter() - t:.0f}s): {json.dumps(res)}", flush=True)
+    cache.cleanup()
     print(f"mean of two runs per tree, on {smi} (ms per call through the wrapper | ms in a CUDA "
           "graph | rerun bitwise equal | graphed share of the bound):")
     for key in runs[parent][0]:

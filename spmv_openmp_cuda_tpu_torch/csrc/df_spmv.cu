@@ -3,8 +3,11 @@
 //
 // Replaces the TPU kernels that run the JAX package's float64 modes:
 //   dia_df_kernel          <- ops/spmv_pallas.py::dia_spmv_pallas_df
-//                             (pallas_call at :628), its diagonal sum (:530-545)
-//   dia_resid_df_kernel    <- the same kernel's residual fringe (:546-595)
+//                             (pallas_call at :628) without a fringe: its
+//                             diagonal sum (:530-545)
+//   dia_resid_df_kernel    <- the same kernel with the residual fringe: the
+//                             whole DIA+residual product (the diagonal sum,
+//                             then the fringe sums :546-595) in one launch
 //   window_df_kernel       <- formats/window.py::window_kernel_call (:1062)
 //                             and _window_single_call (:1125) in their df
 //                             mode (vals_lo, xp2_lo / x2d_lo): the body is
@@ -35,9 +38,15 @@
 //   - dia_df_kernel: one thread per output row, both slab planes read
 //     coalesced, x read behind a bounds test to the end of x (the TPU
 //     window's clip of x at (S + pad_sub)*128 is not copied). Each row has
-//     one owner: no atomics. dia_resid_df_kernel adds the fringe afterwards,
-//     one CTA per TPU block and one thread per lane, each thread owning its
-//     lane's rows in a shared-memory pair tile (as dia_resid_kernel).
+//     one owner: no atomics.
+//   - dia_resid_df_kernel: csrc/dia_spmv.cu's dia_resid_kernel with pairs,
+//     one launch per product: a row's diagonals split over `groups`
+//     threads whose pairs are TwoSum-added in group order in shared memory,
+//     the fringe as per-row lists ((hi, lo) value, x column) walked in
+//     ascending slot row k by one thread of the row. Like window_df_kernel
+//     it takes x in f64 and splits each element it reads exactly as
+//     ops/dfloat.py::split_f64_t does, and writes y in f64 as hi + lo
+//     (df_combine64): the wrapper launches nothing else.
 //   - window_df_kernel: window_spmv.cu's design with pairs (a CTA, or a
 //     thread-block cluster, per block; warp j owns the tile rows r % 8 == j,
 //     so every cell has one writer in a fixed order and a rerun is bitwise
@@ -60,6 +69,10 @@ namespace {
 using wtile::kLane;
 using wtile::kThreads;
 constexpr long long kWindowElems = 128LL * 128;
+// dia_resid_df_kernel: threads per CTA, and the most threads a row's
+// diagonals are split over (csrc/dia_spmv.cu's dia_resid_kernel)
+constexpr int kResidThreads = 256;
+constexpr int kMaxGroups = 16;
 
 // ---- double-float primitives (never contracted) --------------------------
 
@@ -138,44 +151,74 @@ dia_df_kernel(const float* __restrict__ dh, const float* __restrict__ dl,
   yl[i] = al;
 }
 
-// fringe slot (blk, k, l) adds (rvh, rvl) * x[(blk*bs + q - pad_sub)*128 +
-// rsidx] into row (blk*bs + rgid)*128 + l; thread l of CTA blk owns those
-// rows: it sums them in shared memory, then adds them to (yh, yl)
-__global__ void __launch_bounds__(kLane)
-dia_resid_df_kernel(const float* __restrict__ rvh, const float* __restrict__ rvl,
-                    const int8_t* __restrict__ rsidx, const int8_t* __restrict__ rgid,
-                    const int* __restrict__ rsrc, int bs, int k_pad, int n_kt, int pad_sub,
-                    const float* __restrict__ xh, const float* __restrict__ xl, long long n_x,
-                    float* __restrict__ yh, float* __restrict__ yl) {
-  extern __shared__ float racc[];  // (2, bs, kLane): hi words, then lo words
-  float* rh = racc;
-  float* rl = racc + bs * kLane;
-  const int blk = blockIdx.x;
-  const int l = threadIdx.x;
-  for (int g = 0; g < bs; ++g) {
-    rh[g * kLane + l] = 0.f;
-    rl[g * kLane + l] = 0.f;
+// x[col] split into its (hi, lo) pair as ops/dfloat.py::split_f64_t splits
+// it (hi = f32(v), lo = f32(v - hi)); (0, 0) outside [0, n_x)
+__device__ __forceinline__ void x_split(const double* __restrict__ x, long long col,
+                                        long long n_x, float& h, float& l) {
+  if (col >= 0 && col < n_x) {
+    const double v = __ldg(x + col);
+    h = (float)v;
+    l = (float)(v - (double)h);
+  } else {
+    h = 0.f;
+    l = 0.f;
   }
-  const long long slot0 = (long long)blk * k_pad * kLane + l;
-  const int* rsrc_blk = rsrc + (long long)blk * n_kt * 8 * kLane;
+}
+
+// y[i] (f64) = (diagonal pair sum of row i) + (fringe pair sum of row i),
+// combined as hi + lo, for i < m: dia_resid_kernel's design (csrc/
+// dia_spmv.cu) with (hi, lo) pairs. Thread t takes row r = t % R of the
+// CTA's R = kResidThreads / groups rows and the diagonals [g*D/groups,
+// (g+1)*D/groups) of group g = t / R, summed by df_mul_acc in ascending
+// offset order; the last group TwoSum-adds the row's fringe list in list
+// order (ascending slot row k); group 0 TwoSum-adds the groups' pairs in
+// group order, then the fringe pair.
+__global__ void __launch_bounds__(kResidThreads)
+dia_resid_df_kernel(const float* __restrict__ dh, const float* __restrict__ dl,
+                    const int* __restrict__ offsets, int n_diag, long long rows, long long m,
+                    const int* __restrict__ row_ptr, const float* __restrict__ fh,
+                    const float* __restrict__ fl, const int* __restrict__ fcol,
+                    const double* __restrict__ x, long long n_x, int groups,
+                    double* __restrict__ y) {
+  __shared__ float2 part[kResidThreads];  // part[g * R + r]: group g's pair of row r
+  __shared__ float2 fring[kResidThreads];
+  const int R = kResidThreads / groups;
+  const int r = threadIdx.x % R, g = threadIdx.x / R;
+  const long long i = (long long)blockIdx.x * R + r;
+  const bool live = i < m;
+  float ah = 0.f, al = 0.f;
+  if (live) {
+    const int d1 = (g + 1) * n_diag / groups;
 #pragma unroll 4
-  for (int k = 0; k < k_pad; ++k) {
-    const long long s = slot0 + (long long)k * kLane;
-    const int q = __ldg(rsrc_blk + (k / kLane) * 8 * kLane + k % kLane);
-    const long long col = ((long long)blk * bs + q - pad_sub) * kLane + (int)rsidx[s];
-    float gh, gl, ph, pl;
-    x_pair(xh, xl, col, n_x, gh, gl);
-    df_prod(rvh[s], rvl[s], gh, gl, ph, pl);
-    const int g = (int)rgid[s] * kLane + l;
-    df_add(rh[g], rl[g], ph, pl);
+    for (int d = g * n_diag / groups; d < d1; ++d) {
+      float xh, xl;
+      x_split(x, i + __ldg(offsets + d), n_x, xh, xl);
+      const long long e = (long long)d * rows + i;
+      df_mul_acc(ah, al, dh[e], dl[e], xh, xl);
+    }
   }
-  const long long row0 = (long long)blk * bs * kLane + l;
-  for (int g = 0; g < bs; ++g) {
-    const long long row = row0 + (long long)g * kLane;
-    float h = yh[row], lo = yl[row];
-    df_add(h, lo, rh[g * kLane + l], rl[g * kLane + l]);
-    yh[row] = h;
-    yl[row] = lo;
+  part[threadIdx.x] = make_float2(ah, al);
+  if (g == groups - 1 && live) {
+    float rh = 0.f, rl = 0.f;
+    const int e1 = __ldg(row_ptr + i + 1);
+    for (int e = __ldg(row_ptr + i); e < e1; ++e) {
+      float gh, gl, ph, pl;
+      x_split(x, __ldg(fcol + e), n_x, gh, gl);
+      df_prod(__ldg(fh + e), __ldg(fl + e), gh, gl, ph, pl);
+      df_add(rh, rl, ph, pl);
+    }
+    fring[r] = make_float2(rh, rl);
+  }
+  __syncthreads();
+  if (g == 0 && live) {
+    float2 s = part[r];
+    for (int h = 1; h < groups; ++h) {
+      const float2 o = part[h * R + r];
+      df_add(s.x, s.y, o.x, o.y);
+    }
+    const float2 f = fring[r];
+    df_add(s.x, s.y, f.x, f.y);
+    y[i] = (double)s.x + (double)s.y;
   }
 }
 
@@ -430,15 +473,22 @@ int dia_df_launch(const float* dh, const float* dl, const int* offsets, int n_di
   return (int)cudaGetLastError();
 }
 
-// (yh, yl) += the fringe sums of nblocks TPU blocks (bs <= 42, so the pair
-// tile stays under 48 KB of shared memory).
-int dia_resid_df_launch(const float* rvh, const float* rvl, const int8_t* rsidx,
-                        const int8_t* rgid, const int* rsrc, int nblocks, int bs, int k_pad,
-                        int n_kt, int pad_sub, const float* xh, const float* xl, long long n_x,
-                        float* yh, float* yl, void* stream) {
-  const size_t smem = (size_t)2 * bs * kLane * sizeof(float);
-  dia_resid_df_kernel<<<(unsigned)nblocks, kLane, smem, (cudaStream_t)stream>>>(
-      rvh, rvl, rsidx, rgid, rsrc, bs, k_pad, n_kt, pad_sub, xh, xl, n_x, yh, yl);
+// y (f64, length m) = the DIA+residual product over the (n_diag, rows) slab
+// pair and the per-row fringe lists (fh, fl, fcol; row i's entries
+// row_ptr[i] .. row_ptr[i + 1] - 1), x in f64, split in the kernel. groups
+// is 1, 2, 4, 8 or 16 (ops/spmv_cuda.py::launch_groups). Returns
+// cudaErrorInvalidValue for another groups, else cudaGetLastError() after
+// the launch.
+int dia_resid_df_launch(const float* dh, const float* dl, const int* offsets, int n_diag,
+                        long long rows, long long m, const int* row_ptr, const float* fh,
+                        const float* fl, const int* fcol, const double* x, long long n_x,
+                        double* y, int groups, void* stream) {
+  if (groups < 1 || groups > kMaxGroups || (groups & (groups - 1)) || m < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long per_cta = kResidThreads / groups;
+  dia_resid_df_kernel<<<(unsigned)((m + per_cta - 1) / per_cta), kResidThreads, 0,
+                        (cudaStream_t)stream>>>(dh, dl, offsets, n_diag, rows, m, row_ptr, fh, fl,
+                                                fcol, x, n_x, groups, y);
   return (int)cudaGetLastError();
 }
 

@@ -1,41 +1,57 @@
 // DIA SpMV kernels for Hopper (sm_90a), bound through a plain C interface.
 //
-// Replaces the TPU kernel spmv_openmp_cuda_tpu/ops/spmv_pallas.py::
-// dia_spmv_pallas (pallas_call at :426): dia_rows_kernel ports its diagonal
-// sum (:345-364), dia_resid_kernel its residual-fringe branch (:365-396).
+// Replace the TPU kernel spmv_openmp_cuda_tpu/ops/spmv_pallas.py::
+// dia_spmv_pallas (pallas_call at :426): dia_rows_kernel runs it without a
+// fringe (PL_DIA_ROWS, PL_DIA_BF16: the diagonal sum, :345-364);
+// dia_resid_kernel runs the whole DIA+residual product (PL_DIA_RESID,
+// PL_DIA_RESID_BF16) in one launch, as the TPU kernel does in one
+// pallas_call: each row's diagonal sum, then its fringe sum (:365-396)
+// added to it.
 //
-// What bounds it: y = A x over a diagonal slab does 2 flops per stored slot
-// and reads 4 B (f32) or 2 B (bf16) of slab per slot, plus x and y once;
-// at 2*nnz flops against ~4-6 B/nnz the kernel is bound by slab bytes, never
-// by arithmetic. The design therefore only has to stream the slab at full
-// bandwidth:
-//   - one thread per output row, so a warp reads 32 consecutive slab
-//     entries of one diagonal (coalesced) and 32 consecutive x entries
-//     (neighbouring diagonals re-read the same x lines, served from L1/L2);
-//   - the TPU's VMEM block of bs row groups is not the CUDA block: the grid
-//     covers every row with 256-thread blocks, so all SMs stream the slab
-//     even when the TPU plan has a single block;
+// What bounds them: y = A x over a diagonal slab does 2 flops per stored
+// slot and reads 4 B (f32) or 2 B (bf16) of slab per slot, plus x and y
+// once; at 2*nnz flops against ~4-6 B/nnz a kernel is bound by slab bytes,
+// never by arithmetic. On a large slab the design only has to stream it at
+// full bandwidth; on a small one (raefsky1: 1.5 MB, inside L2) the time is
+// the launch and a chain of dependent loads, so enough threads must share
+// the work that each walks few of them:
+//   - dia_rows_kernel: one thread per output row, so a warp reads 32
+//     consecutive slab entries of one diagonal (coalesced) and 32
+//     consecutive x entries (neighbouring diagonals re-read the same x
+//     lines, served from L1/L2); the grid covers every row with 256-thread
+//     blocks, whatever the TPU plan's block height;
+//   - dia_resid_kernel: a row's diagonals are split over `groups` threads
+//     (1, 2, 4, 8 or 16; ops/spmv_cuda.py::launch_groups doubles it while
+//     the grid has fewer CTAs than the card has SMs), so raefsky1's 3242
+//     rows run as 203 CTAs of 16 rows x 16 groups of ~6 diagonals, and a
+//     200,000-row slab as one thread per row (dia_rows_kernel's
+//     streaming). A warp reads >= 16 consecutive rows of a diagonal: whole
+//     32-byte sectors. The groups' sums meet in shared memory and the row's
+//     group-0 thread adds them in group order: no atomics, a rerun is
+//     bitwise equal;
+//   - the fringe as per-row lists (ops/spmv_cuda.py::fringe_lists), built
+//     once on the host from the TPU layout (slot rows of 128 lanes per TPU
+//     block): row i's entries (value, x column) in ascending slot row k, the
+//     TPU kernel's order. The row's last-group thread walks its own list
+//     (raefsky1: 457 entries over 3242 rows), so no thread walks a TPU
+//     block's slot grid and no CTA is bound to a TPU block;
 //   - the offsets are a device int32 array read by every thread of a warp
 //     at the same address (a broadcast), so one compiled kernel serves
 //     every matrix;
 //   - x is read straight from the caller's vector: the padded x window of
 //     the TPU kernel becomes a bounds test (0 outside [0, n)), and the
-//     bf16 modes round x to bf16 as the TPU path does before it upcasts.
-//     (The TPU window also clips x at (S + pad_sub) * 128, which drops
-//     fringe products of wide matrices; this bound does not.)
-// The fringe is a second launch on the same stream: one block per TPU block
-// i and one thread per lane l. Every fringe slot (i, k, l) adds into an
-// output row of block i at lane l, so thread (i, l) owns those rows, sums
-// them in shared memory without atomics, and adds the sums to y after the
-// diagonal pass, the order of the TPU kernel (diagonals, then fringe).
+//     bf16 modes round x to bf16 (for the fringe too) as the TPU path does
+//     before it upcasts. (The TPU window also clips x at (S + pad_sub) *
+//     128, which drops fringe products of wide matrices; this bound does
+//     not.)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kLane = 128;
 constexpr int kRowThreads = 256;
+constexpr int kMaxGroups = 16;  // threads per row in dia_resid_kernel
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -67,32 +83,54 @@ dia_rows_kernel(const T* __restrict__ data, const int* __restrict__ offsets,
   y[i] = acc;
 }
 
+// The fringe sum of row i: its list's products added in list order
+// (ascending slot row k), from 0.
+__device__ __forceinline__ float fringe_sum(const int* __restrict__ row_ptr,
+                                            const float* __restrict__ fval,
+                                            const int* __restrict__ fcol, long long i,
+                                            const float* __restrict__ x, long long n_x,
+                                            bool round_bf16) {
+  float f = 0.f;
+  const int e1 = __ldg(row_ptr + i + 1);
+  for (int e = __ldg(row_ptr + i); e < e1; ++e)
+    f += __ldg(fval + e) * x_at(x, __ldg(fcol + e), n_x, round_bf16);
+  return f;
+}
+
+// y[i] = (diagonal sum of row i) + (fringe sum of row i) for i < m. Thread
+// t of a CTA takes row r = t % R of the CTA's R = kRowThreads / groups rows
+// and the diagonals [g*D/groups, (g+1)*D/groups) of group g = t / R; the
+// last group also walks the row's fringe list. Group 0 adds the groups'
+// sums in group order, then the fringe sum.
 template <typename T>
-__global__ void __launch_bounds__(kLane)
-dia_resid_kernel(const T* __restrict__ rvals, const int8_t* __restrict__ rsidx,
-                 const int8_t* __restrict__ rgid, const int* __restrict__ rsrc,
-                 int bs, int k_pad, int n_kt, int pad_sub,
-                 const float* __restrict__ x, long long n_x, bool x_bf16,
+__global__ void __launch_bounds__(kRowThreads)
+dia_resid_kernel(const T* __restrict__ data, const int* __restrict__ offsets, int n_diag,
+                 long long rows, long long m, const int* __restrict__ row_ptr,
+                 const float* __restrict__ fval, const int* __restrict__ fcol,
+                 const float* __restrict__ x, long long n_x, int groups,
                  float* __restrict__ y) {
-  extern __shared__ float racc[];  // (bs, kLane); column l is thread l's own
-  const int blk = blockIdx.x;
-  const int l = threadIdx.x;
-  for (int g = 0; g < bs; ++g) racc[g * kLane + l] = 0.f;
-  const long long slot0 = (long long)blk * k_pad * kLane + l;
-  const int* rsrc_blk = rsrc + (long long)blk * n_kt * 8 * kLane;
-  // unrolled so the global loads of several slot rows are in flight at
-  // once: a single block per TPU block is latency-bound otherwise
+  __shared__ float part[kRowThreads];  // part[g * R + r]: group g's sum of row r
+  __shared__ float fring[kRowThreads];
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const int R = kRowThreads / groups;
+  const int r = threadIdx.x % R, g = threadIdx.x / R;
+  const long long i = (long long)blockIdx.x * R + r;
+  const bool live = i < m;
+  float acc = 0.f;
+  if (live) {
+    const int d1 = (g + 1) * n_diag / groups;
 #pragma unroll 8
-  for (int k = 0; k < k_pad; ++k) {
-    const long long s = slot0 + (long long)k * kLane;
-    // window row of slot row k: row 0 of its 8-row group in rsrc
-    const int q = __ldg(rsrc_blk + (k / kLane) * 8 * kLane + k % kLane);
-    const long long col =
-        ((long long)blk * bs + q - pad_sub) * kLane + (int)rsidx[s];
-    racc[(int)rgid[s] * kLane + l] += to_f32(rvals[s]) * x_at(x, col, n_x, x_bf16);
+    for (int d = g * n_diag / groups; d < d1; ++d)
+      acc += to_f32(data[(long long)d * rows + i]) * x_at(x, i + __ldg(offsets + d), n_x, kBf16);
   }
-  float* yb = y + (long long)blk * bs * kLane + l;
-  for (int g = 0; g < bs; ++g) yb[(long long)g * kLane] += racc[g * kLane + l];
+  part[threadIdx.x] = acc;
+  if (g == groups - 1 && live) fring[r] = fringe_sum(row_ptr, fval, fcol, i, x, n_x, kBf16);
+  __syncthreads();
+  if (g == 0 && live) {
+    float s = part[r];
+    for (int h = 1; h < groups; ++h) s += part[h * R + r];
+    y[i] = s + fring[r];
+  }
 }
 
 }  // namespace
@@ -117,22 +155,29 @@ int dia_spmv_launch(int data_bf16, const void* data, const int* offsets,
   return (int)cudaGetLastError();
 }
 
-// y[(i*bs + rgid)*128 + l] += sum_k rvals * x[(i*bs + q - pad_sub)*128 + rsidx]
-// over the fringe slots (i, k, l) of nblocks blocks, k < k_pad.
-int dia_resid_launch(int vals_bf16, int x_bf16, const void* rvals,
-                     const int8_t* rsidx, const int8_t* rgid, const int* rsrc,
-                     int nblocks, int bs, int k_pad, int n_kt, int pad_sub,
-                     const float* x, long long n_x, float* y, void* stream) {
-  const size_t smem = (size_t)bs * kLane * sizeof(float);
+// y[i] = sum_d data[d, i] * x[i + offsets[d]] + the fringe sum of row i,
+// for i < m: data is (n_diag, rows) in f32 (data_bf16 == 0) or bf16 (1, x
+// then rounded to bf16 for both parts); row i's fringe entries (fval, fcol)
+// are row_ptr[i] .. row_ptr[i + 1] - 1. groups (threads per row) is 1, 2,
+// 4, 8 or 16 (ops/spmv_cuda.py::launch_groups). Returns
+// cudaErrorInvalidValue for another groups, else cudaGetLastError() after
+// the launch.
+int dia_resid_launch(int data_bf16, const void* data, const int* offsets, int n_diag,
+                     long long rows, long long m, const int* row_ptr, const float* fval,
+                     const int* fcol, const float* x, long long n_x, float* y, int groups,
+                     void* stream) {
+  if (groups < 1 || groups > kMaxGroups || (groups & (groups - 1)) || m < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long per_cta = kRowThreads / groups;
+  const unsigned grid = (unsigned)((m + per_cta - 1) / per_cta);
   cudaStream_t st = (cudaStream_t)stream;
-  if (vals_bf16) {
-    dia_resid_kernel<__nv_bfloat16><<<nblocks, kLane, smem, st>>>(
-        (const __nv_bfloat16*)rvals, rsidx, rgid, rsrc, bs, k_pad, n_kt,
-        pad_sub, x, n_x, x_bf16 != 0, y);
+  if (data_bf16) {
+    dia_resid_kernel<__nv_bfloat16><<<grid, kRowThreads, 0, st>>>(
+        (const __nv_bfloat16*)data, offsets, n_diag, rows, m, row_ptr, fval, fcol, x, n_x,
+        groups, y);
   } else {
-    dia_resid_kernel<float><<<nblocks, kLane, smem, st>>>(
-        (const float*)rvals, rsidx, rgid, rsrc, bs, k_pad, n_kt, pad_sub, x,
-        n_x, x_bf16 != 0, y);
+    dia_resid_kernel<float><<<grid, kRowThreads, 0, st>>>(
+        (const float*)data, offsets, n_diag, rows, m, row_ptr, fval, fcol, x, n_x, groups, y);
   }
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,8 @@ from ..ops.routed_cuda import (
     routed_df_spmv,
 )
 from ..ops.spmv_cuda import (
+    dia_resid_spmv_cuda,
+    dia_resid_spmv_df_cuda,
     dia_spmv_cuda,
     dia_spmv_df_cuda,
     pad_dia_for_pallas,
@@ -148,6 +150,7 @@ class AutoSpMV:
         if f64 and fmt == "lanes":
             fmt = "binned"  # the lane-gather kernel is f32, as in the JAX package
         dia_run = dia_spmv_df_cuda if f64 else dia_spmv_cuda
+        resid_run = dia_resid_spmv_df_cuda if f64 else dia_resid_spmv_cuda
         try:
             if fmt == "window":
                 ops = prepare_window_auto(
@@ -158,7 +161,7 @@ class AutoSpMV:
                 ops = prepare_dia_resid(csr, dtype=cfg.torch_dtype, device=device, df=f64)
 
                 def run(o, x):
-                    return dia_run(o[0].mat, x, o[1], resid=o[0])
+                    return resid_run(o[0], x, o[1])
 
             elif fmt == "dia":
                 if f64:

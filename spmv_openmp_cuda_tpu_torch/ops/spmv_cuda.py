@@ -2,13 +2,18 @@
 
 Counterpart of spmv_openmp_cuda_tpu/ops/spmv_pallas.py for the DIA modes.
 It holds the block plan and the DIA+residual prepare (host numpy, array for
-array the JAX package's), the wrappers of the hand-written CUDA kernels in
-csrc/dia_spmv.cu (f32/bf16) and of the double-float ones in csrc/df_spmv.cu
-(float64: dia_df_kernel, dia_resid_df_kernel), their plain PyTorch versions,
-and the registry hook for the seven DIA modes.
+array the JAX package's, plus the fringe as per-row lists for the kernels),
+the wrappers of the hand-written CUDA kernels in csrc/dia_spmv.cu (f32/bf16:
+dia_rows_kernel, and dia_resid_kernel for the whole DIA+residual product)
+and of the double-float ones in csrc/df_spmv.cu (float64: dia_df_kernel,
+dia_resid_df_kernel), their plain PyTorch versions, and the registry hook
+for the seven DIA modes.
 
-The wrapper launches the kernels for CUDA tensors and raises on anything it
-does not take; it runs the plain version only for tensors on the CPU.
+The wrappers launch the kernels for CUDA tensors and raise on anything they
+do not take; they run the plain version only for tensors on the CPU. A
+DIA+residual product is one launch: its layout is checked and its launch
+plan made at its first launch and kept on the layout while its tensors stay
+the same objects; x is checked at every call.
 """
 from __future__ import annotations
 
@@ -111,7 +116,8 @@ class DiaResid:
     """DIA + windowed-residual hybrid (band + scattered fringe, e.g.
     raefsky1): the dense-offset core is a DeviceDIA (a DeviceDIADF in the
     double-float mode, with rvals_lo set), the fringe nnz are slots (block
-    i, slot row k, lane l) in the JAX package's layout."""
+    i, slot row k, lane l) in the JAX package's layout, and the same nnz as
+    per-row lists for the CUDA kernels."""
 
     mat: DeviceDIA
     rvals: torch.Tensor  # (nblocks*k_pad, 128) f32 or bf16 (df: hi words)
@@ -121,10 +127,56 @@ class DiaResid:
     k_pad: int = 16
     nnz_resid: int = 0
     rvals_lo: Optional[torch.Tensor] = None  # df mode: f32 lo words
+    # the fringe as per-row lists (with_fringe_lists; what the kernels read):
+    # row i's entries, in ascending slot row k, are row_ptr[i] ..
+    # row_ptr[i + 1] - 1 of (fr_val, fr_col), and of fr_lo in df mode
+    row_ptr: Optional[torch.Tensor] = None  # (m + 1,) int32
+    fr_val: Optional[torch.Tensor] = None  # (nf,) f32 (df: hi words)
+    fr_col: Optional[torch.Tensor] = None  # (nf,) int32: the column of x
+    fr_lo: Optional[torch.Tensor] = None  # (nf,) f32: df lo words
 
     @property
     def n_ktiles(self) -> int:
         return -(-self.k_pad // LANE)
+
+
+def with_fringe_lists(resid: DiaResid, plan: DiaPlan) -> DiaResid:
+    """resid with its per-row fringe lists, built from its JAX-layout arrays
+    (rvals/rvals_lo/rsidx/rgid/rsrc): slot (i, k, l) of value v adds v *
+    x[(i*bs + q - pad_sub)*128 + rsidx] into row (i*bs + rgid)*128 + l,
+    where q is slot row k's window row. Each row's entries keep ascending k
+    (a stable sort by row of the (i, k, l)-ordered slots; a row's slots all
+    lie in one block and lane), the order in which the TPU kernel and the
+    CUDA kernels add them.
+
+    Slots of value 0 (the layout's padding) are left out: with finite x
+    their products are +-0, which leave a sum that starts at +0 bit for bit
+    as it is. Slots of rows >= m are left out too (y has m rows)."""
+    nb, bs, kp = plan.nblocks, plan.bs, resid.k_pad
+    m = resid.mat.shape[0]
+    cube = (nb, kp, LANE)
+    vals = resid.rvals.float().cpu().numpy().reshape(cube)
+    lo = None if resid.rvals_lo is None else resid.rvals_lo.cpu().numpy().reshape(cube)
+    sidx = resid.rsidx.cpu().numpy().reshape(cube).astype(np.int64)
+    gid = resid.rgid.cpu().numpy().reshape(cube).astype(np.int64)
+    q = resid.rsrc.cpu().numpy().reshape(nb, resid.n_ktiles, 8, LANE)[:, :, 0, :]
+    q = q.reshape(nb, -1)[:, :kp, None].astype(np.int64)
+    blk = np.arange(nb, dtype=np.int64).reshape(nb, 1, 1)
+    rows = (blk * bs + gid) * LANE + np.arange(LANE)
+    cols = (blk * bs + q - resid.mat.pad_sub) * LANE + sidx
+    keep = (vals != 0) if lo is None else (vals != 0) | (lo != 0)
+    keep &= rows < m
+    rows = rows[keep]
+    order = np.argsort(rows, kind="stable")
+    dev = resid.rvals.device
+    ptr = np.r_[0, np.cumsum(np.bincount(rows, minlength=m))]
+    return dataclasses.replace(
+        resid,
+        row_ptr=torch.from_numpy(ptr.astype(np.int32)).to(dev),
+        fr_val=torch.from_numpy(vals[keep][order]).to(dev),
+        fr_col=torch.from_numpy(cols[keep][order].astype(np.int32)).to(dev),
+        fr_lo=None if lo is None else torch.from_numpy(lo[keep][order]).to(dev),
+    )
 
 
 def prepare_dia_resid(
@@ -231,7 +283,7 @@ def prepare_dia_resid(
         nnz_resid=int(rows_r.shape[0]),
         rvals_lo=rvals_lo_t,
     )
-    return dr, plan
+    return with_fringe_lists(dr, plan), plan
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +326,36 @@ def dia_resid_reference(
     return out.index_add_(0, dst.reshape(-1), prod.reshape(-1))
 
 
+def _x_gather(x: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """x[cols], 0 where a column lies outside [0, n) (the kernels' bounds
+    test)."""
+    ok = (cols >= 0) & (cols < x.shape[0])
+    return torch.where(ok, x[cols.clamp(0, max(x.shape[0] - 1, 0))], x.new_zeros(()))
+
+
+def _list_rounds(resid: DiaResid):
+    """(rows, entries) for each list position j: the rows whose list is
+    longer than j and their j-th entries, so that adding round after round
+    adds each row's entries in list order."""
+    ptr = resid.row_ptr.long()
+    start, lens = ptr[:-1], ptr[1:] - ptr[:-1]
+    for j in range(int(lens.max()) if lens.numel() else 0):
+        rows = torch.nonzero(lens > j).reshape(-1)
+        yield rows, start[rows] + j
+
+
+def resid_lists_reference(resid: DiaResid, x: torch.Tensor) -> torch.Tensor:
+    """The fringe sums of rows 0..m-1 (f32) over the per-row lists, in the
+    kernel's order: each row's products (x rounded to the slab dtype) added
+    one by one in list order, from 0."""
+    xr = x.to(resid.mat.data.dtype).to(torch.float32)
+    prod = resid.fr_val * _x_gather(xr, resid.fr_col.long())
+    out = torch.zeros(resid.row_ptr.shape[0] - 1, dtype=torch.float32, device=x.device)
+    for rows, ent in _list_rounds(resid):
+        out[rows] = out[rows] + prod[ent]
+    return out
+
+
 def dia_spmv_reference(
     mat: DeviceDIA,
     x: torch.Tensor,
@@ -300,7 +382,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dia_spmv_launch.argtypes = [i, p, p, i, ll, p, ll, p, p]
     lib.dia_spmv_launch.restype = i
-    lib.dia_resid_launch.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, ll, p, p]
+    lib.dia_resid_launch.argtypes = [i, p, p, i, ll, ll, p, p, p, p, ll, p, i, p]
     lib.dia_resid_launch.restype = i
     lib.dia_error_string.argtypes = [i]
     lib.dia_error_string.restype = ctypes.c_char_p
@@ -340,8 +422,9 @@ def _check_dia(mat: DeviceDIA, x: torch.Tensor, plan: DiaPlan) -> None:
 
 
 def _check_resid(resid: DiaResid, plan: DiaPlan, dev) -> None:
-    """The fringe operands; a df fringe (rvals_lo set) holds two f32 value
-    planes and a shared-memory tile of pairs."""
+    """The fringe's JAX-layout arrays (what the plain versions read and the
+    lists are built from); a df fringe (rvals_lo set) holds two f32 value
+    planes."""
     rows = (plan.nblocks * resid.k_pad, LANE)
     df = resid.rvals_lo is not None
     _require(resid.rvals, "resid.rvals", (torch.float32,) if df else _SLAB_DTYPES, rows, dev)
@@ -353,66 +436,117 @@ def _check_resid(resid: DiaResid, plan: DiaPlan, dev) -> None:
         resid.rsrc, "resid.rsrc", (torch.int32,),
         (plan.nblocks * resid.n_ktiles * 8, LANE), dev,
     )
-    if plan.bs * LANE * 4 * (2 if df else 1) > 48 << 10:
-        raise ValueError(f"block height bs={plan.bs} exceeds the fringe kernel's shared memory")
 
 
-def dia_resid_cuda(
-    resid: DiaResid, x: torch.Tensor, y: torch.Tensor, plan: DiaPlan
-) -> torch.Tensor:
-    """y += fringe sums (y holds all s_pad*LANE rows, f32), in place.
+#: csrc/dia_spmv.cu and df_spmv.cu: threads per CTA of the DIA+residual
+#: kernels, the most threads a row's diagonals are split over, and the SMs
+#: of an H100 (the CTAs a launch should at least give)
+RESID_THREADS, MAX_GROUPS, SMS = 256, 16, 132
 
-    CUDA tensors launch dia_resid_kernel; CPU tensors take
-    dia_resid_reference."""
-    _check_dia(resid.mat, x, plan)
-    _check_resid(resid, plan, x.device)
-    _require(y, "y", (torch.float32,), (plan.s_pad * LANE,), x.device)
-    if x.device.type == "cpu":
-        return y.add_(dia_resid_reference(resid, x, plan))
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+
+def launch_groups(m: int, n_diag: int) -> int:
+    """Threads per row of the DIA+residual kernels: 1, doubled while the
+    grid of m * groups / 256 CTAs has fewer CTAs than the card has SMs, up to
+    16 and to the diagonal count (raefsky1_like: 16, 203 CTAs; a
+    200,000-row slab: 1, one thread per row)."""
+    groups = 1
+    while groups < MAX_GROUPS and 2 * groups <= n_diag and -(-m * groups // RESID_THREADS) < SMS:
+        groups *= 2
+    return groups
+
+
+def _check_resid_layout(resid: DiaResid, plan: DiaPlan, dev) -> None:
+    """What the DIA+residual kernels read: the slab (both planes in df), the
+    offsets and the per-row fringe lists. One device sync reads row_ptr's
+    ends and order."""
+    mat = resid.mat
+    df = isinstance(mat, DeviceDIADF)
+    d, (m, _n) = len(mat.offsets), mat.shape
+    if plan.bs * plan.nblocks != plan.s_pad:
+        raise ValueError(f"inconsistent plan {plan}")
+    if m < 1:
+        raise ValueError("a matrix without rows")
+    planes = (mat.data, mat.data_lo) if df else (mat.data,)
+    for name, t in zip(("mat.data", "mat.data_lo"), planes):
+        _require(t, name, (torch.float32,) if df else _SLAB_DTYPES, (d, plan.s_pad, LANE), dev)
+    _require(mat.offsets_dev, "mat.offsets_dev", (torch.int32,), (d,), dev)
+    lists = (resid.row_ptr, resid.fr_val, resid.fr_col)
+    if any(t is None for t in lists) or (resid.fr_lo is not None) != df:
+        raise ValueError("the fringe lists are missing or of the other precision: "
+                         "build them with with_fringe_lists")
+    nf = resid.fr_col.shape[0]
+    _require(resid.row_ptr, "resid.row_ptr", (torch.int32,), (m + 1,), dev)
+    _require(resid.fr_col, "resid.fr_col", (torch.int32,), (nf,), dev)
+    values = (("resid.fr_val", resid.fr_val), ("resid.fr_lo", resid.fr_lo))
+    for name, t in values[: 2 if df else 1]:
+        _require(t, name, (torch.float32,), (nf,), dev)
+    ptr = resid.row_ptr
+    first, last, falls = torch.stack([ptr[0], ptr[-1], (ptr[1:] < ptr[:-1]).sum().int()]).tolist()
+    if (first, last, falls) != (0, nf, 0):
+        raise ValueError(f"row_ptr runs {first} .. {last} over {nf} entries, {falls} decreasing")
+
+
+def _resid_plan(resid: DiaResid, plan: DiaPlan, dev) -> int:
+    """The layout's threads per row on CUDA device dev, its tensors checked
+    once and the result kept on resid while they are the same objects."""
+    mat = resid.mat
+    tensors = (mat.data, getattr(mat, "data_lo", None), mat.offsets_dev, resid.row_ptr,
+               resid.fr_val, resid.fr_lo, resid.fr_col)
+    geometry = (dev, mat.shape, plan)
+    hit = resid.__dict__.get("_cuda_plan")
+    if hit is not None and hit[1] == geometry and all(a is b for a, b in zip(hit[0], tensors)):
+        return hit[2]
+    _check_resid_layout(resid, plan, dev)
+    groups = launch_groups(mat.shape[0], len(mat.offsets))
+    resid.__dict__["_cuda_plan"] = (tensors, geometry, groups)
+    return groups
+
+
+def dia_resid_spmv_cuda(resid: DiaResid, x: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
+    """y = A @ x (f32, length m) of a DIA+residual hybrid: the diagonals of
+    resid.mat, then the fringe sums.
+
+    CUDA tensors launch dia_resid_kernel (one launch, band and fringe
+    together; the layout checked at its first launch); CPU tensors take
+    dia_spmv_reference. Anything else raises."""
+    dev = x.device
+    mat = resid.mat
+    if dev.type == "cpu":
+        _check_dia(mat, x, plan)
+        _check_resid(resid, plan, dev)
+        return dia_spmv_reference(mat, x, plan, resid)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if isinstance(mat, DeviceDIADF):
+        raise TypeError("a DeviceDIADF runs through dia_resid_spmv_df_cuda (float64)")
+    groups = _resid_plan(resid, plan, dev)
+    m, n = mat.shape
+    _require(x, "x", (torch.float32,), (n,), dev)
+    y = torch.empty(m, dtype=torch.float32, device=dev)
     lib = _lib()
     rc = lib.dia_resid_launch(
-        int(resid.rvals.dtype == torch.bfloat16),
-        int(resid.mat.data.dtype == torch.bfloat16),
-        resid.rvals.data_ptr(),
-        resid.rsidx.data_ptr(),
-        resid.rgid.data_ptr(),
-        resid.rsrc.data_ptr(),
-        plan.nblocks,
-        plan.bs,
-        resid.k_pad,
-        resid.n_ktiles,
-        resid.mat.pad_sub,
-        x.data_ptr(),
-        x.shape[0],
-        y.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(mat.data.dtype == torch.bfloat16), mat.data.data_ptr(), mat.offsets_dev.data_ptr(),
+        len(mat.offsets), plan.s_pad * LANE, m, resid.row_ptr.data_ptr(),
+        resid.fr_val.data_ptr(), resid.fr_col.data_ptr(), x.data_ptr(), n, y.data_ptr(), groups,
+        cuda_lib.current_stream(dev),
     )
     _check_launch(lib, rc, "dia_resid_kernel")
-    dia_resid_cuda.launches += 1
+    dia_resid_spmv_cuda.launches += 1
     return y
 
 
-dia_resid_cuda.launches = 0
+dia_resid_spmv_cuda.launches = 0
 
 
-def dia_spmv_cuda(
-    mat: DeviceDIA,
-    x: torch.Tensor,
-    plan: DiaPlan,
-    resid: Optional[DiaResid] = None,
-) -> torch.Tensor:
-    """y = A @ x (f32, length m) over a plan-padded DIA slab, plus the
-    residual fringe when `resid` is given.
+def dia_spmv_cuda(mat: DeviceDIA, x: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
+    """y = A @ x (f32, length m) over a plan-padded DIA slab (a DIA+residual
+    hybrid runs through dia_resid_spmv_cuda).
 
-    CUDA tensors launch dia_rows_kernel (and dia_resid_kernel on the same
-    stream); CPU tensors take dia_spmv_reference. Anything else raises."""
+    CUDA tensors launch dia_rows_kernel; CPU tensors take
+    dia_spmv_reference. Anything else raises."""
     _check_dia(mat, x, plan)
-    if resid is not None and resid.mat is not mat:
-        raise ValueError("resid.mat must be the DeviceDIA passed as mat")
     if x.device.type == "cpu":
-        return dia_spmv_reference(mat, x, plan, resid)
+        return dia_spmv_reference(mat, x, plan)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     rows = plan.s_pad * LANE
@@ -431,8 +565,6 @@ def dia_spmv_cuda(
     )
     _check_launch(lib, rc, "dia_rows_kernel")
     dia_spmv_cuda.launches += 1
-    if resid is not None:
-        dia_resid_cuda(resid, x, y, plan)
     return y[: mat.shape[0]]
 
 
@@ -484,6 +616,22 @@ def dia_resid_df_reference(
     return out_h.reshape(-1), out_l.reshape(-1)
 
 
+def resid_lists_df_reference(resid: DiaResid, xh: torch.Tensor, xl: torch.Tensor) -> dfloat.Pair:
+    """The fringe sums of rows 0..m-1 as an (hi, lo) pair over the per-row
+    lists, in the kernel's order: each row's df products TwoSum-added one
+    by one in list order, from (0, 0)."""
+    cols = resid.fr_col.long()
+    gh, gl = _x_gather(xh, cols), _x_gather(xl, cols)
+    vh, vl = resid.fr_val, resid.fr_lo
+    ph, pe = dfloat.two_prod(vh, gh)
+    pl = pe + (vh * gl + vl * gh)
+    out_h = torch.zeros(resid.row_ptr.shape[0] - 1, dtype=torch.float32, device=xh.device)
+    out_l = torch.zeros_like(out_h)
+    for rows, ent in _list_rounds(resid):
+        out_h[rows], out_l[rows] = dfloat.df_add(out_h[rows], out_l[rows], ph[ent], pl[ent])
+    return out_h, out_l
+
+
 def dia_spmv_df_pair_reference(
     mat: DeviceDIADF, xh: torch.Tensor, xl: torch.Tensor, plan: DiaPlan,
     resid: Optional[DiaResid] = None,
@@ -532,50 +680,51 @@ def _check_dia_df(mat: DeviceDIADF, x: torch.Tensor, plan: DiaPlan) -> None:
     _require(x, "x", (torch.float64,), (mat.shape[1],), dev)
 
 
-def dia_resid_df_cuda(
-    resid: DiaResid, xh: torch.Tensor, xl: torch.Tensor, yh: torch.Tensor,
-    yl: torch.Tensor, plan: DiaPlan,
-) -> None:
-    """(yh, yl) += the fringe sums (all s_pad*LANE rows, f32 planes), in
-    place: launches dia_resid_df_kernel (CUDA tensors only)."""
-    dev = xh.device
+def dia_resid_spmv_df_cuda(resid: DiaResid, x: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
+    """y = A @ x in double-float (f64 in and out, length m) of a df
+    DIA+residual hybrid: the diagonals of resid.mat, then the fringe sums.
+
+    CUDA tensors launch dia_resid_df_kernel (one launch: x split and y
+    combined in the kernel; the layout checked at its first launch); CPU
+    tensors take dia_spmv_df_reference. Anything else raises."""
+    dev = x.device
+    mat = resid.mat
+    if dev.type == "cpu":
+        _check_dia_df(mat, x, plan)
+        _check_resid(resid, plan, dev)
+        return dia_spmv_df_reference(mat, x, plan, resid)
     if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev}")
-    _check_resid(resid, plan, dev)
-    n = resid.mat.shape[1]
-    for name, t in (("xh", xh), ("xl", xl)):
-        _require(t, name, (torch.float32,), (n,), dev)
-    for name, t in (("yh", yh), ("yl", yl)):
-        _require(t, name, (torch.float32,), (plan.s_pad * LANE,), dev)
+        raise ValueError(f"unsupported device {dev}")
+    if not isinstance(mat, DeviceDIADF):
+        raise TypeError("the double-float DIA kernels take a DeviceDIADF")
+    groups = _resid_plan(resid, plan, dev)
+    m, n = mat.shape
+    _require(x, "x", (torch.float64,), (n,), dev)
+    y = torch.empty(m, dtype=torch.float64, device=dev)
     rc = dfloat.df_lib().dia_resid_df_launch(
-        resid.rvals.data_ptr(), resid.rvals_lo.data_ptr(), resid.rsidx.data_ptr(),
-        resid.rgid.data_ptr(), resid.rsrc.data_ptr(), plan.nblocks, plan.bs, resid.k_pad,
-        resid.n_ktiles, resid.mat.pad_sub, xh.data_ptr(), xl.data_ptr(), n,
-        yh.data_ptr(), yl.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        mat.data.data_ptr(), mat.data_lo.data_ptr(), mat.offsets_dev.data_ptr(), len(mat.offsets),
+        plan.s_pad * LANE, m, resid.row_ptr.data_ptr(), resid.fr_val.data_ptr(),
+        resid.fr_lo.data_ptr(), resid.fr_col.data_ptr(), x.data_ptr(), n, y.data_ptr(), groups,
+        cuda_lib.current_stream(dev),
     )
     dfloat.check_launch(rc, "dia_resid_df_kernel")
-    dia_resid_df_cuda.launches += 1
+    dia_resid_spmv_df_cuda.launches += 1
+    return y
 
 
-dia_resid_df_cuda.launches = 0
+dia_resid_spmv_df_cuda.launches = 0
 
 
-def dia_spmv_df_cuda(
-    mat: DeviceDIADF, x: torch.Tensor, plan: DiaPlan, resid: Optional[DiaResid] = None
-) -> torch.Tensor:
+def dia_spmv_df_cuda(mat: DeviceDIADF, x: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
     """y = A @ x in double-float (f64 in and out, length m) over a
-    plan-padded DeviceDIADF, plus the df residual fringe when `resid` is
-    given.
+    plan-padded DeviceDIADF (a df DIA+residual hybrid runs through
+    dia_resid_spmv_df_cuda).
 
-    CUDA tensors launch dia_df_kernel (and dia_resid_df_kernel on the same
-    stream); CPU tensors take dia_spmv_df_reference. Anything else raises."""
+    CUDA tensors launch dia_df_kernel; CPU tensors take
+    dia_spmv_df_reference. Anything else raises."""
     _check_dia_df(mat, x, plan)
-    if resid is not None:
-        if resid.mat is not mat:
-            raise ValueError("resid.mat must be the DeviceDIADF passed as mat")
-        _check_resid(resid, plan, x.device)
     if x.device.type == "cpu":
-        return dia_spmv_df_reference(mat, x, plan, resid)
+        return dia_spmv_df_reference(mat, x, plan)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     xh, xl = dfloat.split_f64_t(x)
@@ -589,8 +738,6 @@ def dia_spmv_df_cuda(
     )
     dfloat.check_launch(rc, "dia_df_kernel")
     dia_spmv_df_cuda.launches += 1
-    if resid is not None:
-        dia_resid_df_cuda(resid, xh, xl, yh, yl, plan)
     m = mat.shape[0]
     return dfloat.df_combine64(yh[:m], yl[:m])
 
@@ -671,7 +818,7 @@ def from_jax_operands(
         rvals_lo=None if rvals_lo is None else _to_tensor(rvals_lo, device),
     )
     _check_resid(resid, plan, mat.data.device)
-    return mat, plan, resid
+    return mat, plan, with_fringe_lists(resid, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -718,8 +865,7 @@ def _register() -> None:
         return _prep
 
     def _run_resid(ops, x):
-        dr, plan = ops
-        return dia_spmv_cuda(dr.mat, x, plan, resid=dr)
+        return dia_resid_spmv_cuda(ops[0], x, ops[1])
 
     register(
         KernelSpec(
@@ -750,9 +896,9 @@ def _register() -> None:
             impl="cuda",
             prepare=_mk_prep_resid(),
             run=_run_resid,
-            doc="DIA + residual hybrid: dense-offset diagonals in the CUDA "
-            "diagonal kernel, the scattered fringe in a second kernel on "
-            "the same stream (one thread per block and lane, no atomics)",
+            doc="DIA + residual hybrid: dense-offset diagonals and the "
+            "scattered fringe in one CUDA kernel (a row's diagonals split "
+            "over up to 16 threads, the fringe as per-row lists; no atomics)",
         )
     )
     register(
@@ -767,8 +913,7 @@ def _register() -> None:
     )
 
     def _run_resid_df(ops, x):
-        dr, plan = ops
-        return dia_spmv_df_cuda(dr.mat, x, plan, resid=dr)
+        return dia_resid_spmv_df_cuda(ops[0], x, ops[1])
 
     register(
         KernelSpec(
@@ -778,8 +923,8 @@ def _register() -> None:
             prepare=lambda csr, ell, cfg, device: prepare_dia_resid(csr, df=True, device=device),
             run=_run_resid_df,
             doc="double-precision DIA + residual hybrid: double-float diagonal "
-            "core and df fringe slots (TwoProduct, TwoSum into owned rows) in "
-            "two CUDA kernels",
+            "core and df fringe lists (TwoProduct, TwoSum into owned rows) in "
+            "one CUDA kernel, f64 x split and f64 y combined in it",
             f64=True,
         )
     )

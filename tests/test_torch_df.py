@@ -185,7 +185,11 @@ def test_dia_df_plain_matches_jax_and_oracle(name):
     tcsr, (tm, tp, tres), (jm, jp, jres) = _dia_prepared(name)
     x = _x(tcsr.shape[1])
     y_j = _jax_y(lambda xv: jsp.dia_spmv_pallas_df(jm, xv, jp, resid=jres), x)
-    y_t = tsc.dia_spmv_df_cuda(tm, torch.from_numpy(x), tp, tres)
+    xt = torch.from_numpy(x)
+    if tres is None:
+        y_t = tsc.dia_spmv_df_cuda(tm, xt, tp)
+    else:
+        y_t = tsc.dia_resid_spmv_df_cuda(tres, xt, tp)
     assert _rel(y_t, y_j) <= 1e-12
     assert _rel(y_t, serial_csr_spmv(tcsr, x)) < 1e-11
     # the kernel pair's function: diagonals, then the fringe df-added
@@ -196,6 +200,59 @@ def test_dia_df_plain_matches_jax_and_oracle(name):
     if tres is not None:
         fh, fl = tsc.dia_resid_df_reference(tres, xh, xl, tp)
         assert fh.shape == (tp.s_pad * 128,) and fh.abs().max() > 0
+
+
+#: the df fringe lists: raefsky1_like, a band of two TPU blocks, and the
+#: 3000 x 6000 band whose two fringe entries lie past the JAX window's clip
+#: of x (the JAX kernel drops them; ROADMAP.md queue 3)
+DF_LIST_CASES = {
+    "raefsky1": lambda: tsynth.preset("raefsky1_like"),
+    "two_blocks": lambda: tsynth.banded(6000, 6000, 30, fill=1.0, exact_nnz=371000, seed=0),
+    "past_clip": lambda: _wide_band_with_far_fringe(),
+}
+
+
+def _wide_band_with_far_fringe():
+    band = tsynth.banded(3000, 3000, 30, fill=1.0, seed=0)
+    rows = np.r_[band.rows, [2998, 2999]]
+    cols = np.r_[band.cols, [4300, 5000]]
+    vals = np.r_[band.vals, [2.0, 1.0]]
+    return T.sort_coo(T.COOMatrix((3000, 6000), rows, cols, vals))
+
+
+@pytest.mark.parametrize("case", list(DF_LIST_CASES))
+def test_df_fringe_lists_and_their_sums(case):
+    """The df lists ((hi, lo) values) from the JAX package's prepared
+    DiaResid equal the port's; their plain sum in list order
+    (resid_lists_df_reference, dia_resid_df_kernel's order) is within
+    1e-12 * max|y| of dia_resid_df_reference (a compensated tree over k), and
+    with the diagonal pair sum added, of the JAX df engine (interpret mode;
+    not on the past-clip matrix, whose far products it drops) and within
+    1e-11 of the exact oracle."""
+    tcsr, jcsr = _pair(DF_LIST_CASES[case]())
+    tres, tp = tsc.prepare_dia_resid(tcsr, df=True)
+    jres, jp = jsp.prepare_dia_resid(jcsr, df=True)
+    jm = jres.mat
+    _, fp, fres = tsc.from_jax_operands(
+        np.asarray(jm.data), jm.offsets, jm.shape, jm.nnz, jm.pad_sub, jp.bs, jp.nblocks, jp.s_pad,
+        rvals=np.asarray(jres.rvals), rsidx=np.asarray(jres.rsidx), rgid=np.asarray(jres.rgid),
+        rsrc=np.asarray(jres.rsrc), k_pad=jres.k_pad, nnz_resid=jres.nnz_resid,
+        data_lo=np.asarray(jm.data_lo), rvals_lo=np.asarray(jres.rvals_lo))
+    assert fp == tp and tres.fr_lo is not None
+    for f in ("row_ptr", "fr_val", "fr_lo", "fr_col"):
+        _equal(getattr(fres, f), getattr(tres, f).numpy(), f)
+    m = tcsr.shape[0]
+    x = _x(tcsr.shape[1], seed=13)
+    xh, xl = tdf.split_f64_t(torch.from_numpy(x))
+    lh, ll = tsc.resid_lists_df_reference(tres, xh, xl)
+    rh, rl = tsc.dia_resid_df_reference(tres, xh, xl, tp)
+    f_lists, f_ref = tdf.df_combine64(lh, ll), tdf.df_combine64(rh[:m], rl[:m])
+    assert (f_lists - f_ref).abs().max() <= 1e-12 * f_ref.abs().max() and f_ref.abs().max() > 0
+    bh, bl = tsc.dia_spmv_df_pair_reference(tres.mat, xh, xl, tp)
+    y = tdf.df_combine64(*tdf.df_add(bh[:m], bl[:m], lh, ll))
+    assert _rel(y, serial_csr_spmv(tcsr, x)) < 1e-11
+    if case != "past_clip":
+        assert _rel(y, _jax_y(lambda xv: jsp.dia_spmv_pallas_df(jm, xv, jp, resid=jres), x)) <= 1e-12
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +345,11 @@ def test_df_from_jax_round_trips(engine):
             jp.s_pad, data_lo=np.asarray(jm.data_lo), **kw)
         assert isinstance(fm, tdia.DeviceDIADF) and (fres is None) == (jres is None)
         x = torch.from_numpy(_x(tcsr.shape[1]))
-        assert torch.equal(tsc.dia_spmv_df_cuda(fm, x, fp, fres), tsc.dia_spmv_df_cuda(tm, x, tp, tres))
+        if fres is None:
+            assert torch.equal(tsc.dia_spmv_df_cuda(fm, x, fp), tsc.dia_spmv_df_cuda(tm, x, tp))
+        else:
+            assert torch.equal(tsc.dia_resid_spmv_df_cuda(fres, x, fp),
+                               tsc.dia_resid_spmv_df_cuda(tres, x, tp))
         if jres is not None:
             with pytest.raises(ValueError, match="rvals_lo"):
                 tsc.from_jax_operands(
@@ -337,14 +398,19 @@ def test_df_wrappers_check_on_the_cpu():
     tcsr, (tm, tp, tres), _ = _dia_prepared("raefsky1_like")
     x = torch.from_numpy(_x(tcsr.shape[1]))
     with pytest.raises(TypeError):
-        tsc.dia_spmv_df_cuda(tm, x.float(), tp, tres)
+        tsc.dia_spmv_df_cuda(tm, x.float(), tp)
     with pytest.raises(TypeError, match="dia_spmv_df_cuda"):
         tsc.dia_spmv_cuda(tm, x.float(), tp)  # the f32 kernel refuses a df slab
     with pytest.raises(ValueError):
-        tsc.dia_spmv_df_cuda(tm, x.to("meta"), tp, tres)
+        tsc.dia_spmv_df_cuda(tm, x.to("meta"), tp)
+    # the whole-product wrapper: f64 x only (no split planes), CPU tensors
+    # take the plain version, any other device raises
     xh, xl = tdf.split_f64_t(x)
-    with pytest.raises(ValueError, match="CUDA"):
-        tsc.dia_resid_df_cuda(tres, xh, xl, xh, xl, tp)
+    with pytest.raises(TypeError):
+        tsc.dia_resid_spmv_df_cuda(tres, xh, tp)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsc.dia_resid_spmv_df_cuda(tres, x.to("meta"), tp)
+    assert torch.equal(tsc.dia_resid_spmv_df_cuda(tres, x, tp), tsc.dia_spmv_df_reference(tm, x, tp, tres))
     wcsr, wm, _ = _window_prepared("xdirect")
     with pytest.raises(TypeError):
         twc.window_spmv(wm, torch.zeros(wcsr.shape[1]))
@@ -353,7 +419,7 @@ def test_df_wrappers_check_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         twc.window_df_cuda(wm, torch.zeros(wcsr.shape[1], dtype=torch.float64),
                            torch.zeros(wcsr.shape[0], dtype=torch.float64))
-    for fn in (tsc.dia_spmv_df_cuda, tsc.dia_resid_df_cuda, twc.window_df_cuda):
+    for fn in (tsc.dia_spmv_df_cuda, tsc.dia_resid_spmv_df_cuda, twc.window_df_cuda):
         assert fn.launches == 0
 
 

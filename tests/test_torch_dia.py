@@ -8,6 +8,11 @@ Tolerance of the kernel comparisons: |y_t - y_j| <= 1e-5*|y_j| +
 products; only the order of the fringe sum differs. x of order 1 is used
 because with the reference's |x| < 3e-5 even an all-zero y passes the
 7e-4 oracle check."""
+import ctypes
+import dataclasses
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -191,7 +196,11 @@ def test_plain_version_matches_jax_pallas(resid, dtype):
         y_t = tsc.dia_spmv_reference(tmat, torch.from_numpy(x), tplan, tdr)
         _close(y_t, y_j)
         # the wrapper takes the plain version for CPU tensors
-        y_w = tsc.dia_spmv_cuda(tmat, torch.from_numpy(x), tplan, tdr)
+        xt = torch.from_numpy(x)
+        if tdr is None:
+            y_w = tsc.dia_spmv_cuda(tmat, xt, tplan)
+        else:
+            y_w = tsc.dia_resid_spmv_cuda(tdr, xt, tplan)
         torch.testing.assert_close(y_w, y_t, rtol=0, atol=0)
     rep = vectors_diff(y_t.double().numpy(), serial_csr_spmv(csr, x.astype(np.float64)),
                        threshold=DOUBLE_DIFF_THRESH)
@@ -203,10 +212,12 @@ def test_fringe_reference_is_the_residual_part():
     dr, plan = tsc.prepare_dia_resid(tcsr)
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(3000).astype(np.float32))
     kept = tsc.dia_spmv_reference(dr.mat, x, plan)
-    y = torch.zeros(plan.s_pad * 128)
-    tsc.dia_resid_cuda(dr, x, y, plan)  # CPU tensors: plain version, in place
+    y = tsc.dia_resid_reference(dr, x, plan)  # the fringe alone, all s_pad*128 rows
+    assert y.shape == (plan.s_pad * 128,)
     full = tsc.dia_spmv_reference(dr.mat, x, plan, dr)
     torch.testing.assert_close(kept + y[:3000], full, rtol=1e-6, atol=1e-6)
+    # the whole-product wrapper takes the plain version for CPU tensors
+    torch.testing.assert_close(tsc.dia_resid_spmv_cuda(dr, x, plan), full, rtol=0, atol=0)
     # the fringe alone against the oracle of the fringe entries
     keep = tdia.split_offsets(tcsr)
     rows = tcsr.row_ids()[~keep]
@@ -267,9 +278,159 @@ def test_resid_reads_x_past_the_clip_on_wide_matrices(dtype):
     dr, plan = tsc.prepare_dia_resid(csr, dia_dtype=tdt, vals_dtype=tdt)
     assert dr.nnz_resid == 2 and (plan.s_pad + dr.mat.pad_sub) * 128 < 4300
     x = np.random.default_rng(1).standard_normal(6000).astype(np.float32)
-    y = tsc.dia_spmv_cuda(dr.mat, torch.from_numpy(x), plan, dr).double().numpy()
+    y = tsc.dia_resid_spmv_cuda(dr, torch.from_numpy(x), plan).double().numpy()
     # A and x as the slab dtype rounds them
     xr = torch.from_numpy(x).to(tdt).double().numpy()
     ar = torch.from_numpy(csr.data).to(tdt).double().numpy()
     o = serial_csr_spmv(T.CSRMatrix(csr.shape, csr.indptr, csr.indices, ar), xr)
     assert np.abs(y - o).max() <= 1e-5 * np.abs(o).max()
+
+
+# ---------------------------------------------------------------------------
+# the fringe as per-row lists (what the DIA+residual kernels read)
+# ---------------------------------------------------------------------------
+
+#: a fully dense band: prepare_dia_resid keeps every diagonal, the fringe is
+#: empty; a band of 6000 rows: two TPU blocks (nblocks > 1)
+EMPTY = ("banded", dict(m=700, n=700, bandwidth=7, fill=1.0, seed=2))
+TWO_BLOCKS = ("banded", dict(m=6000, n=6000, bandwidth=30, fill=1.0, exact_nnz=371000, seed=0))
+LIST_CASES = {"raefsky1": RAEFSKY, "empty": EMPTY, "two_blocks": TWO_BLOCKS, "past_clip": None}
+_LIST_MEMO = {}
+
+
+def _list_case(case, dtype):
+    """(port csr, port (DiaResid, plan), JAX (DiaResid, plan)) of a case, its
+    slab and fringe values in dtype."""
+    key = (case, dtype)
+    if key not in _LIST_MEMO:
+        tdt, jdt = DTYPES[dtype]
+        if LIST_CASES[case] is None:
+            tcsr = _wide_band_with_far_fringe()
+            jcsr = J.CSRMatrix(shape=tcsr.shape, indptr=tcsr.indptr, indices=tcsr.indices,
+                               data=tcsr.data)
+        else:
+            tcsr, jcsr = _csrs(LIST_CASES[case])
+        _LIST_MEMO[key] = (
+            tcsr,
+            tsc.prepare_dia_resid(tcsr, dia_dtype=tdt, vals_dtype=tdt),
+            jsp.prepare_dia_resid(jcsr, dia_dtype=jdt, vals_dtype=jdt),
+        )
+    return _LIST_MEMO[key]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(LIST_CASES))
+def test_fringe_lists_from_jax_equal_the_ports(case, dtype):
+    """The lists built from the JAX package's prepared DiaResid (through
+    from_jax_operands) and from the port's own prepare are the same arrays,
+    one entry per fringe nnz, in ascending row and, within a row, slot row."""
+    tcsr, (tdr, tplan), (jdr, jplan) = _list_case(case, dtype)
+    _, fplan, fdr = _port_operands(jdr.mat, jplan, jdr)
+    assert fplan == tplan
+    for f in ("row_ptr", "fr_val", "fr_col"):
+        np.testing.assert_array_equal(getattr(fdr, f).numpy(), getattr(tdr, f).numpy(), err_msg=f)
+    assert tdr.fr_lo is None and fdr.fr_lo is None
+    m = tcsr.shape[0]
+    assert tdr.row_ptr.dtype == torch.int32 and tdr.row_ptr.shape == (m + 1,)
+    assert tdr.fr_val.dtype == torch.float32 and tdr.fr_col.dtype == torch.int32
+    assert tdr.fr_val.shape == (tdr.nnz_resid,) and (tdr.nnz_resid == 0) == (case == "empty")
+    # the lists hold the fringe nnz: (row, column, value as the slab dtype stores it)
+    keep = tdia.split_offsets(tcsr)
+    rows = tcsr.row_ids()[~keep]
+    lens = np.diff(tdr.row_ptr.numpy())
+    np.testing.assert_array_equal(np.repeat(np.arange(m), lens), rows)
+    np.testing.assert_array_equal(tdr.fr_col.numpy(), tcsr.indices[~keep])
+    tdt, _ = DTYPES[dtype]
+    want = torch.from_numpy(tcsr.data[~keep]).to(tdt).float()
+    np.testing.assert_array_equal(tdr.fr_val.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(LIST_CASES))
+def test_list_sums_match_the_reference_and_jax(case, dtype):
+    """A plain sum over the lists, each row's entries added in list order
+    (resid_lists_reference, dia_resid_kernel's order), plus the diagonal
+    sum, against dia_spmv_reference and the JAX Pallas kernel (interpret
+    mode), which sums the same products in another order. The JAX kernel
+    drops the past-clip matrix's two far products (ROADMAP.md queue 3):
+    that case is held to the oracle of A and x as the slab dtype rounds
+    them instead."""
+    tcsr, (tdr, tplan), (jdr, jplan) = _list_case(case, dtype)
+    m, n = tcsr.shape
+    x = np.random.default_rng(21).standard_normal(n).astype(np.float32)
+    xt = torch.from_numpy(x)
+    fringe = tsc.resid_lists_reference(tdr, xt)
+    assert fringe.shape == (m,) and fringe.dtype == torch.float32
+    ref_fringe = tsc.dia_resid_reference(tdr, xt, tplan)[:m]
+    torch.testing.assert_close(fringe, ref_fringe, rtol=1e-5, atol=1e-6 * max(ref_fringe.abs().max(), 1))
+    y = tsc.dia_spmv_reference(tdr.mat, xt, tplan) + fringe
+    _close(y, tsc.dia_spmv_reference(tdr.mat, xt, tplan, tdr).numpy())
+    if case == "past_clip":
+        tdt, _ = DTYPES[dtype]
+        xr = xt.to(tdt).double().numpy()
+        ar = torch.from_numpy(tcsr.data).to(tdt).double().numpy()
+        _close(y, serial_csr_spmv(T.CSRMatrix(tcsr.shape, tcsr.indptr, tcsr.indices, ar), xr))
+    else:
+        _close(y, jsp.dia_spmv_pallas(jdr.mat, jnp.asarray(x), jplan, resid=jdr))
+
+
+@pytest.mark.parametrize(
+    "m,n_diag,groups",
+    [(3242, 91, 16), (200000, 61, 1), (3000, 61, 16), (6000, 61, 8), (16000, 61, 4), (40000, 61, 1),
+     (3242, 5, 4), (3242, 1, 1), (1, 91, 16)],
+)
+def test_launch_groups(m, n_diag, groups):
+    """Threads per row double while the grid has fewer CTAs than the H100's
+    132 SMs, up to 16 and to the diagonal count."""
+    assert tsc.launch_groups(m, n_diag) == groups
+    ctas = -(-m * groups // tsc.RESID_THREADS)
+    assert ctas >= tsc.SMS or groups == min(tsc.MAX_GROUPS, 1 << (n_diag.bit_length() - 1))
+    assert groups == 1 or -(-m * groups // 2 // tsc.RESID_THREADS) < tsc.SMS
+
+
+def test_resid_layout_check_rejects_broken_lists():
+    """The layout check the kernels' wrapper runs once per layout (here on
+    CPU tensors, which it takes as they are): it passes the prepared lists
+    and refuses missing, misshapen or unordered ones."""
+    tcsr, (dr, plan), _ = _list_case("two_blocks", "float32")
+    cpu = torch.device("cpu")
+    tsc._check_resid_layout(dr, plan, cpu)
+    bad_ptr = dr.row_ptr.clone()
+    bad_ptr[-1] += 1
+    down = dr.row_ptr.clone()
+    down[5], down[6] = down[6] + 1, down[5]
+    for broken in (
+        dataclasses.replace(dr, row_ptr=None),
+        dataclasses.replace(dr, fr_val=None),
+        dataclasses.replace(dr, row_ptr=bad_ptr),
+        dataclasses.replace(dr, row_ptr=down),
+        dataclasses.replace(dr, row_ptr=dr.row_ptr[:-1].contiguous()),
+        dataclasses.replace(dr, fr_col=dr.fr_col.long()),
+        dataclasses.replace(dr, fr_val=dr.fr_val[:-1]),
+        dataclasses.replace(dr, fr_lo=dr.fr_val),
+    ):
+        with pytest.raises((ValueError, TypeError)):
+            tsc._check_resid_layout(broken, plan, cpu)
+
+
+def test_dia_bindings_match_the_source():
+    """csrc/dia_spmv.cu is compiled only on a machine with nvcc: hold each C
+    function's parameter list against the ctypes argtypes bound to it."""
+    src = open(os.path.join(os.path.dirname(tsc.__file__), "..", "csrc", "dia_spmv.cu")).read()
+    body = src[src.index('extern "C" {'):]
+    sigs = dict(re.findall(r"^(?:int|const char\*) (\w+)\(([^)]*)\)", body, re.M))
+
+    class Fake:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            object.__setattr__(self, name, fn)
+            return fn
+
+    lib = Fake()
+    tsc._bind(lib)
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+    for name, params in sigs.items():
+        want = [kinds.get(re.sub(r"\s+\w+$", "", p.strip()), ctypes.c_void_p)
+                for p in params.split(",")]
+        assert getattr(lib, name).argtypes == want, name
+    assert set(sigs) == {"dia_spmv_launch", "dia_resid_launch", "dia_error_string"}

@@ -64,10 +64,11 @@ def test_kernel_matches_plain(cuda, mode, coo):
     csr = T.coo_to_csr(coo())
     ops = registry.get(mode).prepare(csr, None, T.Config(), cuda)
     x = _x(csr.shape[1], cuda)
-    before = tsc.dia_spmv_cuda.launches
+    counter = tsc.dia_resid_spmv_cuda if mode.startswith("PL_DIA_RESID") else tsc.dia_spmv_cuda
+    before = counter.launches
     yk = registry.get(mode).jitted(ops)(x)
     torch.cuda.synchronize()
-    assert tsc.dia_spmv_cuda.launches == before + 1
+    assert counter.launches == before + 1
     if mode.startswith("PL_DIA_RESID"):
         dr, plan = ops
         yp = tsc.dia_spmv_reference(dr.mat, x, plan, dr)
@@ -77,16 +78,75 @@ def test_kernel_matches_plain(cuda, mode, coo):
     _within(yk, yp)
 
 
-def test_fringe_kernel_alone(cuda):
+def _wide_band_with_far_fringe():
+    """A 3000 x 6000 band with two fringe entries past the JAX window's clip
+    of x at 4224 (columns 4300, 5000)."""
+    band = synth.banded(3000, 3000, 30, fill=1.0, seed=0)
+    rows = np.r_[band.rows, [2998, 2999]]
+    cols = np.r_[band.cols, [4300, 5000]]
+    vals = np.r_[band.vals, [2.0, 1.0]]
+    return T.sort_coo(T.COOMatrix((3000, 6000), rows, cols, vals))
+
+
+#: the DIA+residual products: each mode on raefsky1_like, the banded
+#: 3000-row matrix and the past-clip band
+RESID_MATRICES = {
+    "raefsky1": lambda: synth.preset("raefsky1_like"),
+    "banded3000": lambda: synth.banded(3000, 3000, 30, fill=1.0, exact_nnz=185000, seed=0),
+    "past_clip": _wide_band_with_far_fringe,
+}
+
+
+@pytest.mark.parametrize("mode", ["PL_DIA_RESID", "PL_DIA_RESID_BF16", "PL_DIA_RESID_F64"])
+@pytest.mark.parametrize("matrix", list(RESID_MATRICES))
+def test_resid_product_is_one_launch(cuda, mode, matrix, monkeypatch):
+    """A DIA+residual product is one launch of dia_resid_kernel (or
+    dia_resid_df_kernel, f64 in and out) that allocates y and nothing else,
+    checks its layout at the first launch only, reruns bitwise equal and
+    agrees with its plain version."""
+    csr = T.coo_to_csr(RESID_MATRICES[matrix]())
+    f64 = mode.endswith("F64")
+    spec = registry.get(mode)
+    dr, plan = ops = spec.prepare(csr, None, T.Config(dtype="float64" if f64 else "float32"), cuda)
+    assert dr.nnz_resid > 0
+    fn = spec.jitted(ops)
+    counter = tsc.dia_resid_spmv_df_cuda if f64 else tsc.dia_resid_spmv_cuda
+    xn = np.random.default_rng(5).standard_normal(csr.shape[1])
+    x = torch.as_tensor(xn, dtype=torch.float64 if f64 else torch.float32, device=cuda)
+    fn(x)  # the first launch checks the layout and keeps its plan
+    torch.cuda.synchronize()
+    checks = []
+    monkeypatch.setattr(tsc, "_check_resid_layout", lambda *a: checks.append(a))
+    rows_before = (tsc.dia_spmv_cuda.launches, tsc.dia_spmv_df_cuda.launches)
+    before = counter.launches
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    yk, yk2 = fn(x), fn(x)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 2  # y of each product
+    assert counter.launches == before + 2 and not checks
+    assert (tsc.dia_spmv_cuda.launches, tsc.dia_spmv_df_cuda.launches) == rows_before
+    assert yk.shape == (csr.shape[0],) and torch.equal(yk, yk2)
+    if f64:
+        _df_within(yk, tsc.dia_spmv_df_reference(dr.mat, x, plan, dr), csr, xn)
+    else:
+        assert yk.dtype == torch.float32
+        _within(yk, tsc.dia_spmv_reference(dr.mat, x, plan, dr))
+
+
+def test_resid_wrapper_raises_on_what_it_does_not_take(cuda):
     csr = T.coo_to_csr(synth.preset("raefsky1_like"))
     dr, plan = tsc.prepare_dia_resid(csr, device=cuda)
     x = _x(csr.shape[1], cuda)
-    y = torch.zeros(plan.s_pad * LANE, device=cuda)
-    before = tsc.dia_resid_cuda.launches
-    tsc.dia_resid_cuda(dr, x, y, plan)
-    torch.cuda.synchronize()
-    assert tsc.dia_resid_cuda.launches == before + 1
-    _within(y, tsc.dia_resid_reference(dr, x, plan))
+    with pytest.raises(TypeError):
+        tsc.dia_resid_spmv_cuda(dr, x.double(), plan)
+    with pytest.raises(ValueError):
+        tsc.dia_resid_spmv_cuda(dr, x[:-1], plan)
+    with pytest.raises(ValueError):
+        tsc.dia_resid_spmv_cuda(dr, torch.zeros(2 * x.shape[0], device=cuda)[::2], plan)
+    with pytest.raises(ValueError):  # lists of another precision
+        tsc.dia_resid_spmv_cuda(dataclasses.replace(dr, fr_lo=dr.fr_val), x, plan)
+    with pytest.raises(TypeError):  # an f32 layout in the df wrapper
+        tsc.dia_resid_spmv_df_cuda(dr, x.double(), plan)
 
 
 def test_wide_matrix_clips_x(cuda):
@@ -132,14 +192,10 @@ def test_wrapper_raises_on_what_it_does_not_take(cuda):
 
 
 def test_fringe_kernel_reads_x_past_the_clip(cuda):
-    band = synth.banded(3000, 3000, 30, fill=1.0, seed=0)
-    rows = np.r_[band.rows, [2998, 2999]]
-    cols = np.r_[band.cols, [4300, 5000]]
-    vals = np.r_[band.vals, [2.0, 1.0]]
-    csr = T.coo_to_csr(T.sort_coo(T.COOMatrix((3000, 6000), rows, cols, vals)))
+    csr = T.coo_to_csr(_wide_band_with_far_fringe())
     dr, plan = tsc.prepare_dia_resid(csr, device=cuda)
     x = _x(6000, cuda)
-    yk = tsc.dia_spmv_cuda(dr.mat, x, plan, dr)
+    yk = tsc.dia_resid_spmv_cuda(dr, x, plan)
     _within(yk, tsc.dia_spmv_reference(dr.mat, x, plan, dr))
     o = torch.as_tensor(
         T.csr_to_dense(csr) @ x.double().cpu().numpy(), dtype=torch.float32, device=cuda
@@ -532,10 +588,11 @@ def test_dia_df_kernel_matches_plain(cuda, mode, coo):
     ops = spec.prepare(csr, None, T.Config(dtype="float64"), cuda)
     x = np.random.default_rng(5).standard_normal(csr.shape[1])
     xd = torch.as_tensor(x, device=cuda)
-    before = tsc.dia_spmv_df_cuda.launches
+    counter = tsc.dia_resid_spmv_df_cuda if mode == "PL_DIA_RESID_F64" else tsc.dia_spmv_df_cuda
+    before = counter.launches
     yk = spec.jitted(ops)(xd)
     torch.cuda.synchronize()
-    assert tsc.dia_spmv_df_cuda.launches == before + 1
+    assert counter.launches == before + 1
     if mode == "PL_DIA_RESID_F64":
         dr, plan = ops
         yp = tsc.dia_spmv_df_reference(dr.mat, xd, plan, dr)
