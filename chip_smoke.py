@@ -32,6 +32,16 @@ thermal2_like, thread-block clusters on fem_3d_thermal2_like and
 delaunay_n12_like; phase 2 holds each layout (the three x forms, g = 64, a
 128-row x window) against its plain version, one launch and a bitwise rerun
 per product, and phase 5 times them per call and in a CUDA graph.
+The routed chain reads every permutation through index maps composed at
+build time: kernel C sums each slab slot through one offset into its source
+(A's products, or the sums of the level before), kernel B applies a domain's
+whole output permutation as one gather; phase 2 holds B bit for bit, and C
+within the f32 bound, against the W stages applied one by one
+(`routed_cuda.staged_stage`) as well as against their plain versions, phase
+3 holds the counted launches to the chains' planned ones (caida_like: A, C
+twice, D and its row sums, B: six launches and a memset per product), and
+phase 5 times each C and the output gather alone in a CUDA graph on
+caida_like and webbase_like.
 The small kernel (one launch per product of a routed domain of t <= 4
 tiles, over per-row slot lists, no scratch) is held bit for bit against the
 staged chain and timed beside it on delaunay_n12_like, west2021_like and a
@@ -180,7 +190,7 @@ DF_FLOPS_PER_SLOT = 15
 #: routed kernel -> (name in csrc/routed_spmv.cu, the TPU kernel it replaces)
 ROUTED_KERNELS = {
     "gather": ("routed_gather_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:959"),
-    "w_stage": ("routed_w_stage_kernel", "spmv_openmp_cuda_tpu/ops/route.py:347"),
+    "permute": ("routed_permute_kernel", "spmv_openmp_cuda_tpu/ops/route.py:347"),
     "perm_reduce": ("routed_perm_reduce_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1239"),
     "hdense": ("routed_hdense_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1060"),
     "heavy": ("routed_heavy_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1134"),
@@ -275,17 +285,18 @@ def stage_cost(stage, n_x: int):
         n_real = stage.vals.shape[0] // 128
         w1 = n_real * 128 * 128 if stage.w1 is not None else 0
         return nbytes(stage.vals, stage.pidx, stage.widx) + w1 + 4 * n_x + out, stage.vals.numel()
-    if isinstance(stage, RC.WStage):
-        h = stage.n_tiles * 128
-        src = 4 * 128 * min(stage.src_rows, h)
-        idx = sum(h * 128 for a in (stage.r, stage.w, stage.ra) if a is not None)
-        return src + idx + out, 0
+    if isinstance(stage, RC.PermuteStage):
+        # the map's first n offsets, the source elements they name, y
+        idx = stage.imap.idx.reshape(-1)[:stage.n]
+        return 4 * idx.numel() + 4 * int((idx >= 0).sum()) + out, 0
     if isinstance(stage, RC.ReduceStage):
-        h = stage.r3.shape[0]
-        src = 4 * 128 * min(stage.src_rows, h)
-        idx = nbytes(*(a for a in (stage.W, stage.r1, stage.r3, stage.mask, stage.groups)
-                       if a is not None))
-        return src + idx + out, sum(ng * w for _r0, ng, w, _g0 in stage.runs) * 128
+        # the offsets (and mask) of the slab rows the groups cover, the
+        # source elements they name, the groups table and the sums; an add
+        # per slot
+        off = stage.imap.idx
+        mask = 4 * off.numel() if stage.mask is not None else 0
+        return nbytes(off, stage.groups, stage.chunks) + mask + 4 * int((off >= 0).sum()) + out, \
+            sum(ng * w for _r0, ng, w, _g0 in stage.runs) * 128
     if isinstance(stage, RC.HDenseStage):
         return nbytes(stage.hdense, stage.target) + 4 * n_x + 4 * stage.hdense.shape[0], \
             2 * stage.hdense.numel()
@@ -297,6 +308,20 @@ def stage_cost(stage, n_x: int):
         ins = nbytes(stage.vals, stage.pidx, stage.widx, stage.row_ptr, stage.row_slots)
         return ins + 4 * n_x + out, 2 * stage.row_slots.numel()
     return out, 0
+
+
+def routed_stage_label(chain, stage) -> str:
+    """A routed stage's name in the timing lines: C by level of its domain,
+    B as the output gather."""
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+
+    if isinstance(stage, RC.ReduceStage):
+        i = chain.stages.index(stage)
+        first = max(j for j in range(i + 1) if isinstance(chain.stages[j], RC.GatherStage))
+        return f"C level {sum(isinstance(s, RC.ReduceStage) for s in chain.stages[first:i])}"
+    if isinstance(stage, RC.PermuteStage):
+        return "B output"
+    return type(stage).__name__
 
 
 def heavy_cost(stage, n_x: int, cols=None):
@@ -742,17 +767,28 @@ def main() -> int:
     # both modes (the bf16 operands are the f32 layout with vals cast, as
     # prepare_routed makes them), then a small domain (t <= 4)
     def check_routed(label, chain, x):
-        for stage, yk, yp in RC.compare_stages(chain, x):
+        for stage, yk, yp, ys in RC.compare_stages(chain, x):
             torch.cuda.synchronize()
             err = (yk - yp).abs().max().item()
-            exact = stage.kernel in ("gather", "w_stage")
+            exact = stage.kernel in ("gather", "permute")
             ok = torch.equal(yk, yp) if exact else err <= bound(yp)
+            staged = ""
+            if ys is not None:
+                # B and C against the W stages they compose, applied one
+                # by one: B bit for bit, C within the bound of a sum
+                err_s = (yk - ys).abs().max().item()
+                ok_s = torch.equal(yk, ys) if exact else err_s <= bound(ys)
+                ok = ok and ok_s
+                staged = (f"; vs the staged W stages {err_s:.3e} "
+                          f"{'(bit for bit)' if exact else f'<= {bound(ys):.3e}'}")
             errs[stage.kernel] = max(errs.get(stage.kernel, 0.0), err)
             log(f"phase 2: {label}: {ROUTED_KERNELS[stage.kernel][0]} {type(stage).__name__} "
                 f"{yk.numel()} elements: max|k - p| = {err:.3e} "
-                f"{'(bit for bit)' if exact else f'<= {bound(yp):.3e}'}: {'OK' if ok else 'FAIL'}")
+                f"{'(bit for bit)' if exact else f'<= {bound(yp):.3e}'}{staged}: "
+                f"{'OK' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"{label}: {stage.kernel} kernel disagrees with its plain version")
+                raise AssertionError(f"{label}: {stage.kernel} kernel disagrees with its plain "
+                                     "version or the staged W stages")
         before = {k: fn.launches for k, fn in RC._COUNTERS.items()}
         yk = RC.routed_chain_spmv(chain, x)
         torch.cuda.synchronize()
@@ -860,6 +896,23 @@ def main() -> int:
         **{k: fn.launches for k, fn in RC._COUNTERS.items()},
     }
     log(f"phase 3: main path launches {launches}; every product's rerun bitwise equal")
+    # the routed kernels' counted launches are the chains' planned ones:
+    # three products per proxy (x_ref, x_n and the rerun)
+    planned = {k: 0 for k in RC._COUNTERS}
+    for name, model in models.items():
+        if model.format != "routed":
+            continue
+        chain = model._operands
+        for k, v in chain.counts.items():
+            planned[k] += 3 * v
+        # D and E each add their row sums' launch
+        n_launch = sum(chain.counts.values()) + chain.counts["hdense"] + chain.counts["heavy"]
+        n_memset = sum(isinstance(st, RC.ZeroStage) for st in chain.stages)
+        log(f"phase 3: {name} per product: {n_launch} launches and {n_memset} memset(s), "
+            f"{chain.counts['permute']} of B, {chain.counts['perm_reduce']} of C ({chain.counts})")
+    counted = {k: launches[k] for k in RC._COUNTERS}
+    if counted != planned:
+        raise AssertionError(f"routed launches counted {counted}, planned {planned}")
     for name, (fmt, y_ref, y_n, x_ref, x_n, prep_s) in outputs.items():
         csr = csrs[name]
         if fmt != EXPECTED_FORMAT[name]:
@@ -938,7 +991,8 @@ def main() -> int:
     launches64 = {k: fn.launches for k, fn in df_counters.items()}
     also = {k: fn.launches for k, fn in f32_counters.items() if fn.launches}
     log(f"phase 3 (float64): main path launches {launches64}; f32 kernels in it {also} "
-        "(the W stages move each plane of the df routed products); every product's rerun "
+        "(kernel B moves each plane of the df routed products, one launch per permutation); "
+        "every product's rerun "
         f"bitwise equal; not run in float64: {list(F32_ONLY)}")
     for name, (fmt, y_ref, y_n, x_ref, x_n, prep_s) in outputs64.items():
         csr = csrs[name]
@@ -1170,22 +1224,22 @@ def main() -> int:
         pms = time_per_call(lambda v, s=stage: RC.run_stage(s, bufs, plain=True), x) * 1e3
         b, f = stage_cost(stage, csr.shape[1])
         lib = None
-        if isinstance(stage, RC.WStage):
-            # the library yardstick of a W stage: one torch.take with the
-            # stage's composed index (built from the plain version)
-            h = stage.n_tiles * 128
-            src = bufs[stage.src.kind][stage.src.off:].reshape(-1, 128)
-            ids = torch.arange(src.shape[0] * 128, device=dev, dtype=torch.float32).reshape(-1, 128)
-            idx = RC.w_stage_reference(ids, stage.src_rows, stage.r, stage.w, stage.ra, stage.t,
-                                       stage.sw, stage.n_tiles).reshape(-1)[:stage.out_elems()].long()
-            lib = time_per_call(lambda v, s=src, j=idx: torch.take(s, j), x) * 1e3
+        if isinstance(stage, RC.PermuteStage):
+            # the library yardstick of the output gather: one torch.take
+            # with the stage's map, its -1 pointed at a zero appended to the
+            # source
+            src = bufs[stage.src.kind][stage.src.off:]
+            srcz = torch.cat([src, src.new_zeros(1)])
+            idx = stage.imap.idx.reshape(-1)[:stage.n].long()
+            idx = torch.where(idx >= 0, idx, src.numel())
+            lib = time_per_call(lambda v, s=srcz, j=idx: torch.take(s, j), x) * 1e3
             per_kernel[stage.kernel][4] += lib
         acc = per_kernel[stage.kernel]
         acc[0] += ms
         acc[1] += pms
         acc[2] += b
         acc[3] += f
-        print(f"  stage {i:2d} {ROUTED_KERNELS[stage.kernel][0]:26s} {type(stage).__name__:12s} "
+        print(f"  stage {i:2d} {ROUTED_KERNELS[stage.kernel][0]:26s} {routed_stage_label(chain32, stage):14s} "
               f"{ms * 1e3:8.2f} us in a graph | plain {pms:.4f} ms | {b / 1e6:7.3f} MB, bound "
               f"{least_ms(b, f)[0] * 1e3:6.2f} us"
               + (f" | torch.take {lib * 1e3:.2f} us" if lib is not None else ""))
@@ -1201,16 +1255,16 @@ def main() -> int:
     t8p = time_per_call(lambda v: RC.gather_reference(mat.vals, mat.pidx, mat.widx, None, n_real, v), x)
     b8 = least_ms(nbytes(mat.vals, mat.pidx, mat.widx) + 4 * csr.shape[1] + 4 * out.numel(),
                   mat.vals.numel())
-    st = next(s for s in chain32.stages if isinstance(s, RC.ReduceStage) and s.mode == RC.MODE_W3)
-    src = bufs[st.src.kind][st.src.off:].reshape(-1, 128)
+    # W3 off: R3 alone over the products slab (A's output as the slab)
+    st = next(s for s in chain32.stages if isinstance(s, RC.ReduceStage))
+    src = bufs[st.src.kind][st.src.off:]
+    imap14 = RC.reduce_map(mat.perm_products.r3, RC.MODE_DIRECT)
+    imap14 = dataclasses.replace(imap14, idx=imap14.idx[:st.imap.idx.shape[0]])
     out14 = torch.empty(st.groups.shape[0] * 128, device=dev)
-    t14 = graph_ms(lambda: RC.routed_perm_reduce_cuda(src, st.src_rows, RC.MODE_DIRECT, None, None,
-                                                      st.r3, st.mask, st.groups, out14))
-    t14p = time_per_call(lambda v: RC.perm_reduce_reference(src, st.src_rows, RC.MODE_DIRECT, None,
-                                                             None, st.r3, st.mask, st.runs), x)
-    h14 = st.r3.shape[0]
-    b14 = least_ms(4 * 128 * min(st.src_rows, h14) + nbytes(st.r3, st.groups) + 4 * out14.numel(),
-                   sum(ng * w for _r0, ng, w, _g0 in st.runs) * 128)
+    t14 = graph_ms(lambda: RC.routed_perm_reduce_cuda(src, imap14, None, st.groups, st.chunks,
+                                                      out14))
+    t14p = time_per_call(lambda v: RC.perm_reduce_reference(src, imap14.idx, None, st.runs), x)
+    b14 = least_ms(*stage_cost(dataclasses.replace(st, imap=imap14), csr.shape[1]))
     hd32 = mat.hdense.float()
     xpad = torch.nn.functional.pad(x, (0, hd32.shape[1] - x.shape[0]))
     t10l = graph_ms(lambda: torch.mv(hd32, xpad))
@@ -1243,7 +1297,7 @@ def main() -> int:
     for i, stage in enumerate(wchain.stages):
         ms = graph_ms(lambda s=stage: RC.run_stage(s, bufs, plain=False)) if stage.kernel else 0.0
         b, f = stage_cost(stage, wcsr.shape[1])
-        print(f"  {POOLED_CHECK} stage {i:2d} {type(stage).__name__:12s} "
+        print(f"  {POOLED_CHECK} stage {i:2d} {routed_stage_label(wchain, stage):14s} "
               f"{ROUTED_KERNELS[stage.kernel][0] if stage.kernel else '(memset)':26s} {ms * 1e3:8.2f} us "
               f"in a graph | {b / 1e6:7.3f} MB, bound {least_ms(b, f)[0] * 1e3:6.2f} us")
     est = wchain.stages[-1]
@@ -1413,7 +1467,7 @@ def main() -> int:
         kernels.append(
             {"name": kname, "route": "cuda", "source": ROUTED_SOURCE, "replaces": replaces,
              "launches": launches[kernel], "max_abs_err": errs[kernel], "ms": ms, "plain_ms": pms,
-             "bound_ms": b_ms, "bound_by": by, "library_ms": lib if kernel == "w_stage" else None})
+             "bound_ms": b_ms, "bound_by": by, "library_ms": lib if kernel == "permute" else None})
     for key, kname, replaces in (
         ("dia_df", "dia_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:628"),
         ("dia_resid_df raefsky1_like", "dia_resid_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:628"),

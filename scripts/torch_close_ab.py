@@ -2,8 +2,13 @@
 """A/B of two checkouts of the PyTorch/CUDA port on one GPU: the window
 kernels (PL_CSR_WINDOW, PL_CSR_WINDOW_BF16 and PL_CSR_WINDOW_F64 on
 thermal2_like, fem_3d_thermal2_like and delaunay_n12_like), the dense
-heavy-row kernel D and the W-stage kernel B (caida_like's chain), the
-PL_CSR_ROUTED product on caida_like and on three small domains
+heavy-row kernel D on caida_like, the routed kernels B (the output
+permutation, and any other W-stage launches) and C (per level) each alone
+in a CUDA graph on caida_like's and webbase_like's chains, the routed
+products in f32 and bf16 (the bf16 operands: the f32 layout with its gather
+and pooled values cast) on caida_like, webbase_like and sg_rand_like with a
+hash of each y from a seeded x (parent and change bitwise equal or not),
+the PL_CSR_ROUTED product on three small domains
 (delaunay_n12_like, west2021_like, a 9000-row random matrix: the small
 kernel), the PL_CSR_LANES product (lanes_kernel) on delaunay_n12_like,
 raefsky1_like, cavity10_like and west2021_like, the DIA+residual product
@@ -18,17 +23,19 @@ over 3.35 TB/s, against the graphed time. The window F64 operands are the
 f32 layout with a zero lo plane (the df layout's shape and bytes, without a
 second prepare); the 200,000-row band is prepared once in df, its f32
 operands are the hi planes (what the f32 prepare makes) and bf16 their
-cast. The two large matrices are generated by the first run and kept in a
+cast. The large matrices are generated by the first run and kept in a
 temporary directory for the other three.
 
     python3 scripts/torch_close_ab.py PARENT_DIR CHANGE_DIR
 
 runs each checkout in a process of its own (its package on the path, its
 kernels built from its csrc/) in the order parent, change, change, parent,
-and prints each run's numbers and the mean of the two runs of each tree.
+and prints each run's numbers, the mean of the two runs of each tree, and
+whether each routed y is bitwise the same in all four runs.
 `--one DIR [CACHE_DIR]` runs one checkout and prints one JSON line. Needs a
 CUDA device.
 """
+import hashlib
 import json
 import os
 import subprocess
@@ -38,6 +45,7 @@ import time
 
 PROXIES = ("thermal2_like", "fem_3d_thermal2_like", "delaunay_n12_like")
 LANES_PROXIES = ("delaunay_n12_like", "raefsky1_like", "cavity10_like", "west2021_like")
+ROUTED_PROXIES = ("caida_like", "webbase_like", "sg_rand_like")
 MODES = ("PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16", "PL_CSR_WINDOW_F64")  # all run by window_spmv
 #: H100 SXM data sheet: the HBM rate
 HBM_BYTES_PER_S = 3.35e12
@@ -179,6 +187,56 @@ def dia_rows_products(dev, cache) -> dict:
     return out
 
 
+def bf16(mat):
+    """The PL_CSR_ROUTED_BF16 operands of a routed layout (a RoutedCSR or
+    RoutedChunks): its gather values, and pooled heavy values, cast."""
+    import dataclasses
+
+    import torch
+
+    if hasattr(mat, "chunks"):
+        return dataclasses.replace(mat, chunks=tuple(bf16(c) for c in mat.chunks))
+    return dataclasses.replace(
+        mat, vals=mat.vals.to(torch.bfloat16),
+        hvals=None if mat.hvals is None else mat.hvals.to(torch.bfloat16))
+
+
+def routed_stage_times(name: str, chain, x) -> dict:
+    """Kernels B and C of a routed chain, each launch alone in a CUDA graph
+    on valid inputs, summed per role: C by level (the i-th reduce of a
+    domain), B as the output permutation (the B launches after a domain's
+    last reduce) or the W stages before a reduce (a tree whose chain
+    still runs them)."""
+    import torch
+
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+    from spmv_openmp_cuda_tpu_torch.utils.profiling import time_per_call
+
+    bufs = RC._buffers(chain, x)
+    for st in chain.stages:
+        RC.run_stage(st, bufs, plain=True)
+    out, level = {}, 0
+    for i, st in enumerate(chain.stages):
+        if type(st).__name__ == "GatherStage":
+            level = 0
+        if st.kernel == "perm_reduce":
+            role, level = f"C level {level}", level + 1
+        elif st.kernel in ("w_stage", "permute"):
+            later = chain.stages[i + 1:]
+            end = next((j for j, s in enumerate(later) if type(s).__name__ == "GatherStage"),
+                       len(later))
+            role = "B before a reduce" if any(s.kernel == "perm_reduce" for s in later[:end]) \
+                else "B output permutation"
+        else:
+            continue
+        cell = out.setdefault(f"{name} kernel {role}",
+                              {"ms": 0.0, "graph_ms": 0.0, "rerun_equal": None, "launches": 0})
+        cell["ms"] += time_per_call(lambda v, st=st: RC.run_stage(st, bufs, plain=False), x) * 1e3
+        cell["graph_ms"] += graph_ms(lambda st=st: RC.run_stage(st, bufs, plain=False))
+        cell["launches"] += 1
+    return out
+
+
 def one(tree: str, cache=None) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
@@ -219,7 +277,7 @@ def one(tree: str, cache=None) -> dict:
                                      "rerun_equal": bool(torch.equal(a, b)),
                                      "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
                                      "bound_share": moved / HBM_BYTES_PER_S * 1e3 / tg}
-    csr = P.coo_to_csr(synth.preset("caida_like"))
+    csr = cached_csr("caida_like", cache)
     mat = RC.prepare_routed_chain(csr, device=dev).mat
     x = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
                         dtype=torch.float32, device=dev)
@@ -237,32 +295,39 @@ def one(tree: str, cache=None) -> dict:
     out[f"caida_like kernel D {tuple(mat.hdense.shape)}"] = {
         "ms": time_per_call(d, x) * 1e3, "graph_ms": graph_ms(lambda: d(x)),
         "rerun_equal": bool(torch.equal(a, b))}
-    # kernel B: each W stage of caida_like's chain alone, on valid inputs
     chain = RC.build_chain(mat)
-    bufs = RC._buffers(chain, x)
-    for st in chain.stages:
-        RC.run_stage(st, bufs, plain=True)
-    w_stages = [st for st in chain.stages if isinstance(st, RC.WStage)]
-    out[f"caida_like kernel B ({len(w_stages)} W stages)"] = {
-        "ms": sum(time_per_call(lambda v, st=st: RC.run_stage(st, bufs, plain=False), x)
-                  for st in w_stages) * 1e3,
-        "graph_ms": sum(graph_ms(lambda st=st: RC.run_stage(st, bufs, plain=False))
-                        for st in w_stages),
-        "rerun_equal": None}  # data movement: not a sum
-    # whole routed products (small domains: the staged chain in a parent
-    # without the small kernel)
-    for name, coo in (("caida_like", None), ("delaunay_n12_like", synth.preset("delaunay_n12_like")),
+    out.update(routed_stage_times("caida_like", chain, x))
+    # whole routed products, f32 and bf16, hashed
+    for name in ROUTED_PROXIES:
+        csr = cached_csr(name, cache)
+        c32 = chain if name == "caida_like" else RC.prepare_routed_chain(csr, device=dev)
+        xr = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
+                             dtype=torch.float32, device=dev)
+        if name == "webbase_like":
+            out.update(routed_stage_times(name, c32, xr))
+        for mode, c in (("PL_CSR_ROUTED", c32), ("PL_CSR_ROUTED_BF16", RC.build_chain(bf16(c32.mat)))):
+            a, b = RC.routed_chain_spmv(c, xr), RC.routed_chain_spmv(c, xr)
+            torch.cuda.synchronize()
+            out[f"{name} {mode} product"] = {
+                "ms": time_per_call(lambda v, c=c: RC.routed_chain_spmv(c, v), xr) * 1e3,
+                "graph_ms": graph_ms(lambda c=c: RC.routed_chain_spmv(c, xr)),
+                "rerun_equal": bool(torch.equal(a, b)),
+                "hash": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]}
+        del c32
+    # small domains (the small kernel)
+    for name, coo in (("delaunay_n12_like", synth.preset("delaunay_n12_like")),
                       ("west2021_like", synth.preset("west2021_like")),
                       ("random_uniform 9000", synth.random_uniform(9000, 9000, density=5e-4, seed=7))):
-        c = chain if coo is None else RC.prepare_routed_chain(P.coo_to_csr(coo), device=dev)
-        xc = x if coo is None else torch.as_tensor(
-            np.random.default_rng(4).standard_normal(c.shape[1]), dtype=torch.float32, device=dev)
+        c = RC.prepare_routed_chain(P.coo_to_csr(coo), device=dev)
+        xc = torch.as_tensor(np.random.default_rng(4).standard_normal(c.shape[1]),
+                             dtype=torch.float32, device=dev)
         a, b = RC.routed_chain_spmv(c, xc), RC.routed_chain_spmv(c, xc)
         torch.cuda.synchronize()
         out[f"{name} PL_CSR_ROUTED product"] = {
             "ms": time_per_call(lambda v, c=c: RC.routed_chain_spmv(c, v), xc) * 1e3,
             "graph_ms": graph_ms(lambda c=c, xc=xc: RC.routed_chain_spmv(c, xc)),
-            "rerun_equal": bool(torch.equal(a, b))}
+            "rerun_equal": bool(torch.equal(a, b)),
+            "hash": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]}
     # lane-gather products (PL_CSR_LANES)
     spec = registry.get("PL_CSR_LANES")
     for name in LANES_PROXIES:
@@ -311,20 +376,33 @@ def main(argv) -> int:
         print(f"{tree} ({time.perf_counter() - t:.0f}s): {json.dumps(res)}", flush=True)
     cache.cleanup()
     print(f"mean of two runs per tree, on {smi} (ms per call through the wrapper | ms in a CUDA "
-          "graph | rerun bitwise equal | graphed share of the bound):")
-    for key in runs[parent][0]:
+          "graph | rerun bitwise equal | graphed share of the bound; kernels B and C alone: "
+          "launches per product in brackets):")
+    keys = list(dict.fromkeys([k for run in runs[parent] + runs[change] for k in run]))
+    for key in keys:
         cells = []
         for tree in (parent, change):
             r = [run[key] for run in runs[tree] if key in run]
+            if not r:
+                cells.append("-")
+                continue
             eq = [v["rerun_equal"] for v in r]
             share = [v["bound_share"] for v in r if "bound_share" in v]
             cells.append(f"{sum(v['ms'] for v in r) / len(r):.4f} | "
                          f"{sum(v['graph_ms'] for v in r) / len(r):.4f} | "
                          f"{'-' if None in eq else all(eq)} | "
-                         f"{f'{100 * sum(share) / len(share):.1f} %' if share else '-'}")
-        bound = runs[change][0][key].get("bound_ms")
+                         f"{f'{100 * sum(share) / len(share):.1f} %' if share else '-'}"
+                         + (f" ({r[0]['launches']})" if "launches" in r[0] else ""))
+        bound = next((run[key].get("bound_ms") for run in runs[change] + runs[parent] if key in run),
+                     None)
         print(f"  {key:46s} parent {cells[0]}   change {cells[1]}"
               + (f"   (bound {bound:.4f} ms)" if bound else ""))
+    print("routed y, parent against change (the same x from a seed; every run's hash):")
+    for key in keys:
+        hashes = [run[key]["hash"] for run in runs[parent] + runs[change] if "hash" in run.get(key, {})]
+        if hashes:
+            print(f"  {key:46s} bitwise equal: {len(hashes) == 4 and len(set(hashes)) == 1} "
+                  f"({', '.join(hashes)})")
     return 0
 
 

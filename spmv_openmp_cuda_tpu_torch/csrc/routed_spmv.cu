@@ -5,10 +5,10 @@
 // spmv_openmp_cuda_tpu/ops/route.py:
 //   routed_gather_kernel       (A) <- _gather_w1 (pallas_call at :959, :1005)
 //                                     and, with W1 off, _gather_products (:910)
-//   routed_w_stage_kernel      (B) <- ops/route.py::_whole_w_call (:347) and
-//                                     _tiled_call (:298), with the SW grid
-//                                     transposes around W2 (:363, :368) folded
-//                                     into its row addressing
+//   routed_permute_kernel      (B) <- ops/route.py::_whole_w_call (:347) and
+//                                     _tiled_call (:298): a whole planned
+//                                     permutation (or one W stage) as one
+//                                     gather through a composed index map
 //   routed_perm_reduce_kernel  (C) <- _w3_r3_reduce (:1239), _perm_reduce_t1
 //                                     (:1274), _reduce_runs_fused (:1310)
 //   routed_hdense_kernel       (D) <- _hdense_mv (:1060)
@@ -25,22 +25,40 @@
 // rows inside one 128-row tile: out[T*128 + j, l] = in[T*128 + w[T*128 + l,
 // j], l]. An R stage permutes the lanes of each row: out[p, l] = in[p, r[p,
 // l]]. SW maps row s*t + tt of its output to row tt*128 + s of its input.
+// These stages are static, so the host composes every chain of them that a
+// product applies (routed_cuda.py::plan_map, on int64 element ids) into one
+// int32 index map: element i of the result is element map[i] of the source,
+// or zero where map[i] is -1 (a source row past the rows that hold data, a
+// pad tile). B and C read through such maps; no kernel applies a W stage.
 //
-// What bounds them: bytes. Every stage is data movement or one multiply-add
-// per element; the chain on caida_like moves ~38 MB per product. So each
-// kernel is built to read and write whole 128-byte rows:
-//   - A and B take one CTA per (128-row tile, band of 32 lanes): four times
-//     the CTAs of one per tile (caida's 64-tile products domain gives 256),
-//     with no exchange between CTAs, because a W stage never mixes lanes.
-//     The band's 128 x 32 inputs (products for A) and its 32 index rows are
-//     staged in shared memory with row-contiguous loads; the output tile is
-//     then written row by row. B with an R stage after it (r_after) needs
-//     whole rows and takes one CTA per tile (80 KB of shared memory).
-//   - C takes one CTA per output group (128 lanes): thread l sums lane l of
-//     the group's `width` slab rows, each read through the W3/R3 (or r1, wc,
-//     r3) indices straight from global memory (the 64 KB tile stays in L1).
-//     Wide groups (width 128) take 128 times the work of narrow ones; they
-//     come first in the group order, so they start first.
+// What bounds them: the chain on caida_like moves ~25 MB per product, most
+// of it inside the 50 MB L2, so latency and scattered L2 sectors as much as
+// bytes:
+//   - A takes one CTA per (128-row tile, band of 32 lanes): the band's 128 x
+//     32 products and its 32 W1 index rows are staged in shared memory with
+//     row-contiguous loads; the output tile is then written row by row.
+//   - B gathers out[i] = src[map[i]]: each thread issues the map loads of
+//     its kPermBatch elements, then their source loads, then its coalesced
+//     stores, so two round trips serve kPermBatch elements. The output
+//     permutation of a domain is one launch into y (every y[i] written, the
+//     heavy rows as zero for E to add into).
+//   - C takes, per output group (a run of `width` slab rows) and lane l, the
+//     sum of the group's slab slots at lane l, each read through its one
+//     composed offset straight from the source (the products of A, or the
+//     sums of the level before), masked on a level. A thread issues the
+//     offset (and mask) loads of kReduceBatch rows, then their value loads,
+//     and the next batch's offset loads before it adds the values in row
+//     order, one __fadd_rn after another from +0 (the order of the plain
+//     W-stage chain's C, so y is bit for bit what that chain gives). A
+//     128-row group is then ~9 round trips, not one per row and stage. The
+//     narrow groups are packed into chunks of ~32 rows, which a thread
+//     streams as one run of rows (closing each group at its last row), so
+//     that a CTA's fixed round trips serve more than a few rows; a CTA is
+//     one warp over one chunk's band of 32 lanes, so a wide group's four
+//     bands run on four SMs. Wide groups come first, so they start first.
+//     What bounds it: the value reads, one 32-byte L2 sector per 4-byte
+//     slot, scattered by the routing (on an H100 ~12 us for caida_like's
+//     ~850,000).
 //   - D splits each heavy row over CTAs of 4096 columns: 16-byte loads of
 //     bf16 H, per-thread sums of 16 products, a shuffle tree per CTA, whose
 //     sum goes to a scratch slot of its own; routed_row_sums_kernel then
@@ -55,28 +73,26 @@
 //     into y. The TPU's cumsum by triangular matmul and its differences are
 //     a device of the MXU; the sums here are direct. Bound: bytes (hvals,
 //     hpidx, hlo, hhi and x, ~27 MB per product on webbase_like).
-//   - The small kernel composes the chain. Its permutations are static, so
-//     build_chain runs element ids through them (the plain W stages) and
-//     folds in C's groups: each row i of y gets the gather slots whose
-//     products C adds into it, in C's order, as a per-row slot list
-//     (row_slots[row_ptr[i] .. row_ptr[i+1]), at most h1*128 int32). The
-//     kSmallLanes threads of a row then load a round of 16 of its slots
-//     (each thread four), the slots' values and panels, then x: three
-//     dependent round trips after row_ptr, no slab in between, no barrier,
-//     CTAs of 64 threads so that the rows spread over many SMs. The
+//   - The small kernel composes the whole chain. build_chain runs element
+//     ids through its index maps and folds in C's groups: each row i of y
+//     gets the gather slots whose products C adds into it, in C's order, as
+//     a per-row slot list (row_slots[row_ptr[i] .. row_ptr[i+1]), at most
+//     h1*128 int32). The kSmallLanes threads of a row then load a round of
+//     16 of its slots (each thread four), the slots' values and panels, then
+//     x: three dependent round trips after row_ptr, no slab in between, no
+//     barrier, CTAs of 64 threads so that the rows spread over many SMs. The
 //     products pass by shuffle, and each of the row's threads adds them one
 //     at a time in list order. Products and adds are __fmul_rn/__fadd_rn
 //     (never contracted into an FMA), as A multiplies and C adds, so y
 //     equals the staged chain's bit for bit. Bound: latency, the scattered
 //     loads of the slots' operands and of x (delaunay's ~0.6 MB stay in
 //     L2): four threads per row keep four times the loads in flight that
-//     one thread would. (Stages run one after another in one CTA, as the
-//     TPU kernel runs them in VMEM, are bound by that one SM's issue rate.)
+//     one thread would.
 // Nothing closes with atomics: every sum is taken in an order fixed by the
 // layout, so a rerun is bitwise equal. x is read by global column behind a
 // bounds test against n (no padded window stack is built). Products and
 // data movement are exact, so A and B equal their plain versions bit for
-// bit; C, D and E sum in another order.
+// bit; C, D and E sum in another order than theirs.
 //
 // routed_chain_launch is the one entry point: it enqueues a program of these
 // launches and memsets (a whole product, built once per prepared matrix, or
@@ -89,7 +105,7 @@
 namespace {
 
 constexpr int kLane = 128;
-constexpr int kBand = 32;             // lanes per CTA of A and of B without r_after
+constexpr int kBand = 32;             // lanes per CTA of A and of C
 constexpr int kPitch = kLane + 4;     // bytes per staged index row (+4: spreads banks)
 constexpr int kThreads = 256;
 constexpr long long kWindowElems = 128LL * 128;
@@ -100,6 +116,9 @@ constexpr int kSmallLanes = 4;             // threads per row of y of the small 
 constexpr int kSmallBatch = 4;             // list slots whose loads such a thread issues together
 constexpr int kSmallThreads = 64;          // threads per CTA of the small kernel
 constexpr int kRowWarps = 8;               // heavy rows per CTA of the row sums
+constexpr int kPermBatch = 4;              // B: elements whose loads a thread issues together
+constexpr int kReduceBatch = 16;           // C: slab rows whose loads a thread issues together
+constexpr int kChunkGroups = 128;          // C: at most this many groups per CTA (routed_cuda.py)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -167,111 +186,96 @@ routed_gather_kernel(const T* __restrict__ vals, const int8_t* __restrict__ pidx
   }
 }
 
-// B: for output tile Q of the W stage (rows q = Q*128 + j):
-//   A1[p, l] = p < in_rows ? in[p, r ? r[p, l] : l] : 0
-//   A2[q]    = A1[sw ? (q % t)*128 + q / t : q]
-//   A3[q, l] = A2[Q*128 + w[Q*128 + l, j], l]
-//   A4[p]    = A3[q] at p = sw ? (q % t)*128 + q / t : q
-//   out[p, l] = A4[p, ra ? ra[p, l] : l], written where p*128 + l < out_limit
-// kWhole: one CTA per tile (needed for ra); else one per (tile, lane band).
-// Each thread takes kN elements, kB at a time whose loads are all issued
-// before any of them is used (a loop that waits on each load in turn runs
-// at one load latency per element).
-template <bool kWhole>
+// B: out[i] = map[i] >= 0 ? src[map[i]] : 0 for i < n. Thread t of CTA b
+// takes i = b*kThreads*kPermBatch + u*kThreads + t (u < kPermBatch): the map
+// loads and the stores are coalesced, the source loads scattered inside an
+// L2-resident domain; all of a thread's loads of one kind are issued before
+// the first of the next kind is used.
 __global__ void __launch_bounds__(kThreads)
-routed_w_stage_kernel(const float* __restrict__ in, int in_rows, const int8_t* __restrict__ r,
-                      const int8_t* __restrict__ w, const int8_t* __restrict__ ra, int t,
-                      int sw, float* __restrict__ out, long long out_limit) {
-  constexpr int L = kWhole ? kLane : kBand;
-  constexpr int kBands = kLane / L;
-  constexpr int kN = kLane * L / kThreads;
-  constexpr int kB = kN < 16 ? kN : 16;
-  static_assert(kLane * L % kThreads == 0 && kN % kB == 0, "whole batches of the CTA");
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* stage = reinterpret_cast<float*>(smem);       // [128][L]
-  unsigned char* ws = smem + kLane * L * sizeof(float);  // [L][kPitch]
-  const int tq = blockIdx.x / kBands;
-  const int lane0 = (blockIdx.x % kBands) * L;
-#pragma unroll 1
-  for (int k0 = 0; k0 < kN; k0 += kB) {
-    float v[kB];
+routed_permute_kernel(const float* __restrict__ src, const int32_t* __restrict__ map,
+                      long long n, float* __restrict__ out) {
+  const long long i0 = (long long)blockIdx.x * (kThreads * kPermBatch) + threadIdx.x;
+  int o[kPermBatch];
 #pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int c = threadIdx.x + (k0 + u) * kThreads;
-      const int q = tq * kLane + c / L;
-      const int p = sw ? (q % t) * kLane + q / t : q;
-      v[u] = 0.f;
-      if (p < in_rows) {
-        const int l = lane0 + c % L;
-        const int src_l = r != nullptr ? (int)r[(long long)p * kLane + l] : l;
-        v[u] = in[(long long)p * kLane + src_l];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kB; ++u) stage[threadIdx.x + (k0 + u) * kThreads] = v[u];  // [c/L][c%L]
+  for (int u = 0; u < kPermBatch; ++u) {
+    const long long i = i0 + (long long)u * kThreads;
+    o[u] = i < n ? __ldg(map + i) : -1;
   }
-  stage_index_rows<L, kThreads>(w + ((long long)tq * kLane + lane0) * kLane, ws);
-  __syncthreads();
-#pragma unroll 1
-  for (int k0 = 0; k0 < kN; k0 += kB) {
-    int m[kB];
+  float v[kPermBatch];
 #pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int c = threadIdx.x + (k0 + u) * kThreads;
-      const int q = tq * kLane + c / L;
-      const int p = sw ? (q % t) * kLane + q / t : q;
-      m[u] = (kWhole && ra != nullptr) ? (int)ra[(long long)p * kLane + lane0 + c % L] : c % L;
-    }
+  for (int u = 0; u < kPermBatch; ++u) v[u] = o[u] >= 0 ? __ldg(src + o[u]) : 0.f;
 #pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int c = threadIdx.x + (k0 + u) * kThreads;
-      const int j = c / L;
-      const int q = tq * kLane + j;
-      const int p = sw ? (q % t) * kLane + q / t : q;
-      const long long o = (long long)p * kLane + lane0 + c % L;
-      const int src = (int)reinterpret_cast<const int8_t*>(ws)[m[u] * kPitch + j];
-      if (o < out_limit) out[o] = stage[src * L + m[u]];
-    }
+  for (int u = 0; u < kPermBatch; ++u) {
+    const long long i = i0 + (long long)u * kThreads;
+    if (i < n) out[i] = v[u];
   }
 }
 
-// C: out[gi, l] = sum_{k < width_gi} g[row0_gi + k, l] with
-//   g[rr, l] = (mask ? mask[rr, l] : 1) * S(rr, r3[rr, l]) and
-//   mode 0: S(rr, m) = src[rr, m]
-//   mode 1: S(rr, m) = src[T*128 + W[T*128 + m, rr % 128], m], T = rr / 128  (W3)
-//   mode 2: S(rr, m) = src[p, r1[p, m]], p = W[m, rr]          (t = 1: r1 . wc)
-// where src rows >= src_rows read as zero.
-__global__ void __launch_bounds__(kLane)
-routed_perm_reduce_kernel(const float* __restrict__ src, int src_rows, int mode,
-                          const int8_t* __restrict__ W, const int8_t* __restrict__ r1,
-                          const int8_t* __restrict__ r3, const float* __restrict__ mask,
-                          const int2* __restrict__ groups, float* __restrict__ out) {
-  const int gi = blockIdx.x;
-  const int l = threadIdx.x;
-  const int2 g = groups[gi];  // (row0, width)
-  float acc = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < g.y; ++k) {
-    const int rr = g.x + k;
-    const long long e = (long long)rr * kLane + l;
-    const int m = r3[e];
-    int p, c;
-    if (mode == 1) {
-      const int tb = rr & ~(kLane - 1);
-      p = tb + W[(long long)(tb + m) * kLane + (rr & (kLane - 1))];
-      c = m;
-    } else if (mode == 2) {
-      p = W[m * kLane + rr];
-      c = r1[p * kLane + m];
-    } else {
-      p = rr;
-      c = m;
-    }
-    float v = p < src_rows ? __ldg(src + (long long)p * kLane + c) : 0.f;
-    if (mask != nullptr) v *= mask[e];
-    acc += v;
+// C's offsets (and, with kMask, mask) of rows [k0, k0 + kReduceBatch) of a
+// chunk of n rows at lane l (off_l, mask_l: the chunk's first row at lane
+// l); rows past the chunk read as offset -1.
+template <bool kMask>
+__device__ __forceinline__ void reduce_batch(const int32_t* __restrict__ off_l,
+                                             const float* __restrict__ mask_l, int k0, int n,
+                                             int (&o)[kReduceBatch],
+                                             float (&mk)[kReduceBatch]) {
+#pragma unroll
+  for (int u = 0; u < kReduceBatch; ++u) {
+    const bool in = k0 + u < n;
+    o[u] = in ? __ldg(off_l + (long long)(k0 + u) * kLane) : -1;
+    if (kMask) mk[u] = in ? __ldg(mask_l + (long long)(k0 + u) * kLane) : 0.f;
   }
-  out[(long long)gi * kLane + l] = acc;
+}
+
+// C: out[g, l] = sum over k < width_g of g(row0_g + k, l), added in k order
+// from +0, with g(rr, l) = (mask ? mask[rr, l] : 1) * (off[rr, l] >= 0 ?
+// src[off[rr, l]] : 0); groups[g] = (row0, width). CTA 4c + b, one warp,
+// takes lanes 32b .. 32b + 31 of chunk c = (row0, row1, g0, g1): the groups
+// g0 .. g1 - 1, whose rows tile [row0, row1) in order. Lane l streams those
+// rows in batches, closing each group's sum at its last row.
+template <bool kMask>
+__global__ void __launch_bounds__(kBand)
+routed_perm_reduce_kernel(const float* __restrict__ src, const int32_t* __restrict__ off,
+                          const float* __restrict__ mask, const int2* __restrict__ groups,
+                          const int4* __restrict__ chunks, float* __restrict__ out) {
+  constexpr int kBands = kLane / kBand;
+  __shared__ int ends[kChunkGroups];  // each group's last row + 1, from the chunk's first row
+  const int4 ch = chunks[blockIdx.x / kBands];
+  const int l = (blockIdx.x % kBands) * kBand + threadIdx.x;
+  const int n = ch.y - ch.x;
+  const long long e0 = (long long)ch.x * kLane + l;
+  const int32_t* off_l = off + e0;
+  const float* mask_l = kMask ? mask + e0 : nullptr;
+  int o[kReduceBatch];
+  float mk[kReduceBatch];
+  reduce_batch<kMask>(off_l, mask_l, 0, n, o, mk);
+  for (int j = threadIdx.x; j < ch.w - ch.z; j += kBand) {
+    const int2 g = groups[ch.z + j];
+    ends[j] = g.x + g.y - ch.x;
+  }
+  __syncthreads();
+  int g = ch.z, end = ends[0];
+  float acc = 0.f;
+  for (int k0 = 0; k0 < n; k0 += kReduceBatch) {
+    float v[kReduceBatch], m[kReduceBatch];
+#pragma unroll
+    for (int u = 0; u < kReduceBatch; ++u) {
+      v[u] = o[u] >= 0 ? __ldg(src + o[u]) : 0.f;
+      if (kMask) m[u] = mk[u];
+    }
+    // the next batch's offsets travel while this batch's values do
+    reduce_batch<kMask>(off_l, mask_l, k0 + kReduceBatch, n, o, mk);
+#pragma unroll
+    for (int u = 0; u < kReduceBatch; ++u) {
+      if (k0 + u >= n) break;
+      acc = __fadd_rn(acc, kMask ? __fmul_rn(v[u], m[u]) : v[u]);
+      if (k0 + u + 1 == end) {
+        out[(long long)g * kLane + l] = acc;
+        acc = 0.f;
+        if (++g < ch.w) end = ends[g - ch.z];
+      }
+    }
+  }
 }
 
 // D: part[k*gridDim.x + blockIdx.x] = sum over this CTA's columns c of
@@ -460,11 +464,6 @@ routed_small_kernel(SmallArgs a, const float* __restrict__ x, long long n_x) {
   if (j == 0) a.y[i] = acc;
 }
 
-size_t w_stage_smem(bool whole) {
-  const int L = whole ? kLane : kBand;
-  return (size_t)kLane * L * sizeof(float) + (size_t)L * kPitch;
-}
-
 int gather_launch(int vals_bf16, const void* vals, const int8_t* pidx, const int32_t* widx,
                   const int8_t* w1, int n_real, int n_tiles, const float* x, long long n_x,
                   float* out, cudaStream_t st) {
@@ -479,31 +478,27 @@ int gather_launch(int vals_bf16, const void* vals, const int8_t* pidx, const int
   return (int)cudaGetLastError();
 }
 
-int w_stage_launch(const float* in, int in_rows, const int8_t* r, const int8_t* w,
-                   const int8_t* ra, int t, int sw, int n_tiles, float* out,
-                   long long out_limit, cudaStream_t st) {
-  if (ra != nullptr) {
-    // above 48 KB of dynamic shared memory; the attribute is per device, so
-    // it is set on every launch (cheap, and allowed during graph capture)
-    const cudaError_t e = cudaFuncSetAttribute(
-        routed_w_stage_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)w_stage_smem(true));
-    if (e != cudaSuccess) return (int)e;
-    routed_w_stage_kernel<true><<<(unsigned)n_tiles, kThreads, w_stage_smem(true), st>>>(
-        in, in_rows, r, w, ra, t, sw, out, out_limit);
-  } else {
-    routed_w_stage_kernel<false>
-        <<<(unsigned)n_tiles * (kLane / kBand), kThreads, w_stage_smem(false), st>>>(
-            in, in_rows, r, w, nullptr, t, sw, out, out_limit);
-  }
+int permute_launch(const float* src, const int32_t* map, long long n, float* out,
+                   cudaStream_t st) {
+  const long long per_cta = (long long)kThreads * kPermBatch;
+  routed_permute_kernel<<<(unsigned)((n + per_cta - 1) / per_cta), kThreads, 0, st>>>(src, map, n,
+                                                                                     out);
   return (int)cudaGetLastError();
 }
 
-int perm_reduce_launch(const float* src, int src_rows, int mode, const int8_t* W,
-                       const int8_t* r1, const int8_t* r3, const float* mask,
-                       const int32_t* groups, int n_groups, float* out, cudaStream_t st) {
-  routed_perm_reduce_kernel<<<(unsigned)n_groups, kLane, 0, st>>>(
-      src, src_rows, mode, W, r1, r3, mask, reinterpret_cast<const int2*>(groups), out);
+// a one-warp CTA per (chunk, band of 32 lanes): a wide group's lanes spread
+// over four SMs
+int perm_reduce_launch(const float* src, const int32_t* off, const float* mask,
+                       const int32_t* groups, const int32_t* chunks, int n_chunks, float* out,
+                       cudaStream_t st) {
+  const unsigned grid = (unsigned)n_chunks * (kLane / kBand);
+  const int2* g = reinterpret_cast<const int2*>(groups);
+  const int4* c = reinterpret_cast<const int4*>(chunks);
+  if (mask != nullptr) {
+    routed_perm_reduce_kernel<true><<<grid, kBand, 0, st>>>(src, off, mask, g, c, out);
+  } else {
+    routed_perm_reduce_kernel<false><<<grid, kBand, 0, st>>>(src, off, mask, g, c, out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -584,17 +579,17 @@ void* resolve(long long v, const Bases& b) {
 }
 
 enum Op {
-  kOpGather = 1, kOpWStage = 2, kOpReduce = 3, kOpHDense = 4, kOpZero = 5, kOpHeavy = 6,
+  kOpGather = 1, kOpPermute = 2, kOpReduce = 3, kOpHDense = 4, kOpZero = 5, kOpHeavy = 6,
   kOpSmall = 7
 };
-constexpr int kOpWords[] = {0, 9, 11, 11, 7, 3, 14, 9};  // by op: the op and its operands
+constexpr int kOpWords[] = {0, 9, 5, 8, 7, 3, 14, 9};  // by op: the op and its operands
 
 }  // namespace
 
 extern "C" {
 
 // Runs the len-entry program prog (ops with their operands, see
-// routed_cuda.py::_op) on the stream: A (gather), B (W stage), C (perm
+// routed_cuda.py::_op) on the stream: A (gather), B (permute), C (perm
 // reduce), D (dense heavy rows), E (pooled heavy tiles), the small kernel
 // and memsets. counts[0..5] (host memory) gains one for each op of A, B, C,
 // D, E and the small kernel that was enqueued without error (D and E: the
@@ -617,19 +612,15 @@ int routed_chain_launch(const long long* prog, int len, const float* x, long lon
                            (int)prog[i + 6], (int)prog[i + 7], x, n_x, (float*)P(i + 8), st);
         kernel = 0;
         break;
-      case kOpWStage:  // in in_rows r w ra t sw n_tiles out out_limit
-        rc = w_stage_launch((const float*)P(i + 1), (int)prog[i + 2], (const int8_t*)P(i + 3),
-                            (const int8_t*)P(i + 4), (const int8_t*)P(i + 5), (int)prog[i + 6],
-                            (int)prog[i + 7], (int)prog[i + 8], (float*)P(i + 9),
-                            prog[i + 10], st);
+      case kOpPermute:  // src map n out
+        rc = permute_launch((const float*)P(i + 1), (const int32_t*)P(i + 2), prog[i + 3],
+                            (float*)P(i + 4), st);
         kernel = 1;
         break;
-      case kOpReduce:  // src src_rows mode W r1 r3 mask groups n_groups out
-        rc = perm_reduce_launch((const float*)P(i + 1), (int)prog[i + 2], (int)prog[i + 3],
-                                (const int8_t*)P(i + 4), (const int8_t*)P(i + 5),
-                                (const int8_t*)P(i + 6), (const float*)P(i + 7),
-                                (const int32_t*)P(i + 8), (int)prog[i + 9], (float*)P(i + 10),
-                                st);
+      case kOpReduce:  // src off mask groups chunks n_chunks out
+        rc = perm_reduce_launch((const float*)P(i + 1), (const int32_t*)P(i + 2),
+                                (const float*)P(i + 3), (const int32_t*)P(i + 4),
+                                (const int32_t*)P(i + 5), (int)prog[i + 6], (float*)P(i + 7), st);
         kernel = 2;
         break;
       case kOpHDense:  // H n_h n_pad target out part

@@ -15,7 +15,9 @@ A planned bijection of an (H = T*128, 128) slot array is the stage chain
 
 R stages permute the lanes of each row; W stages permute, for each lane,
 the rows inside one 128-row tile; SW maps row t*128+s to s*T+t. The stages
-are applied by the W-stage kernel of ops/routed_cuda.py.
+are applied by the gather kernel of ops/routed_cuda.py, through one index map per
+application composed from the stages at its first use (cached on the
+plan).
 """
 from __future__ import annotations
 
@@ -99,7 +101,9 @@ class PlannedPermutation:
     (plan_row_to_slot): elements are emitted directly in their middle lane.
     wc is the single-tile composition w1.w2.w3 (SW stages are identity when
     t == 1), letting callers apply the whole permutation as r1 . wc . r3 in
-    one kernel; None for t > 1.
+    one kernel; None for t > 1. maps caches the composed index maps of
+    ops/routed_cuda.py::plan_map (not a stage array: a new plan starts
+    empty, dataclasses.replace included).
     """
 
     r1: Optional[torch.Tensor]
@@ -109,6 +113,7 @@ class PlannedPermutation:
     r3: torch.Tensor
     wc: Optional[torch.Tensor] = None
     t: int = LANE
+    maps: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def h(self) -> int:

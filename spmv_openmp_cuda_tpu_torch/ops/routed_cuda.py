@@ -15,23 +15,27 @@ csrc/df_spmv.cu (`_gather_products_df`), every permutation on each plane
 through kernel B, and the JAX package's XLA-level TwoSum reduce trees and
 dense heavy-row dot as torch ops (`_reduce_runs_df`, `_df_dense_rowdot`).
 
+The permutation stages are static, so they are composed on the host, on
+int64 element ids, into int32 index maps (`IndexMap`, `plan_map`): one
+offset per element of a stage chain's result, -1 where it reads as zero.
 One product is a chain of stages, built once per prepared matrix
-(`build_chain`): gather+W1 (A) -> SW.W2.SW^-1 (B) -> W3.R3.reduce (C) ->
-[levels: C, or B, B, C] -> zero the assembly tail -> dense heavy rows (D)
--> output permutation (B: W1, SW.W2.SW^-1, W3.R3 into y) -> pooled heavy
-tiles (E, added into y at the heavy rows). A small domain (the JAX
-package's `small_ok` test) is one stage instead, the small kernel, which
-runs A, B, C and the output permutation in one launch over per-row slot
-lists composed at build time (`SmallStage`; its plain version,
-`small_reference`, equals the staged chain's bit for bit). On a CUDA device the chain is encoded
-once as a program that csrc/routed_spmv.cu enqueues in one call (its one
-entry point; each single-kernel wrapper runs a one-op program through it,
-and it counts the launches it made); on the CPU each stage runs its plain
-version. The JAX package picks between TPU kernels by VMEM size
-(`_W3_FUSED_MAX_ROWS`, `_FUSED_REDUCE_MAX_ROWS`, `_W3_FUSED_MASKED_MAX_ROWS`,
-the h1 > 8192 branch, `_WHOLE_MAX_T`). The port has no such limit: every
-other domain and every level runs the same gather -> SW.W2.SW^-1 ->
-W3.R3.reduce chain, and one W-stage kernel serves every t <= 128.
+(`build_chain`): gather+W1 (A) -> the run sums of the slab SW.W2.SW^-1,
+W3, R3 would hold, read from A's products through one offset per slab slot
+(C) -> [levels: C, each through its level's r1, W1, SW.W2.SW^-1, W3, R3
+composed] -> zero the assembly tail -> dense heavy rows (D) -> the output
+permutation (B: one gather into y) -> pooled heavy tiles (E, added into y
+at the heavy rows). A small domain (the JAX package's `small_ok` test) is
+one stage instead, the small kernel, which runs A, C and the output
+permutation in one launch over per-row slot lists composed at build time
+(`SmallStage`; its plain version, `small_reference`, equals the staged
+chain's bit for bit). On a CUDA device the chain is encoded once as a
+program that csrc/routed_spmv.cu enqueues in one call (its one entry point;
+each single-kernel wrapper runs a one-op program through it, and it counts
+the launches it made); on the CPU each stage runs its plain version. The
+JAX package picks between TPU kernels by VMEM size (`_W3_FUSED_MAX_ROWS`,
+`_FUSED_REDUCE_MAX_ROWS`, `_W3_FUSED_MASKED_MAX_ROWS`, the h1 > 8192
+branch, `_WHOLE_MAX_T`). The port has no such limit: every other domain and
+every level runs the same chain.
 
 The wrappers launch the kernels for CUDA tensors and raise on anything they
 do not take; the plain versions run only for tensors on the CPU.
@@ -62,8 +66,10 @@ from .spmv_cuda import _require, _to_tensor
 _SLAB_DTYPES = (torch.float32, torch.bfloat16)
 _IDX = (torch.int8,)
 _F32 = (torch.float32,)
+_I32 = (torch.int32,)
 
-#: reduce-kernel modes: how slab row rr, lane l reads its element
+#: perm_reduce's modes: the stages between its source and the slab it sums
+#: (R3 alone, W3 and R3, or r1, wc and R3 on a one-tile level)
 MODE_DIRECT, MODE_W3, MODE_T1 = 0, 1, 2
 
 #: heavy blocks above these sizes take a dense f32 matmul, as the JAX
@@ -78,6 +84,12 @@ _SMALL_MAX_WINDOWS = 2 * 2**20 // (WINDOW_ELEMS * 4)
 
 #: D's columns per CTA (csrc/routed_spmv.cu kHChunk): one partial sum each
 _HCHUNK = 4096
+
+#: C's CTAs: consecutive groups packed into chunks of at most this many slab
+#: rows (a wider group is a chunk of its own) and of at most _CHUNK_GROUPS
+#: groups (csrc/routed_spmv.cu kChunkGroups)
+_CHUNK_ROWS = 32
+_CHUNK_GROUPS = 128
 
 
 # ---------------------------------------------------------------------------
@@ -130,22 +142,126 @@ def gather_reference(vals, pidx, widx, w1, n_tiles: int, x: torch.Tensor) -> tor
     return torch.cat([prod, prod.new_zeros((n_tiles - n_real) * LANE, LANE)])
 
 
-def w_stage_reference(src, src_rows: int, r, w, ra, t: int, sw: bool, n_tiles: int) -> torch.Tensor:
-    """Plain kernel B over n_tiles tiles: R (r) . SW . W (w) . SW^-1 . R
-    (ra), the SW maps only when sw (then n_tiles == t); input rows from
-    src_rows on read as zero. Returns the (n_tiles*128, 128) result."""
-    h = n_tiles * LANE
-    a = _rows(src, src_rows, h)
+def _stage(a: torch.Tensor, r, w, ra, t: int, sw: bool) -> torch.Tensor:
+    """One W stage over an (n_tiles*128, 128) array of any dtype: R (r) .
+    SW . W (w) . SW^-1 . R (ra), each where given (the SW maps only when
+    sw)."""
+    h = a.shape[0]
     if r is not None:
         a = _take_lanes(a, r[:h])
     if sw:
         a = _sw(a, t)
-    a = _w_tiles(a, w[:h])
+    if w is not None:
+        a = _w_tiles(a, w[:h])
     if sw:
         a = _sw_inv(a, t)
     if ra is not None:
         a = _take_lanes(a, ra[:h])
     return a
+
+
+def w_stage_reference(src, src_rows: int, r, w, ra, t: int, sw: bool, n_tiles: int) -> torch.Tensor:
+    """Plain W stage over n_tiles tiles: R (r) . SW . W (w) . SW^-1 . R
+    (ra), the SW maps only when sw (then n_tiles == t); input rows from
+    src_rows on read as zero. Returns the (n_tiles*128, 128) result."""
+    return _stage(_rows(src, src_rows, n_tiles * LANE), r, w, ra, t, sw)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class WStep:
+    """One W stage of a chain: R (r) . SW . W (w) . SW^-1 . R (ra), each
+    where given."""
+
+    w: Optional[torch.Tensor]
+    r: Optional[torch.Tensor] = None
+    ra: Optional[torch.Tensor] = None
+    sw: bool = False
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Steps:
+    """W stages applied in turn over an (h, 128) domain of t tiles, read
+    from a source whose rows from src_rows on are zero."""
+
+    steps: Tuple[WStep, ...]
+    t: int
+    h: int
+    src_rows: int
+
+    def apply(self, a: torch.Tensor) -> torch.Tensor:
+        """The stages over a, (h, 128) of any dtype."""
+        for st in self.steps:
+            a = _stage(a, st.r, st.w, st.ra, self.t, st.sw)
+        return a
+
+
+def staged_reference(steps: Steps, src: torch.Tensor) -> torch.Tensor:
+    """The plain staged chain that an index map composes: the W stages one
+    after another over src ((rows, 128) f32), as w_stage_reference runs
+    each. Returns (h, 128)."""
+    return steps.apply(_rows(src, steps.src_rows, steps.h))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class IndexMap:
+    """A chain of W stages composed: element i of the chain's result (h, 128)
+    is element idx[i] of its source (f32 offsets, -1: reads as zero);
+    span = 1 + the largest offset, what the source must hold."""
+
+    steps: Steps
+    idx: torch.Tensor  # (h, 128) int32
+    span: int
+
+
+def _int32_offsets(ids: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """int64 offsets (-1: zero) as int32 and their span; raises where an
+    offset does not fit in int32."""
+    top = int(ids.max()) if ids.numel() else -1
+    if top > torch.iinfo(torch.int32).max:
+        raise ValueError(f"offset {top} does not fit in int32")
+    return ids.to(torch.int32).contiguous(), top + 1
+
+
+def index_map(steps: Steps, device) -> IndexMap:
+    """steps composed on int64 element ids (exact at any size), as int32."""
+    ids = torch.arange(steps.h * LANE, dtype=torch.int64, device=device).reshape(steps.h, LANE)
+    ids[steps.src_rows:] = -1
+    idx, span = _int32_offsets(steps.apply(ids))
+    return IndexMap(steps, idx, span)
+
+
+def plan_steps(plan: PlannedPermutation, form: str = "whole", skip_r3: bool = False,
+               src_rows: Optional[int] = None) -> Steps:
+    """The W stages of a planned permutation (route.py's apply_* forms):
+    "whole" (r1 . w1 . SW.W2.SW^-1 . w3 . r3, or r1 . wc . r3 at t = 1),
+    "to_mid" (r1 . w1 . SW.W2.SW^-1), "sw_w2_sw" and "from_w1"
+    (SW.W2.SW^-1 . w3 . r3); skip_r3 leaves r3 out."""
+    ra = None if skip_r3 else plan.r3
+    w1, mid, w3 = WStep(plan.w1, r=plan.r1), WStep(plan.w2, sw=True), WStep(plan.w3, ra=ra)
+    if form == "whole":
+        steps = (WStep(plan.wc, r=plan.r1, ra=ra),) if plan.t == 1 and plan.wc is not None \
+            else (w1, mid, w3)
+    else:
+        steps = {"to_mid": (w1, mid), "sw_w2_sw": (mid,), "from_w1": (mid, w3)}[form]
+    return Steps(steps, plan.t, plan.h, plan.h if src_rows is None else src_rows)
+
+
+def plan_map(plan: PlannedPermutation, form: str = "whole", skip_r3: bool = False,
+             src_rows: Optional[int] = None) -> IndexMap:
+    """plan_steps composed into one index map on the plan's device, once
+    per form: cached on the plan."""
+    key = (form, skip_r3, plan.h if src_rows is None else src_rows)
+    if key not in plan.maps:
+        plan.maps[key] = index_map(plan_steps(plan, form, skip_r3, src_rows), plan.w1.device)
+    return plan.maps[key]
+
+
+def permute_reference(src: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain kernel B: (n,) f32, out[i] = src.view(-1)[idx[i]], 0 where
+    idx[i] < 0."""
+    i = idx.reshape(-1)[:n].long()
+    flat = src.reshape(-1)
+    return torch.where(i >= 0, flat[i.clamp(min=0)], flat.new_zeros(()))
 
 
 def _n_groups(runs) -> int:
@@ -159,20 +275,14 @@ def _reduce_runs(g: torch.Tensor, runs) -> torch.Tensor:
     return out
 
 
-def perm_reduce_reference(src, src_rows: int, mode: int, W, r1, r3, mask, runs) -> torch.Tensor:
+def perm_reduce_reference(src, off: torch.Tensor, mask, runs) -> torch.Tensor:
     """Plain kernel C: per group of runs (row0, n_groups, width, g0), the
-    width-row sums of g = mask * S gathered by r3, where S is src (direct),
-    src through the W3 stage W (w3), or src through r1 and wc (t = 1);
-    src rows from src_rows on read as zero. Returns (n_groups, 128)."""
-    h = r3.shape[0]
-    a = _rows(src, src_rows, h)
-    if mode == MODE_W3:
-        a = _w_tiles(a, W)
-    elif mode == MODE_T1:
-        a = _w_tiles(_take_lanes(a, r1), W)
-    g = _take_lanes(a, r3)
+    width-row sums of g = mask * (the slab read from src through the
+    offsets off, (rows, 128), -1 reading as zero). Returns (n_groups, 128)."""
+    rows = off.shape[0]
+    g = permute_reference(src, off, off.numel()).reshape(rows, LANE)
     if mask is not None:
-        g = g * mask
+        g = g * mask[:rows]
     return _reduce_runs(g, runs)
 
 
@@ -261,13 +371,13 @@ def _on_cuda(*ts) -> torch.device:
 # stage (the wrappers below) run through it, and it counts the launches it
 # made. An op is its code and its operands as int64: ints, tensors by
 # address, Bufs tagged in the top byte (1 scratch, 2 y) with a byte offset.
-_OP_GATHER, _OP_W_STAGE, _OP_REDUCE, _OP_HDENSE, _OP_ZERO, _OP_HEAVY, _OP_SMALL = range(1, 8)
+_OP_GATHER, _OP_PERMUTE, _OP_REDUCE, _OP_HDENSE, _OP_ZERO, _OP_HEAVY, _OP_SMALL = range(1, 8)
 _TAGS = {"s": 1, "y": 2}
 
 
 def _aligned(t, align: int):
-    """t, checked to be align-byte aligned: the kernels read w1, w, hlo and
-    hhi (index rows) with 4-byte loads, groups with 8-byte and hdense with
+    """t, checked to be align-byte aligned: the kernels read w1, hlo and hhi
+    (index rows) with 4-byte loads, groups with 8-byte and hdense with
     16-byte ones; every other operand with scalar loads."""
     if isinstance(t, torch.Tensor) and t.data_ptr() % align:
         raise ValueError(f"an operand read with {align}-byte loads is not {align}-byte aligned")
@@ -293,14 +403,13 @@ def _gather_op(vals, pidx, widx, w1, n_tiles: int, out) -> List[int]:
                vals.shape[0] // LANE, n_tiles, out)
 
 
-def _w_stage_op(src, src_rows: int, r, w, ra, t: int, sw: bool, n_tiles: int, out,
-                out_limit: int) -> List[int]:
-    return _op(_OP_W_STAGE, src, src_rows, r, _aligned(w, 4), ra, t, sw, n_tiles, out, out_limit)
+def _permute_op(src, imap: IndexMap, n: int, out) -> List[int]:
+    return _op(_OP_PERMUTE, src, imap.idx, n, out)
 
 
-def _reduce_op(src, src_rows: int, mode: int, W, r1, r3, mask, groups, out) -> List[int]:
-    return _op(_OP_REDUCE, src, src_rows, mode, W, r1, r3, mask, _aligned(groups, 8),
-               groups.shape[0], out)
+def _reduce_op(src, imap: IndexMap, mask, groups, chunks, out) -> List[int]:
+    return _op(_OP_REDUCE, src, imap.idx, mask, _aligned(groups, 8), _aligned(chunks, 16),
+               chunks.shape[0], out)
 
 
 def _hdense_op(hdense, target, out, part) -> List[int]:
@@ -369,25 +478,26 @@ def routed_gather_cuda(vals, pidx, widx, w1, n_tiles: int, x, out) -> torch.Tens
 routed_gather_cuda.launches = 0
 
 
-def routed_w_stage_cuda(src, src_rows: int, r, w, ra, t: int, sw: bool, n_tiles: int, out,
-                        out_limit: int) -> torch.Tensor:
-    """Kernel B into out: the first out_limit elements of the W stage's
-    (n_tiles*128, 128) result."""
-    dev = _on_cuda(src, r, w, ra, out)
-    _check_w_stage(src, src_rows, r, w, ra, t, sw, n_tiles, out, out_limit)
-    _run_op(_w_stage_op(src, src_rows, r, w, ra, t, sw, n_tiles, out, out_limit), None, dev)
+def routed_permute_cuda(src, imap: IndexMap, n: int, out) -> torch.Tensor:
+    """Kernel B into out: out[i] = src.view(-1)[imap.idx[i]] (0 where the
+    offset is -1) for i < n."""
+    dev = _on_cuda(src, imap.idx, out)
+    _check_permute(src, imap, n, out)
+    _run_op(_permute_op(src, imap, n, out), None, dev)
     return out
 
 
-routed_w_stage_cuda.launches = 0
+routed_permute_cuda.launches = 0
 
 
-def routed_perm_reduce_cuda(src, src_rows: int, mode: int, W, r1, r3, mask, groups, out) -> torch.Tensor:
-    """Kernel C into out (n_groups, 128): groups is the (n_groups, 2) int32
-    table of (first slab row, width)."""
-    dev = _on_cuda(src, W, r1, r3, mask, groups, out)
-    _check_perm_reduce(src, src_rows, mode, W, r1, r3, mask, groups, out)
-    _run_op(_reduce_op(src, src_rows, mode, W, r1, r3, mask, groups, out), None, dev)
+def routed_perm_reduce_cuda(src, imap: IndexMap, mask, groups, chunks, out) -> torch.Tensor:
+    """Kernel C into out (n_groups, 128): the group sums of the slab read
+    from src through imap.idx's rows, masked where mask is given; groups is
+    the (n_groups, 2) int32 table of (first slab row, width), chunks its
+    CTAs' (reduce_chunks)."""
+    dev = _on_cuda(src, imap.idx, mask, groups, chunks, out)
+    _check_perm_reduce(src, imap, mask, groups, chunks, out)
+    _run_op(_reduce_op(src, imap, mask, groups, chunks, out), None, dev)
     return out
 
 
@@ -445,7 +555,7 @@ routed_small_cuda.launches = 0
 #: order of its counts array)
 _COUNTERS = {
     "gather": routed_gather_cuda,
-    "w_stage": routed_w_stage_cuda,
+    "permute": routed_permute_cuda,
     "perm_reduce": routed_perm_reduce_cuda,
     "hdense": routed_hdense_cuda,
     "heavy": routed_heavy_cuda,
@@ -486,37 +596,33 @@ def _check_gather(vals, pidx, widx, w1, n_tiles, x, out):
     _check_out(out, "out", n_tiles * LANE * LANE, dev)
 
 
-def _check_w_stage(src, src_rows, r, w, ra, t, sw, n_tiles, out, out_limit):
-    dev = src.device
-    h = n_tiles * LANE
-    if not 1 <= n_tiles <= LANE or (sw and n_tiles != t) or t < 1 or LANE % t:
-        raise ValueError(f"bad W stage geometry n_tiles={n_tiles} t={t} sw={sw}")
-    if not 0 <= src_rows <= src.shape[0] or src.dim() != 2 or src.shape[1] != LANE \
-            or src.dtype != torch.float32 or not src.is_contiguous():
-        raise ValueError(f"src must be a contiguous (rows, 128) f32 tensor with >= {src_rows} rows")
-    for name, a in (("r", r), ("w", w), ("ra", ra)):
-        _idx(a, name, h, dev)
-    _check_out(out, "out", min(out_limit, h * LANE), dev)
+def _check_src(src, span: int, dev) -> None:
+    if src.device != dev or src.dtype != torch.float32 or not src.is_contiguous() \
+            or src.numel() < span:
+        raise ValueError(f"src must be a contiguous f32 tensor of >= {span} elements on {dev}")
 
 
-def _check_perm_reduce(src, src_rows, mode, W, r1, r3, mask, groups, out):
+def _check_permute(src, imap: IndexMap, n, out):
     dev = src.device
-    h = r3.shape[0]
-    if mode not in (MODE_DIRECT, MODE_W3, MODE_T1) or h % LANE or not 0 < h <= LANE * LANE:
-        raise ValueError(f"bad reduce mode {mode} or slab rows {h}")
-    if (mode == MODE_T1 and (h != LANE or r1 is None)) or (mode != MODE_DIRECT and W is None):
-        raise ValueError(f"reduce mode {mode} needs W (and r1 on a one-tile level)")
-    if not 0 <= src_rows <= src.shape[0] or src.dim() != 2 or src.shape[1] != LANE \
-            or src.dtype != torch.float32 or not src.is_contiguous():
-        raise ValueError(f"src must be a contiguous (rows, 128) f32 tensor with >= {src_rows} rows")
-    if mode == MODE_W3 and src_rows < h:
-        raise ValueError("a W3 reduce reads the whole slab")
-    for name, a in (("r3", r3), ("W", W), ("r1", r1)):
-        _idx(a, name, h, dev)
-    if mask is not None:
-        _require(mask, "mask", _F32, (h, LANE), dev)
+    _check_src(src, imap.span, dev)
+    _require(imap.idx, "idx", _I32, tuple(imap.idx.shape), dev)
+    if not 1 <= n <= imap.idx.numel():
+        raise ValueError(f"{n} elements of a map of {imap.idx.numel()}")
+    _check_out(out, "out", n, dev)
+
+
+def _check_perm_reduce(src, imap: IndexMap, mask, groups, chunks, out):
+    dev = src.device
+    _check_src(src, imap.span, dev)
+    rows = imap.idx.shape[0]
+    _require(imap.idx, "off", _I32, (rows, LANE), dev)
+    if mask is not None and (mask.device != dev or mask.dtype != torch.float32 or mask.dim() != 2
+                             or mask.shape[0] < rows or mask.shape[1] != LANE
+                             or not mask.is_contiguous()):
+        raise ValueError(f"mask must be a contiguous (>= {rows}, 128) f32 tensor on {dev}")
     g = groups.shape[0]
-    _require(groups, "groups", (torch.int32,), (g, 2), dev)
+    _require(groups, "groups", _I32, (g, 2), dev)
+    _require(chunks, "chunks", _I32, (chunks.shape[0], 4), dev)
     _check_out(out, "out", g * LANE, dev)
 
 
@@ -561,18 +667,35 @@ def _device_of(x: torch.Tensor) -> str:
     return x.device.type
 
 
+def permute(src: torch.Tensor, imap: IndexMap, n: Optional[int] = None) -> torch.Tensor:
+    """Kernel B's function, (n,) f32 (n: the whole map by default): src
+    read through the index map; the plain version on the CPU."""
+    n = imap.idx.numel() if n is None else n
+    if _device_of(src) == "cpu":
+        _check_permute(src, imap, n, None)
+        return permute_reference(src, imap.idx, n)
+    out = torch.empty(n, dtype=torch.float32, device=src.device)
+    return routed_permute_cuda(src, imap, n, out)
+
+
 def w_stage(x, w, r=None, ra=None, sw: bool = False, t: int = 1, n_tiles: Optional[int] = None,
             src_rows: Optional[int] = None) -> torch.Tensor:
-    """One W stage over x (rows, 128) f32, kernel B's function: the JAX
-    package's _whole_w_call(x, w, r, r_after) and _tiled_call kernels, and
-    with sw the SW . W2 . SW^-1 middle (apply_sw_w2_sw)."""
+    """One W stage over x (rows, 128) f32: the JAX package's
+    _whole_w_call(x, w, r, r_after) and _tiled_call kernels, and with sw
+    the SW . W2 . SW^-1 middle (apply_sw_w2_sw). The plain stage on the
+    CPU; on the card kernel B through the stage's index map."""
     n_tiles = x.shape[0] // LANE if n_tiles is None else n_tiles
     src_rows = x.shape[0] if src_rows is None else src_rows
+    h = n_tiles * LANE
+    if not 1 <= n_tiles <= LANE or (sw and n_tiles != t) or t < 1 or LANE % t \
+            or not 0 <= src_rows <= x.shape[0]:
+        raise ValueError(f"bad W stage geometry n_tiles={n_tiles} t={t} sw={sw} src_rows={src_rows}")
+    for name, a in (("r", r), ("w", w), ("ra", ra)):
+        _idx(a, name, h, x.device)
     if _device_of(x) == "cpu":
-        _check_w_stage(x, src_rows, r, w, ra, t, sw, n_tiles, None, 0)
         return w_stage_reference(x, src_rows, r, w, ra, t, sw, n_tiles)
-    out = torch.empty(n_tiles * LANE, LANE, dtype=torch.float32, device=x.device)
-    return routed_w_stage_cuda(x, src_rows, r, w, ra, t, sw, n_tiles, out, out.numel())
+    imap = index_map(Steps((WStep(w, r=r, ra=ra, sw=sw),), t, h, src_rows), x.device)
+    return permute(x, imap).reshape(h, LANE)
 
 
 def apply_w_stage(w, x) -> torch.Tensor:
@@ -581,29 +704,33 @@ def apply_w_stage(w, x) -> torch.Tensor:
     return w_stage(x, w)
 
 
+def _apply(plan: PlannedPermutation, x, form: str, skip_r3: bool = False) -> torch.Tensor:
+    """A form of the planned permutation over x (rows, 128) f32 (rows from
+    x's end to plan.h read as zero): one gather through its cached map."""
+    imap = plan_map(plan, form, skip_r3, min(x.shape[0], plan.h))
+    return permute(x, imap).reshape(plan.h, LANE)
+
+
 def apply_sw_w2_sw(plan: PlannedPermutation, x2) -> torch.Tensor:
     """SW . W2 . SW^-1 for callers that applied W1 themselves."""
-    return w_stage(x2, plan.w2, sw=True, t=plan.t)
+    return _apply(plan, x2, "sw_w2_sw")
 
 
 def apply_permutation_to_mid(plan: PlannedPermutation, x) -> torch.Tensor:
     """R1, W1, SW, W2, SW^-1: the returned x5 still needs W3 and R3."""
-    return apply_sw_w2_sw(plan, w_stage(x, plan.w1, r=plan.r1))
+    return _apply(plan, x, "to_mid")
 
 
 def apply_permutation_from_w1(plan: PlannedPermutation, x2, skip_r3: bool = False) -> torch.Tensor:
     """SW . W2 . SW^-1 . W3 [. R3] for callers that already applied W1."""
-    return w_stage(apply_sw_w2_sw(plan, x2), plan.w3, ra=None if skip_r3 else plan.r3)
+    return _apply(plan, x2, "from_w1", skip_r3)
 
 
 def apply_permutation(plan: PlannedPermutation, x, skip_r3: bool = False) -> torch.Tensor:
     """y[dst_of[slot]] = x[slot] for the planned bijection; x is (H, 128).
     With skip_r3 the last lane permutation is left to the caller:
     true[h, l] == returned[h, r3[h, l]]."""
-    ra = None if skip_r3 else plan.r3
-    if plan.t == 1 and plan.wc is not None:
-        return w_stage(x, plan.wc, r=plan.r1, ra=ra)
-    return w_stage(apply_permutation_to_mid(plan, x), plan.w3, ra=ra)
+    return _apply(plan, x, "whole", skip_r3)
 
 
 def routed_gather(mat: RoutedCSR, x: torch.Tensor, w1: bool = True) -> torch.Tensor:
@@ -620,6 +747,24 @@ def routed_gather(mat: RoutedCSR, x: torch.Tensor, w1: bool = True) -> torch.Ten
     return routed_gather_cuda(mat.vals, mat.pidx, mat.widx, w, n_tiles, x, out)
 
 
+def reduce_chunks(runs, device) -> torch.Tensor:
+    """(n_chunks, 4) int32 (row0, row1, g0, g1): kernel C's CTAs, each the
+    consecutive output groups g0 .. g1 - 1 of runs (row0, n_groups, width,
+    g0), whose slab rows tile [row0, row1) in order. A chunk takes groups
+    while it stays within _CHUNK_ROWS rows and _CHUNK_GROUPS groups; a wider
+    group is a chunk alone. The groups come wide first, so the chunks do
+    too."""
+    tab = groups_table(runs, "cpu").numpy().astype(np.int64)
+    ends = tab[:, 0] + tab[:, 1]
+    out, start = [], 0
+    for g in range(1, tab.shape[0] + 1):
+        if g == tab.shape[0] or tab[g, 0] != ends[g - 1] or ends[g] - tab[start, 0] > _CHUNK_ROWS \
+                or g - start == _CHUNK_GROUPS:
+            out.append((tab[start, 0], ends[g - 1], start, g))
+            start = g
+    return torch.tensor(out, dtype=torch.int32).to(device)
+
+
 def groups_table(runs, device) -> torch.Tensor:
     """(n_groups, 2) int32 (first slab row, width) of every output group of
     runs (row0, n_groups, width, g0)."""
@@ -630,18 +775,41 @@ def groups_table(runs, device) -> torch.Tensor:
     return torch.from_numpy(tab).to(device)
 
 
+def reduce_map(r3, mode: int = MODE_W3, W=None, r1=None, src_rows: Optional[int] = None) -> IndexMap:
+    """The offsets perm_reduce reads its (h, 128) slab through (h =
+    r3.shape[0]): R3 alone (MODE_DIRECT), W3 then R3 (MODE_W3) or r1, wc
+    and R3 on one tile (MODE_T1), composed; source rows from src_rows (h by
+    default) on read as zero."""
+    h = r3.shape[0]
+    if mode not in (MODE_DIRECT, MODE_W3, MODE_T1) or h % LANE or not 0 < h <= LANE * LANE:
+        raise ValueError(f"bad reduce mode {mode} or slab rows {h}")
+    if (mode == MODE_T1 and (h != LANE or r1 is None)) or (mode != MODE_DIRECT and W is None):
+        raise ValueError(f"reduce mode {mode} needs W (and r1 on a one-tile level)")
+    for name, a in (("r3", r3), ("W", W), ("r1", r1)):
+        _idx(a, name, h, r3.device)
+    step = WStep(None if mode == MODE_DIRECT else W, r=r1 if mode == MODE_T1 else None, ra=r3)
+    return index_map(Steps((step,), h // LANE, h, h if src_rows is None else src_rows), r3.device)
+
+
 def perm_reduce(src, runs, r3, mode: int = MODE_W3, W=None, r1=None, mask=None,
                 src_rows: Optional[int] = None) -> torch.Tensor:
     """Kernel C's function, (n_groups, 128) group sums: mode MODE_W3 is the
     JAX package's _w3_r3_reduce (W = w3), MODE_T1 its _perm_reduce_t1 and
-    the fused level (W = wc, r1), MODE_DIRECT its _reduce_runs_fused."""
+    the fused level (W = wc, r1), MODE_DIRECT its _reduce_runs_fused. The
+    mode's stages are composed into one offset per slab slot (reduce_map)."""
     src_rows = src.shape[0] if src_rows is None else src_rows
-    groups = groups_table(runs, src.device)
+    if not 0 <= src_rows <= src.shape[0] or src.dim() != 2 or src.shape[1] != LANE:
+        raise ValueError(f"src must be a (rows, 128) tensor with >= {src_rows} rows")
+    imap = reduce_map(r3, mode, W, r1, src_rows)
+    h = r3.shape[0]
+    if any(row0 + ng * width > h for row0, ng, width, _g0 in runs):
+        raise ValueError(f"runs {runs} do not fit a slab of {h} rows")
+    groups, chunks = groups_table(runs, src.device), reduce_chunks(runs, src.device)
     if _device_of(src) == "cpu":
-        _check_perm_reduce(src, src_rows, mode, W, r1, r3, mask, groups, None)
-        return perm_reduce_reference(src, src_rows, mode, W, r1, r3, mask, runs)
+        _check_perm_reduce(src, imap, mask, groups, chunks, None)
+        return perm_reduce_reference(src, imap.idx, mask, runs)
     out = torch.empty(groups.shape[0], LANE, dtype=torch.float32, device=src.device)
-    return routed_perm_reduce_cuda(src, src_rows, mode, W, r1, r3, mask, groups, out)
+    return routed_perm_reduce_cuda(src, imap, mask, groups, chunks, out)
 
 
 def _heavy_targets(mat: RoutedCSR) -> np.ndarray:
@@ -714,34 +882,25 @@ class GatherStage:  # kernel A
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class WStage:  # kernel B
+class PermuteStage:  # kernel B: a whole permutation, one gather
     src: Buf
-    src_rows: int
-    r: Optional[torch.Tensor]
-    w: torch.Tensor
-    ra: Optional[torch.Tensor]
-    t: int
-    sw: bool
-    n_tiles: int
+    imap: IndexMap
+    n: int  # the first n elements of the map's result
     out: Buf
-    out_limit: int
 
-    kernel = "w_stage"
+    kernel = "permute"
 
     def out_elems(self) -> int:
-        return min(self.out_limit, self.n_tiles * LANE * LANE)
+        return self.n
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ReduceStage:  # kernel C
     src: Buf
-    src_rows: int
-    mode: int
-    W: Optional[torch.Tensor]
-    r1: Optional[torch.Tensor]
-    r3: torch.Tensor
+    imap: IndexMap  # its offsets: the slab rows the groups cover
     mask: Optional[torch.Tensor]
     groups: torch.Tensor
+    chunks: torch.Tensor  # its CTAs (reduce_chunks)
     runs: tuple
     out: Buf
 
@@ -815,7 +974,8 @@ class ZeroStage:
         return self.n
 
 
-Stage = Union[GatherStage, WStage, ReduceStage, HDenseStage, HeavyStage, SmallStage, ZeroStage]
+Stage = Union[GatherStage, PermuteStage, ReduceStage, HDenseStage, HeavyStage, SmallStage,
+              ZeroStage]
 
 
 def small_ok(mat: RoutedCSR) -> bool:
@@ -839,32 +999,27 @@ def small_ok(mat: RoutedCSR) -> bool:
 
 
 def _small_lists(staged) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SmallStage's row_ptr and row_slots. Element ids (exact in f32 below
-    2^24) run through the staged chain's permutations (the plain W stages)
-    give each reduce-slab slot the gather slot whose product it holds (-1:
-    a pad tile) and each row of y the output element of C it receives (-1:
+    """SmallStage's row_ptr and row_slots from the staged chain (gather,
+    reduce, zero, output permutation). Gather-slot ids run through W1 give
+    each element of A's output the slot whose product it holds (-1: a pad
+    tile); C's offsets then give each reduce-slab slot its gather slot, and
+    the output map each row of y the output element of C it receives (-1:
     the zeroed assembly tail). C's groups then give row i, at element
     group*128 + lane, its slab rows row0 .. row0 + width - 1 at that lane,
     in C's order; the pad slots are dropped (their zero product leaves a sum
-    that starts at +0 as it is)."""
-    gather, w2, red, _zero, *outs = staged
+    that starts at +0 as it is). Integer ids throughout."""
+    gather, red, _zero, out = staged
     dev = gather.vals.device
     h1 = gather.n_tiles * LANE
     n_real = gather.vals.shape[0] // LANE
-    ids = torch.arange(h1 * LANE, dtype=torch.float32, device=dev).reshape(h1, LANE)
+    ids = torch.arange(h1 * LANE, dtype=torch.int64, device=dev).reshape(h1, LANE)
     x2 = torch.cat([_w_tiles(ids[: n_real * LANE], gather.w1[: n_real * LANE]),
-                    ids.new_full(((gather.n_tiles - n_real) * LANE, LANE), -1.0)])
-    slab = w_stage_reference(x2, h1, None, w2.w, None, w2.t, True, w2.n_tiles)
-    slab = w_stage_reference(slab, h1, None, red.W, red.r3, w2.t, False, w2.n_tiles)
-    ho = outs[0].n_tiles * LANE
-    dom = torch.arange(ho * LANE, dtype=torch.float32, device=dev)
-    dom[red.groups.shape[0] * LANE:] = -1.0
-    dom = dom.reshape(ho, LANE)
-    for st in outs:
-        dom = w_stage_reference(dom, ho, st.r, st.w, st.ra, st.t, st.sw, st.n_tiles)
-    m = outs[-1].out_limit
-    slab = slab.reshape(-1).long().cpu().numpy()
-    e = dom.reshape(-1)[:m].long().cpu().numpy()
+                    ids.new_full(((gather.n_tiles - n_real) * LANE, LANE), -1)]).reshape(-1)
+    off = red.imap.idx.reshape(-1).long()
+    slab = torch.where(off >= 0, x2[off.clamp(min=0)], off).cpu().numpy()
+    m = out.n
+    e = out.imap.idx.reshape(-1)[:m].long().cpu().numpy()
+    e = np.where(e < red.groups.shape[0] * LANE, e, -1)
     groups = red.groups.long().cpu().numpy()
     gi = np.where(e >= 0, e // LANE, 0)
     width = np.where(e >= 0, groups[gi, 1], 0)
@@ -887,39 +1042,40 @@ def heavy_slot_map(hreduce: np.ndarray, device):
             torch.from_numpy(slot.astype(np.int32)).to(device))
 
 
+def _reduce_stage(src: Buf, imap: IndexMap, mask, runs, out: Buf, dev) -> ReduceStage:
+    """C over the slab rows its groups cover, read through imap."""
+    rows = max(row0 + ng * width for row0, ng, width, _g0 in runs)
+    imap = dataclasses.replace(imap, idx=imap.idx[:rows])
+    return ReduceStage(src, imap, mask, groups_table(runs, dev), reduce_chunks(runs, dev), runs,
+                       out)
+
+
 def _domain_stages(mat: RoutedCSR, y: Buf, alloc, fuse_small: bool = True) -> List[Stage]:
     """The stages of one domain's product, y[0:m] written at y: one
     SmallStage for a small domain (unless fuse_small is False), else the
-    staged chain."""
+    staged chain. Each C reads its slab through the offsets of the W stages
+    before it (the products domain's SW.W2.SW^-1, W3 and R3 over A's
+    output; a level's whole plan over the sums of the level before), and
+    the output permutation is one gather."""
     dev = mat.vals.device
     pp, po = mat.perm_products, mat.perm_out
     h1, m = pp.h, mat.shape[0]
-    x2, x5, dom = alloc(h1), alloc(h1), alloc(po.h)
+    x2, dom = alloc(h1), alloc(po.h)
+    # A writes zeros into its pad tiles: C reads their slots as -1
+    n_real = mat.vals.shape[0] // LANE
     stages: List[Stage] = [
         GatherStage(mat.vals, mat.pidx, mat.widx, pp.w1, pp.t, x2),
-        WStage(x2, h1, None, pp.w2, None, pp.t, True, pp.t, x5, h1 * LANE),
-        ReduceStage(x5, h1, MODE_W3, pp.w3, None, pp.r3, None, groups_table(mat.runs, dev),
-                    mat.runs, dom),
+        _reduce_stage(x2, plan_map(pp, "from_w1", src_rows=n_real * LANE), None, mat.runs, dom,
+                      dev),
     ]
     level_groups = [_n_groups(mat.runs)] + [_n_groups(r) for r in mat.lvl_runs]
     offs = np.r_[0, np.cumsum(level_groups)]
     for k, (perm, mask, runs) in enumerate(zip(mat.lvl_perms, mat.lvl_masks, mat.lvl_runs)):
+        # the JAX package's _perm_reduce_t1 (t = 1), and the levels it runs
+        # as W stages and _w3_r3_reduce (t > 1): one launch each
         prev, prev_rows = dom.at(int(offs[k]) * LANE), min(level_groups[k], perm.h)
-        out = dom.at(int(offs[k + 1]) * LANE)
-        groups = groups_table(runs, dev)
-        if perm.t == 1:
-            # the JAX package's _perm_reduce_t1, and the level it fuses into
-            # _w3_r3_reduce: r1 . wc . r3, mask, run sums in one launch
-            stages.append(ReduceStage(prev, prev_rows, MODE_T1, perm.wc, perm.r1, perm.r3, mask,
-                                      groups, runs, out))
-        else:
-            la, lb = alloc(perm.h), alloc(perm.h)
-            stages += [
-                WStage(prev, prev_rows, perm.r1, perm.w1, None, perm.t, False, perm.t, la,
-                       perm.h * LANE),
-                WStage(la, perm.h, None, perm.w2, None, perm.t, True, perm.t, lb, perm.h * LANE),
-                ReduceStage(lb, perm.h, MODE_W3, perm.w3, None, perm.r3, mask, groups, runs, out),
-            ]
+        stages.append(_reduce_stage(prev, plan_map(perm, src_rows=prev_rows), mask, runs,
+                                    dom.at(int(offs[k + 1]) * LANE), dev))
     tail = int(offs[-1])
     stages.append(ZeroStage(dom.at(tail * LANE), (po.h - tail) * LANE))
     if mat.hdense is not None:
@@ -928,16 +1084,8 @@ def _domain_stages(mat: RoutedCSR, y: Buf, alloc, fuse_small: bool = True) -> Li
         stages.append(HDenseStage(mat.hdense, target, dom.at(tail * LANE), part))
     # output permutation; the JAX package applies its W1 to the leading
     # full tiles inside _w3_r3_reduce and to the tail on its own: applying
-    # W1 once over the whole assembly domain gives the same x2_o
-    if po.t == 1:
-        stages.append(WStage(dom, po.h, None, po.wc, po.r3, 1, False, 1, y, m))
-    else:
-        o1, o2 = alloc(po.h), alloc(po.h)
-        stages += [
-            WStage(dom, po.h, None, po.w1, None, po.t, False, po.t, o1, po.h * LANE),
-            WStage(o1, po.h, None, po.w2, None, po.t, True, po.t, o2, po.h * LANE),
-            WStage(o2, po.h, None, po.w3, po.r3, po.t, False, po.t, y, m),
-        ]
+    # the whole plan once over the assembly domain gives the same y
+    stages.append(PermuteStage(dom, plan_map(po), m, y))
     if mat.hvals is not None:
         # heavy rows carry no light nnz: the output permutation left them 0
         slot_ptr, slot_idx = heavy_slot_map(mat.hreduce, dev)
@@ -1118,11 +1266,10 @@ def _encode(stages: Sequence[Stage]) -> tuple:
             continue
         if isinstance(s, GatherStage):
             prog += _gather_op(s.vals, s.pidx, s.widx, s.w1, s.n_tiles, s.out)
-        elif isinstance(s, WStage):
-            prog += _w_stage_op(s.src, s.src_rows, s.r, s.w, s.ra, s.t, s.sw, s.n_tiles, s.out,
-                                s.out_limit)
+        elif isinstance(s, PermuteStage):
+            prog += _permute_op(s.src, s.imap, s.n, s.out)
         elif isinstance(s, ReduceStage):
-            prog += _reduce_op(s.src, s.src_rows, s.mode, s.W, s.r1, s.r3, s.mask, s.groups, s.out)
+            prog += _reduce_op(s.src, s.imap, s.mask, s.groups, s.chunks, s.out)
         elif isinstance(s, HDenseStage):
             prog += _hdense_op(s.hdense, s.target, s.out, s.part)
         elif isinstance(s, HeavyStage):
@@ -1169,22 +1316,18 @@ def run_stage(stage: Stage, bufs: Dict[str, torch.Tensor], plain: bool) -> None:
                                        stage.n_tiles, x).reshape(-1))
         else:
             routed_gather_cuda(stage.vals, stage.pidx, stage.widx, stage.w1, stage.n_tiles, x, out)
-    elif isinstance(stage, WStage):
-        src = bufs[stage.src.kind][stage.src.off :].reshape(-1, LANE)
+    elif isinstance(stage, PermuteStage):
+        src = bufs[stage.src.kind][stage.src.off :]
         if plain:
-            out.copy_(w_stage_reference(src, stage.src_rows, stage.r, stage.w, stage.ra, stage.t,
-                                        stage.sw, stage.n_tiles).reshape(-1)[:n_out])
+            out.copy_(permute_reference(src, stage.imap.idx, stage.n))
         else:
-            routed_w_stage_cuda(src, stage.src_rows, stage.r, stage.w, stage.ra, stage.t,
-                                stage.sw, stage.n_tiles, out, stage.out_limit)
+            routed_permute_cuda(src, stage.imap, stage.n, out)
     elif isinstance(stage, ReduceStage):
-        src = bufs[stage.src.kind][stage.src.off :].reshape(-1, LANE)
+        src = bufs[stage.src.kind][stage.src.off :]
         if plain:
-            out.copy_(perm_reduce_reference(src, stage.src_rows, stage.mode, stage.W, stage.r1,
-                                            stage.r3, stage.mask, stage.runs).reshape(-1))
+            out.copy_(perm_reduce_reference(src, stage.imap.idx, stage.mask, stage.runs).reshape(-1))
         else:
-            routed_perm_reduce_cuda(src, stage.src_rows, stage.mode, stage.W, stage.r1, stage.r3,
-                                    stage.mask, stage.groups, out)
+            routed_perm_reduce_cuda(src, stage.imap, stage.mask, stage.groups, stage.chunks, out)
     elif stage.kernel is None:
         out[stage.target.long()] += _hdense_matmul(stage.hdense, x)
     elif plain:
@@ -1235,21 +1378,43 @@ def routed_chain_spmv(chain: RoutedChain, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def staged_stage(stage: Union[PermuteStage, ReduceStage], bufs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """What B or C computes, the W stages it composes applied one by one
+    (staged_reference) to its source in the buffers, then for C the mask
+    and the run sums: the chain as it ran before its stages were composed.
+    Returns the stage's output elements."""
+    steps = stage.imap.steps
+    src = bufs[stage.src.kind][stage.src.off :]
+    src = src[: src.numel() // LANE * LANE].reshape(-1, LANE)
+    a = staged_reference(steps, src)
+    if isinstance(stage, PermuteStage):
+        return a.reshape(-1)[: stage.n]
+    g = a[: stage.imap.idx.shape[0]]
+    if stage.mask is not None:
+        g = g * stage.mask[: g.shape[0]]
+    return _reduce_runs(g, stage.runs).reshape(-1)
+
+
 def compare_stages(chain: RoutedChain, x: torch.Tensor):
     """Each stage's kernel against its plain version on the same inputs: the
     chain runs with the plain versions, and before each stage a copy of the
     buffers runs the stage's kernel. Yields (stage, kernel output, plain
-    output) for every stage that launches a kernel (CUDA tensors only)."""
+    output, staged output) for every stage that launches a kernel (CUDA
+    tensors only); the staged output is staged_stage's for B and C, else
+    None."""
     bufs = _buffers(chain, x)
     bufs["s"].fill_(float("nan"))
     for stage in chain.stages:
+        staged = None
         if stage.kernel is not None:
             copy = {k: v.clone() for k, v in bufs.items()}
             run_stage(stage, copy, plain=False)
+            if isinstance(stage, (PermuteStage, ReduceStage)):
+                staged = staged_stage(stage, bufs)
         run_stage(stage, bufs, plain=True)
         if stage.kernel is not None:
             n = stage.out_elems()
-            yield stage, _view(copy, stage.out, n), _view(bufs, stage.out, n)
+            yield stage, _view(copy, stage.out, n), _view(bufs, stage.out, n), staged
 
 
 def stored_csr(csr, chain: RoutedChain):
@@ -1458,16 +1623,12 @@ def routed_df_gather(mdf: RoutedDF, xh, xl, plain: bool = False) -> dfloat.Pair:
 
 
 def _permute(plan: PlannedPermutation, a: torch.Tensor, plain: bool) -> torch.Tensor:
-    """apply_permutation over the whole (plan.h, 128) domain; with plain the
-    W stages' plain versions on any device."""
+    """apply_permutation over the whole (plan.h, 128) domain (one launch of
+    kernel B on the card); with plain the W stages' plain versions one by
+    one, on any device."""
     if not plain:
         return apply_permutation(plan, a)
-    h = plan.h
-    if plan.t == 1 and plan.wc is not None:
-        return w_stage_reference(a, h, plan.r1, plan.wc, plan.r3, 1, False, 1)
-    a = w_stage_reference(a, h, plan.r1, plan.w1, None, 1, False, plan.t)
-    a = w_stage_reference(a, h, None, plan.w2, None, plan.t, True, plan.t)
-    return w_stage_reference(a, h, None, plan.w3, plan.r3, 1, False, plan.t)
+    return staged_reference(plan_steps(plan), a)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -1639,8 +1800,8 @@ def _df_domain(d: DFDomain, xh, xl, plain: bool) -> torch.Tensor:
 
 def routed_df_spmv(chain: RoutedDFChain, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """y = A @ x in double-float (f64 in and out, length m) over a prepared
-    df chain. CUDA tensors launch routed_df_gather_kernel and the W-stage
-    kernel on each plane (with plain=True every stage's plain version runs
+    df chain. CUDA tensors launch routed_df_gather_kernel and kernel B (one
+    gather per permutation) on each plane (with plain=True every stage's plain version runs
     instead); CPU tensors take the plain versions. Anything else raises."""
     _device_of(x)
     _require(x, "x", (torch.float64,), (chain.shape[1],), chain.device)

@@ -149,6 +149,24 @@ def test_routed_df_reduce_and_rowdot_match_jax():
     _equal(got[1], want[1], "rowdot lo")
 
 
+@pytest.mark.parametrize("name", ["power_law", "split_level"])
+def test_routed_df_permutations_are_one_gather_per_plane(name):
+    """The df chain applies each planned permutation to each plane as one
+    gather through the plan's composed map (kernel B on the card): the
+    staged W stages' result bit for bit, one map per plan, and the whole df
+    product equal to the one with every stage staged."""
+    tcsr, tm, _ = _routed_prepared(name)
+    mat = tm.mat
+    rng = np.random.default_rng(6)
+    for plan in (mat.perm_products, *mat.lvl_perms, mat.perm_out):
+        a = torch.from_numpy(rng.standard_normal((plan.h, 128)).astype(np.float32))
+        assert torch.equal(trc._permute(plan, a, plain=False), trc._permute(plan, a, plain=True))
+        assert list(plan.maps) == [("whole", False, plan.h)]
+    chain = trc.build_df_chain(tm)
+    x = torch.from_numpy(_x(tcsr.shape[1], seed=8))
+    assert torch.equal(trc.routed_df_spmv(chain, x), trc.routed_df_spmv(chain, x, plain=True))
+
+
 def test_routed_df_chunked():
     """The smallest chunked case: every column a multiple of 128 piles the
     gather slots onto one residue, so 24,000 nnz overflow one domain.

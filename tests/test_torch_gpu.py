@@ -345,17 +345,22 @@ def test_routed_kernels_match_plain(cuda, layout, vals_dtype):
     chain = trc.build_chain(mat)
     x = _x(csr.shape[1], cuda)
     seen = set()
-    for stage, yk, yp in trc.compare_stages(chain, x):
+    for stage, yk, yp, ys in trc.compare_stages(chain, x):
         torch.cuda.synchronize()
         seen.add(stage.kernel)
-        if stage.kernel in ("gather", "w_stage"):
+        if stage.kernel in ("gather", "permute"):
             assert torch.equal(yk, yp), stage  # data movement and products
         else:
             _within(yk, yp)
+        if stage.kernel == "permute":  # the composed gather: the staged W stages
+            assert torch.equal(yk, ys), stage
+        elif ys is not None:
+            _within(yk, ys)
     if layout.startswith("small"):
         assert seen == {"small"} and chain.counts["small"] == 1
     else:
-        assert {"gather", "w_stage", "perm_reduce"} <= seen
+        assert {"gather", "permute", "perm_reduce"} <= seen
+        assert chain.counts["permute"] == 1
     assert ("hdense" in seen) == (layout == "spiked")
     assert ("heavy" in seen) == (layout == "pooled")
     before = {k: fn.launches for k, fn in trc._COUNTERS.items()}
@@ -374,14 +379,14 @@ def test_routed_chunked_chain(cuda):
     csr = T.coo_to_csr(synth.power_law(6000, 6000, avg_nnz_per_row=6.0, alpha=1.5, seed=9))
     mat = trt.prepare_routed_chunked(csr, chunk_nnz=3000, fit_domains=False, device=cuda)
     assert len(mat.chunks) >= 3
-    # a chunk's last W stage writes y from a row bound that is not a
+    # a chunk's output gather writes y from a row bound that is not a
     # multiple of 4 (an output 4-byte aligned only)
     assert any(b % 4 for b in mat.bounds)
     chain = trc.build_chain(mat)
     x = _x(6000, cuda)
-    for stage, yk, yp in trc.compare_stages(chain, x):
+    for stage, yk, yp, _ys in trc.compare_stages(chain, x):
         torch.cuda.synchronize()
-        if stage.kernel in ("gather", "w_stage"):
+        if stage.kernel in ("gather", "permute"):
             assert torch.equal(yk, yp), stage
         else:
             _within(yk, yp)
@@ -420,9 +425,36 @@ def test_routed_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         trc.routed_gather_cuda(mat.vals, mat.pidx, mat.widx, mat.perm_products.w1,
                                mat.perm_products.t, x, out[:-1])
-    with pytest.raises(ValueError):
-        trc.routed_w_stage_cuda(out.reshape(-1, LANE), 10**6, None, mat.perm_products.w2, None,
-                                mat.perm_products.t, True, mat.perm_products.t, out, out.numel())
+    imap = trc.plan_map(mat.perm_out)
+    with pytest.raises(ValueError):  # a source shorter than the map's offsets reach
+        trc.routed_permute_cuda(out[: imap.span - 1], imap, imap.idx.numel(), out)
+
+
+def test_permute_kernel_is_the_staged_w_stages(cuda):
+    """Kernel B through a plan's composed map, and through a single W
+    stage's, against the W stages applied one by one: bit for bit, one
+    launch per application."""
+    from spmv_openmp_cuda_tpu_torch.ops import route as troute
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    t = 8
+    perm = np.random.default_rng(2).permutation(t * LANE * LANE)
+    plan = troute.plan_permutation(perm, t, device=cuda)
+    x = _x(t * LANE * LANE, cuda).reshape(t * LANE, LANE)
+    before = trc.routed_permute_cuda.launches
+    for skip in (False, True):
+        y = trc.apply_permutation(plan, x, skip)
+        assert torch.equal(y, trc.staged_reference(trc.plan_steps(plan, skip_r3=skip), x))
+    assert trc.routed_permute_cuda.launches == before + 2
+    want = torch.empty_like(x).reshape(-1)
+    want[torch.as_tensor(perm, device=cuda)] = x.reshape(-1)
+    assert torch.equal(trc.apply_permutation(plan, x).reshape(-1), want)
+    for kw in (dict(w=plan.w1, r=plan.r1), dict(w=plan.w2, sw=True, t=t),
+               dict(w=plan.w3, ra=plan.r3, src_rows=3 * LANE + 1)):
+        got = trc.w_stage(x, **kw)
+        assert torch.equal(got, trc.w_stage_reference(
+            x, kw.get("src_rows", t * LANE), kw.get("r"), kw["w"], kw.get("ra"), kw.get("t", 1),
+            kw.get("sw", False), t))
 
 
 def test_reruns_are_bitwise_equal(cuda):

@@ -479,10 +479,14 @@ def test_chain_stages_and_counts():
     tm, _ = _prepared("fused_level")
     chain = trc.build_chain(tm)
     kinds = [type(s).__name__ for s in chain.stages]
-    # one level of t = 1: a second reduce launch stands in for the fused level
-    assert kinds == ["GatherStage", "WStage", "ReduceStage", "ReduceStage", "ZeroStage",
-                     "WStage", "WStage", "WStage"]
-    assert chain.counts["perm_reduce"] == 2 and chain.counts["hdense"] == 0
+    # one level of t = 1: a second reduce launch stands in for the fused
+    # level; the products domain's W stages are composed into the first
+    # reduce's offsets, the three-stage output permutation (out_t 2) into
+    # one gather
+    assert tm.out_t == 2
+    assert kinds == ["GatherStage", "ReduceStage", "ReduceStage", "ZeroStage", "PermuteStage"]
+    assert chain.counts == {"gather": 1, "permute": 1, "perm_reduce": 2, "hdense": 0, "heavy": 0,
+                            "small": 0}
     assert chain.segments == ()  # encoded only for a CUDA device
     enc = trc._encode(chain.stages)
     assert len(enc) == 1 and enc[0].dtype == np.int64
@@ -507,11 +511,13 @@ def test_program_encoding_matches_the_interpreter():
         ops.append(int(prog[i]))
         i += words[int(prog[i])]
     assert i == len(prog)
-    codes = {trc.GatherStage: 1, trc.WStage: 2, trc.ReduceStage: 3, trc.HDenseStage: 4,
+    codes = {trc.GatherStage: 1, trc.PermuteStage: 2, trc.ReduceStage: 3, trc.HDenseStage: 4,
              trc.ZeroStage: 5, trc.HeavyStage: 6, trc.SmallStage: 7}
     assert ops == [codes[type(s)] for s in chain.stages]
     last = chain.stages[-1]
-    assert last.out.kind == "y" and int(prog[-2]) >> 56 == 2  # the output permutation into y
+    # the output permutation into y: src, map, n = m, out (tag 2)
+    assert last.out.kind == "y" and int(prog[-1]) >> 56 == 2 and int(prog[-2]) == tm.shape[0]
+    assert int(prog[-3]) == last.imap.idx.data_ptr() and last.imap.idx.dtype == torch.int32
     # a stage's program is the op its wrapper sends alone
     g = chain.stages[0]
     assert list(prog[: words[1]]) == trc._gather_op(g.vals, g.pidx, g.widx, g.w1, g.n_tiles, g.out)
@@ -522,8 +528,9 @@ def test_program_encoding_matches_the_interpreter():
 
 def test_chain_is_the_same_for_every_domain_size():
     # the JAX package sends h1 > 8192 through other TPU kernels (VMEM
-    # limits); the port runs the same gather -> SW.W2.SW^-1 -> W3.R3.reduce
-    # chain at t = 128 (index arrays all zero: geometry only)
+    # limits); the port runs the same gather -> (SW.W2.SW^-1, W3, R3
+    # composed) reduce chain at t = 128 (index arrays all zero: geometry
+    # only)
     h = 128 * LANE
     zeros = torch.zeros(h, LANE, dtype=torch.int8)
     one = torch.zeros(LANE, LANE, dtype=torch.int8)
@@ -535,9 +542,205 @@ def test_chain_is_the_same_for_every_domain_size():
     )
     chain = trc.build_chain(mat)
     assert [type(s).__name__ for s in chain.stages] == [
-        "GatherStage", "WStage", "ReduceStage", "ZeroStage", "WStage"]
-    gather, w2, reduce_ = chain.stages[:3]
-    assert gather.n_tiles == w2.n_tiles == w2.t == 128 and w2.sw and reduce_.mode == trc.MODE_W3
+        "GatherStage", "ReduceStage", "ZeroStage", "PermuteStage"]
+    gather, reduce_ = chain.stages[:2]
+    steps = reduce_.imap.steps
+    assert gather.n_tiles == steps.t == 128 and steps.h == h and reduce_.src == gather.out
+    assert [(st.sw, st.w is mat.perm_products.w2 or st.w is mat.perm_products.w3) for st in
+            steps.steps] == [(True, True), (False, True)]
+    # one slab row read (the run's), one real gather tile: the rest read -1
+    assert reduce_.imap.idx.shape == (1, LANE) and steps.src_rows == LANE
+    assert int(reduce_.imap.idx.max()) < LANE * LANE
+
+
+# ---------------------------------------------------------------------------
+# the composed index maps against the staged W stages
+# ---------------------------------------------------------------------------
+
+
+def _synthetic_levels(seed=11):
+    """A hand-made domain (random plans and masks: geometry, not a matrix)
+    with two levels: t = 2 read from 142 rows of sums (below its 256-row
+    slab) and t = 1 read from 51 rows, both masked; two of the products
+    domain's four tiles are pad tiles, and the output permutation has two
+    tiles."""
+    rng = np.random.default_rng(seed)
+
+    def row_to_slot(t):
+        src_row = rng.permutation(np.repeat(np.arange(t * LANE), LANE))
+        return troute.plan_row_to_slot(src_row, rng.permutation(t * LANE * LANE), t)[0]
+
+    def mask(t):
+        return torch.from_numpy((rng.random((t * LANE, LANE)) < 0.7).astype(np.float32))
+
+    rows_a = 2 * LANE
+    return tr.RoutedCSR(
+        vals=torch.from_numpy(rng.standard_normal((rows_a, LANE)).astype(np.float32)),
+        pidx=torch.from_numpy(rng.integers(0, LANE, (rows_a, LANE)).astype(np.int8)),
+        widx=torch.from_numpy(rng.integers(0, 2, rows_a // LANE).astype(np.int32)),
+        perm_products=row_to_slot(4),
+        lvl_perms=tuple(troute.plan_permutation(rng.permutation(t * LANE * LANE), t) for t in (2, 1)),
+        lvl_masks=(mask(2), mask(1)), perm_out=row_to_slot(2), shape=(30000, 20000), nnz=0,
+        n_windows=2, rows_a=rows_a, runs=((0, 2, 128, 0), (256, 140, 1, 2)),
+        lvl_runs=(((0, 1, 100, 0), (100, 50, 2, 1)), ((0, 2, 60, 0),)), out_t=2,
+    )
+
+
+def _staged_plan(plan, src, src_rows, from_w1=False):
+    """The W stages of a whole plan (or, from_w1, of SW.W2.SW^-1, W3 and
+    R3) one by one with w_stage_reference, as the chain ran them before
+    they were composed."""
+    t, h = plan.t, plan.h
+    if plan.t == 1 and plan.wc is not None and not from_w1:
+        return trc.w_stage_reference(src, src_rows, plan.r1, plan.wc, plan.r3, 1, False, 1)
+    if not from_w1:
+        src, src_rows = trc.w_stage_reference(src, src_rows, plan.r1, plan.w1, None, t, False, t), h
+    a = trc.w_stage_reference(src, src_rows, None, plan.w2, None, t, True, t)
+    return trc.w_stage_reference(a, h, None, plan.w3, plan.r3, t, False, t)
+
+
+@pytest.mark.parametrize("name", ["synthetic", "power_law", "spiked_dense", "fused_level", "small",
+                                  "chunked"])
+def test_composed_maps_give_the_staged_chain_bit_for_bit(name):
+    """Each C and B stage's plain version (a read through its composed
+    offsets) against the staged plain chain on the same buffers: A's
+    products through SW.W2.SW^-1 and W3.R3 (pad tiles), each level's W
+    stages from its rows of sums (src_rows below the slab, t = 1 and t > 1,
+    masked), the output permutation's W stages; chunk after chunk."""
+    mat = _synthetic_levels() if name == "synthetic" else _prepared(name)[0]
+    chain = trc.build_chain(mat, fuse_small=False)
+    domains = iter(mat.chunks if isinstance(mat, tr.RoutedChunks) else (mat,))
+    x = torch.as_tensor(_x(mat.shape[1], seed=12), dtype=torch.float32)
+    bufs = trc._buffers(chain, x)
+    bufs["s"].fill_(float("nan"))
+    seen = []
+    for stage in chain.stages:
+        if isinstance(stage, trc.GatherStage):
+            d, level = next(domains), 0
+            groups = [trc._n_groups(r) for r in (d.runs, *d.lvl_runs)]
+        want = None
+        if isinstance(stage, (trc.ReduceStage, trc.PermuteStage)):
+            src = bufs[stage.src.kind][stage.src.off :].reshape(-1, LANE)
+        if isinstance(stage, trc.ReduceStage):
+            if level == 0:
+                g = _staged_plan(d.perm_products, src, d.perm_products.h, from_w1=True)
+                runs = d.runs
+            else:
+                perm, runs = d.lvl_perms[level - 1], d.lvl_runs[level - 1]
+                g = _staged_plan(perm, src, min(groups[level - 1], perm.h)) * d.lvl_masks[level - 1]
+                seen.append((perm.t, min(groups[level - 1], perm.h) < perm.h))
+            want = trc._reduce_runs(g, runs).reshape(-1)
+            level += 1
+        elif isinstance(stage, trc.PermuteStage):
+            want = _staged_plan(d.perm_out, src, d.perm_out.h).reshape(-1)[: d.shape[0]]
+        trc.run_stage(stage, bufs, plain=True)
+        if want is not None:
+            got = trc._view(bufs, stage.out, stage.out_elems())
+            assert torch.equal(got, want), (name, type(stage).__name__, level)
+            # the chain's own staged reference (chip_smoke.py's check) agrees
+            if isinstance(stage, trc.PermuteStage):
+                assert torch.equal(trc.staged_stage(stage, bufs), want)
+    if name == "synthetic":
+        # a t = 2 and a t = 1 level, each read from fewer rows than its slab
+        assert seen == [(2, True), (1, True)]
+        assert not torch.isnan(bufs["y"]).any()
+    assert torch.equal(bufs["y"], trc.routed_spmv_reference(chain, x))
+
+
+@pytest.mark.parametrize("rows", [0, 32, 128])
+def test_reduce_chunks_tile_the_groups(rows, monkeypatch):
+    """Kernel C's CTAs: consecutive groups whose rows tile the chunk's rows
+    in order, within _CHUNK_ROWS rows (a wider group alone) and 128 groups;
+    wide groups first, as the groups come."""
+    monkeypatch.setattr(trc, "_CHUNK_ROWS", rows)
+    runs = ((0, 3, 128, 0), (384, 2, 40, 3), (464, 300, 1, 5), (764, 10, 7, 305))
+    ch = trc.reduce_chunks(runs, "cpu").numpy()
+    tab = trc.groups_table(runs, "cpu").numpy()
+    assert ch.dtype == np.int32 and ch.shape[1] == 4
+    assert ch[0, 2] == 0 and ch[-1, 3] == tab.shape[0] and (ch[1:, 2] == ch[:-1, 3]).all()
+    for row0, row1, g0, g1 in ch:
+        assert row0 == tab[g0, 0] and row1 == tab[g1 - 1].sum()
+        assert (tab[g0 + 1 : g1, 0] == tab[g0 : g1 - 1].sum(1)).all()  # rows in order, no gap
+        assert g1 - g0 <= 128 and (g1 - g0 == 1 or row1 - row0 <= rows)
+    if rows == 0:
+        assert ch.shape[0] == tab.shape[0]
+    if rows == 32:
+        # the 128- and 40-row groups alone, the one-row groups 32 at a time
+        assert list(ch[:5, 3] - ch[:5, 2]) == [1, 1, 1, 1, 1] and ch[5, 3] - ch[5, 2] == 32
+    # a gap between groups closes a chunk
+    monkeypatch.setattr(trc, "_CHUNK_ROWS", 32)
+    gap = trc.reduce_chunks(((0, 2, 1, 0), (5, 2, 1, 2)), "cpu").numpy()
+    assert gap.tolist() == [[0, 2, 0, 2], [5, 7, 2, 4]]
+
+
+def test_maps_compose_on_integer_ids():
+    # ids past 2**24, where float32 ids round, come through the planned
+    # bijection exactly: the composition runs on int64
+    t = 4
+    n = t * LANE * LANE
+    perm = np.random.default_rng(5).permutation(n)
+    plan = troute.plan_permutation(perm, t)
+    base = 2**24 + 1
+    ids = torch.arange(n, dtype=torch.int64).reshape(-1, LANE) + base
+    want = np.empty(n, np.int64)
+    want[perm] = np.arange(n) + base
+    steps = trc.plan_steps(plan)
+    np.testing.assert_array_equal(steps.apply(ids).reshape(-1).numpy(), want)
+    rounded = steps.apply(ids.to(torch.float32)).reshape(-1).to(torch.int64).numpy()
+    assert not np.array_equal(rounded, want)
+    # the map of the whole plan: int32 offsets, cached once per form
+    imap = trc.plan_map(plan)
+    assert imap.idx.dtype == torch.int32 and imap.span == n and trc.plan_map(plan) is imap
+    np.testing.assert_array_equal(imap.idx.reshape(-1).numpy(), want - base)
+    assert trc.plan_map(plan, skip_r3=True) is not imap and len(plan.maps) == 2
+    assert not dataclasses.replace(plan, r3=plan.r3.clone()).maps  # a new plan: a new cache
+    # rows past src_rows read as -1 (zero)
+    short = trc.plan_map(plan, src_rows=LANE)
+    assert set(short.idx[short.idx >= 0].tolist()) == set(range(LANE * LANE))
+    assert int((short.idx < 0).sum()) == n - LANE * LANE
+    with pytest.raises(ValueError, match="int32"):
+        trc._int32_offsets(torch.tensor([2**31], dtype=torch.int64))
+
+
+@pytest.mark.parametrize("t", [2, 8])
+def test_composed_gather_matches_jax(t):
+    """Every form the port applies a planned permutation in, one gather
+    through its composed map (plain version), against the JAX package's
+    route.apply_*; a source shorter than the domain reads as zero."""
+    tp, jp = _random_plan(t, seed=20 + t)
+    x = np.random.default_rng(t).standard_normal((t * LANE, LANE)).astype(np.float32)
+    xt, xj = torch.from_numpy(x), jnp.asarray(x)
+    for form, tfn, jfn in (("sw_w2_sw", trc.apply_sw_w2_sw, jroute.apply_sw_w2_sw),
+                           ("to_mid", trc.apply_permutation_to_mid, jroute.apply_permutation_to_mid)):
+        _equal(trc.permute(xt, trc.plan_map(tp, form)).reshape(t * LANE, LANE), jfn(jp, xj), form)
+        _equal(tfn(tp, xt), jfn(jp, xj), form)
+    for skip in (False, True):
+        for form, tfn, jfn in (("from_w1", trc.apply_permutation_from_w1,
+                                jroute.apply_permutation_from_w1),
+                               ("whole", trc.apply_permutation, jroute.apply_permutation)):
+            _equal(tfn(tp, xt, skip), jfn(jp, xj, skip), f"{form} skip_r3={skip}")
+    k = LANE + 3
+    xs = np.zeros_like(x)
+    xs[:k] = x[:k]
+    _equal(trc.apply_permutation(tp, xt[:k]), jroute.apply_permutation(jp, jnp.asarray(xs)), "short")
+
+
+@pytest.mark.parametrize("case", ["w", "r, w", "w, ra", "sw", "src_rows"])
+def test_one_stage_map_is_the_w_stage(case):
+    """The map kernel B takes for a single W stage on the card (w_stage on a
+    CUDA tensor), run through its plain version: the plain W stage."""
+    t = 4
+    tp, _ = _random_plan(t, seed=30)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((t * LANE, LANE)).astype(np.float32))
+    kw = {"w": dict(w=tp.w1), "r, w": dict(w=tp.w1, r=tp.r1), "w, ra": dict(w=tp.w3, ra=tp.r3),
+          "sw": dict(w=tp.w2, sw=True), "src_rows": dict(w=tp.w3, ra=tp.r3)}[case]
+    src_rows = 2 * LANE + 5 if case == "src_rows" else t * LANE
+    step = trc.WStep(kw["w"], r=kw.get("r"), ra=kw.get("ra"), sw=kw.get("sw", False))
+    imap = trc.index_map(trc.Steps((step,), t, t * LANE, src_rows), x.device)
+    want = trc.w_stage(x, t=t, src_rows=src_rows, **kw)
+    assert torch.equal(trc.permute(x, imap).reshape(t * LANE, LANE), want)
+    assert torch.equal(want, trc.w_stage_reference(x, src_rows, kw.get("r"), kw["w"], kw.get("ra"),
+                                                   t, kw.get("sw", False), t))
 
 
 def test_routed_from_jax_checks_ranges():
