@@ -42,6 +42,16 @@ within the f32 bound, against the W stages applied one by one
 twice, D and its row sums, B: six launches and a memset per product), and
 phase 5 times each C and the output gather alone in a CUDA graph on
 caida_like and webbase_like.
+The routed df product (PL_CSR_ROUTED_F64) is one program of csrc/df_spmv.cu
+per product, enqueued from one host call: K3, C-df per level, the output
+gather of both planes into f64 y and D-df for the dense heavy rows (five
+launches on caida_like); phase 2 holds each launch bit for bit against its
+plain version, and a rerun against itself, on caida_like and sg_rand_like's
+three chunks, and the whole product bit for bit against its plain chain and
+the staged chain (the W stages one by one); phase 3 holds the counted
+launches to the planned ones; phase 5 times each launch alone in a CUDA
+graph with its bound, and the product per call and graphed against cuSPARSE
+f64.
 The small kernel (one launch per product of a routed domain of t <= 4
 tiles, over per-row slot lists, no scratch) is held bit for bit against the
 staged chain and timed beside it on delaunay_n12_like, west2021_like and a
@@ -308,6 +318,33 @@ def stage_cost(stage, n_x: int):
         ins = nbytes(stage.vals, stage.pidx, stage.widx, stage.row_ptr, stage.row_slots)
         return ins + 4 * n_x + out, 2 * stage.row_slots.numel()
     return out, 0
+
+
+def df_stage_cost(stage, n_x: int):
+    """(bytes, flops) of one routed df stage at this run's shapes: each input
+    read once (x in f64, both planes of what the offsets name), each output
+    written once; 8 flops per TwoSum-add of the padded trees, 15 per
+    product (DF_FLOPS_PER_SLOT)."""
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+
+    if isinstance(stage, RC.DFSplitStage):
+        return 8 * stage.n + 8 * stage.plane, 2 * stage.n
+    if isinstance(stage, RC.DFGatherStage):
+        return (nbytes(stage.vals, stage.vals_lo, stage.pidx, stage.widx) + 8 * n_x
+                + 8 * stage.out_elems(), DF_FLOPS_PER_SLOT * stage.vals.numel())
+    if isinstance(stage, RC.DFReduceStage):
+        off = stage.imap.idx
+        mask = 4 * off.numel() if stage.mask is not None else 0
+        adds = sum(ng * ((1 << (w - 1).bit_length()) - 1) for _r0, ng, w, _g0 in stage.runs) * 128
+        return (nbytes(off, stage.groups, stage.chunks) + mask + 8 * int((off >= 0).sum())
+                + 8 * stage.out_elems(), 8 * adds)
+    if isinstance(stage, RC.DFPermuteStage):
+        idx = stage.imap.idx.reshape(-1)[:stage.n]
+        return 4 * idx.numel() + 8 * int((idx >= 0).sum()) + 8 * stage.n, stage.n
+    n_h, n_pad = stage.hh.shape
+    p2 = stage.plan.threads << stage.plan.log_k
+    return (nbytes(stage.hh, stage.hl, stage.rows) + 8 * n_x + 8 * n_h,
+            DF_FLOPS_PER_SLOT * n_h * n_pad + 8 * n_h * (p2 - n_pad))
 
 
 def routed_stage_label(chain, stage) -> str:
@@ -966,7 +1003,8 @@ def main() -> int:
     cfg64 = P.Config(dtype="float64")
     df_counters = {
         "dia_df": SC.dia_spmv_df_cuda, "dia_resid_df": SC.dia_resid_spmv_df_cuda,
-        "window_df": WC.window_df_cuda, "routed_df_gather": RC.routed_df_gather_cuda,
+        "window_df": WC.window_df_cuda,
+        **{f"routed_{k}": fn for k, fn in RC._DF_COUNTERS.items()},
     }
     f32_counters = {
         "dia_spmv": SC.dia_spmv_cuda, "dia_resid": SC.dia_resid_spmv_cuda,
@@ -990,10 +1028,27 @@ def main() -> int:
     torch.cuda.synchronize()
     launches64 = {k: fn.launches for k, fn in df_counters.items()}
     also = {k: fn.launches for k, fn in f32_counters.items() if fn.launches}
-    log(f"phase 3 (float64): main path launches {launches64}; f32 kernels in it {also} "
-        "(kernel B moves each plane of the df routed products, one launch per permutation); "
-        "every product's rerun "
-        f"bitwise equal; not run in float64: {list(F32_ONLY)}")
+    log(f"phase 3 (float64): main path launches {launches64}; f32 kernels in it {also}; "
+        f"every product's rerun bitwise equal; not run in float64: {list(F32_ONLY)}")
+    if also:
+        raise AssertionError(f"f32 kernels launched on the float64 main path: {also}")
+    # the routed df kernels' counted launches are the chains' planned ones:
+    # three products per proxy (x_ref, x_n and the rerun), one program each
+    planned64 = {k: 0 for k in RC._DF_COUNTERS}
+    for name, model in models64.items():
+        if model.format != "routed":
+            continue
+        chain = model._operands
+        for k, v in chain.counts.items():
+            planned64[k] += 3 * v
+        log(f"phase 3 (float64): {name} PL_CSR_ROUTED_F64 per product: "
+            f"{RC.df_chain_launches(chain)} launches and no memset from one host call, "
+            f"{len(chain.domains)} domain(s) (ops {chain.counts}; D-df with its close)")
+    counted64 = {k: launches64[f"routed_{k}"] for k in RC._DF_COUNTERS}
+    if counted64 != planned64:
+        raise AssertionError(f"routed df launches counted {counted64}, planned {planned64}")
+    if RC.df_chain_launches(models64[ROUTED_CHECK]._operands) > 8:
+        raise AssertionError(f"{ROUTED_CHECK}: more than 8 launches per df product")
     for name, (fmt, y_ref, y_n, x_ref, x_n, prep_s) in outputs64.items():
         csr = csrs[name]
         if fmt != EXPECTED_FORMAT[name]:
@@ -1090,29 +1145,57 @@ def main() -> int:
         mat = W.prepare_window(gcsr, df=True, device=dev, **kw)
         check_window_df(label, mat, normal_x64(gcsr.shape[1], dev, seed=1))
 
-    # K3 on caida_like: the df gather alone (products are exact in both:
-    # the kernel's FMA error is the plain Veltkamp error), then the whole df
-    # product against its plain chain
-    csr = csrs[ROUTED_CHECK]
-    dchain = prepared_df[ROUTED_CHECK] = models64[ROUTED_CHECK]._operands
-    mdf = dchain.domains[0].mdf
-    log(f"phase 2: {ROUTED_CHECK} df routed layout rows_a={mdf.mat.rows_a} "
-        f"t1={mdf.mat.perm_products.t} levels={[p.t for p in mdf.mat.lvl_perms]} "
-        f"heavy rows {len(mdf.heavy_rows_df)} in a (hi, lo) block")
-    x64 = normal_x64(csr.shape[1], dev, seed=1)
-    xh, xl = DF.split_f64_t(x64)
-    gk, gp = RC.routed_df_gather(mdf, xh, xl), RC.routed_df_gather(mdf, xh, xl, plain=True)
-    torch.cuda.synchronize()
-    err = max((gk[0] - gp[0]).abs().max().item(), (gk[1] - gp[1]).abs().max().item())
-    errs["routed_df_gather"] = err
-    exact = torch.equal(gk[0], gp[0]) and torch.equal(gk[1], gp[1])
-    log(f"phase 2: {ROUTED_CHECK}: routed_df_gather_kernel {gk[0].numel()} pairs: max|k - p| = "
-        f"{err:.3e} (bit for bit): {'OK' if exact else 'FAIL'}")
-    if not exact:
-        raise AssertionError("routed_df_gather_kernel disagrees with its plain version")
-    check_df(f"{ROUTED_CHECK} PL_CSR_ROUTED_F64 whole df product vs its plain chain",
-             RC.routed_df_spmv(dchain, x64), RC.routed_df_spmv(dchain, x64, plain=True), errs,
-             "routed_df")
+    # the routed df program on the f64 main path's operands, caida_like and
+    # sg_rand_like's three chunks: each stage's kernel against its plain
+    # version, bit for bit, and a rerun bit for bit (K3's products are exact
+    # in both: the kernel's FMA error is the plain Veltkamp error; C-df and
+    # D-df add the plain versions' pairs in their order; the output gather
+    # moves and combines); then the whole product bit for bit against its
+    # plain chain and the staged chain (the W stages one by one, as the
+    # chain ran before its permutations were composed)
+    df_labels = {"df_split": "routed_df_split_kernel (x's planes)",
+                 "df_gather": "routed_df_gather_kernel (K3)",
+                 "df_reduce": "routed_df_reduce_kernel (C-df)",
+                 "df_permute": "routed_df_permute_kernel (output gather)",
+                 "df_rowdot": "routed_df_rowdot_kernel (D-df, and its close)"}
+    for name in (ROUTED_CHECK, "sg_rand_like"):
+        dchain = prepared_df[name] = models64[name]._operands
+        dm = dchain.domains[0]
+        log(f"phase 2: {name} df routed layout: {len(dchain.domains)} domain(s), first rows_a="
+            f"{dm.mat.rows_a} t1={dm.mat.perm_products.t} levels={[p.t for p in dm.mat.lvl_perms]} "
+            f"heavy rows {len(dm.heavy_rows_df)} in a (hi, lo) block; program {dchain.counts}")
+        x64 = normal_x64(csrs[name].shape[1], dev, seed=1)
+        level = 0
+        for stage, yk, yk2, yp in RC.compare_df_stages(dchain, x64):
+            torch.cuda.synchronize()
+            level = 0 if stage.kernel in ("df_split", "df_gather") else \
+                level + (stage.kernel == "df_reduce")
+            what = f" level {level - 1}" if stage.kernel == "df_reduce" else ""
+            if stage.kernel == "df_rowdot":
+                what = f" ({stage.hh.shape[0]} rows, {stage.plan})"
+            key = f"routed_{stage.kernel}"
+            err = (yk - yp).abs().max().item()
+            errs[key] = max(errs.get(key, 0.0), err)
+            exact, again = RC.bits_equal(yk, yp), RC.bits_equal(yk, yk2)
+            log(f"phase 2: {name}: {df_labels[stage.kernel]}{what}, {yk.numel()} values: max|k - p| "
+                f"= {err:.3e}, bit for bit {exact}, rerun bit for bit {again}: "
+                f"{'OK' if exact and again else 'FAIL'}")
+            if not (exact and again):
+                raise AssertionError(f"{name}: {df_labels[stage.kernel]} disagrees with its plain "
+                                     "version, or its rerun with itself")
+        before = {k: fn.launches for k, fn in RC._DF_COUNTERS.items()}
+        yk, yk2 = RC.routed_df_spmv(dchain, x64), RC.routed_df_spmv(dchain, x64)
+        torch.cuda.synchronize()
+        made = {k: fn.launches - before[k] for k, fn in RC._DF_COUNTERS.items()}
+        yp = RC.routed_df_spmv(dchain, x64, plain=True)
+        ys = RC.routed_df_staged_reference(dchain, x64)
+        ok = [RC.bits_equal(yk, yp), RC.bits_equal(yk, ys), RC.bits_equal(yk, yk2),
+              made == {k: 2 * v for k, v in dchain.counts.items()}]
+        log(f"phase 2: {name} PL_CSR_ROUTED_F64 whole df product: bit for bit its plain chain "
+            f"{ok[0]}, the staged chain {ok[1]}, its rerun {ok[2]}; two products launched {made}: "
+            f"{'OK' if all(ok) else 'FAIL'}")
+        if not all(ok):
+            raise AssertionError(f"{name}: the df routed product is not its plain chain bit for bit")
 
     # -- phase 4: the CLI -------------------------------------------------
     cli_runs = (
@@ -1389,28 +1472,63 @@ def main() -> int:
                 lambda v, o=wm: WC.window_spmv(o, v), lambda v, o=wm: WC.window_spmv_df_reference(o, v),
                 x64, library_spmv(csrs[name], dev, torch.float64),
                 slab_bytes(wm) + nbytes(wm.vals_lo) + 8 * (wn + wmm), wm.vals.numel())
-    # K3 alone in a CUDA graph, then the whole df product, on caida_like
+    # the routed df program on caida_like: each launch alone in a CUDA graph
+    # on valid inputs (the plain chain run first), summed per kernel, with
+    # its bound and plain time; then the whole product per call and graphed
+    # on caida_like and sg_rand_like, against cuSPARSE f64
+    dchain = prepared_df[ROUTED_CHECK]
     x64 = normal_x64(csr.shape[1], dev, seed=4)
-    xh, xl = DF.split_f64_t(x64)
-    dm = mdf.mat
-    t_k3 = dm.perm_products.t
-    oh = torch.empty(t_k3 * 128 * 128, device=dev)
-    ol = torch.empty_like(oh)
-    k3_ms = graph_ms(lambda: RC.routed_df_gather_cuda(dm.vals, mdf.vals_lo, dm.pidx, dm.widx, t_k3,
-                                                      xh, xl, oh, ol))
-    k3_plain = time_per_call(lambda v: RC.routed_df_gather(mdf, xh, xl, plain=True), x64) * 1e3
-    k3_bound = least_ms(nbytes(dm.vals, mdf.vals_lo, dm.pidx, dm.widx, oh, ol) + 8 * csr.shape[1],
-                        DF_FLOPS_PER_SLOT * dm.vals.numel())
-    df_times["routed_df_gather"] = (k3_ms, k3_plain, *k3_bound, None)
-    print(f"  {ROUTED_CHECK} routed_df_gather_kernel alone: {k3_ms * 1e3:.2f} us in a graph | plain "
-          f"{k3_plain:.4f} ms | bound {k3_bound[0] * 1e3:.2f} us ({k3_bound[1]})")
-    t_dp = time_per_call(lambda v: RC.routed_df_spmv(dchain, v), x64)
-    t_dg = graph_ms(lambda: RC.routed_df_spmv(dchain, x64), reps=5, replays=5) / 1e3
-    t_dpp = time_per_call(lambda v: RC.routed_df_spmv(dchain, v, plain=True), x64)
-    t_dl = time_per_call(library_spmv(csr, dev, torch.float64), x64)
-    print(f"  {ROUTED_CHECK} PL_CSR_ROUTED_F64 whole df product: {t_dp * 1e3:.4f} ms per call "
-          f"({t_dg * 1e3:.4f} ms in a CUDA graph) {2 * csr.nnz / t_dp / 1e9:.2f} GFLOP/s | plain "
-          f"{t_dpp * 1e3:.4f} ms | library (cuSPARSE CSR f64) {t_dl * 1e3:.4f} ms")
+    bufs = RC._df_buffers(dchain, x64)
+    for stage in dchain.stages:  # valid inputs for every stage
+        RC.run_df_stage(stage, bufs, plain=True)
+    df_kernel = {k: [0.0, 0.0, 0, 0] for k in RC._DF_COUNTERS}  # us graphed, plain ms, bytes, flops
+    level = 0
+    for i, stage in enumerate(dchain.stages):
+        ms = graph_ms(lambda s=stage: RC.run_df_stage(s, bufs, plain=False))
+        pms = time_per_call(lambda v, s=stage: RC.run_df_stage(s, bufs, plain=True), x64) * 1e3
+        b, f = df_stage_cost(stage, csr.shape[1])
+        acc = df_kernel[stage.kernel]
+        acc[0] += ms * 1e3
+        acc[1] += pms
+        acc[2] += b
+        acc[3] += f
+        level = level + 1 if stage.kernel == "df_reduce" else level
+        label = f"level {level - 1}" if stage.kernel == "df_reduce" else ""
+        print(f"  {ROUTED_CHECK} df stage {i} {df_labels[stage.kernel]:42s} {label:8s} {ms * 1e3:8.2f} us "
+              f"in a graph | plain {pms:.4f} ms | {b / 1e6:7.3f} MB, bound {least_ms(b, f)[0] * 1e3:6.2f} us "
+              f"({least_ms(b, f)[1]})")
+    rd = next(s for s in dchain.stages if isinstance(s, RC.DFRowdotStage))
+    hd64 = DF.df_combine64(rd.hh, rd.hl)
+    xpad = torch.nn.functional.pad(x64, (0, hd64.shape[1] - x64.shape[0]))
+    rowdot_lib = graph_ms(lambda: torch.mv(hd64, xpad)) * 1e3
+    del hd64, xpad, bufs
+    for k, (us, pms, b, f) in df_kernel.items():
+        b_ms, by = least_ms(b, f)
+        lib = rowdot_lib * 1e-3 if k == "df_rowdot" else None
+        df_times[f"routed_{k}"] = (us * 1e-3, pms, b_ms, by, lib)
+        print(f"  {ROUTED_CHECK} {df_labels[k]}: {dchain.counts[k]} op(s) per product, {us:.2f} us "
+              f"in a graph | plain {pms:.4f} ms | bound {b_ms * 1e3:.2f} us ({by}, {b / 1e6:.3f} MB); "
+              f"graphed at {100 * b_ms * 1e3 / us:.1f} % of it"
+              + (f" | library (torch.mv, f64 block) {rowdot_lib:.2f} us" if lib is not None else ""))
+    df_bytes = sum(v[2] for v in df_kernel.values())
+    df_bound = least_ms(df_bytes, sum(v[3] for v in df_kernel.values()))
+    for name in (ROUTED_CHECK, "sg_rand_like"):
+        c = prepared_df[name]
+        ncsr = csrs[name]
+        xv = normal_x64(ncsr.shape[1], dev, seed=4)
+        t_dp = time_per_call(lambda v, c=c: RC.routed_df_spmv(c, v), xv)
+        t_dg = graph_ms(lambda c=c, xv=xv: RC.routed_df_spmv(c, xv), reps=10) / 1e3
+        t_dpp = time_per_call(lambda v, c=c: RC.routed_df_spmv(c, v, plain=True), xv)
+        t_dl = time_per_call(library_spmv(ncsr, dev, torch.float64), xv)
+        bound_txt = ""
+        if name == ROUTED_CHECK:
+            bound_txt = (f" | stages move {df_bytes / 1e6:.3f} MB: bound {df_bound[0]:.4f} ms ({df_bound[1]}), "
+                         f"graphed at {100 * df_bound[0] / (t_dg * 1e3):.1f} % of it")
+        print(f"  {name} PL_CSR_ROUTED_F64 whole df product ({RC.df_chain_launches(c)} launches, one "
+              f"host call): {t_dp * 1e3:.4f} ms per call ({t_dg * 1e3:.4f} ms in a CUDA graph, host "
+              f"{max(t_dp - t_dg, 0) * 1e6:.1f} us) {2 * ncsr.nnz / t_dp / 1e9:.2f} GFLOP/s | plain "
+              f"{t_dpp * 1e3:.4f} ms | library (cuSPARSE CSR f64) {t_dl * 1e3:.4f} ms, "
+              f"{t_dp / t_dl:.2f}x per call, {t_dg / t_dl:.2f}x graphed{bound_txt}")
     print(f"torch.cuda.max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log("phase 5: done")
 
@@ -1472,7 +1590,11 @@ def main() -> int:
         ("dia_df", "dia_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:628"),
         ("dia_resid_df raefsky1_like", "dia_resid_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:628"),
         ("window_df thermal2_like", "window_df_kernel", "spmv_openmp_cuda_tpu/formats/window.py:1062"),
+        ("routed_df_split", "routed_df_split_kernel", "spmv_openmp_cuda_tpu/ops/dfloat.py:101"),
         ("routed_df_gather", "routed_df_gather_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1882"),
+        ("routed_df_reduce", "routed_df_reduce_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1890"),
+        ("routed_df_permute", "routed_df_permute_kernel", "spmv_openmp_cuda_tpu/ops/route.py:347"),
+        ("routed_df_rowdot", "routed_df_rowdot_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1962"),
     ):
         ms, pms, b_ms, by, lib = df_times[key]
         counter = key.split()[0]

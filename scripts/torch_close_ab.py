@@ -6,8 +6,11 @@ heavy-row kernel D on caida_like, the routed kernels B (the output
 permutation, and any other W-stage launches) and C (per level) each alone
 in a CUDA graph on caida_like's and webbase_like's chains, the routed
 products in f32 and bf16 (the bf16 operands: the f32 layout with its gather
-and pooled values cast) on caida_like, webbase_like and sg_rand_like with a
-hash of each y from a seeded x (parent and change bitwise equal or not),
+and pooled values cast) on caida_like, webbase_like and sg_rand_like and the
+double-float routed product (PL_CSR_ROUTED_F64, with the kernels and
+memsets one product enqueues, from a torch.profiler trace) on caida_like and
+sg_rand_like, with a hash of each y from a seeded x (parent and change
+bitwise equal or not),
 the PL_CSR_ROUTED product on three small domains
 (delaunay_n12_like, west2021_like, a 9000-row random matrix: the small
 kernel), the PL_CSR_LANES product (lanes_kernel) on delaunay_n12_like,
@@ -77,6 +80,22 @@ def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / (replays * reps)
+
+
+def device_ops_per_call(fn):
+    """The kernels and memsets one call of fn enqueues, from a torch.profiler
+    trace of one call after a warm-up (None where the trace holds no device
+    events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
 
 
 def cached_csr(name: str, cache) -> "CSRMatrix":
@@ -314,6 +333,22 @@ def one(tree: str, cache=None) -> dict:
                 "rerun_equal": bool(torch.equal(a, b)),
                 "hash": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]}
         del c32
+    # the double-float routed products (PL_CSR_ROUTED_F64), hashed, with the
+    # kernels and memsets one product enqueues
+    for name in ("caida_like", "sg_rand_like"):
+        csr = cached_csr(name, cache)
+        c = RC.prepare_routed_df_chain(csr, device=dev)
+        xd = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
+                             dtype=torch.float64, device=dev)
+        a, b = RC.routed_df_spmv(c, xd), RC.routed_df_spmv(c, xd)
+        torch.cuda.synchronize()
+        out[f"{name} PL_CSR_ROUTED_F64 product"] = {
+            "ms": time_per_call(lambda v, c=c: RC.routed_df_spmv(c, v), xd) * 1e3,
+            "graph_ms": graph_ms(lambda c=c, xd=xd: RC.routed_df_spmv(c, xd), reps=10),
+            "rerun_equal": bool(torch.equal(a, b)),
+            "launches": device_ops_per_call(lambda c=c, xd=xd: RC.routed_df_spmv(c, xd)),
+            "hash": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]}
+        del c
     # small domains (the small kernel)
     for name, coo in (("delaunay_n12_like", synth.preset("delaunay_n12_like")),
                       ("west2021_like", synth.preset("west2021_like")),

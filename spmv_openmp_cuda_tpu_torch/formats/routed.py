@@ -368,7 +368,7 @@ def _prepare_routed_placed(
         raise NotImplementedError(
             "the schema'd routed prepare belongs to the single-program "
             "multi-device path, not ported to PyTorch/CUDA yet (ROADMAP.md "
-            "queue 1 item 12)"
+            "queue 1, multi-device and the driver contract)"
         )
     if dtype != torch.float32:
         raise NotImplementedError(

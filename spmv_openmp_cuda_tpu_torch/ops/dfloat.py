@@ -137,8 +137,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i, i, i, i, i, i, i, p, ll, ll, p, i, i, i, i, i, p,
     ]
     lib.window_df_launch.restype = i
-    lib.routed_df_gather_launch.argtypes = [p, p, p, p, i, i, p, p, ll, p, p, p]
-    lib.routed_df_gather_launch.restype = i
+    lib.routed_df_chain_launch.argtypes = [p, i, p, ll, p, p, p, p]
+    lib.routed_df_chain_launch.restype = i
     lib.df_error_string.argtypes = [i]
     lib.df_error_string.restype = ctypes.c_char_p
 

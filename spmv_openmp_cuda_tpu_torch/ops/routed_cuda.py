@@ -10,10 +10,11 @@ in spmv_openmp_cuda_tpu/ops/spmv_pallas.py. It holds the wrappers of the six
 hand-written CUDA kernels in csrc/routed_spmv.cu, their plain PyTorch
 versions, the conversion of the JAX package's prepared layout, and the modes
 PL_CSR_ROUTED and PL_CSR_ROUTED_BF16; and the double-float engine of
-PL_CSR_ROUTED_F64 (`routed_df_spmv`): the df gather kernel of
-csrc/df_spmv.cu (`_gather_products_df`), every permutation on each plane
-through kernel B, and the JAX package's XLA-level TwoSum reduce trees and
-dense heavy-row dot as torch ops (`_reduce_runs_df`, `_df_dense_rowdot`).
+PL_CSR_ROUTED_F64 (`routed_df_spmv`): the routed df kernels of
+csrc/df_spmv.cu, K3 (`_gather_products_df`), C-df (the JAX package's
+XLA-level TwoSum reduce, `_reduce_runs_df`, over each permuted slab), the
+output gather of both planes into f64 y, and D-df (its dense heavy-row dot,
+`_df_dense_rowdot`), enqueued as one program per product.
 
 The permutation stages are static, so they are composed on the host, on
 int64 element ids, into int32 index maps (`IndexMap`, `plan_map`): one
@@ -438,8 +439,12 @@ class Program:
 
     def __init__(self, words):
         self.words = np.ascontiguousarray(words, dtype=np.int64)
-        self.counts = (ctypes.c_int * len(_COUNTERS))()
+        self.counts = (ctypes.c_int * len(self._counter_fns()))()
         self._addr = (self.words.ctypes.data, ctypes.addressof(self.counts))
+
+    @staticmethod
+    def _counter_fns():
+        return _COUNTER_FNS
 
     def run(self, x: Optional[torch.Tensor], y: int, scratch: int, dev: torch.device) -> None:
         """Enqueue the program on dev's current stream; the counters gain
@@ -451,14 +456,18 @@ class Program:
             0 if x is None else x.shape[0], y, scratch, self._addr[1],
             cuda_lib.current_stream(dev),
         )
-        counts = self.counts
-        for i, fn in enumerate(_COUNTER_FNS):
-            if counts[i]:
-                fn.launches += counts[i]
-                counts[i] = 0
+        _drain(self.counts, self._counter_fns())
         if rc != 0:
             msg = lib.routed_error_string(rc).decode()
             raise RuntimeError(f"routed kernels: launch failed: CUDA error {rc} ({msg})")
+
+
+def _drain(counts, fns) -> None:
+    """Add the launches a program counted into its wrappers' counters."""
+    for i, fn in enumerate(fns):
+        if counts[i]:
+            fn.launches += counts[i]
+            counts[i] = 0
 
 
 def _run_op(op: List[int], x: Optional[torch.Tensor], dev: torch.device) -> None:
@@ -1570,12 +1579,33 @@ def routed_chunks_from_jax(chunks: Sequence[dict], bounds, shape, nnz: int,
 # ---------------------------------------------------------------------------
 # Double-float (float64) engine
 # ---------------------------------------------------------------------------
+#
+# A df product is a program of csrc/df_spmv.cu, built once per prepared
+# matrix (build_df_chain) and enqueued by its routed_df_chain_launch in one
+# host call: the split of x into its (hi, lo) planes where a domain has dense
+# heavy rows, then per domain K3 (the df products), C-df per level (each
+# slab slot read through one composed offset), the output gather into f64 y,
+# and D-df for the dense heavy rows. The scratch (f32) holds x's planes, then
+# a domain's products and level sums as (hi, lo) pairs side by side; y is
+# f64. Every step adds the plain versions' pairs in their order, so y is bit
+# for bit the staged plain chain's (routed_df_staged_reference: the W stages
+# one by one, reduce_runs_df, df_dense_rowdot).
+
+#: D-df: threads per CTA at most, residues a thread owns, the most columns a
+#: residue has (2^_ROWDOT_LEVELS), the most CTAs per row, and the CTAs all
+#: rows together should make (two per SM; csrc/df_spmv.cu kRowdotCta,
+#: kRowdotVec, kRowdotLevels, kMaxRowdotGroups)
+_ROWDOT_CTA = 512
+_ROWDOT_VEC = 4
+_ROWDOT_LEVELS = 15
+_ROWDOT_MAX_GROUPS = 32
+_ROWDOT_CTAS = 256
 
 
 def routed_df_gather_reference(vals, vals_lo, pidx, widx, n_tiles: int, xh, xl) -> dfloat.Pair:
-    """Plain df gather (the JAX package's _gather_products_df, padded to
-    n_tiles tiles): (n_tiles*128, 128) (hi, lo) products (vals, vals_lo) * x
-    at widx[i]*16384 + pidx*128 + s, no W1; tiles from n_real on are zero."""
+    """Plain K3 (the JAX package's _gather_products_df, padded to n_tiles
+    tiles): (n_tiles*128, 128) (hi, lo) products (vals, vals_lo) * x at
+    widx[i]*16384 + pidx*128 + s, no W1; tiles from n_real on are zero."""
     n_real = vals.shape[0] // LANE
     nwin = max(-(-xh.shape[0] // WINDOW_ELEMS), 1)
     s = torch.arange(LANE, device=xh.device).repeat(n_real)
@@ -1587,58 +1617,15 @@ def routed_df_gather_reference(vals, vals_lo, pidx, widx, n_tiles: int, xh, xl) 
     return torch.cat([ph, pad]), torch.cat([pl, pad])
 
 
-def routed_df_gather_cuda(vals, vals_lo, pidx, widx, n_tiles: int, xh, xl, oh, ol) -> dfloat.Pair:
-    """Kernel K3 (routed_df_gather_kernel) into oh, ol (n_tiles*128*128 f32
-    each): the df products of the gather tiles, then zero tiles."""
-    dev = _on_cuda(xh, xl, vals, vals_lo, pidx, widx, oh, ol)
-    _check_gather(vals, pidx, widx, None, n_tiles, xh, oh)
-    _require(vals, "vals", _F32, tuple(vals.shape), dev)
-    _require(vals_lo, "vals_lo", _F32, tuple(vals.shape), dev)
-    _require(xl, "xl", _F32, tuple(xh.shape), dev)
-    _check_out(ol, "ol", n_tiles * LANE * LANE, dev)
-    rc = dfloat.df_lib().routed_df_gather_launch(
-        vals.data_ptr(), vals_lo.data_ptr(), pidx.data_ptr(), widx.data_ptr(),
-        vals.shape[0] // LANE, n_tiles, xh.data_ptr(), xl.data_ptr(), xh.shape[0],
-        oh.data_ptr(), ol.data_ptr(), cuda_lib.current_stream(dev),
-    )
-    dfloat.check_launch(rc, "routed_df_gather_kernel")
-    routed_df_gather_cuda.launches += 1
-    return oh, ol
-
-
-routed_df_gather_cuda.launches = 0
-
-
-def routed_df_gather(mdf: RoutedDF, xh, xl, plain: bool = False) -> dfloat.Pair:
-    """The df products over the products domain, (h1, 128) per plane: K3 on
-    a CUDA device, its plain version on the CPU or with plain=True."""
-    mat = mdf.mat
-    n_tiles = mat.perm_products.t
-    if plain or _device_of(xh) == "cpu":
-        _check_gather(mat.vals, mat.pidx, mat.widx, None, n_tiles, xh, None)
-        return routed_df_gather_reference(mat.vals, mdf.vals_lo, mat.pidx, mat.widx, n_tiles, xh, xl)
-    oh = torch.empty(n_tiles * LANE, LANE, dtype=torch.float32, device=xh.device)
-    ol = torch.empty_like(oh)
-    return routed_df_gather_cuda(mat.vals, mdf.vals_lo, mat.pidx, mat.widx, n_tiles, xh, xl, oh, ol)
-
-
-def _permute(plan: PlannedPermutation, a: torch.Tensor, plain: bool) -> torch.Tensor:
-    """apply_permutation over the whole (plan.h, 128) domain (one launch of
-    kernel B on the card); with plain the W stages' plain versions one by
-    one, on any device."""
-    if not plain:
-        return apply_permutation(plan, a)
-    return staged_reference(plan_steps(plan), a)
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
 class DFReduce:
     """The JAX package's _reduce_runs_df over one slab, vectorised: the
     `width` rows of every output group, zero-padded to a power of two and
     laid out by padded size, largest first (so each group starts at a
     multiple of its size), are summed by rounds of adjacent-pair TwoSums over
-    the whole layout. A zero pair adds exactly nothing, so each group's sum
-    is the JAX package's pairwise tree over its rows, bit for bit."""
+    the whole layout. A +0 pair adds nothing to a sum that is not an exact
+    zero, so each group's sum is the JAX package's pairwise tree over its
+    rows; an all-zero sum may differ from it in the sign of a zero word."""
 
     idx: torch.Tensor  # (layout rows,) int64: slab row, or h for a zero row
     active: Tuple[int, ...]  # per round: the leading rows that pair up
@@ -1685,19 +1672,30 @@ def reduce_runs_df(sh, sl, plan: DFReduce, mask=None) -> dfloat.Pair:
     return h.index_select(0, plan.inv), lo.index_select(0, plan.inv)
 
 
+def df_perm_reduce_reference(src_h, src_l, off, mask, runs, tree: Optional[DFReduce] = None) -> dfloat.Pair:
+    """Plain C-df: the (n_groups, 128) (hi, lo) group sums of runs (row0,
+    n_groups, width, g0) over the slab read from the planes (src_h, src_l)
+    through the offsets off ((rows, 128), -1 reading +0), masked first where
+    mask is given: reduce_runs_df (tree: its plan over the rows, made here
+    when not given)."""
+    rows = off.shape[0]
+    sh, sl = (permute_reference(src, off, off.numel()).reshape(rows, LANE) for src in (src_h, src_l))
+    tree = df_reduce_plan(runs, rows, off.device) if tree is None else tree
+    return reduce_runs_df(sh, sl, tree, None if mask is None else mask[:rows])
+
+
+def df_permute_reference(src_h, src_l, idx, n: int) -> torch.Tensor:
+    """Plain output gather: (n,) f64, both planes read through idx (-1: +0)
+    and combined as hi + lo (df_combine64)."""
+    return dfloat.df_combine64(permute_reference(src_h, idx, n), permute_reference(src_l, idx, n))
+
+
 def df_dense_rowdot(hh, hl, xh, xl) -> dfloat.Pair:
     """(n_h,) (hi, lo) row sums of a dense (hi, lo) block times an (hi, lo)
     vector (x zero past its length): TwoProduct and cross terms, columns
     padded to a power of two, then the halves added by TwoSum (the JAX
     package's _df_dense_rowdot)."""
-    n = hh.shape[1]
-    xh = torch.nn.functional.pad(xh, (0, n - xh.shape[0]))
-    xl = torch.nn.functional.pad(xl, (0, n - xl.shape[0]))
-    ph, pe = dfloat.two_prod(hh, xh[None, :])
-    pl = pe + (hh * xl[None, :] + hl * xh[None, :])
-    p2 = 1 << (n - 1).bit_length()
-    ph = torch.nn.functional.pad(ph, (0, p2 - n))
-    pl = torch.nn.functional.pad(pl, (0, p2 - n))
+    ph, pl, p2 = _rowdot_products(hh, hl, xh, xl)
     while p2 > 1:
         half = p2 // 2
         s, e = dfloat.two_sum(ph[:, :half], ph[:, half:p2])
@@ -1706,26 +1704,385 @@ def df_dense_rowdot(hh, hl, xh, xl) -> dfloat.Pair:
     return ph[:, 0], pl[:, 0]
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
-class DFDomain:
-    """One domain of a df product: its operands and reduce plans."""
+def _rowdot_products(hh, hl, xh, xl):
+    """The (hi, lo) products of the block and x, the columns padded with +0
+    pairs to p2, the power of two of the block's width; and p2."""
+    n = hh.shape[1]
+    xh = torch.nn.functional.pad(xh, (0, n - xh.shape[0]))
+    xl = torch.nn.functional.pad(xl, (0, n - xl.shape[0]))
+    ph, pe = dfloat.two_prod(hh, xh[None, :])
+    pl = pe + (hh * xl[None, :] + hl * xh[None, :])
+    p2 = 1 << (n - 1).bit_length()
+    return (torch.nn.functional.pad(ph, (0, p2 - n)), torch.nn.functional.pad(pl, (0, p2 - n)), p2)
 
-    mdf: RoutedDF
-    l1: DFReduce
-    levels: Tuple[DFReduce, ...]
-    heavy_idx: Optional[torch.Tensor]  # (n_heavy,) int64 rows of y
+
+def _bit_reversed(k: int) -> torch.Tensor:
+    bits = k.bit_length() - 1
+    return torch.tensor([int(format(j, f"0{bits}b")[::-1], 2) if bits else 0 for j in range(k)])
+
+
+def df_rowdot_reference(hh, hl, xh, xl, threads: int) -> dfloat.Pair:
+    """Plain D-df in the kernel's decomposition over `threads` residues per
+    row (a power of two, at most p2): residue p owns the padded columns p +
+    threads*k; its columns are summed by adjacent-pair rounds over k in
+    bit-reversed order (the order the kernel's stack of partial sums adds
+    them), then the residues' sums by the halving tree over p. Bit for bit
+    df_dense_rowdot for every such count."""
+    ph, pl, p2 = _rowdot_products(hh, hl, xh, xl)
+    if threads < 1 or threads & (threads - 1) or threads > p2:
+        raise ValueError(f"{threads} threads per row for {p2} padded columns")
+    rev = _bit_reversed(p2 // threads).to(hh.device)
+    h = ph.reshape(ph.shape[0], -1, threads).index_select(1, rev)
+    lo = pl.reshape(pl.shape[0], -1, threads).index_select(1, rev)
+    while h.shape[1] > 1:
+        h, lo = dfloat.df_add(h[:, 0::2], lo[:, 0::2], h[:, 1::2], lo[:, 1::2])
+    h, lo = h[:, 0], lo[:, 0]
+    while h.shape[1] > 1:
+        half = h.shape[1] // 2
+        h, lo = dfloat.df_add(h[:, :half], lo[:, :half], h[:, half:], lo[:, half:])
+    return h[:, 0], lo[:, 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class RowdotPlan:
+    """D-df's launch over an n_pad-column block: `threads` residues per row
+    (`groups` CTAs of `cta` threads, four residues a thread), each of 2^log_k
+    columns."""
+
+    threads: int
+    cta: int
+    log_k: int
+    groups: int = 1
+
+
+def rowdot_plan(n_pad: int, n_h: int = 1) -> RowdotPlan:
+    """The D-df launch of n_h rows of a block n_pad columns wide (a multiple
+    of 128): one CTA of up to 2048 residues per row, fewer where the padded
+    width p2 is less; more CTAs per row (up to 32, each of 2048 residues)
+    while the rows' CTAs stay within ~256."""
+    if n_pad < LANE or n_pad % LANE:
+        raise ValueError(f"a heavy block of {n_pad} columns is not whole 128-column tiles")
+    p2 = 1 << (n_pad - 1).bit_length()
+    per_cta = _ROWDOT_CTA * _ROWDOT_VEC
+    groups = 1
+    while 2 * groups * per_cta <= p2 and 2 * groups <= _ROWDOT_MAX_GROUPS \
+            and 2 * groups * max(n_h, 1) <= _ROWDOT_CTAS:
+        groups *= 2
+    threads = min(per_cta * groups, p2)
+    log_k = (p2 // threads).bit_length() - 1
+    if log_k > _ROWDOT_LEVELS:
+        raise ValueError(f"a heavy block of {n_pad} columns exceeds D-df's {2**_ROWDOT_LEVELS} "
+                         "columns per residue")
+    return RowdotPlan(threads, threads // _ROWDOT_VEC // groups, log_k, groups)
+
+
+def _rowdot_part_elems(plan: RowdotPlan, n_h: int) -> int:
+    """D-df's scratch: each (row, CTA, lane)'s four (hi, lo) pairs, where a
+    row is more than one CTA."""
+    return n_h * plan.groups * 32 * 2 * _ROWDOT_VEC if plan.groups > 1 else 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DFSplitStage:  # x split into its (hi, lo) planes, once per product
+    n: int
+    plane: int  # each plane's length: n rounded up to 64, zero past n
+    out: Buf  # the hi plane; the lo plane at out.at(plane)
+
+    kernel = "df_split"
+
+    def out_elems(self) -> int:
+        return self.plane
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DFGatherStage:  # K3: the df products of the gather tiles, as pairs
+    vals: torch.Tensor
+    vals_lo: torch.Tensor
+    pidx: torch.Tensor
+    widx: torch.Tensor
+    n_tiles: int
+    out: Buf  # (hi, lo) pairs
+
+    kernel = "df_gather"
+
+    def out_elems(self) -> int:
+        return self.n_tiles * LANE * LANE
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DFReduceStage:  # C-df
+    src: Buf  # (hi, lo) pairs
+    imap: IndexMap  # its offsets, in pairs: the slab rows the groups cover
+    mask: Optional[torch.Tensor]
+    groups: torch.Tensor
+    chunks: torch.Tensor  # its CTAs (reduce_chunks)
+    runs: tuple
+    tree: DFReduce  # the plain version's plan over the slab rows
+    out: Buf  # (hi, lo) pairs
+
+    kernel = "df_reduce"
+
+    def out_elems(self) -> int:
+        return self.groups.shape[0] * LANE
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DFPermuteStage:  # the output gather: the pairs into f64 y
+    src: Buf  # (hi, lo) pairs
+    imap: IndexMap
+    n: int  # the first n elements of the map's result: the domain's rows
+    out: Buf  # y at the domain's first row
+
+    kernel = "df_permute"
+
+    def out_elems(self) -> int:
+        return self.n
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DFRowdotStage:  # D-df: the dense heavy rows, written into y
+    hh: torch.Tensor
+    hl: torch.Tensor
+    rows: torch.Tensor  # (n_heavy,) int32 rows of the domain's y
+    plan: RowdotPlan
+    x: Buf  # x's hi plane; its lo plane at x.at(x_plane)
+    n_x: int
+    x_plane: int
+    part: Buf  # the CTAs' sums (_rowdot_part_elems)
+    out: Buf  # y at the domain's first row
+
+    kernel = "df_rowdot"
+
+
+DFStage = Union[DFSplitStage, DFGatherStage, DFReduceStage, DFPermuteStage, DFRowdotStage]
+
+# Programs of csrc/df_spmv.cu::routed_df_chain_launch, the one entry point of
+# the routed df kernels; operands as for routed_chain_launch, a Buf's offset
+# in bytes of its buffer's type (scratch f32, y f64)
+_DF_OP_SPLIT, _DF_OP_GATHER, _DF_OP_REDUCE, _DF_OP_PERMUTE, _DF_OP_ROWDOT = range(1, 6)
+
+
+def _df_op(code: int, *args) -> List[int]:
+    return [code] + [(_TAGS[a.kind] << 56) | (a.off * (8 if a.kind == "y" else 4))
+                     if isinstance(a, Buf) else _operand(a) for a in args]
+
+
+def _df_split_op(xh, xl, plane: int) -> List[int]:
+    return _df_op(_DF_OP_SPLIT, xh, xl, plane)
+
+
+def _df_gather_op(vals, vals_lo, pidx, widx, n_tiles: int, out) -> List[int]:
+    return _df_op(_DF_OP_GATHER, vals, vals_lo, pidx, widx, vals.shape[0] // LANE, n_tiles,
+                  _aligned(out, 8))
+
+
+def _df_reduce_op(src, imap: IndexMap, mask, groups, chunks, out) -> List[int]:
+    return _df_op(_DF_OP_REDUCE, _aligned(src, 8), imap.idx, mask, _aligned(groups, 8),
+                  _aligned(chunks, 16), chunks.shape[0], _aligned(out, 8))
+
+
+def _df_permute_op(src, imap: IndexMap, n: int, y) -> List[int]:
+    return _df_op(_DF_OP_PERMUTE, _aligned(src, 8), imap.idx, n, y)
+
+
+def _df_rowdot_op(hh, hl, rows, plan: RowdotPlan, xh, xl, x_plane: int, part, y) -> List[int]:
+    return _df_op(_DF_OP_ROWDOT, _aligned(hh, 16), _aligned(hl, 16), rows, y, hh.shape[0],
+                  hh.shape[1], plan.log_k, plan.cta, _aligned(xh, 16), _aligned(xl, 16), x_plane,
+                  plan.groups, _aligned(part, 16))
+
+
+def _df_stage_op(s: DFStage) -> List[int]:
+    if isinstance(s, DFSplitStage):
+        return _df_split_op(s.out, s.out.at(s.plane), s.plane)
+    if isinstance(s, DFGatherStage):
+        return _df_gather_op(s.vals, s.vals_lo, s.pidx, s.widx, s.n_tiles, s.out)
+    if isinstance(s, DFReduceStage):
+        return _df_reduce_op(s.src, s.imap, s.mask, s.groups, s.chunks, s.out)
+    if isinstance(s, DFPermuteStage):
+        return _df_permute_op(s.src, s.imap, s.n, s.out)
+    return _df_rowdot_op(s.hh, s.hl, s.rows, s.plan, s.x, s.x.at(s.x_plane), s.x_plane, s.part,
+                         s.out)
+
+
+class DFProgram(Program):
+    """A program of csrc/df_spmv.cu::routed_df_chain_launch, made once."""
+
+    @staticmethod
+    def _counter_fns():
+        return _DF_COUNTER_FNS
+
+    def run(self, x: Optional[torch.Tensor], y: int, scratch: int, dev: torch.device) -> None:
+        """Enqueue the program on dev's current stream (x: f64); the
+        counters gain the launches the C side made; an error raises."""
+        rc = dfloat.df_lib().routed_df_chain_launch(
+            self._addr[0], self.words.shape[0], 0 if x is None else x.data_ptr(),
+            0 if x is None else x.shape[0], y, scratch, self._addr[1], cuda_lib.current_stream(dev),
+        )
+        _drain(self.counts, self._counter_fns())
+        dfloat.check_launch(rc, "routed df kernels")
+
+
+def _check_planes(src_l, span: int, out_l, n_out: int, dev) -> None:
+    _check_src(src_l, span, dev)
+    _check_out(out_l, "out_l", n_out, dev)
+
+
+def _check_f64_out(y, n: int, dev) -> None:
+    if y.device != dev or y.dtype != torch.float64 or y.dim() != 1 or not y.is_contiguous() \
+            or y.numel() < n:
+        raise ValueError(f"y must be a contiguous 1-d f64 tensor of >= {n} elements on {dev}")
+
+
+def _check_x_planes(xh, xl, dev) -> None:
+    """x's (hi, lo) planes as the split writes them: 1-d f32 of a length
+    that is a multiple of 64."""
+    for name, a in (("xh", xh), ("xl", xl)):
+        if a.device != dev or a.dtype != torch.float32 or a.dim() != 1 or not a.is_contiguous() \
+                or a.shape != xh.shape or a.shape[0] % 64:
+            raise ValueError(f"{name} must be a contiguous 1-d f32 plane of x on {dev}, of a "
+                             "length that is a multiple of 64")
+
+
+def _check_f64_out(y, n: int, dev) -> None:
+    if y.device != dev or y.dtype != torch.float64 or y.dim() != 1 or not y.is_contiguous() \
+            or y.numel() < n:
+        raise ValueError(f"y must be a contiguous 1-d f64 tensor of >= {n} elements on {dev}")
+
+
+def _check_rowdot(hh, hl, rows, plan: RowdotPlan, xh, xl, y) -> None:
+    dev = xh.device
+    n_h, n_pad = hh.shape
+    _require(hh, "hh", _F32, (n_h, n_pad), dev)
+    _require(hl, "hl", _F32, (n_h, n_pad), dev)
+    _require(rows, "rows", _I32, (n_h,), dev)
+    _check_x_planes(xh, xl, dev)
+    if n_h < 1 or plan != rowdot_plan(n_pad, n_h):
+        raise ValueError(f"D-df plan {plan} for a heavy block {tuple(hh.shape)}")
+    _check_f64_out(y, 1, dev)
+
+
+def routed_df_split_cuda(x, xh, xl) -> dfloat.Pair:
+    """The split of x (f64) into its (hi, lo) planes xh, xl
+    (routed_df_split_kernel), as dfloat.split_f64_t splits it, each plane
+    zero past x's end (its length a multiple of 64, at least x's)."""
+    dev = _on_cuda(x, xh, xl)
+    _require(x, "x", (torch.float64,), (x.shape[0],), dev)
+    _check_x_planes(xh, xl, dev)
+    if xh.shape[0] < x.shape[0]:
+        raise ValueError(f"planes of {xh.shape[0]} for x of {x.shape[0]}")
+    DFProgram(_df_split_op(xh, xl, xh.shape[0])).run(x, 0, 0, dev)
+    return xh, xl
+
+
+routed_df_split_cuda.launches = 0
+
+
+def _check_pairs(t, name: str, n: int, dev) -> None:
+    """A contiguous f32 buffer of >= n (hi, lo) pairs side by side."""
+    if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < 2 * n:
+        raise ValueError(f"{name} must be a contiguous f32 tensor of >= {n} (hi, lo) pairs on {dev}")
+
+
+def routed_df_gather_cuda(vals, vals_lo, pidx, widx, n_tiles: int, x, out) -> torch.Tensor:
+    """Kernel K3 (routed_df_gather_kernel) into out (n_tiles*128*128 (hi, lo)
+    pairs, side by side): the df products of the gather tiles, x in f64
+    (split in the kernel), then zero tiles."""
+    dev = _on_cuda(x, vals, vals_lo, pidx, widx, out)
+    rows_a = vals.shape[0]
+    if rows_a % LANE or not 1 <= rows_a // LANE <= n_tiles <= LANE:
+        raise ValueError(f"{rows_a} gather rows do not fit {n_tiles} tiles of 128 rows")
+    _require(vals, "vals", _F32, (rows_a, LANE), dev)
+    _require(vals_lo, "vals_lo", _F32, (rows_a, LANE), dev)
+    _require(pidx, "pidx", _IDX, (rows_a, LANE), dev)
+    _require(widx, "widx", (torch.int32,), (rows_a // LANE,), dev)
+    _require(x, "x", (torch.float64,), (x.shape[0],), dev)
+    _check_pairs(out, "out", n_tiles * LANE * LANE, dev)
+    DFProgram(_df_gather_op(vals, vals_lo, pidx, widx, n_tiles, out)).run(x, 0, 0, dev)
+    return out
+
+
+routed_df_gather_cuda.launches = 0
+
+
+def routed_df_reduce_cuda(src, imap: IndexMap, mask, groups, chunks, out) -> torch.Tensor:
+    """C-df (routed_df_reduce_kernel) into out (n_groups*128 (hi, lo) pairs):
+    the df group sums of the slab read from the pairs src through
+    imap.idx's rows, masked where mask is given; groups and chunks as for
+    kernel C (groups_table, reduce_chunks)."""
+    dev = _on_cuda(src, imap.idx, mask, groups, chunks, out)
+    _check_pairs(src, "src", imap.span, dev)
+    _check_perm_reduce(src, imap, mask, groups, chunks, None)
+    _check_pairs(out, "out", groups.shape[0] * LANE, dev)
+    DFProgram(_df_reduce_op(src, imap, mask, groups, chunks, out)).run(None, 0, 0, dev)
+    return out
+
+
+routed_df_reduce_cuda.launches = 0
+
+
+def routed_df_permute_cuda(src, imap: IndexMap, n: int, y) -> torch.Tensor:
+    """The output gather (routed_df_permute_kernel) into y (f64): y[i] =
+    hi + lo in f64 of the pair src[idx[i]] (+0 where the offset is -1) for
+    i < n."""
+    dev = _on_cuda(src, imap.idx, y)
+    _check_pairs(src, "src", imap.span, dev)
+    _check_permute(src, imap, n, None)
+    _check_f64_out(y, n, dev)
+    DFProgram(_df_permute_op(src, imap, n, y)).run(None, 0, 0, dev)
+    return y
+
+
+routed_df_permute_cuda.launches = 0
+
+
+def routed_df_rowdot_cuda(hh, hl, rows, plan: RowdotPlan, xh, xl, y, part=None) -> torch.Tensor:
+    """D-df (routed_df_rowdot_kernel, and its close where a row is several
+    CTAs): y[rows[k]] = the f64 value of heavy row k's df dot with x (its
+    (hi, lo) planes as the split writes them, zero past x's end), in
+    df_dense_rowdot's order; plan = rowdot_plan(n_pad, n_h). rows must index
+    y; part is the CTAs' f32 scratch (_rowdot_part_elems), allocated when
+    not given."""
+    dev = _on_cuda(xh, xl, hh, hl, rows, y, part)
+    _check_rowdot(hh, hl, rows, plan, xh, xl, y)
+    n_part = _rowdot_part_elems(plan, hh.shape[0])
+    if part is None and n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+    if n_part:
+        _check_out(part, "part", n_part, dev)
+    DFProgram(_df_rowdot_op(hh, hl, rows, plan, xh, xl, xh.shape[0], part, y)).run(None, 0, 0, dev)
+    return y
+
+
+routed_df_rowdot_cuda.launches = 0
+
+#: launches of each routed df kernel, as csrc/df_spmv.cu counted them (in
+#: the order of its counts array)
+_DF_COUNTERS = {
+    "df_split": routed_df_split_cuda,
+    "df_gather": routed_df_gather_cuda,
+    "df_reduce": routed_df_reduce_cuda,
+    "df_permute": routed_df_permute_cuda,
+    "df_rowdot": routed_df_rowdot_cuda,
+}
+_DF_COUNTER_FNS = tuple(_DF_COUNTERS.values())
 
 
 @dataclasses.dataclass
 class RoutedDFChain:
     """A prepared df routed product (a RoutedDF or RoutedChunks of them),
-    checked once, with its reduce plans on the device."""
+    checked once: its stages over a call's buffers, the scratch they need,
+    and (on a CUDA device) their encoded program."""
 
     mat: Union[RoutedDF, RoutedChunks]
-    domains: Tuple[DFDomain, ...]
+    domains: Tuple[RoutedDF, ...]
+    stages: Tuple[DFStage, ...]
+    scratch_elems: int
     bounds: Tuple[int, ...]
     shape: Tuple[int, int]
     device: torch.device
+    #: per product: the launches of each kernel the stages plan
+    counts: Dict[str, int]
+    program: Optional[DFProgram] = None
 
     @property
     def nnz(self) -> int:
@@ -1735,7 +2092,7 @@ class RoutedDFChain:
 def _check_df(mdf: RoutedDF) -> None:
     mat = mdf.mat
     dev = mat.vals.device
-    if mat.hdense is not None:
+    if mat.hdense is not None or mat.hvals is not None:
         raise ValueError("a df layout keeps its heavy rows in hdense_hi/hdense_lo")
     _check_domain(mat)
     _require(mat.vals, "vals", _F32, tuple(mat.vals.shape), dev)
@@ -1751,63 +2108,281 @@ def _check_df(mdf: RoutedDF) -> None:
             raise ValueError("heavy_rows_df out of range")
 
 
+def _df_reduce_stage(src: Buf, imap: IndexMap, mask, runs, out: Buf, dev) -> DFReduceStage:
+    """C-df over the slab rows its groups cover, read through imap."""
+    rows = max(row0 + ng * width for row0, ng, width, _g0 in runs)
+    imap = dataclasses.replace(imap, idx=imap.idx[:rows])
+    return DFReduceStage(src, imap, mask, groups_table(runs, dev), reduce_chunks(runs, dev), runs,
+                         df_reduce_plan(runs, rows, dev), out)
+
+
+def _df_domain_stages(mdf: RoutedDF, y: Buf, x: Buf, base: int) -> Tuple[List[DFStage], int]:
+    """One domain's stages, y[0:m] written at y, x's planes (for D-df) read
+    at x, its (hi, lo) pairs in the scratch from element base on; and the
+    scratch it uses. K3 writes the products of the real gather tiles (no pad
+    tiles: C-df reads rows past them as -1, the +0 the pad tiles held); each
+    C-df reads its slab through its plan's whole permutation composed (the
+    products, or the sums of the level before, rows past them reading +0);
+    the output gather reads the level sums through the output plan (the
+    assembly tail past them reading +0); D-df then writes the dense heavy
+    rows."""
+    mat = mdf.mat
+    dev = mat.vals.device
+    pp, po = mat.perm_products, mat.perm_out
+    n_real = mat.vals.shape[0] // LANE
+    x2, dom = Buf("s", base), Buf("s", base + 2 * n_real * LANE * LANE)
+    stages: List[DFStage] = [
+        DFGatherStage(mat.vals, mdf.vals_lo, mat.pidx, mat.widx, n_real, x2),
+        _df_reduce_stage(x2, plan_map(pp, src_rows=n_real * LANE), None, mat.runs, dom, dev),
+    ]
+    level_groups = [_n_groups(mat.runs)] + [_n_groups(r) for r in mat.lvl_runs]
+    offs = np.r_[0, np.cumsum(level_groups)]
+    for k, (perm, mask, runs) in enumerate(zip(mat.lvl_perms, mat.lvl_masks, mat.lvl_runs)):
+        stages.append(_df_reduce_stage(
+            dom.at(2 * int(offs[k]) * LANE), plan_map(perm, src_rows=min(level_groups[k], perm.h)),
+            mask, runs, dom.at(2 * int(offs[k + 1]) * LANE), dev))
+    stages.append(DFPermuteStage(dom, plan_map(po, src_rows=int(offs[-1])), mat.shape[0], y))
+    used = 2 * (n_real * LANE + po.h) * LANE
+    if mdf.heavy_rows_df:
+        n_x, x_plane = mat.shape[1], -(-mat.shape[1] // 64) * 64
+        n_h = len(mdf.heavy_rows_df)
+        rows = torch.tensor(mdf.heavy_rows_df, dtype=torch.int32, device=dev)
+        plan = rowdot_plan(mdf.hdense_hi.shape[1], n_h)
+        stages.append(DFRowdotStage(mdf.hdense_hi, mdf.hdense_lo, rows, plan, x, n_x, x_plane,
+                                    Buf("s", base + used), y))
+        used += _rowdot_part_elems(plan, n_h)
+    return stages, used
+
+
 def build_df_chain(mat: Union[RoutedDF, RoutedChunks]) -> RoutedDFChain:
-    """Check a prepared df layout once and plan its reduces."""
+    """Check a prepared df layout once and plan its product: x's split, then
+    every domain's stages, chunk after chunk into y at its row bound, over
+    one scratch buffer that the chunks reuse in turn; on a CUDA device, one
+    program."""
     domains = mat.chunks if isinstance(mat, RoutedChunks) else (mat,)
     bounds = mat.bounds if isinstance(mat, RoutedChunks) else (0, mat.shape[0])
     if len(bounds) != len(domains) + 1 or bounds[0] != 0 or bounds[-1] != mat.shape[0]:
         raise ValueError(f"chunk bounds {bounds} do not cover {mat.shape[0]} rows")
-    out = []
+    # x's planes first (where a domain has dense heavy rows; 64-element
+    # aligned), then the domains' pairs, which the domains reuse in turn
+    n_x = mat.shape[1]
+    x_plane = -(-n_x // 64) * 64
+    split = any(mdf.heavy_rows_df for mdf in domains if isinstance(mdf, RoutedDF))
+    base = 2 * x_plane if split else 0
+    stages: List[DFStage] = [DFSplitStage(n_x, x_plane, Buf("s", 0))] if split else []
+    scratch = base
     for mdf, r0, r1 in zip(domains, bounds[:-1], bounds[1:]):
         if not isinstance(mdf, RoutedDF) or mdf.shape != (r1 - r0, mat.shape[1]):
             raise ValueError(f"the chunk between rows {r0} and {r1} is no RoutedDF of that shape")
         _check_df(mdf)
-        dm = mdf.mat
-        dev = dm.vals.device
-        out.append(DFDomain(
-            mdf=mdf,
-            l1=df_reduce_plan(dm.runs, dm.perm_products.h, dev),
-            levels=tuple(df_reduce_plan(r, p.h, dev) for r, p in zip(dm.lvl_runs, dm.lvl_perms)),
-            heavy_idx=torch.tensor(mdf.heavy_rows_df, dtype=torch.long, device=dev)
-            if mdf.heavy_rows_df else None,
-        ))
-    return RoutedDFChain(mat=mat, domains=tuple(out), bounds=tuple(bounds),
-                         shape=tuple(mat.shape), device=domains[0].mat.vals.device)
+        dstages, used = _df_domain_stages(mdf, Buf("y", r0), Buf("s", 0), base)
+        stages += dstages
+        scratch = max(scratch, base + used)
+    dev = domains[0].mat.vals.device
+    chain = RoutedDFChain(
+        mat=mat, domains=tuple(domains), stages=tuple(stages), scratch_elems=scratch,
+        bounds=tuple(bounds), shape=tuple(mat.shape), device=dev,
+        counts={k: sum(s.kernel == k for s in stages) for k in _DF_COUNTERS},
+    )
+    if dev.type == "cuda":
+        chain.program = DFProgram(np.concatenate([_df_stage_op(s) for s in stages]))
+    return chain
 
 
-def _df_domain(d: DFDomain, xh, xl, plain: bool) -> torch.Tensor:
-    """f64 y of one domain: the JAX package's _routed_df_32, then the heavy
-    rows' dense sums in their rows."""
-    mat = d.mdf.mat
-    ph, pl = routed_df_gather(d.mdf, xh, xl, plain)
+def df_chain_launches(chain: RoutedDFChain) -> int:
+    """The kernels one df product launches: one per stage, and D-df's close
+    where a heavy row is several CTAs."""
+    return sum(chain.counts.values()) + sum(
+        isinstance(s, DFRowdotStage) and s.plan.groups > 1 for s in chain.stages)
+
+
+def _df_buffers(chain: RoutedDFChain, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    m, n = chain.shape
+    _require(x, "x", (torch.float64,), (n,), chain.device)
+    return {
+        "x": x,
+        "y": torch.empty(m, dtype=torch.float64, device=x.device),
+        "s": torch.empty(chain.scratch_elems, dtype=torch.float32, device=x.device),
+    }
+
+
+def _planes(bufs, b: Buf, plane: int, n: int) -> dfloat.Pair:
+    """x's hi and lo planes in the scratch: n elements each."""
+    s = bufs["s"]
+    return s[b.off : b.off + n], s[b.off + plane : b.off + plane + n]
+
+
+def _pairs(bufs, b: Buf, n: Optional[int] = None) -> torch.Tensor:
+    """n (hi, lo) pairs in the scratch from b on (all to its end when n is
+    None), as an (n, 2) view."""
+    s = bufs["s"]
+    end = s.numel() // 2 * 2 if n is None else b.off + 2 * n
+    return s[b.off : end].view(-1, 2)
+
+
+def run_df_stage(stage: DFStage, bufs: Dict[str, torch.Tensor], plain: bool) -> None:
+    """Run one df stage over the buffers {"x": f64 x, "y": f64 y, "s": f32
+    scratch}: its kernel through its wrapper, or with plain=True its plain
+    version (on any device)."""
+    x, y = bufs["x"], bufs["y"]
+    if isinstance(stage, DFSplitStage):
+        xh, xl = _planes(bufs, stage.out, stage.plane, stage.plane)
+        if plain:
+            for o, p in zip((xh, xl), dfloat.split_f64_t(x)):
+                o.zero_()
+                o[: stage.n].copy_(p)
+        else:
+            routed_df_split_cuda(x, xh, xl)
+    elif isinstance(stage, DFGatherStage):
+        out = _pairs(bufs, stage.out, stage.out_elems())
+        if plain:
+            for k, p in enumerate(routed_df_gather_reference(
+                    stage.vals, stage.vals_lo, stage.pidx, stage.widx, stage.n_tiles,
+                    *dfloat.split_f64_t(x))):
+                out[:, k].copy_(p.reshape(-1))
+        else:
+            routed_df_gather_cuda(stage.vals, stage.vals_lo, stage.pidx, stage.widx, stage.n_tiles,
+                                  x, out.view(-1))
+    elif isinstance(stage, DFReduceStage):
+        src = _pairs(bufs, stage.src)
+        out = _pairs(bufs, stage.out, stage.out_elems())
+        if plain:
+            for k, p in enumerate(df_perm_reduce_reference(
+                    src[:, 0], src[:, 1], stage.imap.idx, stage.mask, stage.runs, stage.tree)):
+                out[:, k].copy_(p.reshape(-1))
+        else:
+            routed_df_reduce_cuda(src.view(-1), stage.imap, stage.mask, stage.groups, stage.chunks,
+                                  out.view(-1))
+    elif isinstance(stage, DFPermuteStage):
+        src = _pairs(bufs, stage.src)
+        out = y[stage.out.off : stage.out.off + stage.n]
+        if plain:
+            out.copy_(df_permute_reference(src[:, 0], src[:, 1], stage.imap.idx, stage.n))
+        else:
+            routed_df_permute_cuda(src.view(-1), stage.imap, stage.n, out)
+    else:
+        out = y[stage.out.off :]
+        xh, xl = _planes(bufs, stage.x, stage.x_plane, stage.x_plane)
+        if plain:
+            out[stage.rows.long()] = dfloat.df_combine64(*df_rowdot_reference(
+                stage.hh, stage.hl, xh[: stage.n_x], xl[: stage.n_x], stage.plan.threads))
+        else:
+            n_part = _rowdot_part_elems(stage.plan, stage.hh.shape[0])
+            routed_df_rowdot_cuda(stage.hh, stage.hl, stage.rows, stage.plan, xh, xl, out,
+                                  bufs["s"][stage.part.off : stage.part.off + n_part]
+                                  if n_part else None)
+
+
+def df_stage_output(stage: DFStage, bufs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """What a df stage wrote: x's planes (the split), the (hi, lo) pairs (K3,
+    C-df), the domain's rows of y (the output gather), y at the heavy rows
+    (D-df)."""
+    if isinstance(stage, DFSplitStage):
+        return torch.cat(_planes(bufs, stage.out, stage.plane, stage.plane))
+    if isinstance(stage, (DFGatherStage, DFReduceStage)):
+        return _pairs(bufs, stage.out, stage.out_elems()).reshape(-1)
+    if isinstance(stage, DFPermuteStage):
+        return bufs["y"][stage.out.off : stage.out.off + stage.n]
+    return bufs["y"][stage.out.off :][stage.rows.long()]
+
+
+def routed_df_reference(chain: RoutedDFChain, x: torch.Tensor) -> torch.Tensor:
+    """Plain y = A @ x in double-float (f64, length m) over a prepared df
+    chain, stage by stage with the kernels' plain versions, on any device.
+    Scratch and y start as NaN, so a stage that read what no stage wrote, or
+    a row no stage wrote, would show."""
+    bufs = _df_buffers(chain, x)
+    bufs["s"].fill_(float("nan"))
+    bufs["y"].fill_(float("nan"))
+    for stage in chain.stages:
+        run_df_stage(stage, bufs, plain=True)
+    return bufs["y"]
+
+
+def compare_df_stages(chain: RoutedDFChain, x: torch.Tensor):
+    """Each df stage's kernel against its plain version on the same inputs:
+    the chain runs with the plain versions, and before each stage two copies
+    of the buffers run the stage's kernel. Yields (stage, kernel output,
+    the kernel's rerun output, plain output) for every stage (CUDA tensors
+    only)."""
+    bufs = _df_buffers(chain, x)
+    bufs["s"].fill_(float("nan"))
+    bufs["y"].fill_(float("nan"))
+    for stage in chain.stages:
+        runs = []
+        for _ in range(2):
+            copy = {k: v.clone() for k, v in bufs.items()}
+            run_df_stage(stage, copy, plain=False)
+            runs.append(df_stage_output(stage, copy))
+        run_df_stage(stage, bufs, plain=True)
+        yield stage, runs[0], runs[1], df_stage_output(stage, bufs)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bits (torch.equal, but -0 != +0
+    and a NaN equals itself)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}[a.element_size()]
+    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+def _staged_df_domain(mdf: RoutedDF, xh, xl) -> torch.Tensor:
+    """f64 y of one domain as the JAX package's _routed_df_32 and
+    routed_spmv_df compute it, every stage its plain version over whole
+    arrays: the products padded to the products domain, each planned
+    permutation as its W stages one by one on each plane, reduce_runs_df,
+    the output permutation, df_combine64, the heavy rows' df_dense_rowdot."""
+    mat = mdf.mat
+    dev = mat.vals.device
     pp = mat.perm_products
-    sums = [reduce_runs_df(_permute(pp, ph, plain), _permute(pp, pl, plain), d.l1)]
-    for perm, mask, plan in zip(mat.lvl_perms, mat.lvl_masks, d.levels):
+    ph, pl = routed_df_gather_reference(mat.vals, mdf.vals_lo, mat.pidx, mat.widx, pp.t, xh, xl)
+
+    def staged(plan, a):
+        return staged_reference(plan_steps(plan), a)
+
+    sums = [reduce_runs_df(staged(pp, ph), staged(pp, pl), df_reduce_plan(mat.runs, pp.h, dev))]
+    for perm, mask, runs in zip(mat.lvl_perms, mat.lvl_masks, mat.lvl_runs):
         prev = [_rows(s, s.shape[0], perm.h) for s in sums[-1]]
-        sums.append(reduce_runs_df(*(_permute(perm, a, plain) for a in prev), plan, mask=mask))
+        sums.append(reduce_runs_df(*(staged(perm, a) for a in prev),
+                                   df_reduce_plan(runs, perm.h, dev), mask=mask))
     po = mat.perm_out
     ys = []
     for k in range(2):
         flat = torch.cat([s[k] for s in sums])
-        ys.append(_permute(po, _rows(flat, flat.shape[0], po.h), plain).reshape(-1)[: mat.shape[0]])
+        ys.append(staged(po, _rows(flat, flat.shape[0], po.h)).reshape(-1)[: mat.shape[0]])
     y = dfloat.df_combine64(*ys)
-    if d.heavy_idx is not None:
-        y[d.heavy_idx] = dfloat.df_combine64(
-            *df_dense_rowdot(d.mdf.hdense_hi, d.mdf.hdense_lo, xh, xl)
-        )
+    if mdf.heavy_rows_df:
+        idx = torch.tensor(mdf.heavy_rows_df, dtype=torch.long, device=dev)
+        y[idx] = dfloat.df_combine64(*df_dense_rowdot(mdf.hdense_hi, mdf.hdense_lo, xh, xl))
     return y
+
+
+def routed_df_staged_reference(chain: RoutedDFChain, x: torch.Tensor) -> torch.Tensor:
+    """The df product as the staged chain computed it before its
+    permutations were composed (each domain by _staged_df_domain, on any
+    device): what routed_df_spmv gives, bit for bit."""
+    _require(x, "x", (torch.float64,), (chain.shape[1],), chain.device)
+    xh, xl = dfloat.split_f64_t(x)
+    ys = [_staged_df_domain(mdf, xh, xl) for mdf in chain.domains]
+    return ys[0] if len(ys) == 1 else torch.cat(ys)
 
 
 def routed_df_spmv(chain: RoutedDFChain, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """y = A @ x in double-float (f64 in and out, length m) over a prepared
-    df chain. CUDA tensors launch routed_df_gather_kernel and kernel B (one
-    gather per permutation) on each plane (with plain=True every stage's plain version runs
-    instead); CPU tensors take the plain versions. Anything else raises."""
+    df chain. CUDA tensors enqueue the chain's program (the split of x, then
+    K3, C-df per level, the output gather and D-df per domain) in one call of
+    csrc/df_spmv.cu;
+    with plain=True, or for CPU tensors, every stage runs its plain version
+    (routed_df_reference). Anything else raises."""
     _device_of(x)
     _require(x, "x", (torch.float64,), (chain.shape[1],), chain.device)
-    xh, xl = dfloat.split_f64_t(x)
-    ys = [_df_domain(d, xh, xl, plain) for d in chain.domains]
-    return ys[0] if len(ys) == 1 else torch.cat(ys)
+    if plain or x.device.type == "cpu":
+        return routed_df_reference(chain, x)
+    y = torch.empty(chain.shape[0], dtype=torch.float64, device=x.device)
+    s = torch.empty(chain.scratch_elems, dtype=torch.float32, device=x.device)
+    chain.program.run(x, y.data_ptr(), s.data_ptr(), x.device)
+    return y
 
 
 def prepare_routed_df_chain(csr, device="cpu") -> RoutedDFChain:
@@ -1877,8 +2452,8 @@ def _register() -> None:
             prepare=lambda csr, ell, cfg, device: prepare_routed_df_chain(csr, device=device),
             run=routed_df_spmv,
             doc="double-precision Clos-routed CSR: (hi, lo) value and product "
-            "slabs (a TwoProduct gather kernel), every permutation stage on "
-            "each plane, TwoSum reduce trees; heavy rows in a dense (hi, lo) "
+            "slabs (a TwoProduct gather kernel), TwoSum reduce trees over each "
+            "permuted slab, an f64 output gather; heavy rows in a dense (hi, lo) "
             "block with a compensated row dot",
             f64=True,
         )

@@ -390,7 +390,7 @@ def test_df_bindings_match_the_source():
                 for p in params.split(",")]
         assert getattr(lib, name).argtypes == want, name
     assert set(sigs) >= {"dia_df_launch", "dia_resid_df_launch", "window_df_launch",
-                         "routed_df_gather_launch"}
+                         "routed_df_chain_launch"}
     assert "window_df_scratch_elems" not in sigs  # one launch, no scratch
 
 

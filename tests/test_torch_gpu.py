@@ -649,7 +649,11 @@ def test_window_df_kernel_matches_plain(cuda, layout):
 
 @pytest.mark.parametrize("layout", ["level", "spiked", "small"])
 def test_routed_df_kernel_matches_plain(cuda, layout):
-    from spmv_openmp_cuda_tpu_torch.ops import dfloat as tdf
+    """The routed df program (K3, C-df per level, the output gather, D-df)
+    stage by stage bit for bit against the plain versions, each launch rerun
+    bit for bit; the whole product one program (its planned launches) and
+    bit for bit its plain chain and the staged chain, within 1e-11 of the
+    exact oracle."""
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
 
     coo, _thr = ROUTED_LAYOUTS[layout]()
@@ -657,17 +661,111 @@ def test_routed_df_kernel_matches_plain(cuda, layout):
     chain = trc.prepare_routed_df_chain(csr, device=cuda)
     x = np.random.default_rng(3).standard_normal(csr.shape[1])
     xd = torch.as_tensor(x, device=cuda)
-    xh, xl = tdf.split_f64_t(xd)
-    mdf = chain.domains[0].mdf
-    gk, gp = trc.routed_df_gather(mdf, xh, xl), trc.routed_df_gather(mdf, xh, xl, plain=True)
-    torch.cuda.synchronize()
-    # products: the kernel's exact FMA error equals the plain Veltkamp error
-    assert torch.equal(gk[0], gp[0]) and torch.equal(gk[1], gp[1])
-    before = trc.routed_df_gather_cuda.launches
+    kernels = set()
+    for stage, yk, yk2, yp in trc.compare_df_stages(chain, xd):
+        torch.cuda.synchronize()
+        assert trc.bits_equal(yk, yp) and trc.bits_equal(yk, yk2), stage.kernel
+        kernels.add(stage.kernel)
+    assert kernels == {k for k, v in chain.counts.items() if v}
+    before = {k: fn.launches for k, fn in trc._DF_COUNTERS.items()}
     yk = trc.routed_df_spmv(chain, xd)
     torch.cuda.synchronize()
-    assert trc.routed_df_gather_cuda.launches == before + len(chain.domains)
+    assert {k: fn.launches - before[k] for k, fn in trc._DF_COUNTERS.items()} == chain.counts
+    assert trc.bits_equal(yk, trc.routed_df_spmv(chain, xd, plain=True))
+    assert trc.bits_equal(yk, trc.routed_df_staged_reference(chain, xd))
     _df_within(yk, trc.routed_df_spmv(chain, xd, plain=True), csr, x)
+
+
+@pytest.mark.parametrize("n_pad,n_h", [(128, 5), (256, 5), (1024, 5), (2560, 5), (5120, 5),
+                                       (40_960, 5), (40_960, 1), (192_256, 5), (192_256, 1)])
+def test_routed_df_rowdot_kernel_matches_plain(cuda, n_pad, n_h):
+    """D-df on sparse (hi, lo) blocks (stored zeros: -0 products) of every
+    launch shape (one CTA of 32 to 256 threads per row, 2 to 32 CTAs of 512
+    per row, 1 to 4 columns per residue), x shorter than the block: bit for
+    bit its plain version, which is df_dense_rowdot's bits; a rerun bit for
+    bit."""
+    from spmv_openmp_cuda_tpu_torch.ops import dfloat as tdf
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    rng = np.random.default_rng(n_pad)
+    hh = rng.standard_normal((n_h, n_pad)).astype(np.float32)
+    hh[rng.random((n_h, n_pad)) < 0.9] = 0.0
+    hl = (hh * 1e-8 * rng.standard_normal((n_h, n_pad))).astype(np.float32)
+    hh, hl = (torch.as_tensor(a, device=cuda) for a in (hh, hl))
+    x = torch.as_tensor(rng.standard_normal(n_pad - 77), device=cuda)
+    rows = torch.as_tensor([4, 0, 7, 2, 9][:n_h], dtype=torch.int32, device=cuda)
+    plan = trc.rowdot_plan(n_pad, n_h)
+    xh, xl = tdf.split_f64_t(x)
+    planes = [torch.nn.functional.pad(a, (0, -(-a.shape[0] // 64) * 64 - a.shape[0]))
+              for a in (xh, xl)]
+    ys = []
+    for _ in range(2):
+        y = torch.full((10,), float("nan"), dtype=torch.float64, device=cuda)
+        ys.append(trc.routed_df_rowdot_cuda(hh, hl, rows, plan, *planes, y))
+    torch.cuda.synchronize()
+    want = tdf.df_combine64(*trc.df_rowdot_reference(hh, hl, xh, xl, plan.threads))
+    assert trc.bits_equal(ys[0][rows.long()], want) and trc.bits_equal(ys[0], ys[1])
+    assert trc.bits_equal(want, tdf.df_combine64(*trc.df_dense_rowdot(hh, hl, xh, xl)))
+    others = [r for r in range(10) if r not in rows.tolist()]
+    assert torch.isnan(ys[0][others]).all()  # no other row written
+
+
+def test_routed_df_split_kernel_matches_plain(cuda):
+    """The split of x into its (hi, lo) planes, bit for bit split_f64_t's,
+    on values that round in either direction, zeros of both signs and
+    values past the f32 range's precision; +0 past x's end."""
+    from spmv_openmp_cuda_tpu_torch.ops import dfloat as tdf
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    rng = np.random.default_rng(2)
+    x = np.r_[rng.standard_normal(100_000) * 10.0 ** rng.integers(-30, 30, 100_000), 0.0, -0.0,
+              1 + 2.0 ** -30, -(1 + 2.0 ** -25)]
+    xd = torch.as_tensor(x, device=cuda)
+    n_plane = -(-x.size // 64) * 64 + 64
+    xh = torch.full((n_plane,), float("nan"), device=cuda)
+    xl = torch.full((n_plane,), float("nan"), device=cuda)
+    trc.routed_df_split_cuda(xd, xh, xl)
+    torch.cuda.synchronize()
+    wh, wl = tdf.split_f64_t(xd)
+    assert trc.bits_equal(xh[: x.size], wh) and trc.bits_equal(xl[: x.size], wl)
+    assert trc.bits_equal(xh[x.size:], torch.zeros(n_plane - x.size, device=cuda))
+    assert trc.bits_equal(xl[x.size:], torch.zeros(n_plane - x.size, device=cuda))
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 5, 7, 70, 128])
+def test_routed_df_reduce_kernel_matches_plain(cuda, width):
+    """C-df on runs of one width (a group of 128 rows is a chunk of its own;
+    narrow groups pack into chunks) through scattered offsets with -1 among
+    them into (hi, lo) pairs side by side, signed zeros among the values,
+    with and without a mask: bit for bit its plain version, and a rerun bit
+    for bit."""
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    rng = np.random.default_rng(width)
+    ng = 40
+    rows = ng * width + 3
+    runs = ((3, ng, width, 0),)
+    src_rows = rows + 17
+    sh = rng.standard_normal((src_rows, LANE)).astype(np.float32)
+    sh[rng.random(sh.shape) < 0.1] = -0.0
+    sl = (sh * 1e-8 * rng.standard_normal(sh.shape)).astype(np.float32)
+    sh[:, 5], sl[:, 5] = -0.0, -0.0
+    off = rng.permutation(src_rows * LANE)[: rows * LANE]
+    off[rng.random(off.shape) < 0.1] = -1
+    idx = torch.as_tensor(off.astype(np.int32).reshape(rows, LANE), device=cuda)
+    imap = trc.IndexMap(None, idx, int(off.max()) + 1)
+    src = torch.as_tensor(np.stack([sh.reshape(-1), sl.reshape(-1)], -1).reshape(-1), device=cuda)
+    groups, chunks = trc.groups_table(runs, cuda), trc.reduce_chunks(runs, cuda)
+    mask = torch.as_tensor((rng.random((rows, LANE)) < 0.8).astype(np.float32), device=cuda)
+    for mk in (None, mask):
+        outs = []
+        for _ in range(2):
+            out = torch.full((2 * ng * LANE,), float("nan"), device=cuda)
+            outs.append(trc.routed_df_reduce_cuda(src, imap, mk, groups, chunks, out))
+        torch.cuda.synchronize()
+        ph, pl = trc.df_perm_reduce_reference(src[0::2], src[1::2], idx, mk, runs)
+        assert trc.bits_equal(outs[0], torch.stack([ph.reshape(-1), pl.reshape(-1)], -1).reshape(-1))
+        assert trc.bits_equal(outs[0], outs[1])
 
 
 # ---------------------------------------------------------------------------
