@@ -41,7 +41,14 @@ within the f32 bound, against the W stages applied one by one
 3 holds the counted launches to the chains' planned ones (caida_like: A, C
 twice, D and its row sums, B: six launches and a memset per product), and
 phase 5 times each C and the output gather alone in a CUDA graph on
-caida_like and webbase_like.
+caida_like and webbase_like. Kernel A stages each tile's x window in shared
+memory (one bulk copy per CTA of two bands), kernel E takes a pooled tile
+per residue quarter (persistent CTAs, the next quarter's operands copied
+in while this one's sums are taken): phase 2 holds A bit for
+bit against its plain version and E bit for bit against
+heavy_sums_in_order (its adds in its order) on webbase_like and
+pooled_200000, and phase 5 prints each one's graphed time and share of its
+bound beside the time before the redesign (PARENT_US).
 The routed df product (PL_CSR_ROUTED_F64) is one program of csrc/df_spmv.cu
 per product, enqueued from one host call: K3, C-df per level, the output
 gather of both planes into f64 y and D-df for the dense heavy rows (five
@@ -209,6 +216,13 @@ ROUTED_KERNELS = {
 #: H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+
+
+#: graphed device time of A (caida_like) and E + its close (webbase_like)
+#: before their redesign (A reading x by global column, E one CTA per
+#: tile), this script's phase 5 on one H100 80GB HBM3 at 700 W: the
+#: yardstick of the redesigned kernels' lines
+PARENT_US = {"gather": 6.56, "heavy": 29.75}
 
 
 def pooled_heavy_matrix(m: int, n: int, n_heavy: int, per_row: int, bg_nnz: int, seed: int):
@@ -839,6 +853,27 @@ def main() -> int:
         if not (err <= bound(yp) and yk.abs().max().item() > 0):
             raise AssertionError(f"{label}: routed chain disagrees with its plain version")
 
+    def check_heavy_order(label, chain, x):
+        # kernel E and its close against heavy_sums_in_order (their adds in
+        # their order) bit for bit, on the plain chain's y before E
+        bufs = RC._buffers(chain, x)
+        for stage in chain.stages:
+            if stage.kernel == "heavy":
+                want = RC._view(bufs, stage.out, stage.out_elems()).clone()
+                want[stage.rows.long()] += RC.heavy_sums_in_order(
+                    stage.hvals, stage.hpidx, stage.hwidx, stage.hlo, stage.hhi, stage.slot_ptr,
+                    stage.slot_idx, x)
+                RC.run_stage(stage, bufs, plain=False)
+                torch.cuda.synchronize()
+                ok = torch.equal(RC._view(bufs, stage.out, stage.out_elems()), want)
+                log(f"phase 2: {label}: routed_heavy_kernel vs heavy_sums_in_order "
+                    f"{stage.hvals.shape[0] // LANE} tiles ({stage.hvals.dtype}): "
+                    f"{'bit for bit' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{label}: kernel E does not add in its order")
+            else:
+                RC.run_stage(stage, bufs, plain=True)
+
     csr = csrs[ROUTED_CHECK]
     t = time.perf_counter()
     chain32 = registry.get("PL_CSR_ROUTED").prepare(csr, None, P.Config(), dev)
@@ -889,6 +924,8 @@ def main() -> int:
     if mm.hvals is None or mm.hvals.dtype != torch.bfloat16 or mchain.counts["heavy"] != 1:
         raise AssertionError(f"{MEDIUM}: no bf16 pooled heavy tiles")
     check_routed(f"{MEDIUM} PL_CSR_ROUTED_BF16", mchain, normal_x(mats[MEDIUM].shape[1], dev, seed=1))
+    check_heavy_order(f"{MEDIUM} PL_CSR_ROUTED_BF16", mchain,
+                      normal_x(mats[MEDIUM].shape[1], dev, seed=1))
     xn = np.random.default_rng(3).standard_normal(mats[MEDIUM].shape[1])
     y1 = RC.routed_chain_spmv(mchain, torch.as_tensor(xn, dtype=torch.float32, device=dev))
     y2 = RC.routed_chain_spmv(mchain, torch.as_tensor(xn, dtype=torch.float32, device=dev))
@@ -998,6 +1035,8 @@ def main() -> int:
         f"{wm.hvals.shape[0] // LANE} pooled tiles over {len(set(wm.hwidx.tolist()))} windows, "
         f"planned launches per product {wchain.counts}, prepare {outputs[POOLED_CHECK][5]:.1f}s")
     check_routed(f"{POOLED_CHECK} PL_CSR_ROUTED", wchain, normal_x(csrs[POOLED_CHECK].shape[1], dev, seed=1))
+    check_heavy_order(f"{POOLED_CHECK} PL_CSR_ROUTED", wchain,
+                      normal_x(csrs[POOLED_CHECK].shape[1], dev, seed=1))
 
     # -- phase 3, float64: the main path on the df kernels, counters from zero
     cfg64 = P.Config(dtype="float64")
@@ -1326,6 +1365,11 @@ def main() -> int:
               f"{ms * 1e3:8.2f} us in a graph | plain {pms:.4f} ms | {b / 1e6:7.3f} MB, bound "
               f"{least_ms(b, f)[0] * 1e3:6.2f} us"
               + (f" | torch.take {lib * 1e3:.2f} us" if lib is not None else ""))
+    a_ms, _, a_b, a_f, _ = per_kernel["gather"]
+    a_bound = least_ms(a_b, a_f)[0]
+    print(f"  {ROUTED_CHECK} routed_gather_kernel (A) alone: {a_ms * 1e3:.2f} us in a graph, "
+          f"{100 * a_bound / a_ms:.1f} % of its {a_bound * 1e3:.2f} us bound (before its redesign: "
+          f"{PARENT_US['gather']} us, {100 * a_bound * 1e3 / PARENT_US['gather']:.1f} %)")
     chain_bytes = sum(stage_cost(s, csr.shape[1])[0] for s in chain32.stages)
     print(f"  {ROUTED_CHECK} chain of stages moves {chain_bytes / 1e6:.3f} MB per product: bound "
           f"{least_ms(chain_bytes, 0)[0]:.4f} ms")
@@ -1403,6 +1447,9 @@ def main() -> int:
           f"{e_ms * 1e3:.2f} us in a graph | plain {e_plain:.4f} ms | bound {e_bound[0] * 1e3:.2f} us "
           f"({e_bound[1]}, {heavy_cost(est, wcsr.shape[1], cols=h_cols)[0] / 1e6:.2f} MB) | library "
           f"(cuSPARSE on the heavy rows alone) {e_lib * 1e3:.2f} us")
+    print(f"  {POOLED_CHECK} routed_heavy_kernel (E) and its close: {e_ms * 1e3:.2f} us in a "
+          f"graph, {100 * e_bound[0] / e_ms:.1f} % of its bound (before its redesign: {PARENT_US['heavy']} "
+          f"us, {100 * e_bound[0] * 1e3 / PARENT_US['heavy']:.1f} %)")
     del bufs, hcsr
 
     # the small kernel against the staged chain it replaces (the same

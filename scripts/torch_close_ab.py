@@ -2,9 +2,10 @@
 """A/B of two checkouts of the PyTorch/CUDA port on one GPU: the window
 kernels (PL_CSR_WINDOW, PL_CSR_WINDOW_BF16 and PL_CSR_WINDOW_F64 on
 thermal2_like, fem_3d_thermal2_like and delaunay_n12_like), the dense
-heavy-row kernel D on caida_like, the routed kernels B (the output
-permutation, and any other W-stage launches) and C (per level) each alone
-in a CUDA graph on caida_like's and webbase_like's chains, the routed
+heavy-row kernel D on caida_like, the routed kernels A (the gather), B
+(the output permutation, and any other W-stage launches), C (per level)
+and E (webbase_like's pooled heavy tiles, with their close) each alone in
+a CUDA graph on caida_like's and webbase_like's chains, the routed
 products in f32 and bf16 (the bf16 operands: the f32 layout with its gather
 and pooled values cast) on caida_like, webbase_like and sg_rand_like and the
 double-float routed product (PL_CSR_ROUTED_F64, with the kernels and
@@ -221,11 +222,12 @@ def bf16(mat):
 
 
 def routed_stage_times(name: str, chain, x) -> dict:
-    """Kernels B and C of a routed chain, each launch alone in a CUDA graph
-    on valid inputs, summed per role: C by level (the i-th reduce of a
-    domain), B as the output permutation (the B launches after a domain's
-    last reduce) or the W stages before a reduce (a tree whose chain
-    still runs them)."""
+    """Kernels A, B, C and E of a routed chain, each launch alone in a CUDA
+    graph on valid inputs, summed per role: A (the gather), C by level (the
+    i-th reduce of a domain), B as the output permutation (the B launches
+    after a domain's last reduce) or the W stages before a reduce (a tree
+    whose chain still runs them), E (the pooled heavy tiles and their
+    close)."""
     import torch
 
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
@@ -238,7 +240,11 @@ def routed_stage_times(name: str, chain, x) -> dict:
     for i, st in enumerate(chain.stages):
         if type(st).__name__ == "GatherStage":
             level = 0
-        if st.kernel == "perm_reduce":
+        if st.kernel == "gather":
+            role = "A"
+        elif st.kernel == "heavy":
+            role = "E"
+        elif st.kernel == "perm_reduce":
             role, level = f"C level {level}", level + 1
         elif st.kernel in ("w_stage", "permute"):
             later = chain.stages[i + 1:]

@@ -34,9 +34,23 @@
 // What bounds them: the chain on caida_like moves ~25 MB per product, most
 // of it inside the 50 MB L2, so latency and scattered L2 sectors as much as
 // bytes:
-//   - A takes one CTA per (128-row tile, band of 32 lanes): the band's 128 x
-//     32 products and its 32 W1 index rows are staged in shared memory with
-//     row-contiguous loads; the output tile is then written row by row.
+//   - A: each product reads x in its tile's 16,384-element window; read
+//     from global memory, each would cost a 32-byte L2 sector of its own.
+//     So a CTA copies the window (64 KB) into shared memory by one bulk
+//     asynchronous copy (1-D TMA, completing on an mbarrier) and takes two
+//     bands of 32 lanes of the tile in turn over it: the L2 serves the
+//     window twice per tile, not 16,384 scattered sectors. Every load of a
+//     band (its vals and pidx rows, its W1 index rows, 16 bytes a thread)
+//     is issued before the window is waited for, or before the band before
+//     it is multiplied. A thread forms the products of one tile row s (x
+//     read from the window at bank s % 32: a warp's 32 rows hit 32 banks),
+//     stores them in a swizzled (128, 32) tile, and the band's output tile
+//     is written row by row through W1. Measured on an H100 (PERF.md): a
+//     cluster of the tile's four band CTAs with the window multicast into
+//     each, or a CTA per band, ran slower on webbase_like (each SM still
+//     takes in a 64 KB window per CTA); A writing its products straight
+//     into C's slab order lost 4x (the scattered sectors moved into its
+//     stores).
 //   - B gathers out[i] = src[map[i]]: each thread issues the map loads of
 //     its kPermBatch elements, then their source loads, then its coalesced
 //     stores, so two round trips serve kPermBatch elements. The output
@@ -63,16 +77,30 @@
 //     bf16 H, per-thread sums of 16 products, a shuffle tree per CTA, whose
 //     sum goes to a scratch slot of its own; routed_row_sums_kernel then
 //     adds a row's slots in CTA order into the row's (zeroed) sum.
-//   - E takes one CTA per pooled tile (T*128 + a, l): its 128 x 128
-//     products, x gathered by global column, are staged in shared memory;
-//     the residues' runs (lanes (hlo, hhi] of row slot j) are summed each by
-//     one thread, four threads per residue over disjoint slot quarters, the
-//     sum left in the run's last lane; then each slot's runs are added over
-//     the residues in order. The slot sums go to scratch, and
-//     routed_row_sums_kernel adds each heavy row's slots (in slot order)
-//     into y. The TPU's cumsum by triangular matmul and its differences are
-//     a device of the MXU; the sums here are direct. Bound: bytes (hvals,
-//     hpidx, hlo, hhi and x, ~27 MB per product on webbase_like).
+//   - E takes work items (pooled tile T, residue quarter q) in persistent
+//     CTAs of 128 threads, two per SM. An item's rows T*128 + 32q .. +31
+//     (residues a) of hvals, hpidx, hlo and hhi are contiguous, and the x
+//     they read is the window's 128 segments of 32 floats (columns
+//     hwidx[T]*16384 + p*128 + 32q .. +31): all of it is copied into one of
+//     the CTA's two stage buffers by 16-byte cp.async (zero past n_x), the
+//     next item's copies in flight while this item's sums are taken, so E
+//     reads about the bytes its bound counts and no 32-byte sector per
+//     product. Residue a's runs (lanes (hlo, hhi] of row slot j) become
+//     lane flags (one writer per flag byte: the runs are disjoint); the
+//     products go in place as f32; then residue a's lanes are walked in
+//     four segments, thread (a, segment) summing the runs that start in its
+//     segment to their ends (16 lanes a chunk: the chunk's starts and ends
+//     as lane masks, one select and one add a lane), each sum left in its
+//     run's last lane. Thread j then adds slot j's run sums over the
+//     quarter's residues in order, into part[(T*128 + j)*4 + q];
+//     routed_row_sums_kernel adds a slot's four quarters in order, then each
+//     heavy row's slots, into y: the adds of routed_cuda.py::
+//     heavy_sums_in_order in its order (a CTA per whole tile adds the same
+//     way), so y does not depend on the split. The TPU's cumsum by
+//     triangular matmul and its differences are a device of the MXU; the
+//     sums here are direct. Bound: bytes (hvals, hpidx, hlo, hhi and x, ~27
+//     MB per product on webbase_like); the walk's chain of dependent adds
+//     (a run of up to 128 lanes) is the longest path of an item.
 //   - The small kernel composes the whole chain. build_chain runs element
 //     ids through its index maps and folds in C's groups: each row i of y
 //     gets the gather slots whose products C adds into it, in C's order, as
@@ -106,12 +134,17 @@ namespace {
 
 constexpr int kLane = 128;
 constexpr int kBand = 32;             // lanes per CTA of A and of C
-constexpr int kPitch = kLane + 4;     // bytes per staged index row (+4: spreads banks)
 constexpr int kThreads = 256;
 constexpr long long kWindowElems = 128LL * 128;
+constexpr int kGatherBands = 2;            // A: bands of a tile one CTA takes in turn
 constexpr int kHChunk = kThreads * 8 * 2;  // columns of H per CTA of D
-constexpr int kHeavyThreads = 512;         // E: 4 threads per residue
-constexpr int kPPitch = kLane + 1;         // floats per staged product row of E
+constexpr int kQuarters = 4;               // E: CTAs per pooled tile, one per residue quarter
+constexpr int kQuarter = kLane / kQuarters;  // E: residues per CTA
+constexpr int kHeavyThreads = kLane;       // E: a thread per slot (and per lane)
+constexpr int kHvPitch = 528;  // E: bytes per staged hvals row (33 16-byte chunks: spreads banks)
+constexpr int kPxPitch = 144;  // E: bytes per staged hpidx row (9 16-byte chunks)
+constexpr int kWalkSegs = 4;   // E: lane segments of a residue walked at once (one warp each)
+constexpr int kHeavyCtasPerSm = 2;  // E: persistent CTAs per SM (two stage buffers each)
 constexpr int kSmallLanes = 4;             // threads per row of y of the small kernel
 constexpr int kSmallBatch = 4;             // list slots whose loads such a thread issues together
 constexpr int kSmallThreads = 64;          // threads per CTA of the small kernel
@@ -123,66 +156,151 @@ constexpr int kChunkGroups = 128;          // C: at most this many groups per CT
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Stage kRows rows of a (., 128) int8 index array, row-contiguous 4-byte
-// loads, into shared rows of pitch kPitch, by kT threads: all of a thread's
-// loads are issued before its first store.
-template <int kRows, int kT>
-__device__ __forceinline__ void stage_index_rows(const int8_t* __restrict__ src,
-                                                 unsigned char* dst) {
-  constexpr int kWords = kRows * (kLane / 4), kW = kWords / kT;
-  static_assert(kWords % kT == 0, "whole rounds of the CTA's threads");
-  uint32_t v[kW];
-#pragma unroll
-  for (int u = 0; u < kW; ++u) {
-    const int c = threadIdx.x + u * kT;
-    v[u] = reinterpret_cast<const uint32_t*>(src + (long long)(c / (kLane / 4)) * kLane)
-        [c % (kLane / 4)];
-  }
-#pragma unroll
-  for (int u = 0; u < kW; ++u) {
-    const int c = threadIdx.x + u * kT;
-    reinterpret_cast<uint32_t*>(dst + (c / (kLane / 4)) * kPitch)[c % (kLane / 4)] = v[u];
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// Asynchronous copies of one thread (cp.async): 16 bytes, of which the
+// first src_bytes come from src and the rest are zero (src_bytes 0: src is
+// not read); 4 bytes likewise. Neither holds registers while in flight;
+// cp.async.commit_group / wait_group fence them.
+__device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@!P1 bra LAB_WAIT;\n\t}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// 16 values of type T at p (16-byte aligned, global or shared) as f32.
+template <typename T>
+struct Vec16 {
+  uint4 w[16 * sizeof(T) / 16];
+  __device__ __forceinline__ void load(const void* p) {
+#pragma unroll
+    for (int k = 0; k < 16 * (int)sizeof(T) / 16; ++k) w[k] = reinterpret_cast<const uint4*>(p)[k];
+  }
+  __device__ __forceinline__ float operator[](int k) const {
+    return to_f32(reinterpret_cast<const T*>(w)[k]);
+  }
+};
+
+constexpr size_t kGatherSmem = (size_t)kWindowElems * 4 + (size_t)kLane * kBand * 4 + 16;
+
+// A's operands of one band of a tile for thread (s, h): row s's vals and
+// pidx at lanes band*32 + 16h .. +15, and for thread (lb, g) W1 row
+// i*128 + band*32 + lb at j = 16g .. 16g + 15, 16 bytes a load.
+template <typename T>
+struct GatherBand {
+  Vec16<T> v;
+  uint4 p, w;
+  __device__ __forceinline__ void load(const T* __restrict__ vals, const int8_t* __restrict__ pidx,
+                                       const int8_t* __restrict__ w1, long long base, int band,
+                                       int s, int h, int lb, int g) {
+    const long long e = base + (long long)s * kLane + band * kBand + 16 * h;
+    v.load(vals + e);
+    p = *reinterpret_cast<const uint4*>(pidx + e);
+    w = w1 != nullptr ? *reinterpret_cast<const uint4*>(
+                            w1 + base + (long long)(band * kBand + lb) * kLane + 16 * g)
+                      : make_uint4(0, 0, 0, 0);
+  }
+};
 
 // A: out tile i, lane l = band*32 + lb, row j:
 //   s = w1 ? w1[i*128 + l, j] : j
 //   out[i*128 + j, l] = vals[i*128 + s, l] * x[widx[i]*16384 + pidx[i*128 + s, l]*128 + s]
-// and zeros for the pad tiles i >= n_real.
+// and zeros for the pad tiles i >= n_real. A CTA takes kGatherBands
+// consecutive bands of a tile, one after another over the window it holds.
+// vals, pidx and w1 are 16-byte aligned.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 routed_gather_kernel(const T* __restrict__ vals, const int8_t* __restrict__ pidx,
                      const int32_t* __restrict__ widx, const int8_t* __restrict__ w1,
                      int n_real, const float* __restrict__ x, long long n_x,
                      float* __restrict__ out) {
-  __shared__ float prod[kLane * kBand];
-  __shared__ __align__(16) unsigned char ws[kBand * kPitch];
-  const int tile = blockIdx.x / (kLane / kBand);
-  const int band = blockIdx.x % (kLane / kBand);
-  const int lb = threadIdx.x % kBand, r0 = threadIdx.x / kBand;
-  constexpr int kRowStep = kThreads / kBand;
-  const int l = band * kBand + lb;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xw = reinterpret_cast<float*>(smem);  // the window: x[x0 + p*128 + s] at p*128 + s
+  float* pr = xw + kWindowElems;               // products: row s, lane lb at s*32 + (lb ^ s%32)
+  uint64_t* bar = reinterpret_cast<uint64_t*>(pr + kLane * kBand);
+  constexpr int kB = kGatherBands;
+  constexpr int kCtas = kLane / kBand / kB;    // CTAs per tile
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x / kCtas;
+  const int band0 = blockIdx.x % kCtas * kB;
   const long long base = (long long)tile * kLane * kLane;
-  float* o = out + base + l;
+  const int lb = tid % kBand, g = tid / kBand;  // output: lane lb, rows 16g .. 16g + 15
   if (tile >= n_real) {
-    for (int j = r0; j < kLane; j += kRowStep) o[(long long)j * kLane] = 0.f;
+    for (int b = band0; b < band0 + kB; ++b)
+      for (int j = g; j < kLane; j += kThreads / kBand)
+        out[base + (long long)j * kLane + b * kBand + lb] = 0.f;
     return;
   }
-  const long long xw = (long long)widx[tile] * kWindowElems;
-#pragma unroll
-  for (int k = 0; k < kLane / kRowStep; ++k) {
-    const int s = r0 + k * kRowStep;
-    const long long e = base + (long long)s * kLane + l;
-    const long long col = xw + (long long)pidx[e] * kLane + s;
-    const float xv = (col >= 0 && col < n_x) ? __ldg(x + col) : 0.f;
-    prod[s * kBand + lb] = to_f32(vals[e]) * xv;
+  // every load of the first band is issued before the window is waited
+  // for, and each next band's before this band's products
+  const int s = tid % kLane, h = tid / kLane;  // products: row s, lanes 16h .. 16h + 15
+  GatherBand<T> cur;
+  cur.load(vals, pidx, w1, base, band0, s, h, lb, g);
+  // the window: its 16-byte-aligned part inside x by one bulk copy (with x
+  // 16-byte aligned), completing on the mbarrier; the rest (a tail under 16
+  // bytes, zeros past n_x) by the threads
+  const long long x0 = (long long)__ldg(widx + tile) * kWindowElems;
+  const long long cnt = max(0LL, min(kWindowElems, n_x - x0));
+  const int bulk = (reinterpret_cast<uintptr_t>(x) & 15) == 0 ? (int)(cnt & ~3LL) : 0;
+  const uint32_t b = smem_addr(bar);
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(b), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (w1 != nullptr)
-    stage_index_rows<kBand, kThreads>(w1 + base + (long long)band * kBand * kLane, ws);
   __syncthreads();
-  for (int j = r0; j < kLane; j += kRowStep) {
-    const int s = w1 != nullptr ? (int)reinterpret_cast<const int8_t*>(ws)[lb * kPitch + j] : j;
-    o[(long long)j * kLane] = prod[s * kBand + lb];
+  if (tid == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                 "r"(bulk * 4)
+                 : "memory");
+    if (bulk > 0)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(xw)),
+          "l"(reinterpret_cast<uint64_t>(x + x0)), "r"((uint32_t)bulk * 4), "r"(b)
+          : "memory");
+  }
+  for (int k = bulk + tid; k < (int)kWindowElems; k += kThreads)
+    xw[k] = k < cnt ? __ldg(x + x0 + k) : 0.f;
+  mbar_wait(b, 0);
+  __syncthreads();
+#pragma unroll
+  for (int kb = 0; kb < kB; ++kb) {
+    GatherBand<T> nxt;
+    if (kb + 1 < kB) nxt.load(vals, pidx, w1, base, band0 + kb + 1, s, h, lb, g);
+    const unsigned char* pb = reinterpret_cast<const unsigned char*>(&cur.p);
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      pr[s * kBand + ((16 * h + k) ^ (s % kBand))] = __fmul_rn(cur.v[k], xw[pb[k] * kLane + s]);
+    __syncthreads();
+    const unsigned char* wb = reinterpret_cast<const unsigned char*>(&cur.w);
+    float* o = out + base + (band0 + kb) * kBand + lb;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int j = 16 * g + k;
+      const int r = w1 != nullptr ? (int)wb[k] : j;
+      o[(long long)j * kLane] = pr[r * kBand + (lb ^ (r % kBand))];
+    }
+    if (kb + 1 < kB) {
+      __syncthreads();  // the next band's products overwrite pr
+      cur = nxt;
+    }
   }
 }
 
@@ -311,9 +429,12 @@ routed_hdense_kernel(const __nv_bfloat16* __restrict__ H, long long n_pad,
 }
 
 // D's and E's close, one warp per heavy row k: out[dst[k]] += the sum of
-// part at the row's entries [b, e) (ptr[k], ptr[k + 1], or k*seg, (k+1)*seg
-// without ptr), through idx where given, lane by lane and then by a fixed
-// shuffle tree.
+// the row's entries [b, e) (ptr[k], ptr[k + 1], or k*seg, (k+1)*seg without
+// ptr), entry i naming slot s = idx[i] where given (else i), lane by lane
+// and then by a fixed shuffle tree. A slot's value is part[s], or with
+// kQuads (E) its four residue quarters added in order, ((part[4s] +
+// part[4s+1]) + part[4s+2]) + part[4s+3] (part 16-byte aligned).
+template <bool kQuads>
 __global__ void __launch_bounds__(kRowWarps * 32)
 routed_row_sums_kernel(const float* __restrict__ part, const int32_t* __restrict__ ptr,
                        const int32_t* __restrict__ idx, int seg,
@@ -324,77 +445,235 @@ routed_row_sums_kernel(const float* __restrict__ part, const int32_t* __restrict
   const long long b = ptr != nullptr ? ptr[k] : (long long)k * seg;
   const long long e = ptr != nullptr ? ptr[k + 1] : (long long)(k + 1) * seg;
   float acc = 0.f;
-  for (long long i = b + lane; i < e; i += 32) acc += part[idx != nullptr ? idx[i] : i];
+  for (long long i = b + lane; i < e; i += 32) {
+    const long long s = idx != nullptr ? idx[i] : i;
+    if (kQuads) {
+      const float4 r = reinterpret_cast<const float4*>(part)[s];
+      acc += __fadd_rn(__fadd_rn(__fadd_rn(r.x, r.y), r.z), r.w);
+    } else {
+      acc += part[s];
+    }
+  }
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
   if (lane == 0) out[dst[k]] += acc;
 }
 
-// E: tile T's slot sums part[T*128 + j] = sum over residues a, in order, of
-// the lanes (hlo, hhi] of row T*128 + a in slot j, each lane l holding
-// hvals[T*128 + a, l] * x[hwidx[T]*16384 + hpidx[T*128 + a, l]*128 + a]
-// (-1: no term; the runs of one residue are disjoint and nonempty).
+// E's staged operands of one (tile, quarter): residue a's row of hvals at
+// byte kVOff of hv[a] (f32 from 0, bf16 from 256), then its products as f32
+// lanes from byte 0, then each run's sum in the run's last lane; hpidx,
+// hlo and hhi rows; x of panel p, residue a at xs[p*32 + a].
+struct HeavyStageBuf {
+  unsigned char hv[kQuarter * kHvPitch];
+  unsigned char px[kQuarter * kPxPitch];
+  signed char lo[kQuarter * kLane];
+  signed char hi[kQuarter * kLane];
+  float xs[kLane * kQuarter];
+};
+constexpr size_t kHeavySmem = 2 * sizeof(HeavyStageBuf) + kQuarter * kPxPitch;
+
+// Issue the 16-byte cp.async copies of item (tile, q)'s operands into b
+// (x zero past n_x; hw: the tile's window).
 template <typename T>
-__global__ void __launch_bounds__(kHeavyThreads, 2)
-routed_heavy_kernel(const T* __restrict__ hvals, const int8_t* __restrict__ hpidx,
-                    const int32_t* __restrict__ hwidx, const int8_t* __restrict__ hlo,
-                    const int8_t* __restrict__ hhi, const float* __restrict__ x, long long n_x,
-                    float* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* P = reinterpret_cast<float*>(smem);                          // [128][kPPitch]
-  unsigned char* lo_s = smem + kLane * kPPitch * sizeof(float);       // [128][kPitch]
-  unsigned char* hi_s = lo_s + kLane * kPitch;                        // [128][kPitch]
-  float* red = reinterpret_cast<float*>(hi_s + kLane * kPitch);       // [4][128]
-  constexpr int kQuarters = kHeavyThreads / kLane;
-  const int tile = blockIdx.x;
-  const long long base = (long long)tile * kLane * kLane;
-  const long long xw = (long long)hwidx[tile] * kWindowElems;
-  {
-    const int l = threadIdx.x % kLane;
-#pragma unroll 8
-    for (int a = threadIdx.x / kLane; a < kLane; a += kQuarters) {
-      const long long e = base + (long long)a * kLane + l;
-      const long long col = xw + (long long)hpidx[e] * kLane + a;
-      const float xv = (col >= 0 && col < n_x) ? __ldg(x + col) : 0.f;
-      P[a * kPPitch + l] = to_f32(hvals[e]) * xv;
-    }
+__device__ __forceinline__ void heavy_issue(HeavyStageBuf& b, const T* __restrict__ hvals,
+                                            const int8_t* __restrict__ hpidx,
+                                            const int8_t* __restrict__ hlo,
+                                            const int8_t* __restrict__ hhi,
+                                            const float* __restrict__ x, long long n_x, int tile,
+                                            int q, int hw) {
+  constexpr int kVBytes = kLane * (int)sizeof(T), kVOff = kLane * 4 - kVBytes;
+  const int tid = threadIdx.x;
+  const long long row0 = (long long)tile * kLane + q * kQuarter;
+  const long long x0 = (long long)hw * kWindowElems + q * kQuarter;
+  const unsigned char* vsrc = reinterpret_cast<const unsigned char*>(hvals + row0 * kLane);
+  for (int c = tid; c < kQuarter * kVBytes / 16; c += kHeavyThreads) {
+    const int r = c / (kVBytes / 16), k = c % (kVBytes / 16);
+    cp16(b.hv + r * kHvPitch + kVOff + 16 * k, vsrc + (long long)r * kVBytes + 16 * k);
   }
-  stage_index_rows<kLane, kHeavyThreads>(hlo + base, lo_s);
-  stage_index_rows<kLane, kHeavyThreads>(hhi + base, hi_s);
-  __syncthreads();
-  const int lane = threadIdx.x % kLane, quarter = threadIdx.x / kLane;
-  {  // residue `lane`, slots of this quarter: each run's sum into its last lane
-    float* pa = P + lane * kPPitch;
-    const signed char* lo_a = reinterpret_cast<const signed char*>(lo_s) + lane * kPitch;
-    const signed char* hi_a = reinterpret_cast<const signed char*>(hi_s) + lane * kPitch;
-    for (int j = quarter * (kLane / kQuarters); j < (quarter + 1) * (kLane / kQuarters); ++j) {
-      const int hi = hi_a[j];
-      if (hi < 0) continue;
-      float acc = 0.f;
-      for (int c = lo_a[j] + 1; c <= hi; ++c) acc += pa[c];
-      pa[hi] = acc;
-    }
+  for (int c = tid; c < kQuarter * kLane / 16; c += kHeavyThreads) {
+    const int r = c / (kLane / 16), k = 16 * (c % (kLane / 16));
+    const long long e = (row0 + r) * kLane + k;
+    cp16(b.px + r * kPxPitch + k, hpidx + e);
+    cp16(b.lo + r * kLane + k, hlo + e);
+    cp16(b.hi + r * kLane + k, hhi + e);
   }
-  __syncthreads();
-  {  // slot `lane`, residues of this quarter in order
-    const signed char* hi_j = reinterpret_cast<const signed char*>(hi_s) + lane;
-    float acc = 0.f;
-    for (int a = quarter * (kLane / kQuarters); a < (quarter + 1) * (kLane / kQuarters); ++a) {
-      const int hi = hi_j[a * kPitch];
-      if (hi >= 0) acc += P[a * kPPitch + hi];
+  if ((reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    for (int c = tid; c < kLane * kQuarter / 4; c += kHeavyThreads) {
+      const int p = c / (kQuarter / 4), k = 4 * (c % (kQuarter / 4));
+      const long long col = x0 + (long long)p * kLane + k;
+      const int in = (int)max(0LL, min(4LL, n_x - col));
+      cp16(b.xs + p * kQuarter + k, in > 0 ? x + col : x, 4 * in);
     }
-    red[quarter * kLane + lane] = acc;
-  }
-  __syncthreads();
-  if (threadIdx.x < kLane) {
-    float acc = red[threadIdx.x];
-    for (int q = 1; q < kQuarters; ++q) acc += red[q * kLane + threadIdx.x];
-    part[(long long)tile * kLane + threadIdx.x] = acc;
+  } else {
+    for (int c = tid; c < kLane * kQuarter; c += kHeavyThreads) {
+      const long long col = x0 + (long long)(c / kQuarter) * kLane + c % kQuarter;
+      cp4(b.xs + c, col < n_x ? x + col : x, col < n_x ? 4 : 0);
+    }
   }
 }
 
-size_t heavy_smem() {
-  return (size_t)kLane * kPPitch * sizeof(float) + 2 * (size_t)kLane * kPitch +
-         (size_t)(kHeavyThreads / kLane) * kLane * sizeof(float);
+// The sums of item (tile, q) from its staged operands b; fl: the lane flags
+// (zero on entry, zero again on return after the caller's next barrier).
+template <typename T>
+__device__ __forceinline__ void heavy_sums(HeavyStageBuf& b, unsigned char* fl_s, int tile,
+                                           int q, float* __restrict__ part) {
+  constexpr int kVBytes = kLane * (int)sizeof(T), kVOff = kLane * 4 - kVBytes;
+  const int tid = threadIdx.x;
+  {  // the lane flags of residue fa's runs in slots fj .. fj + 31: a run (lo,
+     // hi] starts at lane lo + 1 and ends at hi; runs are disjoint, so each
+     // flag byte has one writer (a slot without a run writes the row's pad
+     // bytes 128 and 129, which nothing reads)
+    const int fa = tid / 4, fj = 32 * (tid % 4);
+    const uint4* lo4 = reinterpret_cast<const uint4*>(b.lo + fa * kLane + fj);
+    const uint4* hi4 = reinterpret_cast<const uint4*>(b.hi + fa * kLane + fj);
+    const uint4 lo_v[2] = {lo4[0], lo4[1]}, hi_v[2] = {hi4[0], hi4[1]};
+    const signed char* lo_b = reinterpret_cast<const signed char*>(lo_v);
+    const signed char* hi_b = reinterpret_cast<const signed char*>(hi_v);
+    unsigned char* fl = fl_s + fa * kPxPitch;
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const int hi = hi_b[u], lo = lo_b[u] + 1;
+      const bool run = hi >= 0;
+      fl[run ? lo : kLane] = 1;
+      fl[run ? hi : kLane + 1] = lo == hi ? 3 : 2;  // after the start: a one-lane run is both
+    }
+  }
+  const int a = tid % kQuarter, lq = tid / kQuarter;  // residue a; lanes 32lq .. 32lq + 31
+  float* prow = reinterpret_cast<float*>(b.hv + a * kHvPitch);
+  {  // the products of residue a's lanes 32lq .. +31, in place as f32
+    float pr[32];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      Vec16<T> v;
+      v.load(b.hv + a * kHvPitch + kVOff + (32 * lq + 16 * c) * (int)sizeof(T));
+      const uint4 pv = *reinterpret_cast<const uint4*>(b.px + a * kPxPitch + 32 * lq + 16 * c);
+      const unsigned char* pb = reinterpret_cast<const unsigned char*>(&pv);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) pr[16 * c + k] = __fmul_rn(v[k], b.xs[pb[k] * kQuarter + a]);
+    }
+    if (sizeof(T) < 4) __syncthreads();  // a row's f32 products cover its bf16 values
+#pragma unroll
+    for (int k = 0; k < 32; k += 4)
+      *reinterpret_cast<float4*>(prow + 32 * lq + k) =
+          make_float4(pr[k], pr[k + 1], pr[k + 2], pr[k + 3]);
+  }
+  __syncthreads();
+  {  // residue a's lanes in order, in kWalkSegs segments: thread (a, seg)
+     // sums the runs that start in its segment, to their ends
+    constexpr int kSegLanes = kLane / kWalkSegs;
+    const int seg = lq;
+    if (seg < kWalkSegs) {
+      const int c0 = seg * kSegLanes / 16, c1 = (seg + 1) * kSegLanes / 16;
+      const float4* prow4 = reinterpret_cast<const float4*>(prow);
+      const uint4* fl4 = reinterpret_cast<const uint4*>(fl_s + a * kPxPitch);
+      float4 pv[4];
+      uint4 fv;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pv[k] = prow4[4 * c0 + k];
+      fv = fl4[c0];
+      float acc = 0.f;
+      bool seen = false, open = false;  // a start in the segment; inside a run not yet ended
+      for (int c = c0; c < kLane / 16; ++c) {
+        const bool more = c < c1;
+        if (!__any_sync(0xffffffffu, open || more)) break;
+        const float4 cur[4] = {pv[0], pv[1], pv[2], pv[3]};
+        const uint32_t fw[4] = {fv.x, fv.y, fv.z, fv.w};
+        if (c + 1 < kLane / 16) {  // the next chunk in flight while this one is summed
+#pragma unroll
+          for (int k = 0; k < 4; ++k) pv[k] = prow4[4 * (c + 1) + k];
+          fv = fl4[c + 1];
+        }
+        asm volatile("" ::: "memory");  // those loads stay ahead of this chunk's stores
+        // the chunk's starts and ends as 16-bit lane masks
+        uint32_t st = 0, en = 0;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          st |= (((fw[w] & 0x01010101u) * 0x01020408u) >> 24) << (4 * w);
+          en |= ((((fw[w] >> 1) & 0x01010101u) * 0x01020408u) >> 24) << (4 * w);
+        }
+        // the ends this thread writes: in its segment, those of runs that
+        // start there (after its first start); past it, the end of the run
+        // it still has open, and none after
+        uint32_t own;
+        if (more) {
+          const uint32_t from = seen ? 0xffffu : (st ? (0xffffu & ~((st & (0u - st)) - 1u)) : 0u);
+          own = en & from;
+          seen = seen || st != 0;
+        } else {
+          own = open ? en & (0u - en) : 0u;
+        }
+        // inside a run it owns after this chunk: in its segment, when the
+        // chunk's last start is after its last end (a one-lane run starts
+        // and ends on one lane); past it, until that run's end
+        const int hs = 31 - __clz(st), he = 31 - __clz(en);
+        open = more ? hs > he || (hs == he && hs < 0 && open) : open && own == 0u;
+        const float* pf = reinterpret_cast<const float*>(cur);
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {  // one select and one add a lane
+          acc = __fadd_rn((st >> k) & 1u ? 0.f : acc, pf[k]);
+          if ((own >> k) & 1u) prow[16 * c + k] = acc;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // the flags back to zero for the next item (no thread reads them now)
+  for (int c = tid; c < kQuarter * kPxPitch / 16; c += kHeavyThreads)
+    reinterpret_cast<uint4*>(fl_s)[c] = make_uint4(0, 0, 0, 0);
+  // slot tid: its runs over the quarter's residues in order (the loads
+  // first: all 32 run sums in flight before the first add)
+  float run[kQuarter];
+#pragma unroll
+  for (int r = 0; r < kQuarter; ++r) {
+    const int hi = b.hi[r * kLane + tid];
+    run[r] = hi >= 0 ? reinterpret_cast<const float*>(b.hv + r * kHvPitch)[hi] : 0.f;
+  }
+  float acc = 0.f;  // +0 for a residue without a run leaves a sum from +0 as it is
+#pragma unroll
+  for (int r = 0; r < kQuarter; ++r) acc = __fadd_rn(acc, run[r]);
+  part[((long long)tile * kLane + tid) * kQuarters + q] = acc;
+}
+
+// E over items (tile, q) = item / 4, item % 4, item = blockIdx.x + k *
+// gridDim.x < n_items: part[(T*128 + j)*4 + q] = the sum over the quarter's
+// residues a = 32q .. 32q + 31, in order from +0, of the run of slot j in
+// row T*128 + a: its lanes (hlo, hhi] (hhi -1: no run; the runs of one
+// residue are disjoint and nonempty) added in lane order from +0, lane l
+// holding hvals[T*128 + a, l] * x[hwidx[T]*16384 + hpidx[T*128 + a, l]*128 +
+// a] (x zero past n_x). Two stage buffers: the next item's copies are in
+// flight while this one's sums are taken. hvals, hpidx, hlo and hhi are
+// 16-byte aligned.
+template <typename T>
+__global__ void __launch_bounds__(kHeavyThreads)
+routed_heavy_kernel(const T* __restrict__ hvals, const int8_t* __restrict__ hpidx,
+                    const int32_t* __restrict__ hwidx, const int8_t* __restrict__ hlo,
+                    const int8_t* __restrict__ hhi, int n_items, const float* __restrict__ x,
+                    long long n_x, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  HeavyStageBuf* stage = reinterpret_cast<HeavyStageBuf*>(smem);
+  unsigned char* fl_s = smem + 2 * sizeof(HeavyStageBuf);  // lane flags: 1 start, 2 end
+  for (int c = threadIdx.x; c < kQuarter * kPxPitch / 16; c += kHeavyThreads)
+    reinterpret_cast<uint4*>(fl_s)[c] = make_uint4(0, 0, 0, 0);
+  int item = blockIdx.x, next = item + gridDim.x;
+  int hw_next = next < n_items ? __ldg(hwidx + next / kQuarters) : 0;
+  if (item < n_items)
+    heavy_issue<T>(stage[0], hvals, hpidx, hlo, hhi, x, n_x, item / kQuarters, item % kQuarters,
+                   __ldg(hwidx + item / kQuarters));
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int k = 0; item < n_items; ++k) {
+    if (next < n_items)
+      heavy_issue<T>(stage[(k + 1) & 1], hvals, hpidx, hlo, hhi, x, n_x, next / kQuarters,
+                     next % kQuarters, hw_next);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int after = next + gridDim.x;
+    hw_next = after < n_items ? __ldg(hwidx + after / kQuarters) : 0;
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this item's copies
+    __syncthreads();
+    heavy_sums<T>(stage[k & 1], fl_s, item / kQuarters, item % kQuarters, part);
+    __syncthreads();  // its buffer is free, the flags zero
+    item = next;
+    next = after;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // The small kernel's operands (routed_cuda.py::SmallStage): the gather
@@ -464,18 +743,30 @@ routed_small_kernel(SmallArgs a, const float* __restrict__ x, long long n_x) {
   if (j == 0) a.y[i] = acc;
 }
 
+template <typename T>
+cudaError_t gather_launch_t(const T* vals, const int8_t* pidx, const int32_t* widx,
+                            const int8_t* w1, int n_real, int n_tiles, const float* x,
+                            long long n_x, float* out, cudaStream_t st) {
+  auto kernel = routed_gather_kernel<T>;
+  // above 48 KB of dynamic shared memory; the attribute is per device, so
+  // it is set on every launch (cheap, allowed in graph capture)
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGatherSmem);
+  if (e != cudaSuccess) return e;
+  kernel<<<(unsigned)n_tiles * (kLane / kBand / kGatherBands), kThreads, kGatherSmem, st>>>(
+      vals, pidx, widx, w1, n_real, x, n_x, out);
+  return cudaGetLastError();
+}
+
+// a CTA of kGatherSmem bytes per kGatherBands bands of a tile
 int gather_launch(int vals_bf16, const void* vals, const int8_t* pidx, const int32_t* widx,
                   const int8_t* w1, int n_real, int n_tiles, const float* x, long long n_x,
                   float* out, cudaStream_t st) {
-  const unsigned grid = (unsigned)n_tiles * (kLane / kBand);
-  if (vals_bf16) {
-    routed_gather_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)vals, pidx, widx, w1, n_real, x, n_x, out);
-  } else {
-    routed_gather_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const float*)vals, pidx, widx, w1, n_real, x, n_x, out);
-  }
-  return (int)cudaGetLastError();
+  static_assert((kLane / kBand) % kGatherBands == 0, "a CTA takes whole bands of one tile");
+  return (int)(vals_bf16 ? gather_launch_t((const __nv_bfloat16*)vals, pidx, widx, w1, n_real,
+                                           n_tiles, x, n_x, out, st)
+                         : gather_launch_t((const float*)vals, pidx, widx, w1, n_real, n_tiles,
+                                           x, n_x, out, st));
 }
 
 int permute_launch(const float* src, const int32_t* map, long long n, float* out,
@@ -502,10 +793,11 @@ int perm_reduce_launch(const float* src, const int32_t* off, const float* mask,
   return (int)cudaGetLastError();
 }
 
+template <bool kQuads>
 int row_sums_launch(const float* part, const int32_t* ptr, const int32_t* idx, int seg,
                     const int32_t* dst, int n_rows, float* out, cudaStream_t st) {
-  routed_row_sums_kernel<<<(unsigned)((n_rows + kRowWarps - 1) / kRowWarps), kRowWarps * 32, 0,
-                           st>>>(part, ptr, idx, seg, dst, n_rows, out);
+  routed_row_sums_kernel<kQuads><<<(unsigned)((n_rows + kRowWarps - 1) / kRowWarps),
+                                   kRowWarps * 32, 0, st>>>(part, ptr, idx, seg, dst, n_rows, out);
   return (int)cudaGetLastError();
 }
 
@@ -517,35 +809,40 @@ int hdense_launch(const void* H, int n_h, long long n_pad, const float* x, long 
       (const __nv_bfloat16*)H, n_pad, x, n_x, part);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  return row_sums_launch(part, nullptr, nullptr, n_cta, target, n_h, out, st);
+  return row_sums_launch<false>(part, nullptr, nullptr, n_cta, target, n_h, out, st);
 }
 
-// part: n_tiles * 128 f32 of scratch
+// part: n_tiles * 128 * kQuarters f32 of scratch, 16-byte aligned
 int heavy_launch(int vals_bf16, const void* hvals, const int8_t* hpidx, const int32_t* hwidx,
                  const int8_t* hlo, const int8_t* hhi, int n_tiles, const int32_t* slot_ptr,
                  const int32_t* slot_idx, const int32_t* rows, int n_h, const float* x,
                  long long n_x, float* part, float* out, cudaStream_t st) {
-  const size_t smem = heavy_smem();
+  // persistent CTAs, kHeavyCtasPerSm per SM, each walking items in turn
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int n_items = n_tiles * kQuarters;
+  const unsigned grid = (unsigned)min(n_items, kHeavyCtasPerSm * sms);
   // above 48 KB of dynamic shared memory; the attribute is per device, so
-  // it is set on every launch (cheap, and allowed during graph capture)
-  cudaError_t e;
+  // it is set on every launch (cheap, allowed in graph capture)
   if (vals_bf16) {
     e = cudaFuncSetAttribute(routed_heavy_kernel<__nv_bfloat16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kHeavySmem);
     if (e == cudaSuccess)
-      routed_heavy_kernel<__nv_bfloat16><<<(unsigned)n_tiles, kHeavyThreads, smem, st>>>(
-          (const __nv_bfloat16*)hvals, hpidx, hwidx, hlo, hhi, x, n_x, part);
+      routed_heavy_kernel<__nv_bfloat16><<<grid, kHeavyThreads, kHeavySmem, st>>>(
+          (const __nv_bfloat16*)hvals, hpidx, hwidx, hlo, hhi, n_items, x, n_x, part);
   } else {
     e = cudaFuncSetAttribute(routed_heavy_kernel<float>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kHeavySmem);
     if (e == cudaSuccess)
-      routed_heavy_kernel<float><<<(unsigned)n_tiles, kHeavyThreads, smem, st>>>(
-          (const float*)hvals, hpidx, hwidx, hlo, hhi, x, n_x, part);
+      routed_heavy_kernel<float><<<grid, kHeavyThreads, kHeavySmem, st>>>(
+          (const float*)hvals, hpidx, hwidx, hlo, hhi, n_items, x, n_x, part);
   }
   if (e != cudaSuccess) return (int)e;
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  return row_sums_launch(part, slot_ptr, slot_idx, 0, rows, n_h, out, st);
+  return row_sums_launch<true>(part, slot_ptr, slot_idx, 0, rows, n_h, out, st);
 }
 
 int small_launch(int vals_bf16, const SmallArgs& a, const float* x, long long n_x,

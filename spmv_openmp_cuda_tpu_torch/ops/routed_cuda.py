@@ -318,6 +318,63 @@ def heavy_sums_reference(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx,
     return out.index_add_(0, owner, slots[slot_idx.long()])
 
 
+def heavy_sums_in_order(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx,
+                        x: torch.Tensor) -> torch.Tensor:
+    """heavy_sums_reference's function with every add of kernel E and its
+    close, in their order (f32, rounded at each add): a tile row's products
+    summed lane by lane from +0, restarting at each run's first lane (hlo +
+    1) and read at its last (hhi); per slot and residue quarter, the runs
+    over the quarter's 32 residues in order from +0; a slot's four quarters
+    added in order; a heavy row's slots spread over 32 lanes in turn, each
+    lane's sum from +0, then the shuffle tree of routed_row_sums_kernel.
+    Where a run or a row is missing this adds +0, which leaves a sum from +0
+    as it is. The kernel's y is bit for bit this one. Returns (n_heavy,)
+    f32."""
+    n_tiles = hvals.shape[0] // LANE
+    nwin = max(-(-x.shape[0] // WINDOW_ELEMS), 1)
+    xw = pack_x_windows_flat(x, nwin)
+    s = torch.arange(LANE, device=x.device).repeat(n_tiles)
+    wrow = hwidx.long().repeat_interleave(LANE) * LANE + s
+    prod = hvals.to(torch.float32) * torch.gather(xw[wrow], 1, hpidx.long())
+    lo, hi = hlo.long(), hhi.long()
+    rows = prod.shape[0]
+    has = hi >= 0
+    r = torch.arange(rows, device=x.device)[:, None].expand_as(hi)[has]
+    start = torch.zeros(rows, LANE, dtype=torch.bool, device=x.device)
+    start[r, lo[has] + 1] = True
+    runs = torch.empty_like(prod)
+    acc = torch.zeros(rows, dtype=torch.float32, device=x.device)
+    for lane in range(LANE):
+        acc = torch.where(start[:, lane], torch.zeros_like(acc), acc) + prod[:, lane]
+        runs[:, lane] = acc
+    at = torch.where(has, torch.gather(runs, 1, hi.clamp(min=0)), torch.zeros_like(runs))
+    at = at.reshape(n_tiles, HEAVY_QUARTERS, LANE // HEAVY_QUARTERS, LANE)
+    red = torch.zeros(n_tiles, HEAVY_QUARTERS, LANE, dtype=torch.float32, device=x.device)
+    for a in range(LANE // HEAVY_QUARTERS):
+        red = red + at[:, :, a, :]
+    slots = red[:, 0]
+    for q in range(1, HEAVY_QUARTERS):
+        slots = slots + red[:, q]
+    slots = slots.reshape(-1)
+    n_h = slot_ptr.shape[0] - 1
+    ptr = slot_ptr.long()
+    lens = ptr[1:] - ptr[:-1]
+    width = max(int(lens.max()) if n_h else 0, 1)
+    width = -(-width // 32) * 32
+    k = torch.arange(width, device=x.device)
+    at = (ptr[:-1, None] + k).clamp(max=max(slot_idx.shape[0] - 1, 0))
+    vals = slots[slot_idx.long()[at]] if slot_idx.numel() else \
+        torch.zeros(n_h, width, dtype=torch.float32, device=x.device)
+    vals = torch.where(k < lens[:, None], vals, torch.zeros_like(vals)).reshape(n_h, -1, 32)
+    lane_sums = torch.zeros(n_h, 32, dtype=torch.float32, device=x.device)
+    for i in range(vals.shape[1]):
+        lane_sums = lane_sums + vals[:, i]
+    for off in (16, 8, 4, 2, 1):
+        lane_sums = torch.cat([lane_sums[:, :off] + lane_sums[:, off:2 * off],
+                               lane_sums[:, off:]], dim=1)
+    return lane_sums[:, 0].contiguous()
+
+
 def small_reference(vals, pidx, widx, row_ptr, row_slots, x: torch.Tensor) -> torch.Tensor:
     """Plain small kernel: y[i] (f32, length m) = the products of the gather
     slots row_slots[row_ptr[i] : row_ptr[i + 1]] (A's arithmetic: vals * x
@@ -373,13 +430,16 @@ def _on_cuda(*ts) -> torch.device:
 # made. An op is its code and its operands as int64: ints, tensors by
 # address, Bufs tagged in the top byte (1 scratch, 2 y) with a byte offset.
 _OP_GATHER, _OP_PERMUTE, _OP_REDUCE, _OP_HDENSE, _OP_ZERO, _OP_HEAVY, _OP_SMALL = range(1, 8)
+#: kernel E's residue quarters per pooled tile (csrc/routed_spmv.cu's kQuarters)
+HEAVY_QUARTERS = 4
 _TAGS = {"s": 1, "y": 2}
 
 
 def _aligned(t, align: int):
-    """t, checked to be align-byte aligned: the kernels read w1, hlo and hhi
-    (index rows) with 4-byte loads, groups with 8-byte and hdense with
-    16-byte ones; every other operand with scalar loads."""
+    """t, checked to be align-byte aligned: the kernels read groups with
+    8-byte loads; hdense, the gather tiles (vals, pidx, w1), the pooled
+    heavy tiles (hvals, hpidx, hlo, hhi) and E's slot sums with 16-byte
+    loads or copies; every other operand with scalar loads."""
     if isinstance(t, torch.Tensor) and t.data_ptr() % align:
         raise ValueError(f"an operand read with {align}-byte loads is not {align}-byte aligned")
     return t
@@ -400,8 +460,8 @@ def _op(code: int, *args) -> List[int]:
 
 
 def _gather_op(vals, pidx, widx, w1, n_tiles: int, out) -> List[int]:
-    return _op(_OP_GATHER, vals.dtype == torch.bfloat16, vals, pidx, widx, _aligned(w1, 4),
-               vals.shape[0] // LANE, n_tiles, out)
+    return _op(_OP_GATHER, vals.dtype == torch.bfloat16, _aligned(vals, 16), _aligned(pidx, 16),
+               widx, _aligned(w1, 16), vals.shape[0] // LANE, n_tiles, out)
 
 
 def _permute_op(src, imap: IndexMap, n: int, out) -> List[int]:
@@ -423,9 +483,16 @@ def _hdense_part_elems(hdense) -> int:
 
 
 def _heavy_op(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, part, out) -> List[int]:
-    return _op(_OP_HEAVY, hvals.dtype == torch.bfloat16, hvals, hpidx, hwidx, _aligned(hlo, 4),
-               _aligned(hhi, 4), hvals.shape[0] // LANE, slot_ptr, slot_idx, rows,
-               rows.shape[0], part, out)
+    return _op(_OP_HEAVY, hvals.dtype == torch.bfloat16, _aligned(hvals, 16), _aligned(hpidx, 16),
+               hwidx, _aligned(hlo, 16), _aligned(hhi, 16), hvals.shape[0] // LANE, slot_ptr,
+               slot_idx, rows, rows.shape[0], _aligned(part, 16), out)
+
+
+def heavy_part_elems(hvals) -> int:
+    """f32 elements of kernel E's scratch: each pooled tile's 128 slot sums
+    per residue quarter, slot by slot (csrc/routed_spmv.cu: an item per
+    tile and quarter, the close adds a slot's quarters in order)."""
+    return HEAVY_QUARTERS * hvals.shape[0]
 
 
 def _small_op(stage: "SmallStage") -> List[int]:
@@ -533,13 +600,13 @@ def routed_heavy_cuda(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, x
                       part=None) -> torch.Tensor:
     """Kernel E: out[rows[k]] += heavy row k's sum over the pooled tiles
     (heavy_sums_reference's function, each run summed directly; part is the
-    (n_tiles*128,) f32 scratch of the slot sums, allocated when not
-    given)."""
+    (heavy_part_elems(hvals),) f32 scratch of the slot sums per residue
+    quarter, allocated when not given)."""
     dev = _on_cuda(x, hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, out, part)
     _check_heavy(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, x, out)
     if part is None:
-        part = torch.empty(hvals.shape[0], dtype=torch.float32, device=dev)
-    _check_out(part, "part", hvals.shape[0], dev)
+        part = torch.empty(heavy_part_elems(hvals), dtype=torch.float32, device=dev)
+    _check_out(part, "part", heavy_part_elems(hvals), dev)
     _run_op(_heavy_op(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, part, out), x, dev)
     return out
 
@@ -944,7 +1011,7 @@ class HeavyStage:  # kernel E: the pooled heavy tiles, added into y
     slot_ptr: torch.Tensor  # (n_heavy + 1,) int32: heavy row k's slots are
     slot_idx: torch.Tensor  # slot_idx[slot_ptr[k] : slot_ptr[k + 1]]
     rows: torch.Tensor  # (n_heavy,) int32 rows of the domain's y
-    part: Buf  # the (n_tiles*128,) slot sums
+    part: Buf  # the slot sums per residue quarter (heavy_part_elems)
     out: Buf  # the domain's y
     m: int
 
@@ -1100,7 +1167,8 @@ def _domain_stages(mat: RoutedCSR, y: Buf, alloc, fuse_small: bool = True) -> Li
         slot_ptr, slot_idx = heavy_slot_map(mat.hreduce, dev)
         rows = torch.tensor(mat.heavy_rows, dtype=torch.int32, device=dev)
         stages.append(HeavyStage(mat.hvals, mat.hpidx, mat.hwidx, mat.hlo, mat.hhi, slot_ptr,
-                                 slot_idx, rows, alloc(mat.hvals.shape[0] // LANE), y, m))
+                                 slot_idx, rows, alloc(heavy_part_elems(mat.hvals) // LANE), y,
+                                 m))
     if fuse_small and small_ok(mat):
         g = stages[0]
         return [SmallStage(g.vals, g.pidx, g.widx, *_small_lists(stages), y)]
@@ -1318,7 +1386,8 @@ def run_stage(stage: Stage, bufs: Dict[str, torch.Tensor], plain: bool) -> None:
         if plain:
             out[stage.rows.long()] += heavy_sums_reference(*args, x)
         else:
-            routed_heavy_cuda(*args, stage.rows, x, out, _view(bufs, stage.part, stage.hvals.shape[0]))
+            routed_heavy_cuda(*args, stage.rows, x, out,
+                              _view(bufs, stage.part, heavy_part_elems(stage.hvals)))
     elif isinstance(stage, GatherStage):
         if plain:
             out.copy_(gather_reference(stage.vals, stage.pidx, stage.widx, stage.w1,

@@ -554,6 +554,68 @@ def test_heavy_and_small_wrappers_on_the_card(cuda):
         trc.routed_heavy_cuda(*args, st.rows, x, y, part=torch.empty(10, device=cuda))
 
 
+def _pooled_200000():
+    # chip_smoke.py's pooled_200000: 40 heavy rows of 17,000 columns in a
+    # 200,000-square matrix, 400,000 scattered entries besides
+    rng = np.random.default_rng(1)
+    rows = np.concatenate([np.full(17000, r) for r in range(40)]
+                          + [rng.integers(40, 200000, 400000)])
+    cols = np.concatenate([rng.choice(200000, 17000, replace=False) for _ in range(40)]
+                          + [rng.integers(0, 200000, 400000)])
+    rows, cols = np.unique(np.stack([rows, cols]), axis=1)
+    return T.COOMatrix((200000, 200000), rows, cols, rng.standard_normal(rows.shape[0]))
+
+
+#: A and E at the main path's shapes: proxy, values' type
+GATHER_HEAVY_CASES = {
+    "caida_like": (lambda: synth.preset("caida_like"), None),
+    "webbase_like": (lambda: synth.preset("webbase_like"), None),
+    "pooled_200000_bf16": (_pooled_200000, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_HEAVY_CASES))
+def test_gather_and_heavy_kernels_bit_for_bit(cuda, case):
+    """A (the window staged in shared memory, a cluster per tile) equals
+    gather_reference bit for bit; E (a CTA per residue quarter) and its
+    close equal heavy_sums_in_order (the kernels' adds in their order) bit
+    for bit and heavy_sums_reference within the tolerance; a rerun of each
+    gives the same bits."""
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    make, vals_dtype = GATHER_HEAVY_CASES[case]
+    csr = T.coo_to_csr(make())
+    chain = trc.prepare_routed_chain(csr, vals_dtype=vals_dtype, device=cuda)
+    x = _x(csr.shape[1], cuda, seed=6)
+    bufs = trc._buffers(chain, x)
+    bufs["s"].fill_(float("nan"))
+    seen = []
+    for stage in chain.stages:
+        if stage.kernel in ("gather", "heavy"):
+            outs = []
+            for _ in range(2):
+                copy = {k: v.clone() for k, v in bufs.items()}
+                trc.run_stage(stage, copy, plain=False)
+                outs.append(trc._view(copy, stage.out, stage.out_elems()))
+            torch.cuda.synchronize()
+            assert torch.equal(outs[0], outs[1]), (case, stage.kernel)
+            if stage.kernel == "heavy":
+                args = (stage.hvals, stage.hpidx, stage.hwidx, stage.hlo, stage.hhi,
+                        stage.slot_ptr, stage.slot_idx, x)
+                want = trc._view(bufs, stage.out, stage.out_elems()).clone()
+                want[stage.rows.long()] += trc.heavy_sums_in_order(*args)
+                assert torch.equal(outs[0], want), case
+                ref = trc._view(bufs, stage.out, stage.out_elems()).clone()
+                ref[stage.rows.long()] += trc.heavy_sums_reference(*args)
+                _within(outs[0], ref)
+            seen.append((stage.kernel, outs[0]))
+        trc.run_stage(stage, bufs, plain=True)
+        if seen and seen[-1][0] == "gather" and stage.kernel == "gather":
+            assert torch.equal(seen[-1][1], trc._view(bufs, stage.out, stage.out_elems())), case
+    kinds = [k for k, _ in seen]
+    assert "gather" in kinds and (case == "caida_like") != ("heavy" in kinds), kinds
+
+
 #: small routed domains (the small kernel): proxy, mode
 SMALL_CASES = {
     "delaunay_n12_like": (lambda: synth.preset("delaunay_n12_like"), "PL_CSR_ROUTED"),

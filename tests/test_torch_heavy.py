@@ -497,3 +497,161 @@ def test_bindings_match_the_source(mod, src, names):
                 for p in params.split(",")]
         assert getattr(lib, name).argtypes == want, name
     assert set(sigs) == names
+
+
+# ---------------------------------------------------------------------------
+# kernel E's order of adds: a CTA per residue quarter against a CTA per tile
+# ---------------------------------------------------------------------------
+
+
+def _row_sums_order(slots, slot_ptr, slot_idx):
+    """routed_row_sums_kernel on numpy float32: heavy row k's slots dealt to
+    32 lanes in turn, each lane's sum from +0, then the shuffle tree."""
+    out = np.zeros(slot_ptr.shape[0] - 1, np.float32)
+    for k in range(out.shape[0]):
+        acc = np.zeros(32, np.float32)
+        for i in range(slot_ptr[k], slot_ptr[k + 1]):
+            lane = (i - slot_ptr[k]) % 32
+            acc[lane] = acc[lane] + slots[slot_idx[i]]
+        for off in (16, 8, 4, 2, 1):
+            acc[:off] = acc[:off] + acc[off:2 * off]
+        out[k] = acc[0]
+    return out
+
+
+def _one_cta_per_tile_order(tm, x):
+    """The adds of kernel E as one CTA per pooled tile made them, on numpy
+    float32: residue a's run of slot j (lanes (hlo, hhi]) summed in lane order
+    from +0 and left in its last lane; per slot, four quarters of 32 residues,
+    each summed in order from +0 (runs only), added in order; then the row
+    sums."""
+    n_tiles = tm.hvals.shape[0] // LANE
+    hv = tm.hvals.to(torch.float32).numpy()
+    hp = tm.hpidx.numpy().astype(np.int64)
+    lo, hi = tm.hlo.numpy().astype(np.int64), tm.hhi.numpy().astype(np.int64)
+    xf = x.astype(np.float32)
+    a = np.tile(np.arange(LANE), n_tiles)[:, None]
+    col = np.repeat(tm.hwidx.numpy().astype(np.int64), LANE)[:, None] * LANE * LANE + hp * LANE + a
+    xv = np.where(col < xf.shape[0], xf[np.minimum(col, xf.shape[0] - 1)], np.float32(0))
+    p = hv * xv
+    rows = np.arange(p.shape[0])
+    for j in range(LANE):
+        has = hi[:, j] >= 0
+        acc = np.zeros(p.shape[0], np.float32)
+        for k in range(int((hi[:, j] - lo[:, j]).max(initial=0))):
+            c = lo[:, j] + 1 + k
+            m = has & (c <= hi[:, j])
+            acc[m] = acc[m] + p[rows[m], c[m]]
+        p[rows[has], hi[has, j]] = acc[has]
+    slots = np.zeros((n_tiles, LANE), np.float32)
+    for q in range(4):
+        red = np.zeros((n_tiles, LANE), np.float32)
+        for r in range(32 * q, 32 * q + 32):
+            t_rows = np.arange(n_tiles) * LANE + r
+            h = hi[t_rows]
+            v = p[t_rows[:, None], np.maximum(h, 0)]
+            red = np.where(h >= 0, red + v, red)
+        slots = red if q == 0 else slots + red
+    slot_ptr, slot_idx = trc.heavy_slot_map(tm.hreduce, "cpu")
+    return _row_sums_order(slots.reshape(-1), slot_ptr.numpy(), slot_idx.numpy())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", list(CASES))
+def test_quarter_split_keeps_the_one_cta_per_tile_order(case, bf16):
+    # kernel E as a CTA per (tile, residue quarter), its close adding a
+    # slot's quarters in order (heavy_sums_in_order), gives the one CTA per
+    # tile kernel's sums bit for bit, and heavy_sums_reference's within the
+    # module's tolerance
+    tm, _ = _prepared(case, bf16)
+    x = _x(tm.shape[1], seed=5)
+    xt = torch.as_tensor(x, dtype=torch.float32)
+    slot_ptr, slot_idx = trc.heavy_slot_map(tm.hreduce, "cpu")
+    args = (tm.hvals, tm.hpidx, tm.hwidx, tm.hlo, tm.hhi, slot_ptr, slot_idx, xt)
+    y = trc.heavy_sums_in_order(*args)
+    assert y.dtype == torch.float32 and y.shape == (len(tm.heavy_rows),)
+    want = _one_cta_per_tile_order(tm, x)
+    np.testing.assert_array_equal(y.numpy().view(np.int32), want.view(np.int32))
+    _close(y, trc.heavy_sums_reference(*args).numpy())
+    # E's scratch: 128 slot sums per tile and quarter, 16-byte aligned in
+    # the chain's scratch
+    chain = trc.build_chain(tm)
+    st = chain.stages[-1]
+    assert trc.heavy_part_elems(tm.hvals) == 4 * tm.hvals.shape[0]
+    assert st.part.off % 4 == 0 and chain.scratch_elems >= st.part.off + 4 * tm.hvals.shape[0]
+
+
+def _walk(prod, lo, hi, segs):
+    """Kernel E's walk of one residue row on numpy float32, as
+    csrc/routed_spmv.cu runs it: lane flags from the runs (1 start, 2 end),
+    the row in `segs` segments of lanes, the thread of a segment summing
+    the runs that start in it to their ends, 16 lanes a chunk: the chunk's
+    starts and ends as lane masks, the ends it owns, the sum restarted at
+    each start and left in each owned end's lane. The segments' threads run
+    last to first, so each reads lanes a later one has overwritten where
+    it can."""
+    fl = np.zeros(LANE, np.int64)
+    for j in np.flatnonzero(hi >= 0):
+        s = lo[j] + 1
+        if s == hi[j]:
+            fl[s] = 3
+        else:
+            fl[s], fl[hi[j]] = 1, 2
+    row = prod.copy()
+    seg_lanes = LANE // segs
+    for seg in reversed(range(segs)):
+        c0, c1 = seg * seg_lanes // 16, (seg + 1) * seg_lanes // 16
+        acc, seen, is_open = np.float32(0), False, False
+        for c in range(c0, LANE // 16):
+            more = c < c1
+            if not (is_open or more):
+                break
+            chunk = row[16 * c:16 * c + 16].copy()
+            st = sum(int(fl[16 * c + k] & 1) << k for k in range(16))
+            en = sum(int(fl[16 * c + k] >> 1 & 1) << k for k in range(16))
+            if more:
+                low = st & -st
+                own = en & (0xFFFF if seen else (0xFFFF & ~(low - 1) if st else 0))
+                seen = seen or st != 0
+            else:
+                own = en & -en if is_open else 0
+            hs, he = st.bit_length() - 1, en.bit_length() - 1
+            is_open = (hs > he or (hs == he and hs < 0 and is_open)) if more else \
+                (is_open and own == 0)
+            for k in range(16):
+                acc = np.float32((np.float32(0) if st >> k & 1 else acc) + chunk[k])
+                if own >> k & 1:
+                    row[16 * c + k] = acc
+    return row
+
+
+def test_segmented_walk_sums_each_run_once():
+    # E's walk over lane segments (kWalkSegs, and one segment) leaves each
+    # run's sum, added in lane order from +0, in its last lane, bit for bit:
+    # runs with gaps between them, slots in any order, runs across
+    # segments; and sampled rows of the pooled cases
+    src = open(os.path.join(os.path.dirname(trc.__file__), "..", "csrc", "routed_spmv.cu")).read()
+    segs = int(re.search(r"constexpr int kWalkSegs = (\d+);", src).group(1))
+    rng = np.random.default_rng(8)
+    rows = []
+    for _ in range(150):
+        cuts = np.sort(rng.choice(np.arange(1, LANE), rng.integers(1, 50), replace=False))
+        bounds = np.r_[0, cuts, LANE]
+        runs = [(a - 1, b - 1) for a, b in zip(bounds[:-1], bounds[1:]) if rng.random() < 0.8]
+        lo, hi = np.full(LANE, -1), np.full(LANE, -1)
+        for (l, h), j in zip(runs, rng.permutation(LANE)[:len(runs)]):
+            lo[j], hi[j] = l, h
+        rows.append((rng.standard_normal(LANE).astype(np.float32), lo, hi))
+    tm, _ = _prepared("pool10")
+    pick = rng.choice(tm.hvals.shape[0], 40, replace=False)
+    for r in pick:
+        rows.append((rng.standard_normal(LANE).astype(np.float32),
+                     tm.hlo[r].numpy().astype(np.int64), tm.hhi[r].numpy().astype(np.int64)))
+    for prod, lo, hi in rows:
+        for n_segs in sorted({1, segs}):
+            got = _walk(prod, lo, hi, n_segs)
+            for j in np.flatnonzero(hi >= 0):
+                acc = np.float32(0)
+                for c in range(lo[j] + 1, hi[j] + 1):
+                    acc = np.float32(acc + prod[c])
+                assert got[hi[j]].view(np.int32) == acc.view(np.int32), (n_segs, j)

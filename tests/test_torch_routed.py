@@ -524,6 +524,30 @@ def test_program_encoding_matches_the_interpreter():
     # operands read with vector loads must be aligned for them
     with pytest.raises(ValueError, match="aligned"):
         trc._hdense_op(torch.zeros(2, 2 * LANE + 4, dtype=torch.bfloat16)[:, 4:], None, None, None)
+    # A reads its tiles (vals, pidx, W1 rows) with 16-byte loads
+    off8 = torch.zeros(LANE * LANE + 1, dtype=torch.int8)[1:].reshape(LANE, LANE)
+    off32 = torch.zeros(LANE * LANE + 1)[1:].reshape(LANE, LANE)
+    for i, bad in ((0, off32), (1, off8), (3, off8)):
+        a = [g.vals, g.pidx, g.widx, g.w1]
+        a[i] = bad
+        with pytest.raises(ValueError, match="aligned"):
+            trc._gather_op(*a, g.n_tiles, g.out)
+    with pytest.MonkeyPatch.context() as mp:  # the heavy row in pooled tiles
+        mp.setattr(tr, "_dense_heavy_ok", lambda *a: False)
+        pchain = trc.build_chain(tr.prepare_routed(_csrs("spiked_dense")[0]))
+    (pprog,) = trc._encode(pchain.stages)
+    h = pchain.stages[-1]
+    assert isinstance(h, trc.HeavyStage) and int(pprog[-words[6]]) == 6
+    op = trc._heavy_op(h.hvals, h.hpidx, h.hwidx, h.hlo, h.hhi, h.slot_ptr, h.slot_idx, h.rows,
+                       h.part, h.out)
+    assert len(op) == words[6] and list(pprog[-words[6]:]) == op
+    part = op[12]
+    assert part >> 56 == 1 and (part & ((1 << 56) - 1)) % 16 == 0
+    assert pchain.scratch_elems >= h.part.off + trc.heavy_part_elems(h.hvals)
+    assert trc.heavy_part_elems(h.hvals) == 4 * h.hvals.shape[0]
+    with pytest.raises(ValueError, match="aligned"):
+        trc._heavy_op(h.hvals, h.hpidx, h.hwidx, off8, h.hhi, h.slot_ptr, h.slot_idx, h.rows,
+                      h.part, h.out)
 
 
 def test_chain_is_the_same_for_every_domain_size():
