@@ -39,7 +39,7 @@ whole output permutation as one gather; phase 2 holds B bit for bit, and C
 within the f32 bound, against the W stages applied one by one
 (`routed_cuda.staged_stage`) as well as against their plain versions, phase
 3 holds the counted launches to the chains' planned ones (caida_like: A, C
-twice, D and its row sums, B: six launches and a memset per product), and
+twice, D, B: five launches and a memset per product), and
 phase 5 times each C and the output gather alone in a CUDA graph on
 caida_like and webbase_like. Kernel A stages each tile's x window in shared
 memory (one bulk copy per CTA of two bands), kernel E takes a pooled tile
@@ -48,7 +48,10 @@ in while this one's sums are taken): phase 2 holds A bit for
 bit against its plain version and E bit for bit against
 heavy_sums_in_order (its adds in its order) on webbase_like and
 pooled_200000, and phase 5 prints each one's graphed time and share of its
-bound beside the time before the redesign (PARENT_US).
+bound beside the time before the redesign (PARENT_US). Kernel D (the dense
+heavy rows) is one launch whose last CTA closes the product: phase 2 holds
+it bit for bit against hdense_in_order on caida_like, phase 5 prints it
+alone in a CUDA graph with its share of its bound.
 The routed df product (PL_CSR_ROUTED_F64) is one program of csrc/df_spmv.cu
 per product, enqueued from one host call: K3, C-df per level, the output
 gather of both planes into f64 y and D-df for the dense heavy rows (five
@@ -66,7 +69,9 @@ staged chain and timed beside it on delaunay_n12_like, west2021_like and a
 the CLI's AUTO run on a 200,000-row matrix whose heavy rows pool.
 
 The CSR/ELL mode matrix (csr_ell_slice) follows: ell_t_kernel (csrc/
-ell_spmv.cu) on sg_like and thermal2_like and lanes_kernel (csrc/
+ell_spmv.cu; a thread per four rows walks to the longest of them, from a
+table made at the layout's first launch) on sg_like and thermal2_like, also held equal to the
+full-width walk (ell_t_in_order), and lanes_kernel (csrc/
 lanes_spmv.cu, one launch per product) on four small proxies, a four-window
 matrix and a G = 64 matrix against their plain versions, each rerun bitwise
 equal; then that slice's main path with
@@ -75,7 +80,9 @@ delaunay_n12_like and over the mode matrix on sg_like (SG's published
 size), its log printed and read back by parse_log, every mode that prepares
 ok:1, det:1 and within the relative bound on x ~ N(0, 1); the CLI's
 explicit modes;
-float64 binned against the exact oracle; then the two kernels' times.
+float64 binned against the exact oracle; then the two kernels' times (for
+ell_t_kernel also its host time per call, cuSPARSE graphed, and two bounds:
+the nonzero slots', and the whole slab's).
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing any result.
@@ -218,11 +225,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 
-#: graphed device time of A (caida_like) and E + its close (webbase_like)
-#: before their redesign (A reading x by global column, E one CTA per
-#: tile), this script's phase 5 on one H100 80GB HBM3 at 700 W: the
-#: yardstick of the redesigned kernels' lines
-PARENT_US = {"gather": 6.56, "heavy": 29.75}
+#: graphed device time of A (caida_like), E + its close (webbase_like) and
+#: D + its close (caida_like) before their redesign (A reading x by global
+#: column, E one CTA per tile, D a CTA per heavy row and chunk, then a
+#: second launch to close), this script's phase 5 on one H100 80GB HBM3 at
+#: 700 W: the yardstick of the redesigned kernels' lines
+PARENT_US = {"gather": 6.56, "heavy": 29.75, "hdense": 5.28}
 
 
 def pooled_heavy_matrix(m: int, n: int, n_heavy: int, per_row: int, bg_nnz: int, seed: int):
@@ -475,25 +483,33 @@ def csr_ell_slice(dev, smi: str, csrs: dict):
     # -- phase 2: the two kernels against their plain versions -------------
     errs = {"ell_t": 0.0, "lanes": 0.0}
 
-    def check(kernel, label, fn, plain, x):
+    def check(kernel, label, fn, plain, x, order=None):
         yk, yk2 = fn(x), fn(x)
         torch.cuda.synchronize()
         yp = plain(x)
         err = (yk - yp).abs().max().item()
         same = torch.equal(yk, yk2)
         ok = err <= bound(yp) and yk.abs().max().item() > 0 and same
+        walk = ""
+        if order is not None:  # the adds in the kernel's order, over the full width
+            full = torch.equal(yk, order(x))
+            ok = ok and full
+            walk = f", torch.equal to the full-width walk: {full}"
         errs[kernel] = max(errs[kernel], err)
         log(f"phase 2: {label}: {kernel}_kernel max|y_k - y_p| = {err:.3e} <= {bound(yp):.3e}, "
-            f"rerun bitwise equal: {same}: {'OK' if ok else 'FAIL'}")
+            f"rerun bitwise equal: {same}{walk}: {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label}: {kernel}_kernel disagrees with its plain version")
 
     ell_ops = {}
     for name in ELL_T_CHECKS:
         mat = ell_ops[name] = device_ell(ells[name], transposed=True, device=dev)
+        before = EC.ell_t_cuda.launches
         check("ell_t", f"{name} PL_ELL_ROWS_T (W_pad {mat.data.shape[0]}, M_pad {mat.data.shape[1]})",
               lambda v, o=mat: EC.ell_t_cuda(o, v), lambda v, o=mat: EC.ell_t_reference(o, v),
-              normal_x(mats[name].shape[1], dev, seed=1))
+              normal_x(mats[name].shape[1], dev, seed=1), lambda v, o=mat: EC.ell_t_in_order(o, v))
+        if EC.ell_t_cuda.launches != before + 2:  # the product and its rerun: one launch each
+            raise AssertionError(f"{name}: an ELL-T product is not one launch")
     lanes_ops = {}
     wide = P.coo_to_csr(synth.random_uniform(4096, 50000, density=3e-4, seed=1))
     g64 = P.coo_to_csr(synth.random_uniform(8192, 8192, density=5e-4, seed=2))
@@ -595,8 +611,11 @@ def csr_ell_slice(dev, smi: str, csrs: dict):
           "warm-up; graph = the same call in a CUDA graph, device time):")
     times = {}
     for kernel, name, mat, fn, plain, moved, flops in (
+        # ELL-T's bound: the values and columns of the nonzero slots and its
+        # walk table (the slab's whole bytes printed beside it)
         *(("ell_t", n, ell_ops[n], EC.ell_t_cuda, EC.ell_t_reference,
-           nbytes(ell_ops[n].data, ell_ops[n].cols), 2 * ell_ops[n].data.numel()) for n in ELL_T_CHECKS),
+           8 * mats[n].nnz + nbytes(EC._plan(ell_ops[n], ell_ops[n].data.device)), 2 * mats[n].nnz)
+          for n in ELL_T_CHECKS),
         *(("lanes", n, lanes_ops[n], LC.lanes_cuda, LC.lanes_reference,
            nbytes(lanes_ops[n].vals, lanes_ops[n].pidx, lanes_ops[n].gid, lanes_ops[n].tile_win),
            2 * lanes_ops[n].vals.numel()) for n in LANES_CHECKS),
@@ -607,13 +626,39 @@ def csr_ell_slice(dev, smi: str, csrs: dict):
         tk = time_per_call(lambda v: fn(mat, v), x)
         tg = graph_ms(lambda: fn(mat, x)) / 1e3
         tp = time_per_call(lambda v: plain(mat, v), x)
-        tl = time_per_call(library_spmv(csr, dev), x)
+        lib_fn = library_spmv(csr, dev)
+        tl = time_per_call(lib_fn, x)
         b_ms, by = least_ms(moved + 4 * (n + m), flops)
         times[(kernel, name)] = (tk, tp, tl, b_ms, by)
         print(f"  {name:20s} {kernel}_kernel {tk * 1e3:8.4f} ms per call ({tg * 1e3:.4f} ms in a graph, "
               f"host {max(tk - tg, 0) * 1e6:.1f} us) | plain {tp * 1e3:8.4f} ms | library (cuSPARSE "
               f"CSR f32) {tl * 1e3:8.4f} ms | bound {b_ms:.5f} ms ({by}, {(moved + 4 * (n + m)) / 1e6:.2f} "
               f"MB); graphed kernel at {100 * b_ms / (tg * 1e3):.1f} % of it")
+        if kernel == "ell_t":
+            # host time per call: unsynchronised calls on the host clock
+            for _ in range(20):
+                fn(mat, x)
+            torch.cuda.synchronize()
+            reps = 500
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn(mat, x)
+            host = (time.perf_counter() - t) / reps
+            torch.cuda.synchronize()
+            tlg = graph_ms(lambda: lib_fn(x)) / 1e3
+            walk = EC._plan(mat, mat.data.device)
+            rows = torch.full_like(walk, EC.GROUP_ROWS)
+            rows[-1] = m - EC.GROUP_ROWS * (walk.numel() - 1)
+            walked = 8 * int((walk.long() * rows.long()).sum())
+            slab = nbytes(mat.data, mat.cols) + 4 * (n + m)
+            s_ms = least_ms(slab, 2 * mat.data.numel())[0]
+            print(f"  {name:20s} ell_t_kernel: host {host * 1e6:.2f} us per call (time.perf_counter "
+                  f"over {reps} unsynchronised calls) | cuSPARSE {tl * 1e3:.4f} ms per call, "
+                  f"{tlg * 1e3:.4f} ms graphed: kernel {tk / tl:.3f}x per call, {tg / tlg:.3f}x "
+                  f"graphed | walks {walked / 1e6:.2f} MB of slab | bound of the nonzero slots "
+                  f"{b_ms:.5f} ms, graphed kernel at {100 * b_ms / (tg * 1e3):.1f} %; slab bound "
+                  f"{s_ms:.5f} ms ({slab / 1e6:.2f} MB), at {100 * s_ms / (tg * 1e3):.1f} %")
+        del lib_fn
     sg = mats["sg_like"]
     rm = device_ell(ells["sg_like"], device=dev)
     print(f"  sg_like ELL slabs: row-major {tuple(rm.data.shape)} {nbytes(rm.data, rm.cols) / 1e6:.1f} MB "
@@ -874,6 +919,26 @@ def main() -> int:
             else:
                 RC.run_stage(stage, bufs, plain=True)
 
+    def check_hdense_order(label, chain, x):
+        # kernel D (one launch, its last CTA closing the product) against
+        # hdense_in_order (its operations in their order) bit for bit, on
+        # the plain chain's buffers before D
+        bufs = RC._buffers(chain, x)
+        for stage in chain.stages:
+            if isinstance(stage, RC.HDenseStage) and stage.kernel is not None:
+                out = RC._view(bufs, stage.out, stage.out_elems())
+                want = out.clone()
+                want[stage.target.long()] += RC.hdense_in_order(stage.hdense, x)
+                before = RC.routed_hdense_cuda.launches
+                RC.run_stage(stage, bufs, plain=False)
+                torch.cuda.synchronize()
+                ok = torch.equal(out, want) and RC.routed_hdense_cuda.launches == before + 1
+                log(f"phase 2: {label}: routed_hdense_kernel {tuple(stage.hdense.shape)} vs "
+                    f"hdense_in_order: {'bit for bit, one launch' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{label}: kernel D does not add in its order")
+            RC.run_stage(stage, bufs, plain=True)
+
     csr = csrs[ROUTED_CHECK]
     t = time.perf_counter()
     chain32 = registry.get("PL_CSR_ROUTED").prepare(csr, None, P.Config(), dev)
@@ -888,6 +953,7 @@ def main() -> int:
     x = normal_x(csr.shape[1], dev, seed=1)
     for mode, chain in routed_chains.items():
         check_routed(f"{ROUTED_CHECK} {mode}", chain, x)
+        check_hdense_order(f"{ROUTED_CHECK} {mode}", chain, x)
     # the small kernel: one launch per product where the JAX package runs
     # _routed_small_spmv, against its plain version and, bit for bit, the
     # staged CUDA chain on the same operands
@@ -979,8 +1045,8 @@ def main() -> int:
         chain = model._operands
         for k, v in chain.counts.items():
             planned[k] += 3 * v
-        # D and E each add their row sums' launch
-        n_launch = sum(chain.counts.values()) + chain.counts["hdense"] + chain.counts["heavy"]
+        # E adds its row sums' launch
+        n_launch = sum(chain.counts.values()) + chain.counts["heavy"]
         n_memset = sum(isinstance(st, RC.ZeroStage) for st in chain.stages)
         log(f"phase 3: {name} per product: {n_launch} launches and {n_memset} memset(s), "
             f"{chain.counts['permute']} of B, {chain.counts['perm_reduce']} of C ({chain.counts})")
@@ -1365,11 +1431,12 @@ def main() -> int:
               f"{ms * 1e3:8.2f} us in a graph | plain {pms:.4f} ms | {b / 1e6:7.3f} MB, bound "
               f"{least_ms(b, f)[0] * 1e3:6.2f} us"
               + (f" | torch.take {lib * 1e3:.2f} us" if lib is not None else ""))
-    a_ms, _, a_b, a_f, _ = per_kernel["gather"]
-    a_bound = least_ms(a_b, a_f)[0]
-    print(f"  {ROUTED_CHECK} routed_gather_kernel (A) alone: {a_ms * 1e3:.2f} us in a graph, "
-          f"{100 * a_bound / a_ms:.1f} % of its {a_bound * 1e3:.2f} us bound (before its redesign: "
-          f"{PARENT_US['gather']} us, {100 * a_bound * 1e3 / PARENT_US['gather']:.1f} %)")
+    for kernel, what in (("gather", "A"), ("hdense", "D, one launch with its close")):
+        k_ms, _, k_b, k_f, _ = per_kernel[kernel]
+        k_bound = least_ms(k_b, k_f)[0]
+        print(f"  {ROUTED_CHECK} {ROUTED_KERNELS[kernel][0]} ({what}) alone: {k_ms * 1e3:.2f} us in a "
+              f"graph, {100 * k_bound / k_ms:.1f} % of its {k_bound * 1e3:.2f} us bound (before its "
+              f"redesign: {PARENT_US[kernel]} us, {100 * k_bound * 1e3 / PARENT_US[kernel]:.1f} %)")
     chain_bytes = sum(stage_cost(s, csr.shape[1])[0] for s in chain32.stages)
     print(f"  {ROUTED_CHECK} chain of stages moves {chain_bytes / 1e6:.3f} MB per product: bound "
           f"{least_ms(chain_bytes, 0)[0]:.4f} ms")

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of the PyTorch/CUDA port on one GPU: the window
 kernels (PL_CSR_WINDOW, PL_CSR_WINDOW_BF16 and PL_CSR_WINDOW_F64 on
-thermal2_like, fem_3d_thermal2_like and delaunay_n12_like), the dense
-heavy-row kernel D on caida_like, the routed kernels A (the gather), B
+thermal2_like, fem_3d_thermal2_like and delaunay_n12_like), the
+transposed-ELL product (PL_ELL_ROWS_T, ell_t_kernel) on sg_like and
+thermal2_like, hashed, the dense heavy-row kernel D on caida_like (with its
+close; its sums hashed), the routed kernels A (the gather), B
 (the output permutation, and any other W-stage launches), C (per level)
 and E (webbase_like's pooled heavy tiles, with their close) each alone in
 a CUDA graph on caida_like's and webbase_like's chains, the routed
@@ -181,6 +183,31 @@ def resid_products(dev, cache) -> dict:
     return out
 
 
+def ell_t_products(dev, cache) -> dict:
+    """PL_ELL_ROWS_T (ell_t_kernel) on sg_like and thermal2_like, hashed."""
+    import numpy as np
+    import torch
+
+    import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch.ops import registry
+
+    out = {}
+    spec = registry.get("PL_ELL_ROWS_T")
+    for name in ("sg_like", "thermal2_like"):
+        csr = cached_csr(name, cache)
+        ops = spec.prepare(csr, P.coo_to_ell(P.csr_to_coo(csr)), P.Config(), dev)
+        x = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
+                            dtype=torch.float32, device=dev)
+        fn = spec.jitted(ops)
+        # the slab whole, x and y: the bound the parent's full-width walk had
+        moved = sum(t.numel() * t.element_size() for t in (ops.data, ops.cols)) + 4 * sum(csr.shape)
+        _timed(out, f"{name} PL_ELL_ROWS_T product", fn, x, moved)
+        out[f"{name} PL_ELL_ROWS_T product"]["hash"] = hashlib.sha256(
+            fn(x).cpu().numpy().tobytes()).hexdigest()[:16]
+        del ops
+    return out
+
+
 def dia_rows_products(dev, cache) -> dict:
     """The DIA products whose kernels a DIA+residual change leaves as they
     are."""
@@ -309,9 +336,11 @@ def one(tree: str, cache=None) -> dict:
     n_h = mat.hdense.shape[0]
     target = torch.arange(n_h, dtype=torch.int32, device=dev)
     y = torch.zeros(-(-n_h // 128) * 128, device=dev)
+    # the tree's own scratch size (zero: a ticket where the tree keeps one)
+    part = torch.zeros(RC._hdense_part_elems(mat.hdense), device=dev)
 
     def d(v):  # kernel D alone: y[target[k]] += H[k] . x
-        return RC.routed_hdense_cuda(mat.hdense, v, target, y)
+        return RC.routed_hdense_cuda(mat.hdense, v, target, y, part)
 
     a = d(x).clone()
     y.zero_()
@@ -319,7 +348,8 @@ def one(tree: str, cache=None) -> dict:
     torch.cuda.synchronize()
     out[f"caida_like kernel D {tuple(mat.hdense.shape)}"] = {
         "ms": time_per_call(d, x) * 1e3, "graph_ms": graph_ms(lambda: d(x)),
-        "rerun_equal": bool(torch.equal(a, b))}
+        "rerun_equal": bool(torch.equal(a, b)),
+        "hash": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]}
     chain = RC.build_chain(mat)
     out.update(routed_stage_times("caida_like", chain, x))
     # whole routed products, f32 and bf16, hashed
@@ -387,6 +417,7 @@ def one(tree: str, cache=None) -> dict:
             "ms": time_per_call(fn, xl) * 1e3, "graph_ms": tg, "rerun_equal": bool(torch.equal(a, b)),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
             "bound_share": moved / HBM_BYTES_PER_S * 1e3 / tg}
+    out.update(ell_t_products(dev, cache))
     out.update(resid_products(dev, cache))
     out.update(dia_rows_products(dev, cache))
     return out

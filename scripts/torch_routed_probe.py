@@ -6,7 +6,7 @@ webbase_like's chains (valid inputs from the plain chain) and on the whole
 product; every variant's output must be bitwise the source's (the same
 products and adds in the same order).
 
-    python3 scripts/torch_routed_probe.py [--kernel C|A|E] [--proxies a,b]
+    python3 scripts/torch_routed_probe.py [--kernel C|A|D|E] [--proxies a,b]
 
 --kernel C (the default): C's stages, with its groups packed into chunks
 of 0 (one group per CTA) or routed_cuda._CHUNK_ROWS rows. Variants: the
@@ -27,6 +27,14 @@ have them (webbase_like): the source as it is, "walk1" (one warp walks
 each residue's 128 lanes), "ctas1" (one persistent CTA per SM), and
 variants named "-..." that leave out part of the work (their sums are
 wrong), to see what each part costs.
+
+--kernel D --proxies caida_like: the dense heavy rows (one launch, the
+last CTA closing the product): the source as it is (rows per CTA halved
+from all, up to 8, while the CTAs would be fewer than half the SMs),
+"rows8" (all the rows in one CTA per chunk: x read once), "rows2" and
+"rows1" (x read once per row, as before the redesign), and "-close" (no
+close: wrong sums, to price it). Prints D alone in a CUDA graph per
+variant, each exact one bitwise routed_cuda.hdense_in_order.
 
 Prints the card's name and power limit first. Needs a CUDA device.
 """
@@ -93,6 +101,18 @@ E_VARIANTS = {
     "-walk": [("    if (seg < kWalkSegs) {", "    if (false) {")],
     "-compute": [("    heavy_sums<T>(stage[k & 1], fl_s, item / kQuarters, item % kQuarters, part);",
                   "    part[item * kLane + threadIdx.x] = stage[k & 1].xs[threadIdx.x];")],
+}
+#: D's variants: rows of the heavy block per CTA
+_D_RULE = "while (rows > 1 && 2LL * n_cta"
+D_VARIANTS = {
+    "as is": [],
+    "rows8": [(_D_RULE, "while (false && 2LL * n_cta")],
+    "rows2": [("int rows = min(n_h, kHRows);", "int rows = min(n_h, 2);"),
+              (_D_RULE, "while (false && 2LL * n_cta")],
+    "rows1": [("int rows = min(n_h, kHRows);", "int rows = 1;"),
+              (_D_RULE, "while (false && 2LL * n_cta")],
+    # no close (wrong sums): what the last CTA's close costs
+    "-close": [("  if (!last) return;\n", "  return;\n")],
 }
 PROXIES = ("caida_like", "webbase_like")
 
@@ -287,6 +307,48 @@ def probe_e(libs, use, proxies, dev) -> None:
         del chain, bufs
 
 
+def probe_d(libs, use, proxies, dev) -> None:
+    """D's variants alone on each proxy's dense heavy block, each bitwise
+    hdense_in_order."""
+    import numpy as np
+    import torch
+
+    import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+    from spmv_openmp_cuda_tpu_torch.utils import synth
+
+    for proxy in proxies:
+        use("as is")
+        csr = P.coo_to_csr(synth.preset(proxy))
+        chain = RC.prepare_routed_chain(csr, device=dev)
+        x = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
+                            dtype=torch.float32, device=dev)
+        bufs = RC._buffers(chain, x)
+        dst = None
+        for st in chain.stages:
+            if isinstance(st, RC.HDenseStage) and st.kernel is not None:
+                dst, y0 = st, RC._view(bufs, st.out, st.out_elems()).clone()
+            RC.run_stage(st, bufs, plain=True)
+        if dst is None:
+            print(f"  {proxy}: no dense heavy block in the kernel", flush=True)
+            continue
+        want = y0.clone()
+        want[dst.target.long()] += RC.hdense_in_order(dst.hdense, x)
+        out = RC._view(bufs, dst.out, dst.out_elems())
+        cells = []
+        for name in D_VARIANTS:
+            use(name)
+            out.copy_(y0)
+            RC.run_stage(dst, bufs, plain=False)
+            if not name.startswith("-") and not torch.equal(out, want):
+                raise AssertionError(f"{proxy} D {name}: not hdense_in_order bit for bit")
+            us = min(graph_ms(lambda: RC.run_stage(dst, bufs, plain=False)) for _ in range(3))
+            cells.append(f"{name} {us * 1e3:6.2f}")
+        print(f"  {proxy} D {tuple(dst.hdense.shape)}, us in a graph: " + " | ".join(cells),
+              flush=True)
+        del chain, bufs
+
+
 def probe_c(libs, use, proxies, dev) -> None:
     """C's variants on each proxy's C stages and product."""
     import numpy as np
@@ -348,7 +410,7 @@ def main() -> int:
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--kernel", choices=("C", "A", "E"), default="C")
+    ap.add_argument("--kernel", choices=("C", "A", "D", "E"), default="C")
     ap.add_argument("--proxies", default=",".join(PROXIES))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -359,7 +421,7 @@ def main() -> int:
     print(f"nvidia-smi: {smi}", flush=True)
     src = (cuda_lib.SRC_DIR / "routed_spmv.cu").read_text()
     dev = torch.device("cuda", torch.cuda.current_device())
-    variants = {"A": A_VARIANTS, "C": VARIANTS, "E": E_VARIANTS}[args.kernel]
+    variants = {"A": A_VARIANTS, "C": VARIANTS, "D": D_VARIANTS, "E": E_VARIANTS}[args.kernel]
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
             futures = {name: pool.submit(build_variant, src, subs, tmp, name, cuda_lib.nvcc_path(),
@@ -371,7 +433,7 @@ def main() -> int:
             RC._bind(lib)
             cuda_lib._LIBS["routed_spmv"] = lib
 
-        probe = {"A": probe_a, "C": probe_c, "E": probe_e}[args.kernel]
+        probe = {"A": probe_a, "C": probe_c, "D": probe_d, "E": probe_e}[args.kernel]
         probe(libs, use, args.proxies.split(","), dev)
     return 0
 

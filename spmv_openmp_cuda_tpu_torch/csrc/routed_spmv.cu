@@ -17,8 +17,8 @@
 //   routed_small_kernel            <- _routed_small_spmv (:1440): A, B, C
 //                                     and the output permutation of a small
 //                                     domain in one launch
-//   routed_row_sums_kernel         closes D and E: per heavy row, its
-//                                     partial sums added in a fixed order
+//   routed_row_sums_kernel         closes E: per heavy row, its slot sums
+//                                     added in a fixed order
 //
 // Layout: every slab is (rows, 128) f32, row-major; index arrays are (rows,
 // 128) int8 with values in [0, 128). A W stage permutes, for each lane, the
@@ -73,10 +73,26 @@
 //     What bounds it: the value reads, one 32-byte L2 sector per 4-byte
 //     slot, scattered by the routing (on an H100 ~12 us for caida_like's
 //     ~850,000).
-//   - D splits each heavy row over CTAs of 4096 columns: 16-byte loads of
-//     bf16 H, per-thread sums of 16 products, a shuffle tree per CTA, whose
-//     sum goes to a scratch slot of its own; routed_row_sums_kernel then
-//     adds a row's slots in CTA order into the row's (zeroed) sum.
+//   - D is one launch. A CTA takes one chunk of kHChunk columns of a group
+//     of heavy rows (up to kHRows, halved while the CTAs would be fewer than
+//     half the SMs: caida_like's 8 rows and 47 chunks run as 94 CTAs of 4
+//     rows): each thread reads x at its 16 columns once, into registers, for
+//     all of the group's rows, then issues every row's 16-byte loads of bf16
+//     H before the products. A (row, chunk) sum is the thread's 16 products
+//     fused into its sum from +0 (__fmaf_rn) in column order, then the
+//     warp's shuffle tree, then the tree of the 8 warp sums, into part[row *
+//     chunks + chunk]. Each CTA then takes a ticket (atomicAdd after
+//     __threadfence); the last one closes the product: warp w adds heavy row
+//     k's chunk sums, spread over its 32 lanes in turn from +0, by the
+//     shuffle tree into out[target[k]] (target and out loaded by every CTA
+//     at its start), and resets the ticket (zero between launches, so a CUDA
+//     graph replays). These are the adds, in their order, of the two
+//     launches (a CTA per row and chunk, then a close) that D was before, so
+//     y did not change (routed_cuda.py::hdense_in_order). Measured on an
+//     H100 (scripts/torch_routed_probe.py --kernel D, PERF.md): 4.5 us in a
+//     graph on caida_like against 5.0 before; all 8 rows per CTA 5.2, one
+//     row per CTA 6.5; the close ~0.9 us of it (its ticket, the sums' round
+//     trip).
 //   - E takes work items (pooled tile T, residue quarter q) in persistent
 //     CTAs of 128 threads, two per SM. An item's rows T*128 + 32q .. +31
 //     (residues a) of hvals, hpidx, hlo and hhi are contiguous, and the x
@@ -116,8 +132,9 @@
 //     loads of the slots' operands and of x (delaunay's ~0.6 MB stay in
 //     L2): four threads per row keep four times the loads in flight that
 //     one thread would.
-// Nothing closes with atomics: every sum is taken in an order fixed by the
-// layout, so a rerun is bitwise equal. x is read by global column behind a
+// No sum is taken with atomics (D finds its last CTA by an atomic ticket,
+// which then adds in a fixed order): every sum is taken in an order fixed
+// by the layout, so a rerun is bitwise equal. x is read by global column behind a
 // bounds test against n (no padded window stack is built). Products and
 // data movement are exact, so A and B equal their plain versions bit for
 // bit; C, D and E sum in another order than theirs.
@@ -138,6 +155,8 @@ constexpr int kThreads = 256;
 constexpr long long kWindowElems = 128LL * 128;
 constexpr int kGatherBands = 2;            // A: bands of a tile one CTA takes in turn
 constexpr int kHChunk = kThreads * 8 * 2;  // columns of H per CTA of D
+constexpr int kHRows = kThreads / 32;      // D: heavy rows per CTA at most (a warp closes each)
+constexpr int kCloseRows = 64 / kHRows;    // D: heavy rows a warp of the close takes (n_h <= 64)
 constexpr int kQuarters = 4;               // E: CTAs per pooled tile, one per residue quarter
 constexpr int kQuarter = kLane / kQuarters;  // E: residues per CTA
 constexpr int kHeavyThreads = kLane;       // E: a thread per slot (and per lane)
@@ -148,7 +167,7 @@ constexpr int kHeavyCtasPerSm = 2;  // E: persistent CTAs per SM (two stage buff
 constexpr int kSmallLanes = 4;             // threads per row of y of the small kernel
 constexpr int kSmallBatch = 4;             // list slots whose loads such a thread issues together
 constexpr int kSmallThreads = 64;          // threads per CTA of the small kernel
-constexpr int kRowWarps = 8;               // heavy rows per CTA of the row sums
+constexpr int kRowWarps = 8;               // heavy rows per CTA of E's row sums
 constexpr int kPermBatch = 4;              // B: elements whose loads a thread issues together
 constexpr int kReduceBatch = 16;           // C: slab rows whose loads a thread issues together
 constexpr int kChunkGroups = 128;          // C: at most this many groups per CTA (routed_cuda.py)
@@ -396,65 +415,124 @@ routed_perm_reduce_kernel(const float* __restrict__ src, const int32_t* __restri
   }
 }
 
-// D: part[k*gridDim.x + blockIdx.x] = sum over this CTA's columns c of
-// f32(H[k, c]) * x[c] (x is zero past n_x; n_pad is a multiple of 128).
-__global__ void __launch_bounds__(kThreads)
-routed_hdense_kernel(const __nv_bfloat16* __restrict__ H, long long n_pad,
-                     const float* __restrict__ x, long long n_x, float* __restrict__ part) {
-  const int k = blockIdx.y;
-  const __nv_bfloat16* h = H + (long long)k * n_pad;
-  float acc = 0.f;
-#pragma unroll
-  for (int it = 0; it < kHChunk / (kThreads * 8); ++it) {
-    const long long c = (long long)blockIdx.x * kHChunk + ((long long)it * kThreads + threadIdx.x) * 8;
-    if (c < n_pad) {
-      const uint4 hv = *reinterpret_cast<const uint4*>(h + c);
-      const __nv_bfloat16* hb = reinterpret_cast<const __nv_bfloat16*>(&hv);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float xv = c + u < n_x ? __ldg(x + c + u) : 0.f;
-        acc += __bfloat162float(hb[u]) * xv;
-      }
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-  __shared__ float warp_sums[kThreads / 32];
-  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = acc;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float v = threadIdx.x < kThreads / 32 ? warp_sums[threadIdx.x] : 0.f;
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (threadIdx.x == 0) part[(long long)k * gridDim.x + blockIdx.x] = v;
-  }
+// The shuffle tree of a warp: lane 0 gets ((v0 + v16) + (v8 + v24)) + ...
+__device__ __forceinline__ float warp_tree(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
 }
 
-// D's and E's close, one warp per heavy row k: out[dst[k]] += the sum of
-// the row's entries [b, e) (ptr[k], ptr[k + 1], or k*seg, (k+1)*seg without
-// ptr), entry i naming slot s = idx[i] where given (else i), lane by lane
-// and then by a fixed shuffle tree. A slot's value is part[s], or with
-// kQuads (E) its four residue quarters added in order, ((part[4s] +
+// D: out[target[k]] += sum over c of f32(H[k, c]) * x[c] (x zero past n_x;
+// n_pad a multiple of 128). CTA (chunk, g) takes the columns [chunk *
+// kHChunk, + kHChunk) of heavy rows g * rows .. + rows; its (row, chunk)
+// sums go to part[k * gridDim.x + chunk]; the last CTA to take a ticket
+// adds each row's sums into out and sets the ticket back to 0.
+__global__ void __launch_bounds__(kThreads)
+routed_hdense_kernel(const __nv_bfloat16* __restrict__ H, int n_h, long long n_pad, int rows,
+                     const float* __restrict__ x, long long n_x,
+                     const int32_t* __restrict__ target, float* __restrict__ out,
+                     float* __restrict__ part, unsigned* __restrict__ ticket) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = blockIdx.y * rows;
+  const int nr = min(rows, n_h - k0);
+  // what a close reads besides the sums, loaded by every CTA while its own
+  // loads fly (lane 0 of warp w: the rows w, w + 8, ... up to n_h <= 64);
+  // out holds the memset's zeros: no CTA writes it before the close
+  int tk[kCloseRows];
+  float ok[kCloseRows];
+#pragma unroll
+  for (int j = 0; j < kCloseRows; ++j) {
+    const int k = warp + j * (kThreads / 32);
+    tk[j] = lane == 0 && k < n_h ? __ldg(target + k) : 0;
+    ok[j] = lane == 0 && k < n_h ? out[tk[j]] : 0.f;
+  }
+  // x at this thread's columns c[it] .. + 7, read once for the group's rows
+  const bool vec_x = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  long long c[2];
+  float xv[2][8];
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    c[it] = (long long)blockIdx.x * kHChunk + ((long long)it * kThreads + threadIdx.x) * 8;
+    if (vec_x && c[it] + 8 <= n_x) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(x + c[it]));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(x + c[it] + 4));
+      xv[it][0] = a.x, xv[it][1] = a.y, xv[it][2] = a.z, xv[it][3] = a.w;
+      xv[it][4] = b.x, xv[it][5] = b.y, xv[it][6] = b.z, xv[it][7] = b.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) xv[it][u] = c[it] + u < n_x ? __ldg(x + c[it] + u) : 0.f;
+    }
+  }
+  // every row's 16-byte loads of H before the first product
+  uint4 hv[kHRows][2];
+#pragma unroll
+  for (int r = 0; r < kHRows; ++r)
+#pragma unroll
+    for (int it = 0; it < 2; ++it)
+      if (r < nr && c[it] < n_pad)
+        hv[r][it] = __ldg(reinterpret_cast<const uint4*>(H + (long long)(k0 + r) * n_pad + c[it]));
+  __shared__ float warp_sums[kHRows][kThreads / 32];
+#pragma unroll
+  for (int r = 0; r < kHRows; ++r) {
+    if (r >= nr) break;
+    float acc = 0.f;
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      if (c[it] < n_pad) {
+        const __nv_bfloat16* hb = reinterpret_cast<const __nv_bfloat16*>(&hv[r][it]);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc = __fmaf_rn(__bfloat162float(hb[u]), xv[it][u], acc);
+      }
+    }
+    acc = warp_tree(acc);
+    if (lane == 0) warp_sums[r][warp] = acc;
+  }
+  __syncthreads();
+  if (warp < nr) {
+    const float v = warp_tree(lane < kThreads / 32 ? warp_sums[warp][lane] : 0.f);
+    if (lane == 0) part[(long long)(k0 + warp) * gridDim.x + blockIdx.x] = v;
+  }
+  // the CTA that takes the last ticket has every other CTA's sums (the
+  // fence after the barrier makes the CTA's sums visible before its ticket)
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int n_cta = gridDim.x;
+#pragma unroll
+  for (int j = 0; j < kCloseRows; ++j) {
+    const int k = warp + j * (kThreads / 32);
+    if (k >= n_h) break;
+    float acc = 0.f;
+    for (int i = lane; i < n_cta; i += 32) acc += __ldcg(part + (long long)k * n_cta + i);
+    acc = warp_tree(acc);
+    if (lane == 0) out[tk[j]] = ok[j] + acc;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// E's close, one warp per heavy row k: out[dst[k]] += the sum of the slots
+// idx[ptr[k] .. ptr[k + 1]), lane by lane and then by the shuffle tree; a
+// slot's value is its four residue quarters added in order, ((part[4s] +
 // part[4s+1]) + part[4s+2]) + part[4s+3] (part 16-byte aligned).
-template <bool kQuads>
 __global__ void __launch_bounds__(kRowWarps * 32)
 routed_row_sums_kernel(const float* __restrict__ part, const int32_t* __restrict__ ptr,
-                       const int32_t* __restrict__ idx, int seg,
-                       const int32_t* __restrict__ dst, int n_rows, float* __restrict__ out) {
+                       const int32_t* __restrict__ idx, const int32_t* __restrict__ dst,
+                       int n_rows, float* __restrict__ out) {
   const int k = blockIdx.x * kRowWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (k >= n_rows) return;  // a whole warp
-  const long long b = ptr != nullptr ? ptr[k] : (long long)k * seg;
-  const long long e = ptr != nullptr ? ptr[k + 1] : (long long)(k + 1) * seg;
+  const long long b = ptr[k], e = ptr[k + 1];
   float acc = 0.f;
   for (long long i = b + lane; i < e; i += 32) {
-    const long long s = idx != nullptr ? idx[i] : i;
-    if (kQuads) {
-      const float4 r = reinterpret_cast<const float4*>(part)[s];
-      acc += __fadd_rn(__fadd_rn(__fadd_rn(r.x, r.y), r.z), r.w);
-    } else {
-      acc += part[s];
-    }
+    const float4 r = reinterpret_cast<const float4*>(part)[idx[i]];
+    acc += __fadd_rn(__fadd_rn(__fadd_rn(r.x, r.y), r.z), r.w);
   }
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  acc = warp_tree(acc);
   if (lane == 0) out[dst[k]] += acc;
 }
 
@@ -793,23 +871,25 @@ int perm_reduce_launch(const float* src, const int32_t* off, const float* mask,
   return (int)cudaGetLastError();
 }
 
-template <bool kQuads>
-int row_sums_launch(const float* part, const int32_t* ptr, const int32_t* idx, int seg,
-                    const int32_t* dst, int n_rows, float* out, cudaStream_t st) {
-  routed_row_sums_kernel<kQuads><<<(unsigned)((n_rows + kRowWarps - 1) / kRowWarps),
-                                   kRowWarps * 32, 0, st>>>(part, ptr, idx, seg, dst, n_rows, out);
-  return (int)cudaGetLastError();
-}
-
-// part: n_h * ceil(n_pad / kHChunk) f32 of scratch
+// part: n_h * ceil(n_pad / kHChunk) f32 of scratch; ticket: zero, and left
+// zero
 int hdense_launch(const void* H, int n_h, long long n_pad, const float* x, long long n_x,
-                  const int32_t* target, float* out, float* part, cudaStream_t st) {
+                  const int32_t* target, float* out, float* part, unsigned* ticket,
+                  cudaStream_t st) {
+  if (n_h < 1 || n_h > kHRows * kCloseRows) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
   const int n_cta = (int)((n_pad + kHChunk - 1) / kHChunk);
-  routed_hdense_kernel<<<dim3((unsigned)n_cta, (unsigned)n_h), kThreads, 0, st>>>(
-      (const __nv_bfloat16*)H, n_pad, x, n_x, part);
-  const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  return row_sums_launch<false>(part, nullptr, nullptr, n_cta, target, n_h, out, st);
+  // rows per CTA: all (up to kHRows), halved while the CTAs would be
+  // fewer than half the SMs (x is read once per row group)
+  int rows = min(n_h, kHRows);
+  while (rows > 1 && 2LL * n_cta * ((n_h + rows - 1) / rows) < sms) rows = (rows + 1) / 2;
+  const dim3 grid((unsigned)n_cta, (unsigned)((n_h + rows - 1) / rows));
+  routed_hdense_kernel<<<grid, kThreads, 0, st>>>((const __nv_bfloat16*)H, n_h, n_pad, rows, x,
+                                                  n_x, target, out, part, ticket);
+  return (int)cudaGetLastError();
 }
 
 // part: n_tiles * 128 * kQuarters f32 of scratch, 16-byte aligned
@@ -842,7 +922,9 @@ int heavy_launch(int vals_bf16, const void* hvals, const int8_t* hpidx, const in
   if (e != cudaSuccess) return (int)e;
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  return row_sums_launch<true>(part, slot_ptr, slot_idx, 0, rows, n_h, out, st);
+  routed_row_sums_kernel<<<(unsigned)((n_h + kRowWarps - 1) / kRowWarps), kRowWarps * 32, 0,
+                           st>>>(part, slot_ptr, slot_idx, rows, n_h, out);
+  return (int)cudaGetLastError();
 }
 
 int small_launch(int vals_bf16, const SmallArgs& a, const float* x, long long n_x,
@@ -879,7 +961,7 @@ enum Op {
   kOpGather = 1, kOpPermute = 2, kOpReduce = 3, kOpHDense = 4, kOpZero = 5, kOpHeavy = 6,
   kOpSmall = 7
 };
-constexpr int kOpWords[] = {0, 9, 5, 8, 7, 3, 14, 9};  // by op: the op and its operands
+constexpr int kOpWords[] = {0, 9, 5, 8, 8, 3, 14, 9};  // by op: the op and its operands
 
 }  // namespace
 
@@ -889,7 +971,7 @@ extern "C" {
 // routed_cuda.py::_op) on the stream: A (gather), B (permute), C (perm
 // reduce), D (dense heavy rows), E (pooled heavy tiles), the small kernel
 // and memsets. counts[0..5] (host memory) gains one for each op of A, B, C,
-// D, E and the small kernel that was enqueued without error (D and E: the
+// D, E and the small kernel that was enqueued without error (E: the
 // kernel and its row sums). Returns the first error, or 0; nothing after it
 // is enqueued.
 int routed_chain_launch(const long long* prog, int len, const float* x, long long n_x,
@@ -920,9 +1002,10 @@ int routed_chain_launch(const long long* prog, int len, const float* x, long lon
                                 (const int32_t*)P(i + 5), (int)prog[i + 6], (float*)P(i + 7), st);
         kernel = 2;
         break;
-      case kOpHDense:  // H n_h n_pad target out part
+      case kOpHDense:  // H n_h n_pad target out part ticket
         rc = hdense_launch(P(i + 1), (int)prog[i + 2], prog[i + 3], x, n_x,
-                           (const int32_t*)P(i + 4), (float*)P(i + 5), (float*)P(i + 6), st);
+                           (const int32_t*)P(i + 4), (float*)P(i + 5), (float*)P(i + 6),
+                           (unsigned*)P(i + 7), st);
         kernel = 3;
         break;
       case kOpZero:  // ptr bytes

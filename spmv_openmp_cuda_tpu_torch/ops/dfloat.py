@@ -108,6 +108,22 @@ def halve_pairs(parts: Sequence, add: Callable) -> object:
     return parts[0]
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to f32, as a CUDA FMA (__fmaf_rn) rounds it,
+    for f32 (or bf16) a and b and f32 c. The product is exact in f64 (at
+    most 48 significant bits); the sum is rounded to odd in f64 (the f64
+    sum, moved one step toward the exact sum where it is inexact and its
+    last bit even, TwoSum giving the error), which then rounds to f32 as
+    the exact sum would."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s, e = two_sum(p, c)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.full_like(s, float("inf")), torch.full_like(s, float("-inf")))
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def df_tree_sum(h: torch.Tensor, lo: torch.Tensor, dim: int) -> Pair:
     """halve_pairs over the slices of (h, lo) along dim, all slices of one
     round at once: the compensated sum of the dim axis (which is removed)."""

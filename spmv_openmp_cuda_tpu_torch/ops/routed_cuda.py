@@ -74,7 +74,8 @@ _I32 = (torch.int32,)
 MODE_DIRECT, MODE_W3, MODE_T1 = 0, 1, 2
 
 #: heavy blocks above these sizes take a dense f32 matmul, as the JAX
-#: package leaves them to an XLA dot (formats/routed.py:1027)
+#: package leaves them to an XLA dot (formats/routed.py:1027); kernel D's
+#: close takes at most 64 rows (csrc/routed_spmv.cu kCloseRows)
 _HDENSE_KERNEL_MAX_ROWS = 64
 _HDENSE_KERNEL_MAX_BYTES = 6 * 2**20
 
@@ -293,6 +294,50 @@ def hdense_reference(hdense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (hdense.to(torch.float32) * xb).sum(1)
 
 
+def _warp_tree(v: torch.Tensor) -> torch.Tensor:
+    """The shuffle tree of a warp over the last axis (32 lanes): lane 0's
+    ((v0 + v16) + (v8 + v24)) + ..., rounded at each add. Drops the axis."""
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    return v[..., 0]
+
+
+def hdense_in_order(hdense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """hdense_reference's function with every operation of kernel D in its
+    order (f32, rounded at each step): per heavy row and chunk of _HCHUNK
+    columns, thread t's products at columns chunk * _HCHUNK + (it * 256 + t)
+    * 8 + u (it = 0, 1; u = 0..7; a group of 8 at or past n_pad skipped)
+    fused into its sum from +0 (one FMA each, dfloat.fma_f32); the 32 sums
+    of each warp by the shuffle tree, the 8 warp sums by the same tree (24
+    lanes of +0); then a row's chunk sums dealt to 32 lanes in turn, each
+    lane's sum from +0, and the shuffle tree. The kernel equals it bit for
+    bit. Returns (n_heavy,) f32."""
+    n_h, n_pad = hdense.shape
+    n_cta = -(-n_pad // _HCHUNK)
+    cols = n_cta * _HCHUNK
+    dev = x.device
+    h = torch.zeros(n_h, cols, dtype=torch.float32, device=dev)
+    h[:, :n_pad] = hdense.to(torch.float32)
+    xb = torch.zeros(cols, dtype=torch.float32, device=dev)
+    n = min(x.shape[0], n_pad)
+    xb[:n] = x[:n].to(torch.float32)
+    h = h.reshape(n_h, n_cta, 2, 256, 8)
+    xb = xb.reshape(n_cta, 2, 256, 8)
+    inside = (torch.arange(cols, device=dev) < n_pad).reshape(n_cta, 2, 256, 8)
+    acc = torch.zeros(n_h, n_cta, 256, dtype=torch.float32, device=dev)
+    for it in range(2):
+        for u in range(8):
+            acc = torch.where(inside[:, it, :, u], dfloat.fma_f32(h[:, :, it, :, u],
+                                                                   xb[:, it, :, u], acc), acc)
+    warps = _warp_tree(acc.reshape(n_h, n_cta, 8, 32))
+    part = _warp_tree(torch.cat([warps, torch.zeros(n_h, n_cta, 24, device=dev)], dim=-1))
+    lanes = torch.zeros(n_h, 32, dtype=torch.float32, device=dev)
+    for j in range(-(-n_cta // 32)):
+        i = j * 32 + torch.arange(32, device=dev)
+        lanes = torch.where(i < n_cta, lanes + part[:, i.clamp(max=n_cta - 1)], lanes)
+    return _warp_tree(lanes).contiguous()
+
+
 def heavy_sums_reference(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx,
                          x: torch.Tensor) -> torch.Tensor:
     """Plain kernel E, the JAX package's _heavy_sums formula in f32: per
@@ -369,10 +414,7 @@ def heavy_sums_in_order(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx,
     lane_sums = torch.zeros(n_h, 32, dtype=torch.float32, device=x.device)
     for i in range(vals.shape[1]):
         lane_sums = lane_sums + vals[:, i]
-    for off in (16, 8, 4, 2, 1):
-        lane_sums = torch.cat([lane_sums[:, :off] + lane_sums[:, off:2 * off],
-                               lane_sums[:, off:]], dim=1)
-    return lane_sums[:, 0].contiguous()
+    return _warp_tree(lane_sums).contiguous()
 
 
 def small_reference(vals, pidx, widx, row_ptr, row_slots, x: torch.Tensor) -> torch.Tensor:
@@ -474,12 +516,20 @@ def _reduce_op(src, imap: IndexMap, mask, groups, chunks, out) -> List[int]:
 
 
 def _hdense_op(hdense, target, out, part) -> List[int]:
+    # part: D's scratch (a tensor or a Buf), its ticket first, then the sums
+    if isinstance(part, Buf):
+        sums, ticket = part.at(1), part
+    else:
+        sums, ticket = (None, None) if part is None else (part[1:], part)
     return _op(_OP_HDENSE, _aligned(hdense, 16), hdense.shape[0], hdense.shape[1], target, out,
-               part)
+               sums, ticket)
 
 
 def _hdense_part_elems(hdense) -> int:
-    return hdense.shape[0] * -(-hdense.shape[1] // _HCHUNK)
+    """f32 elements of kernel D's scratch: its ticket (element 0, zero
+    between launches: the kernel's last CTA sets it back to 0), then each
+    heavy row's sums per chunk of _HCHUNK columns."""
+    return 1 + hdense.shape[0] * -(-hdense.shape[1] // _HCHUNK)
 
 
 def _heavy_op(hvals, hpidx, hwidx, hlo, hhi, slot_ptr, slot_idx, rows, part, out) -> List[int]:
@@ -581,13 +631,14 @@ routed_perm_reduce_cuda.launches = 0
 
 
 def routed_hdense_cuda(hdense, x, target, out, part=None) -> torch.Tensor:
-    """Kernel D: out.view(-1)[target[k]] += H[k] . x (each row's CTA sums
-    added once, in a fixed order; part is their f32 scratch, allocated when
-    not given)."""
+    """Kernel D, one launch: out.view(-1)[target[k]] += H[k] . x (each row's
+    chunk sums added once, in a fixed order, by the CTA that finishes last;
+    part is the f32 scratch of _hdense_part_elems, its ticket zero; zeroed
+    when allocated here)."""
     dev = _on_cuda(x, hdense, target, out, part)
     _check_hdense(hdense, x, target, out)
     if part is None:
-        part = torch.empty(_hdense_part_elems(hdense), dtype=torch.float32, device=dev)
+        part = torch.zeros(_hdense_part_elems(hdense), dtype=torch.float32, device=dev)
     _check_out(part, "part", _hdense_part_elems(hdense), dev)
     _run_op(_hdense_op(hdense, target, out, part), x, dev)
     return out
@@ -707,6 +758,8 @@ def _check_hdense(hdense, x, target, out):
     n_h, n_pad = hdense.shape
     if n_pad % LANE or n_pad < x.shape[0] or n_h < 1:
         raise ValueError(f"heavy block {tuple(hdense.shape)} does not cover x of {x.shape[0]}")
+    if n_h > _HDENSE_KERNEL_MAX_ROWS:
+        raise ValueError(f"kernel D takes at most {_HDENSE_KERNEL_MAX_ROWS} heavy rows, not {n_h}")
     _require(hdense, "hdense", (torch.bfloat16,), (n_h, n_pad), dev)
     _require(target, "target", (torch.int32,), (n_h,), dev)
     _check_out(out, "out", -(-n_h // LANE) * LANE, dev)
@@ -1153,10 +1206,17 @@ def _domain_stages(mat: RoutedCSR, y: Buf, alloc, fuse_small: bool = True) -> Li
         stages.append(_reduce_stage(prev, plan_map(perm, src_rows=prev_rows), mask, runs,
                                     dom.at(int(offs[k + 1]) * LANE), dev))
     tail = int(offs[-1])
-    stages.append(ZeroStage(dom.at(tail * LANE), (po.h - tail) * LANE))
+    n_zero = (po.h - tail) * LANE
+    part = None
+    if mat.hdense is not None and _hdense_in_kernel(mat.hdense):
+        # D's scratch follows the assembly domain: the memset of its tail
+        # zeroes D's ticket too
+        part = alloc(-(-_hdense_part_elems(mat.hdense) // LANE))
+        assert part.off == dom.off + po.h * LANE
+        n_zero += 1
+    stages.append(ZeroStage(dom.at(tail * LANE), n_zero))
     if mat.hdense is not None:
         target = torch.from_numpy(_heavy_targets(mat)).to(dev)
-        part = alloc(-(-_hdense_part_elems(mat.hdense) // LANE))
         stages.append(HDenseStage(mat.hdense, target, dom.at(tail * LANE), part))
     # output permutation; the JAX package applies its W1 to the leading
     # full tiles inside _w3_r3_reduce and to the tail on its own: applying

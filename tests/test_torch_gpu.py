@@ -838,6 +838,8 @@ def test_routed_df_reduce_kernel_matches_plain(cuda, width):
 ELL_T_CASES = {
     "sg_like_rows": lambda: synth.fem_like(m=20000, n=20000, nnz=300000, spread=2048, lo=6, hi=26, seed=2),
     "power_law": lambda: synth.power_law(5000, 7000, 6.0, seed=4),
+    # every row but the band's edges 17 wide: each warp walks the full width
+    "uniform": lambda: synth.banded(20000, 20000, 8, fill=1.0, seed=3),
 }
 LANES_CASES = {
     "delaunay_n12_like": lambda: synth.preset("delaunay_n12_like"),
@@ -889,7 +891,14 @@ def test_ell_t_kernel_matches_plain(cuda, case):
     assert yk.shape == (csr.shape[0],) and yk.dtype == torch.float32
     _within(yk, tec.ell_t_reference(mat, x))
     _oracle_within(yk, csr, x)
+    # each thread stops at its rows' longest: the full-width walk's y (its
+    # extra terms are +0 * x[0]), and the kernel's order bit for bit
+    plan = mat.__dict__["_cuda_plan"]
+    assert torch.equal(yk, tec.ell_t_in_order(mat, x))
+    assert torch.equal(yk, tec.ell_t_in_order(mat, x, plan[2]))
+    # the layout is checked once: a second call makes no plan
     assert torch.equal(yk, tec.ell_t_cuda(mat, x))
+    assert mat.__dict__["_cuda_plan"] is plan
 
 
 @pytest.mark.parametrize("case", list(LANES_CASES))
@@ -914,6 +923,83 @@ def test_lanes_kernel_matches_plain(cuda, case):
     _within(yk, tlc.lanes_reference(mat, x))
     _oracle_within(yk, csr, x)
     assert torch.equal(yk, tlc.lanes_cuda(mat, x))
+
+
+def test_ell_t_refuses_a_value_past_its_row_on_the_card(cuda):
+    from spmv_openmp_cuda_tpu_torch.formats.matrix import device_ell
+    from spmv_openmp_cuda_tpu_torch.ops import ell_cuda as tec
+
+    coo = synth.power_law(5000, 7000, 6.0, seed=4)
+    ell = T.coo_to_ell(coo)
+    mat = device_ell(ell, transposed=True, device=cuda)
+    r = int(np.argmin(ell.row_lens))
+    mat.data[int(ell.row_lens[r]), r] = 1.0
+    before = tec.ell_t_cuda.launches
+    with pytest.raises(ValueError, match="past its row's length"):
+        tec.ell_t_cuda(mat, _x(7000, cuda))
+    assert tec.ell_t_cuda.launches == before and "_cuda_plan" not in mat.__dict__
+
+
+def _device_kernels(fn):
+    """Names of the kernels one call of fn launches, from a torch.profiler
+    trace (three tries: a trace can come back without device events)."""
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    pytest.fail("no device events in three torch.profiler traces")
+
+
+@pytest.mark.parametrize("case", ["caida_like", "spiked"])
+def test_hdense_kernel_is_one_launch_in_order(cuda, case):
+    # kernel D: one launch per product, its last CTA closing it; y bit for
+    # bit hdense_in_order (the adds of the two launches it was before), and
+    # its ticket back at zero after every launch, so reruns and a CUDA
+    # graph's replays give the same bits
+    from spmv_openmp_cuda_tpu_torch.formats import routed as trt
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    coo = synth.preset("caida_like") if case == "caida_like" else _routed_spiked()[0]
+    csr = T.coo_to_csr(coo)
+    chain = trc.build_chain(trt.prepare_routed(csr, device=cuda))
+    assert chain.counts["hdense"] == 1
+    x = _x(csr.shape[1], cuda)
+    bufs = trc._buffers(chain, x)
+    bufs["s"].fill_(float("nan"))
+    for stage in chain.stages:
+        if isinstance(stage, trc.HDenseStage):
+            out = trc._view(bufs, stage.out, stage.out_elems())
+            part = trc._view(bufs, stage.part, trc._hdense_part_elems(stage.hdense))
+            assert int(part[:1].view(torch.int32)) == 0  # the memset zeroed the ticket
+            want = out.clone()
+            want[stage.target.long()] += trc.hdense_in_order(stage.hdense, x)
+            y0 = out.clone()
+            trc.run_stage(stage, bufs, plain=False)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+            assert int(part[:1].view(torch.int32)) == 0
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                out.copy_(y0)
+                trc.run_stage(stage, bufs, plain=False)
+            for _ in range(3):
+                g.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(out, want)
+            names = _device_kernels(lambda s=stage: trc.run_stage(s, bufs, plain=False))
+            routed = [n for n in names if "routed_" in n]
+            assert len(routed) == 1 and "routed_hdense_kernel" in routed[0], names
+        trc.run_stage(stage, bufs, plain=True)
+    kernels = [n for n in _device_kernels(lambda: trc.routed_chain_spmv(chain, x)) if "routed_" in n]
+    assert sum("routed_hdense_kernel" in n for n in kernels) == 1
+    assert not any("routed_row_sums_kernel" in n for n in kernels)
+    assert len(kernels) == sum(chain.counts.values()), kernels
 
 
 def test_ell_t_and_lanes_wrappers_raise_on_the_card(cuda):

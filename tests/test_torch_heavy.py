@@ -210,6 +210,9 @@ def test_pooled_routed_spmv_matches_jax_and_oracle(case, bf16):
     # the program parses with the interpreter's table, E's op last
     src = open(os.path.join(os.path.dirname(trc.__file__), "..", "csrc", "routed_spmv.cu")).read()
     words = [int(v) for v in re.search(r"kOpWords\[\] = \{([^}]*)\}", src).group(1).split(",")]
+    # D's op as the encoder writes it: H n_h n_pad target out, its sums and ticket
+    d_op = trc._hdense_op(torch.zeros(1, 128, dtype=torch.bfloat16), None, None, trc.Buf("s"))
+    assert words[trc._OP_HDENSE] == len(d_op) == 8 and d_op[-2] == d_op[-1] + 4
     (prog,) = trc._encode(chain.stages)
     ops, i = [], 0
     while i < len(prog):
@@ -437,6 +440,9 @@ def test_small_program_parses():
     assert tm.out_t == 2  # the three-stage output permutation
     src = open(os.path.join(os.path.dirname(trc.__file__), "..", "csrc", "routed_spmv.cu")).read()
     words = [int(v) for v in re.search(r"kOpWords\[\] = \{([^}]*)\}", src).group(1).split(",")]
+    # D's op as the encoder writes it: H n_h n_pad target out, its sums and ticket
+    d_op = trc._hdense_op(torch.zeros(1, 128, dtype=torch.bfloat16), None, None, trc.Buf("s"))
+    assert words[trc._OP_HDENSE] == len(d_op) == 8 and d_op[-2] == d_op[-1] + 4
     (prog,) = trc._encode(chain.stages)
     assert int(prog[0]) == 7 and words[7] == len(prog) == 9
     st = chain.stages[0]

@@ -418,6 +418,87 @@ def test_kernel_wrappers_check_on_the_cpu():
     assert tec.ell_t_cuda.launches == tlc.lanes_cuda.launches == 0  # CPU: no launch
 
 
+def _np_walk(ell, m, group):
+    """The walk table recomputed: the longest row of each `group` rows below
+    m."""
+    rl = np.full(m, ell.max_row_nz) if ell.row_lens is None else np.asarray(ell.row_lens)
+    return [int(rl[g * group:(g + 1) * group].max()) for g in range(-(-m // group))]
+
+
+@pytest.mark.parametrize("name", list(MATRICES))
+@pytest.mark.parametrize("lens", ["row_lens", "none"])
+def test_ell_t_walk_table(name, lens):
+    # skewed (ragged: power-law rows), near-uniform (banded) and wide
+    # matrices; a host ELL without row_lens walks its full width
+    (_, _, tell), _ = _both(name)
+    if lens == "none":
+        tell = dataclasses.replace(tell, row_lens=None)
+    mat = tmatrix.device_ell(tell, transposed=True)
+    walk = tec._plan(mat, torch.device("cpu"))
+    m = mat.shape[0]
+    assert walk.dtype == torch.int32 and walk.tolist() == _np_walk(tell, m, tec.GROUP_ROWS)
+    assert int(walk.max()) <= mat.data.shape[0]
+    for group in (1, 4, 32):
+        assert tec.walk_table(mat.row_lens, m, group).tolist() == _np_walk(tell, m, group)
+    if lens == "none":
+        assert set(walk.tolist()) == {tell.max_row_nz}
+    elif name == "ragged":  # rows of 4 stop early
+        assert min(tec.walk_table(mat.row_lens, m, 4).tolist()) < tell.max_row_nz
+
+
+def test_ell_t_layout_is_checked_once(monkeypatch):
+    (_, _, tell), _ = _both("ragged")
+    mat = tmatrix.device_ell(tell, transposed=True)
+    x = torch.as_tensor(_x(700), dtype=torch.float32)
+    checks = []
+    real = tec._check_layout
+    monkeypatch.setattr(tec, "_check_layout", lambda *a: (checks.append(a), real(*a)))
+    y1 = tec.ell_t_cuda(mat, x)
+    plan = mat.__dict__["_cuda_plan"]
+    y2 = tec.ell_t_cuda(mat, x)
+    assert len(checks) == 1 and mat.__dict__["_cuda_plan"] is plan and torch.equal(y1, y2)
+    # new field objects: checked again
+    tec.ell_t_cuda(dataclasses.replace(mat, data=mat.data.clone()), x)
+    assert len(checks) == 2
+    # a nonzero value at or past a row's length is refused at its first
+    # launch (the kernel skips such slots), and no plan is kept
+    rl = tell.row_lens
+    r = int(np.argmin(rl))
+    bad = dataclasses.replace(mat, data=mat.data.clone())
+    bad.data[int(rl[r]), r] = 1.0
+    with pytest.raises(ValueError, match="past its row's length"):
+        tec.ell_t_cuda(bad, x)
+    assert "_cuda_plan" not in bad.__dict__
+    long_ = dataclasses.replace(mat, row_lens=mat.row_lens.clone())
+    long_.row_lens[0] = mat.data.shape[0] + 1
+    with pytest.raises(ValueError, match="row_lens outside"):
+        tec.ell_t_cuda(long_, x)
+    with pytest.raises(TypeError):
+        tec.ell_t_cuda(dataclasses.replace(mat, row_lens=mat.row_lens.long()), x)
+
+
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_ell_t_walk_bounded_sum(name):
+    # the kernel's adds in its order (an FMA each, w ascending from +0),
+    # each thread stopping at its rows' longest: torch.equal to the full-width
+    # walk (the skipped slots add +0 * x[0]); within the f32 bound of the
+    # plain version (unfused products, torch's order of sums) and of the JAX
+    # package's Pallas kernel (interpret mode)
+    from spmv_openmp_cuda_tpu.ops.spmv_pallas import ell_t_slab_pallas
+
+    (_, tcsr, tell), (_, _, jell) = _both(name)
+    mat = tmatrix.device_ell(tell, transposed=True)
+    x = _x(tcsr.shape[1], seed=3)
+    xt = torch.as_tensor(x, dtype=torch.float32)
+    walk = tec._plan(mat, torch.device("cpu"))
+    y = tec.ell_t_in_order(mat, xt, walk)
+    assert torch.equal(y, tec.ell_t_in_order(mat, xt))
+    _close(y, tec.ell_t_reference(mat, xt).numpy())
+    _close(y, ell_t_slab_pallas(jmatrix.device_ell(jell, transposed=True), jnp.asarray(x, jnp.float32)))
+    o = serial_csr_spmv(tcsr, x)
+    assert np.abs(y.double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
+
+
 # ---------------------------------------------------------------------------
 # AutoSpMV's explicit formats
 # ---------------------------------------------------------------------------

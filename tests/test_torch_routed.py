@@ -13,6 +13,7 @@ with bf16 gather values every value, rounded to bf16):
 import dataclasses
 import os
 import re
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -423,6 +424,123 @@ def test_hdense_mv_matches_jax(name):
         _close(trc.hdense_mv(tm, xt, placed=placed), jr._hdense_mv(jm, xj, placed=placed))
 
 
+def _round_f32(v: Fraction) -> np.float32:
+    """The f32 nearest the exact v, ties to even (an exact oracle)."""
+    f = np.float32(float(v))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+    best = min(abs(Fraction(float(c)) - v) for c in cands)
+    near = [c for c in cands if abs(Fraction(float(c)) - v) == best]
+    return min(near, key=lambda c: int(np.asarray(c).view(np.uint32)) & 1)
+
+
+def test_fma_f32_rounds_once():
+    # a * b + c rounded once, as a CUDA FMA: (2^30 + 1) * 2^-54 + 1 lies just
+    # above the f32 midpoint 1 + 2^-24; rounding it to f64 first would land
+    # on the midpoint and round to even (1.0)
+    from spmv_openmp_cuda_tpu_torch.ops.dfloat import fma_f32
+
+    a = torch.tensor([1047553 * 2.0 ** -30, 205.0])
+    b = torch.tensor([1025 * 2.0 ** -24, 5237765 * 2.0 ** -54])
+    one = torch.ones(2)
+    assert fma_f32(a, b, one).tolist() == [1 + 2.0 ** -23] * 2
+    assert (a.double() * b.double() + 1).float().tolist() == [1.0, 1.0]
+    rng = np.random.default_rng(9)
+    a = (rng.standard_normal(2000) * 2.0 ** rng.integers(-30, 30, 2000)).astype(np.float32)
+    b = rng.standard_normal(2000).astype(np.float32)
+    c = (rng.standard_normal(2000) * 2.0 ** rng.integers(-40, 10, 2000)).astype(np.float32)
+    a.view(np.uint32)[:500] &= 0xFFFF0000  # bf16 values, as kernel D's H
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    want = [_round_f32(Fraction(float(p)) * Fraction(float(q)) + Fraction(float(r)))
+            for p, q, r in zip(a, b, c)]
+    assert np.array_equal(got.view(np.uint32), np.asarray(want, np.float32).view(np.uint32))
+
+
+def _np_fma(a, b, c):
+    """f32 a * b + c rounded once: the f64 sum rounded to odd, then to f32."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(np.int64) & 1) == 0
+    return np.where((e != 0) & even, np.nextafter(s, np.where(e > 0, np.inf, -np.inf)),
+                    s).astype(np.float32)
+
+
+def _np_tree(v):
+    """A warp's shuffle tree over the last axis of 32 lanes (lane 0's sum)."""
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    return v[..., 0]
+
+
+def _np_hdense(h: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Kernel D on numpy float32, one CTA of 256 threads per (heavy row,
+    chunk of 4096 columns) and then the close: thread t's products at
+    columns chunk*4096 + (it*256 + t)*8 + u fused into its sum from +0 (a
+    group of 8 at or past n_pad skipped, x zero past n), the warp trees,
+    the tree of the 8 warp sums; per row, the chunk sums dealt to 32 lanes
+    in turn from +0, then the tree."""
+    n_h, n_pad = h.shape
+    n = x.shape[0]
+    n_cta = -(-n_pad // 4096)
+    part = np.zeros((n_h, n_cta), np.float32)
+    t = np.arange(256)
+    for k in range(n_h):
+        for b in range(n_cta):
+            acc = np.zeros(256, np.float32)
+            for it in range(2):
+                c0 = b * 4096 + (it * 256 + t) * 8
+                inside = c0 < n_pad
+                for u in range(8):
+                    c = c0 + u
+                    hv = np.where(inside, h[k, np.minimum(c, n_pad - 1)], np.float32(0))
+                    xv = np.where(c < n, x[np.minimum(c, n - 1)], np.float32(0))
+                    acc = np.where(inside, _np_fma(hv, xv, acc), acc)
+            warps = _np_tree(acc.reshape(8, 32))
+            part[k, b] = _np_tree(np.concatenate([warps, np.zeros(24, np.float32)]))
+    y = np.zeros(n_h, np.float32)
+    for k in range(n_h):
+        lanes = np.zeros(32, np.float32)
+        for i in range(n_cta):
+            lanes[i % 32] += part[k, i]
+        y[k] = _np_tree(lanes)
+    return y
+
+
+def _bf16_block(n_h, n, seed):
+    n_pad = -(-n // LANE) * LANE
+    rng = np.random.default_rng(seed)
+    h = torch.as_tensor(rng.standard_normal((n_h, n_pad)), dtype=torch.float32)
+    h[:, n:] = 0
+    h[:, rng.random(n_pad) < 0.5] = 0  # sparse columns, as a heavy row's
+    return h.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_h, n", [(1, 30000), (8, 9000), (3, 150000)])
+def test_hdense_in_order_matches_a_cta_emulation(n_h, n):
+    # one chunk short of n_pad, a few, and more chunks than lanes (37)
+    hd = _bf16_block(n_h, n, seed=n_h)
+    x = _x(n, seed=2).astype(np.float32)
+    y = trc.hdense_in_order(hd, torch.from_numpy(x))
+    want = _np_hdense(hd.float().numpy(), x)
+    assert y.dtype == torch.float32 and y.shape == (n_h,)
+    assert np.array_equal(y.numpy().view(np.uint32), want.view(np.uint32))
+    yr = trc.hdense_reference(hd, torch.from_numpy(x)).numpy()
+    assert np.abs(y.numpy() - yr).max() <= 1e-5 * np.abs(yr).max() + 1e-6
+
+
+def test_hdense_in_order_matches_jax():
+    _, jm = _prepared("spiked_dense")
+    tm = _from_jax(jm)
+    x = _x(tm.shape[1], seed=3)
+    y = trc.hdense_in_order(tm.hdense, torch.as_tensor(x, dtype=torch.float32)).double().numpy()
+    y_j = np.asarray(jr._hdense_mv(jm, jnp.asarray(x, jnp.float32)), np.float64)
+    y_r = trc.hdense_reference(tm.hdense, torch.as_tensor(x, dtype=torch.float32)).double().numpy()
+    for ref in (y_j, y_r):
+        assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max() + 1e-6
+
+
 def _stored_oracle(tcsr, chain, x):
     return serial_csr_spmv(trc.stored_csr(tcsr, chain), x)
 
@@ -518,6 +636,18 @@ def test_program_encoding_matches_the_interpreter():
     # the output permutation into y: src, map, n = m, out (tag 2)
     assert last.out.kind == "y" and int(prog[-1]) >> 56 == 2 and int(prog[-2]) == tm.shape[0]
     assert int(prog[-3]) == last.imap.idx.data_ptr() and last.imap.idx.dtype == torch.int32
+    # D's op: H, n_h, n_pad, target, out, its sums and its ticket, both in
+    # the scratch (tag 1), the sums after the ticket; the ticket is the word
+    # after the assembly domain, which the memset before D zeroes with it
+    d = next(s for s in chain.stages if isinstance(s, trc.HDenseStage))
+    z = next(s for s in chain.stages if isinstance(s, trc.ZeroStage))
+    dop = trc._hdense_op(d.hdense, d.target, d.out, d.part)
+    assert words[4] == len(dop) == 8 and dop in [list(prog[j:j + 8]) for j in range(len(prog))]
+    sums, ticket = dop[-2], dop[-1]
+    assert ticket >> 56 == 1 and sums == ticket + 4
+    off = (1 << 56) - 1
+    assert z.out == d.out and (z.out.off + z.n) * 4 == (ticket & off) + 4
+    assert chain.scratch_elems * 4 >= (sums & off) + 4 * (trc._hdense_part_elems(tm.hdense) - 1)
     # a stage's program is the op its wrapper sends alone
     g = chain.stages[0]
     assert list(prog[: words[1]]) == trc._gather_op(g.vals, g.pidx, g.widx, g.w1, g.n_tiles, g.out)
