@@ -68,6 +68,18 @@ staged chain and timed beside it on delaunay_n12_like, west2021_like and a
 9000-row matrix; PL_CSR_ROUTED_BF16's pooled tiles and
 the CLI's AUTO run on a 200,000-row matrix whose heavy rows pool.
 
+Phase 1 also builds the native host library (io/native.py, g++) that the
+window and routed prepares use; phase 6 (solver_phase, last) drives the
+solvers with their own counters from zero: CG over AutoSpMV on the 5-point
+Laplacian of a 1000 x 1000 grid in float32 (DIA) and float64 (df DIA), on
+caida_like and delaunay_n12_like made SPD (routed, window), and power
+iteration on caida_like made SPD, each eager, by default and graphed from
+the first iteration, timed whole (default and graphed x torch.equal eager
+x, the true residual in float64 on the host), then saves
+and loads prepared files on the card (y torch.equal) and holds the native
+layouts of delaunay_n12_like and caida_like equal to the numpy ones.
+`--seed N` seeds phase 6's x* and v0.
+
 The CSR/ELL mode matrix (csr_ell_slice) follows: ell_t_kernel (csrc/
 ell_spmv.cu; a thread per four rows walks to the longest of them, from a
 table made at the layout's first launch) on sg_like and thermal2_like, also held equal to the
@@ -103,6 +115,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -684,7 +697,324 @@ def csr_ell_slice(dev, smi: str, csrs: dict):
     return out, launches["small"]
 
 
+#: phase 6 (solvers): CG on the 5-point 2D Laplacian of a LAPLACE_N x
+#: LAPLACE_N grid (1,000,000 rows, 4,996,000 nnz) in float32 (DIA) and
+#: float64 (df DIA), on caida_like made SPD (AUTO's pick) and on a window
+#: layout of WINDOW_SOLVE made SPD; power iteration on caida_like made SPD.
+#: The window solve was to take thermal2_like made SPD if its native
+#: prepare took at most 30 s: it took 62.7 s (15,614,531 nnz; on the host
+#: of one H100 80GB HBM3), so it takes delaunay_n12_like made SPD
+LAPLACE_N = 1000
+CG_TOL32, CG_TOL64, CG_MAXITER = 1e-5, 1e-10, 5000
+WINDOW_SOLVE = "delaunay_n12_like"
+POWER_ITERS = 100
+
+
+def laplacian_2d(n: int):
+    """The 5-point Laplacian of an n x n grid (4 on the diagonal, -1 to
+    each grid neighbour): n^2 rows, 5n^2 - 4n nnz, SPD."""
+    import spmv_openmp_cuda_tpu_torch as P
+
+    idx = np.arange(n * n).reshape(n, n)
+    pairs = [(idx, idx, 4.0)]
+    for a, b in ((idx[:, :-1], idx[:, 1:]), (idx[:-1, :], idx[1:, :])):
+        pairs += [(a, b, -1.0), (b, a, -1.0)]
+    r = np.concatenate([a.ravel() for a, _, _ in pairs])
+    c = np.concatenate([b.ravel() for _, b, _ in pairs])
+    v = np.concatenate([np.full(a.size, w) for a, _, w in pairs])
+    order = np.argsort(r * (n * n) + c, kind="stable")
+    return P.coo_to_csr(P.COOMatrix((n * n, n * n), r[order], c[order], v[order]))
+
+
+def spd_of(csr):
+    """A + A^T with the diagonal set to each row's absolute sum + 1:
+    symmetric and strictly diagonally dominant, so SPD."""
+    import spmv_openmp_cuda_tpu_torch as P
+
+    m, n = csr.shape
+    rows, cols = csr.row_ids().astype(np.int64), csr.indices.astype(np.int64)
+    off = rows != cols
+    key, inv = np.unique(np.concatenate([rows[off] * n + cols[off], cols[off] * n + rows[off]]),
+                         return_inverse=True)
+    v = np.bincount(inv, weights=np.concatenate([csr.data[off], csr.data[off]]), minlength=key.size)
+    diag = np.bincount(key // n, weights=np.abs(v), minlength=m) + 1.0
+    key = np.concatenate([key, np.arange(m, dtype=np.int64) * (n + 1)])
+    v = np.concatenate([v, diag])
+    order = np.argsort(key, kind="stable")
+    key, v = key[order], v[order]
+    return P.coo_to_csr(P.COOMatrix((m, n), key // n, key % n, v))
+
+
+def _timed(fn):
+    """(fn(), its wall seconds, the card synchronized at both ends)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+#: rounds of (eager, default, graph=True) whole solves, the order rotated
+#: each round; times are the medians
+SOLVE_ROUNDS = 3
+
+
+def _rounds(solve):
+    """solve(graph) for graph in (False, None, True), SOLVE_ROUNDS rounds:
+    ({graph: the last result}, {graph: [seconds per round]})."""
+    graphs = [False, None, True]
+    out, secs = {}, {g: [] for g in graphs}
+    for i in range(SOLVE_ROUNDS):
+        for g in graphs[i:] + graphs[:i]:
+            out[g], t = _timed(lambda: solve(g))
+            secs[g].append(t)
+    return out, secs
+
+
+def _spread(ts) -> str:
+    return f"{min(ts):.4f}-{max(ts):.4f}"
+
+
+def solve_cg(label: str, model, ocsr, b_np: np.ndarray, tol: float, dev) -> dict:
+    """One CG solve three ways, each timed whole (SOLVE_ROUNDS rounds, the
+    medians): eager (graph=False), the default (graph=None: eager for the
+    first GRAPH_AFTER iterations, graphed after) and graphed from the first
+    iteration (graph=True, its capture included). Gates: every x torch.equal to eager x with the same
+    iteration count, converged before CG_MAXITER, the true relative
+    residual (float64 on the host, the matrix as stored) <= 10 * tol.
+    Also the replays of one captured chunk alone per iteration (CUDA
+    events) beside the product's graphed time."""
+    from spmv_openmp_cuda_tpu_torch.models import solvers as S
+    from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
+
+    dt = torch.float64 if model.dtype == "float64" else torch.float32
+    b = torch.as_tensor(b_np, dtype=dt, device=dev)
+    S.conjugate_gradient(model, b, tol=tol, maxiter=2, graph=False)  # first launches: plans
+    sols, secs = _rounds(lambda g: S.conjugate_gradient(model, b, tol=tol, maxiter=CG_MAXITER,
+                                                        graph=g))
+    eager, res = sols[False], sols[None]
+    t_eager, t_default, t_graph = (float(np.median(secs[g])) for g in (False, None, True))
+    iters = int(eager.iters)
+    same = all(torch.equal(r.x, eager.x) and int(r.iters) == iters for r in sols.values())
+    # the replays alone: one chunk captured, replayed from the first state
+    state, thr, _ = S.cg_initial(model, b, torch.zeros_like(b), tol)
+    first = [v.clone() for v in state]
+    graph, active = S.cg_graph(model, state, thr, CG_MAXITER, S.CHUNK)
+    for dst, src in zip(state, first):
+        dst.copy_(src)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    replays = 0
+    start.record()
+    while True:
+        graph.replay()
+        replays += 1
+        if not bool(active):
+            break
+    stop.record()
+    torch.cuda.synchronize()
+    t_replay = start.elapsed_time(stop) / 1e3
+    same = same and torch.equal(state[0], eager.x)
+    p = torch.as_tensor(np.random.default_rng(9).standard_normal(b.numel()), dtype=dt, device=dev)
+    mv_ms = graph_ms(lambda: model(p))
+    lib = library_spmv(ocsr, dev, dt)
+    lib_ms = graph_ms(lambda: lib(p))
+    bh = b.double().cpu().numpy()
+    true = np.linalg.norm(bh - serial_csr_spmv(ocsr, res.x.double().cpu().numpy())) / np.linalg.norm(bh)
+    per = 1e3 / max(iters, 1)
+    out = {"iters": iters, "relres": float(res.relres), "true": true,
+           "eager_ms": t_eager * per, "default_ms": t_default * per, "graph_true_ms": t_graph * per,
+           "graphed_ms": t_replay * per, "mv_ms": mv_ms, "replays": replays, "lib_ms": lib_ms,
+           "eager_s": t_eager, "default_s": t_default, "graph_true_s": t_graph}
+    log(f"phase 6: {label}: {iters} iterations, relres {out['relres']:.3e}, "
+        f"true relative residual {true:.3e} (f64 on the host, the matrix as stored) <= "
+        f"{10 * tol:.0e}; whole solve, median of {SOLVE_ROUNDS} (range): eager {t_eager:.4f} s "
+        f"({_spread(secs[False])}), default {t_default:.4f} s ({_spread(secs[None])}; graphed "
+        f"after {S.GRAPH_AFTER}, eager/default {t_eager / t_default:.3f}x), graph=True "
+        f"{t_graph:.4f} s ({_spread(secs[True])}, its capture included); per iteration {out['eager_ms']:.4f} ms eager, {out['default_ms']:.4f} "
+        f"default, {out['graph_true_ms']:.4f} graph=True, {out['graphed_ms']:.4f} replays alone "
+        f"({replays} of {S.CHUNK} iterations), the product alone {mv_ms:.4f} ms graphed "
+        f"(cuSPARSE {lib_ms:.4f}): the solver's own {out['graphed_ms'] - mv_ms:.4f} ms per "
+        f"graphed iteration; default and graphed x torch.equal eager x: {same}")
+    if not (same and iters < CG_MAXITER and true <= 10 * tol):
+        raise AssertionError(f"{label}: CG failed its gates ({out})")
+    return out
+
+
+def solver_phase(dev, csrs: dict, mats: dict, models: dict, models64: dict, seed: int) -> None:
+    """Phase 6: the solvers' main path with its launch counters from zero
+    (CG and power iteration over AutoSpMV, graphed and eager), then prepared
+    files saved and loaded on the card, and the native library's layouts
+    against the numpy ones."""
+    import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch.formats import routed as RT
+    from spmv_openmp_cuda_tpu_torch.formats import serialize as SER
+    from spmv_openmp_cuda_tpu_torch.formats import window as W
+    from spmv_openmp_cuda_tpu_torch.io import native as N
+    from spmv_openmp_cuda_tpu_torch.models import solvers as S
+    from spmv_openmp_cuda_tpu_torch.models.auto import AutoSpMV
+    from spmv_openmp_cuda_tpu_torch.ops import registry
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+    from spmv_openmp_cuda_tpu_torch.ops import spmv_cuda as SC
+    from spmv_openmp_cuda_tpu_torch.ops import window_cuda as WC
+    from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
+
+    if not N.available():
+        raise AssertionError(f"the native library is not in use on the card: {N.failure()}")
+    log(f"phase 6: native library in use: {N.library_path()}")
+    rng = np.random.default_rng(seed)
+    # -- the systems and their models (prepares, not counted) -------------
+    t = time.perf_counter()
+    lap = laplacian_2d(LAPLACE_N)
+    log(f"phase 6: Laplacian {LAPLACE_N}x{LAPLACE_N}: {lap.shape[0]} rows, {lap.nnz} nnz, "
+        f"built in {time.perf_counter() - t:.1f}s")
+    systems = []  # (label, model, matrix as stored, x*, tol)
+    for dtype, tol in (("float32", CG_TOL32), ("float64", CG_TOL64)):
+        t = time.perf_counter()
+        model = AutoSpMV.from_csr(lap, cfg=P.Config(dtype=dtype), device=dev)
+        log(f"phase 6: Laplacian {dtype}: AUTO -> {model.format}, prepare+upload "
+            f"{time.perf_counter() - t:.1f}s")
+        if model.format != "dia":
+            raise AssertionError(f"Laplacian: AUTO picked {model.format}, expected dia")
+        systems.append((f"CG {dtype} Laplacian (AUTO {model.format})", model, lap,
+                        rng.standard_normal(lap.shape[0]), tol))
+    t = time.perf_counter()
+    caida = spd_of(csrs[ROUTED_CHECK])
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cmodel = AutoSpMV.from_csr(caida, device=dev)
+    ops = cmodel._operands
+    domains = len(ops.mat.chunks) if isinstance(getattr(ops, "mat", None), RT.RoutedChunks) else 1
+    log(f"phase 6: {ROUTED_CHECK} made SPD: {caida.nnz} nnz (built in {gen_s:.1f}s), AUTO -> "
+        f"{cmodel.format}, prepare+upload {time.perf_counter() - t:.1f}s"
+        + (f", {domains} routed domain(s), per product {ops.counts}" if cmodel.format == "routed" else ""))
+    cstored = RC.stored_csr(caida, cmodel._operands) if cmodel.format == "routed" else caida
+    systems.append((f"CG float32 {ROUTED_CHECK} SPD (AUTO {cmodel.format})", cmodel, cstored,
+                    rng.standard_normal(caida.shape[0]), CG_TOL32))
+    wname = WINDOW_SOLVE
+    wspd = spd_of(csrs[wname])
+    t = time.perf_counter()
+    wmodel = AutoSpMV.from_csr(wspd, format="window", device=dev)
+    log(f"phase 6: {wname} made SPD: {wspd.nnz} nnz, format window -> {wmodel.format}, prepare+upload "
+        f"{time.perf_counter() - t:.1f}s (thermal2_like made SPD took 62.7 s to prepare natively, "
+        "over the 30 s the window solve may take)")
+    if wmodel.format != "window":
+        raise AssertionError(f"{wname} made SPD: no window layout ({wmodel.format})")
+    systems.append((f"CG float32 {wname} SPD (window)", wmodel, wspd,
+                    rng.standard_normal(wspd.shape[0]), CG_TOL32))
+
+    # -- the solver path, counters from zero --------------------------------
+    counters = {
+        "dia_spmv": SC.dia_spmv_cuda, "dia_df": SC.dia_spmv_df_cuda,
+        "dia_resid": SC.dia_resid_spmv_cuda, "dia_resid_df": SC.dia_resid_spmv_df_cuda,
+        "window_blocks": WC.window_blocks_cuda, "window_single": WC.window_single_cuda,
+        "window_df": WC.window_df_cuda, **RC._COUNTERS,
+        **{f"routed_{k}": fn for k, fn in RC._DF_COUNTERS.items()},
+    }
+    for fn in counters.values():
+        fn.launches = 0
+    results = {}
+    for label, model, ocsr, xstar, tol in systems:
+        b = serial_csr_spmv(ocsr, xstar)
+        results[label] = solve_cg(label, model, ocsr, b, tol, dev)
+    n = caida.shape[0]
+    pows, psecs = _rounds(lambda g: S.power_iteration(cmodel, n, iters=POWER_ITERS, seed=seed,
+                                                      graph=g))
+    pe, pd, pg = (pows[g] for g in (False, None, True))
+    t_pe, t_pd, t_pg = (float(np.median(psecs[g])) for g in (False, None, True))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    v = S.start_vector(n, seed, torch.float32).double().numpy()
+    v /= np.linalg.norm(v)
+    for _ in range(POWER_ITERS):
+        w = serial_csr_spmv(cstored, v)
+        v = w / np.linalg.norm(w)
+    lam_host = float(v @ serial_csr_spmv(cstored, v) / (v @ v))
+    lam = float(pg.eigenvalue)
+    same = all(torch.equal(r.eigenvector, pe.eigenvector) and torch.equal(r.eigenvalue, pe.eigenvalue)
+               for r in (pd, pg))
+    rel = abs(lam - lam_host) / abs(lam_host)
+    log(f"phase 6: power iteration ({POWER_ITERS} iterations) on {ROUTED_CHECK} SPD: eigenvalue "
+        f"{lam:.6f}, float64 host run from the same v0 {lam_host:.6f}, relative {rel:.3e} <= 1e-4; "
+        f"whole run, median of {SOLVE_ROUNDS} (range): eager {t_pe:.4f} s ({_spread(psecs[False])}), "
+        f"default {t_pd:.4f} s ({_spread(psecs[None])}; graphed after {S.GRAPH_AFTER}), "
+        f"graph=True {t_pg:.4f} s ({_spread(psecs[True])}; {POWER_ITERS // S.CHUNK} replays of "
+        f"{S.CHUNK}, capture included); default and graphed torch.equal eager: {same}")
+    if not (same and rel <= 1e-4):
+        raise AssertionError("power iteration failed its gates")
+    # every kernel of the solver path launched (captured launches count
+    # once: a replay runs no wrapper)
+    want = {"dia_spmv", "dia_df", "window_single" if wmodel._operands.xdirect else "window_blocks"}
+    if cmodel.format == "routed":
+        want |= {k for k, v in cmodel._operands.counts.items() if v}
+    log(f"phase 6: the solver path's launches {({k: v for k, v in launches.items() if v})}")
+    if not all(launches[k] for k in want):
+        raise AssertionError(f"a kernel of the solver path never launched: {launches}, wanted {want}")
+
+    # -- prepared files: save on the card, load on the card ----------------
+    sg = mats["sg_like"]
+    files = [
+        ("raefsky1_like", "PL_DIA_RESID", models["raefsky1_like"]._operands),
+        ("delaunay_n12_like", "PL_CSR_WINDOW", models["delaunay_n12_like"]._operands),
+        (ROUTED_CHECK, "PL_CSR_ROUTED", models[ROUTED_CHECK]._operands),
+        (ROUTED_CHECK, "PL_CSR_ROUTED_F64", models64[ROUTED_CHECK]._operands),
+        ("sg_like", "PL_ELL_ROWS_T", registry.get("PL_ELL_ROWS_T").prepare(
+            sg, P.coo_to_ell(P.csr_to_coo(sg)), P.Config(), dev)),
+        ("Laplacian", "PL_DIA_ROWS", systems[0][1]._operands),
+        ("Laplacian", "PL_DIA_F64", systems[1][1]._operands),
+    ]
+    with tempfile.TemporaryDirectory() as d:
+        for name, mode, ops in files:
+            spec = registry.get(mode)
+            path = os.path.join(d, f"{name}_{mode}.npz")
+            t = time.perf_counter()
+            try:
+                SER.save_prepared(path, ops)
+            except TypeError:
+                log(f"phase 6: {name} {mode}: not serializable (TypeError), as in the JAX package: "
+                    f"it writes no DIA+residual pair")
+                continue
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            loaded = SER.load_prepared(path, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            n_x = (ops[0] if isinstance(ops, tuple) else ops).shape[1]
+            x = torch.as_tensor(np.random.default_rng(4).standard_normal(n_x),
+                                dtype=torch.float64 if spec.f64 else torch.float32, device=dev)
+            equal = torch.equal(spec.jitted(loaded)(x), spec.jitted(ops)(x))
+            log(f"phase 6: {name} {mode}: saved in {save_s:.2f}s ({os.path.getsize(path) / 2**20:.2f} "
+                f"MiB), loaded on cuda in {load_s:.2f}s; y torch.equal the prepared y: {equal}")
+            if not equal:
+                raise AssertionError(f"{name} {mode}: the loaded operands give another y")
+
+    # -- the native library's layouts against the numpy path ---------------
+    for name in ("delaunay_n12_like", ROUTED_CHECK):
+        csr = csrs[name]
+        preps = [("routed", lambda: RT.prepare_routed(csr, device=dev))]
+        if name == "delaunay_n12_like":
+            preps.append(("window", lambda: W.prepare_window_auto(csr, device=dev)))
+        for fmt, prep in preps:
+            t = time.perf_counter()
+            nat = prep()
+            t_nat = time.perf_counter() - t
+            with mock.patch.object(N, "load_library", lambda: None):  # the numpy paths
+                t = time.perf_counter()
+                ref = prep()
+                t_np = time.perf_counter() - t
+            equal = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else np.array_equal(a, b)
+                        for a, b in zip(SER._leaves(nat), SER._leaves(ref)))
+            same_static = SER._aux_of(nat) == SER._aux_of(ref)
+            log(f"phase 6: {name} {fmt} layout: native prepare {t_nat:.2f}s, numpy {t_np:.2f}s; "
+                f"every array equal: {equal and same_static}")
+            if not (equal and same_static):
+                raise AssertionError(f"{name} {fmt}: the native layout differs from the numpy one")
+
+
 def main() -> int:
+    import argparse
+
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("--seed", type=int, default=0, help="seed of the solver phase's x* and v0")
+    seed = args.parse_args().seed
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
@@ -692,6 +1022,7 @@ def main() -> int:
     from spmv_openmp_cuda_tpu_torch.cli import time_per_call
     from spmv_openmp_cuda_tpu_torch.config import LANE
     from spmv_openmp_cuda_tpu_torch.formats import window as W
+    from spmv_openmp_cuda_tpu_torch.io import native
     from spmv_openmp_cuda_tpu_torch.io.mmio import write_mtx
     from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector
     from spmv_openmp_cuda_tpu_torch.models.auto import AutoSpMV
@@ -716,10 +1047,16 @@ def main() -> int:
     # -- phase 1: build, one nvcc per source, all at once ------------------
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
+        native_lib = pool.submit(native.build)  # g++, beside the six nvcc
         built = list(pool.map(cuda_lib.build, ("dia_spmv", "window_spmv", "routed_spmv", "df_spmv",
                                                 "ell_spmv", "lanes_spmv")))
+        native_lib = native_lib.result()
     log(f"phase 1: built {', '.join(os.path.relpath(p) for p, _ in built)} "
         f"in {time.perf_counter() - t:.1f}s")
+    if not native.available():
+        raise AssertionError(f"the native library does not load: {native.failure()}")
+    log(f"phase 1: native host library {os.path.relpath(native_lib)} (g++ from "
+        f"{os.path.relpath(native.SOURCE)}), in use: the window and routed prepares run its passes")
     for _path, nvcc_log in built:
         for line in nvcc_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -1731,6 +2068,7 @@ def main() -> int:
          "bound_by": by, "library_ms": tl * 1e3})
     if not small_launches:
         raise AssertionError("the small kernel never launched on its main path (the harness cell)")
+    solver_phase(dev, csrs, mats, models, models64, seed)
     log("done")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,11 @@ proxies), the JAX registry's 26 modes under the same names (the DIA,
 DIA+residual, windowed local-gather, Clos-routed, transposed-ELL and
 lane-gather engines and the double-float ones on hand-written CUDA kernels
 in csrc/; the reference's CSR/ELL strategy matrix and the binned slabs as
-torch ops), AutoSpMV, the CLI, and the oracle-checked harness, sweep and log
-reducer (bench/). It imports torch and numpy, never jax or the JAX package.
+torch ops), AutoSpMV, the solvers over it (CG and power iteration, a CUDA
+graph per chunk of iterations on the card), prepared-format files that
+either package loads, the native host library's binding (io/native.py), the
+CLI, and the oracle-checked harness, sweep and log reducer (bench/). It
+imports torch and numpy, never jax or the JAX package.
 """
 from .config import (
     AVG_TIMES_ITERATION,
@@ -40,6 +43,18 @@ def __getattr__(name):
         from .formats import dia
 
         return getattr(dia, name)
+    if name in ("prepare_routed_auto", "RoutedError"):
+        from .formats import routed
+
+        return getattr(routed, name)
+    if name in ("prepare_lanes_small", "LanesError"):
+        from .formats import lanes
+
+        return getattr(lanes, name)
+    if name in ("save_prepared", "load_prepared"):
+        from .formats import serialize
+
+        return getattr(serialize, name)
     raise AttributeError(name)
 
 

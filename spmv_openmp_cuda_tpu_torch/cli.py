@@ -4,7 +4,8 @@ Counterpart of spmv_openmp_cuda_tpu/cli.py (reference: src/main.cu:66-283):
   usage: python -m spmv_openmp_cuda_tpu_torch <matrix.mtx[.gz|.xz|.bz2|.zip]>
          <vectorFile | RNDVECT> [COMPUTE_MODE|AUTO] [--check] [--no-dump]
          [--list-modes] [--device cuda|cpu] [--dtype float32|float64]
-         [--env] [--profile DIR] [--testtests]
+         [--env] [--profile DIR] [--testtests] [--save-prepared PATH]
+         [--load-prepared PATH]
 parses the matrix into the mode's format (CSR, or ELL for the ELL modes,
 with the ELL_MAX_ENTRIES cap), loads or generates the dense vector, runs the
 selected mode (CSR_ROWS by default, as in the JAX package), dumps the output
@@ -21,7 +22,10 @@ PL_DIA_ROWS and PL_DIA_BF16 to PL_DIA_F64, PL_ELL_ROWS_T to ELL_ROWS_T, every
 other one to CSR_ROWS_BINNED (native f64 torch ops). `--env` prints the
 runtime, `--profile DIR` writes a torch.profiler trace of the timed calls,
 `--testtests` diffs the serial oracle against the dense one and exits.
-`--save-prepared`/`--load-prepared` are not ported yet.
+`--save-prepared PATH` writes the prepared format after the prepare, and
+`--load-prepared PATH` takes one in its place (formats/serialize.py: the
+JAX package's .npz layout, so either package's files load), as in the JAX
+package's CLI.
 """
 from __future__ import annotations
 
@@ -106,11 +110,97 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--testtests", action="store_true",
                    help="TESTTESTS mode (reference SpMV_test.cu:227-236): diff the serial "
                    "oracle against the dense-GEMV oracle on this matrix and exit")
-    # flags of the JAX package's CLI that are not ported yet: accepted so
-    # that they fail with a clear message instead of a usage error
-    p.add_argument("--save-prepared", metavar="PATH", help="not ported yet")
-    p.add_argument("--load-prepared", metavar="PATH", help="not ported yet")
+    p.add_argument(
+        "--save-prepared",
+        metavar="PATH",
+        help="serialize the prepared device format to PATH (.npz) after the "
+        "prepare (checkpoint: skips re-preparation next time)",
+    )
+    p.add_argument(
+        "--load-prepared",
+        metavar="PATH",
+        help="load a previously saved prepared format instead of preparing "
+        "(the matrix file is still read for shape/oracle checks)",
+    )
     return p
+
+
+def _adapt_loaded(operands, spec):
+    """Validate/adapt a loaded prepared format for the selected mode, as the
+    JAX package's CLI does.
+
+    Returns (operands, error). A DeviceDIA[DF] saved without its plan loads
+    under the PL_DIA_* modes by deriving the plan, and a (DeviceDIA, plan)
+    pair unwraps for DIA_ROWS; any other kind/mode mismatch is a friendly
+    error instead of a failure inside the product.
+    """
+    from .formats.binned import BinnedCSR
+    from .formats.dia import DeviceDIA, DeviceDIADF
+    from .formats.lanes import LanesSmall
+    from .formats.matrix import DeviceCSR, DeviceELL
+    from .formats.window import WindowCSR
+    from .ops.routed_cuda import RoutedChain, RoutedDFChain
+    from .ops.spmv_cuda import (
+        DF_DIA_VMEM_BUDGET, pad_dia_df_for_pallas, pad_dia_for_pallas, plan_dia,
+    )
+
+    pair = isinstance(operands, tuple) and len(operands) == 2
+    is_dia_pair = pair and isinstance(operands[0], DeviceDIA)
+    is_diadf_pair = pair and isinstance(operands[0], DeviceDIADF)
+    if spec.name in ("PL_DIA_ROWS", "PL_DIA_BF16"):
+        if is_dia_pair:
+            return operands, None
+        if isinstance(operands, DeviceDIA):
+            plan = plan_dia(operands)
+            return (pad_dia_for_pallas(operands, plan), plan), None
+    if spec.name == "PL_DIA_F64":
+        if is_diadf_pair:
+            return operands, None
+        if isinstance(operands, DeviceDIADF):
+            plan = plan_dia(operands.as_dia(), vmem_budget=DF_DIA_VMEM_BUDGET)
+            return (pad_dia_df_for_pallas(operands, plan), plan), None
+    if spec.name == "PL_CSR_WINDOW_F64":
+        if isinstance(operands, WindowCSR) and operands.vals_lo is not None:
+            return operands, None
+        return None, (
+            "mode PL_CSR_WINDOW_F64 needs a double-float WindowCSR "
+            "checkpoint (vals_lo present)"
+        )
+    expected = {
+        "DIA_ROWS": DeviceDIA,
+        "CSR_ROWS": DeviceCSR,
+        "CSR_ROWS_BINNED": BinnedCSR,
+        "PL_CSR_ROUTED": RoutedChain,
+        "PL_CSR_ROUTED_BF16": RoutedChain,
+        "PL_CSR_ROUTED_F64": RoutedDFChain,
+        "PL_CSR_WINDOW": WindowCSR,
+        "PL_CSR_WINDOW_BF16": WindowCSR,
+        "PL_CSR_LANES": LanesSmall,
+        "ELL_ROWS": DeviceELL,
+        "ELL_ROWS_NOSIMD": DeviceELL,
+        "ELL_ROWS_NORL": DeviceELL,
+        "ELL_ROWS_T": DeviceELL,
+        "PL_ELL_ROWS_T": DeviceELL,
+    }.get(spec.name)
+    if expected is None:
+        return None, f"mode {spec.name} cannot run from a serialized prepared format"
+    if spec.name == "DIA_ROWS" and is_dia_pair:
+        return operands[0], None
+    if not isinstance(operands, expected):
+        kind = type(operands[0] if pair else operands).__name__
+        return None, f"loaded prepared format {kind} does not match mode {spec.name}"
+    if isinstance(operands, WindowCSR) and operands.vals_lo is not None:
+        return None, (
+            f"loaded double-float WindowCSR needs mode PL_CSR_WINDOW_F64, not {spec.name}"
+        )
+    if isinstance(operands, DeviceELL):
+        want_t = spec.name in ("ELL_ROWS_T", "PL_ELL_ROWS_T")
+        if operands.transposed != want_t:
+            return None, (
+                f"loaded DeviceELL transposed={operands.transposed} does not match "
+                f"mode {spec.name}"
+            )
+    return operands, None
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -124,21 +214,6 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         print(format_info())
         return 0
-    unported = [
-        flag
-        for flag, used in (
-            ("--save-prepared", args.save_prepared),
-            ("--load-prepared", args.load_prepared),
-        )
-        if used
-    ]
-    if unported:
-        print(
-            f"ERROR: {', '.join(unported)}: not ported yet to the "
-            "PyTorch/CUDA package (use spmv_openmp_cuda_tpu)",
-            file=sys.stderr,
-        )
-        return 1
     if not args.matrix or not args.vector:
         build_argparser().error("the following arguments are required: matrix, vector")
 
@@ -218,19 +293,35 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0 if rep.ok else 2
 
     t0 = time.perf_counter()
-    try:
-        operands = spec.prepare(csr, ell, cfg, device)
-    except (DiaFillError, WindowError) as e:
-        if not is_auto:
-            print(f"ERROR: {e}", file=sys.stderr)
+    if args.load_prepared:
+        from .formats.serialize import load_prepared
+
+        operands, err = _adapt_loaded(load_prepared(args.load_prepared, device=device), spec)
+        if err:
+            print(f"ERROR: {err}", file=sys.stderr)
             return 1
-        # the structural guess tripped the exact prepare-time cap: fall
-        # through to the general engine, as the JAX package's AUTO does
-        # (CSR_ROWS_BINNED at float64)
-        mode = _F64_FALLBACK if f64 else _AUTO_MODES["routed"][0]
-        print(f"#auto: {spec.name} infeasible ({e}); falling back to {mode}")
-        spec = registry.get(mode)
-        operands = spec.prepare(csr, ell, cfg, device)
+    else:
+        try:
+            operands = spec.prepare(csr, ell, cfg, device)
+        except (DiaFillError, WindowError) as e:
+            if not is_auto:
+                print(f"ERROR: {e}", file=sys.stderr)
+                return 1
+            # the structural guess tripped the exact prepare-time cap: fall
+            # through to the general engine, as the JAX package's AUTO does
+            # (CSR_ROWS_BINNED at float64)
+            mode = _F64_FALLBACK if f64 else _AUTO_MODES["routed"][0]
+            print(f"#auto: {spec.name} infeasible ({e}); falling back to {mode}")
+            spec = registry.get(mode)
+            operands = spec.prepare(csr, ell, cfg, device)
+    if args.save_prepared:
+        from .formats.serialize import save_prepared
+
+        try:
+            save_prepared(args.save_prepared, operands)
+            print(f"#prepared saved: {args.save_prepared}")
+        except TypeError:
+            print(f"#prepared not serializable for mode {spec.name}", file=sys.stderr)
     f = spec.jitted(operands)
     # the df modes take x in f64 whatever the configured dtype
     xd = torch.as_tensor(x, dtype=torch.float64 if spec.f64 else cfg.torch_dtype, device=device)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..config import LANE
-from .matrix import CSRMatrix, _ceil_to
+from .matrix import CSRMatrix, _ceil_to, target_device
 
 
 class DiaFillError(ValueError):
@@ -91,8 +91,11 @@ def prepare_dia(
     csr: CSRMatrix,
     dtype: torch.dtype = torch.float32,
     max_fill_ratio: float = 3.0,
-    device="cpu",
+    device="cuda",
 ) -> DeviceDIA:
+    """The diagonal slab of csr on `device` (the card unless the caller
+    passes device="cpu")."""
+    device = target_device(device)
     m, n = csr.shape
     data, uniq, pad_sub = _dia_host_slab(csr, max_fill_ratio)
     d, m_pad = data.shape

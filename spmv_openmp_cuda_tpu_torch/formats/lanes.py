@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..config import LANE
-from .matrix import CSRMatrix
+from .matrix import CSRMatrix, target_device
 from .routed import n_windows_for
 
 WINDOW_PANELS = LANE  # panels per window
@@ -69,8 +69,11 @@ def prepare_lanes_small(
     dtype: torch.dtype = torch.float32,
     max_groups: int = 64,
     max_slots: int = 1 << 20,  # total slots (slot rows * 128)
-    device="cpu",
+    device="cuda",
 ) -> LanesSmall:
+    """The lane-gather slot arrays of csr on `device` (the card unless the
+    caller passes device="cpu")."""
+    device = target_device(device)
     m, n = csr.shape
     g_count = -(-m // LANE)
     if g_count > max_groups:

@@ -19,6 +19,16 @@ import torch
 from ..config import LANE, SUBLANE
 
 
+def target_device(device) -> torch.device:
+    """device as a torch.device. The public entry points run on the card
+    unless the caller asks for the CPU, and never fall back to it: cuda
+    without a CUDA device raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device cuda requested but torch.cuda.is_available() is False")
+    return device
+
+
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 

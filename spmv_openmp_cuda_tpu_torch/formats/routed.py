@@ -52,7 +52,7 @@ import torch
 
 from ..config import LANE
 from ..ops.route import PlannedPermutation, pick_t, plan_permutation, plan_row_to_slot
-from .matrix import CSRMatrix
+from .matrix import CSRMatrix, target_device
 
 #: panels (128 columns each) per x window, and columns per window
 WINDOW_PANELS = LANE
@@ -835,9 +835,11 @@ def routed_chunk_bounds(
 
 
 def prepare_routed_auto(
-    csr: CSRMatrix, dtype: torch.dtype = torch.float32, vals_dtype=None, device="cpu"
+    csr: CSRMatrix, dtype: torch.dtype = torch.float32, vals_dtype=None, device="cuda"
 ):
-    """RoutedCSR when one domain suffices, RoutedChunks otherwise."""
+    """RoutedCSR when one domain suffices, RoutedChunks otherwise, on
+    `device` (the card unless the caller passes device="cpu")."""
+    device = target_device(device)
     try:
         return prepare_routed(csr, dtype=dtype, vals_dtype=vals_dtype, device=device)
     except RoutedError:

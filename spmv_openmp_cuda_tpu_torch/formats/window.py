@@ -21,9 +21,10 @@ g, cap and bps for the H100 is later work.
 
 The double-float (f64) mode (`df=True`) stores the slot values as an (hi,
 lo) f32 pair, `vals` and `vals_lo`; the layout does not depend on the values,
-so the hi plane equals the f32 mode's `vals`. Not ported here: the native
-C++ scan/fill helpers; the numpy paths below are the JAX package's own
-fallbacks, and the ones it runs when its native library is not built.
+so the hi plane equals the f32 mode's `vals`. The scan, the rank and the
+slot fill run the native C++ passes (io/native.py) when the library is
+available, as in the JAX package; the numpy paths below are its own
+fallbacks, and what runs on a host without g++.
 """
 from __future__ import annotations
 
@@ -108,27 +109,35 @@ def _base_fields(csr: CSRMatrix):
 
 
 def _scan_g(csr: CSRMatrix, g: int, base, want_hist: bool):
-    """Per-g prepare scan: (wr, nspecs, nblocks, dl8, dr8). dl8/dr8 (the
-    (nblocks, 8, 128) per-(block, gid%8) lane/residue degree histograms) are
-    None when want_hist is False."""
+    """Per-g prepare scan: (wr, nspecs, nblocks, dl8, dr8). One fused
+    threaded pass through the native library when it is available
+    (io/native.py), numpy passes otherwise. dl8/dr8 (the (nblocks, 8, 128)
+    per-(block, gid%8) lane/residue degree histograms) are None when
+    want_hist is False and the numpy path runs."""
+    from ..io.native import window_scan_native
+
     m, n = csr.shape
     nblocks = -(-m // (g * LANE))
     rq, lane, q, jres = base
-    blk = rq // g
-    d = q - blk * g  # chunk relative to block start
-    d_min = int(d.min(initial=0))
-    d_max = int(d.max(initial=0))
-    if want_hist:
-        cls = (rq % g) % 8
-        key = (blk * 8 + cls) * LANE
-        dl8 = np.bincount(
-            key + lane, minlength=nblocks * 8 * LANE
-        ).reshape(nblocks, 8, LANE)
-        dr8 = np.bincount(
-            key + jres, minlength=nblocks * 8 * LANE
-        ).reshape(nblocks, 8, LANE)
+    res = window_scan_native(rq, lane, q, jres, g, nblocks)
+    if res is not None:
+        d_min, d_max, dl8, dr8 = res
     else:
-        dl8 = dr8 = None
+        blk = rq // g
+        d = q - blk * g  # chunk relative to block start
+        d_min = int(d.min(initial=0))
+        d_max = int(d.max(initial=0))
+        if want_hist:
+            cls = (rq % g) % 8
+            key = (blk * 8 + cls) * LANE
+            dl8 = np.bincount(
+                key + lane, minlength=nblocks * 8 * LANE
+            ).reshape(nblocks, 8, LANE)
+            dr8 = np.bincount(
+                key + jres, minlength=nblocks * 8 * LANE
+            ).reshape(nblocks, 8, LANE)
+        else:
+            dl8 = dr8 = None
     wr = max(max(-d_min, 0), max(d_max - g + 1, 0), 1)
     s_w = g + 2 * wr
     # the TPU kernel stages the x window in 8-row blocks at index (i*g)//8 + j,
@@ -147,7 +156,18 @@ def _geometry(csr: CSRMatrix, g: int, base=None):
 
 
 def _rank_in_group(keys: np.ndarray, minlength: int) -> np.ndarray:
-    """rank[i] = #entries before i (stable order) with the same key."""
+    """rank[i] = #entries before i (stable order) with the same key.
+
+    Keys here are blk * (8*LANE) + local with a non-decreasing blk prefix
+    (CSR row order): the native O(n) threaded pass applies when the library
+    is available; the argsort is the fallback."""
+    from ..io.native import rank_in_group_native
+
+    nblocks = minlength // (8 * LANE)
+    if keys.size and nblocks > 0:
+        out = rank_in_group_native(keys, 8 * LANE, nblocks)
+        if out is not None:
+            return out
     order = np.argsort(keys, kind="stable")
     sk = keys[order]
     n = sk.size
@@ -446,20 +466,28 @@ def prepare_window(
     sidx = np.zeros((nblocks * k_pad, LANE), dtype=np.int8)
     gslab = np.zeros((nblocks * k_pad, LANE), dtype=np.int8)
     rsrc = np.zeros((nblocks * n_ktiles * LANE, LANE), dtype=np.int8)
-    dq = q - blk * g + wr  # window row in [0, nspecs*g)
-    slot_row = blk * k_pad + srow
-    vals[slot_row, lane] = csr.data
-    sidx[slot_row, lane] = jres.astype(np.int8)
-    gslab[slot_row, lane] = np.where(srow < k_c, gid // 8, gid).astype(np.int8)
-    t_of = srow // LANE
-    jj_in = srow % LANE
-    if xdirect:
-        dq_staged = q
-    elif shared_w:
-        dq_staged = dq + (blk % bps) * g
-    else:
-        dq_staged = dq + (blk * g) % 8
-    rsrc[(blk * n_ktiles + t_of) * LANE + jres, jj_in] = dq_staged.astype(np.int8)
+    from ..io.native import window_fill_native
+
+    # the native fill does all of this in one threaded pass
+    mode = 1 if xdirect else 2 if shared_w else 0
+    if not window_fill_native(
+        base[0], lane, q, jres, srow, csr.data, g, k_pad, k_c, n_ktiles,
+        wr, bps, mode, vals, sidx, gslab, rsrc,
+    ):
+        dq = q - blk * g + wr  # window row in [0, nspecs*g)
+        slot_row = blk * k_pad + srow
+        vals[slot_row, lane] = csr.data
+        sidx[slot_row, lane] = jres.astype(np.int8)
+        gslab[slot_row, lane] = np.where(srow < k_c, gid // 8, gid).astype(np.int8)
+        t_of = srow // LANE
+        jj_in = srow % LANE
+        if xdirect:
+            dq_staged = q
+        elif shared_w:
+            dq_staged = dq + (blk % bps) * g
+        else:
+            dq_staged = dq + (blk * g) % 8
+        rsrc[(blk * n_ktiles + t_of) * LANE + jres, jj_in] = dq_staged.astype(np.int8)
 
     nblocks_pad = -(-nblocks // bps) * bps
     if nblocks_pad > nblocks:

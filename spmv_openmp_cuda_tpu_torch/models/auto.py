@@ -36,7 +36,7 @@ from ..formats.binned import binned_spmv, prepare_binned_csr
 from ..formats.convert import EllSizeError, coo_to_csr, coo_to_ell, csr_to_coo
 from ..formats.dia import DiaFillError, prepare_dia, split_offsets
 from ..formats.lanes import LanesError, prepare_lanes_small
-from ..formats.matrix import COOMatrix, CSRMatrix, device_ell
+from ..formats.matrix import COOMatrix, CSRMatrix, device_ell, target_device
 from ..formats.routed import RoutedError
 from ..formats.window import WindowError, prepare_window_auto, window_cost_scan
 from ..ops.ell_cuda import ell_t_cuda
@@ -131,11 +131,7 @@ class AutoSpMV:
         device="cuda",
     ) -> "AutoSpMV":
         cfg = cfg or Config()
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device cuda requested but torch.cuda.is_available() is False"
-            )
+        device = target_device(device)
         if cfg.dtype not in ("float32", "float64"):
             raise NotImplementedError(
                 f"dtype {cfg.dtype}: the port runs float32 and float64"

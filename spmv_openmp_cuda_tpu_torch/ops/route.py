@@ -3,9 +3,11 @@
 Counterpart of the planning half of spmv_openmp_cuda_tpu/ops/route.py: the
 bipartite edge coloring by Euler splitting (`_euler_split`,
 `color_bipartite_pow2`), `pick_t`, `PlannedPermutation`,
-`_stages_from_routing`, `plan_permutation` and `plan_row_to_slot`. The numpy
-code is the JAX package's own fallback, verbatim, so both packages pick the
-same colors and the same stage arrays. The window engine's slot packing
+`_stages_from_routing`, `plan_permutation` and `plan_row_to_slot`. The
+coloring runs the native C++ router (io/native.py) when its library is
+available; the numpy code is the JAX package's own fallback, verbatim, so
+on the numpy path both packages pick the same colors and the same stage
+arrays (the native router picks them too). The window engine's slot packing
 (formats/window.py::_pack_coloring) uses the coloring too.
 
 A planned bijection of an (H = T*128, 128) slot array is the stage chain
@@ -72,9 +74,16 @@ def color_bipartite_pow2(
     multigraph that is exactly n_colors-regular on every node that appears.
 
     Edges sharing a left node get distinct colors, likewise right nodes.
+    Uses the native C++ Euler-split router when its library is available
+    (io/native.py), the vectorized numpy implementation otherwise.
     """
+    from ..io.native import color_bipartite_native
+
     e = left.shape[0]
     assert n_colors & (n_colors - 1) == 0
+    out = color_bipartite_native(left, right, n_colors)
+    if out is not None:
+        return out
     cls = np.zeros(e, dtype=np.int64)
     bits = int(np.log2(n_colors))
     for _ in range(bits):

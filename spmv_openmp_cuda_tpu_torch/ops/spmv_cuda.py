@@ -751,7 +751,10 @@ dia_spmv_df_cuda.launches = 0
 
 
 def _to_tensor(a, device) -> torch.Tensor:
-    """numpy (incl. ml_dtypes bfloat16, bit for bit) -> tensor on device."""
+    """numpy (incl. ml_dtypes bfloat16, bit for bit) or a tensor (a file's
+    bfloat16 leaf, formats/serialize.py) -> tensor on device."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().to(device)
     a = np.array(a, copy=True, order="C")
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)

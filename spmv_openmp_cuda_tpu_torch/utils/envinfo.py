@@ -2,8 +2,8 @@
 
 Counterpart of spmv_openmp_cuda_tpu/utils/envinfo.py (reference: the OMP
 ICV dump, ompGetICV.c:23-73, and the env-check programs, test/ompChecks):
-report the torch build, the CUDA devices and the config env overrides in
-effect.
+report the torch build, the CUDA devices, the config env overrides in
+effect and whether the native host library (io/native.py) is in use.
 """
 from __future__ import annotations
 
@@ -18,12 +18,14 @@ def env_overrides() -> Dict[str, str]:
         "GRID_ROWS", "GRID_COLS", "BLOCK_ROWS", "BLOCK_WIDTH",
         "PALLAS_BLOCK_N", "SPMV_DTYPE", "AVG_TIMES_ITERATION",
         "SPMV_SCHEDULE", "SPMV_ROWLENS", "SPMV_SIMD", "TMPDIR",
-        "CUDA_VISIBLE_DEVICES", "CUDA_HOME",
+        "CUDA_VISIBLE_DEVICES", "CUDA_HOME", "CXX",
     ]
     return {k: os.environ[k] for k in keys if k in os.environ}
 
 
 def runtime_info() -> Dict[str, object]:
+    from ..io import native
+
     cuda = torch.cuda.is_available()
     info: Dict[str, object] = {
         "torch_version": torch.__version__,
@@ -33,6 +35,9 @@ def runtime_info() -> Dict[str, object]:
         "devices": [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())] if cuda else [],
         "cpu_threads": torch.get_num_threads(),
         "env_overrides": env_overrides(),
+        # builds the library at first use; the numpy prepares run without it
+        "native_available": native.available(),
+        "native_library": str(native.library_path()) if native.available() else native.failure(),
     }
     if cuda:
         props = torch.cuda.get_device_properties(0)

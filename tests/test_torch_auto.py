@@ -14,9 +14,19 @@ import spmv_openmp_cuda_tpu_torch as T
 from spmv_openmp_cuda_tpu_torch import cli
 from spmv_openmp_cuda_tpu_torch.config import Config
 from spmv_openmp_cuda_tpu_torch.io.mmio import write_mtx
+from spmv_openmp_cuda_tpu_torch.io.vectors import read_vector_raw, write_vector_str
 from spmv_openmp_cuda_tpu_torch.models import auto as tauto
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
 from spmv_openmp_cuda_tpu_torch.utils import synth as tsynth
+from torch_numpy_path import numpy_path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_prepare():
+    """The port's numpy prepare paths (see torch_numpy_path)."""
+    with numpy_path():
+        yield
+
 
 DIA_CLASS = {
     "raefsky1_like": ("preset", dict(name="raefsky1_like")),
@@ -125,6 +135,25 @@ def test_auto_spmv_never_substitutes_an_engine():
             tauto.AutoSpMV.from_csr(csr, device="cuda")
 
 
+@pytest.mark.parametrize("name", ["prepare_dia", "prepare_routed_auto", "prepare_lanes_small"])
+def test_public_prepares_default_to_the_card(name):
+    """The package-level prepares (lazy exports, as in the JAX package) run
+    on cuda unless the caller passes device="cpu"; without a card that
+    default raises, as AutoSpMV.from_csr's does."""
+    csr = T.coo_to_csr(tsynth.banded(600, 600, 4, seed=3))
+    prepare = getattr(T, name)
+    assert T.RoutedError and T.LanesError and T.save_prepared and T.load_prepared
+    cpu = prepare(csr, device="cpu")
+    first = cpu.data if name == "prepare_dia" else cpu.vals
+    assert first.device.type == "cpu"
+    if torch.cuda.is_available():
+        mat = prepare(csr)
+        assert (mat.data if name == "prepare_dia" else mat.vals).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            prepare(csr)
+
+
 @pytest.fixture
 def raefsky_mtx(tmp_path):
     path = str(tmp_path / "raefsky1_like.mtx")
@@ -148,11 +177,25 @@ def test_cli_cpu_check(raefsky_mtx, mode, capsys, tmp_path, monkeypatch):
         assert "#auto: format=dia_resid -> PL_DIA_RESID" in out
 
 
-def test_cli_refusals(raefsky_mtx, tmp_path, capsys):
-    for extra in (["--save-prepared", str(tmp_path / "p.npz")],
-                  ["--load-prepared", str(tmp_path / "p.npz")]):
-        assert cli.main([raefsky_mtx, "RNDVECT", "--device", "cpu", *extra]) == 1
-        assert "not ported yet" in capsys.readouterr().err
+def test_cli_refusals(raefsky_mtx, tmp_path, capsys, monkeypatch):
+    # --save-prepared then --load-prepared: the same y dump (CSR_ROWS saves
+    # a DeviceCSR); AUTO's DIA+residual pair is not serializable, as in the
+    # JAX package; a kind/mode mismatch exits 1
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    vec, npz = str(tmp_path / "x.txt"), str(tmp_path / "p.npz")
+    write_vector_str(vec, np.random.default_rng(5).standard_normal(3242))
+    dumps = []
+    for extra in (["--save-prepared", npz], ["--load-prepared", npz]):
+        assert cli.main([raefsky_mtx, vec, "--device", "cpu", "--check", *extra]) == 0
+        out = capsys.readouterr().out
+        assert "#check: OK" in out and ("#prepared saved:" in out) == (extra[0] == "--save-prepared")
+        dumps.append(read_vector_raw(str(tmp_path / "outVectorDumpRaw")))
+    np.testing.assert_array_equal(dumps[0], dumps[1])
+    assert cli.main([raefsky_mtx, vec, "AUTO", "--device", "cpu", "--no-dump",
+                     "--save-prepared", str(tmp_path / "r.npz")]) == 0
+    assert "#prepared not serializable for mode PL_DIA_RESID" in capsys.readouterr().err
+    assert cli.main([raefsky_mtx, vec, "ELL_ROWS", "--device", "cpu", "--load-prepared", npz]) == 1
+    assert "loaded prepared format DeviceCSR does not match mode ELL_ROWS" in capsys.readouterr().err
     # CSR_ROWS is ported, and the default mode, as in the JAX package
     assert cli.main([raefsky_mtx, "RNDVECT", "--device", "cpu", "--no-dump"]) == 0
     assert "computeMode:CSR_ROWS " in capsys.readouterr().out

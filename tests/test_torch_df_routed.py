@@ -29,6 +29,15 @@ from spmv_openmp_cuda_tpu_torch.formats import routed as tr
 from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
 from spmv_openmp_cuda_tpu_torch.utils import synth as tsynth
+from torch_numpy_path import numpy_path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_prepare():
+    """The port's numpy prepare paths (see torch_numpy_path)."""
+    with numpy_path():
+        yield
+
 
 _MEMO = {}
 

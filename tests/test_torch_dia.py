@@ -30,6 +30,15 @@ from spmv_openmp_cuda_tpu_torch.ops import spmv_cuda as tsc
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
 from spmv_openmp_cuda_tpu_torch.utils import synth as tsynth
 from spmv_openmp_cuda_tpu_torch.utils.compare import vectors_diff
+from torch_numpy_path import numpy_path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_prepare():
+    """The port's numpy prepare paths (see torch_numpy_path)."""
+    with numpy_path():
+        yield
+
 
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -107,7 +116,7 @@ def _close(y_t: torch.Tensor, y_j) -> None:
 def test_prepare_dia_identical(case, dtype):
     tcsr, jcsr = _csrs(case)
     tdt, jdt = DTYPES[dtype]
-    _assert_dia_equal(tdia.prepare_dia(tcsr, dtype=tdt), jdia.prepare_dia(jcsr, dtype=jdt))
+    _assert_dia_equal(tdia.prepare_dia(tcsr, dtype=tdt, device="cpu"), jdia.prepare_dia(jcsr, dtype=jdt))
     np.testing.assert_array_equal(tdia.split_offsets(tcsr), jdia.split_offsets(jcsr))
 
 
@@ -123,7 +132,7 @@ def test_prepare_dia_identical(case, dtype):
 )
 def test_plan_dia_identical(case, vmem_budget, max_bs):
     tcsr, jcsr = _csrs(case)
-    tmat = tdia.prepare_dia(tcsr, max_fill_ratio=1e9)
+    tmat = tdia.prepare_dia(tcsr, max_fill_ratio=1e9, device="cpu")
     jmat = jdia.prepare_dia(jcsr, max_fill_ratio=1e9)
     tplan = tsc.plan_dia(tmat, vmem_budget=vmem_budget, max_bs=max_bs)
     jplan = jsp.plan_dia(jmat, vmem_budget=vmem_budget, max_bs=max_bs)
@@ -135,7 +144,7 @@ def test_plan_dia_rejects_band_too_wide_for_resid():
     # a diagonal 60000 columns out: pad_sub = 469 row groups
     tcsr, jcsr = _far_diagonals(2560, 65536, [60000], seed=44)
     with pytest.raises(tdia.DiaFillError):
-        tsc.plan_dia(tdia.prepare_dia(tcsr, max_fill_ratio=1e9), max_bs=42)
+        tsc.plan_dia(tdia.prepare_dia(tcsr, max_fill_ratio=1e9, device="cpu"), max_bs=42)
     with pytest.raises(jdia.DiaFillError):
         jsp.plan_dia(jdia.prepare_dia(jcsr, max_fill_ratio=1e9), max_bs=42)
 
@@ -160,7 +169,7 @@ def test_prepare_dia_resid_identical(case, dtype):
 def test_pad_x_and_dia_rows_match_jax(dtype, n):
     tcsr, jcsr = _far_diagonals(600, n, [-290, -130, -1, 0, 5, 129, 300], seed=8)
     tdt, jdt = DTYPES[dtype]
-    tmat = tdia.prepare_dia(tcsr, dtype=tdt, max_fill_ratio=1e9)
+    tmat = tdia.prepare_dia(tcsr, dtype=tdt, max_fill_ratio=1e9, device="cpu")
     jmat = jdia.prepare_dia(jcsr, dtype=jdt, max_fill_ratio=1e9)
     assert tmat.pad_sub == 3
     x = np.random.default_rng(8).standard_normal(n).astype(np.float32)
@@ -228,7 +237,7 @@ def test_fringe_reference_is_the_residual_part():
 
 def test_wrapper_rejects_bad_input():
     csr = T.coo_to_csr(tsynth.banded(500, 500, 5, seed=1))
-    mat = tdia.prepare_dia(csr)
+    mat = tdia.prepare_dia(csr, device="cpu")
     plan = tsc.plan_dia(mat)
     mat = tsc.pad_dia_for_pallas(mat, plan)
     x = torch.zeros(500)

@@ -1041,3 +1041,79 @@ def test_new_modes_through_the_harness(cuda):
                 continue
             assert r.error is None and r.ok and r.deterministic, (r.kernel, r.error)
             assert r.check_ratio <= 1.0, (r.kernel, r.check_ratio)
+
+
+# ---------------------------------------------------------------------------
+# solvers (models/solvers.py) and prepared-format files on the card
+# ---------------------------------------------------------------------------
+
+
+def _spd(m, half_bw, seed):
+    """tests/test_solvers.py's SPD band (diagonally dominant)."""
+    rng = np.random.default_rng(seed)
+    d = np.zeros((m, m))
+    for off in range(1, half_bw + 1):
+        v = rng.standard_normal(m - off) * 0.3
+        idx = np.arange(m - off)
+        d[idx, idx + off] = v
+        d[idx + off, idx] = v
+    d[np.arange(m), np.arange(m)] = np.abs(d).sum(axis=1) + 1.0
+    r, c = np.nonzero(d)
+    return T.coo_to_csr(T.COOMatrix((m, m), r, c, d[r, c])), d
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("fmt", ["dia", "dia_resid", "window", "lanes", "routed", "ell_t", "binned"])
+def test_graphed_cg_equals_eager_cg(cuda, fmt, dtype, monkeypatch):
+    """Every format AutoSpMV can choose is captured in the CG graph: no
+    wrapper syncs the host inside capture. The graphed solve (chunks of
+    masked iterations), from the first iteration and from the middle of
+    the solve on, is bit for bit the eager loop, with the same iteration
+    count; so is power iteration's (replayed chunks and an eager rest)."""
+    from spmv_openmp_cuda_tpu_torch.models import solvers
+    from spmv_openmp_cuda_tpu_torch.models.auto import AutoSpMV
+
+    csr, dense = _spd(1500, 6, seed=3)
+    model = AutoSpMV.from_csr(csr, cfg=T.Config(dtype=dtype), format=fmt, device=cuda)
+    xstar = np.random.default_rng(1).standard_normal(1500)
+    b = dense @ xstar
+    tol = 1e-10 if dtype == "float64" else 1e-5
+    eager = solvers.conjugate_gradient(model, b, tol=tol, maxiter=500, graph=False)
+    graphed = solvers.conjugate_gradient(model, b, tol=tol, maxiter=500, graph=True)
+    monkeypatch.setattr(solvers, "GRAPH_AFTER", 5)
+    switched = solvers.conjugate_gradient(model, b, tol=tol, maxiter=500)
+    for res in (graphed, switched):
+        assert torch.equal(res.x, eager.x) and int(res.iters) == int(eager.iters) < 500
+    assert graphed.x.device.type == "cuda"
+    err = np.abs(graphed.x.double().cpu().numpy() - xstar).max()
+    assert err < (1e-6 if dtype == "float64" else 5e-2), err
+    pe = solvers.power_iteration(model, 1500, iters=20, seed=2, graph=False)
+    for pg in (solvers.power_iteration(model, 1500, iters=20, seed=2, graph=True),
+               solvers.power_iteration(model, 1500, iters=20, seed=2)):
+        assert torch.equal(pe.eigenvector, pg.eigenvector)
+        assert torch.equal(pe.eigenvalue, pg.eigenvalue)
+
+
+@pytest.mark.parametrize("mode,dtype", [
+    ("PL_DIA_ROWS", "float32"), ("PL_DIA_F64", "float64"), ("PL_CSR_WINDOW_BF16", "float32"),
+    ("PL_CSR_WINDOW_F64", "float64"), ("PL_CSR_ROUTED", "float32"), ("PL_CSR_ROUTED_F64", "float64"),
+    ("PL_CSR_LANES", "float32"), ("PL_ELL_ROWS_T", "float32"), ("CSR_ROWS_BINNED", "float32"),
+])
+def test_load_prepared_on_the_card(cuda, tmp_path, mode, dtype):
+    """A file saved from the card's operands loads onto the card (the chain
+    or plan rebuilt there), and its y is torch.equal to the prepared y."""
+    from spmv_openmp_cuda_tpu_torch.formats.serialize import load_prepared, save_prepared
+
+    if mode.startswith("PL_DIA"):
+        coo = synth.banded(3000, 3000, 8, fill=0.9, seed=1)
+    else:
+        coo = synth.preset("delaunay_n12_like")
+    csr, ell = T.coo_to_csr(coo), T.coo_to_ell(coo)
+    spec = registry.get(mode)
+    ops = spec.prepare(csr, ell, T.Config(dtype=dtype), cuda)
+    path = str(tmp_path / "p.npz")
+    save_prepared(path, ops)
+    loaded = load_prepared(path)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(csr.shape[1]),
+                        dtype=torch.float64 if spec.f64 else torch.float32, device=cuda)
+    assert torch.equal(spec.jitted(loaded)(x), spec.jitted(ops)(x))

@@ -27,7 +27,7 @@ from spmv_openmp_cuda_tpu_torch.bench import parse_log as tpl
 from spmv_openmp_cuda_tpu_torch.bench import sweep as tsw
 from spmv_openmp_cuda_tpu_torch.config import Config
 from spmv_openmp_cuda_tpu_torch.io.mmio import write_mtx
-from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector
+from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector, read_vector_raw, write_vector_str
 from spmv_openmp_cuda_tpu_torch.models import auto as tauto
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
 from spmv_openmp_cuda_tpu_torch.utils import envinfo, profiling, synth
@@ -231,7 +231,7 @@ def test_cli_ell_cap_exits_1(delaunay_mtx, capsys, monkeypatch):
     assert rc == 0
 
 
-def test_cli_flags(delaunay_mtx, capsys, tmp_path):
+def test_cli_flags(delaunay_mtx, capsys, tmp_path, monkeypatch):
     rc, cap = _run([delaunay_mtx, "RNDVECT", "--testtests"], capsys)
     assert rc == 0 and "#testtests: OK maxAbsDiff=" in cap.out and "computeMode" not in cap.out
     prof = tmp_path / "prof"
@@ -242,9 +242,20 @@ def test_cli_flags(delaunay_mtx, capsys, tmp_path):
     assert cli.main(["--env"]) == 0
     out = capsys.readouterr().out
     assert "torch_version:" in out and "device_count:" in out
-    for extra in (["--save-prepared", str(tmp_path / "p.npz")], ["--load-prepared", str(tmp_path / "p.npz")]):
-        assert cli.main([delaunay_mtx, "RNDVECT", "--device", "cpu", *extra]) == 1
-        assert "not ported yet" in capsys.readouterr().err
+    # --save-prepared then --load-prepared give the same y dump (AUTO: a
+    # WindowCSR; PL_CSR_LANES: a LanesSmall)
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    vec = str(tmp_path / "x.txt")
+    write_vector_str(vec, np.random.default_rng(4).standard_normal(4096))
+    for mode in ("AUTO", "PL_CSR_LANES"):
+        npz = str(tmp_path / f"{mode}.npz")
+        dumps = []
+        for extra in (["--save-prepared", npz], ["--load-prepared", npz]):
+            rc = cli.main([delaunay_mtx, vec, mode, "--device", "cpu", "--check", *extra])
+            cap = capsys.readouterr()
+            assert rc == 0 and "#check: OK" in cap.out, cap.err
+            dumps.append(read_vector_raw(str(tmp_path / "outVectorDumpRaw")))
+        np.testing.assert_array_equal(dumps[0], dumps[1])
 
 
 def test_envinfo_and_profiling():

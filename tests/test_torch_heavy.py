@@ -36,6 +36,15 @@ from spmv_openmp_cuda_tpu_torch.ops import lanes_cuda as tlc
 from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
 from spmv_openmp_cuda_tpu_torch.ops import window_cuda as twc
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
+from torch_numpy_path import numpy_path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_prepare():
+    """The port's numpy prepare paths (see torch_numpy_path)."""
+    with numpy_path():
+        yield
+
 
 LANE = 128
 POOLED = ("hvals", "hpidx", "hwidx", "hreduce", "hlo", "hhi")

@@ -66,6 +66,8 @@ def imported():
 
 def test_every_module_is_listed():
     assert len(MODULES) >= 40 and f"{_PKG}.ops.routed_cuda" in MODULES
+    for mod in ("io.native", "formats.serialize", "models.solvers"):
+        assert f"{_PKG}.{mod}" in MODULES
 
 
 @pytest.mark.parametrize("module", MODULES)

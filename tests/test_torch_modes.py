@@ -43,6 +43,15 @@ from spmv_openmp_cuda_tpu_torch.ops import spmv_torch as tst
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
 from spmv_openmp_cuda_tpu_torch.partition import partitioners as tpart
 from spmv_openmp_cuda_tpu_torch.utils import synth
+from torch_numpy_path import numpy_path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_prepare():
+    """The port's numpy prepare paths (see torch_numpy_path)."""
+    with numpy_path():
+        yield
+
 
 NEW_MODES = [
     "CSR_ROWS", "CSR_ROWS_GROUPS", "CSR_TILES", "CSR_TILES_ALLOCD", "ELL_ROWS",
@@ -168,7 +177,7 @@ def test_prepare_binned_array_equal(name):
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_prepare_lanes_array_equal(name):
     (_, tcsr, _), (_, jcsr, _) = _both(name)
-    t, j = tlanes.prepare_lanes_small(tcsr), jlanes.prepare_lanes_small(jcsr)
+    t, j = tlanes.prepare_lanes_small(tcsr, device="cpu"), jlanes.prepare_lanes_small(jcsr)
     for f in ("vals", "pidx", "gid"):
         _eq(getattr(t, f), getattr(j, f))
     assert t.pidx.dtype == t.gid.dtype == torch.int32
@@ -184,7 +193,7 @@ def test_lanes_refusals_agree():
     (_, tcsr, _), (_, jcsr, _) = _both("wide")
     for kw in (dict(max_groups=2), dict(max_slots=128 * 128)):
         with pytest.raises(tlanes.LanesError):
-            tlanes.prepare_lanes_small(tcsr, **kw)
+            tlanes.prepare_lanes_small(tcsr, **kw, device="cpu")
         with pytest.raises(jlanes.LanesError):
             jlanes.prepare_lanes_small(jcsr, **kw)
 
@@ -315,7 +324,7 @@ def _lanes_pair(m, n):
     coo = synth.random_uniform(m, n, density=3.0 / n, seed=m + n)
     tcsr = T.coo_to_csr(coo)
     jcsr = J.CSRMatrix(shape=tcsr.shape, indptr=tcsr.indptr, indices=tcsr.indices, data=tcsr.data)
-    return tcsr, tlanes.prepare_lanes_small(tcsr), jcsr
+    return tcsr, tlanes.prepare_lanes_small(tcsr, device="cpu"), jcsr
 
 
 def _warp_rows(plan, n_rows):
@@ -358,7 +367,7 @@ def test_lanes_launch_plan_covers_every_slot_row_once(m, n):
 def test_lanes_launch_plan_fills_the_card_on_delaunay():
     # delaunay_n12_like: 896 slot rows, G = 32 -> clusters of 8 CTAs of 8
     # warps for each of the 4 bands (256 warps), one 16-row batch per warp
-    mat = tlanes.prepare_lanes_small(T.coo_to_csr(synth.preset("delaunay_n12_like")))
+    mat = tlanes.prepare_lanes_small(T.coo_to_csr(synth.preset("delaunay_n12_like")), device="cpu")
     assert (mat.vals.shape[0], mat.n_groups) == (896, 32)
     plan = tlc.launch_plan(896, 32)
     assert (plan.cluster, plan.step) == (8, 1)
@@ -408,7 +417,7 @@ def test_kernel_wrappers_check_on_the_cpu():
         tec.ell_t_cuda(ell, x[:-1])
     with pytest.raises(ValueError):
         tec.ell_t_cuda(ell, x.to("meta"))
-    lanes = tlanes.prepare_lanes_small(tcsr)
+    lanes = tlanes.prepare_lanes_small(tcsr, device="cpu")
     with pytest.raises(TypeError):
         tlc.lanes_cuda(dataclasses.replace(lanes, gid=lanes.gid.to(torch.int8)), x)
     with pytest.raises(ValueError):

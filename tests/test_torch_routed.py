@@ -36,6 +36,15 @@ from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
 from spmv_openmp_cuda_tpu_torch.utils import synth as tsynth
 from spmv_openmp_cuda_tpu_torch.utils.compare import vectors_diff
+from torch_numpy_path import numpy_path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_prepare():
+    """The port's numpy prepare paths (see torch_numpy_path)."""
+    with numpy_path():
+        yield
+
 
 LANE = 128
 
@@ -253,7 +262,7 @@ def test_prepare_routed_bf16_bit_for_bit(name):
 
 def test_prepare_routed_auto_agrees():
     tcsr, jcsr = _csrs("power_law")
-    _layout_equal(tr.prepare_routed_auto(tcsr), jr.prepare_routed_auto(jcsr))
+    _layout_equal(tr.prepare_routed_auto(tcsr, device="cpu"), jr.prepare_routed_auto(jcsr))
     for r0, r1 in ((0, 700), (1200, 4000)):
         assert tr._predict_domain_rows(tcsr, r0, r1) == jr._predict_domain_rows(jcsr, r0, r1)
     assert tr._fit_chunk_bounds(tcsr, 500) == jr._fit_chunk_bounds(jcsr, 500)

@@ -32,6 +32,15 @@ from spmv_openmp_cuda_tpu_torch.ops import window_cuda as twc
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
 from spmv_openmp_cuda_tpu_torch.utils import synth as tsynth
 from spmv_openmp_cuda_tpu_torch.utils.compare import vectors_diff
+from torch_numpy_path import numpy_path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_prepare():
+    """The port's numpy prepare paths (see torch_numpy_path)."""
+    with numpy_path():
+        yield
+
 
 FEM = ("fem_like", dict(m=4000, n=4000, nnz=50000, spread=600, lo=5, hi=20, seed=2))
 FEM_BIG = ("fem_like", dict(m=6000, n=6000, nnz=60000, spread=700, lo=4, hi=16, seed=7))
