@@ -80,6 +80,20 @@ and loads prepared files on the card (y torch.equal) and holds the native
 layouts of delaunay_n12_like and caida_like equal to the numpy ones.
 `--seed N` seeds phase 6's x* and v0.
 
+Phase 7 (multi_device_phase, after phase 6) drives the multi-device paths
+(spmv_openmp_cuda_tpu_torch/parallel/) on 4 shards, shard i on cuda:(i mod
+the card count): on one card the shards share it, the counterpart of the
+JAX package's virtual devices. With the counters from zero it runs
+contract.dryrun_multichip(4), then each path at full size (the window halo
+on thermal2_like, the SPMD and multi-device routed engines on caida_like,
+the DIA halo in f32 and df on phase 6's Laplacian, row-sharded ELL, the 2 x 2
+psum and the ring on sg_like) against the reference protocol, x ~ N(0, 1)
+against the f64 oracle and a bitwise rerun, with the launches per product
+(one window launch per shard; the chains' planned ones); the sharded window
+y torch.equal the single-device kernel on the same layout, each SPMD shard's
+y its chunk's chain run alone; then the times per product at 1, 2 and 4
+shards (bench/scaling.py) beside the single-device product and cuSPARSE.
+
 The CSR/ELL mode matrix (csr_ell_slice) follows: ell_t_kernel (csrc/
 ell_spmv.cu; a thread per four rows walks to the longest of them, from a
 table made at the layout's first launch) on sg_like and thermal2_like, also held equal to the
@@ -1007,6 +1021,266 @@ def solver_phase(dev, csrs: dict, mats: dict, models: dict, models64: dict, seed
                 f"every array equal: {equal and same_static}")
             if not (equal and same_static):
                 raise AssertionError(f"{name} {fmt}: the native layout differs from the numpy one")
+
+
+#: phase 7 (multi-device): each path of spmv_openmp_cuda_tpu_torch/parallel/
+#: on MD_SHARDS shards (shard i on cuda:(i mod the card count): on one card
+#: the shards share it, the counterpart of the JAX package's virtual
+#: devices), at full size: path -> (matrix, shard counts timed). The
+#: Laplacian is phase 6's; csr_psum's check runs the 2 x 2 mesh
+MD_SHARDS = 4
+LAPLACE = f"laplacian_{LAPLACE_N}x{LAPLACE_N}"
+MD_CELLS = {
+    "window_halo": ("thermal2_like", (1, 2, 4)),
+    "routed_spmd": (ROUTED_CHECK, (1, 2, 4)),
+    "dia_halo": (LAPLACE, (1, 2, 4)),
+    "routed_md": (ROUTED_CHECK, (1, 4)),
+    "dia_halo_df": (LAPLACE, (1, 4)),
+    "ell_rows": ("sg_like", (1, 4)),
+    "csr_psum": ("sg_like", (1,)),
+    "ell_ring": ("sg_like", (1, 4)),
+}
+#: the kernel-running paths' entries in the kernels line: the JAX call site
+#: each replaces
+MD_KERNELS = {
+    "window_halo": ("window_blocks_kernel", WINDOW_SOURCE,
+                    "spmv_openmp_cuda_tpu/parallel/sharded.py:695"),
+    "routed_spmd": ("routed chain (A, C, B)", ROUTED_SOURCE,
+                    "spmv_openmp_cuda_tpu/parallel/routed_spmd.py:125"),
+    "routed_md": ("routed chain (A, C, D, B)", ROUTED_SOURCE,
+                  "spmv_openmp_cuda_tpu/parallel/sharded.py:786"),
+}
+
+
+def multi_device_phase(dev, smi: str, csrs: dict, mats: dict, models: dict) -> list:
+    """Phase 7: the contract's dryrun_multichip(MD_SHARDS) and every
+    multi-device path at full size on MD_SHARDS shards, each held three
+    ways (the reference protocol, x ~ N(0, 1) against the f64 oracle, a
+    bitwise rerun), the window and SPMD routed paths to their single-device
+    twins bit for bit, the launches per product counted, and the times per
+    product at 1, 2 and 4 shards beside the single-device product. Returns
+    the kernel-running paths' entries of the kernels line."""
+    import types
+
+    import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch import contract
+    from spmv_openmp_cuda_tpu_torch.bench import scaling
+    from spmv_openmp_cuda_tpu_torch.cli import time_per_call
+    from spmv_openmp_cuda_tpu_torch.formats import routed as RT
+    from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector
+    from spmv_openmp_cuda_tpu_torch.models.auto import AutoSpMV
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+    from spmv_openmp_cuda_tpu_torch.ops import window_cuda as WC
+    from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
+    from spmv_openmp_cuda_tpu_torch.utils.compare import vectors_diff
+
+    t_phase = time.perf_counter()
+    devices = contract.mesh_devices(MD_SHARDS)
+    virtual = len(set(devices)) < MD_SHARDS
+    log(f"phase 7: {MD_SHARDS} shards on {sorted({str(d) for d in devices})}"
+        f"{' (virtual: the shards share one card; times are not a scaling measurement)' if virtual else ''}")
+    lap = laplacian_2d(LAPLACE_N)
+    matrices = {**csrs, **mats, LAPLACE: lap}
+    coos = {}
+    single = {}  # (matrix, dtype) -> (the single-device product, what it is)
+    for name in sorted({v[0] for v in MD_CELLS.values()}):
+        if name == LAPLACE:
+            for dtype in ("float32", "float64"):
+                lap_model = AutoSpMV.from_csr(lap, cfg=P.Config(dtype=dtype), device=dev)
+                single[name, dtype] = (lap_model, f"AutoSpMV -> {lap_model.format}, {dtype}")
+        elif name in models:
+            single[name, "float32"] = (models[name], f"AutoSpMV -> {models[name].format}")
+        coos[name] = P.csr_to_coo(matrices[name])
+    # -- the paths' operands and their times at 1, 2 and 4 shards ---------
+    built, rows = {}, {}
+    for path, (name, counts) in MD_CELLS.items():
+        t = time.perf_counter()
+        b = built[path] = {}
+        rows[path] = scaling.measure(name, list(counts), path, device=dev, coo=coos[name],
+                                     built=b)
+        if path == "csr_psum":
+            b[MD_SHARDS] = scaling.build(path, coos[name], matrices[name], devices,
+                                         mesh_shape=(2, 2))
+        if not all(ok for *_, ok in rows[path]):
+            raise AssertionError(f"phase 7: {path}: the scaling harness's check failed")
+        log(f"phase 7: {path} on {name}: prepared and timed at {counts} shards in "
+            f"{time.perf_counter() - t:.1f}s")
+    # -- the main path, each part with the counters from zero just before
+    # it and read just after: the contract's dryrun, then one product set
+    # per path (x_ref, x_n, a rerun) on MD_SHARDS shards --------------------
+    def zero_counts():
+        WC.window_blocks_cuda.launches = 0
+        for fn in RC._COUNTERS.values():
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        got = {"window_blocks": WC.window_blocks_cuda.launches,
+               **{k: fn.launches for k, fn in RC._COUNTERS.items()}}
+        return {k: v for k, v in got.items() if v}
+
+    zero_counts()
+    t = time.perf_counter()
+    contract.dryrun_multichip(MD_SHARDS)
+    dry = read_counts()
+    log(f"phase 7: contract.dryrun_multichip({MD_SHARDS}) on the card: all eight paths OK in "
+        f"{time.perf_counter() - t:.1f}s; its launches {dry}")
+    if dev.type == "cuda" and not (dry.get("window_blocks") and dry.get("gather")):
+        raise AssertionError("phase 7: a kernel of the contract's dryrun never launched")
+    checks, per_product, own = {}, {}, {}
+    for path, (name, _counts) in MD_CELLS.items():
+        p = built[path][MD_SHARDS]
+        csr = matrices[name]
+        df = path == "dia_halo_df"
+        if path in ("routed_spmd", "routed_md"):
+            chains = p.op.chains
+            stored = RC.stored_csr(csr, types.SimpleNamespace(mat=RT.RoutedChunks(
+                chunks=tuple(c.mat for c in chains), bounds=p.op.bounds, shape=csr.shape,
+                nnz=csr.nnz)))
+        else:
+            stored = csr
+        x_ref = fill_rnd_vector(csr.shape[1], seed=2)
+        x_n = np.random.default_rng(3).standard_normal(csr.shape[1])
+        zero_counts()
+        rep = vectors_diff(p.y(x_ref), serial_csr_spmv(stored, x_ref))
+        xs = p.place(x_n)
+        before = {k: fn.launches for k, fn in RC._COUNTERS.items()}
+        before_w = WC.window_blocks_cuda.launches
+        out = p.product(xs)
+        torch.cuda.synchronize()
+        launched = {k: fn.launches - before[k] for k, fn in RC._COUNTERS.items()}
+        launched["window_blocks"] = WC.window_blocks_cuda.launches - before_w
+        again = p.product(xs)
+        own[path] = read_counts()  # three products: x_ref, x_n, the rerun
+        same = (all(torch.equal(a, b) for a, b in zip(out, again)) if df
+                else torch.equal(out, again))
+        y = p.result(out)
+        o = serial_csr_spmv(stored, x_n)
+        err = np.abs(y - o).max()
+        lim = 1e-10 * np.abs(o).max() if df else 1e-5 * np.abs(o).max() + 1e-6
+        if not (np.isfinite(y).all() and y.shape == (csr.shape[0],)):
+            raise AssertionError(f"phase 7: {path}: output {y.shape}, finite {np.isfinite(y).all()}")
+        # launches per product: one window launch per shard; the routed
+        # chains' planned launches, shard by shard
+        if path == "window_halo":
+            want = {"window_blocks": MD_SHARDS}
+        elif path in ("routed_spmd", "routed_md"):
+            want = {k: sum(c.counts[k] for c in p.op.chains) for k in RC._COUNTERS}
+            if path == "routed_spmd" and any(c.counts != p.op.chains[0].counts for c in p.op.chains):
+                raise AssertionError("phase 7: the SPMD chunks' chains differ")
+        else:
+            want = {}
+        got = {k: v for k, v in launched.items() if v}
+        if dev.type == "cuda" and got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"phase 7: {path}: launches per product {got}, planned {want}")
+        if own[path] != {k: 3 * v for k, v in got.items()}:
+            raise AssertionError(f"phase 7: {path}: launches {own[path]} in its three products")
+        per_product[path] = got
+        log(f"phase 7: {path} on {name} ({MD_SHARDS} shards): reference protocol "
+            f"{'OK' if rep.ok else 'FAIL'} maxAbsDiff={rep.max_abs_diff:.3e}; x~N(0,1) vs f64 "
+            f"oracle{' (as stored)' if stored is not csr else ''} {err:.3e} <= {lim:.3e}; rerun "
+            f"bitwise equal {same}; launches per product {got or 'none (plain torch)'}")
+        if not (rep.ok and err <= lim and same):
+            raise AssertionError(f"phase 7: {path}: wrong output")
+        checks[path] = (p, xs, out, x_n)
+    log(f"phase 7: each path's launches in its three products {({k: v for k, v in own.items() if v})}")
+    for path in MD_KERNELS:
+        if dev.type == "cuda" and not own[path]:
+            raise AssertionError(f"phase 7: {path}: its kernels never launched")
+    # -- parity with the single-device twins --------------------------------
+    p, xs, y_w, x_n = checks["window_halo"]
+    lay = p.op.layout
+    lay_dev = dataclasses.replace(lay, vals=lay.vals.to(dev), sidx=lay.sidx.to(dev),
+                                  gid=lay.gid.to(dev), rsrc=lay.rsrc.to(dev))
+    xt = torch.as_tensor(x_n, dtype=torch.float32, device=dev)
+    whole = WC.window_spmv(lay_dev, xt)
+    if not torch.equal(y_w, whole):
+        raise AssertionError("phase 7: the sharded window y differs from the single-device kernel's")
+    log(f"phase 7: window_halo y torch.equal the single-device window kernel on the same bps=1, "
+        f"xdirect=False layout ({lay.nblocks} blocks, padded to {p.op.nd * p.op.nb_local}; "
+        f"halo {p.op.wr} + {p.op.h_right} rows, halo_ok {p.op.halo_ok})")
+    p, _xs, y_r, x_n = checks["routed_spmd"]
+    xt = torch.as_tensor(x_n, dtype=torch.float32, device=dev)
+    for b, chain in enumerate(p.op.chains):
+        alone = RC.routed_chain_spmv(chain, xt)
+        if not torch.equal(y_r[p.op.bounds[b]:p.op.bounds[b + 1]], alone):
+            raise AssertionError(f"phase 7: SPMD shard {b} differs from its chain run alone")
+    log(f"phase 7: routed_spmd: each of {len(p.op.chains)} shards' y torch.equal its chunk's "
+        f"chain run alone (bounds {p.op.bounds}, t = {[m.perm_products.t for m in p.op.mats]}, "
+        f"h_out {p.op.h_out}, {len(p.op.mats[0].lvl_perms)} level(s))")
+    # -- times per product -------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    print(f"phase 7 times per product ({kind}; {smi}; {MD_SHARDS} shards "
+          f"{'sharing one card' if virtual else 'one per card'}):")
+    entries = []
+    for path, (name, counts) in MD_CELLS.items():
+        p, xs, out, x_n = checks[path]
+        t4 = scaling.time_products(lambda p=p, xs=xs: p.product(xs), dev) \
+            if path == "csr_psum" else dict((d, t) for d, _v, t, _e, _ok in rows[path])[MD_SHARDS]
+        by_d = ", ".join(f"d={d} {t * 1e3:.4f} ms (eff {e:.2f})" for d, _v, t, e, _ok in rows[path])
+        sd = ""
+        dtype = "float64" if path == "dia_halo_df" else "float32"
+        if (name, dtype) in single:
+            model, what = single[name, dtype]
+            xt = torch.as_tensor(x_n, dtype=getattr(torch, dtype), device=dev)
+            sd = f"; single-device product ({what}) {time_per_call(model, xt) * 1e3:.4f} ms"
+        lib = time_per_call(library_spmv(matrices[name], dev, getattr(torch, dtype)),
+                            torch.as_tensor(x_n, dtype=getattr(torch, dtype), device=dev))
+        print(f"  {path:12s} {name:22s} {MD_SHARDS} shards{' (2x2 mesh)' if path == 'csr_psum' else ''}: "
+              f"{t4 * 1e3:.4f} ms per product [{by_d}]{sd}; cuSPARSE {dtype} {lib * 1e3:.4f} ms")
+        if path not in MD_KERNELS:
+            continue
+        kname, source, replaces = MD_KERNELS[path]
+        # the kernels alone, each shard's launch on its own input (its
+        # halo'd x; its device's x): timed and held against their plain
+        # versions, apart from the product's exchanges and copies
+        if path == "window_halo":
+            from spmv_openmp_cuda_tpu_torch.config import LANE
+            from spmv_openmp_cuda_tpu_torch.parallel import mesh as M
+            from spmv_openmp_cuda_tpu_torch.parallel import sharded as SH
+
+            op = p.op
+            slabs = SH.window_slabs(M.make_mesh((len(p.devices), 1), devices=p.devices), op, xs)
+
+            def local(plain, op=op, slabs=slabs):
+                return torch.cat([SH.window_shard_spmv(s, slab, -op.wr * LANE, plain,
+                                                       op.plan_blocks).to(dev)
+                                  for s, slab in zip(op.shards, slabs)])[: op.shape[0]]
+
+            moved = sum(nbytes(s.vals, s.sidx, s.gid, s.rsrc) + nbytes(slab)
+                        for s, slab in zip(op.shards, slabs)) + 4 * matrices[name].shape[0]
+            b_ms, by = least_ms(moved, 2 * sum(s.vals.numel() for s in op.shards))
+        else:
+            chains = p.op.chains
+            n = matrices[name].shape[1]
+            xt = torch.as_tensor(x_n, dtype=torch.float32, device=dev)
+            x_on = {c.device: xt.to(c.device) for c in chains}
+
+            def local(plain, chains=chains, x_on=x_on):
+                run = RC.routed_spmv_reference if plain else RC.routed_chain_spmv
+                return torch.cat([run(c, x_on[c.device]).to(dev) for c in chains])
+
+            costs = [stage_cost(st, n) for c in chains for st in c.stages]
+            b_ms, by = least_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
+        yk, yp = local(False), local(True)
+        if path == "window_halo" and not torch.equal(yk, out):
+            raise AssertionError("phase 7: window_halo: the kernels alone differ from the product")
+        err = (yk - yp).abs().max().item()
+        if not err <= bound(yp):
+            raise AssertionError(f"phase 7: {path}: kernel vs plain {err:.3e} > {bound(yp):.3e}")
+        k_ms = scaling.time_products(lambda f=local: f(False), dev)
+        plain_ms = scaling.time_products(lambda f=local: f(True), dev, reps=3, per_rep=2)
+        log(f"phase 7: {path}: the {MD_SHARDS} shards' kernels alone {k_ms * 1e3:.4f} ms per "
+            f"product (the sharded product {t4 * 1e3:.4f} ms); vs plain version {err:.3e} <= "
+            f"{bound(yp):.3e}; plain {plain_ms * 1e3:.4f} ms; bound {b_ms:.4f} ms ({by})")
+        entries.append({
+            "name": f"{kname} [{path}, {MD_SHARDS} shards]", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(own[path].values()),
+            "max_abs_err": err, "ms": k_ms * 1e3, "plain_ms": plain_ms * 1e3, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": lib * 1e3, "product_ms": t4 * 1e3})
+    took = time.perf_counter() - t_phase
+    log(f"phase 7: done in {took:.1f}s")
+    return entries
 
 
 def main() -> int:
@@ -2069,6 +2343,7 @@ def main() -> int:
     if not small_launches:
         raise AssertionError("the small kernel never launched on its main path (the harness cell)")
     solver_phase(dev, csrs, mats, models, models64, seed)
+    kernels.extend(multi_device_phase(dev, smi, csrs, mats, models))
     log("done")
     print(smi)
     print(json.dumps({"kernels": kernels}))

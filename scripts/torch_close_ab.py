@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of the PyTorch/CUDA port on one GPU: the window
 kernels (PL_CSR_WINDOW, PL_CSR_WINDOW_BF16 and PL_CSR_WINDOW_F64 on
-thermal2_like, fem_3d_thermal2_like and delaunay_n12_like), the
+thermal2_like, fem_3d_thermal2_like and delaunay_n12_like, hashed), the
 transposed-ELL product (PL_ELL_ROWS_T, ell_t_kernel) on sg_like and
 thermal2_like, hashed, the dense heavy-row kernel D on caida_like (with its
 close; its sums hashed), the routed kernels A (the gather), B
@@ -37,7 +37,7 @@ temporary directory for the other three.
 runs each checkout in a process of its own (its package on the path, its
 kernels built from its csrc/) in the order parent, change, change, parent,
 and prints each run's numbers, the mean of the two runs of each tree, and
-whether each routed y is bitwise the same in all four runs.
+whether each hashed y is bitwise the same in all four runs.
 `--one DIR [CACHE_DIR]` runs one checkout and prints one JSON line. Needs a
 CUDA device.
 """
@@ -328,7 +328,8 @@ def one(tree: str, cache=None) -> dict:
             out[f"{name} {mode}"] = {"ms": time_per_call(fn, x) * 1e3, "graph_ms": tg,
                                      "rerun_equal": bool(torch.equal(a, b)),
                                      "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
-                                     "bound_share": moved / HBM_BYTES_PER_S * 1e3 / tg}
+                                     "bound_share": moved / HBM_BYTES_PER_S * 1e3 / tg,
+                                     "hash": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]}
     csr = cached_csr("caida_like", cache)
     mat = RC.prepare_routed_chain(csr, device=dev).mat
     x = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
@@ -469,7 +470,7 @@ def main(argv) -> int:
                      None)
         print(f"  {key:46s} parent {cells[0]}   change {cells[1]}"
               + (f"   (bound {bound:.4f} ms)" if bound else ""))
-    print("routed y, parent against change (the same x from a seed; every run's hash):")
+    print("y, parent against change (the same x from a seed; every run's hash):")
     for key in keys:
         hashes = [run[key]["hash"] for run in runs[parent] + runs[change] if "hash" in run.get(key, {})]
         if hashes:

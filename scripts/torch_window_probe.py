@@ -30,7 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 #: variant -> substitutions (old, new) in csrc/window_spmv.cu + window_tile.cuh
 VARIANTS = {
     "as_is": [],
-    "no_x_stage": [("stage_x(xs, a.x, a.n_x, x_base * kLane, a.win_rows * kLane, bar);",
+    "no_x_stage": [("stage_x(xs, a.x, a.x_lo, a.n_x, x_base * kLane, a.win_rows * kLane, bar);",
                     "__syncthreads();")],
     "no_slot_rows": [("      slot_row<T>(", "      if (false) slot_row<T>("),
                      ("      overflow_lane<T>(", "      if (false) overflow_lane<T>(")],

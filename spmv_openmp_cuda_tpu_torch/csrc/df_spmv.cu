@@ -375,7 +375,7 @@ window_df_kernel(WinDfArgs a, int csize) {
     __syncthreads();
   };
   for (int e = tid; e < g_pad * kLane; e += kThreads) tile[e] = make_float2(0.f, 0.f);
-  stage_x(xd, a.x, a.n_x, x_base * kLane, a.win_rows * kLane, bar);
+  stage_x(xd, a.x, 0LL, a.n_x, x_base * kLane, a.win_rows * kLane, bar);
   for (int e = tid; e < a.win_rows * kLane; e += kThreads) {
     const double v = xd[e];  // each thread rewrites the 8 bytes it read
     const float h = (float)v;

@@ -11,7 +11,7 @@
 // Both compute, for every slot (block i, slot row k < k_pad, lane l):
 //   Q   = rsrc[(i*n_kt + k/128)*128 + sidx[i,k,l], k%128]   (window row)
 //   col = (x_base(i) + Q)*128 + sidx[i,k,l]                  (x read as 0
-//                                                             outside [0, n))
+//                                                             outside [x_lo, n))
 //   r   = k < k_c ? 8*gid[i,k,l] + k%8 : gid[i,k,l]          (mod-8 fold)
 //   y[(i*g + r)*128 + l] += vals[i,k,l] * x[col]             for r < g
 // with x_base(i) = 8*floor(i*g/8) - wr (standard), (i - i%bps)*g - wr
@@ -77,7 +77,7 @@ struct Args {
   const int8_t* rsrc;
   const float* x;
   float* y;
-  long long n_x, m;
+  long long x_lo, n_x, m;
   int g, k_pad, k_c, n_kt, wr, bps, xmode, step, win_rows;
 };
 
@@ -186,7 +186,7 @@ __device__ __forceinline__ void window_body(const Args& a, int blk, int rank, in
     __syncthreads();
   };
   for (int e = tid; e < g_pad * kLane; e += kThreads) tile[e] = 0.f;
-  stage_x(xs, a.x, a.n_x, x_base * kLane, a.win_rows * kLane, bar);
+  stage_x(xs, a.x, a.x_lo, a.n_x, x_base * kLane, a.win_rows * kLane, bar);
 
   // the mod-8 rows, chunk by chunk: warp w's own rows, one writer per cell
   int j = 0;
@@ -287,8 +287,11 @@ extern "C" {
 
 // y (f32, length m) = the window sums of nblocks blocks; vals f32
 // (vals_bf16 == 0) or bf16; xmode 0 standard, 1 xdirect (one block), 2
-// shared_w. The launch plan (ops/window_cuda.py::launch_plan): csize CTAs
-// per block (1, or a cluster of 2, 4 or 8), CTA rank taking the slot rows
+// shared_w. x is read in [x_lo, n_x), zero outside: x_lo (<= 0, a multiple
+// of 128) is 0 for a whole x and -wr*128 for a row shard whose left halo
+// lies before x (parallel/sharded.py). The launch plan
+// (ops/window_cuda.py::launch_plan): csize CTAs per block (1, or a cluster
+// of 2, 4 or 8), CTA rank taking the slot rows
 // from rank_start(rank, step, ...) (csize*step >= the block's cost),
 // win_rows staged x rows (<= 128, and above every Q of rsrc), a ring of
 // `depth` (8) stages, and smem bytes of dynamic shared memory
@@ -297,17 +300,17 @@ extern "C" {
 // launch's error, or 0.
 int window_launch(int vals_bf16, const void* vals, const int8_t* sidx, const int8_t* gid,
                   const int8_t* rsrc, int nblocks, int g, int k_pad, int k_c, int wr, int bps,
-                  int xmode, const float* x, long long n_x, long long m, float* y, int csize,
-                  int step, int win_rows, int depth, int smem, void* stream) {
+                  int xmode, const float* x, long long x_lo, long long n_x, long long m, float* y,
+                  int csize, int step, int win_rows, int depth, int smem, void* stream) {
   const bool csize_ok = csize == 1 || csize == 2 || csize == 4 || csize == kMaxCluster;
   const int vals_bytes = vals_bf16 ? 8 : 16;
   const long long cost = k_c + (long long)kOverflowCost * (k_pad - k_c);
   if (!csize_ok || step <= 0 || (long long)csize * step < cost || win_rows < 1 ||
       win_rows > kLane || depth != kDepth ||
       (size_t)smem != window_smem_bytes(g, win_rows, 4, 4, vals_bytes, depth) ||
-      (xmode == 1 && nblocks != 1))
+      (xmode == 1 && nblocks != 1) || x_lo > 0 || x_lo % kLane)
     return (int)cudaErrorInvalidValue;
-  Args a{vals, sidx, gid, rsrc, x, y, n_x, m, g, k_pad, k_c, (k_pad + kLane - 1) / kLane,
+  Args a{vals, sidx, gid, rsrc, x, y, x_lo, n_x, m, g, k_pad, k_c, (k_pad + kLane - 1) / kLane,
          wr, bps, xmode, step, win_rows};
   const cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t e = vals_bf16 ? launch<__nv_bfloat16>(a, nblocks, csize, smem, st)

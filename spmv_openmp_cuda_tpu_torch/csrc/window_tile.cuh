@@ -80,18 +80,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Stage x[x0 .. x0 + elems) into xs (zero outside [0, n_x)): one bulk
+// Stage x[x0 .. x0 + elems) into xs (zero outside [x_lo, n_x)): one bulk
 // asynchronous copy (Hopper's 1-D TMA) of the 16-byte-aligned in-range
 // part, completing on the mbarrier bar; the threads zero the part outside x
-// and load the in-range tail the copy leaves (< 16 bytes). x and x0 * sizeof(X)
-// are 16-byte aligned (x0 is a multiple of 128). Ends with the window
-// visible to every thread of the CTA.
+// and load the in-range tail the copy leaves (< 16 bytes). x_lo <= 0 is the
+// first element readable before x[0]: 0 for a whole x, -wr*128 for a row
+// shard whose left halo sits before its own first row (the multi-device
+// window path, parallel/sharded.py). x, x0 * sizeof(X) and x_lo * sizeof(X)
+// are 16-byte aligned (x0 and x_lo are multiples of 128). Ends with the
+// window visible to every thread of the CTA.
 template <typename X>
-__device__ __forceinline__ void stage_x(X* xs, const X* __restrict__ x, long long n_x,
-                                        long long x0, int elems, uint64_t* bar) {
+__device__ __forceinline__ void stage_x(X* xs, const X* __restrict__ x, long long x_lo,
+                                        long long n_x, long long x0, int elems, uint64_t* bar) {
   const int tid = threadIdx.x;
-  const long long a = min(max(-x0, 0LL), (long long)elems);  // elements before x[0]
-  long long cnt = min(n_x, x0 + elems) - (x0 + a);           // elements inside x
+  const long long a = min(max(x_lo - x0, 0LL), (long long)elems);  // elements before x[x_lo]
+  long long cnt = min(n_x, x0 + elems) - (x0 + a);                  // elements inside x
   if (cnt < 0) cnt = 0;
   const int bulk = (int)(cnt * (long long)sizeof(X) / 16 * 16 / (long long)sizeof(X));
   const uint32_t b = smem_addr(bar);

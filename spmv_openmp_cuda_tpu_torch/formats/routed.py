@@ -29,8 +29,14 @@ into pooled residue tiles (`_build_heavy`): every heavy nnz of a column window
 takes a slot at sublane col % 128 of a 128-lane tile, the rows of a pool
 sorted along the lanes, so that each (tile, residue, row) is a run of lanes;
 the tiles' products summed per run and per row are added into y at the heavy
-rows, which the light pipeline leaves zero. A schema (the multi-device path)
-raises NotImplementedError; an empty matrix raises RoutedError.
+rows, which the light pipeline leaves zero. An empty matrix raises
+RoutedError.
+
+A schema (merge_routed_schemas over the chunks' routed_schema_stats) forces
+the pow2 width ladder of every reduction level, the gather rows, the window
+count, the level count and the output domain, so that every chunk sharing it
+has the same shapes and runs: the row chunks of the single-program
+multi-device path (parallel/routed_spmd.py). It takes no heavy split.
 
 The double-float (float64) engine (`prepare_routed_df`, RoutedDF) is two
 float32 layouts of the same structure, one over the hi and one over the lo
@@ -53,6 +59,7 @@ import torch
 from ..config import LANE
 from ..ops.route import PlannedPermutation, pick_t, plan_permutation, plan_row_to_slot
 from .matrix import CSRMatrix, target_device
+from .window import _next_pow2
 
 #: panels (128 columns each) per x window, and columns per window
 WINDOW_PANELS = LANE
@@ -165,6 +172,67 @@ def _group_units(lens: np.ndarray, child_first: Optional[np.ndarray] = None):
         runs.append((int(base[g]), g2 - g, int(widths[g]), g))
         g = g2
     return order, base, tuple(runs), int(base[-1])
+
+
+def _ladder_counts(lens: np.ndarray) -> dict:
+    """Pow2-quantized width ladder: {width: n_groups} with units of
+    next_pow2(len) == width packed 128 to a group. The quantization wastes
+    <= 2x slab rows but makes the (width, count) schema unifiable across
+    chunks."""
+    q = np.array([_next_pow2(max(int(v), 1)) for v in lens], dtype=np.int64)
+    out = {}
+    for w in sorted(set(q.tolist()), reverse=True):
+        out[int(w)] = int(-(-int((q == w).sum()) // LANE))
+    return out
+
+
+def merge_ladders(ladders) -> dict:
+    """Elementwise-max merge of {width: n_groups} ladders (schema union)."""
+    out: dict = {}
+    for lad in ladders:
+        for w, c in lad.items():
+            out[w] = max(out.get(w, 0), c)
+    return dict(sorted(out.items(), reverse=True))
+
+
+def _group_units_ladder(lens: np.ndarray, schema: dict):
+    """Schema-forced grouping: every unit goes into the pow2 ladder class
+    next_pow2(len), groups padded to exactly schema[w] per width, so the
+    runs are the same for every chunk sharing the schema.
+
+    Returns (rank, group_row_base, runs, n_rows): rank[u] = slot rank of
+    unit u (group = rank // 128); pad ranks are unoccupied."""
+    u = lens.shape[0]
+    q = np.array([_next_pow2(max(int(v), 1)) for v in lens], dtype=np.int64)
+    widths_all, counts_all = [], []
+    for w, c in sorted(schema.items(), reverse=True):
+        widths_all.append(w)
+        counts_all.append(c)
+    widths = np.repeat(np.array(widths_all, np.int64), np.array(counts_all, np.int64))
+    base = np.r_[0, np.cumsum(widths)]
+    runs: List[Tuple[int, int, int, int]] = []
+    g = 0
+    for w, c in zip(widths_all, counts_all):
+        runs.append((int(base[g]), c, int(w), g))
+        g += c
+    # units of class w take the leading slots of w's groups, in
+    # descending-length order
+    rank = np.empty(u, dtype=np.int64)
+    g0 = 0
+    class_off = {}
+    for w, c in zip(widths_all, counts_all):
+        class_off[w] = g0 * LANE
+        g0 += c
+    order = np.argsort(-lens, kind="stable")
+    qo = q[order]
+    for w in widths_all:
+        ids = order[qo == w]
+        if ids.size > schema[w] * LANE:
+            raise RoutedError(
+                f"ladder overflow: {ids.size} units of width {w} > schema {schema[w]} groups"
+            )
+        rank[ids] = class_off[w] + np.arange(ids.size)
+    return rank, base, tuple(runs), int(base[-1])
 
 
 def _dense_heavy_ok(dtype, n_heavy: int, n_pad: int) -> bool:
@@ -326,6 +394,58 @@ def _pick_heavy_threshold(
     return best_thr
 
 
+def routed_schema_stats(csr: CSRMatrix) -> dict:
+    """The shape-determining stats of a chunk's routed structure under the
+    pow2 width ladder (no heavy split, no routing): {'rows_a', 'nwin',
+    'ladders': (one ladder per reduction level), 'm'}. Merge the chunks'
+    with merge_routed_schemas."""
+    m, n = csr.shape
+    cols = csr.indices.astype(np.int64)
+    lens = np.diff(csr.indptr.astype(np.int64))
+    w = cols // WINDOW_ELEMS
+    a = cols % LANE
+    nwin = n_windows_for(n, int(w.max(initial=0)), WINDOW_ELEMS)
+    cell = w * LANE + a
+    cnt = np.bincount(cell, minlength=nwin * LANE).reshape(nwin, LANE)
+    rows_a = int((LANE * np.ceil(cnt / LANE).max(axis=1)).sum())
+    ladders = []
+    n_sub = np.maximum(-(-lens // WCAP), 1)
+    u = int(n_sub.sum())
+    lens_k = np.full(u, WCAP, dtype=np.int64)
+    lens_k[np.cumsum(n_sub) - 1] = lens - (n_sub - 1) * WCAP
+    ladders.append(_ladder_counts(lens_k))
+    counts = n_sub[n_sub > 1]
+    while counts.size:
+        nsub2 = np.maximum(-(-counts // WCAP), 1)
+        u2 = int(nsub2.sum())
+        lens2 = np.full(u2, WCAP, dtype=np.int64)
+        lens2[np.cumsum(nsub2) - 1] = counts - (nsub2 - 1) * WCAP
+        ladders.append(_ladder_counts(lens2))
+        counts = nsub2[nsub2 > 1]
+    return {"rows_a": rows_a, "nwin": nwin, "ladders": tuple(ladders), "m": m}
+
+
+def merge_routed_schemas(stats) -> dict:
+    """The shared schema of the chunks whose routed_schema_stats are given:
+    per level the merged ladder ({1: 1} for a level no chunk has), the most
+    gather rows and windows, the level count, and an output domain that
+    holds every level's groups and the largest chunk's rows."""
+    n_levels = max(len(s["ladders"]) for s in stats)
+    ladders = []
+    for k in range(n_levels):
+        merged = merge_ladders([s["ladders"][k] for s in stats if len(s["ladders"]) > k])
+        ladders.append(merged or {1: 1})
+    total_groups = sum(sum(lad.values()) for lad in ladders)
+    out_rows = max(total_groups, max(-(-s["m"] // LANE) for s in stats))
+    return {
+        "rows_a": max(s["rows_a"] for s in stats),
+        "nwin": max(s["nwin"] for s in stats),
+        "ladders": tuple(ladders),
+        "n_levels": n_levels,
+        "out_rows": out_rows,
+    }
+
+
 def prepare_routed(
     csr: CSRMatrix,
     dtype: torch.dtype = torch.float32,
@@ -334,8 +454,11 @@ def prepare_routed(
     schema: Optional[dict] = None,
     device="cpu",
 ) -> RoutedCSR:
-    """The JAX package's prepare_routed (schema=None), numpy verbatim, with
-    the arrays as tensors on `device` (see _prepare_routed_placed)."""
+    """The JAX package's prepare_routed, numpy verbatim, with the arrays as
+    tensors on `device` (see _prepare_routed_placed). schema (from
+    merge_routed_schemas) forces the ladder runs, the padded gather rows,
+    the window count, the level count and the output domain, so that every
+    chunk sharing it has the same shapes; it takes no heavy split."""
     return _prepare_routed_placed(
         csr, dtype, heavy_threshold, vals_dtype, schema, device
     )[0]
@@ -361,15 +484,9 @@ def _prepare_routed_placed(
     so the f32 mode rounds the heavy rows' values to bf16 where they fit it.
 
     Raises RoutedError where the JAX package does (domain too large, empty
-    matrix) and NotImplementedError for what the port lacks: a schema, and
-    a dtype other than float32.
+    matrix, a chunk beyond its schema) and NotImplementedError for a dtype
+    other than float32.
     """
-    if schema is not None:
-        raise NotImplementedError(
-            "the schema'd routed prepare belongs to the single-program "
-            "multi-device path, not ported to PyTorch/CUDA yet (ROADMAP.md "
-            "queue 1, multi-device and the driver contract)"
-        )
     if dtype != torch.float32:
         raise NotImplementedError(
             f"routed engine dtype {dtype}: each plane of the layout is float32 "
@@ -387,6 +504,8 @@ def _prepare_routed_placed(
     lens_full = np.diff(indptr)
 
     # ---- heavy-row split --------------------------------------------------
+    if schema is not None:
+        heavy_threshold = 1 << 60
     if heavy_threshold is None:
         heavy_threshold = _pick_heavy_threshold(csr, lens_full, dtype)
     heavy_sel = lens_full >= heavy_threshold
@@ -425,6 +544,8 @@ def _prepare_routed_placed(
     a = cols % LANE
     p = (cols // LANE) % WINDOW_PANELS
     nwin = n_windows_for(n, int(w.max(initial=0)), WINDOW_ELEMS)
+    if schema is not None:
+        nwin = max(nwin, schema["nwin"])
     # ordinal within (w, a)
     key = w * LANE + a
     order = np.argsort(key, kind="stable")
@@ -443,6 +564,13 @@ def _prepare_routed_placed(
     n_tiles = int(tile_base[-1])
     rows_a = n_tiles * LANE
     row_a = (tile_base[w] + depth) * LANE + a  # slot row per nnz; lane TBD
+    pad_tiles = 0  # schema: trailing all-zero gather tiles (widx -> 0)
+    if schema is not None:
+        if rows_a > schema["rows_a"]:
+            raise RoutedError(f"chunk gather rows {rows_a} exceed schema {schema['rows_a']}")
+        pad_tiles = schema["rows_a"] // LANE - n_tiles
+        n_tiles += pad_tiles
+        rows_a = schema["rows_a"]
 
     # ---- reduction units (multi-level row splitting) ----------------------
     lens = np.diff(csr.indptr).astype(np.int64)
@@ -461,7 +589,10 @@ def _prepare_routed_placed(
 
     # units consumed by level 2 (subunits of split rows) sort first
     is_child1 = np.repeat(n_sub > 1, n_sub)
-    order1, base1, runs1, rows_c = _group_units(lens1, child_first=is_child1)
+    if schema is not None:
+        rank1, base1, runs1, rows_c = _group_units_ladder(lens1, schema["ladders"][0])
+    else:
+        order1, base1, runs1, rows_c = _group_units(lens1, child_first=is_child1)
     if probe:
         # the test the products permutation makes below (pick_t)
         try:
@@ -469,15 +600,18 @@ def _prepare_routed_placed(
         except ValueError as e:
             raise RoutedError(str(e)) from e
         return None
-    rank1 = np.empty(u1, dtype=np.int64)
-    rank1[order1] = np.arange(u1)
+    if schema is None:
+        rank1 = np.empty(u1, dtype=np.int64)
+        rank1[order1] = np.arange(u1)
     n_child = [int(is_child1.sum())]  # per level: #units feeding the next
 
     # ---- pass 1: unit/group structure for every reduction level -----------
     # (in-group lanes are NOT fixed here — the output-assembly router assigns
     # them so its own first lane-perm stage folds away entirely)
     levels = []  # per extra level: dict of structure arrays
-    level_groups = [-(-u1 // LANE)]
+    level_groups = [
+        sum(schema["ladders"][0].values()) if schema is not None else -(-u1 // LANE)
+    ]
     # map each original row to (level, unit id within that level)
     final_level = np.zeros(m, dtype=np.int64)
     final_unit = sub_base[:-1].copy()  # rows with one subrow: that unit
@@ -495,9 +629,14 @@ def _prepare_routed_placed(
         last2 = sb2[1:] - 1
         lens2[last2] = plens_full - (nsub2 - 1) * WCAP
         is_child2 = np.repeat(nsub2 > 1, nsub2)
-        order2, base2, runs2, rows2 = _group_units(lens2, child_first=is_child2)
-        rank2 = np.empty(u2, dtype=np.int64)
-        rank2[order2] = np.arange(u2)
+        if schema is not None:
+            if level >= len(schema["ladders"]):
+                raise RoutedError(f"chunk needs level {level} beyond schema depth")
+            rank2, base2, runs2, rows2 = _group_units_ladder(lens2, schema["ladders"][level])
+        else:
+            order2, base2, runs2, rows2 = _group_units(lens2, child_first=is_child2)
+            rank2 = np.empty(u2, dtype=np.int64)
+            rank2[order2] = np.arange(u2)
         n_child.append(int(is_child2.sum()))
         # one element per (unit, k<len): its source is a child unit at the
         # previous level
@@ -516,7 +655,9 @@ def _prepare_routed_placed(
                 el_unit=el_unit, el_k=el_k, src_unit=src_unit,
             )
         )
-        level_groups.append(-(-u2 // LANE))
+        level_groups.append(
+            sum(schema["ladders"][level].values()) if schema is not None else -(-u2 // LANE)
+        )
         done = nsub2 == 1
         final_level[parents[done]] = level
         final_unit[parents[done]] = sb2[:-1][done]
@@ -534,6 +675,23 @@ def _prepare_routed_placed(
         if level > 8:
             raise RoutedError("row splitting failed to converge")
 
+    if schema is not None:
+        # pad to the schema's level count with degenerate levels (one dummy
+        # length-0 unit, no extraction elements, all-zero mask), so every
+        # chunk runs the same levels
+        empty = np.zeros(0, dtype=np.int64)
+        while len(levels) < schema["n_levels"] - 1:
+            lad = schema["ladders"][len(levels) + 1]
+            rank_d, base_d, runs_d, rows_d = _group_units_ladder(np.zeros(1, dtype=np.int64), lad)
+            levels.append(
+                dict(
+                    u=1, rank=rank_d, base=base_d, runs=runs_d, rows=rows_d,
+                    el_unit=empty, el_k=empty, src_unit=empty,
+                )
+            )
+            level_groups.append(sum(lad.values()))
+            n_child.append(0)
+
     # ---- pass 2: output assembly routing assigns every in-group lane ------
     # elements = all units of all levels (every sums row has exactly 128
     # incl. pads); finals route to y rows, the rest to the pad region
@@ -546,6 +704,10 @@ def _prepare_routed_placed(
     out_rows = max(
         -(-total // LANE) + h_extra_rows, -(-m // LANE)
     )
+    if schema is not None:
+        if out_rows > schema["out_rows"]:
+            raise RoutedError(f"chunk out rows {out_rows} exceed schema {schema['out_rows']}")
+        out_rows = schema["out_rows"]
     t_out = pick_t(out_rows)
     h_out = t_out * LANE
     dom_o = h_out * LANE
@@ -628,8 +790,11 @@ def _prepare_routed_placed(
             lv["src_unit"]
         ]
         # with child-first ordering the previous level's child sums occupy
-        # only its leading groups — the extraction domain shrinks to those
-        prev_rows = -(-max(n_child[k], 1) // LANE)
+        # only its leading groups — the extraction domain shrinks to those;
+        # a schema orders no children first, so it spans all the groups
+        prev_rows = (
+            level_groups[k] if schema is not None else -(-max(n_child[k], 1) // LANE)
+        )
         t_k = pick_t(max(prev_rows, lv["rows"]))
         dom_k = t_k * LANE * LANE
         dst_k = np.full(dom_k, -1, dtype=np.int64)
@@ -651,6 +816,9 @@ def _prepare_routed_placed(
     vals[row_a, lane_a] = csr.data
     pidx[row_a, lane_a] = p
     widx = np.repeat(np.arange(nwin, dtype=np.int32), tiles_per_win)
+    if pad_tiles:
+        # schema pad tiles: all-zero vals -> zero products; window 0 read
+        widx = np.r_[widx, np.zeros(pad_tiles, dtype=np.int32)]
     pooled = {}
     if heavy is not None:
         hvals, hpidx, hwidx, hreduce, hlo, hhi = heavy
@@ -680,7 +848,7 @@ def _prepare_routed_placed(
         nnz=nnz,
         n_windows=nwin,
         rows_a=rows_a,
-        widx_t=tuple(int(v) for v in widx) if rows_a <= 128 * LANE else (),
+        widx_t=tuple(int(v) for v in widx) if rows_a <= 128 * LANE and schema is None else (),
         runs=runs1,
         lvl_runs=tuple(lvl_runs),
         out_t=t_out,

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,13 +49,14 @@ def _x_base(mat: WindowCSR, blk: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def window_spmv_reference(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
+def window_spmv_reference(mat: WindowCSR, x: torch.Tensor, x_lo: int = 0) -> torch.Tensor:
     """Plain PyTorch y = A @ x (f32, length m) over a prepared window layout,
     with the semantics of the JAX package's window_spmv: slot (i, k, l) adds
-    vals * x[(x_base(i) + Q)*128 + sidx] (x is 0 outside [0, n) and is not
+    vals * x[(x_base(i) + Q)*128 + sidx] (x is 0 outside [x_lo, n) and is not
     rounded; vals are upcast to f32) into row (i*g + r)*128 + l, r = 8*gid +
     k%8 below k_c and gid above; sums over g_pad rows per block, then drops
-    the rows past g and past m."""
+    the rows past g and past m. x holds columns x_lo .. n - 1 (x_lo <= 0: a
+    row shard's left halo, parallel/sharded.py; see _launch_f32)."""
     m = mat.shape[0]
     nb, kp, g = mat.nblocks, mat.k_pad, mat.g
     g_pad = -(-g // 8) * 8
@@ -62,7 +64,7 @@ def window_spmv_reference(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
     blk = torch.arange(nb, device=dev).reshape(nb, 1, 1)
     k = torch.arange(kp, device=dev).reshape(1, kp, 1)
     lane = torch.arange(LANE, device=dev).reshape(1, 1, LANE)
-    (xv,) = _slot_x(mat, (x,), dev)
+    (xv,) = _slot_x(mat, (x,), dev, x_lo)
     prod = mat.vals.reshape(nb, kp, LANE).to(torch.float32) * xv
     gd = mat.gid.reshape(nb, kp, LANE).long()
     r = torch.where(k < mat.k_c, 8 * gd + k % 8, gd)
@@ -72,9 +74,10 @@ def window_spmv_reference(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(nb, g_pad, LANE)[:, :g].reshape(-1)[:m]
 
 
-def _slot_x(mat: WindowCSR, planes, dev):
+def _slot_x(mat: WindowCSR, planes, dev, x_lo: int = 0):
     """The x value(s) each slot reads, (nb, k_pad, 128) per plane: x at
-    (x_base(i) + Q)*128 + sidx, 0 outside [0, n)."""
+    (x_base(i) + Q)*128 + sidx, 0 outside [x_lo, n); element 0 of a plane
+    is column x_lo."""
     n = mat.shape[1]
     nb, kp, nkt = mat.nblocks, mat.k_pad, mat.n_ktiles
     blk = torch.arange(nb, device=dev).reshape(nb, 1, 1)
@@ -83,8 +86,8 @@ def _slot_x(mat: WindowCSR, planes, dev):
     qidx = ((blk * nkt + k // LANE) * LANE + res) * LANE + k % LANE
     q = mat.rsrc.reshape(-1)[qidx].long()
     col = (_x_base(mat, blk) + q) * LANE + res
-    inside = (col >= 0) & (col < n)
-    col = col.clamp(0, max(n - 1, 0))
+    inside = (col >= x_lo) & (col < n)
+    col = (col - x_lo).clamp(0, max(n - x_lo - 1, 0))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     return [torch.where(inside, p[col], zero) for p in planes]
 
@@ -262,7 +265,7 @@ def launch_plan(nblocks: int, k_pad: int, k_c: int, g: int, win_rows: int, kind:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.window_launch.argtypes = [
-        i, p, p, p, p, i, i, i, i, i, i, i, p, ll, ll, p, i, i, i, i, i, p,
+        i, p, p, p, p, i, i, i, i, i, i, i, p, ll, ll, ll, p, i, i, i, i, i, p,
     ]
     lib.window_launch.restype = i
     lib.window_error_string.argtypes = [i]
@@ -279,13 +282,19 @@ def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _check_window(mat: WindowCSR, x: torch.Tensor) -> None:
+def _check_window(mat: WindowCSR, x: torch.Tensor, x_lo: int = 0) -> None:
     """What the kernels index with: geometry, then every tensor's device,
     dtype, shape and contiguity (a df layout: two f32 value planes and an
-    f64 x)."""
+    f64 x; x holds columns x_lo .. n - 1)."""
     _check_layout(mat, x.device)
+    _check_x_lo(x_lo)
     _require(x, "x", (torch.float64 if mat.vals_lo is not None else torch.float32,),
-             (mat.shape[1],), x.device)
+             (mat.shape[1] - x_lo,), x.device)
+
+
+def _check_x_lo(x_lo: int) -> None:
+    if x_lo > 0 or x_lo % LANE:
+        raise ValueError(f"x_lo {x_lo} must be <= 0 and a multiple of {LANE}")
 
 
 def _check_layout(mat: WindowCSR, dev) -> None:
@@ -313,12 +322,17 @@ def _check_layout(mat: WindowCSR, dev) -> None:
             raise ValueError(f"{name} must be 16-byte aligned (the kernels read it in vectors)")
 
 
-def _plan(mat: WindowCSR, dev) -> LaunchPlan:
+def _plan(mat: WindowCSR, dev, plan_blocks: Optional[int] = None) -> LaunchPlan:
     """The layout's launch plan on CUDA device dev, its tensors checked once
-    and the plan kept on mat while its fields are the same objects."""
+    and the plan kept on mat while its fields are the same objects.
+    plan_blocks (default mat.nblocks) is the block count the plan is made
+    for: a row shard of a layout takes the whole layout's, so that each
+    block adds in the same order and the shards' y are the unsharded
+    product's bit for bit (parallel/sharded.py)."""
+    plan_blocks = mat.nblocks if plan_blocks is None else plan_blocks
     tensors = (mat.vals, mat.vals_lo, mat.sidx, mat.gid, mat.rsrc)
     geometry = (dev, mat.shape, mat.g, mat.k_pad, mat.k_c, mat.wr, mat.nspecs, mat.nblocks,
-                mat.bps, mat.xdirect, mat.shared_w)
+                mat.bps, mat.xdirect, mat.shared_w, plan_blocks)
     hit = mat.__dict__.get("_cuda_plan")
     if hit is not None and hit[1] == geometry and all(a is b for a, b in zip(hit[0], tensors)):
         return hit[2]
@@ -329,7 +343,7 @@ def _plan(mat: WindowCSR, dev) -> LaunchPlan:
     lo, hi = torch.aminmax(mat.rsrc)
     if int(lo) < 0 or int(hi) >= win_rows:
         raise ValueError(f"mat.rsrc holds window rows outside [0, {win_rows})")
-    plan = launch_plan(mat.nblocks, mat.k_pad, mat.k_c, mat.g, win_rows, kind,
+    plan = launch_plan(plan_blocks, mat.k_pad, mat.k_c, mat.g, win_rows, kind,
                        torch.cuda.get_device_properties(dev).multi_processor_count)
     mat.__dict__["_cuda_plan"] = (tensors, geometry, plan)
     return plan
@@ -341,7 +355,11 @@ def _check_io(t: torch.Tensor, name: str, dtype, size: int, dev) -> None:
         raise ValueError(f"{name} must be 16-byte aligned (the kernels move it in 16-byte copies)")
 
 
-def _launch_f32(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor, xdirect: bool) -> None:
+def _launch_f32(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor, xdirect: bool,
+                x_lo: int = 0, plan_blocks: Optional[int] = None) -> None:
+    """One launch into y. x holds columns x_lo .. n - 1: the kernel gets a
+    pointer to column 0, inside x, and reads [x_lo, n), zero outside (x_lo =
+    -wr*128 for a row shard and its left halo, 0 otherwise)."""
     if mat.vals_lo is not None:
         raise TypeError("a double-float layout runs through window_df_cuda")
     if x.device.type != "cuda":
@@ -353,15 +371,17 @@ def _launch_f32(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor, xdirect: bool)
         )
     m, n = mat.shape
     dev = x.device
-    plan = _plan(mat, dev)
-    _check_io(x, "x", torch.float32, n, dev)
+    plan = _plan(mat, dev, plan_blocks)
+    _check_x_lo(x_lo)
+    _check_io(x, "x", torch.float32, n - x_lo, dev)
     _check_io(y, "y", torch.float32, m, dev)
     lib = _lib()
     rc = lib.window_launch(
         int(mat.vals.dtype == torch.bfloat16), mat.vals.data_ptr(), mat.sidx.data_ptr(),
         mat.gid.data_ptr(), mat.rsrc.data_ptr(), mat.nblocks, mat.g, mat.k_pad, mat.k_c, mat.wr,
-        mat.bps, _xmode(mat), x.data_ptr(), n, m, y.data_ptr(), plan.cluster, plan.step,
-        plan.win_rows, plan.depth, plan.smem, torch.cuda.current_stream(dev).cuda_stream,
+        mat.bps, _xmode(mat), x.data_ptr() - x_lo * x.element_size(), x_lo, n, m, y.data_ptr(),
+        plan.cluster, plan.step, plan.win_rows, plan.depth, plan.smem,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _check_launch(lib, rc, f"window_{'single' if xdirect else 'blocks'}_kernel")
 
@@ -371,12 +391,14 @@ def _xmode(mat: WindowCSR) -> int:
     return 1 if mat.xdirect else 2 if mat.shared_w else 0
 
 
-def window_blocks_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def window_blocks_cuda(mat: WindowCSR, x: torch.Tensor, y: torch.Tensor,
+                       x_lo: int = 0, plan_blocks: Optional[int] = None) -> torch.Tensor:
     """y = A @ x over a multi-block (standard or shared_w) layout, into the
     f32 y of length m: one launch of window_blocks_kernel (a CTA, or a
     thread-block cluster, per block; launch_plan). Overwrites every element
-    of y."""
-    _launch_f32(mat, x, y, xdirect=False)
+    of y. x holds columns x_lo .. n - 1 (x_lo < 0: a row shard's halo'd x,
+    parallel/sharded.py); plan_blocks: see _plan."""
+    _launch_f32(mat, x, y, xdirect=False, x_lo=x_lo, plan_blocks=plan_blocks)
     window_blocks_cuda.launches += 1
     return y
 

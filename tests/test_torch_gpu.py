@@ -1117,3 +1117,89 @@ def test_load_prepared_on_the_card(cuda, tmp_path, mode, dtype):
     x = torch.as_tensor(np.random.default_rng(3).standard_normal(csr.shape[1]),
                         dtype=torch.float64 if spec.f64 else torch.float32, device=cuda)
     assert torch.equal(spec.jitted(loaded)(x), spec.jitted(ops)(x))
+
+
+# ---------------------------------------------------------------------------
+# the multi-device paths (spmv_openmp_cuda_tpu_torch/parallel/) on 4 shards
+# of the card, against the same paths' plain versions on the CPU
+# ---------------------------------------------------------------------------
+
+#: path -> its matrix (tests/test_sharded.py's cases)
+SHARDED_CASES = {
+    "ell_rows": lambda: synth.power_law(190, 170, 5.0, seed=21),
+    "csr_psum": lambda: synth.power_law(190, 170, 5.0, seed=21),
+    "ell_ring": lambda: synth.power_law(190, 170, 5.0, seed=21),
+    "dia_halo": lambda: synth.banded(5000, 5000, 140, fill=0.3, seed=7),
+    "dia_halo_df": lambda: synth.banded(5000, 5000, 140, fill=0.3, seed=7),
+    "window_halo": lambda: synth.fem_like(m=12000, n=12000, nnz=150000, spread=700, lo=5, hi=20,
+                                          seed=8),
+    "routed_spmd": lambda: synth.power_law(6000, 6000, avg_nnz_per_row=7.0, alpha=1.5, seed=11),
+    "routed_md": lambda: synth.power_law(20000, 20000, 6.0, alpha=1.6, seed=7),
+}
+
+
+@pytest.mark.parametrize("path", list(SHARDED_CASES))
+def test_sharded_path_on_four_shards_of_the_card(cuda, path):
+    from spmv_openmp_cuda_tpu_torch.bench import scaling
+
+    coo = SHARDED_CASES[path]()
+    csr = T.coo_to_csr(coo)
+    on_card = scaling.build(path, coo, csr, [cuda] * 4)
+    plain = scaling.build(path, coo, csr, [torch.device("cpu")] * 4)
+    xn = np.random.default_rng(1).standard_normal(csr.shape[1])
+    yk, yp = on_card.y(xn), plain.y(xn)
+    rel = 1e-12 if path == "dia_halo_df" else 1e-5
+    err = np.abs(yk - yp).max()
+    assert err <= rel * np.abs(yp).max() + (0 if path == "dia_halo_df" else 1e-6), err
+    xs = on_card.place(xn)
+    first, again = on_card.product(xs), on_card.product(xs)
+    if isinstance(first, tuple):
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    else:
+        assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("case", ["halo", "all_gather"])
+def test_sharded_window_kernel_with_x_lo(cuda, case):
+    """window_blocks_kernel with x_lo on each shard's halo'd x: one launch
+    per shard, against its plain version, and y torch.equal to the kernel
+    on the unsharded layout and to the op built by the converter from the
+    same padded block arrays (both cases pad blocks: 3 -> 4 and 1 -> 8)."""
+    from spmv_openmp_cuda_tpu_torch.parallel import mesh as tmesh
+    from spmv_openmp_cuda_tpu_torch.parallel import sharded as tsh
+
+    coo, d = ((synth.fem_like(m=12000, n=12000, nnz=150000, spread=700, lo=5, hi=20, seed=8), 4)
+              if case == "halo" else
+              (synth.fem_like(m=2048, n=2048, nnz=16384, spread=900, lo=4, hi=12, seed=9), 8))
+    csr = T.coo_to_csr(coo)
+    xn = np.random.default_rng(2).standard_normal(csr.shape[1])
+    ys = {}
+    cuda_mesh = tmesh.make_mesh((d, 1), devices=[cuda] * d)
+    for dev in (cuda, torch.device("cpu")):
+        mesh = tmesh.make_mesh((d, 1), devices=[dev] * d)
+        op = tsh.prepare_window_sharded(csr, mesh)
+        assert op.halo_ok is (case == "halo")
+        xs = tsh.pad_x_for_window_sharded(xn, op, mesh, torch.float32)
+        before = twc.window_blocks_cuda.launches
+        ys[dev.type] = tsh.make_window_sharded(mesh, op)(op, xs)
+        assert twc.window_blocks_cuda.launches - before == (d if dev.type == "cuda" else 0)
+        assert op.nd * op.nb_local > op.layout.nblocks == op.plan_blocks
+    arrays = [torch.cat([getattr(s, f).cpu() for s in op.shards]).numpy()
+              for f in ("vals", "sidx", "gid", "rsrc")]
+    conv = tsh.window_sharded_from_jax(*arrays, op.shape, op.nnz, op.g, op.k_pad, op.wr,
+                                       op.nspecs, op.nb_local, op.nd, op.k_c, cuda_mesh)
+    xs = tsh.pad_x_for_window_sharded(xn, conv, cuda_mesh, torch.float32)
+    assert torch.equal(tsh.make_window_sharded(cuda_mesh, conv)(conv, xs), ys["cuda"])
+    _within(ys["cuda"], ys["cpu"].to(cuda))
+    whole = twin.prepare_window_auto(csr, xdirect=False, bps=1, device=cuda)
+    assert torch.equal(ys["cuda"], twc.window_spmv(whole, torch.as_tensor(xn, dtype=torch.float32,
+                                                                          device=cuda)))
+
+
+def test_dryrun_multichip_on_the_card(cuda, capsys):
+    from spmv_openmp_cuda_tpu_torch import contract
+
+    contract.dryrun_multichip(4)
+    assert "all OK" in capsys.readouterr().out
+    fn, (mat, x) = contract.entry()
+    assert fn(mat, x).device.type == "cuda"

@@ -172,6 +172,29 @@ def test_native_layouts_and_auto_spmv(lib, monkeypatch, case):
         assert np.abs(model(x).double().numpy() - o).max() <= 1e-5 * np.abs(o).max() + 1e-6
 
 
+def test_native_schemad_prepare_equals_numpy(lib, monkeypatch):
+    """The schema'd routed prepare (the SPMD chunks, parallel/routed_spmd.py)
+    through the native router: every chunk's layout the numpy path's."""
+    from spmv_openmp_cuda_tpu_torch.parallel.routed_spmd import _fair_nnz_bounds
+
+    csr = T.coo_to_csr(synth.power_law(6000, 6000, avg_nnz_per_row=7.0, alpha=1.5, seed=11))
+    b = _fair_nnz_bounds(csr, 4)
+    chunks = [tr._sub_csr(csr, b[i], b[i + 1]) for i in range(4)]
+    schema = tr.merge_routed_schemas([tr.routed_schema_stats(c) for c in chunks])
+    for c in chunks:
+        nat = tr.prepare_routed(c, schema=schema)
+        py = _numpy(monkeypatch, tr.prepare_routed, c, schema=schema)
+        for f in ("vals", "pidx", "widx"):
+            assert torch.equal(getattr(nat, f), getattr(py, f)), f
+        for a, p in zip((nat.perm_products, nat.perm_out, *nat.lvl_perms),
+                        (py.perm_products, py.perm_out, *py.lvl_perms)):
+            for f in ("r1", "w1", "w2", "w3", "r3", "wc"):
+                assert (getattr(a, f) is None) == (getattr(p, f) is None), f
+                if getattr(a, f) is not None:
+                    assert torch.equal(getattr(a, f), getattr(p, f)), f
+        assert nat.runs == py.runs and nat.lvl_runs == py.lvl_runs
+
+
 def test_fallbacks(monkeypatch, tmp_path):
     """No library loaded and a failed build both leave every function to
     its numpy caller (None / False); the JAX package's library stays

@@ -284,8 +284,12 @@ def test_prepare_raises_what_the_port_lacks(monkeypatch):
     _close(trc.routed_spmv(tm, torch.as_tensor(x, dtype=torch.float32)),
            jr.routed_spmv(jm, jnp.asarray(x, jnp.float32)))
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tr.prepare_routed(tcsr, schema={"rows_a": 128})
+    # a schema (the multi-device path's) too small for the chunk raises in both
+    schema = dict(tr.merge_routed_schemas([tr.routed_schema_stats(tcsr)]), rows_a=128)
+    with pytest.raises(tr.RoutedError, match="exceed schema"):
+        tr.prepare_routed(tcsr, schema=schema)
+    with pytest.raises(jr.RoutedError, match="exceed schema"):
+        jr.prepare_routed(jcsr, schema=schema)
     with pytest.raises(NotImplementedError, match="float32"):
         tr.prepare_routed(tcsr, dtype=torch.float64)
     empty = T.CSRMatrix((5, 5), np.zeros(6, np.int64), np.zeros(0, np.int64), np.zeros(0))
