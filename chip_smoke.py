@@ -26,6 +26,16 @@ and out): phase 2 holds it against its plain version on raefsky1_like, a
 past the JAX window's clip, one launch and a bitwise rerun per product, and
 phase 5 times the whole product per call and in a CUDA graph against
 cuSPARSE on the whole matrix.
+The DIA rows products (PL_DIA_ROWS, _BF16: dia_rows_kernel; PL_DIA_F64:
+dia_df_kernel, f64 x split and f64 y combined in it) are one launch each,
+a thread per four rows (one on small matrices), the layout checked at its
+first launch: phase 2 holds dia_df_kernel torch.equal its plain version on
+cube_coup_like and cavity10_like, phase 3 counts one launch per DIA
+product, phase 5 times every DIA rows product per call and in a CUDA graph
+(cavity10_like in f64 too), and phase 6 holds both kernels on CG's
+Laplacian against their plain versions (one launch per product, a bitwise
+rerun) and times them per call and graphed beside cuSPARSE; the kernels
+line's entries carry these cells.
 The window kernels (csrc/window_spmv.cu, df_spmv.cu's window_df_kernel)
 run one launch per product in every dtype: a CTA per block on
 thermal2_like, thread-block clusters on fem_3d_thermal2_like and
@@ -331,7 +341,16 @@ def slab_bytes(ops) -> int:
     first = ops[0]
     if isinstance(first, DiaResid):
         return nbytes(first.mat.data, first.rvals, first.rsidx, first.rgid, first.rsrc)
-    return nbytes(first.data)
+    return dia_live(first)[0] - nbytes(first.offsets_dev)
+
+
+def dia_live(mat):
+    """(bytes, slots) a DIA rows kernel reads of a plan-padded slab: each
+    plane's first m rows of every diagonal (the kernels stop at row m, so
+    the plan's padding rows are never read) and the offsets."""
+    d, m = len(mat.offsets), mat.shape[0]
+    planes = 2 if getattr(mat, "data_lo", None) is not None else 1
+    return planes * d * m * mat.data.element_size() + nbytes(mat.offsets_dev), d * m
 
 
 def stage_cost(stage, n_x: int):
@@ -725,19 +744,11 @@ POWER_ITERS = 100
 
 
 def laplacian_2d(n: int):
-    """The 5-point Laplacian of an n x n grid (4 on the diagonal, -1 to
-    each grid neighbour): n^2 rows, 5n^2 - 4n nnz, SPD."""
+    """The 5-point Laplacian of an n x n grid (utils/synth.py) as CSR."""
     import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch.utils import synth
 
-    idx = np.arange(n * n).reshape(n, n)
-    pairs = [(idx, idx, 4.0)]
-    for a, b in ((idx[:, :-1], idx[:, 1:]), (idx[:-1, :], idx[1:, :])):
-        pairs += [(a, b, -1.0), (b, a, -1.0)]
-    r = np.concatenate([a.ravel() for a, _, _ in pairs])
-    c = np.concatenate([b.ravel() for _, b, _ in pairs])
-    v = np.concatenate([np.full(a.size, w) for a, _, w in pairs])
-    order = np.argsort(r * (n * n) + c, kind="stable")
-    return P.coo_to_csr(P.COOMatrix((n * n, n * n), r[order], c[order], v[order]))
+    return P.coo_to_csr(synth.laplacian_2d(n))
 
 
 def spd_of(csr):
@@ -854,11 +865,66 @@ def solve_cg(label: str, model, ocsr, b_np: np.ndarray, tol: float, dev) -> dict
     return out
 
 
-def solver_phase(dev, csrs: dict, mats: dict, models: dict, models64: dict, seed: int) -> None:
-    """Phase 6: the solvers' main path with its launch counters from zero
-    (CG and power iteration over AutoSpMV, graphed and eager), then prepared
-    files saved and loaded on the card, and the native library's layouts
-    against the numpy ones."""
+def laplacian_dia_products(dev, lap, models) -> dict:
+    """The DIA rows kernels on the Laplacian, CG's product, before the
+    solver path's counters are zeroed: each f32 (dia_rows_kernel) and f64
+    (dia_df_kernel) product one launch, a rerun bitwise equal, against its
+    plain version (f32 within the f32 bound, f64 torch.equal), then per call,
+    graphed, plain, cuSPARSE per call and graphed, and the bound (the slab's
+    first m rows, the offsets, x and y once). Returns {counter: cell} for
+    the kernels line."""
+    from spmv_openmp_cuda_tpu_torch.cli import time_per_call
+    from spmv_openmp_cuda_tpu_torch.ops import spmv_cuda as SC
+
+    cells = {}
+    for model in models:
+        f64 = model.dtype == "float64"
+        mat, plan = model._operands
+        wrap = SC.dia_spmv_df_cuda if f64 else SC.dia_spmv_cuda
+        plain = SC.dia_spmv_df_reference if f64 else SC.dia_spmv_reference
+        x = (normal_x64 if f64 else normal_x)(lap.shape[1], dev, seed=4)
+
+        def run(v, mat=mat, plan=plan, wrap=wrap):
+            return wrap(mat, v, plan)
+
+        before = wrap.launches
+        yk, y2 = run(x), run(x)
+        torch.cuda.synchronize()
+        yp = plain(mat, x, plan)
+        err = (yk - yp).abs().max().item()
+        ok = (torch.equal(yk, yp) if f64 else err <= bound(yp)) and torch.equal(yk, y2)
+        ok = ok and wrap.launches == before + 2 and yk.shape == (lap.shape[0],)
+        kernel = "dia_df_kernel" if f64 else "dia_rows_kernel"
+        log(f"phase 6: Laplacian {model.dtype} {kernel} ({SC._rows_plan(mat, plan, x.device)} row(s) a "
+            f"thread): {wrap.launches - before} launches for two products, rerun bitwise equal "
+            f"{torch.equal(yk, y2)}, max|y_k - y_p| = {err:.3e} "
+            f"({'torch.equal' if f64 else f'<= {bound(yp):.3e}'}): {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"Laplacian {model.dtype}: {kernel} failed its checks")
+        lib = library_spmv(lap, dev, x.dtype)
+        live, slots = dia_live(mat)
+        moved = live + x.element_size() * sum(lap.shape)
+        b_ms, by = least_ms(moved, (DF_FLOPS_PER_SLOT if f64 else 2) * slots)
+        cell = {"ms": time_per_call(run, x) * 1e3, "graph_ms": graph_ms(lambda: run(x)),
+                "plain_ms": time_per_call(lambda v: plain(mat, v, plan), x) * 1e3,
+                "bound_ms": b_ms, "bound_by": by, "library_ms": time_per_call(lib, x) * 1e3,
+                "library_graph_ms": graph_ms(lambda: lib(x)), "max_abs_err": err}
+        cells["dia_df" if f64 else "dia_spmv"] = cell
+        print(f"  Laplacian {LAPLACE_N}x{LAPLACE_N} {model.dtype} {kernel}: {cell['ms']:.4f} ms per "
+              f"call ({cell['graph_ms']:.4f} ms in a CUDA graph) | plain {cell['plain_ms']:.4f} ms | "
+              f"library (cuSPARSE CSR {model.dtype}) {cell['library_ms']:.4f} ms "
+              f"({cell['library_graph_ms']:.4f} graphed) | bound {b_ms:.4f} ms ({by}, "
+              f"{moved / 1e6:.1f} MB); graphed kernel at {100 * b_ms / cell['graph_ms']:.1f} % of it")
+        del lib
+    return cells
+
+
+def solver_phase(dev, csrs: dict, mats: dict, models: dict, models64: dict, seed: int) -> dict:
+    """Phase 6: the DIA rows kernels on the Laplacian (laplacian_dia_products,
+    returned), then the solvers' main path with its launch counters from
+    zero (CG and power iteration over AutoSpMV, graphed and eager), then
+    prepared files saved and loaded on the card, and the native library's
+    layouts against the numpy ones."""
     import spmv_openmp_cuda_tpu_torch as P
     from spmv_openmp_cuda_tpu_torch.formats import routed as RT
     from spmv_openmp_cuda_tpu_torch.formats import serialize as SER
@@ -891,6 +957,7 @@ def solver_phase(dev, csrs: dict, mats: dict, models: dict, models64: dict, seed
             raise AssertionError(f"Laplacian: AUTO picked {model.format}, expected dia")
         systems.append((f"CG {dtype} Laplacian (AUTO {model.format})", model, lap,
                         rng.standard_normal(lap.shape[0]), tol))
+    lap_cells = laplacian_dia_products(dev, lap, [model for _, model, *_ in systems])
     t = time.perf_counter()
     caida = spd_of(csrs[ROUTED_CHECK])
     gen_s = time.perf_counter() - t
@@ -1021,6 +1088,7 @@ def solver_phase(dev, csrs: dict, mats: dict, models: dict, models64: dict, seed
                 f"every array equal: {equal and same_static}")
             if not (equal and same_static):
                 raise AssertionError(f"{name} {fmt}: the native layout differs from the numpy one")
+    return lap_cells
 
 
 #: phase 7 (multi-device): each path of spmv_openmp_cuda_tpu_torch/parallel/
@@ -1700,6 +1768,10 @@ def main() -> int:
     if launches["dia_resid"] != hybrid:
         raise AssertionError(f"{launches['dia_resid']} dia_resid_kernel launches for {hybrid} "
                              "DIA+residual products")
+    # and one dia_rows_kernel launch per DIA product
+    dia = 3 * sum(fmt == "dia" for fmt, *_ in outputs.values())
+    if launches["dia_spmv"] != dia:
+        raise AssertionError(f"{launches['dia_spmv']} dia_rows_kernel launches for {dia} DIA products")
 
     # -- phase 2, continued: webbase_like's chain (the main path's operands)
     # stage by stage against the plain versions, kernel E against
@@ -1792,6 +1864,9 @@ def main() -> int:
     if launches64["dia_resid_df"] != hybrid64 or also.get("dia_resid"):
         raise AssertionError(f"{launches64['dia_resid_df']} dia_resid_df_kernel launches for "
                              f"{hybrid64} DIA+residual products (f32 kernels: {also})")
+    dia64 = 3 * sum(fmt == "dia" for fmt, *_ in outputs64.values())
+    if launches64["dia_df"] != dia64:
+        raise AssertionError(f"{launches64['dia_df']} dia_df_kernel launches for {dia64} DIA products")
 
     # -- phase 2, continued: the window and df kernels against their plain
     # versions on the main paths' own operands (no second prepare)
@@ -1808,10 +1883,12 @@ def main() -> int:
                         f"{len(ops[0].mat.offsets)} diagonals):", *ops, x64)
             continue
         mat, plan = ops
+        yk, yp = registry.get(mode).jitted(ops)(x64), SC.dia_spmv_df_reference(mat, x64, plan)
         check_df(f"{name} {mode} dia_df_kernel (bs={plan.bs}, nblocks={plan.nblocks}, "
-                 f"{len(mat.offsets)} diagonals)",
-                 registry.get(mode).jitted(ops)(x64), SC.dia_spmv_df_reference(mat, x64, plan),
-                 errs, "dia_df")
+                 f"{len(mat.offsets)} diagonals, {SC._rows_plan(mat, plan, x64.device)} row(s) a thread)",
+                 yk, yp, errs, "dia_df")
+        if not torch.equal(yk, yp):
+            raise AssertionError(f"{name}: dia_df_kernel's y is not torch.equal its plain version's")
 
     for name, modes in WINDOW_CHECKS.items():
         csr = csrs[name]
@@ -1949,6 +2026,7 @@ def main() -> int:
           "per call, back to back):")
     libs = {}
     times = {}
+    dia_graphed = {}  # (name, mode) -> graphed ms of the DIA rows products
     for (name, mode), ops in prepared.items():
         if mode.startswith("PL_DIA_RESID"):
             continue  # the whole DIA+residual product, below
@@ -1967,9 +2045,11 @@ def main() -> int:
             del lib_fn
         times[(name, mode)] = (tk, tp)
         gb = slab_bytes(ops) / 1e9
-        graphed = ""
-        if mode.startswith("PL_CSR_WINDOW"):
-            graphed = f" ({graph_ms(lambda f=spec.jitted(ops): f(x)):.4f} ms in a CUDA graph)"
+        tg = graph_ms(lambda f=spec.jitted(ops): f(x))
+        graphed = f" ({tg:.4f} ms in a CUDA graph)"
+        if mode.startswith("PL_DIA"):
+            graphed = f" ({tg:.4f} ms in a CUDA graph, {SC._rows_plan(ops[0], ops[1], x.device)} row(s) a thread)"
+            dia_graphed[(name, mode)] = tg
         print(f"  {name:20s} {mode:18s} kernel {tk * 1e3:9.4f} ms{graphed} "
               f"{2 * csr.nnz / tk / 1e9:8.2f} GFLOP/s "
               f"{gb / tk:8.1f} slab GB/s | plain {tp * 1e3:9.4f} ms | library (cuSPARSE CSR f32) "
@@ -2153,6 +2233,7 @@ def main() -> int:
     print(f"float64 (double-float) times on {smi} (f64 x in, f64 y out, through the "
           "wrapper; cuSPARSE CSR in float64 as the library):")
     df_times = {}
+    df_graphed = {}
 
     def df_time(key, label, fn, plain, x64, lib, moved, slots):
         """Per call through the wrapper (as the f32 rows), and the same call
@@ -2165,20 +2246,21 @@ def main() -> int:
         tl = time_per_call(lib, x64) if lib is not None else None
         b_ms, by = least_ms(moved, DF_FLOPS_PER_SLOT * slots)
         df_times[key] = (tk * 1e3, tp * 1e3, b_ms, by, None if tl is None else tl * 1e3)
+        df_graphed[key] = tg
         print(f"  {label}: kernel {tk * 1e3:9.4f} ms per call ({tg:.4f} ms in a CUDA graph) | plain "
               f"{tp * 1e3:9.4f} ms | library {'-' if tl is None else f'{tl * 1e3:9.4f} ms'} | bound "
               f"{b_ms:.4f} ms ({by}, {moved / 1e6:.1f} MB); graphed kernel at "
               f"{100 * b_ms / tg:.1f} % of it")
 
-    cm, cn = csrs["cube_coup_like"].shape
-    cube_df, cube_plan = prepared_df["cube_coup_like"]
-    x64 = normal_x64(cn, dev, seed=4)
-    df_time("dia_df", "cube_coup_like PL_DIA_F64 dia_df_kernel",
-            lambda v: SC.dia_spmv_df_cuda(cube_df, v, cube_plan),
-            lambda v: SC.dia_spmv_df_reference(cube_df, v, cube_plan), x64,
-            library_spmv(csrs["cube_coup_like"], dev, torch.float64),
-            nbytes(cube_df.data, cube_df.data_lo, cube_df.offsets_dev) + 8 * (cn + cm),
-            cube_df.data.numel())
+    for name in ("cube_coup_like", "cavity10_like"):
+        cm, cn = csrs[name].shape
+        dmat, dplan = prepared_df[name]
+        df_time("dia_df" if name == "cube_coup_like" else f"dia_df {name}",
+                f"{name} PL_DIA_F64 dia_df_kernel ({SC._rows_plan(dmat, dplan, dmat.data.device)} row(s) a thread)",
+                lambda v, o=dmat, p=dplan: SC.dia_spmv_df_cuda(o, v, p),
+                lambda v, o=dmat, p=dplan: SC.dia_spmv_df_reference(o, v, p), normal_x64(cn, dev, seed=4),
+                library_spmv(csrs[name], dev, torch.float64),
+                dia_live(dmat)[0] + 8 * (cn + cm), dia_live(dmat)[1])
     for name in ("raefsky1_like", RESID_BIG):
         rdr, rplan = prepared_df[name] if name == "raefsky1_like" else resid_ops[(name, "PL_DIA_RESID_F64")]
         n = mats[name].shape[1]
@@ -2261,7 +2343,7 @@ def main() -> int:
     # per stored slot, at the shapes the main path runs
     cube = prepared[("cube_coup_like", "PL_DIA_ROWS")][0]
     cube_m, cube_n = csrs["cube_coup_like"].shape
-    b_rows = least_ms(nbytes(cube.data, cube.offsets_dev) + 4 * (cube_n + cube_m), 2 * cube.data.numel())
+    b_rows = least_ms(dia_live(cube)[0] + 4 * (cube_n + cube_m), 2 * dia_live(cube)[1])
 
     def window_bound(name, mode):
         mat = prepared[(name, mode)]
@@ -2342,7 +2424,26 @@ def main() -> int:
          "bound_by": by, "library_ms": tl * 1e3})
     if not small_launches:
         raise AssertionError("the small kernel never launched on its main path (the harness cell)")
-    solver_phase(dev, csrs, mats, models, models64, seed)
+    lap_cells = solver_phase(dev, csrs, mats, models, models64, seed)
+    # the DIA rows kernels' other cells: CG's Laplacian, cavity10_like, and
+    # cube_coup_like in bf16 (dia_rows_kernel) or per call and graphed
+    dia_cells = {
+        "dia_rows_kernel": {
+            f"laplacian_{LAPLACE_N}x{LAPLACE_N} PL_DIA_ROWS": lap_cells["dia_spmv"],
+            **{f"{name} {mode}": {"ms": times[(name, mode)][0] * 1e3, "graph_ms": dia_graphed[(name, mode)],
+                                  "plain_ms": times[(name, mode)][1] * 1e3,
+                                  "library_ms": libs[name] * 1e3}
+               for name, mode in dia_graphed}},
+        "dia_df_kernel": {
+            f"laplacian_{LAPLACE_N}x{LAPLACE_N} PL_DIA_F64": lap_cells["dia_df"],
+            **{f"{name} PL_DIA_F64": {
+                "ms": df_times[key][0], "graph_ms": df_graphed[key], "plain_ms": df_times[key][1],
+                "bound_ms": df_times[key][2], "library_ms": df_times[key][4]}
+               for key, name in (("dia_df", "cube_coup_like"), ("dia_df cavity10_like", "cavity10_like"))}},
+    }
+    for entry in kernels:
+        if entry["name"] in dia_cells:
+            entry["cells"] = dia_cells[entry["name"]]
     kernels.extend(multi_device_phase(dev, smi, csrs, mats, models))
     log("done")
     print(smi)

@@ -19,9 +19,11 @@ the PL_CSR_ROUTED product on three small domains
 kernel), the PL_CSR_LANES product (lanes_kernel) on delaunay_n12_like,
 raefsky1_like, cavity10_like and west2021_like, the DIA+residual product
 (PL_DIA_RESID, _BF16 and _F64) on raefsky1_like and on a 200,000-row banded
-check matrix, and the DIA products whose kernels a DIA+residual change
-leaves as they are (PL_DIA_ROWS on cube_coup_like and cavity10_like,
-PL_DIA_F64 on cube_coup_like), each per call through its wrapper and in a
+check matrix, and the DIA rows products (dia_rows_kernel: PL_DIA_ROWS on
+cube_coup_like, cavity10_like and the 5-point Laplacian of a 1000 x 1000
+grid, PL_DIA_BF16 on cube_coup_like; dia_df_kernel: PL_DIA_F64 on
+cube_coup_like, cavity10_like and the Laplacian; hashed), each per call
+through its wrapper and in a
 CUDA graph, whether a rerun on the same x is bitwise equal, and, for the
 window, lanes and DIA products, the share of the bound: the bytes the
 product must move (the layout's arrays and x read once, y written once)
@@ -32,14 +34,18 @@ operands are the hi planes (what the f32 prepare makes) and bf16 their
 cast. The large matrices are generated by the first run and kept in a
 temporary directory for the other three.
 
-    python3 scripts/torch_close_ab.py PARENT_DIR CHANGE_DIR
+    python3 scripts/torch_close_ab.py [--dia] [--rounds N] PARENT_DIR CHANGE_DIR [MORE_DIRS...]
 
 runs each checkout in a process of its own (its package on the path, its
-kernels built from its csrc/) in the order parent, change, change, parent,
-and prints each run's numbers, the mean of the two runs of each tree, and
-whether each hashed y is bitwise the same in all four runs.
-`--one DIR [CACHE_DIR]` runs one checkout and prints one JSON line. Needs a
-CUDA device.
+kernels built from its csrc/) in the order last .. first, first .. last
+(change, parent, parent, change for two trees; the last tree runs first and
+fills the matrix cache, which a tree older than utils/synth.py's
+laplacian_2d could not), N rounds of it (default 1), and prints each run's
+numbers, the mean and the range (min .. max) of each tree's runs, and
+whether each hashed y is bitwise the same in every run. --dia runs only the
+DIA rows products (dia_rows_products), for a quick A/B of the DIA rows
+kernels. `--one DIR [CACHE_DIR] [--dia]` runs one checkout and prints one
+JSON line. Needs a CUDA device.
 """
 import hashlib
 import json
@@ -58,6 +64,10 @@ HBM_BYTES_PER_S = 3.35e12
 #: the DIA+residual check matrix: 61 diagonals, 38 TPU blocks, 201,015
 #: fringe nnz (the band streams from HBM)
 RESID_BIG = "banded_200000"
+#: CG's matrix in chip_smoke.py's phase 6: the 5-point Laplacian of a
+#: 1000 x 1000 grid (10^6 rows, 4,996,000 nnz)
+LAPLACE_N = 1000
+LAPLACE = f"laplacian_{LAPLACE_N}x{LAPLACE_N}"
 RESID_MODES = ("PL_DIA_RESID", "PL_DIA_RESID_BF16", "PL_DIA_RESID_F64")
 
 
@@ -102,8 +112,8 @@ def device_ops_per_call(fn):
 
 
 def cached_csr(name: str, cache) -> "CSRMatrix":
-    """The named matrix (a preset, or RESID_BIG), from cache/<name>.npz when
-    an earlier run of this A/B left it there."""
+    """The named matrix (a preset, RESID_BIG or LAPLACE), from
+    cache/<name>.npz when an earlier run of this A/B left it there."""
     import numpy as np
 
     import spmv_openmp_cuda_tpu_torch as P
@@ -113,11 +123,12 @@ def cached_csr(name: str, cache) -> "CSRMatrix":
     if path and os.path.exists(path):
         z = np.load(path)
         return P.CSRMatrix(tuple(int(d) for d in z["shape"]), z["indptr"], z["indices"], z["data"])
-    if name == RESID_BIG:
-        coo = synth.banded(200_000, 200_000, 30, fill=1.0, exact_nnz=12_400_000, seed=0)
+    if name == LAPLACE:
+        csr = P.coo_to_csr(synth.laplacian_2d(LAPLACE_N))
+    elif name == RESID_BIG:
+        csr = P.coo_to_csr(synth.banded(200_000, 200_000, 30, fill=1.0, exact_nnz=12_400_000, seed=0))
     else:
-        coo = synth.preset(name)
-    csr = P.coo_to_csr(coo)
+        csr = P.coo_to_csr(synth.preset(name))
     if path:
         np.savez(path, shape=np.asarray(csr.shape), indptr=csr.indptr, indices=csr.indices,
                  data=csr.data)
@@ -208,9 +219,19 @@ def ell_t_products(dev, cache) -> dict:
     return out
 
 
+#: the DIA rows products: matrix -> modes
+DIA_ROWS_CELLS = {
+    "cube_coup_like": ("PL_DIA_ROWS", "PL_DIA_BF16", "PL_DIA_F64"),
+    "cavity10_like": ("PL_DIA_ROWS", "PL_DIA_F64"),
+    LAPLACE: ("PL_DIA_ROWS", "PL_DIA_F64"),
+}
+
+
 def dia_rows_products(dev, cache) -> dict:
-    """The DIA products whose kernels a DIA+residual change leaves as they
-    are."""
+    """The DIA rows products (dia_rows_kernel, dia_df_kernel), hashed; the
+    bound counts the slab's first m rows (both planes in df: the kernels
+    stop at row m, so the plan's padding rows are never read), the offsets,
+    x and y."""
     import numpy as np
     import torch
 
@@ -218,19 +239,21 @@ def dia_rows_products(dev, cache) -> dict:
     from spmv_openmp_cuda_tpu_torch.ops import registry
 
     out = {}
-    for name, mode in (("cube_coup_like", "PL_DIA_ROWS"), ("cavity10_like", "PL_DIA_ROWS"),
-                       ("cube_coup_like", "PL_DIA_F64")):
+    for name, modes in DIA_ROWS_CELLS.items():
         csr = cached_csr(name, cache)
-        df = mode == "PL_DIA_F64"
-        mat, plan = ops = registry.get(mode).prepare(
-            csr, None, P.Config(dtype="float64" if df else "float32"), dev)
-        x = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
-                            dtype=torch.float64 if df else torch.float32, device=dev)
-        moved = sum(t.numel() * t.element_size() for t in (
-            mat.data, mat.offsets_dev, *((mat.data_lo,) if df else ())))
-        _timed(out, f"{name} {mode} product", registry.get(mode).jitted(ops), x,
-               moved + x.element_size() * sum(csr.shape))
-        del mat, ops
+        xn = np.random.default_rng(4).standard_normal(csr.shape[1])
+        for mode in modes:
+            df = mode == "PL_DIA_F64"
+            mat, plan = ops = registry.get(mode).prepare(
+                csr, None, P.Config(dtype="float64" if df else "float32"), dev)
+            x = torch.as_tensor(xn, dtype=torch.float64 if df else torch.float32, device=dev)
+            moved = (2 if df else 1) * len(mat.offsets) * csr.shape[0] * mat.data.element_size()
+            moved += 4 * len(mat.offsets)
+            fn = registry.get(mode).jitted(ops)
+            key = f"{name} {mode} product"
+            _timed(out, key, fn, x, moved + x.element_size() * sum(csr.shape))
+            out[key]["hash"] = hashlib.sha256(fn(x).cpu().numpy().tobytes()).hexdigest()[:16]
+            del mat, ops, fn
     return out
 
 
@@ -289,10 +312,16 @@ def routed_stage_times(name: str, chain, x) -> dict:
     return out
 
 
-def one(tree: str, cache=None) -> dict:
+def one(tree: str, cache=None, dia_only: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
+
+    if dia_only:
+        import spmv_openmp_cuda_tpu_torch as P
+
+        assert P.__file__.startswith(os.path.abspath(tree)), P.__file__
+        return dia_rows_products(torch.device("cuda"), cache)
 
     import dataclasses
 
@@ -425,22 +454,28 @@ def one(tree: str, cache=None) -> dict:
 
 
 def main(argv) -> int:
+    dia_only = "--dia" in argv
+    argv = [a for a in argv if a != "--dia"]
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(*argv[1:3])))
+        print(json.dumps(one(*argv[1:3], dia_only=dia_only)))
         return 0
-    if len(argv) != 2:
+    rounds = 1
+    if argv[:1] == ["--rounds"]:
+        rounds, argv = int(argv[1]), argv[2:]
+    if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"nvidia-smi: {smi}")
-    parent, change = argv
-    runs = {parent: [], change: []}
+    trees = argv
+    runs = {tree: [] for tree in trees}
     cache = tempfile.TemporaryDirectory()
-    for tree in (parent, change, change, parent):
+    for tree in (trees[::-1] + trees) * rounds:
         t = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree, cache.name],
-                              capture_output=True, text=True, timeout=1200)
+        cmd = [sys.executable, os.path.abspath(__file__), "--one", tree, cache.name]
+        proc = subprocess.run(cmd + (["--dia"] if dia_only else []), capture_output=True, text=True,
+                              timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return 1
@@ -448,33 +483,31 @@ def main(argv) -> int:
         runs[tree].append(res)
         print(f"{tree} ({time.perf_counter() - t:.0f}s): {json.dumps(res)}", flush=True)
     cache.cleanup()
-    print(f"mean of two runs per tree, on {smi} (ms per call through the wrapper | ms in a CUDA "
-          "graph | rerun bitwise equal | graphed share of the bound; kernels B and C alone: "
-          "launches per product in brackets):")
-    keys = list(dict.fromkeys([k for run in runs[parent] + runs[change] for k in run]))
+    print(f"mean (min .. max) of {2 * rounds} runs per tree, on {smi} (ms per call through the "
+          "wrapper | ms in a CUDA graph | rerun bitwise equal | graphed share of the bound; kernels "
+          "B and C alone: launches per product in brackets):")
+    every = [run for tree in trees for run in runs[tree]]
+    keys = list(dict.fromkeys([k for run in every for k in run]))
     for key in keys:
-        cells = []
-        for tree in (parent, change):
+        print(f"  {key}" + next((f"   (bound {run[key]['bound_ms']:.4f} ms)" for run in every
+                                 if "bound_ms" in run.get(key, {})), ""))
+        for tree in trees:
             r = [run[key] for run in runs[tree] if key in run]
             if not r:
-                cells.append("-")
                 continue
             eq = [v["rerun_equal"] for v in r]
             share = [v["bound_share"] for v in r if "bound_share" in v]
-            cells.append(f"{sum(v['ms'] for v in r) / len(r):.4f} | "
-                         f"{sum(v['graph_ms'] for v in r) / len(r):.4f} | "
-                         f"{'-' if None in eq else all(eq)} | "
-                         f"{f'{100 * sum(share) / len(share):.1f} %' if share else '-'}"
-                         + (f" ({r[0]['launches']})" if "launches" in r[0] else ""))
-        bound = next((run[key].get("bound_ms") for run in runs[change] + runs[parent] if key in run),
-                     None)
-        print(f"  {key:46s} parent {cells[0]}   change {cells[1]}"
-              + (f"   (bound {bound:.4f} ms)" if bound else ""))
-    print("y, parent against change (the same x from a seed; every run's hash):")
+            ms, gms = [v["ms"] for v in r], [v["graph_ms"] for v in r]
+            print(f"    {tree:28s} {sum(ms) / len(ms):.4f} ({min(ms):.4f} .. {max(ms):.4f}) | "
+                  f"{sum(gms) / len(gms):.4f} ({min(gms):.4f} .. {max(gms):.4f}) | "
+                  f"{'-' if None in eq else all(eq)} | "
+                  f"{f'{100 * sum(share) / len(share):.1f} %' if share else '-'}"
+                  + (f" ({r[0]['launches']})" if "launches" in r[0] else ""))
+    print("y of every tree against the others (the same x from a seed; every run's hash):")
     for key in keys:
-        hashes = [run[key]["hash"] for run in runs[parent] + runs[change] if "hash" in run.get(key, {})]
+        hashes = [run[key]["hash"] for run in every if "hash" in run.get(key, {})]
         if hashes:
-            print(f"  {key:46s} bitwise equal: {len(hashes) == 4 and len(set(hashes)) == 1} "
+            print(f"  {key:46s} bitwise equal: {len(hashes) == len(every) and len(set(hashes)) == 1} "
                   f"({', '.join(hashes)})")
     return 0
 

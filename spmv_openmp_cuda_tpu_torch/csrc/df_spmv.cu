@@ -44,10 +44,19 @@
 // that moves 3.35 TB/s, below the ~20 the card can do per byte. The designs
 // are the f32 kernels' (csrc/dia_spmv.cu, window_spmv.cu, routed_spmv.cu)
 // with pairs, except where a sum crosses threads:
-//   - dia_df_kernel: one thread per output row, both slab planes read
-//     coalesced, x read behind a bounds test to the end of x (the TPU
-//     window's clip of x at (S + pad_sub)*128 is not copied). Each row has
-//     one owner: no atomics.
+//   - dia_df_kernel: one launch per product. It takes x in f64 and splits
+//     each element it reads exactly as ops/dfloat.py::split_f64_t does,
+//     and writes y (m rows) in f64 as hi + lo (df_combine64), so the
+//     wrapper neither splits x nor combines y. A thread owns R = 4
+//     consecutive rows (R = 1 where four rows a thread would give fewer
+//     CTAs than the card has SMs: ops/spmv_cuda.py::rows_a_thread) and
+//     adds each row's diagonals in ascending offset order with df_mul_acc:
+//     each row has one owner and its plain version's order of adds, so y
+//     is bitwise the same for either R. Each diagonal's four (hi, lo) words are
+//     two 16-byte loads streamed past L1 (slab_rows.cuh); x is read through
+//     the read-only path, a thread's four values from two or three aligned
+//     16-byte vectors (x_split4), behind a bounds test to the end of x (the
+//     TPU window's clip of x at (S + pad_sub)*128 is not copied).
 //   - dia_resid_df_kernel: csrc/dia_spmv.cu's dia_resid_kernel with pairs,
 //     one launch per product: a row's diagonals split over `groups`
 //     threads whose pairs are TwoSum-added in group order in shared memory,
@@ -100,6 +109,7 @@
 //     rows), four residues of the row's padded columns a thread, a warp's
 //     residues contiguous; a close kernel adds a row's CTAs. Bound: the
 //     (hi, lo) block, 12.3 MB on caida_like.
+#include "slab_rows.cuh"
 #include "window_tile.cuh"
 
 namespace {
@@ -154,40 +164,7 @@ __device__ __forceinline__ void df_mul_acc(float& ah, float& al, float vh, float
   al = __fadd_rn(al, __fadd_rn(err, e));
 }
 
-// x pair at col, zero outside [0, n_x)
-__device__ __forceinline__ void x_pair(const float* __restrict__ xh, const float* __restrict__ xl,
-                                       long long col, long long n_x, float& h, float& l) {
-  if (col >= 0 && col < n_x) {
-    h = __ldg(xh + col);
-    l = __ldg(xl + col);
-  } else {
-    h = 0.f;
-    l = 0.f;
-  }
-}
-
 // ---- DIA ------------------------------------------------------------------
-
-// (yh, yl)[i] = sum_d (dh, dl)[d, i] * x[i + offsets[d]] for i < rows,
-// summed in ascending offset order
-__global__ void __launch_bounds__(kThreads)
-dia_df_kernel(const float* __restrict__ dh, const float* __restrict__ dl,
-              const int* __restrict__ offsets, int n_diag, long long rows,
-              const float* __restrict__ xh, const float* __restrict__ xl, long long n_x,
-              float* __restrict__ yh, float* __restrict__ yl) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= rows) return;
-  float ah = 0.f, al = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < n_diag; ++d) {
-    float vh_x, vl_x;
-    x_pair(xh, xl, i + __ldg(offsets + d), n_x, vh_x, vl_x);
-    const long long e = (long long)d * rows + i;
-    df_mul_acc(ah, al, dh[e], dl[e], vh_x, vl_x);
-  }
-  yh[i] = ah;
-  yl[i] = al;
-}
 
 // x[col] split into its (hi, lo) pair as ops/dfloat.py::split_f64_t splits
 // it (hi = f32(v), lo = f32(v - hi)); (0, 0) outside [0, n_x)
@@ -201,6 +178,83 @@ __device__ __forceinline__ void x_split(const double* __restrict__ x, long long 
     h = 0.f;
     l = 0.f;
   }
+}
+
+// x[col .. col+3] split as x_split splits each. Where the four lie inside x
+// and x is 16-byte aligned they come from the aligned double2 vectors that
+// hold them: two where col is even, else three (col % 2 is the same for
+// every thread of a warp, whose first rows are multiples of 4); else one by
+// one.
+__device__ __forceinline__ void x_split4(const double* __restrict__ x, long long col,
+                                         long long n_x, bool x16, float (&h)[4], float (&l)[4]) {
+  const long long a = col & ~1LL;
+  const bool odd = col & 1;
+  if (x16 && a >= 0 && a + (odd ? 6 : 4) <= n_x) {
+    const double2 p = __ldg(reinterpret_cast<const double2*>(x + a));
+    const double2 q = __ldg(reinterpret_cast<const double2*>(x + a + 2));
+    double v[4];
+    if (odd) {
+      const double2 r = __ldg(reinterpret_cast<const double2*>(x + a + 4));
+      v[0] = p.y; v[1] = q.x; v[2] = q.y; v[3] = r.x;
+    } else {
+      v[0] = p.x; v[1] = p.y; v[2] = q.x; v[3] = q.y;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      h[k] = (float)v[k];
+      l[k] = (float)(v[k] - (double)h[k]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x_split(x, col + k, n_x, h[k], l[k]);
+  }
+}
+
+// y[i] (f64) = sum_d (dh, dl)[d, i] * x[i + offsets[d]], combined as hi +
+// lo, for the R rows i0 .. i0+R-1 of this thread that are < m: each row's
+// pair summed by df_mul_acc in ascending offset order from (0, 0); rows is
+// the slab's row stride (s_pad * 128); x16: x is 16-byte aligned
+// (x_split4's vector reads)
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+dia_df_kernel(const float* __restrict__ dh, const float* __restrict__ dl,
+              const int* __restrict__ offsets, int n_diag, long long rows, long long m,
+              const double* __restrict__ x, long long n_x, bool x16, double* __restrict__ y) {
+  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * R;
+  if (i0 >= m) return;
+  float ah[R], al[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) ah[r] = al[r] = 0.f;
+  const float* ph = dh + i0;
+  const float* pl = dl + i0;
+#pragma unroll 2
+  for (int d = 0; d < n_diag; ++d, ph += rows, pl += rows) {
+    float vh[R], vl[R];
+    slab::rows<R>(ph, vh);
+    slab::rows<R>(pl, vl);
+    const long long col = i0 + __ldg(offsets + d);
+    float xh[R], xl[R];
+    if constexpr (R == 4)
+      x_split4(x, col, n_x, x16, xh, xl);
+    else
+      x_split(x, col, n_x, xh[0], xl[0]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) df_mul_acc(ah[r], al[r], vh[r], vl[r], xh[r], xl[r]);
+  }
+  double out[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = (double)ah[r] + (double)al[r];
+  if constexpr (R == 4) {
+    if (i0 + 4 <= m) {
+      double2* y2 = reinterpret_cast<double2*>(y + i0);
+      y2[0] = make_double2(out[0], out[1]);
+      y2[1] = make_double2(out[2], out[3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (i0 + r < m) y[i0 + r] = out[r];
 }
 
 // y[i] (f64) = (diagonal pair sum of row i) + (fringe pair sum of row i),
@@ -998,13 +1052,24 @@ constexpr int kDfOpWords[] = {0, 4, 8, 8, 5, 14};  // by op: the op and its oper
 
 extern "C" {
 
-// (yh, yl)[i] for i < rows over the (n_diag, rows) slab pair; returns
-// cudaGetLastError() after the launch.
+// y (f64, length m) = the diagonal sums over the (n_diag, rows) slab pair,
+// x in f64, split in the kernel: rows >= m a multiple of 4, dh, dl and y
+// 16-byte aligned, rows_a_thread 1 or 4 (ops/spmv_cuda.py::rows_a_thread).
+// Returns cudaErrorInvalidValue for anything else, else cudaGetLastError()
+// after the launch.
 int dia_df_launch(const float* dh, const float* dl, const int* offsets, int n_diag,
-                  long long rows, const float* xh, const float* xl, long long n_x, float* yh,
-                  float* yl, void* stream) {
-  dia_df_kernel<<<blocks_for(rows), kThreads, 0, (cudaStream_t)stream>>>(
-      dh, dl, offsets, n_diag, rows, xh, xl, n_x, yh, yl);
+                  long long rows, long long m, const double* x, long long n_x, double* y,
+                  int rows_a_thread, void* stream) {
+  if ((rows_a_thread != 1 && rows_a_thread != 4) || m < 1 || m > rows || rows % 4 ||
+      (((uintptr_t)dh | (uintptr_t)dl | (uintptr_t)y) & 15))
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = blocks_for((m + rows_a_thread - 1) / rows_a_thread);
+  const bool x16 = ((uintptr_t)x & 15) == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rows_a_thread == 4)
+    dia_df_kernel<4><<<grid, kThreads, 0, st>>>(dh, dl, offsets, n_diag, rows, m, x, n_x, x16, y);
+  else
+    dia_df_kernel<1><<<grid, kThreads, 0, st>>>(dh, dl, offsets, n_diag, rows, m, x, n_x, x16, y);
   return (int)cudaGetLastError();
 }
 

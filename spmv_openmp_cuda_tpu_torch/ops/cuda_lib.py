@@ -12,11 +12,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -93,3 +94,16 @@ def current_stream(dev: torch.device) -> int:
     """The raw handle of dev's current CUDA stream, on which the kernels
     launch (without building a torch.cuda.Stream object per call)."""
     return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def kept_plan(owner, tensors: tuple, geometry: tuple, make: Callable[[], Any]):
+    """make()'s launch plan for the layout owner (its tensors checked in
+    make), kept on owner (not a field: a dataclasses.replace starts afresh)
+    while tensors are the same objects and geometry is equal, and made anew
+    when one is replaced."""
+    hit = owner.__dict__.get("_cuda_plan")
+    if hit is not None and hit[1] == geometry and all(map(operator.is_, hit[0], tensors)):
+        return hit[2]
+    value = make()
+    owner.__dict__["_cuda_plan"] = (tensors, geometry, value)
+    return value

@@ -145,7 +145,7 @@ def df_tree_sum(h: torch.Tensor, lo: torch.Tensor, dim: int) -> Pair:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dia_df_launch.argtypes = [p, p, p, i, ll, p, p, ll, p, p, p]
+    lib.dia_df_launch.argtypes = [p, p, p, i, ll, ll, p, ll, p, i, p]
     lib.dia_df_launch.restype = i
     lib.dia_resid_df_launch.argtypes = [p, p, p, i, ll, ll, p, p, p, p, p, ll, p, i, p]
     lib.dia_resid_df_launch.restype = i

@@ -106,15 +106,13 @@ def _check_layout(mat: DeviceELL, dev) -> None:
 def _plan(mat: DeviceELL, dev) -> torch.Tensor:
     """The layout's walk table on device dev, its tensors checked once and
     the table kept on mat while its fields are the same objects."""
-    tensors = (mat.data, mat.cols, mat.row_lens)
-    geometry = (dev, mat.shape, mat.transposed)
-    hit = mat.__dict__.get("_cuda_plan")
-    if hit is not None and hit[1] == geometry and all(a is b for a, b in zip(hit[0], tensors)):
-        return hit[2]
-    _check_layout(mat, dev)
-    walk = walk_table(mat.row_lens, mat.shape[0])
-    mat.__dict__["_cuda_plan"] = (tensors, geometry, walk)
-    return walk
+
+    def make():
+        _check_layout(mat, dev)
+        return walk_table(mat.row_lens, mat.shape[0])
+
+    return cuda_lib.kept_plan(mat, (mat.data, mat.cols, mat.row_lens),
+                              (dev, mat.shape, mat.transposed), make)
 
 
 def ell_t_cuda(mat: DeviceELL, x: torch.Tensor) -> torch.Tensor:

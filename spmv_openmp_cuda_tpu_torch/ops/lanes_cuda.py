@@ -113,15 +113,13 @@ def _check(mat: LanesSmall, x: torch.Tensor) -> None:
 def _plan(mat: LanesSmall, dev) -> LaunchPlan:
     """The layout's launch plan on CUDA device dev, its tensors checked once
     and the plan kept on mat while its fields are the same objects."""
-    tensors = (mat.vals, mat.pidx, mat.gid, mat.tile_win)
-    geometry = (dev, mat.shape, mat.n_groups)
-    hit = mat.__dict__.get("_cuda_plan")
-    if hit is not None and hit[1] == geometry and all(a is b for a, b in zip(hit[0], tensors)):
-        return hit[2]
-    _check_layout(mat, dev)
-    plan = launch_plan(mat.vals.shape[0], mat.n_groups)
-    mat.__dict__["_cuda_plan"] = (tensors, geometry, plan)
-    return plan
+
+    def make():
+        _check_layout(mat, dev)
+        return launch_plan(mat.vals.shape[0], mat.n_groups)
+
+    return cuda_lib.kept_plan(mat, (mat.vals, mat.pidx, mat.gid, mat.tile_win),
+                              (dev, mat.shape, mat.n_groups), make)
 
 
 def lanes_cuda(mat: LanesSmall, x: torch.Tensor) -> torch.Tensor:

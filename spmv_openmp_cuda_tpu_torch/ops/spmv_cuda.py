@@ -10,10 +10,12 @@ dia_resid_df_kernel), their plain PyTorch versions, and the registry hook
 for the seven DIA modes.
 
 The wrappers launch the kernels for CUDA tensors and raise on anything they
-do not take; they run the plain version only for tensors on the CPU. A
-DIA+residual product is one launch: its layout is checked and its launch
-plan made at its first launch and kept on the layout while its tensors stay
-the same objects; x is checked at every call.
+do not take; they run the plain version only for tensors on the CPU. Every
+DIA product on the card is one launch that allocates y (m rows) and nothing
+else: in float64 the kernel splits x and combines y itself. A layout is
+checked and its launch plan (rows a thread, or threads a row) made at its
+first launch, with no device sync in the DIA rows check, and kept on the
+layout while its tensors stay the same objects; x is checked at every call.
 """
 from __future__ import annotations
 
@@ -380,7 +382,7 @@ def dia_spmv_reference(
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dia_spmv_launch.argtypes = [i, p, p, i, ll, p, ll, p, p]
+    lib.dia_spmv_launch.argtypes = [i, p, p, i, ll, ll, p, ll, p, i, p]
     lib.dia_spmv_launch.restype = i
     lib.dia_resid_launch.argtypes = [i, p, p, i, ll, ll, p, p, p, p, ll, p, i, p]
     lib.dia_resid_launch.restype = i
@@ -409,16 +411,45 @@ def _require(t: torch.Tensor, name: str, dtypes, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_dia(mat: DeviceDIA, x: torch.Tensor, plan: DiaPlan) -> None:
+def _check_x(x: torch.Tensor, dtype: torch.dtype, n: int) -> None:
+    """x at every launch: its dtype, length and contiguity (the launch's
+    device is x's), in a few attribute reads on the common path."""
+    if x.dtype is not dtype or x.shape != (n,) or not x.is_contiguous():
+        _require(x, "x", (dtype,), (n,), x.device)
+
+
+def _check_kind(mat, df: bool) -> None:
+    if df and not isinstance(mat, DeviceDIADF):
+        raise TypeError("the double-float DIA kernels take a DeviceDIADF")
+    if not df and isinstance(mat, DeviceDIADF):
+        raise TypeError("a DeviceDIADF runs through dia_spmv_df_cuda (float64)")
+
+
+def _check_dia_layout(mat, plan: DiaPlan, dev) -> None:
+    """The plan, the slab (both planes of a DeviceDIADF, f32) and the
+    offsets, on dev."""
+    df = isinstance(mat, DeviceDIADF)
     d = len(mat.offsets)
-    dev = x.device
     if plan.bs * plan.nblocks != plan.s_pad:
         raise ValueError(f"inconsistent plan {plan}")
-    if isinstance(mat, DeviceDIADF):
-        raise TypeError("a DeviceDIADF runs through dia_spmv_df_cuda (float64)")
-    _require(mat.data, "mat.data", _SLAB_DTYPES, (d, plan.s_pad, LANE), dev)
+    for name, t in _planes(mat):
+        _require(t, name, (torch.float32,) if df else _SLAB_DTYPES, (d, plan.s_pad, LANE), dev)
     _require(mat.offsets_dev, "mat.offsets_dev", (torch.int32,), (d,), dev)
-    _require(x, "x", (torch.float32,), (mat.shape[1],), dev)
+
+
+def _planes(mat):
+    planes = (("mat.data", mat.data),)
+    if isinstance(mat, DeviceDIADF):
+        planes += (("mat.data_lo", mat.data_lo),)
+    return planes
+
+
+def _check_dia(mat, x: torch.Tensor, plan: DiaPlan, df: bool = False) -> None:
+    """A product's check on the CPU, at every call: the layout and x (f64
+    in df)."""
+    _check_kind(mat, df)
+    _check_dia_layout(mat, plan, x.device)
+    _require(x, "x", (torch.float64 if df else torch.float32,), (mat.shape[1],), x.device)
 
 
 def _check_resid(resid: DiaResid, plan: DiaPlan, dev) -> None:
@@ -438,10 +469,20 @@ def _check_resid(resid: DiaResid, plan: DiaPlan, dev) -> None:
     )
 
 
-#: csrc/dia_spmv.cu and df_spmv.cu: threads per CTA of the DIA+residual
-#: kernels, the most threads a row's diagonals are split over, and the SMs
-#: of an H100 (the CTAs a launch should at least give)
+#: csrc/dia_spmv.cu and df_spmv.cu: threads per CTA of every DIA kernel,
+#: the most threads a row's diagonals are split over in the DIA+residual
+#: kernels, and the SMs of an H100 (the CTAs a launch should at least give)
 RESID_THREADS, MAX_GROUPS, SMS = 256, 16, 132
+
+
+def rows_a_thread(m: int) -> int:
+    """Rows a thread of the DIA rows kernels (dia_rows_kernel,
+    dia_df_kernel): 4, one vector load per diagonal and slab plane, while
+    m / 4 threads in CTAs of 256 still give the card's SMs a CTA each, else
+    1 (cavity10_like, 2597 rows: 1; the 1000 x 1000 grid's Laplacian, 10^6
+    rows: 4, in 977 CTAs). Either way each row has one owner thread and the
+    same order of adds."""
+    return 4 if -(-m // (4 * RESID_THREADS)) >= SMS else 1
 
 
 def launch_groups(m: int, n_diag: int) -> int:
@@ -461,15 +502,10 @@ def _check_resid_layout(resid: DiaResid, plan: DiaPlan, dev) -> None:
     ends and order."""
     mat = resid.mat
     df = isinstance(mat, DeviceDIADF)
-    d, (m, _n) = len(mat.offsets), mat.shape
-    if plan.bs * plan.nblocks != plan.s_pad:
-        raise ValueError(f"inconsistent plan {plan}")
+    m = mat.shape[0]
+    _check_dia_layout(mat, plan, dev)
     if m < 1:
         raise ValueError("a matrix without rows")
-    planes = (mat.data, mat.data_lo) if df else (mat.data,)
-    for name, t in zip(("mat.data", "mat.data_lo"), planes):
-        _require(t, name, (torch.float32,) if df else _SLAB_DTYPES, (d, plan.s_pad, LANE), dev)
-    _require(mat.offsets_dev, "mat.offsets_dev", (torch.int32,), (d,), dev)
     lists = (resid.row_ptr, resid.fr_val, resid.fr_col)
     if any(t is None for t in lists) or (resid.fr_lo is not None) != df:
         raise ValueError("the fringe lists are missing or of the other precision: "
@@ -490,16 +526,41 @@ def _resid_plan(resid: DiaResid, plan: DiaPlan, dev) -> int:
     """The layout's threads per row on CUDA device dev, its tensors checked
     once and the result kept on resid while they are the same objects."""
     mat = resid.mat
+
+    def make():
+        _check_resid_layout(resid, plan, dev)
+        return launch_groups(mat.shape[0], len(mat.offsets))
+
     tensors = (mat.data, getattr(mat, "data_lo", None), mat.offsets_dev, resid.row_ptr,
                resid.fr_val, resid.fr_lo, resid.fr_col)
-    geometry = (dev, mat.shape, plan)
-    hit = resid.__dict__.get("_cuda_plan")
-    if hit is not None and hit[1] == geometry and all(a is b for a, b in zip(hit[0], tensors)):
-        return hit[2]
-    _check_resid_layout(resid, plan, dev)
-    groups = launch_groups(mat.shape[0], len(mat.offsets))
-    resid.__dict__["_cuda_plan"] = (tensors, geometry, groups)
-    return groups
+    return cuda_lib.kept_plan(resid, tensors, (dev, mat.shape, plan), make)
+
+
+def _check_rows_layout(mat, plan: DiaPlan, dev) -> None:
+    """What the DIA rows kernels read, checked at a layout's first launch:
+    the layout, 1 .. s_pad*128 rows, and each slab plane 16-byte aligned (a
+    thread's four rows of a diagonal are one vector load). No device sync:
+    the solvers' first launch may come just before a CUDA graph capture."""
+    _check_dia_layout(mat, plan, dev)
+    m = mat.shape[0]
+    if not 1 <= m <= plan.s_pad * LANE:
+        raise ValueError(f"{m} rows over a slab of {plan.s_pad * LANE}")
+    for name, t in _planes(mat):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _rows_plan(mat, plan: DiaPlan, dev) -> int:
+    """Rows a thread of the DIA rows kernels for mat on CUDA device dev, its
+    layout checked at the first launch and the result kept on mat while its
+    tensors are the same objects."""
+
+    def make():
+        _check_rows_layout(mat, plan, dev)
+        return rows_a_thread(mat.shape[0])
+
+    tensors = (mat.data, getattr(mat, "data_lo", None), mat.offsets_dev)
+    return cuda_lib.kept_plan(mat, tensors, (dev, mat.shape, len(mat.offsets), plan), make)
 
 
 def dia_resid_spmv_cuda(resid: DiaResid, x: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
@@ -521,7 +582,7 @@ def dia_resid_spmv_cuda(resid: DiaResid, x: torch.Tensor, plan: DiaPlan) -> torc
         raise TypeError("a DeviceDIADF runs through dia_resid_spmv_df_cuda (float64)")
     groups = _resid_plan(resid, plan, dev)
     m, n = mat.shape
-    _require(x, "x", (torch.float32,), (n,), dev)
+    _check_x(x, torch.float32, n)
     y = torch.empty(m, dtype=torch.float32, device=dev)
     lib = _lib()
     rc = lib.dia_resid_launch(
@@ -542,30 +603,29 @@ def dia_spmv_cuda(mat: DeviceDIA, x: torch.Tensor, plan: DiaPlan) -> torch.Tenso
     """y = A @ x (f32, length m) over a plan-padded DIA slab (a DIA+residual
     hybrid runs through dia_resid_spmv_cuda).
 
-    CUDA tensors launch dia_rows_kernel; CPU tensors take
-    dia_spmv_reference. Anything else raises."""
-    _check_dia(mat, x, plan)
-    if x.device.type == "cpu":
+    CUDA tensors launch dia_rows_kernel (one launch that allocates y alone;
+    the layout checked at its first launch, x at every call); CPU tensors
+    take dia_spmv_reference. Anything else raises."""
+    dev = x.device
+    if dev.type == "cpu":
+        _check_dia(mat, x, plan)
         return dia_spmv_reference(mat, x, plan)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    rows = plan.s_pad * LANE
-    y = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_kind(mat, df=False)
+    per_thread = _rows_plan(mat, plan, dev)
+    m, n = mat.shape
+    _check_x(x, torch.float32, n)
+    y = torch.empty(m, dtype=torch.float32, device=dev)
     lib = _lib()
     rc = lib.dia_spmv_launch(
-        int(mat.data.dtype == torch.bfloat16),
-        mat.data.data_ptr(),
-        mat.offsets_dev.data_ptr(),
-        len(mat.offsets),
-        rows,
-        x.data_ptr(),
-        x.shape[0],
-        y.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(mat.data.dtype == torch.bfloat16), mat.data.data_ptr(), mat.offsets_dev.data_ptr(),
+        len(mat.offsets), plan.s_pad * LANE, m, x.data_ptr(), n, y.data_ptr(), per_thread,
+        cuda_lib.current_stream(dev),
     )
     _check_launch(lib, rc, "dia_rows_kernel")
     dia_spmv_cuda.launches += 1
-    return y[: mat.shape[0]]
+    return y
 
 
 dia_spmv_cuda.launches = 0
@@ -667,19 +727,6 @@ def dia_spmv_df_reference(
     return dfloat.df_combine64(yh[:m], yl[:m])
 
 
-def _check_dia_df(mat: DeviceDIADF, x: torch.Tensor, plan: DiaPlan) -> None:
-    d = len(mat.offsets)
-    dev = x.device
-    if plan.bs * plan.nblocks != plan.s_pad:
-        raise ValueError(f"inconsistent plan {plan}")
-    if not isinstance(mat, DeviceDIADF):
-        raise TypeError("the double-float DIA kernels take a DeviceDIADF")
-    for name, t in (("mat.data", mat.data), ("mat.data_lo", mat.data_lo)):
-        _require(t, name, (torch.float32,), (d, plan.s_pad, LANE), dev)
-    _require(mat.offsets_dev, "mat.offsets_dev", (torch.int32,), (d,), dev)
-    _require(x, "x", (torch.float64,), (mat.shape[1],), dev)
-
-
 def dia_resid_spmv_df_cuda(resid: DiaResid, x: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
     """y = A @ x in double-float (f64 in and out, length m) of a df
     DIA+residual hybrid: the diagonals of resid.mat, then the fringe sums.
@@ -690,16 +737,15 @@ def dia_resid_spmv_df_cuda(resid: DiaResid, x: torch.Tensor, plan: DiaPlan) -> t
     dev = x.device
     mat = resid.mat
     if dev.type == "cpu":
-        _check_dia_df(mat, x, plan)
+        _check_dia(mat, x, plan, df=True)
         _check_resid(resid, plan, dev)
         return dia_spmv_df_reference(mat, x, plan, resid)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if not isinstance(mat, DeviceDIADF):
-        raise TypeError("the double-float DIA kernels take a DeviceDIADF")
+    _check_kind(mat, df=True)
     groups = _resid_plan(resid, plan, dev)
     m, n = mat.shape
-    _require(x, "x", (torch.float64,), (n,), dev)
+    _check_x(x, torch.float64, n)
     y = torch.empty(m, dtype=torch.float64, device=dev)
     rc = dfloat.df_lib().dia_resid_df_launch(
         mat.data.data_ptr(), mat.data_lo.data_ptr(), mat.offsets_dev.data_ptr(), len(mat.offsets),
@@ -720,26 +766,29 @@ def dia_spmv_df_cuda(mat: DeviceDIADF, x: torch.Tensor, plan: DiaPlan) -> torch.
     plan-padded DeviceDIADF (a df DIA+residual hybrid runs through
     dia_resid_spmv_df_cuda).
 
-    CUDA tensors launch dia_df_kernel; CPU tensors take
-    dia_spmv_df_reference. Anything else raises."""
-    _check_dia_df(mat, x, plan)
-    if x.device.type == "cpu":
+    CUDA tensors launch dia_df_kernel (one launch that allocates y alone:
+    x split and y combined in the kernel; the layout checked at its first
+    launch, x at every call); CPU tensors take dia_spmv_df_reference.
+    Anything else raises."""
+    dev = x.device
+    if dev.type == "cpu":
+        _check_dia(mat, x, plan, df=True)
         return dia_spmv_df_reference(mat, x, plan)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    xh, xl = dfloat.split_f64_t(x)
-    rows = plan.s_pad * LANE
-    yh = torch.empty(rows, dtype=torch.float32, device=x.device)
-    yl = torch.empty_like(yh)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_kind(mat, df=True)
+    per_thread = _rows_plan(mat, plan, dev)
+    m, n = mat.shape
+    _check_x(x, torch.float64, n)
+    y = torch.empty(m, dtype=torch.float64, device=dev)
     rc = dfloat.df_lib().dia_df_launch(
-        mat.data.data_ptr(), mat.data_lo.data_ptr(), mat.offsets_dev.data_ptr(),
-        len(mat.offsets), rows, xh.data_ptr(), xl.data_ptr(), x.shape[0],
-        yh.data_ptr(), yl.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        mat.data.data_ptr(), mat.data_lo.data_ptr(), mat.offsets_dev.data_ptr(), len(mat.offsets),
+        plan.s_pad * LANE, m, x.data_ptr(), n, y.data_ptr(), per_thread,
+        cuda_lib.current_stream(dev),
     )
     dfloat.check_launch(rc, "dia_df_kernel")
     dia_spmv_df_cuda.launches += 1
-    m = mat.shape[0]
-    return dfloat.df_combine64(yh[:m], yl[:m])
+    return y
 
 
 dia_spmv_df_cuda.launches = 0
@@ -877,8 +926,9 @@ def _register() -> None:
             impl="cuda",
             prepare=_mk_prep_dia(),
             run=_run_dia,
-            doc="CUDA diagonal kernel: one thread per row, coalesced slab "
-            "and x reads, offsets from a device array",
+            doc="CUDA diagonal kernel: four rows a thread (one on small "
+            "matrices), 16-byte slab loads streamed past L1, x through the "
+            "read-only path, offsets from a device array",
         )
     )
     register(
@@ -940,7 +990,8 @@ def _register() -> None:
             run=lambda ops, x: dia_spmv_df_cuda(ops[0], x, ops[1]),
             doc="double-precision DIA: slabs and x as (hi, lo) double-float "
             "pairs, an error-compensated CUDA diagonal kernel (Dekker "
-            "TwoProduct + Knuth TwoSum), f64 combine at the end",
+            "TwoProduct + Knuth TwoSum), f64 x split and f64 y combined in "
+            "the one launch",
             f64=True,
         )
     )

@@ -333,20 +333,20 @@ def _plan(mat: WindowCSR, dev, plan_blocks: Optional[int] = None) -> LaunchPlan:
     tensors = (mat.vals, mat.vals_lo, mat.sidx, mat.gid, mat.rsrc)
     geometry = (dev, mat.shape, mat.g, mat.k_pad, mat.k_c, mat.wr, mat.nspecs, mat.nblocks,
                 mat.bps, mat.xdirect, mat.shared_w, plan_blocks)
-    hit = mat.__dict__.get("_cuda_plan")
-    if hit is not None and hit[1] == geometry and all(a is b for a, b in zip(hit[0], tensors)):
-        return hit[2]
-    _check_layout(mat, dev)
-    kind = "df" if mat.vals_lo is not None else "bf16" if mat.vals.dtype == torch.bfloat16 else "f32"
-    win_rows = window_rows(mat)
-    # the kernels read every Q from the staged x rows (one sync, here only)
-    lo, hi = torch.aminmax(mat.rsrc)
-    if int(lo) < 0 or int(hi) >= win_rows:
-        raise ValueError(f"mat.rsrc holds window rows outside [0, {win_rows})")
-    plan = launch_plan(plan_blocks, mat.k_pad, mat.k_c, mat.g, win_rows, kind,
-                       torch.cuda.get_device_properties(dev).multi_processor_count)
-    mat.__dict__["_cuda_plan"] = (tensors, geometry, plan)
-    return plan
+
+    def make():
+        _check_layout(mat, dev)
+        kind = ("df" if mat.vals_lo is not None
+                else "bf16" if mat.vals.dtype == torch.bfloat16 else "f32")
+        win_rows = window_rows(mat)
+        # the kernels read every Q from the staged x rows (one sync, here only)
+        lo, hi = torch.aminmax(mat.rsrc)
+        if int(lo) < 0 or int(hi) >= win_rows:
+            raise ValueError(f"mat.rsrc holds window rows outside [0, {win_rows})")
+        return launch_plan(plan_blocks, mat.k_pad, mat.k_c, mat.g, win_rows, kind,
+                           torch.cuda.get_device_properties(dev).multi_processor_count)
+
+    return cuda_lib.kept_plan(mat, tensors, geometry, make)
 
 
 def _check_io(t: torch.Tensor, name: str, dtype, size: int, dev) -> None:

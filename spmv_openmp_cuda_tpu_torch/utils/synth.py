@@ -177,6 +177,20 @@ def diagonal(m: int, val: float = 1.0) -> COOMatrix:
     return COOMatrix((m, m), idx, idx, np.full(m, val))
 
 
+def laplacian_2d(n: int) -> COOMatrix:
+    """The 5-point Laplacian of an n x n grid, sorted by (row, col): 4 on
+    the diagonal, -1 to each grid neighbour; n^2 rows, 5n^2 - 4n nnz, SPD,
+    on the five diagonals 0, +-1 and +-n."""
+    idx = np.arange(n * n).reshape(n, n)
+    pairs = [(idx, idx, 4.0)]
+    for a, b in ((idx[:, :-1], idx[:, 1:]), (idx[:-1, :], idx[1:, :])):
+        pairs += [(a, b, -1.0), (b, a, -1.0)]
+    r = np.concatenate([a.ravel() for a, _, _ in pairs])
+    c = np.concatenate([b.ravel() for _, b, _ in pairs])
+    v = np.concatenate([np.full(a.size, w) for a, _, w in pairs])
+    return sort_coo(COOMatrix((n * n, n * n), r, c, v))
+
+
 PRESETS = {
     # name -> (generator, kwargs) proxies for the reference's headline
     # SuiteSparse matrices (BASELINE.md). Dims and nnz are the EXACT

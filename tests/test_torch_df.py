@@ -432,6 +432,55 @@ def test_df_wrappers_check_on_the_cpu():
         assert fn.launches == 0
 
 
+def test_dia_df_plain_matches_jax_on_a_laplacian():
+    """The port's plain df DIA product (the CPU path of PL_DIA_F64) against
+    the JAX package's dia_spmv_pallas_df (interpret mode) on the 5-point
+    Laplacian of a 131 x 131 grid: offsets +-131 past one 128-row group, m =
+    17161 not a multiple of 4 (the kernel's four rows a thread end in a
+    partial group). Tolerances: the module's."""
+    tcsr, jcsr = _pair(tsynth.laplacian_2d(131))
+    tm, tp = tsc.prepare_dia_df_pallas(tcsr)
+    jm, jp = jsp.prepare_dia_df_pallas(jcsr)
+    m = tcsr.shape[0]
+    assert tm.offsets == jm.offsets == (-131, -1, 0, 1, 131) and m % 4 == 1
+    assert (tp.bs, tp.nblocks, tp.s_pad) == (jp.bs, jp.nblocks, jp.s_pad)
+    x = _x(m, seed=7)
+    y_j = _jax_y(lambda xv: jsp.dia_spmv_pallas_df(jm, xv, jp), x)
+    y_t = tsc.dia_spmv_df_cuda(tm, torch.from_numpy(x), tp)
+    assert y_t.shape == (m,) and torch.equal(y_t, tsc.dia_spmv_df_reference(tm, torch.from_numpy(x), tp))
+    assert _rel(y_t, y_j) <= 1e-12
+    assert _rel(y_t, serial_csr_spmv(tcsr, x)) < 1e-11
+
+
+def test_df_rows_layout_check_rejects_broken_layouts():
+    """The check dia_df_kernel's wrapper runs once per layout (here on CPU
+    tensors): both planes f32, contiguous, 16-byte aligned and of the plan's
+    shape; a consistent plan; the offsets int32; an f32 layout refused by the
+    df wrapper and a df one by the f32 wrapper."""
+    _, (tm, tp, _), _ = _dia_prepared("cavity10_like")
+    cpu = torch.device("cpu")
+    tsc._check_rows_layout(tm, tp, cpu)
+    buf = torch.empty(tm.data_lo.numel() + 1)
+    misaligned = buf[1:].view(tm.data_lo.shape).copy_(tm.data_lo)
+    assert misaligned.data_ptr() % 16
+    for broken, p in (
+        (dataclasses.replace(tm, data_lo=tm.data_lo.double()), tp),
+        (dataclasses.replace(tm, data=tm.data.to(torch.bfloat16)), tp),
+        (dataclasses.replace(tm, data_lo=tm.data_lo.transpose(0, 1).contiguous().transpose(0, 1)), tp),
+        (dataclasses.replace(tm, data_lo=misaligned), tp),
+        (dataclasses.replace(tm, data_lo=tm.data_lo[:-1]), tp),
+        (dataclasses.replace(tm, offsets_dev=tm.offsets_dev.long()), tp),
+        (tm, tsc.DiaPlan(bs=tp.bs + 1, nblocks=tp.nblocks, s_pad=tp.s_pad)),
+    ):
+        with pytest.raises((ValueError, TypeError)):
+            tsc._check_rows_layout(broken, p, cpu)
+    x = torch.from_numpy(_x(tm.shape[1]))
+    with pytest.raises(TypeError, match="DeviceDIADF"):
+        tsc.dia_spmv_df_cuda(tm.as_dia(), x, tp)
+    with pytest.raises(TypeError, match="dia_spmv_df_cuda"):
+        tsc.dia_spmv_cuda(tm, x.float(), tp)
+
+
 @pytest.mark.parametrize("mode", ["PL_DIA_F64", "PL_DIA_RESID_F64", "PL_CSR_WINDOW_F64",
                                   "PL_CSR_ROUTED_F64"])
 def test_registered_f64_modes_on_the_cpu(mode):

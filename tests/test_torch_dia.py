@@ -26,6 +26,7 @@ import spmv_openmp_cuda_tpu_torch as T
 from spmv_openmp_cuda_tpu_torch.config import DOUBLE_DIFF_THRESH
 from spmv_openmp_cuda_tpu_torch.formats import dia as tdia
 from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector
+from spmv_openmp_cuda_tpu_torch.ops import cuda_lib
 from spmv_openmp_cuda_tpu_torch.ops import spmv_cuda as tsc
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
 from spmv_openmp_cuda_tpu_torch.utils import synth as tsynth
@@ -420,6 +421,156 @@ def test_resid_layout_check_rejects_broken_lists():
     ):
         with pytest.raises((ValueError, TypeError)):
             tsc._check_resid_layout(broken, plan, cpu)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous tensor that starts off a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype)
+    k = next(k for k in range(1, 16) if (buf.data_ptr() + k * t.element_size()) % 16)
+    out = buf[k : k + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+def _rows_layout(dtype=torch.float32):
+    csr = T.coo_to_csr(tsynth.banded(500, 500, 5, seed=1))
+    mat = tdia.prepare_dia(csr, dtype=dtype, device="cpu")
+    plan = tsc.plan_dia(mat)
+    return tsc.pad_dia_for_pallas(mat, plan), plan
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rows_layout_check_rejects_broken_layouts(dtype):
+    """The check dia_rows_kernel's wrapper runs once per layout (here on CPU
+    tensors, which it takes as they are): it passes the prepared layout and
+    refuses a wrong dtype, a non-contiguous, misaligned or misshapen slab,
+    wrong offsets, an inconsistent plan and a row count the slab does not
+    hold."""
+    mat, plan = _rows_layout(DTYPES[dtype][0])
+    cpu = torch.device("cpu")
+    tsc._check_rows_layout(mat, plan, cpu)
+    nc = mat.data.transpose(0, 1).contiguous().transpose(0, 1)
+    m, n = mat.shape
+    for broken, p in (
+        (dataclasses.replace(mat, data=mat.data.half()), plan),
+        (dataclasses.replace(mat, data=mat.data.double()), plan),
+        (dataclasses.replace(mat, data=nc), plan),
+        (dataclasses.replace(mat, data=_misaligned(mat.data)), plan),
+        (dataclasses.replace(mat, data=mat.data[:, :-1].contiguous()), plan),
+        (dataclasses.replace(mat, offsets_dev=mat.offsets_dev.long()), plan),
+        (dataclasses.replace(mat, offsets_dev=mat.offsets_dev[:-1]), plan),
+        (mat, tsc.DiaPlan(bs=plan.bs, nblocks=plan.nblocks, s_pad=plan.s_pad + 1)),
+        (dataclasses.replace(mat, shape=(plan.s_pad * 128 + 1, n)), plan),
+        (dataclasses.replace(mat, shape=(0, n)), plan),
+    ):
+        with pytest.raises((ValueError, TypeError)):
+            tsc._check_rows_layout(broken, p, cpu)
+
+
+def test_rows_plan_is_kept_while_the_tensors_are_the_same(monkeypatch):
+    """The rows kernels' plan is made (and the layout checked) at a layout's
+    first launch and kept on it while its tensors are the same objects; a
+    replaced tensor, or a new layout object, is checked again."""
+    mat, plan = _rows_layout()
+    cpu = torch.device("cpu")
+    checks = []
+    check = tsc._check_rows_layout
+    monkeypatch.setattr(tsc, "_check_rows_layout", lambda *a: (checks.append(a), check(*a)))
+    assert tsc._rows_plan(mat, plan, cpu) == tsc.rows_a_thread(500) == 1
+    assert tsc._rows_plan(mat, plan, cpu) == 1 and len(checks) == 1
+    mat.data = mat.data.clone()
+    tsc._rows_plan(mat, plan, cpu)
+    mat.offsets_dev = mat.offsets_dev.clone()
+    tsc._rows_plan(mat, plan, cpu)
+    assert len(checks) == 3
+    tsc._rows_plan(dataclasses.replace(mat), plan, cpu)  # a new object: no plan on it
+    tsc._rows_plan(mat, plan, cpu)
+    assert len(checks) == 4
+    mat.data = mat.data.double()  # a replaced tensor is checked before any launch
+    with pytest.raises(TypeError):
+        tsc._rows_plan(mat, plan, cpu)
+
+
+class _Owner:
+    """A layout stand-in: cuda_lib.kept_plan keeps its plan in __dict__."""
+
+
+@pytest.mark.parametrize("change", ["none", "tensor", "geometry", "owner"])
+def test_kept_plan(change):
+    """cuda_lib.kept_plan, the plan cache of every wrapper: make() runs at
+    the first call and again only when a tensor is replaced by another
+    object (an equal one too), the geometry differs or the owner is a new
+    object."""
+    made = []
+    owner, a, b = _Owner(), torch.zeros(3), torch.ones(2)
+
+    def make():
+        made.append(1)
+        return len(made)
+
+    assert cuda_lib.kept_plan(owner, (a, b), ("g", 1), make) == 1
+    args = {"none": (owner, (a, b), ("g", 1)),
+            "tensor": (owner, (a.clone(), b), ("g", 1)),
+            "geometry": (owner, (a, b), ("g", 2)),
+            "owner": (_Owner(), (a, b), ("g", 1))}[change]
+    assert cuda_lib.kept_plan(*args, make) == (1 if change == "none" else 2)
+    assert cuda_lib.kept_plan(*args, make) == len(made)  # the new plan is kept in turn
+
+
+@pytest.mark.parametrize("g", [1, 2, 5, 131])
+def test_laplacian_2d(g):
+    """synth.laplacian_2d: 5g^2 - 4g entries sorted by (row, col), symmetric,
+    4 on the diagonal and -1 on the grid's edges (diagonals 0, +-1, +-g),
+    row sums 0 inside the grid."""
+    coo = tsynth.laplacian_2d(g)
+    r, c, v = coo.rows.astype(np.int64), coo.cols.astype(np.int64), coo.vals
+    assert coo.shape == (g * g, g * g) and len(v) == 5 * g * g - 4 * g
+    assert np.all(np.diff(r * g * g + c) > 0)
+    dense = np.zeros(coo.shape)
+    dense[r, c] = v
+    np.testing.assert_array_equal(dense, dense.T)
+    assert set(np.unique(c - r)) <= {0, 1, -1, g, -g} and np.all(v[r == c] == 4.0)
+    assert np.all(v[r != c] == -1.0)
+    assert np.all(np.minimum(r, c)[np.abs(c - r) == 1] % g != g - 1)  # no edge across a grid row
+    if g > 2:
+        inner = np.arange(g * g).reshape(g, g)[1:-1, 1:-1].ravel()
+        np.testing.assert_array_equal(dense[inner].sum(axis=1), 0.0)
+
+
+@pytest.mark.parametrize(
+    "m,rows",
+    [(2597, 1), (3242, 1), (1, 1), (134144, 1), (134145, 4), (1_000_000, 4), (2_164_760, 4)],
+)
+def test_rows_a_thread(m, rows):
+    """Four rows a thread while m / 4 threads in CTAs of 256 still give the
+    H100's 132 SMs a CTA each, else one (cavity10_like: 2597 rows; the
+    1000 x 1000 grid's Laplacian: 10^6)."""
+    assert tsc.rows_a_thread(m) == rows
+    assert rows == 1 or -(-m // (rows * tsc.RESID_THREADS)) >= tsc.SMS
+    assert rows == 4 or -(-m // (4 * tsc.RESID_THREADS)) < tsc.SMS
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_rows_product_on_a_ragged_row_count(dtype):
+    """The plain DIA rows product (the CPU path of PL_DIA_ROWS and
+    PL_DIA_BF16) against the JAX Pallas kernel on a 5-point pattern of a
+    131 x 131 grid: offsets +-131 past one 128-row group, and m = 17161 not
+    a multiple of 4 (the kernel's four rows a thread end in a partial
+    group). Tolerance: the module's."""
+    m = 131 * 131
+    tcsr, jcsr = _far_diagonals(m, m, [-131, -1, 0, 1, 131], seed=9)
+    tdt, jdt = DTYPES[dtype]
+    tmat = tdia.prepare_dia(tcsr, dtype=tdt, device="cpu")
+    jmat = jdia.prepare_dia(jcsr, dtype=jdt)
+    tplan, jplan = tsc.plan_dia(tmat), jsp.plan_dia(jmat)
+    tmat, jmat = tsc.pad_dia_for_pallas(tmat, tplan), jsp.pad_dia_for_pallas(jmat, jplan)
+    assert m % 4 == 1 and tmat.offsets == (-131, -1, 0, 1, 131)
+    x = np.random.default_rng(13).standard_normal(m).astype(np.float32)
+    y_t = tsc.dia_spmv_cuda(tmat, torch.from_numpy(x), tplan)
+    assert y_t.shape == (m,)
+    _close(y_t, jsp.dia_spmv_pallas(jmat, jnp.asarray(x), jplan))
 
 
 def test_dia_bindings_match_the_source():

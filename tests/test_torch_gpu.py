@@ -133,6 +133,71 @@ def test_resid_product_is_one_launch(cuda, mode, matrix, monkeypatch):
         _within(yk, tsc.dia_spmv_reference(dr.mat, x, plan, dr))
 
 
+#: the DIA rows products: cavity10_like (one row a thread) and the 5-point
+#: Laplacian of a 367 x 367 grid (134,689 rows: four rows a thread, and
+#: m % 4 == 1, so the last thread's group is ragged) -> rows a thread
+ROWS_MATRICES = {
+    "cavity10": (lambda: synth.preset("cavity10_like"), 1),
+    "laplacian367": (lambda: synth.laplacian_2d(367), 4),
+}
+
+
+@pytest.mark.parametrize("mode", ["PL_DIA_ROWS", "PL_DIA_BF16", "PL_DIA_F64"])
+@pytest.mark.parametrize("matrix", list(ROWS_MATRICES))
+def test_dia_rows_product_is_one_launch(cuda, mode, matrix, monkeypatch):
+    """A DIA rows product is one launch of dia_rows_kernel (dia_df_kernel
+    in f64, x split and y combined in it) that allocates y and nothing
+    else, checks its layout at the first launch only, reruns bitwise equal
+    and agrees with its plain version (f64: torch.equal)."""
+    gen, per_thread = ROWS_MATRICES[matrix]
+    csr = T.coo_to_csr(gen())
+    f64 = mode == "PL_DIA_F64"
+    spec = registry.get(mode)
+    mat, plan = ops = spec.prepare(csr, None, T.Config(dtype="float64" if f64 else "float32"), cuda)
+    fn = spec.jitted(ops)
+    counter = tsc.dia_spmv_df_cuda if f64 else tsc.dia_spmv_cuda
+    other = tsc.dia_spmv_cuda if f64 else tsc.dia_spmv_df_cuda
+    xn = np.random.default_rng(5).standard_normal(csr.shape[1])
+    x = torch.as_tensor(xn, dtype=torch.float64 if f64 else torch.float32, device=cuda)
+    fn(x)  # the first launch checks the layout and keeps its plan
+    torch.cuda.synchronize()
+    assert tsc._rows_plan(mat, plan, x.device) == tsc.rows_a_thread(csr.shape[0]) == per_thread
+    checks = []
+    monkeypatch.setattr(tsc, "_check_rows_layout", lambda *a: checks.append(a))
+    before = (counter.launches, other.launches)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    yk, yk2 = fn(x), fn(x)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 2  # y of each product
+    assert (counter.launches, other.launches) == (before[0] + 2, before[1]) and not checks
+    assert yk.shape == (csr.shape[0],) and torch.equal(yk, yk2)
+    if f64:
+        yp = tsc.dia_spmv_df_reference(mat, x, plan)
+        assert torch.equal(yk, yp)
+        _df_within(yk, yp, csr, xn)
+    else:
+        assert yk.dtype == torch.float32
+        _within(yk, tsc.dia_spmv_reference(mat, x, plan))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_graphed_cg_on_a_dia_laplacian(cuda, dtype):
+    """CG over AutoSpMV on the 367 x 367 grid's Laplacian (DIA, four rows a
+    thread): the graphed solve's x torch.equal the eager one's, with the
+    same iteration count."""
+    from spmv_openmp_cuda_tpu_torch.models import solvers
+    from spmv_openmp_cuda_tpu_torch.models.auto import AutoSpMV
+
+    csr = T.coo_to_csr(synth.laplacian_2d(367))
+    model = AutoSpMV.from_csr(csr, cfg=T.Config(dtype=dtype), device=cuda)
+    assert model.format == "dia" and tsc.rows_a_thread(csr.shape[0]) == 4
+    b = np.random.default_rng(2).standard_normal(csr.shape[0])
+    tol = 1e-10 if dtype == "float64" else 1e-5
+    eager = solvers.conjugate_gradient(model, b, tol=tol, maxiter=5000, graph=False)
+    graphed = solvers.conjugate_gradient(model, b, tol=tol, maxiter=5000, graph=True)
+    assert torch.equal(graphed.x, eager.x) and int(graphed.iters) == int(eager.iters) < 5000
+
+
 def test_resid_wrapper_raises_on_what_it_does_not_take(cuda):
     csr = T.coo_to_csr(synth.preset("raefsky1_like"))
     dr, plan = tsc.prepare_dia_resid(csr, device=cuda)
