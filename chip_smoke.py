@@ -104,6 +104,21 @@ y torch.equal the single-device kernel on the same layout, each SPMD shard's
 y its chunk's chain run alone; then the times per product at 1, 2 and 4
 shards (bench/scaling.py) beside the single-device product and cuSPARSE.
 
+Phase 8 (cross_process_phase, after phase 7) runs the mesh across
+processes: two ranks of a gloo group (parallel/launch.py::run_ranks, spawned,
+a join timeout of its own), each holding two of the four shards on cuda:0,
+the exchanges staged through the host. Each rank runs the seven shard_map
+paths on the dryrun's matrices and, at full size, the window halo on
+thermal2_like and the SPMD routed engine on caida_like (the parent writes
+those matrices and x to a temporary directory); every joined y, in both
+ranks, is torch.equal phase 7's one-process 4-shard y. Each rank counts the
+launches of one full-size product from zero (window_blocks and the routed
+kernels in both ranks), times the product with CUDA events (2 processes
+sharing one card: not a scaling figure) and its own shards' kernels alone
+against their plain versions. With two cards or more the same runs under
+NCCL, rank r on cuda:r; with one, a line says it was not run. A failing or
+hung rank ends the script with an error; nothing falls back.
+
 The CSR/ELL mode matrix (csr_ell_slice) follows: ell_t_kernel (csrc/
 ell_spmv.cu; a thread per four rows walks to the longest of them, from a
 table made at the layout's first launch) on sg_like and thermal2_like, also held equal to the
@@ -1120,14 +1135,16 @@ MD_KERNELS = {
 }
 
 
-def multi_device_phase(dev, smi: str, csrs: dict, mats: dict, models: dict) -> list:
+def multi_device_phase(dev, smi: str, csrs: dict, mats: dict, models: dict):
     """Phase 7: the contract's dryrun_multichip(MD_SHARDS) and every
     multi-device path at full size on MD_SHARDS shards, each held three
     ways (the reference protocol, x ~ N(0, 1) against the f64 oracle, a
     bitwise rerun), the window and SPMD routed paths to their single-device
     twins bit for bit, the launches per product counted, and the times per
     product at 1, 2 and 4 shards beside the single-device product. Returns
-    the kernel-running paths' entries of the kernels line."""
+    the kernel-running paths' entries of the kernels line, and what phase 8
+    holds its ranks to: the dryrun's y per path, and per full-size path its
+    matrix, x ~ N(0, 1), output and cuSPARSE time."""
     import types
 
     import spmv_openmp_cuda_tpu_torch as P
@@ -1189,7 +1206,7 @@ def multi_device_phase(dev, smi: str, csrs: dict, mats: dict, models: dict) -> l
 
     zero_counts()
     t = time.perf_counter()
-    contract.dryrun_multichip(MD_SHARDS)
+    refs = {"dryrun": contract.dryrun_multichip(MD_SHARDS)}
     dry = read_counts()
     log(f"phase 7: contract.dryrun_multichip({MD_SHARDS}) on the card: all eight paths OK in "
         f"{time.perf_counter() - t:.1f}s; its launches {dry}")
@@ -1296,6 +1313,7 @@ def multi_device_phase(dev, smi: str, csrs: dict, mats: dict, models: dict) -> l
                             torch.as_tensor(x_n, dtype=getattr(torch, dtype), device=dev))
         print(f"  {path:12s} {name:22s} {MD_SHARDS} shards{' (2x2 mesh)' if path == 'csr_psum' else ''}: "
               f"{t4 * 1e3:.4f} ms per product [{by_d}]{sd}; cuSPARSE {dtype} {lib * 1e3:.4f} ms")
+        refs[path] = (matrices[name], x_n, out, lib)
         if path not in MD_KERNELS:
             continue
         kname, source, replaces = MD_KERNELS[path]
@@ -1348,6 +1366,196 @@ def multi_device_phase(dev, smi: str, csrs: dict, mats: dict, models: dict) -> l
             "bound_by": by, "library_ms": lib * 1e3, "product_ms": t4 * 1e3})
     took = time.perf_counter() - t_phase
     log(f"phase 7: done in {took:.1f}s")
+    return entries, refs
+
+
+#: phase 8 (across processes): MP_WORLD ranks of a torch.distributed group,
+#: each holding MP_SHARDS of the MD_SHARDS shards, run the seven shard_map
+#: paths on the dryrun's matrices (MP_SMALL) and, at full size, the cells of
+#: MP_FULL; every y torch.equal phase 7's one-process y. gloo: every rank's
+#: shards on cuda:0, the exchanges through the host; NCCL only where there
+#: are MP_WORLD cards (rank r on cuda:r): it refuses two ranks on one card
+MP_WORLD = 2
+MP_SHARDS = MD_SHARDS // MP_WORLD
+MP_SMALL = ("ell_rows", "csr_psum", "ell_ring", "dia_halo", "window_halo", "routed_spmd",
+            "dia_halo_df")
+MP_FULL = {"window_halo": "thermal2_like", "routed_spmd": ROUTED_CHECK}
+#: the phase's own join timeout: a failing or hung rank ends it
+MP_TIMEOUT = 300
+MP_LABEL = {"gloo": "2 processes sharing one card, gloo through the host: not a scaling figure",
+            "nccl": "2 processes, one card each, NCCL"}
+
+
+def cross_process_rank(rank: int, world: int, tmp: str, backend: str, rank_devices) -> None:
+    """One rank of phase 8 (started by parallel/launch.py::run_ranks): its
+    MP_SHARDS shards on rank_devices[rank]; the dryrun's products (each
+    rank builds the dryrun's small matrices from their seeds), then each
+    full-size cell from the parent's matrix and x in tmp: one product with
+    the counters from zero just before it and read just after, a rerun,
+    the time per product (CUDA events), and this rank's kernels alone (its
+    shards on their own inputs) against their plain versions and timed.
+    Writes its record to tmp."""
+    from spmv_openmp_cuda_tpu_torch.bench import scaling
+    from spmv_openmp_cuda_tpu_torch.config import LANE
+    from spmv_openmp_cuda_tpu_torch.contract import dryrun_cases, dryrun_mesh_shape
+    from spmv_openmp_cuda_tpu_torch.formats.matrix import CSRMatrix
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+    from spmv_openmp_cuda_tpu_torch.ops import window_cuda as WC
+    from spmv_openmp_cuda_tpu_torch.parallel import mesh as M
+    from spmv_openmp_cuda_tpu_torch.parallel import sharded as SH
+
+    t0 = time.perf_counter()
+    dev = torch.device(rank_devices[rank])
+    devices = [dev] * MP_SHARDS
+    n = world * MP_SHARDS
+    cuda = dev.type == "cuda"
+    res = {"small": {}, "full": {}}
+    cases = dryrun_cases()
+    for path in MP_SMALL:
+        coo, csr, x = cases[path]
+        p = scaling.build(path, coo, csr, devices, mesh_shape=dryrun_mesh_shape(path, n))
+        res["small"][path] = torch.from_numpy(p.y(x))
+    log(f"phase 8 ({backend}) rank {rank}: the dryrun's {len(MP_SMALL)} shard_map paths in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    def zero_counts():
+        WC.window_blocks_cuda.launches = 0
+        for fn in RC._COUNTERS.values():
+            fn.launches = 0
+
+    def read_counts():
+        if cuda:
+            torch.cuda.synchronize(dev)
+        got = {"window_blocks": WC.window_blocks_cuda.launches,
+               **{k: fn.launches for k, fn in RC._COUNTERS.items()}}
+        return {k: v for k, v in got.items() if v}
+
+    for path, name in MP_FULL.items():
+        z = np.load(os.path.join(tmp, f"{name}.npz"))
+        csr = CSRMatrix(shape=tuple(int(v) for v in z["shape"]), indptr=z["indptr"],
+                        indices=z["indices"], data=z["data"])
+        x_n = z["x"]
+        t = time.perf_counter()
+        p = scaling.build(path, None, csr, devices)
+        prep_s = time.perf_counter() - t
+        xs = p.place(x_n)
+        zero_counts()
+        out = p.product(xs)
+        launches = read_counts()
+        again = p.product(xs)
+        product_ms = scaling.time_products(lambda: p.product(xs), dev) * 1e3
+        # the kernels alone: this rank's shards on their own inputs
+        if path == "window_halo":
+            op = p.op
+            slabs = SH.window_slabs(M.make_mesh((n, 1), devices=devices), op, xs)
+            own = [(s, slab) for s, slab in zip(op.shards, slabs) if s is not None]
+            held = [s is not None for s in op.shards]
+            planned = {"window_blocks": len(own)}
+
+            def local(plain, own=own, op=op):
+                return torch.cat([SH.window_shard_spmv(s, slab, -op.wr * LANE, plain, op.plan_blocks)
+                                  for s, slab in own])
+
+            moved = sum(nbytes(s.vals, s.sidx, s.gid, s.rsrc) + nbytes(slab) + 4 * s.shape[0]
+                        for s, slab in own)
+            flops = 2 * sum(s.vals.numel() for s, _ in own)
+        else:
+            chains = [c for c in p.op.chains if c is not None]
+            held = [c is not None for c in p.op.chains]
+            planned = {k: sum(c.counts[k] for c in chains) for k in RC._COUNTERS}
+            xt = torch.as_tensor(x_n, dtype=torch.float32, device=dev)
+
+            def local(plain, chains=chains, xt=xt):
+                run = RC.routed_spmv_reference if plain else RC.routed_chain_spmv
+                return torch.cat([run(c, xt) for c in chains])
+
+            costs = [stage_cost(st, csr.shape[1]) for c in chains for st in c.stages]
+            moved, flops = sum(c[0] for c in costs), sum(c[1] for c in costs)
+        yk, yp = local(False), local(True)
+        b_ms, by = least_ms(moved, flops)
+        res["full"][path] = {
+            "y": out.cpu(), "rerun_equal": torch.equal(out, again), "launches": launches,
+            "planned": {k: v for k, v in planned.items() if v}, "held": held,
+            "prepare_s": prep_s, "product_ms": product_ms,
+            "max_abs_err": (yk - yp).abs().max().item(), "err_bound": bound(yp),
+            "ms": scaling.time_products(lambda: local(False), dev) * 1e3,
+            "plain_ms": scaling.time_products(lambda: local(True), dev, reps=3, per_rep=2) * 1e3,
+            "bound_ms": b_ms, "bound_by": by}
+        log(f"phase 8 ({backend}) rank {rank}: {path} on {name}: prepared in {prep_s:.1f}s, "
+            f"{product_ms:.4f} ms per product, launches {launches}")
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(tmp, f"{backend}_rank{rank}.pt"))
+
+
+def cross_process_phase(dev, smi: str, refs: dict) -> list:
+    """Phase 8: the cross-process paths, MP_WORLD ranks of a gloo group
+    sharing the card (and of an NCCL group where there are MP_WORLD cards),
+    each joined y torch.equal phase 7's one-process 4-shard y (refs, from
+    multi_device_phase), the launches of the full-size products counted in
+    every rank. Returns the kernels line's cross-process entries."""
+    from spmv_openmp_cuda_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    runs = [("gloo", [str(torch.device(dev.type, 0) if dev.type == "cuda" else dev)] * MP_WORLD)]
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= MP_WORLD:
+        runs.append(("nccl", [f"cuda:{r}" for r in range(MP_WORLD)]))
+    else:
+        print(f"phase 8: NCCL not run: {cards} card(s) here, and NCCL refuses two ranks on one "
+              f"card (its run takes cuda:0 .. cuda:{MP_WORLD - 1}, one rank each)")
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, name in MP_FULL.items():
+            csr, x_n, _out, _lib = refs[path]
+            np.savez(os.path.join(tmp, f"{name}.npz"), shape=np.asarray(csr.shape),
+                     indptr=csr.indptr, indices=csr.indices, data=csr.data, x=x_n)
+        for backend, rank_devices in runs:
+            t = time.perf_counter()
+            run_ranks(cross_process_rank, MP_WORLD, backend, timeout=MP_TIMEOUT,
+                      args=(tmp, backend, rank_devices))
+            recs = [torch.load(os.path.join(tmp, f"{backend}_rank{r}.pt"))
+                    for r in range(MP_WORLD)]
+            log(f"phase 8 ({backend}): {MP_WORLD} ranks on {rank_devices} done in "
+                f"{time.perf_counter() - t:.1f}s (ranks {[round(r['seconds'], 1) for r in recs]} s "
+                "after start)")
+            for path in MP_SMALL:
+                want = torch.from_numpy(refs["dryrun"][path])
+                if not all(torch.equal(r["small"][path], want) for r in recs):
+                    raise AssertionError(f"phase 8 ({backend}): {path}: a rank's y differs from "
+                                         "the one-process 4-shard y")
+            log(f"phase 8 ({backend}): the dryrun's {len(MP_SMALL)} shard_map paths: every "
+                "rank's joined y torch.equal the one-process 4-shard y (phase 7)")
+            print(f"phase 8 ({backend}) times per product ({kind}; {smi}; {MP_LABEL[backend]}):")
+            for path, name in MP_FULL.items():
+                _csr, _x, want, lib = refs[path]
+                kname, source, replaces = MD_KERNELS[path]
+                for r, rec in enumerate(recs):
+                    f = rec["full"][path]
+                    own = [i // MP_SHARDS == r for i in range(MD_SHARDS)]
+                    if not (torch.equal(f["y"], want.cpu()) and f["rerun_equal"] and f["held"] == own):
+                        raise AssertionError(f"phase 8 ({backend}): {path}: rank {r}: y equal "
+                                             f"{torch.equal(f['y'], want.cpu())}, rerun equal "
+                                             f"{f['rerun_equal']}, held {f['held']}")
+                    if dev.type == "cuda" and not (f["launches"] and f["launches"] == f["planned"]):
+                        raise AssertionError(f"phase 8 ({backend}): {path}: rank {r}: launches "
+                                             f"{f['launches']}, planned {f['planned']}")
+                    if not f["max_abs_err"] <= f["err_bound"]:
+                        raise AssertionError(f"phase 8 ({backend}): {path}: rank {r}: kernel vs "
+                                             f"plain {f['max_abs_err']:.3e} > {f['err_bound']:.3e}")
+                    print(f"  {path:12s} {name:14s} rank {r} (shards {[i for i, o in enumerate(own) if o]}):"
+                          f" {f['product_ms']:.4f} ms per product, y torch.equal phase 7's; its "
+                          f"launches in one product {f['launches'] or 'none (plain versions)'}; "
+                          f"its kernels alone {f['ms']:.4f} ms (plain {f['plain_ms']:.4f} ms, bound "
+                          f"{f['bound_ms']:.4f} ms by {f['bound_by']}); prepare {f['prepare_s']:.1f}s")
+                    entries.append({
+                        "name": f"{kname} [{path}, rank {r} of {MP_WORLD} processes, {backend}]",
+                        "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": sum(f["launches"].values()), "max_abs_err": f["max_abs_err"],
+                        "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                        "bound_by": f["bound_by"], "library_ms": lib * 1e3,
+                        "product_ms": f["product_ms"]})
+    log(f"phase 8: done in {time.perf_counter() - t_phase:.1f}s")
     return entries
 
 
@@ -2444,7 +2652,9 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in dia_cells:
             entry["cells"] = dia_cells[entry["name"]]
-    kernels.extend(multi_device_phase(dev, smi, csrs, mats, models))
+    md_entries, md_refs = multi_device_phase(dev, smi, csrs, mats, models)
+    kernels.extend(md_entries)
+    kernels.extend(cross_process_phase(dev, smi, md_refs))
     log("done")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -86,7 +86,8 @@ class Path:
 
 def build(path: str, coo, csr, devices: List[torch.device], mesh_shape=None) -> Path:
     """The operands of `path` over shards on `devices`: a (d, 1) mesh, or
-    mesh_shape ((1, d) for csr_psum by default)."""
+    mesh_shape ((1, d) for csr_psum by default). Under a process group
+    every rank calls it with its own devices, and d counts every rank's."""
     from .. import coo_to_ell
     from ..formats.dia import prepare_dia, prepare_dia_df
     from ..parallel import mesh as M
@@ -94,12 +95,11 @@ def build(path: str, coo, csr, devices: List[torch.device], mesh_shape=None) -> 
     from ..parallel.routed_spmd import make_routed_spmd, prepare_routed_spmd
 
     m, _ = csr.shape
-    d = len(devices)
     dev0 = devices[0]
     f32 = torch.float32
-    if mesh_shape is None:
-        mesh_shape = (1, d) if path == "csr_psum" else (d, 1)
     mesh = M.make_mesh(mesh_shape, devices=devices)
+    if mesh_shape is None and path == "csr_psum":
+        mesh = mesh.reshape((1, mesh.size))
 
     def host(y):
         return y.cpu().double().numpy().reshape(-1)[:m]

@@ -1049,13 +1049,15 @@ class RoutedDF:
 _DF_HDENSE_MAX_BYTES = 256 * 2**20
 
 
-def prepare_routed_df(csr: CSRMatrix, device="cpu") -> RoutedDF:
+def prepare_routed_df(csr: CSRMatrix, device="cuda") -> RoutedDF:
     """The JAX package's prepare_routed_df: the heavy rows into a dense
     (hi, lo) block when it fits the budget, then the routed layout of the
     light rows over the hi words, and the lo words at the same slots (the
-    JAX package runs a second, structure-identical prepare for them)."""
+    JAX package runs a second, structure-identical prepare for them). On
+    `device`: the card unless the caller passes device="cpu"."""
     from ..ops.dfloat import split_f64
 
+    device = target_device(device)
     m, n = csr.shape
     lens_full = np.diff(csr.indptr.astype(np.int64))
     thr = _pick_heavy_threshold(csr, lens_full, torch.float32)
@@ -1097,10 +1099,12 @@ def prepare_routed_df(csr: CSRMatrix, device="cpu") -> RoutedDF:
     )
 
 
-def prepare_routed_df_auto(csr: CSRMatrix, device="cpu"):
+def prepare_routed_df_auto(csr: CSRMatrix, device="cuda"):
     """RoutedDF for one domain, RoutedChunks of RoutedDF otherwise: the
     chunk bounds of the float32 chunked prepare, each chunk df-prepared (the
-    JAX package's prepare_routed_df_auto)."""
+    JAX package's prepare_routed_df_auto), on `device` (the card unless the
+    caller passes device="cpu")."""
+    device = target_device(device)
     try:
         return prepare_routed_df(csr, device=device)
     except RoutedError:

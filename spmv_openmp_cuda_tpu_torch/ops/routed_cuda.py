@@ -1594,9 +1594,10 @@ def routed_spmv(mat, x: torch.Tensor) -> torch.Tensor:
     return routed_chain_spmv(mat, x)
 
 
-def prepare_routed_chain(csr, dtype=torch.float32, vals_dtype=None, device="cpu") -> RoutedChain:
+def prepare_routed_chain(csr, dtype=torch.float32, vals_dtype=None, device="cuda") -> RoutedChain:
     """prepare_routed_auto, then build_chain: the operands of the routed
-    modes and of AutoSpMV."""
+    modes and of AutoSpMV, on the card unless the caller passes
+    device="cpu"."""
     return build_chain(
         prepare_routed_auto(csr, dtype=dtype, vals_dtype=vals_dtype, device=device)
     )
@@ -2514,9 +2515,10 @@ def routed_df_spmv(chain: RoutedDFChain, x: torch.Tensor, plain: bool = False) -
     return y
 
 
-def prepare_routed_df_chain(csr, device="cpu") -> RoutedDFChain:
+def prepare_routed_df_chain(csr, device="cuda") -> RoutedDFChain:
     """prepare_routed_df_auto, then build_df_chain: the operands of
-    PL_CSR_ROUTED_F64 and of AutoSpMV at float64."""
+    PL_CSR_ROUTED_F64 and of AutoSpMV at float64, on the card unless the
+    caller passes device="cpu"."""
     return build_df_chain(prepare_routed_df_auto(csr, device=device))
 
 

@@ -1,13 +1,16 @@
-"""Multi-device sharded SpMV over a mesh of torch.devices, in one process.
+"""Multi-device sharded SpMV over a mesh of torch.devices, in one process or
+across the processes of a torch.distributed group.
 
 Counterpart of spmv_openmp_cuda_tpu/parallel/sharded.py, with the same names.
 The JAX package runs each path as one shard_map program over a Mesh; the
 port runs the same local bodies per shard, in shard order, with the
 collectives of parallel/collectives.py between them. A sharded operand or x
-is a list with one tensor per shard of a mesh axis (parallel/mesh.py); each
-product returns its y joined on the axis' first device (the global array a
-shard_map program returns). Paths, numbered as in contract.dryrun_multichip
-(the file's sections number them otherwise):
+is a list with one entry per shard of a mesh axis (parallel/mesh.py): the
+shard's tensor where this process owns it, None where another process does.
+Each process prepares and computes only its own shards; each product
+returns its y joined on the axis' home device (mesh.home), on every rank
+(the global array a shard_map program returns). Paths, numbered as in
+contract.dryrun_multichip (the file's sections number them otherwise):
 
 1. ell_rows_sharded: rows sharded, x replicated.
 2. csr_cols_psum: columns sharded, the partial y summed by psum in a fixed
@@ -24,12 +27,14 @@ shard_map program returns). Paths, numbered as in contract.dryrun_multichip
    window kernel (csrc/window_spmv.cu::window_blocks_kernel) on the shard's
    halo'd x, one launch per shard.
 5. routed_multidevice: row chunks of the routed engine, each on a device of
-   its own (round-robin), each running its chain (ops/routed_cuda.py).
+   its own (round-robin), each running its chain (ops/routed_cuda.py). No
+   shard_map in the JAX package either: it takes this process's devices
+   only (mesh.addressable), and exchanges nothing.
 
 Paths 1-4 and 8 are plain torch ops, as the JAX package's are plain XLA. A
 mesh replica along an axis a value is not sharded over computes nothing the
 first line does not, so the port computes each shard once, on the first
-device of its replica group (Mesh.axis_devices).
+device of its replica group (Mesh.axis_devices), in the process owning it.
 
 Each path has a `*_from_jax` converter: the JAX op's arrays as numpy (its
 shards gathered) -> the port's op, so that both packages can run the same
@@ -47,17 +52,16 @@ import torch
 from ..config import LANE, SUBLANE
 from ..formats.matrix import CSRMatrix, ELLMatrix, _ceil_to
 from ..ops.spmv_cuda import _to_tensor
-from .collectives import all_gather, gather_to, ppermute
-from .mesh import COLS, ROWS, Mesh, _default_devices, shard
-
-Parts = List[torch.Tensor]
+from .collectives import Parts, all_gather, each, gather_to, ppermute
+from .mesh import COLS, ROWS, Mesh, _default_devices, addressable, shard
 
 
 def _as_parts(x, mesh: Mesh, axis: str = ROWS) -> Parts:
-    """x given as one tensor (replicated onto the axis' devices) or as its
-    per-shard list."""
+    """x given as one tensor (replicated onto this process's devices of the
+    axis) or as its per-shard list."""
     if isinstance(x, torch.Tensor):
-        return [x.to(d) for d in mesh.axis_devices(axis)]
+        return [x.to(d) if mine else None
+                for d, mine in zip(mesh.axis_devices(axis), mesh.is_local(axis))]
     return list(x)
 
 
@@ -119,9 +123,8 @@ def make_ell_rows_sharded(mesh: Mesh):
         return prods.sum(dim=1)
 
     def spmv(op: RowShardedELL, x):
-        xs = _as_parts(x, mesh)
-        ys = [local(*a) for a in zip(op.data, op.cols, op.row_lens, xs)]
-        return gather_to(ys, ys[0].device)
+        ys = each(local, op.data, op.cols, op.row_lens, _as_parts(x, mesh))
+        return gather_to(ys, mesh, ROWS)
 
     return spmv
 
@@ -155,7 +158,7 @@ def col_sharded_csr_from_jax(data, local_cols, row_ids, x_pad: int, stripe_w: in
     lengths = np.stack([np.bincount(r, minlength=m + 1) for r in rids]).astype(np.int64)
 
     def stripes(a):  # (D, k) -> stripe j's (k,) on shard j
-        return [p[0] for p in shard(_to_tensor(a, "cpu"), mesh, COLS)]
+        return [None if p is None else p[0] for p in shard(_to_tensor(a, "cpu"), mesh, COLS)]
 
     return ColShardedCSR(
         data=stripes(data), local_cols=stripes(local_cols), row_ids=stripes(rids),
@@ -191,16 +194,17 @@ def make_csr_cols_psum(mesh: Mesh, m: int):
     """y = psum_j(A_stripe_j @ x_shard_j): contraction-axis sharding. The
     padding slots carry value 0 and row id m, a segment of their own that
     is dropped. Each stripe's row sums are a segment sum (no atomics), the
-    partials added in shard order: a rerun is bitwise equal."""
-    from .collectives import psum
+    partials added in shard order on the axis' home device (psum's sum,
+    also on a rank that owns no stripe): a rerun is bitwise equal."""
+    from .collectives import sum_to
 
     def local(data, lcols, lengths, x_shard):
         prods = data * x_shard[lcols.long()].to(data.dtype)
         return torch.segment_reduce(prods, "sum", lengths=lengths, unsafe=True)[:m]
 
     def spmv(op: ColShardedCSR, x_parts):
-        parts = [local(*a) for a in zip(op.data, op.local_cols, op.lengths, x_parts)]
-        return psum(parts, mesh, COLS)[0]
+        parts = each(local, op.data, op.local_cols, op.lengths, x_parts)
+        return sum_to(parts, mesh, COLS, mesh.home(COLS))
 
     return spmv
 
@@ -282,15 +286,17 @@ def make_ell_ring(mesh: Mesh, op_meta: RingELL):
 
     def spmv(op: RingELL, x_parts):
         chunks = list(x_parts)
-        accs = [torch.zeros(op.m_loc, dtype=a.dtype, device=a.device) for a in op.data]
+        accs = each(lambda a: torch.zeros(op.m_loc, dtype=a.dtype, device=a.device), op.data)
         for s in range(d):
             nxt = ppermute(chunks, mesh, ROWS, perm) if s < d - 1 else None
             for i in range(d):
+                if accs[i] is None:
+                    continue
                 stripe = (i - s) % d
                 dat, idx = op.data[i][:, stripe], op.cols[i][:, stripe]
                 accs[i] = accs[i] + (dat * chunks[i][idx.long()].to(dat.dtype)).sum(dim=1)
             chunks = nxt
-        return gather_to(accs, accs[0].device)
+        return gather_to(accs, mesh, ROWS)
 
     return spmv
 
@@ -361,9 +367,9 @@ def _halo(x_parts: Parts, mesh: Mesh, left_rows: int, right_rows: int) -> Parts:
     it and the right neighbour's first right_rows after it (wrapping around
     at the edges): two ppermutes, their slices copied."""
     nd = len(x_parts)
-    left = ppermute([_tail(p, left_rows) for p in x_parts], mesh, ROWS, _neighbour(nd, 1))
-    right = ppermute([p[:right_rows] for p in x_parts], mesh, ROWS, _neighbour(nd, -1))
-    return [torch.cat([lf, p, r]) for lf, p, r in zip(left, x_parts, right)]
+    left = ppermute(each(lambda p: _tail(p, left_rows), x_parts), mesh, ROWS, _neighbour(nd, 1))
+    right = ppermute(each(lambda p: p[:right_rows], x_parts), mesh, ROWS, _neighbour(nd, -1))
+    return each(lambda p, lf, r: torch.cat([lf, p, r]), x_parts, left, right)
 
 
 def _shifted(xp: torch.Tensor, off: int, s: int, base_sub: int) -> torch.Tensor:
@@ -379,14 +385,14 @@ def make_dia_sharded(mesh: Mesh, op_meta: ShardedDIA):
     the diagonals in offset order, as the JAX package's."""
     ps, offsets, s_local = op_meta.pad_sub, op_meta.offsets, op_meta.s_local
 
+    def local(data, xp):
+        acc = torch.zeros((s_local, LANE), dtype=data.dtype, device=data.device)
+        for k, off in enumerate(offsets):
+            acc = acc + data[k] * _shifted(xp, off, s_local, ps)
+        return acc
+
     def spmv(op: ShardedDIA, x_parts):
-        outs = []
-        for data, xp in zip(op.data, _halo(list(x_parts), mesh, ps, ps)):
-            acc = torch.zeros((s_local, LANE), dtype=data.dtype, device=data.device)
-            for k, off in enumerate(offsets):
-                acc = acc + data[k] * _shifted(xp, off, s_local, ps)
-            outs.append(acc)
-        return gather_to(outs, outs[0].device)
+        return gather_to(each(local, op.data, _halo(list(x_parts), mesh, ps, ps)), mesh, ROWS)
 
     return spmv
 
@@ -449,23 +455,24 @@ def make_dia_sharded_df(mesh: Mesh, op_meta: ShardedDIADF):
 
     ps, offsets, s_local = op_meta.pad_sub, op_meta.offsets, op_meta.s_local
 
+    def local(dh, dl, xh, xl):
+        acc_h = torch.zeros((s_local, LANE), dtype=torch.float32, device=dh.device)
+        acc_l = torch.zeros_like(acc_h)
+        for k, off in enumerate(offsets):
+            vh = _shifted(xh, off, s_local, ps)
+            vl = _shifted(xl, off, s_local, ps)
+            ph, pe = two_prod(dh[k], vh)
+            plo = pe + (dh[k] * vl + dl[k] * vh)
+            acc_h, e = two_sum(acc_h, ph)
+            acc_l = acc_l + (plo + e)
+        return acc_h, acc_l
+
     def spmv(op: ShardedDIADF, xh_parts, xl_parts):
-        hs, ls = [], []
         xhs = _halo(list(xh_parts), mesh, ps, ps)
         xls = _halo(list(xl_parts), mesh, ps, ps)
-        for dh, dl, xh, xl in zip(op.data, op.data_lo, xhs, xls):
-            acc_h = torch.zeros((s_local, LANE), dtype=torch.float32, device=dh.device)
-            acc_l = torch.zeros_like(acc_h)
-            for k, off in enumerate(offsets):
-                vh = _shifted(xh, off, s_local, ps)
-                vl = _shifted(xl, off, s_local, ps)
-                ph, pe = two_prod(dh[k], vh)
-                plo = pe + (dh[k] * vl + dl[k] * vh)
-                acc_h, e = two_sum(acc_h, ph)
-                acc_l = acc_l + (plo + e)
-            hs.append(acc_h)
-            ls.append(acc_l)
-        return gather_to(hs, hs[0].device), gather_to(ls, ls[0].device)
+        outs = each(local, op.data, op.data_lo, xhs, xls)
+        return tuple(gather_to([None if o is None else o[j] for o in outs], mesh, ROWS)
+                     for j in (0, 1))
 
     return spmv
 
@@ -535,7 +542,8 @@ def window_sharded_from_jax(vals, sidx, gid, rsrc, shape, nnz: int, g: int, k_pa
                             nspecs: int, nb_local: int, nd: int, k_c: int, mesh: Mesh,
                             layout=None) -> ShardedWindow:
     """The JAX op's padded (nd*nb_local*k_pad, 128) block arrays (rsrc
-    (nd*nb_local*n_ktiles*128, 128)) -> a WindowCSR per shard."""
+    (nd*nb_local*n_ktiles*128, 128)) -> a WindowCSR per own shard (None for
+    another process's)."""
     from ..formats.window import WindowCSR
 
     if mesh.shape[ROWS] != nd or (nb_local * g) % 8:
@@ -546,12 +554,11 @@ def window_sharded_from_jax(vals, sidx, gid, rsrc, shape, nnz: int, g: int, k_pa
     if layout is not None and layout.nblocks != op.plan_blocks:
         raise ValueError(f"layout of {layout.nblocks} blocks, not {op.plan_blocks} (bps=1)")
     cut = [shard(_to_tensor(a, "cpu"), mesh) for a in (vals, sidx, gid, rsrc)]
-    for v, s, gd, r in zip(*cut):
-        op.shards.append(WindowCSR(
-            vals=v, sidx=s, gid=gd, rsrc=r, shape=(op.own * LANE, (op.own + op.h_right) * LANE),
-            nnz=op.nnz, g=op.g, k_pad=op.k_pad, wr=op.wr, nspecs=op.nspecs, nblocks=op.nb_local,
-            k_c=op.k_c, bps=1, xdirect=False, shared_w=False,
-        ))
+    op.shards = each(lambda v, s, gd, r: WindowCSR(
+        vals=v, sidx=s, gid=gd, rsrc=r, shape=(op.own * LANE, (op.own + op.h_right) * LANE),
+        nnz=op.nnz, g=op.g, k_pad=op.k_pad, wr=op.wr, nspecs=op.nspecs, nblocks=op.nb_local,
+        k_c=op.k_c, bps=1, xdirect=False, shared_w=False,
+    ), *cut)
     return op
 
 
@@ -608,14 +615,16 @@ def window_slabs(mesh: Mesh, op: ShardedWindow, x_parts: Parts) -> Parts:
     all-gather of x and each shard's slice of it."""
     wr, own, h_right = op.wr, op.own, op.h_right
     if op.halo_ok:
-        return [s.reshape(-1).to(torch.float32) for s in _halo(list(x_parts), mesh, wr, h_right)]
+        return each(lambda s: s.reshape(-1).to(torch.float32),
+                    _halo(list(x_parts), mesh, wr, h_right))
     total = wr + own + h_right
-    out = []
-    for i, x_all in enumerate(all_gather(list(x_parts), mesh, ROWS)):
+
+    def window(x_all, i):
         z = torch.zeros((total, LANE), dtype=x_all.dtype, device=x_all.device)
         padded = torch.cat([z[:wr], x_all, z])
-        out.append(padded[i * own: i * own + total].reshape(-1).to(torch.float32))
-    return out
+        return padded[i * own: i * own + total].reshape(-1).to(torch.float32)
+
+    return each(window, all_gather(list(x_parts), mesh, ROWS), range(op.nd))
 
 
 def make_window_sharded(mesh: Mesh, op_meta: ShardedWindow, plain: bool = False):
@@ -624,9 +633,9 @@ def make_window_sharded(mesh: Mesh, op_meta: ShardedWindow, plain: bool = False)
     its halo'd x (plain=True: the kernel's plain version, on any device)."""
 
     def spmv(op: ShardedWindow, x_parts):
-        ys = [window_shard_spmv(s, slab, -op.wr * LANE, plain, op.plan_blocks)
-              for s, slab in zip(op.shards, window_slabs(mesh, op, x_parts))]
-        return gather_to(ys, ys[0].device)[: op.shape[0]]
+        ys = each(lambda s, slab: window_shard_spmv(s, slab, -op.wr * LANE, plain, op.plan_blocks),
+                   op.shards, window_slabs(mesh, op, x_parts))
+        return gather_to(ys, mesh, ROWS)[: op.shape[0]]
 
     return spmv
 
@@ -663,10 +672,12 @@ def prepare_routed_multidevice(csr: CSRMatrix, devices=None, dtype=torch.float32
     """Split rows into routed chunks of about nnz / len(devices) each (the
     greedy split, fit_domains=False, halved where a chunk's domain is too
     large) and prepare chunk i on devices[i % len(devices)]. devices
-    default to every card."""
+    default to every card of this process; under a process group a device
+    of another rank (a mesh.RankDevice) raises ValueError, as jax.device_put
+    does for a device another process owns."""
     from ..formats.routed import _sub_csr, prepare_routed, routed_chunk_bounds
 
-    devices = tuple(torch.device(d) for d in (devices if devices is not None else _default_devices()))
+    devices = tuple(addressable(devices) if devices is not None else _default_devices())
     nd = len(devices)
     target = max(int(np.ceil(csr.nnz / nd)), 1)
     bounds = routed_chunk_bounds(csr, chunk_nnz=target, fit_domains=False)
@@ -681,7 +692,7 @@ def routed_multidevice_from_jax(chunks: Sequence[dict], bounds, shape, nnz: int,
     chunk (its arrays as numpy); chunk i goes to devices[i % len(devices)]."""
     from ..ops.routed_cuda import routed_from_jax
 
-    devices = tuple(torch.device(d) for d in devices)
+    devices = tuple(addressable(devices))
     mats = [routed_from_jax(**c, device=devices[i % len(devices)]) for i, c in enumerate(chunks)]
     return _routed_multidevice(mats, bounds, shape, nnz, devices)
 
@@ -699,4 +710,4 @@ def routed_multidevice_spmv(op: MultiDeviceRouted, x) -> torch.Tensor:
         if ch.device not in per_dev:
             per_dev[ch.device] = xt.to(ch.device)
     ys = [routed_chain_spmv(ch, per_dev[ch.device]) for ch in op.chains]
-    return gather_to(ys, op.devices[0])
+    return torch.cat([y.to(op.devices[0]) for y in ys])

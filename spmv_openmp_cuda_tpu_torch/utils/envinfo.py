@@ -24,13 +24,20 @@ def env_overrides() -> Dict[str, str]:
 
 
 def runtime_info() -> Dict[str, object]:
+    import torch.distributed as dist
+
     from ..io import native
 
     cuda = torch.cuda.is_available()
+    group = dist.is_available() and dist.is_initialized()
     info: Dict[str, object] = {
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
         "backend": "cuda" if cuda else "cpu",
+        # this process's rank and the processes of its torch.distributed
+        # group (jax.process_index / process_count): 0 and 1 without one
+        "process_index": dist.get_rank() if group else 0,
+        "process_count": dist.get_world_size() if group else 1,
         "device_count": torch.cuda.device_count() if cuda else 0,
         "devices": [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())] if cuda else [],
         "cpu_threads": torch.get_num_threads(),

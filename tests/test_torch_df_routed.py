@@ -101,7 +101,7 @@ ROUTED = {
 def _routed_prepared(name):
     def make():
         tcsr, jcsr = _pair(ROUTED[name]())
-        return tcsr, tr.prepare_routed_df(tcsr), jr.prepare_routed_df(jcsr)
+        return tcsr, tr.prepare_routed_df(tcsr, device="cpu"), jr.prepare_routed_df(jcsr)
 
     return _memo(("routed", name), make)
 
@@ -194,7 +194,7 @@ def test_routed_df_chunked():
     cols = rng.integers(0, 128, rows.size) * 128
     rows, cols = np.unique(np.stack([rows, cols]), axis=1)
     tcsr, jcsr = _pair(T.sort_coo(T.COOMatrix((8000, 16384), rows, cols, rng.standard_normal(rows.size))))
-    mat = tr.prepare_routed_df_auto(tcsr)
+    mat = tr.prepare_routed_df_auto(tcsr, device="cpu")
     assert isinstance(mat, tr.RoutedChunks) and len(mat.chunks) == 3
     assert all(isinstance(c, tr.RoutedDF) for c in mat.chunks)
     # no block needed halving: the bounds are the JAX package's fit
@@ -218,6 +218,20 @@ def test_routed_df_from_jax_round_trip():
     with pytest.raises(ValueError, match="heavy"):
         trc.routed_df_from_jax(_jax_mat_fields(jm.mat), np.asarray(jm.vals_lo),
                                heavy_rows_df=jm.heavy_rows_df)
+
+
+@pytest.mark.parametrize("prepare", [
+    trc.prepare_routed_chain, trc.prepare_routed_df_chain, tr.prepare_routed_df,
+    tr.prepare_routed_df_auto,
+])
+def test_routed_prepares_default_to_the_card(monkeypatch, prepare):
+    """Given no device, the routed prepares run on the card, and without one
+    they raise (formats/matrix.py::target_device) before any work: none
+    falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    csr = T.coo_to_csr(tsynth.power_law(400, 400, avg_nnz_per_row=4.0, seed=3))
+    with pytest.raises(RuntimeError, match="is_available"):
+        prepare(csr)
 
 
 def test_routed_df_wrappers_check_on_the_cpu():
@@ -485,7 +499,7 @@ def _chunked_df():
         rows, cols = np.unique(np.stack([rows, cols]), axis=1)
         tcsr = T.coo_to_csr(T.sort_coo(T.COOMatrix((8000, 16384), rows, cols,
                                                    rng.standard_normal(rows.size))))
-        return tcsr, tr.prepare_routed_df_auto(tcsr)
+        return tcsr, tr.prepare_routed_df_auto(tcsr, device="cpu")
 
     return _memo(("routed", "chunked"), make)
 

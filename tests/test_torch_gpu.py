@@ -1261,6 +1261,25 @@ def test_sharded_window_kernel_with_x_lo(cuda, case):
                                                                           device=cuda)))
 
 
+def test_two_ranks_share_the_card(cuda, tmp_path):
+    """Two spawned gloo ranks, two shards of the card each: every shard_map
+    path's joined y and the collectives torch.equal the one-process ones on
+    four shards of the card (tests/torch_multiprocess_ranks.py, whose CPU
+    twin is tests/test_torch_multiprocess.py)."""
+    import torch_multiprocess_ranks as R
+    from spmv_openmp_cuda_tpu_torch.parallel.launch import run_ranks
+
+    run_ranks(R.rank_main, 2, "gloo", args=(str(tmp_path), 2, "cuda:0"), timeout=300)
+    one = R.outputs([cuda] * 4, 4)
+    coll = R.collectives([cuda] * 4, 4)
+    for r in range(2):
+        rec = torch.load(tmp_path / f"rank{r}.pt")
+        assert rec["process"] == (r, 2)
+        for name, want in one["y"].items():
+            assert all(torch.equal(a, b) for a, b in zip(rec["y"][name], want)), (r, name)
+        assert all(torch.equal(rec["collectives"][k], v) for k, v in coll.items())
+
+
 def test_dryrun_multichip_on_the_card(cuda, capsys):
     from spmv_openmp_cuda_tpu_torch import contract
 

@@ -262,6 +262,8 @@ def test_envinfo_and_profiling():
     info = envinfo.runtime_info()
     assert info["torch_version"] == torch.__version__
     assert info["backend"] == ("cuda" if torch.cuda.is_available() else "cpu")
+    # no torch.distributed group: one process, index 0 (the JAX package's keys)
+    assert (info["process_index"], info["process_count"]) == (0, 1)
     os.environ["GRID_ROWS"] = "3"
     try:
         assert envinfo.env_overrides()["GRID_ROWS"] == "3"

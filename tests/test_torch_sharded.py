@@ -346,13 +346,14 @@ def test_make_mesh_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         contract.dryrun_multichip(4)
     TM.init_distributed(num_processes=1)  # one process: a no-op
-    # a mesh over the devices of several processes waits for its ROADMAP item
+    # under a group of several processes a rank's devices default to its
+    # cards too: none raises before any exchange
     import torch.distributed as dist
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.make_mesh((2, 1), devices=[CPU] * 2)
+    with pytest.raises(RuntimeError, match="is_available"):
+        TM.make_mesh((2, 1))
 
 
 # ---------------------------------------------------------------------------
