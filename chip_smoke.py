@@ -405,22 +405,31 @@ def stage_cost(stage, n_x: int):
 
 def df_stage_cost(stage, n_x: int):
     """(bytes, flops) of one routed df stage at this run's shapes: each input
-    read once (x in f64, both planes of what the offsets name), each output
-    written once; 8 flops per TwoSum-add of the padded trees, 15 per
-    product (DF_FLOPS_PER_SLOT)."""
+    read once (x in f64, both words of each pair the offsets name), each
+    output written once; 8 flops per TwoSum-add of the padded trees, 15 per
+    product (DF_FLOPS_PER_SLOT). C-df level 0's inputs are its slots' value
+    pairs and x columns, and the level its last CTAs close is counted in."""
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
 
-    if isinstance(stage, RC.DFSplitStage):
-        return 8 * stage.n + 8 * stage.plane, 2 * stage.n
-    if isinstance(stage, RC.DFGatherStage):
-        return (nbytes(stage.vals, stage.vals_lo, stage.pidx, stage.widx) + 8 * n_x
-                + 8 * stage.out_elems(), DF_FLOPS_PER_SLOT * stage.vals.numel())
+    def tree_adds(runs):
+        return sum(ng * ((1 << (w - 1).bit_length()) - 1) for _r0, ng, w, _g0 in runs) * 128
+
+    def reduce_cost(st):
+        off = st.imap.idx
+        mask = 4 * off.numel() if st.mask is not None else 0
+        return (nbytes(off, st.groups, st.chunks, st.tasks) + mask + 8 * int((off >= 0).sum())
+                + 8 * st.out_elems(), 8 * tree_adds(st.runs))
+
+    if isinstance(stage, RC.DFGatherReduceStage):
+        b = nbytes(stage.vals, stage.cols, stage.groups, stage.chunks, stage.tasks) + 8 * n_x \
+            + 8 * stage.out_elems()
+        f = DF_FLOPS_PER_SLOT * int((stage.cols >= 0).sum()) + 8 * tree_adds(stage.runs)
+        if stage.tail is not None:
+            tb, tf = reduce_cost(stage.tail)
+            b, f = b + tb, f + tf
+        return b, f
     if isinstance(stage, RC.DFReduceStage):
-        off = stage.imap.idx
-        mask = 4 * off.numel() if stage.mask is not None else 0
-        adds = sum(ng * ((1 << (w - 1).bit_length()) - 1) for _r0, ng, w, _g0 in stage.runs) * 128
-        return (nbytes(off, stage.groups, stage.chunks) + mask + 8 * int((off >= 0).sum())
-                + 8 * stage.out_elems(), 8 * adds)
+        return reduce_cost(stage)
     if isinstance(stage, RC.DFPermuteStage):
         idx = stage.imap.idx.reshape(-1)[:stage.n]
         return 4 * idx.numel() + 8 * int((idx >= 0).sum()) + 8 * stage.n, stage.n
@@ -428,6 +437,55 @@ def df_stage_cost(stage, n_x: int):
     p2 = stage.plan.threads << stage.plan.log_k
     return (nbytes(stage.hh, stage.hl, stage.rows) + 8 * n_x + 8 * n_h,
             DF_FLOPS_PER_SLOT * n_h * n_pad + 8 * n_h * (p2 - n_pad))
+
+
+DF_KERNEL_LABELS = {
+    "df_gather_reduce": "routed_df_reduce_kernel (C-df level 0: K3's products formed in it)",
+    "df_reduce": "routed_df_reduce_kernel (C-df)",
+    "df_permute": "routed_df_permute_kernel (output gather)",
+    "df_rowdot": "routed_df_rowdot_kernel (D-df, x split and rows closed in it)",
+}
+
+
+def df_stage_labels(chain) -> dict:
+    """Each df stage's name in the logs: C-df by level of its domain (level
+    0 with the level its last CTAs close), D-df with its rows and plan."""
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+
+    out, level = {}, 0
+    for st in chain.stages:
+        what = ""
+        if isinstance(st, RC.DFGatherReduceStage):
+            level = 1 + (st.tail is not None)
+            what = " level 0" + (" and level 1, closed by its last CTAs" if st.tail is not None else "")
+        elif isinstance(st, RC.DFReduceStage):
+            what = f" level {level}"
+            level += 1
+        elif isinstance(st, RC.DFRowdotStage):
+            what = f" ({st.hh.shape[0]} rows, {st.plan})"
+        out[st] = DF_KERNEL_LABELS[st.kernel] + what
+    return out
+
+
+def parent_level0(mdf, stage, x64):
+    """What a DFGatherReduceStage writes, by the parent's plain versions: K3
+    (the products of the gather tiles) followed by plain C-df through the
+    products plan's composed offsets (the stage keeps them on the host), and the closed level's plain C-df over
+    those sums; (hi, lo) pairs side by side."""
+    from spmv_openmp_cuda_tpu_torch.ops import dfloat as DF
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+
+    mat = mdf.mat
+    ph, pl = RC.routed_df_gather_reference(mat.vals, mdf.vals_lo, mat.pidx, mat.widx,
+                                           mat.perm_products.t, *DF.split_f64_t(x64))
+    sums = [RC.df_perm_reduce_reference(ph.reshape(-1), pl.reshape(-1),
+                                        stage.imap.idx.to(ph.device), None, stage.runs,
+                                        stage.tree)]
+    t = stage.tail
+    if t is not None:
+        sums.append(RC.df_perm_reduce_reference(sums[0][0].reshape(-1), sums[0][1].reshape(-1),
+                                                t.imap.idx, t.mask, t.runs, t.tree))
+    return torch.cat([torch.stack([h.reshape(-1), lo.reshape(-1)], -1).reshape(-1) for h, lo in sums])
 
 
 def routed_stage_label(chain, stage) -> str:
@@ -2039,12 +2097,15 @@ def main() -> int:
             planned64[k] += 3 * v
         log(f"phase 3 (float64): {name} PL_CSR_ROUTED_F64 per product: "
             f"{RC.df_chain_launches(chain)} launches and no memset from one host call, "
-            f"{len(chain.domains)} domain(s) (ops {chain.counts}; D-df with its close)")
+            f"{len(chain.domains)} domain(s) (ops {chain.counts}; C-df level 0 forming K3's "
+            "products and closing a one-tile level after it; D-df closing its rows)")
     counted64 = {k: launches64[f"routed_{k}"] for k in RC._DF_COUNTERS}
     if counted64 != planned64:
         raise AssertionError(f"routed df launches counted {counted64}, planned {planned64}")
-    if RC.df_chain_launches(models64[ROUTED_CHECK]._operands) > 8:
-        raise AssertionError(f"{ROUTED_CHECK}: more than 8 launches per df product")
+    caida_launches = RC.df_chain_launches(models64[ROUTED_CHECK]._operands)
+    if caida_launches != 3:
+        raise AssertionError(f"{ROUTED_CHECK}: {caida_launches} launches per df product, not 3 "
+                             "(C-df, the output gather, D-df)")
     for name, (fmt, y_ref, y_n, x_ref, x_n, prep_s) in outputs64.items():
         csr = csrs[name]
         if fmt != EXPECTED_FORMAT[name]:
@@ -2066,7 +2127,11 @@ def main() -> int:
             f"{rel:.3e} * max|y| <= {lim:.0e}")
         if not rep.ok or not rel <= lim:
             raise AssertionError(f"{name}: wrong float64 output")
-    if not all(launches64.values()):
+    # routed_df_reduce_kernel counts under two wrappers: level 0 (forming K3's
+    # products) and a later level
+    kernels64 = dict(launches64)
+    kernels64["routed_df_reduce"] += kernels64.pop("routed_df_gather_reduce")
+    if not all(kernels64.values()):
         raise AssertionError(f"a df kernel of the main path never launched: {launches64}")
     hybrid64 = 3 * sum(fmt == "dia_resid" for fmt, *_ in outputs64.values())
     if launches64["dia_resid_df"] != hybrid64 or also.get("dia_resid"):
@@ -2148,17 +2213,14 @@ def main() -> int:
 
     # the routed df program on the f64 main path's operands, caida_like and
     # sg_rand_like's three chunks: each stage's kernel against its plain
-    # version, bit for bit, and a rerun bit for bit (K3's products are exact
-    # in both: the kernel's FMA error is the plain Veltkamp error; C-df and
-    # D-df add the plain versions' pairs in their order; the output gather
-    # moves and combines); then the whole product bit for bit against its
-    # plain chain and the staged chain (the W stages one by one, as the
-    # chain ran before its permutations were composed)
-    df_labels = {"df_split": "routed_df_split_kernel (x's planes)",
-                 "df_gather": "routed_df_gather_kernel (K3)",
-                 "df_reduce": "routed_df_reduce_kernel (C-df)",
-                 "df_permute": "routed_df_permute_kernel (output gather)",
-                 "df_rowdot": "routed_df_rowdot_kernel (D-df, and its close)"}
+    # version, bit for bit, and a rerun bit for bit (C-df level 0 forms K3's
+    # products exactly as the plain K3 does: the kernel's FMA error is the
+    # plain Veltkamp error; it and its closed level are also held against
+    # the parent's plain K3 followed by plain C-df; C-df and D-df add the
+    # plain versions' pairs in their order; the output gather moves and
+    # combines); then the whole product bit for bit against its plain chain
+    # and the staged chain (the W stages one by one, as the chain ran
+    # before its permutations were composed)
     for name in (ROUTED_CHECK, "sg_rand_like"):
         dchain = prepared_df[name] = models64[name]._operands
         dm = dchain.domains[0]
@@ -2166,24 +2228,41 @@ def main() -> int:
             f"{dm.mat.rows_a} t1={dm.mat.perm_products.t} levels={[p.t for p in dm.mat.lvl_perms]} "
             f"heavy rows {len(dm.heavy_rows_df)} in a (hi, lo) block; program {dchain.counts}")
         x64 = normal_x64(csrs[name].shape[1], dev, seed=1)
-        level = 0
+        labels = df_stage_labels(dchain)
+        domains = iter(dchain.domains)
         for stage, yk, yk2, yp in RC.compare_df_stages(dchain, x64):
             torch.cuda.synchronize()
-            level = 0 if stage.kernel in ("df_split", "df_gather") else \
-                level + (stage.kernel == "df_reduce")
-            what = f" level {level - 1}" if stage.kernel == "df_reduce" else ""
-            if stage.kernel == "df_rowdot":
-                what = f" ({stage.hh.shape[0]} rows, {stage.plan})"
             key = f"routed_{stage.kernel}"
             err = (yk - yp).abs().max().item()
             errs[key] = max(errs.get(key, 0.0), err)
             exact, again = RC.bits_equal(yk, yp), RC.bits_equal(yk, yk2)
-            log(f"phase 2: {name}: {df_labels[stage.kernel]}{what}, {yk.numel()} values: max|k - p| "
-                f"= {err:.3e}, bit for bit {exact}, rerun bit for bit {again}: "
-                f"{'OK' if exact and again else 'FAIL'}")
-            if not (exact and again):
-                raise AssertionError(f"{name}: {df_labels[stage.kernel]} disagrees with its plain "
-                                     "version, or its rerun with itself")
+            parent = True
+            if isinstance(stage, RC.DFGatherReduceStage):
+                parent = RC.bits_equal(yk, parent_level0(next(domains), stage, x64))
+            log(f"phase 2: {name}: {labels[stage]}, {yk.numel()} values: max|k - p| = {err:.3e}, "
+                f"bit for bit {exact}, rerun bit for bit {again}"
+                + (f", the parent's plain K3 then C-df bit for bit {parent}"
+                   if isinstance(stage, RC.DFGatherReduceStage) else "")
+                + f": {'OK' if exact and again and parent else 'FAIL'}")
+            if not (exact and again and parent):
+                raise AssertionError(f"{name}: {labels[stage]} disagrees with its plain version, or "
+                                     "its rerun with itself")
+        # the closed level again as a launch of its own (a later level's
+        # mode of routed_df_reduce_kernel, which no f64 main-path layout
+        # here has), on the plain chain's sums of level 0
+        bufs = RC._df_buffers(dchain, x64)
+        for stage in dchain.stages:
+            RC.run_df_stage(stage, bufs, plain=True)
+            if isinstance(stage, RC.DFGatherReduceStage) and stage.tail is not None:
+                want = RC.df_stage_output(stage.tail, bufs).clone()
+                RC.run_df_stage(stage.tail, bufs, plain=False)
+                torch.cuda.synchronize()
+                ok = RC.bits_equal(RC.df_stage_output(stage.tail, bufs), want)
+                log(f"phase 2: {name}: {DF_KERNEL_LABELS['df_reduce']} on the closed level, a "
+                    f"launch of its own: bit for bit its plain version {ok}: {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name}: C-df of a later level disagrees with its plain version")
+        del bufs
         before = {k: fn.launches for k, fn in RC._DF_COUNTERS.items()}
         yk, yk2 = RC.routed_df_spmv(dchain, x64), RC.routed_df_spmv(dchain, x64)
         torch.cuda.synchronize()
@@ -2497,7 +2576,7 @@ def main() -> int:
     for stage in dchain.stages:  # valid inputs for every stage
         RC.run_df_stage(stage, bufs, plain=True)
     df_kernel = {k: [0.0, 0.0, 0, 0] for k in RC._DF_COUNTERS}  # us graphed, plain ms, bytes, flops
-    level = 0
+    labels = df_stage_labels(dchain)
     for i, stage in enumerate(dchain.stages):
         ms = graph_ms(lambda s=stage: RC.run_df_stage(s, bufs, plain=False))
         pms = time_per_call(lambda v, s=stage: RC.run_df_stage(s, bufs, plain=True), x64) * 1e3
@@ -2507,24 +2586,30 @@ def main() -> int:
         acc[1] += pms
         acc[2] += b
         acc[3] += f
-        level = level + 1 if stage.kernel == "df_reduce" else level
-        label = f"level {level - 1}" if stage.kernel == "df_reduce" else ""
-        print(f"  {ROUTED_CHECK} df stage {i} {df_labels[stage.kernel]:42s} {label:8s} {ms * 1e3:8.2f} us "
-              f"in a graph | plain {pms:.4f} ms | {b / 1e6:7.3f} MB, bound {least_ms(b, f)[0] * 1e3:6.2f} us "
+        print(f"  {ROUTED_CHECK} df stage {i} {labels[stage]:60s} {ms * 1e3:8.2f} us in a graph | "
+              f"plain {pms:.4f} ms | {b / 1e6:7.3f} MB, bound {least_ms(b, f)[0] * 1e3:6.2f} us "
               f"({least_ms(b, f)[1]})")
     rd = next(s for s in dchain.stages if isinstance(s, RC.DFRowdotStage))
     hd64 = DF.df_combine64(rd.hh, rd.hl)
     xpad = torch.nn.functional.pad(x64, (0, hd64.shape[1] - x64.shape[0]))
     rowdot_lib = graph_ms(lambda: torch.mv(hd64, xpad)) * 1e3
     del hd64, xpad, bufs
+    # row 16b is every C-df launch: level 0's (with its closed level) and
+    # the later levels'
+    df_kernel["df_reduce_all"] = [a + b for a, b in zip(df_kernel["df_gather_reduce"],
+                                                        df_kernel["df_reduce"])]
     for k, (us, pms, b, f) in df_kernel.items():
+        if not us:
+            continue  # no such launch on this matrix
         b_ms, by = least_ms(b, f)
         lib = rowdot_lib * 1e-3 if k == "df_rowdot" else None
         df_times[f"routed_{k}"] = (us * 1e-3, pms, b_ms, by, lib)
-        print(f"  {ROUTED_CHECK} {df_labels[k]}: {dchain.counts[k]} op(s) per product, {us:.2f} us "
-              f"in a graph | plain {pms:.4f} ms | bound {b_ms * 1e3:.2f} us ({by}, {b / 1e6:.3f} MB); "
-              f"graphed at {100 * b_ms * 1e3 / us:.1f} % of it"
+        label = DF_KERNEL_LABELS.get(k, "routed_df_reduce_kernel (C-df, every level)")
+        print(f"  {ROUTED_CHECK} {label}: {us:.2f} us per product in a graph | plain {pms:.4f} ms | "
+              f"bound {b_ms * 1e3:.2f} us ({by}, {b / 1e6:.3f} MB); graphed at "
+              f"{100 * b_ms * 1e3 / us:.1f} % of it"
               + (f" | library (torch.mv, f64 block) {rowdot_lib:.2f} us" if lib is not None else ""))
+    del df_kernel["df_reduce_all"]
     df_bytes = sum(v[2] for v in df_kernel.values())
     df_bound = least_ms(df_bytes, sum(v[3] for v in df_kernel.values()))
     for name in (ROUTED_CHECK, "sg_rand_like"):
@@ -2605,17 +2690,24 @@ def main() -> int:
         ("dia_df", "dia_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:628"),
         ("dia_resid_df raefsky1_like", "dia_resid_df_kernel", "spmv_openmp_cuda_tpu/ops/spmv_pallas.py:628"),
         ("window_df thermal2_like", "window_df_kernel", "spmv_openmp_cuda_tpu/formats/window.py:1062"),
-        ("routed_df_split", "routed_df_split_kernel", "spmv_openmp_cuda_tpu/ops/dfloat.py:101"),
-        ("routed_df_gather", "routed_df_gather_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1882"),
-        ("routed_df_reduce", "routed_df_reduce_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1890"),
+        # row 16: K3 (_gather_products_df), now C-df's level 0; row 16b:
+        # every C-df launch
+        ("routed_df_gather_reduce", "routed_df_reduce_kernel",
+         "spmv_openmp_cuda_tpu/formats/routed.py:1882"),
+        ("routed_df_reduce_all", "routed_df_reduce_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1890"),
         ("routed_df_permute", "routed_df_permute_kernel", "spmv_openmp_cuda_tpu/ops/route.py:347"),
         ("routed_df_rowdot", "routed_df_rowdot_kernel", "spmv_openmp_cuda_tpu/formats/routed.py:1962"),
     ):
         ms, pms, b_ms, by, lib = df_times[key]
         counter = key.split()[0]
+        if counter == "routed_df_reduce_all":
+            counted = launches64["routed_df_gather_reduce"] + launches64["routed_df_reduce"]
+            err = max(errs["routed_df_gather_reduce"], errs.get("routed_df_reduce", 0.0))
+        else:
+            counted, err = launches64[counter], errs[counter]
         kernels.append(
             {"name": kname, "route": "cuda", "source": DF_SOURCE, "replaces": replaces,
-             "launches": launches64[counter], "max_abs_err": errs[counter], "ms": ms,
+             "launches": counted, "max_abs_err": err, "ms": ms,
              "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": lib})
     kernels.append(
         {"name": ROUTED_KERNELS["heavy"][0], "route": "cuda", "source": ROUTED_SOURCE,

@@ -11,8 +11,10 @@ a CUDA graph on caida_like's and webbase_like's chains, the routed
 products in f32 and bf16 (the bf16 operands: the f32 layout with its gather
 and pooled values cast) on caida_like, webbase_like and sg_rand_like and the
 double-float routed product (PL_CSR_ROUTED_F64, with the kernels and
-memsets one product enqueues, from a torch.profiler trace) on caida_like and
-sg_rand_like, with a hash of each y from a seeded x (parent and change
+memsets one product enqueues, from a torch.profiler trace) on caida_like,
+sg_rand_like and webbase_like (on caida_like and webbase_like also each df
+kernel alone in a CUDA graph, summed over its launches, and torch.mv on the
+f64 heavy blocks), with a hash of each y from a seeded x (parent and change
 bitwise equal or not),
 the PL_CSR_ROUTED product on three small domains
 (delaunay_n12_like, west2021_like, a 9000-row random matrix: the small
@@ -34,7 +36,7 @@ operands are the hi planes (what the f32 prepare makes) and bf16 their
 cast. The large matrices are generated by the first run and kept in a
 temporary directory for the other three.
 
-    python3 scripts/torch_close_ab.py [--dia] [--rounds N] PARENT_DIR CHANGE_DIR [MORE_DIRS...]
+    python3 scripts/torch_close_ab.py [--dia | --df] [--rounds N] PARENT_DIR CHANGE_DIR [MORE_DIRS...]
 
 runs each checkout in a process of its own (its package on the path, its
 kernels built from its csrc/) in the order last .. first, first .. last
@@ -44,7 +46,8 @@ laplacian_2d could not), N rounds of it (default 1), and prints each run's
 numbers, the mean and the range (min .. max) of each tree's runs, and
 whether each hashed y is bitwise the same in every run. --dia runs only the
 DIA rows products (dia_rows_products), for a quick A/B of the DIA rows
-kernels. `--one DIR [CACHE_DIR] [--dia]` runs one checkout and prints one
+kernels; --df only the double-float routed products (df_routed_products).
+`--one DIR [CACHE_DIR] [--dia | --df]` runs one checkout and prints one
 JSON line. Needs a CUDA device.
 """
 import hashlib
@@ -312,15 +315,70 @@ def routed_stage_times(name: str, chain, x) -> dict:
     return out
 
 
-def one(tree: str, cache=None, dia_only: bool = False) -> dict:
+def df_routed_products(dev, cache) -> dict:
+    """The double-float routed products (PL_CSR_ROUTED_F64) on caida_like,
+    sg_rand_like and webbase_like, hashed, with the kernels and memsets one
+    product enqueues (a torch.profiler trace); on caida_like and
+    webbase_like each kernel's launches alone in a CUDA graph, summed per
+    kernel name (the chain's stages run with their plain versions first, so
+    each launch reads valid inputs), and torch.mv on each dense heavy block
+    in f64 (the one PyTorch call of D-df's function)."""
+    import numpy as np
+    import torch
+
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+    from spmv_openmp_cuda_tpu_torch.utils.profiling import time_per_call
+
+    out = {}
+    for name in ("caida_like", "sg_rand_like", "webbase_like"):
+        csr = cached_csr(name, cache)
+        c = RC.prepare_routed_df_chain(csr, device=dev)
+        xd = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
+                             dtype=torch.float64, device=dev)
+        a, b = RC.routed_df_spmv(c, xd), RC.routed_df_spmv(c, xd)
+        torch.cuda.synchronize()
+        out[f"{name} PL_CSR_ROUTED_F64 product"] = {
+            "ms": time_per_call(lambda v, c=c: RC.routed_df_spmv(c, v), xd) * 1e3,
+            "graph_ms": graph_ms(lambda c=c, xd=xd: RC.routed_df_spmv(c, xd), reps=10),
+            "rerun_equal": bool(torch.equal(a, b)),
+            "launches": device_ops_per_call(lambda c=c, xd=xd: RC.routed_df_spmv(c, xd)),
+            "hash": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]}
+        if name != "sg_rand_like":
+            bufs = RC._df_buffers(c, xd)
+            for st in c.stages:
+                RC.run_df_stage(st, bufs, plain=True)
+            per = {}
+            for st in c.stages:
+                ms = graph_ms(lambda s=st: RC.run_df_stage(s, bufs, plain=False))
+                acc = per.setdefault(st.kernel, [0.0, 0])
+                acc[0] += ms
+                acc[1] += 1
+            for k, (ms, n) in per.items():
+                out[f"{name} df kernel {k} alone, summed over its launches"] = {
+                    "ms": ms, "graph_ms": ms, "rerun_equal": None, "launches": n}
+            for i, st in enumerate(s for s in c.stages if s.kernel == "df_rowdot"):
+                block = st.hh.double() + st.hl.double()
+                xpad = torch.nn.functional.pad(xd, (0, block.shape[1] - xd.shape[0]))
+                out[f"{name} torch.mv f64 on D-df block {i} {tuple(block.shape)}"] = {
+                    "ms": time_per_call(lambda v: torch.mv(block, v), xpad) * 1e3,
+                    "graph_ms": graph_ms(lambda: torch.mv(block, xpad)), "rerun_equal": None}
+                del block, xpad
+            del bufs
+        del c
+    return out
+
+
+def one(tree: str, cache=None, dia_only: bool = False, df_only: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
 
-    if dia_only:
+    if dia_only or df_only:
         import spmv_openmp_cuda_tpu_torch as P
 
         assert P.__file__.startswith(os.path.abspath(tree)), P.__file__
+        if df_only:
+            return df_routed_products(torch.device("cuda"), cache)
         return dia_rows_products(torch.device("cuda"), cache)
 
     import dataclasses
@@ -399,22 +457,7 @@ def one(tree: str, cache=None, dia_only: bool = False) -> dict:
                 "rerun_equal": bool(torch.equal(a, b)),
                 "hash": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]}
         del c32
-    # the double-float routed products (PL_CSR_ROUTED_F64), hashed, with the
-    # kernels and memsets one product enqueues
-    for name in ("caida_like", "sg_rand_like"):
-        csr = cached_csr(name, cache)
-        c = RC.prepare_routed_df_chain(csr, device=dev)
-        xd = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
-                             dtype=torch.float64, device=dev)
-        a, b = RC.routed_df_spmv(c, xd), RC.routed_df_spmv(c, xd)
-        torch.cuda.synchronize()
-        out[f"{name} PL_CSR_ROUTED_F64 product"] = {
-            "ms": time_per_call(lambda v, c=c: RC.routed_df_spmv(c, v), xd) * 1e3,
-            "graph_ms": graph_ms(lambda c=c, xd=xd: RC.routed_df_spmv(c, xd), reps=10),
-            "rerun_equal": bool(torch.equal(a, b)),
-            "launches": device_ops_per_call(lambda c=c, xd=xd: RC.routed_df_spmv(c, xd)),
-            "hash": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]}
-        del c
+    out.update(df_routed_products(dev, cache))
     # small domains (the small kernel)
     for name, coo in (("delaunay_n12_like", synth.preset("delaunay_n12_like")),
                       ("west2021_like", synth.preset("west2021_like")),
@@ -454,10 +497,10 @@ def one(tree: str, cache=None, dia_only: bool = False) -> dict:
 
 
 def main(argv) -> int:
-    dia_only = "--dia" in argv
-    argv = [a for a in argv if a != "--dia"]
+    dia_only, df_only = "--dia" in argv, "--df" in argv
+    argv = [a for a in argv if a not in ("--dia", "--df")]
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(*argv[1:3], dia_only=dia_only)))
+        print(json.dumps(one(*argv[1:3], dia_only=dia_only, df_only=df_only)))
         return 0
     rounds = 1
     if argv[:1] == ["--rounds"]:
@@ -474,7 +517,8 @@ def main(argv) -> int:
     for tree in (trees[::-1] + trees) * rounds:
         t = time.perf_counter()
         cmd = [sys.executable, os.path.abspath(__file__), "--one", tree, cache.name]
-        proc = subprocess.run(cmd + (["--dia"] if dia_only else []), capture_output=True, text=True,
+        flags = (["--dia"] if dia_only else []) + (["--df"] if df_only else [])
+        proc = subprocess.run(cmd + flags, capture_output=True, text=True,
                               timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)

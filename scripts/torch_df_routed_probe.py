@@ -15,7 +15,9 @@ the exact f64 oracle (1e-10 for a chunked layout); then its time per call
 through routed_df_spmv and in a CUDA graph (CUDA events), the plain chain's,
 cuSPARSE's f64 CSR product (torch.sparse, the yardstick; the port never
 calls it), and each launch alone in a CUDA graph with its bound (the bytes
-of its inputs and outputs, once, over 3.35 TB/s). Prints the card's name and
+of its inputs and outputs, once, over 3.35 TB/s), each D-df launch beside
+torch.mv on its f64 block (the one PyTorch call of the same function; the
+port never calls it). Prints the card's name and
 power limit first and one JSON line last. Needs a CUDA device; any failure
 raises and exits non-zero.
 """
@@ -57,27 +59,45 @@ def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(stop) / (replays * reps)
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def stage_bytes(stage, n_x: int) -> int:
     """Bytes one df stage must move: its inputs read once (x in f64, both
     planes of the elements its offsets name), its outputs written once."""
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
 
-    def nb(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
+    def reduce_bytes(st):
+        off = st.imap.idx
+        mask = 4 * off.numel() if st.mask is not None else 0
+        return nbytes(off, st.groups, st.chunks, st.tasks) + mask + 8 * int((off >= 0).sum()) \
+            + 8 * st.out_elems()
 
-    if isinstance(stage, RC.DFSplitStage):
-        return 8 * stage.n + 8 * stage.plane
-    if isinstance(stage, RC.DFGatherStage):
-        return nb(stage.vals, stage.vals_lo, stage.pidx, stage.widx) + 8 * n_x + 8 * stage.out_elems()
-    if isinstance(stage, RC.DFReduceStage):
-        off = stage.imap.idx
-        mask = 4 * off.numel() if stage.mask is not None else 0
-        return nb(off, stage.groups, stage.chunks) + mask + 8 * int((off >= 0).sum()) \
+    if isinstance(stage, RC.DFGatherReduceStage):
+        b = nbytes(stage.vals, stage.cols, stage.groups, stage.chunks, stage.tasks) + 8 * n_x \
             + 8 * stage.out_elems()
+        return b + (reduce_bytes(stage.tail) if stage.tail is not None else 0)
+    if isinstance(stage, RC.DFReduceStage):
+        return reduce_bytes(stage)
     if isinstance(stage, RC.DFPermuteStage):
         idx = stage.imap.idx.reshape(-1)[:stage.n]
         return 4 * idx.numel() + 8 * int((idx >= 0).sum()) + 8 * stage.n
-    return nb(stage.hh, stage.hl, stage.rows) + 8 * n_x + 8 * stage.hh.shape[0]
+    return nbytes(stage.hh, stage.hl, stage.rows) + 8 * n_x + 8 * stage.hh.shape[0]
+
+
+def stage_label(stage, level: int) -> str:
+    """A df stage's name: C-df with its level (level 0 with the level its
+    last CTA closes), D-df with its rows."""
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+
+    if isinstance(stage, RC.DFGatherReduceStage):
+        return "df_gather_reduce level 0" + (" + 1 (closed)" if stage.tail is not None else "")
+    if isinstance(stage, RC.DFReduceStage):
+        return f"df_reduce level {level}"
+    if isinstance(stage, RC.DFRowdotStage):
+        return f"df_rowdot {stage.hh.shape[0]} rows"
+    return stage.kernel
 
 
 def probe(name: str, dev, smi: str) -> dict:
@@ -108,6 +128,20 @@ def probe(name: str, dev, smi: str) -> dict:
           f"groups per level={[r[-1][3] + r[-1][1] for r in (doms[0].mat.runs, *doms[0].mat.lvl_runs)]} "
           f"dense heavy rows {len(doms[0].heavy_rows_df)}; program per product {chain.counts} "
           f"({RC.df_chain_launches(chain)} launches, one host call)", flush=True)
+    # device bytes of the layout's pieces the chain adds or drops: level 0's
+    # composed value pairs and x columns, the K3 products scratch and x's
+    # planes they replace, level 0's offsets (composed from, then kept on
+    # the host), and the per-call scratch
+    composed = sum(nbytes(st.vals, st.cols) for st in chain.stages
+                   if isinstance(st, RC.DFGatherReduceStage))
+    offsets = sum(nbytes(st.imap.idx) for st in chain.stages
+                  if isinstance(st, RC.DFGatherReduceStage))
+    k3 = max(8 * d.mat.vals.numel() for d in doms)  # the largest domain's products
+    planes = 8 * (-(-n // 64) * 64) if any(d.heavy_rows_df for d in doms) else 0
+    print(f"{name}: level 0's composed operands {composed / 1e6:.3f} MB (vals and cols), in place of "
+          f"K3's products scratch {k3 / 1e6:.3f} MB, x's planes {planes / 1e6:.3f} MB and level 0's "
+          f"offsets {offsets / 1e6:.3f} MB (kept on the host); scratch "
+          f"{4 * chain.scratch_elems / 1e6:.3f} MB per call", flush=True)
     xn = np.random.default_rng(3).standard_normal(n)
     x = torch.as_tensor(xn, dtype=torch.float64, device=dev)
     before = {k: fn.launches for k, fn in RC._DF_COUNTERS.items()}
@@ -143,12 +177,22 @@ def probe(name: str, dev, smi: str) -> dict:
         us = graph_ms(lambda s=st: RC.run_df_stage(s, bufs, plain=False)) * 1e3
         b = stage_bytes(st, n)
         total_b += b
-        level = 0 if st.kernel in ("df_split", "df_gather") else level + (st.kernel == "df_reduce")
-        label = st.kernel + (f" level {level - 1}" if st.kernel == "df_reduce" else "")
-        stages.append({"stage": i, "kernel": label, "us": us, "bytes": b,
-                       "bound_us": b / HBM_BYTES_PER_S * 1e6})
-        print(f"  stage {i:2d} {label:18s} {us:8.2f} us in a graph | {b / 1e6:8.3f} MB, bound "
-              f"{b / HBM_BYTES_PER_S * 1e6:7.2f} us", flush=True)
+        if isinstance(st, RC.DFGatherReduceStage):
+            level = 1 + (st.tail is not None)
+        label = stage_label(st, level)
+        level += isinstance(st, RC.DFReduceStage)
+        row = {"stage": i, "kernel": label, "us": us, "bytes": b, "bound_us": b / HBM_BYTES_PER_S * 1e6}
+        extra = ""
+        if isinstance(st, RC.DFRowdotStage):
+            # the one PyTorch call of the same function: the f64 block times x
+            block = st.hh.double() + st.hl.double()
+            xpad = torch.nn.functional.pad(x, (0, block.shape[1] - n))
+            row["library_us"] = graph_ms(lambda: torch.mv(block, xpad)) * 1e3
+            extra = f" | torch.mv (f64 block) {row['library_us']:.2f} us"
+            del block, xpad
+        stages.append(row)
+        print(f"  stage {i:2d} {label:28s} {us:8.2f} us in a graph | {b / 1e6:8.3f} MB, bound "
+              f"{b / HBM_BYTES_PER_S * 1e6:7.2f} us{extra}", flush=True)
     del bufs
     bound_ms = total_b / HBM_BYTES_PER_S * 1e3
     print(f"{name} PL_CSR_ROUTED_F64 on {smi}: {t_k * 1e3:.4f} ms per call ({t_g * 1e3:.4f} ms in a "
@@ -159,7 +203,10 @@ def probe(name: str, dev, smi: str) -> dict:
     return {"name": name, "shape": [m, n], "nnz": csr.nnz, "domains": len(doms),
             "launches_per_product": RC.df_chain_launches(chain), "counts": chain.counts,
             "ms": t_k * 1e3, "graph_ms": t_g * 1e3, "plain_ms": t_p * 1e3, "library_ms": t_l * 1e3,
-            "bound_ms": bound_ms, "oracle_rel": rel, "prepare_s": prep_s, "stages": stages}
+            "bound_ms": bound_ms, "oracle_rel": rel, "prepare_s": prep_s, "stages": stages,
+            "composed_bytes": composed, "k3_scratch_bytes": k3, "x_planes_bytes": planes,
+            "level0_offsets_host_bytes": offsets,
+            "scratch_bytes": 4 * chain.scratch_elems}
 
 
 def main(argv) -> int:

@@ -12,17 +12,18 @@
 //                             and _window_single_call (:1125) in their df
 //                             mode (vals_lo, xp2_lo / x2d_lo): the body is
 //                             _gather_reduce_block's df branches (:868-951)
-//   routed_df_gather_kernel <- formats/routed.py::_gather_products_df (:1882)
+//   routed_df_reduce_kernel  (C-df) <- formats/routed.py::_gather_products_df
+//                              (:1882): level 0 forms K3's products itself
 // (all paths under spmv_openmp_cuda_tpu/), and the XLA-level steps of that
 // package's routed df product (formats/routed.py::_routed_df_32,
 // routed_spmv_df), which the TPU runs as fused XLA ops:
-//   routed_df_split_kernel          <- ops/dfloat.py::split_f64_jnp (:101)
 //   routed_df_reduce_kernel  (C-df) <- _reduce_runs_df (:1890) over
 //                              apply_permutation's slab (ops/route.py)
 //   routed_df_permute_kernel        <- the output permutation of both planes
 //                              (ops/route.py::_whole_w_call :347 per plane)
 //                              and df_combine64
-//   routed_df_rowdot_kernel  (D-df) <- _df_dense_rowdot (:1962).
+//   routed_df_rowdot_kernel  (D-df) <- _df_dense_rowdot (:1962), with
+//                              ops/dfloat.py::split_f64_jnp (:101) of x.
 //
 // Every f64 operand is an (hi, lo) pair of f32s, hi = f32(a), lo = f32(a -
 // hi). A product is Dekker's TwoProduct of the hi words plus the cross terms
@@ -80,35 +81,54 @@
 //     prepared matrix (routed_cuda.py::build_df_chain) and enqueued by
 //     routed_df_chain_launch in one host call, the kernels' one entry point
 //     (each single-kernel wrapper runs a one-op program; it counts the
-//     launches it made): the split of x into its planes where a domain has
-//     dense heavy rows, then per domain K3, C-df per level, the output
-//     gather, D-df for the dense heavy rows: 6 launches on caida_like. The
-//     products and sums are (hi, lo) pairs side by side in the scratch, so
+//     launches it made): per domain C-df per level (level 0 forming K3's
+//     products, and closing the one-tile level after it in its last CTAs),
+//     the output gather, D-df for the dense heavy rows: 3 launches on
+//     caida_like. The sums are (hi, lo) pairs side by side in the scratch, so
 //     that a scattered read of a pair is one 8-byte load (one L2 sector, not
-//     one per plane). Every
-//     permutation is composed at build time into int32 offsets (routed_cuda.py
-//     ::plan_map), read once per slab slot, as routed_spmv.cu's C and B read
-//     theirs; y's bits are those of the stage-by-stage plain chain.
-//   - routed_df_gather_kernel (K3): one thread per slot of the gather tiles
-//     (coalesced value and index reads, x gathered by global column in f64
-//     and split), pad tiles written as zeros. No W1: C-df reads the products
-//     through the whole products permutation.
+//     one per plane). Every permutation is composed at build time into int32
+//     offsets (routed_cuda.py::plan_map), read once per slab slot, as
+//     routed_spmv.cu's C and B read theirs; level 0's composes K3's operands
+//     too (each slot's (hi, lo) value and x column). y's bits are those of
+//     the stage-by-stage plain chain.
 //   - routed_df_reduce_kernel (C-df): routed_spmv.cu's C with pairs: a
-//     one-warp CTA per (chunk of groups, band of 32 lanes), each lane's
-//     offsets loaded a batch ahead of its (hi, lo) values. The plain versions
-//     sum a group's rows padded with +0 pairs to a power of two by rounds of
-//     adjacent-pair TwoSums; a lane streams its rows into a binary counter of
-//     partial sums (DfStack), which adds the same pairs in the same order,
-//     and closes the padded tree from the counter's levels. The pads keep the
-//     plain versions' bits: the JAX package's halve tree passes an odd row up
-//     unpadded, which differs only in the sign of a zero word.
+//     warp per task (a chunk of groups and a band of 32 lanes, or one block
+//     of 32 rows of a wider group: routed_cuda.py::df_reduce_tasks),
+//     kReduceWarps tasks a CTA, each lane's indices loaded a batch ahead of
+//     its (hi, lo) values. What bounds it is each lane's chain of dependent
+//     round trips, not bytes: a group of 128 rows was 16 batches in turn
+//     on one warp; as 4 blocks on 4 warps of a CTA (their subtree sums
+//     added in shared memory) it is 4. At level 0 a slot's value pair and x
+//     column are read coalesced and x gathered in f64 by an asynchronous
+//     copy one batch ahead, split and multiplied there: K3 and its
+//     products' round trip through memory (written once, read once, an
+//     8-byte pair per 32-byte sector) are gone. The plain versions sum a
+//     group's rows padded with +0 pairs to a power of two by rounds of
+//     adjacent-pair TwoSums; a lane streams its rows into a binary counter
+//     of partial sums (DfStack), which adds the same pairs in the same
+//     order, and closes the padded tree from the counter's levels. The pads
+//     keep the plain versions' bits: the JAX package's halve tree passes an
+//     odd row up unpadded, which differs only in the sign of a zero word. A
+//     one-tile level after level 0 (caida_like's t = 1) costs a dependent
+//     launch, not bytes: the CTAs that finish level 0 last run its sets,
+//     after the last ticket (self-resetting counters); such a level is at
+//     most 32 CTA-sets, so that its waiting closers stay few beside the
+//     card's CTA slots (a larger one is refused).
 //   - routed_df_permute_kernel: routed_spmv.cu's B over the pairs, writing
 //     y in f64 as hi + lo (df_combine64).
-//   - routed_df_rowdot_kernel (D-df): CTAs of 512 threads, as many per heavy
-//     row as make ~256 in all (two per SM: 32 for each of caida_like's 8
-//     rows), four residues of the row's padded columns a thread, a warp's
-//     residues contiguous; a close kernel adds a row's CTAs. Bound: the
-//     (hi, lo) block, 12.3 MB on caida_like.
+//   - routed_df_rowdot_kernel (D-df): one launch per heavy block: CTAs of
+//     256 threads over sets of residues (4 columns each where the width
+//     allows) of a tile of up to 4 rows, a warp reading 512 contiguous
+//     bytes of each plane, x read in f64 and split once per CTA for all its
+//     rows and kept in registers (no split kernel, no planes in the
+//     scratch); the rows run one after the other without a barrier, their
+//     sums kept in shared memory, then added over the warps; each CTA
+//     leaves 128 pairs per row, and the closing takes one or two steps of
+//     up to 16 CTAs each, each by the last CTA to take a self-resetting
+//     ticket (as routed_spmv.cu's D), reading them coalesced. Without its
+//     closing steps the kernel took 5.8 us on caida_like's block (one
+//     H100; torch.mv 7.3): they are about half of its time. Bound: the
+//     (hi, lo) block, x once and y: 13.84 MB on caida_like.
 #include "slab_rows.cuh"
 #include "window_tile.cuh"
 
@@ -116,7 +136,6 @@ namespace {
 
 using wtile::kLane;
 using wtile::kThreads;
-constexpr long long kWindowElems = 128LL * 128;
 // dia_resid_df_kernel: threads per CTA, and the most threads a row's
 // diagonals are split over (csrc/dia_spmv.cu's dia_resid_kernel)
 constexpr int kResidThreads = 256;
@@ -524,16 +543,24 @@ cudaError_t window_df_launch_d(const WinDfArgs& a, int nblocks, int csize, int s
 
 // ---- routed ----------------------------------------------------------------
 
-constexpr int kBand = 32;          // lanes per CTA of C-df (one warp)
+constexpr int kBand = 32;          // lanes per warp unit of C-df
+constexpr int kReduceWarps = 4;    // C-df: warps (units) per CTA
 constexpr int kReduceBatch = 16;   // C-df: slab rows whose loads a thread issues together
-constexpr int kChunkGroups = 128;  // C-df: at most this many groups per CTA (routed_cuda.py)
+constexpr int kGatherBatch = 8;    // C-df level 0: the same, two batches ahead
+constexpr int kCloseBatch = 32;    // C-df's closed level: the same (a tile of 128 rows at most)
+constexpr int kMaxCloseSets = 32;  // C-df's closed level: CTA-sets at most (its closers wait at once)
+constexpr int kChunkGroups = 128;  // C-df: at most this many groups per chunk (routed_cuda.py)
+constexpr int kBlockRows = 32;     // C-df: rows of a block of a wider group (one warp's task)
 constexpr int kPermBatch = 4;      // the output gather: elements whose loads a thread issues together
 constexpr int kReduceLevels = 7;   // C-df: groups of at most 128 = 2^7 rows
-constexpr int kRowdotCta = 512;    // D-df: threads per CTA at most
+constexpr int kRowdotCta = 256;    // D-df: threads per CTA at most
 constexpr int kRowdotVec = 4;      // D-df: adjacent residues a thread owns (a float4 per array)
 constexpr int kRowdotBlock = 4;    // D-df: a residue's columns summed per static subtree
+constexpr int kRowdotBlockLog = 2;  // log2(kRowdotBlock)
 constexpr int kRowdotLevels = 15;  // D-df: a residue has at most 2^15 columns
-constexpr int kMaxRowdotGroups = 32;  // D-df: CTAs per row at most
+constexpr int kRowdotTile = 4;     // D-df: rows a CTA takes at most (its row tile)
+constexpr int kMaxRowdotGroups = 256;  // D-df: CTAs per row tile at most (two closing steps of 16)
+constexpr int kRowdotStream = 16;  // D-df's close: CTAs' pairs a thread streams at most
 
 // A binary counter of partial sums: while bit k of n (the rows pushed so far)
 // is set, level k holds the df sum of 2^k consecutive rows. Pushing a row
@@ -601,100 +628,122 @@ __device__ __forceinline__ void df_tree(float (&h)[kN], float (&l)[kN]) {
   }
 }
 
-// tile i < n_real, slot (s, l): out[i*128 + s, l] = the (hi, lo) pair of
-// (vh, vl)[i*128 + s, l] * x[widx[i]*16384 + pidx[i*128 + s, l]*128 + s], x
-// read in f64 and split as ops/dfloat.py::split_f64_t splits it (one 8-byte
-// gather per slot); tiles i >= n_real zero
-__global__ void __launch_bounds__(kThreads)
-routed_df_gather_kernel(const float* __restrict__ vh, const float* __restrict__ vl,
-                        const int8_t* __restrict__ pidx, const int32_t* __restrict__ widx,
-                        int n_real, long long n_elems, const double* __restrict__ x,
-                        long long n_x, float2* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n_elems) return;
-  const long long tile = e / kWindowElems;
-  if (tile >= n_real) {
-    out[e] = make_float2(0.f, 0.f);
-    return;
-  }
-  const int s = (int)((e / kLane) % kLane);
-  const long long col = (long long)__ldg(widx + tile) * kWindowElems + (long long)pidx[e] * kLane + s;
-  float gh, gl, ph, pl;
-  x_split(x, col, n_x, gh, gl);
-  df_prod(vh[e], vl[e], gh, gl, ph, pl);
-  out[e] = make_float2(ph, pl);
-}
+// One level of C-df: its slab's slots and what they read. Level 0 (vals
+// set; routed_cuda.py::DFGatherReduceStage) reads each slot's (hi, lo)
+// value and its x column, K3's operands composed through the products
+// permutation at build time, and forms K3's product where it sums it: x
+// gathered in f64 through the read-only path and split by x_split, the
+// product by df_prod, so each product has the bits K3 wrote (a slot that
+// reads nothing holds (+0, +0) and column -1: its product is (+0, +0), the
+// pair C-df read for it before). A later level (vals null) reads the (hi,
+// lo) sums of the level before through one offset per slot (+0 where the
+// offset is -1). Both words of a slot are masked by __fmul_rn where mask
+// is set.
+struct DfLevel {
+  const float2* vals;  // level 0: (rows, 128) (hi, lo) values
+  const int32_t* idx;  // level 0: x columns; a later level: offsets into src
+  const float2* src;   // a later level: the sums of the level before
+  const float* mask;   // null: no mask
+  const int2* groups;  // (first slab row, width) per output group
+  const int4* chunks;  // (row0, row1, g0, g1) per chunk (routed_cuda.py::reduce_chunks)
+  const int4* tasks;   // (chunk, band, block, blocks) per warp, kReduceWarps a CTA (reduce_tasks)
+  int n_tasks;
+  float2* out;  // (n_groups, 128) (hi, lo) sums
+};
 
-// x (f64, length n) split into its (hi, lo) planes as ops/dfloat.py::
-// split_f64_t splits it, each plane zero from n to its length n_plane (a
-// multiple of 64): once per product, for D-df, which reads x at every column
-// of each heavy row, four elements of a plane at a time (a conversion from
-// f64 runs at a fraction of the f32 rate)
-__global__ void __launch_bounds__(kThreads)
-routed_df_split_kernel(const double* __restrict__ x, long long n, long long n_plane,
-                       float* __restrict__ xh, float* __restrict__ xl) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_plane) return;
-  float h, l;
-  x_split(x, i, n, h, l);
-  xh[i] = h;
-  xl[i] = l;
-}
-
-// C-df's offsets (and, with kMask, mask) of rows [k0, k0 + kReduceBatch) of a
-// chunk of n rows at lane l; rows past the chunk read as offset -1
-template <bool kMask>
-__device__ __forceinline__ void df_reduce_batch(const int32_t* __restrict__ off_l,
-                                                const float* __restrict__ mask_l, int k0, int n,
-                                                int (&o)[kReduceBatch],
-                                                float (&mk)[kReduceBatch]) {
+// A warp's slot reads of rows [k0, k0 + NB) of a chunk of n rows at lane
+// offset e0: the index (-1 past the chunk), the mask, and at level 0 the
+// (hi, lo) value
+template <int NB, bool kProducts, bool kMask>
+__device__ __forceinline__ void df_reduce_batch(const DfLevel& lv, long long e0, int k0, int n,
+                                                int (&o)[NB], float (&mk)[NB], float2 (&v)[NB]) {
 #pragma unroll
-  for (int u = 0; u < kReduceBatch; ++u) {
+  for (int u = 0; u < NB; ++u) {
     const bool in = k0 + u < n;
-    o[u] = in ? __ldg(off_l + (long long)(k0 + u) * kLane) : -1;
-    if (kMask) mk[u] = in ? __ldg(mask_l + (long long)(k0 + u) * kLane) : 0.f;
+    const long long e = e0 + (long long)(k0 + u) * kLane;
+    o[u] = in ? __ldg(lv.idx + e) : -1;
+    if (kMask) mk[u] = in ? __ldg(lv.mask + e) : 0.f;
+    if (kProducts) v[u] = in ? __ldg(lv.vals + e) : make_float2(0.f, 0.f);
   }
 }
 
-// C-df: out[g, l] = the (hi, lo) df sum of the group's slab slots at lane l,
-// slot (rr, l) = (mask ? mask[rr, l] : 1) * src[off[rr, l]] (the (hi, lo)
-// pair, one 8-byte load; +0 where off is -1; both words masked by
-// __fmul_rn), the group's w rows padded
-// with +0 pairs to the power of two p2 >= w and summed by the complete binary
-// tree over them (routed_cuda.py::reduce_runs_df). groups[g] = (row0, width).
-// CTA 4c + b, one warp, takes lanes 32b .. 32b + 31 of chunk c = (row0, row1,
-// g0, g1): lane l streams the chunk's rows in batches (offsets ahead of the
-// values, as routed_spmv.cu's C), pushing each into a DfStack and closing
-// each group at its last row. The pads are not pushed: a TwoSum-add of a +0
-// pair on either side gives the other pair with each word plus +0 (a -0 word
-// turns +0, nothing else changes), so the padded tree's top is the stack's
-// partial sums (the levels of w's bits) added from the lowest up, the lowest
-// plus +0 first.
-template <bool kMask>
-__global__ void __launch_bounds__(kBand)
-routed_df_reduce_kernel(const float2* __restrict__ src, const int32_t* __restrict__ off,
-                        const float* __restrict__ mask, const int2* __restrict__ groups,
-                        const int4* __restrict__ chunks, float2* __restrict__ out) {
-  constexpr int kBands = kLane / kBand;
-  __shared__ int ends[kChunkGroups];  // each group's last row + 1, from the chunk's first row
-  __shared__ float2 levels[kReduceLevels][kBand];  // the lanes' stack levels 1..
-  const int4 ch = chunks[blockIdx.x / kBands];
-  const int l = (blockIdx.x % kBands) * kBand + threadIdx.x;
-  const int n = ch.y - ch.x;
-  const long long e0 = (long long)ch.x * kLane + l;
-  const int32_t* off_l = off + e0;
-  const float* mask_l = kMask ? mask + e0 : nullptr;
-  int o[kReduceBatch];
-  float mk[kReduceBatch];
-  df_reduce_batch<kMask>(off_l, mask_l, 0, n, o, mk);
-  for (int j = threadIdx.x; j < ch.w - ch.z; j += kBand) {
-    const int2 g = groups[ch.z + j];
-    ends[j] = g.x + g.y - ch.x;
+// x at a batch's columns in f64 into the lane's slots of xs (an
+// asynchronous copy each: the wait is explicit, so the compiler cannot
+// sink the gather to its use; +0 outside [0, n_x), x_split's zeros)
+template <int NB>
+__device__ __forceinline__ void df_gather_x(const double* __restrict__ x, long long n_x,
+                                            const int (&o)[NB], double (*xs)[kBand]) {
+  const int lane = threadIdx.x % kBand;
+#pragma unroll
+  for (int u = 0; u < NB; ++u) {
+    const bool in = o[u] >= 0 && o[u] < n_x;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     wtile::smem_addr(&xs[u][lane])),
+                 "l"(reinterpret_cast<uint64_t>(in ? x + o[u] : x)), "r"(in ? 8 : 0)
+                 : "memory");
   }
-  __syncthreads();
+  wtile::cp_async_commit();
+}
+
+// One task of a level, by one warp: chunk c's lanes 32b .. 32b + 31 (task
+// (c, b, j, blocks)); out[g, l] = the (hi, lo) df sum of the group's slab
+// slots at lane l, the group's w rows padded with +0 pairs to the power of
+// two p2 >= w and summed by the complete binary tree over them
+// (routed_cuda.py::reduce_runs_df). A chunk wider than kBlockRows rows holds
+// one group; its aligned blocks of kBlockRows rows (complete subtrees of
+// that tree) are tasks of their own (blocks > 1: block j), run by warps of
+// one CTA, each leaving its block's subtree sum in bsum for
+// df_combine_blocks. Lane l streams the rows in batches, pushing each into
+// a DfStack and closing each group at its last row: a later level reads the
+// next batch's offsets while this batch's sums travel (as routed_spmv.cu's
+// C); level 0 reads a batch's indices and values two batches ahead and its
+// x one batch ahead, so that each batch waits for one round trip, not the
+// two of an index and then the x it names. The pads are not pushed: a
+// TwoSum-add of a +0 pair on either side gives the other pair with each
+// word plus +0 (a -0 word turns +0, nothing else changes), so the padded
+// tree's top is the stack's partial sums (the levels of w's bits) added
+// from the lowest up, the lowest plus +0 first; a block of fewer rows than
+// kBlockRows adds one +0 pair more (its subtree's pads past its own power of
+// two: after the first, a +0 pair changes nothing). kL2: the sums of the
+// level before are read from L2 (__ldcg: another CTA of this launch wrote
+// them), in batches of kCloseBatch. ends, levels and (level 0) xs, two
+// stages of a batch's x: the warp's shared memory.
+template <bool kProducts, bool kMask, bool kL2>
+__device__ void df_reduce_unit(const DfLevel& lv, int4 tk, const double* __restrict__ x,
+                               long long n_x, int* ends, float2 (*levels)[kBand],
+                               double (*xs)[kGatherBatch][kBand], float2* bsum) {
+  static_assert(!(kProducts && kMask), "level 0 has no mask");
+  constexpr int NB = kProducts ? kGatherBatch : kL2 ? kCloseBatch : kReduceBatch;
+  constexpr int LB = kProducts ? 3 : kL2 ? 5 : 4;  // log2(NB)
+  static_assert(NB == 1 << LB && kBlockRows % NB == 0, "a batch is an aligned block");
+  const int lane = threadIdx.x % kBand;
+  const int4 ch = __ldg(lv.chunks + tk.x);
+  const int l = tk.y * kBand + lane;
+  const bool blk = tk.w > 1;
+  const int r0 = blk ? ch.x + kBlockRows * tk.z : ch.x;
+  const int n = blk ? min(kBlockRows, ch.y - r0) : ch.y - ch.x;
+  const long long e0 = (long long)r0 * kLane + l;
+  int o[NB];
+  float mk[NB];
+  float2 v[NB], vn[NB];
+  df_reduce_batch<NB, kProducts, kMask>(lv, e0, 0, n, o, mk, v);
+  if (kProducts) {
+    df_gather_x<NB>(x, n_x, o, xs[0]);
+    df_reduce_batch<NB, kProducts, kMask>(lv, e0, NB, n, o, mk, vn);
+  }
+  __syncwarp();  // the warp's previous task has read ends
+  if (blk) {
+    if (lane == 0) ends[0] = n;  // one group: the block's rows
+  } else {
+    for (int j = lane; j < ch.w - ch.z; j += kBand) {
+      const int2 g = __ldg(lv.groups + ch.z + j);
+      ends[j] = g.x + g.y - ch.x;
+    }
+  }
+  __syncwarp();
   int g = ch.z, begin = 0, end = ends[0], cnt = 0;
   DfStack<kBand> st;
-  st.mem = &levels[0][threadIdx.x];
+  st.mem = &levels[0][lane];
   // close group g, whose last push (or block push) returned (h, lo)
   auto close = [&](float h, float lo) {
     const int w = end - begin;
@@ -714,40 +763,167 @@ routed_df_reduce_kernel(const float2* __restrict__ src, const int32_t* __restric
         }
       }
     }  // else (h, lo) is the whole tree's sum
-    out[(long long)g * kLane + l] = make_float2(h, lo);
+    if (!blk) {
+      lv.out[(long long)g * kLane + l] = make_float2(h, lo);
+    } else {
+      if (w < kBlockRows) df_add(h, lo, 0.f, 0.f);  // the block's pads past its power of two
+      bsum[lane] = make_float2(h, lo);
+    }
     cnt = 0;
     begin = end;
     if (++g < ch.w) end = ends[g - ch.z];
   };
-  for (int k0 = 0; k0 < n; k0 += kReduceBatch) {
-    float vh[kReduceBatch], vl[kReduceBatch];
+  for (int k0 = 0; k0 < n; k0 += NB) {
+    float vh[NB], vl[NB];
+    if (kProducts) {
+      // o holds batch k0 + NB's indices, vn its values: its x, then batch
+      // k0 + 2NB's indices and values, while this batch's products form
+      const int b = (k0 / NB) & 1;
+      df_gather_x<NB>(x, n_x, o, xs[b ^ 1]);
+      float2 vnn[NB];
+      df_reduce_batch<NB, kProducts, kMask>(lv, e0, k0 + 2 * NB, n, o, mk, vnn);
+      wtile::cp_async_wait<1>();  // this batch's x (each lane reads its own slots)
 #pragma unroll
-    for (int u = 0; u < kReduceBatch; ++u) {
-      const float2 v = o[u] >= 0 ? __ldg(src + o[u]) : make_float2(0.f, 0.f);
-      vh[u] = v.x;
-      vl[u] = v.y;
-      if (kMask) {
-        vh[u] = __fmul_rn(vh[u], mk[u]);
-        vl[u] = __fmul_rn(vl[u], mk[u]);
+      for (int u = 0; u < NB; ++u) {
+        const double xv = xs[b][u][lane];
+        const float gh = (float)xv;
+        const float gl = (float)(xv - (double)gh);  // x_split's words
+        df_prod(v[u].x, v[u].y, gh, gl, vh[u], vl[u]);
+        v[u] = vn[u];
+        vn[u] = vnn[u];
       }
+    } else {
+#pragma unroll
+      for (int u = 0; u < NB; ++u) {
+        const float2 s = o[u] < 0 ? make_float2(0.f, 0.f)
+                                  : kL2 ? __ldcg(lv.src + o[u]) : __ldg(lv.src + o[u]);
+        vh[u] = s.x;
+        vl[u] = s.y;
+        if (kMask) {
+          vh[u] = __fmul_rn(vh[u], mk[u]);
+          vl[u] = __fmul_rn(vl[u], mk[u]);
+        }
+      }
+      // the next batch's offsets travel while this batch's sums do
+      df_reduce_batch<NB, kProducts, kMask>(lv, e0, k0 + NB, n, o, mk, v);
     }
-    // the next batch's offsets travel while this batch's values do
-    df_reduce_batch<kMask>(off_l, mask_l, k0 + kReduceBatch, n, o, mk);
-    if (k0 + kReduceBatch <= end && cnt % kReduceBatch == 0) {
+    if (k0 + NB <= end && cnt % NB == 0) {
       // a whole aligned block of the group's rows: its subtree, then one push
-      df_tree<kReduceBatch>(vh, vl);
-      st.push_block(cnt, 4, vh[0], vl[0]);
-      cnt += kReduceBatch;
-      if (k0 + kReduceBatch == end) close(vh[0], vl[0]);
+      df_tree<NB>(vh, vl);
+      st.push_block(cnt, LB, vh[0], vl[0]);
+      cnt += NB;
+      if (k0 + NB == end) close(vh[0], vl[0]);
       continue;
     }
 #pragma unroll
-    for (int u = 0; u < kReduceBatch; ++u) {
+    for (int u = 0; u < NB; ++u) {
       if (k0 + u >= n) break;
       float h = vh[u], lo = vl[u];
       st.push(cnt++, h, lo);
       if (k0 + u + 1 == end) close(h, lo);
     }
+  }
+}
+
+// A wider group's sum from its blocks' subtree sums (bsum[j], j < blocks,
+// in consecutive warps' slots; the slots past them are its all-pad
+// subtrees, +0 pairs): the top of its padded tree, adjacent pairs over its
+// p2 / kBlockRows slots (2 or 4)
+__device__ __forceinline__ float2 df_combine_blocks(const float2 (*bsum)[kBand], int blocks,
+                                                    int width) {
+  const int lane = threadIdx.x % kBand;
+  float2 v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = j < blocks ? bsum[j][lane] : make_float2(0.f, 0.f);
+  df_add(v[0].x, v[0].y, v[1].x, v[1].y);
+  if (width > 2 * kBlockRows) {
+    df_add(v[2].x, v[2].y, v[3].x, v[3].y);
+    df_add(v[0].x, v[0].y, v[2].x, v[2].y);
+  }
+  return v[0];
+}
+
+// The tasks of one CTA-set of a level (kReduceWarps consecutive tasks, one a
+// warp), then the wider groups' combines (bsum: the warps' block sums).
+template <bool kProducts, bool kMask, bool kL2>
+__device__ __forceinline__ void df_reduce_set(const DfLevel& lv, int set, const double* x,
+                                              long long n_x, int* ends, float2 (*levels)[kBand],
+                                              double (*xs)[kGatherBatch][kBand],
+                                              float2 (*bsum)[kBand]) {
+  const int w = threadIdx.x / kBand;
+  const int4 tk = __ldg(lv.tasks + (long long)set * kReduceWarps + w);
+  if (tk.x >= 0)
+    df_reduce_unit<kProducts, kMask, kL2>(lv, tk, x, n_x, ends, levels, xs, bsum[w]);
+  __syncthreads();  // the blocks' sums
+  if (tk.x >= 0 && tk.w > 1 && tk.z == 0) {  // block 0's warp closes the group
+    const int4 ch = __ldg(lv.chunks + tk.x);
+    const float2 v = df_combine_blocks(bsum + w, tk.w, ch.y - ch.x);
+    lv.out[(long long)ch.z * kLane + tk.y * kBand + threadIdx.x % kBand] = v;
+  }
+}
+
+// C-df's launch: its level, and the one-tile level after it that its last
+// CTA closes (lv[1].n_tasks 0: none).
+struct DfReduceArgs {
+  DfLevel lv[2];
+  const double* x;  // level 0: x in f64
+  long long n_x;
+  unsigned* ticket;  // lv[1]: two counters, zero between launches (the closers set them back)
+};
+
+// C-df: CTA b takes CTA-set b of lv[0]'s tasks (routed_cuda.py::
+// df_reduce_tasks: a task a warp, no task split across CTAs); then, where
+// lv[1] is set, the CTAs that take the last tickets (a fence, then an
+// atomicAdd) wait for every CTA's sums of lv[0] and run lv[1]'s CTA-sets,
+// each task's adds in the order its own launch would make them. One CTA
+// running every set in turn took 26.2 us on caida_like (one H100, against
+// 12.8 for level 0 alone): each set is two dependent round trips.
+template <bool kProducts, bool kMask>
+__global__ void __launch_bounds__(kReduceWarps * kBand, 1)
+routed_df_reduce_kernel(DfReduceArgs a) {
+  __shared__ int ends[kReduceWarps][kChunkGroups];  // each group's last row + 1, from the chunk's first row
+  __shared__ float2 levels[kReduceWarps][kReduceLevels][kBand];  // the lanes' stack levels 1..
+  __shared__ float2 bsum[kReduceWarps][kBand];  // the warps' block sums
+  const int w = threadIdx.x / kBand;
+  if constexpr (kProducts) {
+    __shared__ double xs[kReduceWarps][2][kGatherBatch][kBand];
+    df_reduce_set<true, false, false>(a.lv[0], blockIdx.x, a.x, a.n_x, ends[w], levels[w], xs[w],
+                                      bsum);
+    wtile::cp_async_wait<0>();  // the gathers past a task's end land before the CTA leaves
+  } else {
+    df_reduce_set<false, kMask, false>(a.lv[0], blockIdx.x, a.x, a.n_x, ends[w], levels[w],
+                                       nullptr, bsum);
+  }
+  if (a.lv[1].n_tasks == 0) return;
+  // the closed level's C = min(sets, CTAs) sets run at once, by the CTAs that
+  // take the last C tickets (each thread's fence before the barrier makes
+  // its sums visible first): each waits until every CTA has taken its
+  // ticket (the others have left, or run level 0 to its end: they hold at
+  // most C of the card's CTA slots, so the rest run), then runs its sets;
+  // the last of them sets both counters back to 0
+  __shared__ unsigned my;
+  const unsigned G = gridDim.x, S = a.lv[1].n_tasks / kReduceWarps, C = S < G ? S : G;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) my = atomicAdd(a.ticket, 1u);
+  __syncthreads();
+  if (my < G - C) return;
+  if (threadIdx.x == 0)
+    while (atomicAdd(a.ticket, 0u) < G) __nanosleep(32);
+  __syncthreads();
+  __threadfence();
+  for (unsigned set = my - (G - C); set < S; set += C) {
+    __syncthreads();  // the set before has read bsum
+    if (a.lv[1].mask != nullptr)
+      df_reduce_set<false, true, true>(a.lv[1], set, a.x, a.n_x, ends[w], levels[w], nullptr, bsum);
+    else
+      df_reduce_set<false, false, true>(a.lv[1], set, a.x, a.n_x, ends[w], levels[w], nullptr,
+                                        bsum);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(a.ticket + 1, 1u) == C - 1) {
+    a.ticket[0] = 0u;  // every closer is past its wait
+    a.ticket[1] = 0u;
   }
 }
 
@@ -782,222 +958,298 @@ struct RowdotArgs {
   const float* hl;      // lo words
   const int32_t* rows;  // (n_h,) rows of y
   double* y;
-  const float* xh;      // x's (hi, lo) planes, zero from n_x to n_plane
-  const float* xl;
-  long long n_plane;  // a multiple of 64 (routed_df_split_kernel)
+  const double* x;  // f64, split in the kernel
+  long long n_x;
   long long n_pad;
-  float* part;  // groups > 1: each (row, CTA, lane)'s four (hi, lo) pairs, 8 floats
-  int log_k;    // log2 of the columns per residue: p2 = 2^log_k * residues per row
-  int groups;   // CTAs per row, a power of two
+  float2* part;       // the CTAs' sums, then the closers': (groups + S) * n_h * 128 pairs
+  unsigned* tickets;  // S + 1 per row tile, zero between launches
+  int n_h;
+  int log_k;      // log2 of the columns per residue: p2 = 2^log_k * residues per row
+  int tile_rows;  // rows per CTA (its tile), 1 .. kRowdotTile
+  int groups;     // CTAs per row tile, a power of two
+  bool x16;       // x is 16-byte aligned (x_split4's vector reads)
 };
 
-// D-df: y[rows[k]] = (double)hi + (double)lo of heavy row k's df dot with x
-// (its (hi, lo) planes): the products (a TwoProduct and the cross terms) of
-// the columns padded with +0 pairs to p2 = 2^log_k * P, summed by the halving
-// tree (column c with c + p2/2, ..., routed_cuda.py::df_dense_rowdot, the JAX
-// package's _df_dense_rowdot). Residue v < P owns the columns v + P*k.
-// Residues come in quads 4q .. 4q + 3, one per thread (one float4 of each of
-// hh, hl, xh and xl per column step, four independent sums in flight), and a
-// row is `groups` CTAs: lane l of warp w of CTA g takes quad q = l + 32*(g +
-// groups*w), so that a warp reads 512 contiguous bytes of each array, the
-// CTAs of all rows spread over the SMs with no cluster to co-schedule, and
-// the tree's levels over the quads pair, in turn, warps of one CTA (q with q
-// + 32*groups*half), CTAs (g with g + half) and lanes (l with l + half),
-// then a quad's own residues (i with i + 2, then 0 with 1). The first
-// log_k levels pair columns of one residue: over k they are the
-// adjacent-pair rounds of the bit-reversed sequence, so a residue's columns
-// stream in bit-reversed k order, an aligned block of 4 at a time (a static
-// subtree, then one push into a DfStack whose levels sit in a local array).
-// The warps meet in shared memory; where groups > 1 each CTA leaves its 32
-// quads in part and routed_df_rowdot_close_kernel adds the rest, else the
-// lanes meet by shuffles here. Each pairing is fixed, so a rerun is bitwise
-// equal. Padded columns go through the same TwoSums as +0 pairs. Bound: the
-// block's bytes, with ~20 f32 instructions a column close behind.
-__global__ void __launch_bounds__(kRowdotCta, 2)
-routed_df_rowdot_kernel(RowdotArgs a) {
-  constexpr int V = kRowdotVec, B = kRowdotBlock;
-  __shared__ float4 red_h[kRowdotCta], red_l[kRowdotCta];
-  const int nt = blockDim.x, tid = threadIdx.x, w = tid / 32, lane = tid % 32;
-  const long long row = blockIdx.x / a.groups;
-  const int g = (int)(blockIdx.x % a.groups);
-  const long long P = (long long)nt * V * a.groups;
-  const long long c_t = (lane + 32 * (g + (long long)a.groups * w)) * V;  // the quad's first residue
-  const float* hh = a.hh + row * a.n_pad;
-  const float* hl = a.hl + row * a.n_pad;
-  const int K = 1 << a.log_k;
-  float2 levels[V][kRowdotLevels];
-  DfStack<1> st[V];
+// The complete binary tree over the n pairs p[0], p[stride], ... (n a
+// power of two, at most kRowdotStream), by rounds of adjacent-pair
+// TwoSums, read from L2 (other CTAs of the launch wrote them), all n loads
+// issued together
+__device__ __forceinline__ float2 df_stream_tree(const float2* p, long long stride, int n) {
+  constexpr int kB = kRowdotStream;
+  float vh[kB], vl[kB];
 #pragma unroll
-  for (int i = 0; i < V; ++i) st[i].mem = levels[i];
-  float h[V], lo[V];
+  for (int u = 0; u < kB; ++u) {
+    const float2 v = u < n ? __ldcg(p + u * stride) : make_float2(0.f, 0.f);
+    vh[u] = v.x;
+    vl[u] = v.y;
+  }
+#pragma unroll
+  for (int s = 1; s < kB; s *= 2) {
+#pragma unroll
+    for (int i = 0; i < kB; i += 2 * s)
+      if (i + s < n) df_add(vh[i], vl[i], vh[i + s], vl[i + s]);
+  }
+  return make_float2(vh[0], vl[0]);
+}
+
+// D-df's last steps for one row, in warp 0's layout (lane l holds the
+// residues 4l .. 4l + 3 of the 128 left): lanes l and l + off, off = 16 ..
+// 1, then the quad's elements (0 with 2, 1 with 3, then 0 with 1); lane 0
+// writes y
+__device__ __forceinline__ void df_rowdot_finish(float (&h)[kRowdotVec], float (&lo)[kRowdotVec],
+                                                 double* y) {
+  const int lane = threadIdx.x % 32;
+  for (int off = 16; off >= 1; off /= 2) {
+#pragma unroll
+    for (int i = 0; i < kRowdotVec; ++i) {
+      const float oh = __shfl_down_sync(0xffffffffu, h[i], off);
+      const float ol = __shfl_down_sync(0xffffffffu, lo[i], off);
+      if (lane < off) df_add(h[i], lo[i], oh, ol);
+    }
+  }
+  if (lane == 0) {
+    df_add(h[0], lo[0], h[2], lo[2]);
+    df_add(h[1], lo[1], h[3], lo[3]);
+    df_add(h[0], lo[0], h[1], lo[1]);
+    *y = (double)h[0] + (double)lo[0];
+  }
+}
+
+// One closing step of D-df for the CTA's nr rows: each (row, residue)'s n
+// pairs src[rr * 128 + e + u * stride], u = 0 .. n - 1 (e = i * 32 + lane
+// for residue 4 * lane + i), summed by df_stream_tree, a warp per (row, i);
+// into dst at the same (row, e) where dst is set, else the rows are
+// finished (df_rowdot_finish) into y
+__device__ __forceinline__ void df_rowdot_close(const float2* src, long long stride, int n,
+                                                float2* dst, int nr, const RowdotArgs& a,
+                                                int r_lo, float2* cl) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
+  for (int t = w; t < nr * kRowdotVec; t += nw) {
+    const int e = t * 32 + lane;  // (row t / 4, i = t % 4, lane)
+    const float2 v = df_stream_tree(src + e, stride, n);
+    if (dst != nullptr)
+      dst[e] = v;
+    else
+      cl[e] = v;
+  }
+  if (dst != nullptr) return;
+  __syncthreads();
+  for (int rr = w; rr < nr; rr += nw) {
+    float rh[kRowdotVec], rl[kRowdotVec];
+#pragma unroll
+    for (int i = 0; i < kRowdotVec; ++i) {
+      const float2 v = cl[(rr * kRowdotVec + i) * 32 + lane];
+      rh[i] = v.x;
+      rl[i] = v.y;
+    }
+    df_rowdot_finish(rh, rl, a.y + __ldg(a.rows + r_lo + rr));
+  }
+}
+
+// D-df: y[rows[r]] = (double)hi + (double)lo of heavy row r's df dot with
+// x, one launch: the products (a TwoProduct and the cross terms) of the
+// columns padded with +0 pairs to p2 = 2^log_k * P, summed by the halving
+// tree (column c with c + p2/2, ..., routed_cuda.py::df_dense_rowdot, the
+// JAX package's _df_dense_rowdot). Residue p < P = 4 * blockDim.x * groups
+// owns the columns p + P*k. CTA g of tile t takes the tile's rows (up to
+// kRowdotTile, routed_cuda.py::rowdot_plan picks them from the block's
+// shape) one after the other, and for each the residues whose bits are,
+// from the lowest: a quad's element i (2 bits: one float4 of each array per
+// column step), the lane (a warp reads 512 contiguous bytes of each
+// array), g, the warp. Where a residue has at most 4 columns (the plan's
+// aim) x at the thread's columns is read in f64 and split (x_split4) once
+// for all the tile's rows and kept in registers; else once per row, from
+// L1 after the first. The halving tree takes the bits of the column from
+// the top: a residue's columns first (they stream in bit-reversed k order,
+// an aligned block of 4 at a time: a static subtree, then one push into a
+// DfStack whose levels sit in a local array), then the warps (each row's
+// sums wait in shared memory until the tile's last row is done: the rows
+// run without a barrier), in each CTA, which leaves its 128 pairs per row
+// in part; then
+// g's bits, g = s + S*m (M = min(G, 16) values of m): the last CTA of the
+// M that share s (a fence, then an atomicAdd on a self-resetting ticket)
+// streams each (row, residue)'s M pairs (stored in bit-reversed m order, a
+// plane apart, so that a warp's loads are coalesced: the halving over m);
+// where S > 1 it leaves the sums at s's bit-reversed plane and the last of
+// the S such CTAs streams those (the halving over s); the last closer
+// then adds the lanes and the quad's elements (df_rowdot_finish). Each
+// pairing is fixed, so a rerun is bitwise equal. Padded columns go through
+// the same TwoSums as +0 pairs. Bound: the block's bytes, x once and y.
+__global__ void __launch_bounds__(kRowdotCta, 2) routed_df_rowdot_kernel(RowdotArgs a) {
+  constexpr int V = kRowdotVec, B = kRowdotBlock;
+  __shared__ float4 red_h[kRowdotTile][kRowdotCta], red_l[kRowdotTile][kRowdotCta];
+  __shared__ bool last;
+  const int nt = blockDim.x, tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int G = a.groups, g = blockIdx.x;
+  const int r_lo = blockIdx.y * a.tile_rows, r_hi = min(r_lo + a.tile_rows, a.n_h);
+  const long long P = (long long)nt * V * G;
+  const long long c_t = (long long)V * (lane + 32 * (g + (long long)G * w));
+  const int K = 1 << a.log_k;
+  const int M = G < kRowdotStream ? G : kRowdotStream, S = G / M, s = g % S;
+  const int log_m = 31 - __clz(M), log_s = 31 - __clz(S);
+  const int jm = log_m ? (int)(__brev((unsigned)(g / S)) >> (32 - log_m)) : 0;
+  const long long plane = (long long)a.n_h * 128;  // pairs of one plane of part
+  unsigned* tk = a.tickets + (long long)blockIdx.y * (S + 1);  // S groups', the tile's
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int j0 = 0; j0 < K; j0 += B) {
-    // columns c_t + P*rev(j0 + u) (rev over log_k bits) .. + 3; a block past
-    // K or columns past n_pad load +0 pairs, whose products are (+0, +0)
-    float4 vh[B], vl[B], gh[B], gl[B];
+  // columns c_t + P*rev(j0 + u) (rev over log_k bits) .. + 3; a block past K
+  // or columns past n_pad give +0 pairs (+0 values times +0 x)
+  long long col[B];
+  bool in[B];
+  float xh[B][V], xl[B][V];
+  auto load_x = [&](int j0) {
 #pragma unroll
     for (int u = 0; u < B; ++u) {
       const int j = j0 + u;
       const unsigned k = a.log_k ? __brev((unsigned)j) >> (32 - a.log_k) : 0u;
-      const long long c = c_t + P * k;
-      const bool in = j < K && c < a.n_pad;
-      vh[u] = in ? __ldcg(reinterpret_cast<const float4*>(hh + c)) : zero;
-      vl[u] = in ? __ldcg(reinterpret_cast<const float4*>(hl + c)) : zero;
-      const bool xin = in && c < a.n_plane;
-      gh[u] = xin ? __ldcg(reinterpret_cast<const float4*>(a.xh + c)) : zero;
-      gl[u] = xin ? __ldcg(reinterpret_cast<const float4*>(a.xl + c)) : zero;
-    }
-    float ph[V][B], pl[V][B];
-#pragma unroll
-    for (int u = 0; u < B; ++u) {
-      df_prod(vh[u].x, vl[u].x, gh[u].x, gl[u].x, ph[0][u], pl[0][u]);
-      df_prod(vh[u].y, vl[u].y, gh[u].y, gl[u].y, ph[1][u], pl[1][u]);
-      df_prod(vh[u].z, vl[u].z, gh[u].z, gl[u].z, ph[2][u], pl[2][u]);
-      df_prod(vh[u].w, vl[u].w, gh[u].w, gl[u].w, ph[3][u], pl[3][u]);
-    }
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      if (K >= B) {  // an aligned block of j: its subtree, one push
-        df_tree<B>(ph[i], pl[i]);
-        h[i] = ph[i][0];
-        lo[i] = pl[i][0];
-        st[i].push_block(j0, 2, h[i], lo[i]);
+      col[u] = c_t + P * k;
+      in[u] = j < K && col[u] < a.n_pad;
+      if (in[u]) {
+        x_split4(a.x, col[u], a.n_x, a.x16, xh[u], xl[u]);
       } else {
 #pragma unroll
-        for (int u = 0; u < B; ++u) {
-          if (u >= K) break;
-          h[i] = ph[i][u];
-          lo[i] = pl[i][u];
-          st[i].push(u, h[i], lo[i]);
+        for (int i = 0; i < V; ++i) xh[u][i] = xl[u][i] = 0.f;
+      }
+    }
+  };
+  if (K <= B) load_x(0);
+  for (int row = r_lo; row < r_hi; ++row) {
+    float h[V], lo[V];
+    float2 levels[V][kRowdotLevels];
+    DfStack<1> st[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      st[i].mem = levels[i];
+      h[i] = lo[i] = 0.f;
+    }
+    const float* hh = a.hh + (long long)row * a.n_pad;
+    const float* hl = a.hl + (long long)row * a.n_pad;
+    for (int j0 = 0; j0 < K; j0 += B) {
+      if (K > B) load_x(j0);
+      float4 vh[B], vl[B];
+#pragma unroll
+      for (int u = 0; u < B; ++u) {
+        vh[u] = in[u] ? __ldcg(reinterpret_cast<const float4*>(hh + col[u])) : zero;
+        vl[u] = in[u] ? __ldcg(reinterpret_cast<const float4*>(hl + col[u])) : zero;
+      }
+      float ph[V][B], pl[V][B];
+#pragma unroll
+      for (int u = 0; u < B; ++u) {
+        df_prod(vh[u].x, vl[u].x, xh[u][0], xl[u][0], ph[0][u], pl[0][u]);
+        df_prod(vh[u].y, vl[u].y, xh[u][1], xl[u][1], ph[1][u], pl[1][u]);
+        df_prod(vh[u].z, vl[u].z, xh[u][2], xl[u][2], ph[2][u], pl[2][u]);
+        df_prod(vh[u].w, vl[u].w, xh[u][3], xl[u][3], ph[3][u], pl[3][u]);
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if (K >= B) {  // an aligned block of j: its subtree, one push
+          df_tree<B>(ph[i], pl[i]);
+          h[i] = ph[i][0];
+          lo[i] = pl[i][0];
+          if (K > B) st[i].push_block(j0, kRowdotBlockLog, h[i], lo[i]);
+        } else {  // the residue's K < B columns: their tree
+#pragma unroll
+          for (int s2 = 1; s2 < B; s2 *= 2) {
+#pragma unroll
+            for (int u = 0; u < B; u += 2 * s2)
+              if (s2 < K) df_add(ph[i][u], pl[i][u], ph[i][u + s2], pl[i][u + s2]);
+          }
+          h[i] = ph[i][0];
+          lo[i] = pl[i][0];
         }
       }
     }
+    // (h[i], lo[i]): residue c_t + i's columns of this row summed, kept
+    // in shared memory: the warps go on to the next row without a barrier
+    red_h[row - r_lo][tid] = make_float4(h[0], h[1], h[2], h[3]);
+    red_l[row - r_lo][tid] = make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
-  // (h[i], lo[i]): residue c_t + i's columns summed. Warps w and w + half
-  // pair (quads q and q + 32*groups*half), half = nt/64 .. 1
-  red_h[tid] = make_float4(h[0], h[1], h[2], h[3]);
-  red_l[tid] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+  // each row's warps w and w + half pair, half = nt/64 .. 1
+  const int nr = r_hi - r_lo;
   for (int half = nt / 64; half >= 1; half /= 2) {
     __syncthreads();
     if (w < half) {
-      const float4 oh = red_h[tid + 32 * half], ol = red_l[tid + 32 * half];
-      df_add(h[0], lo[0], oh.x, ol.x);
-      df_add(h[1], lo[1], oh.y, ol.y);
-      df_add(h[2], lo[2], oh.z, ol.z);
-      df_add(h[3], lo[3], oh.w, ol.w);
-      red_h[tid] = make_float4(h[0], h[1], h[2], h[3]);
-      red_l[tid] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+      for (int rr = 0; rr < nr; ++rr) {
+        float4 vh = red_h[rr][tid], vl = red_l[rr][tid];
+        const float4 oh = red_h[rr][tid + 32 * half], ol = red_l[rr][tid + 32 * half];
+        df_add(vh.x, vl.x, oh.x, ol.x);
+        df_add(vh.y, vl.y, oh.y, ol.y);
+        df_add(vh.z, vl.z, oh.z, ol.z);
+        df_add(vh.w, vl.w, oh.w, ol.w);
+        red_h[rr][tid] = vh;
+        red_l[rr][tid] = vl;
+      }
     }
   }
-  if (w != 0) return;
-  if (a.groups > 1) {  // the CTA's 32 quads, for the close
-    float4* o = reinterpret_cast<float4*>(a.part + ((row * a.groups + g) * 32 + lane) * 2 * V);
-    o[0] = make_float4(h[0], h[1], h[2], h[3]);
-    o[1] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+  // the CTA's 128 pairs of each row: residue 4*lane + i's at (row, i * 32
+  // + lane) of plane jm * S + s
+  if (w == 0) {
+    for (int rr = 0; rr < nr; ++rr) {
+      const float4 vh = red_h[rr][lane], vl = red_l[rr][lane];
+      float2* out = a.part + (jm * S + s) * plane + (long long)(r_lo + rr) * 128 + lane;
+      out[0] = make_float2(vh.x, vl.x);
+      out[32] = make_float2(vh.y, vl.y);
+      out[64] = make_float2(vh.z, vl.z);
+      out[96] = make_float2(vh.w, vl.w);
+    }
+  }
+  // the CTA that takes the last ticket of the M sharing s has their pairs
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tk + s, 1u) == (unsigned)M - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float2* cl = reinterpret_cast<float2*>(&red_h[0][0]);  // free now: the finishing rows' pairs
+  const long long r0 = (long long)r_lo * 128;
+  float2* part2 = a.part + G * plane;  // the S closers' sums, plane rev(s)
+  if (S == 1) {
+    df_rowdot_close(a.part + r0, plane, M, nullptr, nr, a, r_lo, cl);
+    if (tid == 0) tk[0] = 0u;
     return;
   }
-  for (int half = 16; half >= 1; half /= 2) {
-    float oh[V], ol[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      oh[i] = __shfl_down_sync(0xffffffffu, h[i], half);
-      ol[i] = __shfl_down_sync(0xffffffffu, lo[i], half);
-    }
-    if (lane < half) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) df_add(h[i], lo[i], oh[i], ol[i]);
-    }
+  const int js = (int)(__brev((unsigned)s) >> (32 - log_s));
+  df_rowdot_close(a.part + s * plane + r0, S * plane, M, part2 + js * plane + r0, nr, a, r_lo,
+                  cl);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    tk[s] = 0u;
+    last = atomicAdd(tk + S, 1u) == (unsigned)S - 1;
   }
-  if (lane == 0) {
-    df_add(h[0], lo[0], h[2], lo[2]);
-    df_add(h[1], lo[1], h[3], lo[3]);
-    df_add(h[0], lo[0], h[1], lo[1]);
-    a.y[__ldg(a.rows + row)] = (double)h[0] + (double)lo[0];
-  }
-}
-
-// D-df's close where a row is several CTAs: a CTA of 32*groups threads per
-// row, thread (g, l) holding CTA g's quad at lane l; the CTAs pair in
-// shared memory (g with g + half, half = groups/2 .. 1), then warp 0's lanes
-// by shuffles (l with l + half), then the quad's four residues (i with i + 2,
-// then 0 with 1), and lane 0 writes y.
-__global__ void __launch_bounds__(32 * kMaxRowdotGroups)
-routed_df_rowdot_close_kernel(const float* __restrict__ part, int groups,
-                              const int32_t* __restrict__ rows, double* __restrict__ y) {
-  constexpr int V = kRowdotVec;
-  __shared__ float4 red_h[32 * kMaxRowdotGroups], red_l[32 * kMaxRowdotGroups];
-  const int row = blockIdx.x, tid = threadIdx.x, g = tid / 32, lane = tid % 32;
-  const float4* o = reinterpret_cast<const float4*>(part + ((long long)row * groups * 32 + tid) * 2 * V);
-  float4 vh = o[0], vl = o[1];
-  float h[V] = {vh.x, vh.y, vh.z, vh.w}, lo[V] = {vl.x, vl.y, vl.z, vl.w};
-  red_h[tid] = vh;
-  red_l[tid] = vl;
-  for (int half = groups / 2; half >= 1; half /= 2) {
-    __syncthreads();
-    if (g < half) {
-      const float4 oh = red_h[tid + 32 * half], ol = red_l[tid + 32 * half];
-      df_add(h[0], lo[0], oh.x, ol.x);
-      df_add(h[1], lo[1], oh.y, ol.y);
-      df_add(h[2], lo[2], oh.z, ol.z);
-      df_add(h[3], lo[3], oh.w, ol.w);
-      red_h[tid] = make_float4(h[0], h[1], h[2], h[3]);
-      red_l[tid] = make_float4(lo[0], lo[1], lo[2], lo[3]);
-    }
-  }
-  if (g != 0) return;
-  for (int half = 16; half >= 1; half /= 2) {
-    float oh[V], ol[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      oh[i] = __shfl_down_sync(0xffffffffu, h[i], half);
-      ol[i] = __shfl_down_sync(0xffffffffu, lo[i], half);
-    }
-    if (lane < half) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) df_add(h[i], lo[i], oh[i], ol[i]);
-    }
-  }
-  if (lane == 0) {
-    df_add(h[0], lo[0], h[2], lo[2]);
-    df_add(h[1], lo[1], h[3], lo[3]);
-    df_add(h[0], lo[0], h[1], lo[1]);
-    y[__ldg(rows + row)] = (double)h[0] + (double)lo[0];
-  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  df_rowdot_close(part2 + r0, plane, S, nullptr, nr, a, r_lo, cl);
+  if (tid == 0) tk[S] = 0u;
 }
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 // ---- the routed df program (routed_df_chain_launch) -----------------------
 
-int df_split_launch(const double* x, long long n, long long n_plane, float* xh, float* xl,
-                    cudaStream_t st) {
-  if (n_plane < n || n_plane % 64) return (int)cudaErrorInvalidValue;
-  if (n_plane < 1) return 0;
-  routed_df_split_kernel<<<blocks_for(n_plane), kThreads, 0, st>>>(x, n, n_plane, xh, xl);
-  return (int)cudaGetLastError();
-}
-
-int df_gather_launch(const float* vh, const float* vl, const int8_t* pidx, const int32_t* widx,
-                     int n_real, int n_tiles, const double* x, long long n_x, float2* out,
-                     cudaStream_t st) {
-  const long long n = (long long)n_tiles * kWindowElems;
-  routed_df_gather_kernel<<<blocks_for(n), kThreads, 0, st>>>(vh, vl, pidx, widx, n_real, n, x,
-                                                              n_x, out);
-  return (int)cudaGetLastError();
-}
-
-// a one-warp CTA per (chunk, band of 32 lanes)
-int df_reduce_launch(const float2* src, const int32_t* off, const float* mask,
-                     const int32_t* groups, const int32_t* chunks, int n_chunks, float2* out,
-                     cudaStream_t st) {
-  const unsigned grid = (unsigned)n_chunks * (kLane / kBand);
-  const int2* g = reinterpret_cast<const int2*>(groups);
-  const int4* c = reinterpret_cast<const int4*>(chunks);
-  if (mask != nullptr) {
-    routed_df_reduce_kernel<true><<<grid, kBand, 0, st>>>(src, off, mask, g, c, out);
-  } else {
-    routed_df_reduce_kernel<false><<<grid, kBand, 0, st>>>(src, off, mask, g, c, out);
-  }
+// C-df: a CTA per CTA-set of kReduceWarps tasks of lv[0] (products: level
+// 0, the slots' values and x columns); lv[1], where set, is closed by the
+// CTAs that take the last tickets (ticket: zero). Its sets are at most
+// kMaxCloseSets: the closers that wait at once hold no more CTA slots than
+// that, far fewer than the card has (an SM holds one CTA at least), so the
+// CTAs they wait for run; a larger level is refused, not run.
+int df_reduce_launch(const DfReduceArgs& a, bool products, cudaStream_t st) {
+  const int sets = a.lv[0].n_tasks / kReduceWarps;
+  if (sets < 1 || a.lv[0].n_tasks % kReduceWarps || a.lv[1].n_tasks % kReduceWarps ||
+      a.lv[1].n_tasks < 0 || a.lv[1].n_tasks > kMaxCloseSets * kReduceWarps ||
+      (a.lv[1].n_tasks > 0 && a.ticket == nullptr) ||
+      (products && (a.lv[0].vals == nullptr || a.x == nullptr)) ||
+      (!products && a.lv[0].src == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int threads = kReduceWarps * kBand;
+  const bool mask = a.lv[0].mask != nullptr;
+  if (products && mask) return (int)cudaErrorInvalidValue;  // level 0 has no mask
+  if (products)
+    routed_df_reduce_kernel<true, false><<<sets, threads, 0, st>>>(a);
+  else if (mask)
+    routed_df_reduce_kernel<false, true><<<sets, threads, 0, st>>>(a);
+  else
+    routed_df_reduce_kernel<false, false><<<sets, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1009,26 +1261,23 @@ int df_permute_launch(const float2* src, const int32_t* map, long long n, double
   return (int)cudaGetLastError();
 }
 
-// n_h rows, each `groups` CTAs of cta threads (routed_cuda.py::rowdot_plan):
-// cta a power of two from 32 to 512 (512 where groups > 1), groups a power
-// of two up to 32, and cta * groups * 4 * 2^log_k the power of two of n_pad;
-// then the close where groups > 1 (part: n_h * groups * 32 * 8 floats of
-// scratch)
-int df_rowdot_launch(const RowdotArgs& a, int n_h, int cta, cudaStream_t st) {
+// D-df (routed_cuda.py::rowdot_plan): groups CTAs (a power of two up to
+// kMaxRowdotGroups) per tile of tile_rows rows (1 .. kRowdotTile), cta
+// threads a CTA (a power of two from 32 to kRowdotCta), cta * groups * 4 *
+// 2^log_k the power of two of n_pad; part holds (groups + S) * n_h * 128
+// pairs of scratch and tickets S + 1 zero words per tile (S = groups / 16,
+// at least 1)
+int df_rowdot_launch(const RowdotArgs& a, int cta, cudaStream_t st) {
   const long long cols = (long long)cta * a.groups * kRowdotVec << a.log_k;
-  if (a.groups < 1 || a.groups > kMaxRowdotGroups || (a.groups & (a.groups - 1)) ||
-      (a.groups > 1 && (cta != kRowdotCta || a.part == nullptr || ((uintptr_t)a.part & 15))) ||
-      cta < 32 || cta > kRowdotCta || (cta & (cta - 1)) || a.n_plane % 64 || a.log_k < 0 ||
-      a.log_k > kRowdotLevels || n_h < 1 ||
-      cols < a.n_pad || cols >= 2 * a.n_pad ||  // cols: the power of two of n_pad
-      a.n_pad % kRowdotVec ||
-      (((uintptr_t)a.hh | (uintptr_t)a.hl | (uintptr_t)a.xh | (uintptr_t)a.xl) & 15))
+  auto pow2 = [](int v, int top) { return v >= 1 && v <= top && !(v & (v - 1)); };
+  if (!pow2(a.groups, kMaxRowdotGroups) || !pow2(cta, kRowdotCta) || cta < 32 ||
+      a.tile_rows < 1 || a.tile_rows > kRowdotTile || a.log_k < 0 || a.log_k > kRowdotLevels ||
+      a.n_h < 1 || cols < a.n_pad || cols >= 2 * a.n_pad ||  // cols: the power of two of n_pad
+      a.n_pad % kRowdotVec || a.x == nullptr || a.part == nullptr || a.tickets == nullptr ||
+      ((uintptr_t)a.part & 7) || (((uintptr_t)a.hh | (uintptr_t)a.hl) & 15))
     return (int)cudaErrorInvalidValue;
-  routed_df_rowdot_kernel<<<(unsigned)((long long)n_h * a.groups), cta, 0, st>>>(a);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0 || a.groups == 1) return rc;
-  routed_df_rowdot_close_kernel<<<(unsigned)n_h, 32 * a.groups, 0, st>>>(a.part, a.groups, a.rows,
-                                                                         a.y);
+  const dim3 grid((unsigned)a.groups, (unsigned)((a.n_h + a.tile_rows - 1) / a.tile_rows));
+  routed_df_rowdot_kernel<<<grid, cta, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1045,8 +1294,25 @@ void* resolve(long long v, char* scratch, char* y) {
   }
 }
 
-enum DfOp { kOpDfSplit = 1, kOpDfGather = 2, kOpDfReduce = 3, kOpDfPermute = 4, kOpDfRowdot = 5 };
-constexpr int kDfOpWords[] = {0, 4, 8, 8, 5, 14};  // by op: the op and its operands
+enum DfOp { kOpDfReduce = 1, kOpDfGatherReduce = 2, kOpDfPermute = 3, kOpDfRowdot = 4 };
+constexpr int kDfOpWords[] = {0, 9, 17, 5, 13};  // by op: the op and its operands
+
+// a C-df level (null vals or src: the other kind of level)
+DfLevel df_level(const float2* vals, const int32_t* idx, const float2* src, const float* mask,
+                 const int32_t* groups, const int32_t* chunks, const int32_t* tasks,
+                 long long n_tasks, float2* out) {
+  DfLevel lv;
+  lv.vals = vals;
+  lv.idx = idx;
+  lv.src = src;
+  lv.mask = mask;
+  lv.groups = reinterpret_cast<const int2*>(groups);
+  lv.chunks = reinterpret_cast<const int4*>(chunks);
+  lv.tasks = reinterpret_cast<const int4*>(tasks);
+  lv.n_tasks = (int)n_tasks;
+  lv.out = out;
+  return lv;
+}
 
 }  // namespace
 
@@ -1120,11 +1386,12 @@ int window_df_launch(const float* vh, const float* vl, const int8_t* sidx, const
 }
 
 // Runs the len-entry program prog (ops with their operands, see
-// routed_cuda.py::_df_op) on the stream: the split of x (f64, length n_x)
-// into its (hi, lo) planes, K3 (the df gather), C-df (the df reduce), the
-// output gather and D-df (the dense heavy rows); y is f64. counts[0..4]
-// (host memory) gains one for each op of these five that was enqueued
-// without error. Returns the first error, or 0; nothing after it is enqueued.
+// routed_cuda.py::_df_op) on the stream: C-df per level (level 0 forming
+// K3's products from x, f64, length n_x, and closing the one-tile level
+// after it where the program says so), the output gather and D-df (the
+// dense heavy rows, x split in it); y is f64. counts[0..3] (host memory)
+// gains one for each op of these four kinds that was enqueued without
+// error. Returns the first error, or 0; nothing after it is enqueued.
 int routed_df_chain_launch(const long long* prog, int len, const double* x, long long n_x,
                            double* y, void* scratch, int* counts, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
@@ -1132,41 +1399,57 @@ int routed_df_chain_launch(const long long* prog, int len, const double* x, long
   int i = 0;
   while (i < len) {
     const long long op = prog[i];
-    if (op < kOpDfSplit || op > kOpDfRowdot || i + kDfOpWords[op] > len)
+    if (op < kOpDfReduce || op > kOpDfRowdot || i + kDfOpWords[op] > len)
       return (int)cudaErrorInvalidValue;
     int rc;
     switch ((int)op) {
-      case kOpDfSplit:  // xh xl n_plane
-        rc = df_split_launch(x, n_x, prog[i + 3], (float*)P(i + 1), (float*)P(i + 2), st);
+      case kOpDfReduce: {  // src off mask groups chunks tasks n_tasks out
+        DfReduceArgs a = {};
+        a.lv[0] = df_level(nullptr, (const int32_t*)P(i + 2), (const float2*)P(i + 1),
+                           (const float*)P(i + 3), (const int32_t*)P(i + 4),
+                           (const int32_t*)P(i + 5), (const int32_t*)P(i + 6), prog[i + 7],
+                           (float2*)P(i + 8));
+        rc = df_reduce_launch(a, false, st);
         break;
-      case kOpDfGather:  // vals vals_lo pidx widx n_real n_tiles out
-        rc = df_gather_launch((const float*)P(i + 1), (const float*)P(i + 2),
-                              (const int8_t*)P(i + 3), (const int32_t*)P(i + 4), (int)prog[i + 5],
-                              (int)prog[i + 6], x, n_x, (float2*)P(i + 7), st);
+      }
+      case kOpDfGatherReduce: {  // vals cols groups chunks tasks n_tasks out, then the
+                                 // closed level's src off mask groups chunks tasks
+                                 // n_tasks out (n_tasks 0: none), ticket
+        DfReduceArgs a = {};
+        a.lv[0] = df_level((const float2*)P(i + 1), (const int32_t*)P(i + 2), nullptr, nullptr,
+                           (const int32_t*)P(i + 3), (const int32_t*)P(i + 4),
+                           (const int32_t*)P(i + 5), prog[i + 6], (float2*)P(i + 7));
+        a.lv[1] = df_level(nullptr, (const int32_t*)P(i + 9), (const float2*)P(i + 8),
+                           (const float*)P(i + 10), (const int32_t*)P(i + 11),
+                           (const int32_t*)P(i + 12), (const int32_t*)P(i + 13), prog[i + 14],
+                           (float2*)P(i + 15));
+        a.ticket = (unsigned*)P(i + 16);
+        a.x = x;
+        a.n_x = n_x;
+        rc = df_reduce_launch(a, true, st);
         break;
-      case kOpDfReduce:  // src off mask groups chunks n_chunks out
-        rc = df_reduce_launch((const float2*)P(i + 1), (const int32_t*)P(i + 2),
-                              (const float*)P(i + 3), (const int32_t*)P(i + 4),
-                              (const int32_t*)P(i + 5), (int)prog[i + 6], (float2*)P(i + 7), st);
-        break;
+      }
       case kOpDfPermute:  // src map n y
         rc = df_permute_launch((const float2*)P(i + 1), (const int32_t*)P(i + 2), prog[i + 3],
                                (double*)P(i + 4), st);
         break;
-      case kOpDfRowdot: {  // hh hl rows y n_h n_pad log_k cta xh xl n_plane groups part
-        RowdotArgs a;
+      case kOpDfRowdot: {  // hh hl rows y n_h n_pad log_k cta groups tile_rows part tickets
+        RowdotArgs a = {};
         a.hh = (const float*)P(i + 1);
         a.hl = (const float*)P(i + 2);
         a.rows = (const int32_t*)P(i + 3);
         a.y = (double*)P(i + 4);
+        a.n_h = (int)prog[i + 5];
         a.n_pad = prog[i + 6];
         a.log_k = (int)prog[i + 7];
-        a.xh = (const float*)P(i + 9);
-        a.xl = (const float*)P(i + 10);
-        a.n_plane = prog[i + 11];
-        a.groups = (int)prog[i + 12];
-        a.part = (float*)P(i + 13);
-        rc = df_rowdot_launch(a, (int)prog[i + 5], (int)prog[i + 8], st);
+        a.groups = (int)prog[i + 9];
+        a.tile_rows = (int)prog[i + 10];
+        a.part = (float2*)P(i + 11);
+        a.tickets = (unsigned*)P(i + 12);
+        a.x = x;
+        a.n_x = n_x;
+        a.x16 = ((uintptr_t)x & 15) == 0;
+        rc = df_rowdot_launch(a, (int)prog[i + 8], st);
         break;
       }
       default:

@@ -1712,23 +1712,31 @@ def routed_chunks_from_jax(chunks: Sequence[dict], bounds, shape, nnz: int,
 #
 # A df product is a program of csrc/df_spmv.cu, built once per prepared
 # matrix (build_df_chain) and enqueued by its routed_df_chain_launch in one
-# host call: the split of x into its (hi, lo) planes where a domain has dense
-# heavy rows, then per domain K3 (the df products), C-df per level (each
-# slab slot read through one composed offset), the output gather into f64 y,
-# and D-df for the dense heavy rows. The scratch (f32) holds x's planes, then
-# a domain's products and level sums as (hi, lo) pairs side by side; y is
-# f64. Every step adds the plain versions' pairs in their order, so y is bit
-# for bit the staged plain chain's (routed_df_staged_reference: the W stages
-# one by one, reduce_runs_df, df_dense_rowdot).
+# host call: per domain C-df per level (level 0 forms K3's df products of
+# the gather tiles where it sums them, from each slab slot's value pair and
+# x column composed at build time, and closes a one-tile level after it in
+# its last CTAs; a later level reads each slab slot through one composed
+# offset), the output gather into f64 y, and D-df for the dense heavy rows
+# (x split in it). The scratch (f32) holds a domain's level sums as (hi, lo)
+# pairs side by side, then D-df's CTA sums; y is f64. Every step adds the
+# plain versions' pairs in their order, so y is bit for bit the staged plain
+# chain's (routed_df_staged_reference: the W stages one by one,
+# reduce_runs_df, df_dense_rowdot).
 
-#: D-df: threads per CTA at most, residues a thread owns, the most columns a
-#: residue has (2^_ROWDOT_LEVELS), the most CTAs per row, and the CTAs all
-#: rows together should make (two per SM; csrc/df_spmv.cu kRowdotCta,
-#: kRowdotVec, kRowdotLevels, kMaxRowdotGroups)
-_ROWDOT_CTA = 512
+#: D-df: threads per CTA at most, residues a thread owns, the columns of a
+#: residue summed per static subtree (the plan's aim: x split once per CTA
+#: for its rows), the most columns a residue has (2^_ROWDOT_LEVELS), rows
+#: per CTA at most, CTAs per row tile at most (two closing steps of
+#: _ROWDOT_STREAM), the pairs a closing thread streams and the CTAs a
+#: launch aims at (csrc/df_spmv.cu kRowdotCta, kRowdotVec, kRowdotBlock,
+#: kRowdotLevels, kRowdotTile, kMaxRowdotGroups, kRowdotStream)
+_ROWDOT_CTA = 256
 _ROWDOT_VEC = 4
+_ROWDOT_BLOCK = 4
 _ROWDOT_LEVELS = 15
-_ROWDOT_MAX_GROUPS = 32
+_ROWDOT_TILE = 4
+_ROWDOT_MAX_GROUPS = 256
+_ROWDOT_STREAM = 16
 _ROWDOT_CTAS = 256
 
 
@@ -1814,6 +1822,82 @@ def df_perm_reduce_reference(src_h, src_l, off, mask, runs, tree: Optional[DFRed
     return reduce_runs_df(sh, sl, tree, None if mask is None else mask[:rows])
 
 
+def gather_reduce_operands(vals, vals_lo, pidx, widx, off) -> Tuple[torch.Tensor, torch.Tensor]:
+    """C-df level 0's operands: K3's composed through the offsets off ((rows,
+    128) into K3's products, -1: +0; an offset past the real gather tiles
+    names a zero pad tile). Each slab slot's (hi, lo) value pair,
+    (rows, 128, 2) f32, and its x column, (rows, 128) int32: K3's widx[tile]
+    * 16384 + pidx * 128 + s of the product the offset names; a slot whose
+    offset is -1 or names a pad tile gets the pair (+0, +0) and column -1,
+    whose product is the +0 pair it read before (a slot of a real tile keeps
+    its value and column, even a zero value or a column past x's end, whose
+    product may carry a -0 word)."""
+    o = off.reshape(-1).long()
+    live = (o >= 0) & (o < vals.numel())  # past the real tiles: K3's zero pad tiles
+    e = torch.where(live, o, torch.zeros_like(o))
+    tile = e // WINDOW_ELEMS
+    col = widx.long()[tile] * WINDOW_ELEMS + pidx.reshape(-1)[e].long() * LANE + (e // LANE) % LANE
+    zero = vals.new_zeros(())
+    pairs = torch.stack([torch.where(live, vals.reshape(-1)[e], zero),
+                         torch.where(live, vals_lo.reshape(-1)[e], zero)], -1)
+    cols, _span = _int32_offsets(torch.where(live, col, torch.full_like(col, -1)))
+    return pairs.reshape(*off.shape, 2).contiguous(), cols.reshape(off.shape)
+
+
+def gather_reduce_products(vals, cols, x: torch.Tensor) -> dfloat.Pair:
+    """Plain C-df level 0's slab: each slot's (hi, lo) product of its value
+    pair and x (f64, split as dfloat.split_f64_t splits it) at its column (x
+    zero outside [0, len(x))), K3's arithmetic."""
+    xh, xl = dfloat.split_f64_t(x)
+    c = cols.long()
+    ok = (c >= 0) & (c < x.shape[0])
+    c = c.clamp(0, max(x.shape[0] - 1, 0))
+    zero = xh.new_zeros(())
+    gh, gl = torch.where(ok, xh[c], zero), torch.where(ok, xl[c], zero)
+    vh, vl = vals[..., 0], vals[..., 1]
+    ph, pe = dfloat.two_prod(vh, gh)
+    return ph, pe + (vh * gl + vl * gh)
+
+
+def df_gather_reduce_reference(vals, cols, x, runs, tree: Optional[DFReduce] = None) -> dfloat.Pair:
+    """Plain C-df level 0: the (n_groups, 128) (hi, lo) group sums of runs
+    over the products gather_reduce_products forms (reduce_runs_df; tree: its
+    plan over the rows, made here when not given). Bit for bit K3's plain
+    version followed by df_perm_reduce_reference through the offsets the
+    operands were composed from."""
+    ph, pl = gather_reduce_products(vals, cols, x)
+    tree = df_reduce_plan(runs, cols.shape[0], cols.device) if tree is None else tree
+    return reduce_runs_df(ph, pl, tree)
+
+
+#: C-df: warps per CTA, rows of a block of a wider group and the CTA-sets of
+#: a level closed by level 0's last CTAs at most (csrc/df_spmv.cu
+#: kReduceWarps, kBlockRows, kMaxCloseSets)
+_DF_REDUCE_WARPS = 4
+_DF_BLOCK_ROWS = 32
+_DF_CLOSE_SETS = 32
+
+
+def df_reduce_tasks(chunks: torch.Tensor) -> torch.Tensor:
+    """C-df's warp tasks (n_sets * 4, 4) int32 (chunk, band, block, blocks):
+    per chunk and band of 32 lanes one task, or, for a chunk wider than 32
+    rows (one group, reduce_chunks), one per aligned block of 32 rows, the
+    group's blocks in consecutive warps of one CTA-set of _DF_REDUCE_WARPS
+    (its block sums are added there); sets packed in order, idle warps
+    (-1, 0, 0, 0)."""
+    out, cur = [], []
+    for c, (r0, r1, _g0, _g1) in enumerate(chunks.cpu().tolist()):
+        nb = 1 if r1 - r0 <= _DF_BLOCK_ROWS else -(-(r1 - r0) // _DF_BLOCK_ROWS)
+        for band in range(LANE // 32):
+            group = [(c, band, j, nb) for j in range(nb)]
+            if len(cur) + nb > _DF_REDUCE_WARPS:
+                out += cur + [(-1, 0, 0, 0)] * (_DF_REDUCE_WARPS - len(cur))
+                cur = []
+            cur += group
+    out += cur + [(-1, 0, 0, 0)] * (-len(cur) % _DF_REDUCE_WARPS)
+    return torch.tensor(out, dtype=torch.int32).reshape(-1, 4).to(chunks.device)
+
+
 def df_permute_reference(src_h, src_l, idx, n: int) -> torch.Tensor:
     """Plain output gather: (n,) f64, both planes read through idx (-1: +0)
     and combined as hi + lo (df_combine64)."""
@@ -1876,76 +1960,100 @@ def df_rowdot_reference(hh, hl, xh, xl, threads: int) -> dfloat.Pair:
 @dataclasses.dataclass(frozen=True)
 class RowdotPlan:
     """D-df's launch over an n_pad-column block: `threads` residues per row
-    (`groups` CTAs of `cta` threads, four residues a thread), each of 2^log_k
-    columns."""
+    (four a thread, `cta` threads a CTA, `groups` CTAs per tile of `tile`
+    rows), each of 2^log_k columns."""
 
     threads: int
     cta: int
     log_k: int
     groups: int = 1
+    tile: int = 1
 
 
 def rowdot_plan(n_pad: int, n_h: int = 1) -> RowdotPlan:
-    """The D-df launch of n_h rows of a block n_pad columns wide (a multiple
-    of 128): one CTA of up to 2048 residues per row, fewer where the padded
-    width p2 is less; more CTAs per row (up to 32, each of 2048 residues)
-    while the rows' CTAs stay within ~256."""
+    """The D-df launch of n_h heavy rows of a block n_pad columns wide (a
+    multiple of 128): CTAs of 256 threads (fewer where the padded width p2
+    is less than 1024 columns), as many per tile (up to 256) as leave each
+    residue 4 columns (one static subtree: x split once per CTA for all its
+    rows), tiles of up to 4 rows, as few as make about 256 CTAs in all;
+    where tiles of one row still make fewer, more CTAs per tile (down to one
+    column per residue). Each thread a quad of residues of p2 / threads
+    columns each."""
     if n_pad < LANE or n_pad % LANE:
         raise ValueError(f"a heavy block of {n_pad} columns is not whole 128-column tiles")
+    if n_h < 1:
+        raise ValueError(f"{n_h} heavy rows")
     p2 = 1 << (n_pad - 1).bit_length()
-    per_cta = _ROWDOT_CTA * _ROWDOT_VEC
+    cta = min(_ROWDOT_CTA, p2 // _ROWDOT_VEC)
+
+    def more(groups, block):  # room for twice the CTAs, each residue block columns
+        return 2 * groups * cta * _ROWDOT_VEC * block <= p2 and 2 * groups <= _ROWDOT_MAX_GROUPS
+
     groups = 1
-    while 2 * groups * per_cta <= p2 and 2 * groups <= _ROWDOT_MAX_GROUPS \
-            and 2 * groups * max(n_h, 1) <= _ROWDOT_CTAS:
+    while more(groups, _ROWDOT_BLOCK):
         groups *= 2
-    threads = min(per_cta * groups, p2)
+    tiles = max(-(-n_h // _ROWDOT_TILE), min(n_h, _ROWDOT_CTAS // groups))
+    while tiles * groups < _ROWDOT_CTAS and more(groups, 1):
+        groups *= 2
+    threads = cta * _ROWDOT_VEC * groups
     log_k = (p2 // threads).bit_length() - 1
     if log_k > _ROWDOT_LEVELS:
         raise ValueError(f"a heavy block of {n_pad} columns exceeds D-df's {2**_ROWDOT_LEVELS} "
                          "columns per residue")
-    return RowdotPlan(threads, threads // _ROWDOT_VEC // groups, log_k, groups)
+    return RowdotPlan(threads, cta, log_k, groups, -(-n_h // tiles))
+
+
+def _rowdot_closers(plan: RowdotPlan) -> int:
+    """S: the CTAs of a tile that close its first step (each the last of the
+    up to 16 that share g % S), whose sums the last of them adds."""
+    return plan.groups // min(plan.groups, _ROWDOT_STREAM)
 
 
 def _rowdot_part_elems(plan: RowdotPlan, n_h: int) -> int:
-    """D-df's scratch: each (row, CTA, lane)'s four (hi, lo) pairs, where a
-    row is more than one CTA."""
-    return n_h * plan.groups * 32 * 2 * _ROWDOT_VEC if plan.groups > 1 else 0
+    """D-df's scratch (f32): each (row, CTA)'s 128 (hi, lo) pairs, then each
+    (row, first-step closer)'s."""
+    return n_h * LANE * (plan.groups + _rowdot_closers(plan)) * 2
+
+
+def _rowdot_ticket_words(plan: RowdotPlan, n_h: int) -> int:
+    """D-df's tickets: S + 1 int32 words per row tile."""
+    return -(-n_h // plan.tile) * (_rowdot_closers(plan) + 1)
+
+
+def _rowdot_tickets(n_h: int, plan: RowdotPlan, device) -> torch.Tensor:
+    """D-df's tickets as zeros, which the kernel sets back to zero (kept
+    with the stage, not in the per-call scratch)."""
+    return torch.zeros(_rowdot_ticket_words(plan, n_h), dtype=torch.int32, device=device)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class DFSplitStage:  # x split into its (hi, lo) planes, once per product
-    n: int
-    plane: int  # each plane's length: n rounded up to 64, zero past n
-    out: Buf  # the hi plane; the lo plane at out.at(plane)
-
-    kernel = "df_split"
-
-    def out_elems(self) -> int:
-        return self.plane
-
-
-@dataclasses.dataclass(frozen=True, eq=False)
-class DFGatherStage:  # K3: the df products of the gather tiles, as pairs
-    vals: torch.Tensor
-    vals_lo: torch.Tensor
-    pidx: torch.Tensor
-    widx: torch.Tensor
-    n_tiles: int
+class DFGatherReduceStage:  # C-df level 0: K3's products formed where they are summed
+    vals: torch.Tensor  # (rows, 128, 2) f32: each slab slot's (hi, lo) value
+    cols: torch.Tensor  # (rows, 128) int32: its x column (-1: the slot reads nothing)
+    imap: IndexMap  # the offsets into K3's products they were composed from (on the host)
+    groups: torch.Tensor
+    chunks: torch.Tensor  # reduce_chunks
+    tasks: torch.Tensor  # its warps' tasks (df_reduce_tasks)
+    runs: tuple
+    tree: DFReduce  # the plain version's plan over the slab rows
     out: Buf  # (hi, lo) pairs
+    tail: Optional["DFReduceStage"]  # the one-tile level after it, closed by its last CTAs
+    ticket: torch.Tensor  # (2,) int32 zeros: the closing CTAs' counters
 
-    kernel = "df_gather"
+    kernel = "df_gather_reduce"
 
     def out_elems(self) -> int:
-        return self.n_tiles * LANE * LANE
+        return self.groups.shape[0] * LANE
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class DFReduceStage:  # C-df
+class DFReduceStage:  # C-df of a later level
     src: Buf  # (hi, lo) pairs
     imap: IndexMap  # its offsets, in pairs: the slab rows the groups cover
     mask: Optional[torch.Tensor]
     groups: torch.Tensor
-    chunks: torch.Tensor  # its CTAs (reduce_chunks)
+    chunks: torch.Tensor  # reduce_chunks
+    tasks: torch.Tensor  # its warps' tasks (df_reduce_tasks)
     runs: tuple
     tree: DFReduce  # the plain version's plan over the slab rows
     out: Buf  # (hi, lo) pairs
@@ -1975,21 +2083,20 @@ class DFRowdotStage:  # D-df: the dense heavy rows, written into y
     hl: torch.Tensor
     rows: torch.Tensor  # (n_heavy,) int32 rows of the domain's y
     plan: RowdotPlan
-    x: Buf  # x's hi plane; its lo plane at x.at(x_plane)
     n_x: int
-    x_plane: int
     part: Buf  # the CTAs' sums (_rowdot_part_elems)
+    tickets: torch.Tensor  # (_rowdot_tickets)
     out: Buf  # y at the domain's first row
 
     kernel = "df_rowdot"
 
 
-DFStage = Union[DFSplitStage, DFGatherStage, DFReduceStage, DFPermuteStage, DFRowdotStage]
+DFStage = Union[DFGatherReduceStage, DFReduceStage, DFPermuteStage, DFRowdotStage]
 
 # Programs of csrc/df_spmv.cu::routed_df_chain_launch, the one entry point of
 # the routed df kernels; operands as for routed_chain_launch, a Buf's offset
 # in bytes of its buffer's type (scratch f32, y f64)
-_DF_OP_SPLIT, _DF_OP_GATHER, _DF_OP_REDUCE, _DF_OP_PERMUTE, _DF_OP_ROWDOT = range(1, 6)
+_DF_OP_REDUCE, _DF_OP_GATHER_REDUCE, _DF_OP_PERMUTE, _DF_OP_ROWDOT = range(1, 5)
 
 
 def _df_op(code: int, *args) -> List[int]:
@@ -1997,41 +2104,45 @@ def _df_op(code: int, *args) -> List[int]:
                      if isinstance(a, Buf) else _operand(a) for a in args]
 
 
-def _df_split_op(xh, xl, plane: int) -> List[int]:
-    return _df_op(_DF_OP_SPLIT, xh, xl, plane)
+def _df_level(src, imap: IndexMap, mask, groups, chunks, tasks, out) -> list:
+    return [_aligned(src, 8), imap.idx, mask, _aligned(groups, 8), _aligned(chunks, 16),
+            _aligned(tasks, 16), tasks.shape[0], _aligned(out, 8)]
 
 
-def _df_gather_op(vals, vals_lo, pidx, widx, n_tiles: int, out) -> List[int]:
-    return _df_op(_DF_OP_GATHER, vals, vals_lo, pidx, widx, vals.shape[0] // LANE, n_tiles,
-                  _aligned(out, 8))
+def _df_reduce_op(src, imap: IndexMap, mask, groups, chunks, tasks, out) -> List[int]:
+    return _df_op(_DF_OP_REDUCE, *_df_level(src, imap, mask, groups, chunks, tasks, out))
 
 
-def _df_reduce_op(src, imap: IndexMap, mask, groups, chunks, out) -> List[int]:
-    return _df_op(_DF_OP_REDUCE, _aligned(src, 8), imap.idx, mask, _aligned(groups, 8),
-                  _aligned(chunks, 16), chunks.shape[0], _aligned(out, 8))
+def _df_gather_reduce_op(vals, cols, groups, chunks, tasks, out, tail, ticket) -> List[int]:
+    """Level 0's operands, then the closed level's (src imap mask groups
+    chunks tasks out, or None: none) and the ticket."""
+    closed = _df_level(*tail) if tail is not None else [None] * 6 + [0, None]
+    return _df_op(_DF_OP_GATHER_REDUCE, _aligned(vals, 8), cols, _aligned(groups, 8),
+                  _aligned(chunks, 16), _aligned(tasks, 16), tasks.shape[0], _aligned(out, 8),
+                  *closed, ticket if tail is not None else None)
 
 
 def _df_permute_op(src, imap: IndexMap, n: int, y) -> List[int]:
     return _df_op(_DF_OP_PERMUTE, _aligned(src, 8), imap.idx, n, y)
 
 
-def _df_rowdot_op(hh, hl, rows, plan: RowdotPlan, xh, xl, x_plane: int, part, y) -> List[int]:
+def _df_rowdot_op(hh, hl, rows, plan: RowdotPlan, part, tickets, y) -> List[int]:
     return _df_op(_DF_OP_ROWDOT, _aligned(hh, 16), _aligned(hl, 16), rows, y, hh.shape[0],
-                  hh.shape[1], plan.log_k, plan.cta, _aligned(xh, 16), _aligned(xl, 16), x_plane,
-                  plan.groups, _aligned(part, 16))
+                  hh.shape[1], plan.log_k, plan.cta, plan.groups, plan.tile, _aligned(part, 8),
+                  tickets)
 
 
 def _df_stage_op(s: DFStage) -> List[int]:
-    if isinstance(s, DFSplitStage):
-        return _df_split_op(s.out, s.out.at(s.plane), s.plane)
-    if isinstance(s, DFGatherStage):
-        return _df_gather_op(s.vals, s.vals_lo, s.pidx, s.widx, s.n_tiles, s.out)
+    if isinstance(s, DFGatherReduceStage):
+        t = s.tail
+        tail = None if t is None else (t.src, t.imap, t.mask, t.groups, t.chunks, t.tasks, t.out)
+        return _df_gather_reduce_op(s.vals, s.cols, s.groups, s.chunks, s.tasks, s.out, tail,
+                                    s.ticket)
     if isinstance(s, DFReduceStage):
-        return _df_reduce_op(s.src, s.imap, s.mask, s.groups, s.chunks, s.out)
+        return _df_reduce_op(s.src, s.imap, s.mask, s.groups, s.chunks, s.tasks, s.out)
     if isinstance(s, DFPermuteStage):
         return _df_permute_op(s.src, s.imap, s.n, s.out)
-    return _df_rowdot_op(s.hh, s.hl, s.rows, s.plan, s.x, s.x.at(s.x_plane), s.x_plane, s.part,
-                         s.out)
+    return _df_rowdot_op(s.hh, s.hl, s.rows, s.plan, s.part, s.tickets, s.out)
 
 
 class DFProgram(Program):
@@ -2052,59 +2163,22 @@ class DFProgram(Program):
         dfloat.check_launch(rc, "routed df kernels")
 
 
-def _check_planes(src_l, span: int, out_l, n_out: int, dev) -> None:
-    _check_src(src_l, span, dev)
-    _check_out(out_l, "out_l", n_out, dev)
-
-
 def _check_f64_out(y, n: int, dev) -> None:
     if y.device != dev or y.dtype != torch.float64 or y.dim() != 1 or not y.is_contiguous() \
             or y.numel() < n:
         raise ValueError(f"y must be a contiguous 1-d f64 tensor of >= {n} elements on {dev}")
 
 
-def _check_x_planes(xh, xl, dev) -> None:
-    """x's (hi, lo) planes as the split writes them: 1-d f32 of a length
-    that is a multiple of 64."""
-    for name, a in (("xh", xh), ("xl", xl)):
-        if a.device != dev or a.dtype != torch.float32 or a.dim() != 1 or not a.is_contiguous() \
-                or a.shape != xh.shape or a.shape[0] % 64:
-            raise ValueError(f"{name} must be a contiguous 1-d f32 plane of x on {dev}, of a "
-                             "length that is a multiple of 64")
-
-
-def _check_f64_out(y, n: int, dev) -> None:
-    if y.device != dev or y.dtype != torch.float64 or y.dim() != 1 or not y.is_contiguous() \
-            or y.numel() < n:
-        raise ValueError(f"y must be a contiguous 1-d f64 tensor of >= {n} elements on {dev}")
-
-
-def _check_rowdot(hh, hl, rows, plan: RowdotPlan, xh, xl, y) -> None:
-    dev = xh.device
+def _check_rowdot(hh, hl, rows, plan: RowdotPlan, x, y) -> None:
+    dev = x.device
     n_h, n_pad = hh.shape
     _require(hh, "hh", _F32, (n_h, n_pad), dev)
     _require(hl, "hl", _F32, (n_h, n_pad), dev)
     _require(rows, "rows", _I32, (n_h,), dev)
-    _check_x_planes(xh, xl, dev)
+    _require(x, "x", (torch.float64,), (x.shape[0],), dev)
     if n_h < 1 or plan != rowdot_plan(n_pad, n_h):
         raise ValueError(f"D-df plan {plan} for a heavy block {tuple(hh.shape)}")
     _check_f64_out(y, 1, dev)
-
-
-def routed_df_split_cuda(x, xh, xl) -> dfloat.Pair:
-    """The split of x (f64) into its (hi, lo) planes xh, xl
-    (routed_df_split_kernel), as dfloat.split_f64_t splits it, each plane
-    zero past x's end (its length a multiple of 64, at least x's)."""
-    dev = _on_cuda(x, xh, xl)
-    _require(x, "x", (torch.float64,), (x.shape[0],), dev)
-    _check_x_planes(xh, xl, dev)
-    if xh.shape[0] < x.shape[0]:
-        raise ValueError(f"planes of {xh.shape[0]} for x of {x.shape[0]}")
-    DFProgram(_df_split_op(xh, xl, xh.shape[0])).run(x, 0, 0, dev)
-    return xh, xl
-
-
-routed_df_split_cuda.launches = 0
 
 
 def _check_pairs(t, name: str, n: int, dev) -> None:
@@ -2113,41 +2187,91 @@ def _check_pairs(t, name: str, n: int, dev) -> None:
         raise ValueError(f"{name} must be a contiguous f32 tensor of >= {n} (hi, lo) pairs on {dev}")
 
 
-def routed_df_gather_cuda(vals, vals_lo, pidx, widx, n_tiles: int, x, out) -> torch.Tensor:
-    """Kernel K3 (routed_df_gather_kernel) into out (n_tiles*128*128 (hi, lo)
-    pairs, side by side): the df products of the gather tiles, x in f64
-    (split in the kernel), then zero tiles."""
-    dev = _on_cuda(x, vals, vals_lo, pidx, widx, out)
-    rows_a = vals.shape[0]
-    if rows_a % LANE or not 1 <= rows_a // LANE <= n_tiles <= LANE:
-        raise ValueError(f"{rows_a} gather rows do not fit {n_tiles} tiles of 128 rows")
-    _require(vals, "vals", _F32, (rows_a, LANE), dev)
-    _require(vals_lo, "vals_lo", _F32, (rows_a, LANE), dev)
-    _require(pidx, "pidx", _IDX, (rows_a, LANE), dev)
-    _require(widx, "widx", (torch.int32,), (rows_a // LANE,), dev)
-    _require(x, "x", (torch.float64,), (x.shape[0],), dev)
-    _check_pairs(out, "out", n_tiles * LANE * LANE, dev)
-    DFProgram(_df_gather_op(vals, vals_lo, pidx, widx, n_tiles, out)).run(x, 0, 0, dev)
-    return out
+def _check_ticket(t, n: int, dev) -> None:
+    if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous() or t.numel() < n:
+        raise ValueError(f"the tickets must be a contiguous int32 tensor of >= {n} zeros on {dev}")
 
 
-routed_df_gather_cuda.launches = 0
+def _closable(imap: IndexMap, tasks: torch.Tensor) -> bool:
+    """Whether level 0's last CTAs may close this level: one tile (at most
+    128 slab rows) of at most _DF_CLOSE_SETS CTA-sets (its closers wait for
+    the other CTAs at once, so they must be few beside the card's CTA
+    slots)."""
+    return imap.idx.shape[0] <= LANE and tasks.shape[0] <= _DF_CLOSE_SETS * _DF_REDUCE_WARPS
 
 
-def routed_df_reduce_cuda(src, imap: IndexMap, mask, groups, chunks, out) -> torch.Tensor:
-    """C-df (routed_df_reduce_kernel) into out (n_groups*128 (hi, lo) pairs):
-    the df group sums of the slab read from the pairs src through
-    imap.idx's rows, masked where mask is given; groups and chunks as for
-    kernel C (groups_table, reduce_chunks)."""
-    dev = _on_cuda(src, imap.idx, mask, groups, chunks, out)
+def _df_tasks(chunks, tasks, dev) -> torch.Tensor:
+    tasks = df_reduce_tasks(chunks) if tasks is None else tasks
+    _require(tasks, "tasks", _I32, (tasks.shape[0], 4), dev)
+    if tasks.shape[0] % _DF_REDUCE_WARPS:
+        raise ValueError(f"{tasks.shape[0]} C-df tasks are not whole CTA-sets")
+    return tasks
+
+
+def routed_df_reduce_cuda(src, imap: IndexMap, mask, groups, chunks, out,
+                          tasks=None) -> torch.Tensor:
+    """C-df of a later level (routed_df_reduce_kernel) into out (n_groups*128
+    (hi, lo) pairs): the df group sums of the slab read from the pairs src
+    through imap.idx's rows, masked where mask is given; groups and chunks as
+    for kernel C (groups_table, reduce_chunks), tasks df_reduce_tasks(chunks)
+    (made here, with a copy to the host, when not given)."""
+    dev = _on_cuda(src, imap.idx, mask, groups, chunks, out, tasks)
     _check_pairs(src, "src", imap.span, dev)
     _check_perm_reduce(src, imap, mask, groups, chunks, None)
     _check_pairs(out, "out", groups.shape[0] * LANE, dev)
-    DFProgram(_df_reduce_op(src, imap, mask, groups, chunks, out)).run(None, 0, 0, dev)
+    tasks = _df_tasks(chunks, tasks, dev)
+    DFProgram(_df_reduce_op(src, imap, mask, groups, chunks, tasks, out)).run(None, 0, 0, dev)
     return out
 
 
 routed_df_reduce_cuda.launches = 0
+
+
+def routed_df_gather_reduce_cuda(vals, cols, groups, chunks, x, out, tail=None, ticket=None,
+                                 tasks=None) -> torch.Tensor:
+    """C-df level 0 (routed_df_reduce_kernel forming K3's products) into out
+    (n_groups*128 (hi, lo) pairs): the df group sums of the slab whose slots
+    are the products of their value pairs vals ((rows, 128, 2) f32) and x
+    (f64, split in the kernel) at their columns cols ((rows, 128) int32;
+    gather_reduce_operands). tail = (src, imap, mask, groups, chunks, out[,
+    tasks]): the one-tile level after it (its src is out, at most 128 slab
+    rows and 32 CTA-sets: _closable), run by the launch's last
+    CTAs; ticket is their (2,) int32 zeros, allocated when not
+    given; tasks (and the tail's) as for routed_df_reduce_cuda."""
+    if tail is not None:
+        timap, tchunks, ttasks = tail[1], tail[4], (list(tail[6:]) or [None])[0]
+        ttasks = df_reduce_tasks(tchunks) if ttasks is None else ttasks
+        if not _closable(timap, ttasks):
+            raise ValueError(f"a closed level of {timap.idx.shape[0]} slab rows and "
+                             f"{ttasks.shape[0] // _DF_REDUCE_WARPS} CTA-sets: at most {LANE} and "
+                             f"{_DF_CLOSE_SETS}")
+        tail = (*tail[:6], ttasks)
+    dev = _on_cuda(x, vals, cols, groups, chunks, out, tasks)
+    rows = cols.shape[0]
+    _require(cols, "cols", _I32, (rows, LANE), dev)
+    _require(vals, "vals", _F32, (rows, LANE, 2), dev)
+    _require(x, "x", (torch.float64,), (x.shape[0],), dev)
+    g = groups.shape[0]
+    _require(groups, "groups", _I32, (g, 2), dev)
+    _require(chunks, "chunks", _I32, (chunks.shape[0], 4), dev)
+    _check_pairs(out, "out", g * LANE, dev)
+    tasks = _df_tasks(chunks, tasks, dev)
+    if tail is not None:
+        src, imap, mask, tgroups, tchunks, tout, *ttasks = tail
+        _on_cuda(x, src, imap.idx, mask, tgroups, tchunks, tout, *ttasks)
+        _check_pairs(src, "src", imap.span, dev)
+        _check_perm_reduce(src, imap, mask, tgroups, tchunks, None)
+        _check_pairs(tout, "the closed level's out", tgroups.shape[0] * LANE, dev)
+        ttasks = _df_tasks(tchunks, ttasks[0], dev)
+        tail = (src, imap, mask, tgroups, tchunks, ttasks, tout)
+        ticket = torch.zeros(2, dtype=torch.int32, device=dev) if ticket is None else ticket
+        _check_ticket(ticket, 2, dev)
+    DFProgram(_df_gather_reduce_op(vals, cols, groups, chunks, tasks, out, tail,
+                                   ticket)).run(x, 0, 0, dev)
+    return out
+
+
+routed_df_gather_reduce_cuda.launches = 0
 
 
 def routed_df_permute_cuda(src, imap: IndexMap, n: int, y) -> torch.Tensor:
@@ -2165,21 +2289,23 @@ def routed_df_permute_cuda(src, imap: IndexMap, n: int, y) -> torch.Tensor:
 routed_df_permute_cuda.launches = 0
 
 
-def routed_df_rowdot_cuda(hh, hl, rows, plan: RowdotPlan, xh, xl, y, part=None) -> torch.Tensor:
-    """D-df (routed_df_rowdot_kernel, and its close where a row is several
-    CTAs): y[rows[k]] = the f64 value of heavy row k's df dot with x (its
-    (hi, lo) planes as the split writes them, zero past x's end), in
-    df_dense_rowdot's order; plan = rowdot_plan(n_pad, n_h). rows must index
-    y; part is the CTAs' f32 scratch (_rowdot_part_elems), allocated when
-    not given."""
-    dev = _on_cuda(xh, xl, hh, hl, rows, y, part)
-    _check_rowdot(hh, hl, rows, plan, xh, xl, y)
-    n_part = _rowdot_part_elems(plan, hh.shape[0])
-    if part is None and n_part:
-        part = torch.empty(n_part, dtype=torch.float32, device=dev)
-    if n_part:
-        _check_out(part, "part", n_part, dev)
-    DFProgram(_df_rowdot_op(hh, hl, rows, plan, xh, xl, xh.shape[0], part, y)).run(None, 0, 0, dev)
+def routed_df_rowdot_cuda(hh, hl, rows, plan: RowdotPlan, x, y, part=None,
+                          tickets=None) -> torch.Tensor:
+    """D-df (routed_df_rowdot_kernel), one launch: y[rows[k]] = the f64
+    value of heavy row k's df dot with x (f64, split in the kernel, zero
+    past its end), in df_dense_rowdot's order; plan = rowdot_plan(n_pad,
+    n_h). rows must index y; part is the CTAs' f32 scratch
+    (_rowdot_part_elems) and tickets the zero int32 words (_rowdot_tickets),
+    each allocated when not given."""
+    dev = _on_cuda(x, hh, hl, rows, y, part, tickets)
+    _check_rowdot(hh, hl, rows, plan, x, y)
+    n_h = hh.shape[0]
+    n_part = _rowdot_part_elems(plan, n_h)
+    part = torch.empty(n_part, dtype=torch.float32, device=dev) if part is None else part
+    _check_out(part, "part", n_part, dev)
+    tickets = _rowdot_tickets(n_h, plan, dev) if tickets is None else tickets
+    _check_ticket(tickets, _rowdot_ticket_words(plan, n_h), dev)
+    DFProgram(_df_rowdot_op(hh, hl, rows, plan, part, tickets, y)).run(x, 0, 0, dev)
     return y
 
 
@@ -2188,9 +2314,8 @@ routed_df_rowdot_cuda.launches = 0
 #: launches of each routed df kernel, as csrc/df_spmv.cu counted them (in
 #: the order of its counts array)
 _DF_COUNTERS = {
-    "df_split": routed_df_split_cuda,
-    "df_gather": routed_df_gather_cuda,
     "df_reduce": routed_df_reduce_cuda,
+    "df_gather_reduce": routed_df_gather_reduce_cuda,
     "df_permute": routed_df_permute_cuda,
     "df_rowdot": routed_df_rowdot_cuda,
 }
@@ -2242,72 +2367,72 @@ def _df_reduce_stage(src: Buf, imap: IndexMap, mask, runs, out: Buf, dev) -> DFR
     """C-df over the slab rows its groups cover, read through imap."""
     rows = max(row0 + ng * width for row0, ng, width, _g0 in runs)
     imap = dataclasses.replace(imap, idx=imap.idx[:rows])
-    return DFReduceStage(src, imap, mask, groups_table(runs, dev), reduce_chunks(runs, dev), runs,
-                         df_reduce_plan(runs, rows, dev), out)
+    chunks = reduce_chunks(runs, dev)
+    return DFReduceStage(src, imap, mask, groups_table(runs, dev), chunks, df_reduce_tasks(chunks),
+                         runs, df_reduce_plan(runs, rows, dev), out)
 
 
-def _df_domain_stages(mdf: RoutedDF, y: Buf, x: Buf, base: int) -> Tuple[List[DFStage], int]:
-    """One domain's stages, y[0:m] written at y, x's planes (for D-df) read
-    at x, its (hi, lo) pairs in the scratch from element base on; and the
-    scratch it uses. K3 writes the products of the real gather tiles (no pad
-    tiles: C-df reads rows past them as -1, the +0 the pad tiles held); each
-    C-df reads its slab through its plan's whole permutation composed (the
-    products, or the sums of the level before, rows past them reading +0);
-    the output gather reads the level sums through the output plan (the
-    assembly tail past them reading +0); D-df then writes the dense heavy
-    rows."""
+def _df_domain_stages(mdf: RoutedDF, y: Buf) -> Tuple[List[DFStage], int]:
+    """One domain's stages, y[0:m] written at y, its (hi, lo) pairs in the
+    scratch; and the scratch it uses. C-df level 0
+    reads K3's operands composed through the products plan's whole
+    permutation (gather_reduce_operands: rows past the real gather tiles
+    read nothing, the +0 the pad tiles held) and, where the level after it
+    is one tile, closes that level in its last CTAs; each later C-df reads
+    the sums of the level before through its plan's whole permutation
+    composed (rows past them reading +0); the output gather reads the level
+    sums through the output plan (the assembly tail past them reading +0);
+    D-df then writes the dense heavy rows."""
     mat = mdf.mat
     dev = mat.vals.device
     pp, po = mat.perm_products, mat.perm_out
     n_real = mat.vals.shape[0] // LANE
-    x2, dom = Buf("s", base), Buf("s", base + 2 * n_real * LANE * LANE)
-    stages: List[DFStage] = [
-        DFGatherStage(mat.vals, mdf.vals_lo, mat.pidx, mat.widx, n_real, x2),
-        _df_reduce_stage(x2, plan_map(pp, src_rows=n_real * LANE), None, mat.runs, dom, dev),
-    ]
+    dom = Buf("s", 0)
     level_groups = [_n_groups(mat.runs)] + [_n_groups(r) for r in mat.lvl_runs]
     offs = np.r_[0, np.cumsum(level_groups)]
-    for k, (perm, mask, runs) in enumerate(zip(mat.lvl_perms, mat.lvl_masks, mat.lvl_runs)):
-        stages.append(_df_reduce_stage(
-            dom.at(2 * int(offs[k]) * LANE), plan_map(perm, src_rows=min(level_groups[k], perm.h)),
-            mask, runs, dom.at(2 * int(offs[k + 1]) * LANE), dev))
+    levels = [
+        _df_reduce_stage(dom.at(2 * int(offs[k]) * LANE),
+                         plan_map(perm, src_rows=min(level_groups[k], perm.h)), mask, runs,
+                         dom.at(2 * int(offs[k + 1]) * LANE), dev)
+        for k, (perm, mask, runs) in enumerate(zip(mat.lvl_perms, mat.lvl_masks, mat.lvl_runs))]
+    first = _df_reduce_stage(None, plan_map(pp, src_rows=n_real * LANE), None, mat.runs, dom, dev)
+    vals, cols = gather_reduce_operands(mat.vals, mdf.vals_lo, mat.pidx, mat.widx, first.imap.idx)
+    one_tile = levels and mat.lvl_perms[0].t == 1 and _closable(levels[0].imap, levels[0].tasks)
+    tail = levels.pop(0) if one_tile else None
+    host = dataclasses.replace(first.imap, idx=first.imap.idx.cpu())  # no kernel reads them
+    stages: List[DFStage] = [DFGatherReduceStage(
+        vals, cols, host, first.groups, first.chunks, first.tasks, first.runs, first.tree,
+        dom, tail, torch.zeros(2, dtype=torch.int32, device=dev))]
+    stages += levels
     stages.append(DFPermuteStage(dom, plan_map(po, src_rows=int(offs[-1])), mat.shape[0], y))
-    used = 2 * (n_real * LANE + po.h) * LANE
+    used = 2 * po.h * LANE
     if mdf.heavy_rows_df:
-        n_x, x_plane = mat.shape[1], -(-mat.shape[1] // 64) * 64
         n_h = len(mdf.heavy_rows_df)
         rows = torch.tensor(mdf.heavy_rows_df, dtype=torch.int32, device=dev)
         plan = rowdot_plan(mdf.hdense_hi.shape[1], n_h)
-        stages.append(DFRowdotStage(mdf.hdense_hi, mdf.hdense_lo, rows, plan, x, n_x, x_plane,
-                                    Buf("s", base + used), y))
+        stages.append(DFRowdotStage(mdf.hdense_hi, mdf.hdense_lo, rows, plan, mat.shape[1],
+                                    Buf("s", used), _rowdot_tickets(n_h, plan, dev), y))
         used += _rowdot_part_elems(plan, n_h)
     return stages, used
 
 
 def build_df_chain(mat: Union[RoutedDF, RoutedChunks]) -> RoutedDFChain:
-    """Check a prepared df layout once and plan its product: x's split, then
-    every domain's stages, chunk after chunk into y at its row bound, over
-    one scratch buffer that the chunks reuse in turn; on a CUDA device, one
-    program."""
+    """Check a prepared df layout once and plan its product: every domain's
+    stages, chunk after chunk into y at its row bound, over one scratch
+    buffer that the chunks reuse in turn; on a CUDA device, one program."""
     domains = mat.chunks if isinstance(mat, RoutedChunks) else (mat,)
     bounds = mat.bounds if isinstance(mat, RoutedChunks) else (0, mat.shape[0])
     if len(bounds) != len(domains) + 1 or bounds[0] != 0 or bounds[-1] != mat.shape[0]:
         raise ValueError(f"chunk bounds {bounds} do not cover {mat.shape[0]} rows")
-    # x's planes first (where a domain has dense heavy rows; 64-element
-    # aligned), then the domains' pairs, which the domains reuse in turn
-    n_x = mat.shape[1]
-    x_plane = -(-n_x // 64) * 64
-    split = any(mdf.heavy_rows_df for mdf in domains if isinstance(mdf, RoutedDF))
-    base = 2 * x_plane if split else 0
-    stages: List[DFStage] = [DFSplitStage(n_x, x_plane, Buf("s", 0))] if split else []
-    scratch = base
+    stages: List[DFStage] = []
+    scratch = 0
     for mdf, r0, r1 in zip(domains, bounds[:-1], bounds[1:]):
         if not isinstance(mdf, RoutedDF) or mdf.shape != (r1 - r0, mat.shape[1]):
             raise ValueError(f"the chunk between rows {r0} and {r1} is no RoutedDF of that shape")
         _check_df(mdf)
-        dstages, used = _df_domain_stages(mdf, Buf("y", r0), Buf("s", 0), base)
+        dstages, used = _df_domain_stages(mdf, Buf("y", r0))
         stages += dstages
-        scratch = max(scratch, base + used)
+        scratch = max(scratch, used)
     dev = domains[0].mat.vals.device
     chain = RoutedDFChain(
         mat=mat, domains=tuple(domains), stages=tuple(stages), scratch_elems=scratch,
@@ -2320,10 +2445,8 @@ def build_df_chain(mat: Union[RoutedDF, RoutedChunks]) -> RoutedDFChain:
 
 
 def df_chain_launches(chain: RoutedDFChain) -> int:
-    """The kernels one df product launches: one per stage, and D-df's close
-    where a heavy row is several CTAs."""
-    return sum(chain.counts.values()) + sum(
-        isinstance(s, DFRowdotStage) and s.plan.groups > 1 for s in chain.stages)
+    """The kernels one df product launches: one per stage."""
+    return sum(chain.counts.values())
 
 
 def _df_buffers(chain: RoutedDFChain, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -2336,12 +2459,6 @@ def _df_buffers(chain: RoutedDFChain, x: torch.Tensor) -> Dict[str, torch.Tensor
     }
 
 
-def _planes(bufs, b: Buf, plane: int, n: int) -> dfloat.Pair:
-    """x's hi and lo planes in the scratch: n elements each."""
-    s = bufs["s"]
-    return s[b.off : b.off + n], s[b.off + plane : b.off + plane + n]
-
-
 def _pairs(bufs, b: Buf, n: Optional[int] = None) -> torch.Tensor:
     """n (hi, lo) pairs in the scratch from b on (all to its end when n is
     None), as an (n, 2) view."""
@@ -2350,39 +2467,41 @@ def _pairs(bufs, b: Buf, n: Optional[int] = None) -> torch.Tensor:
     return s[b.off : end].view(-1, 2)
 
 
+def _plain_reduce(stage: DFReduceStage, bufs) -> None:
+    src = _pairs(bufs, stage.src)
+    out = _pairs(bufs, stage.out, stage.out_elems())
+    for k, p in enumerate(df_perm_reduce_reference(
+            src[:, 0], src[:, 1], stage.imap.idx, stage.mask, stage.runs, stage.tree)):
+        out[:, k].copy_(p.reshape(-1))
+
+
 def run_df_stage(stage: DFStage, bufs: Dict[str, torch.Tensor], plain: bool) -> None:
     """Run one df stage over the buffers {"x": f64 x, "y": f64 y, "s": f32
     scratch}: its kernel through its wrapper, or with plain=True its plain
     version (on any device)."""
     x, y = bufs["x"], bufs["y"]
-    if isinstance(stage, DFSplitStage):
-        xh, xl = _planes(bufs, stage.out, stage.plane, stage.plane)
-        if plain:
-            for o, p in zip((xh, xl), dfloat.split_f64_t(x)):
-                o.zero_()
-                o[: stage.n].copy_(p)
-        else:
-            routed_df_split_cuda(x, xh, xl)
-    elif isinstance(stage, DFGatherStage):
+    if isinstance(stage, DFGatherReduceStage):
         out = _pairs(bufs, stage.out, stage.out_elems())
+        t = stage.tail
         if plain:
-            for k, p in enumerate(routed_df_gather_reference(
-                    stage.vals, stage.vals_lo, stage.pidx, stage.widx, stage.n_tiles,
-                    *dfloat.split_f64_t(x))):
+            for k, p in enumerate(df_gather_reduce_reference(stage.vals, stage.cols, x, stage.runs,
+                                                             stage.tree)):
                 out[:, k].copy_(p.reshape(-1))
+            if t is not None:
+                _plain_reduce(t, bufs)
         else:
-            routed_df_gather_cuda(stage.vals, stage.vals_lo, stage.pidx, stage.widx, stage.n_tiles,
-                                  x, out.view(-1))
+            tail = None if t is None else (
+                _pairs(bufs, t.src).view(-1), t.imap, t.mask, t.groups, t.chunks,
+                _pairs(bufs, t.out, t.out_elems()).view(-1), t.tasks)
+            routed_df_gather_reduce_cuda(stage.vals, stage.cols, stage.groups, stage.chunks, x,
+                                         out.view(-1), tail, stage.ticket, stage.tasks)
     elif isinstance(stage, DFReduceStage):
-        src = _pairs(bufs, stage.src)
-        out = _pairs(bufs, stage.out, stage.out_elems())
         if plain:
-            for k, p in enumerate(df_perm_reduce_reference(
-                    src[:, 0], src[:, 1], stage.imap.idx, stage.mask, stage.runs, stage.tree)):
-                out[:, k].copy_(p.reshape(-1))
+            _plain_reduce(stage, bufs)
         else:
-            routed_df_reduce_cuda(src.view(-1), stage.imap, stage.mask, stage.groups, stage.chunks,
-                                  out.view(-1))
+            out = _pairs(bufs, stage.out, stage.out_elems())
+            routed_df_reduce_cuda(_pairs(bufs, stage.src).view(-1), stage.imap, stage.mask,
+                                  stage.groups, stage.chunks, out.view(-1), stage.tasks)
     elif isinstance(stage, DFPermuteStage):
         src = _pairs(bufs, stage.src)
         out = y[stage.out.off : stage.out.off + stage.n]
@@ -2392,24 +2511,26 @@ def run_df_stage(stage: DFStage, bufs: Dict[str, torch.Tensor], plain: bool) -> 
             routed_df_permute_cuda(src.view(-1), stage.imap, stage.n, out)
     else:
         out = y[stage.out.off :]
-        xh, xl = _planes(bufs, stage.x, stage.x_plane, stage.x_plane)
         if plain:
             out[stage.rows.long()] = dfloat.df_combine64(*df_rowdot_reference(
-                stage.hh, stage.hl, xh[: stage.n_x], xl[: stage.n_x], stage.plan.threads))
+                stage.hh, stage.hl, *dfloat.split_f64_t(x), stage.plan.threads))
         else:
             n_part = _rowdot_part_elems(stage.plan, stage.hh.shape[0])
-            routed_df_rowdot_cuda(stage.hh, stage.hl, stage.rows, stage.plan, xh, xl, out,
-                                  bufs["s"][stage.part.off : stage.part.off + n_part]
-                                  if n_part else None)
+            routed_df_rowdot_cuda(stage.hh, stage.hl, stage.rows, stage.plan, x, out,
+                                  bufs["s"][stage.part.off : stage.part.off + n_part],
+                                  stage.tickets)
 
 
 def df_stage_output(stage: DFStage, bufs: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """What a df stage wrote: x's planes (the split), the (hi, lo) pairs (K3,
-    C-df), the domain's rows of y (the output gather), y at the heavy rows
-    (D-df)."""
-    if isinstance(stage, DFSplitStage):
-        return torch.cat(_planes(bufs, stage.out, stage.plane, stage.plane))
-    if isinstance(stage, (DFGatherStage, DFReduceStage)):
+    """What a df stage wrote: the (hi, lo) pairs (C-df; level 0's, then
+    the closed level's), the domain's rows of y (the output gather), y at
+    the heavy rows (D-df)."""
+    if isinstance(stage, DFGatherReduceStage):
+        out = [_pairs(bufs, stage.out, stage.out_elems()).reshape(-1)]
+        if stage.tail is not None:
+            out.append(_pairs(bufs, stage.tail.out, stage.tail.out_elems()).reshape(-1))
+        return torch.cat(out)
+    if isinstance(stage, DFReduceStage):
         return _pairs(bufs, stage.out, stage.out_elems()).reshape(-1)
     if isinstance(stage, DFPermuteStage):
         return bufs["y"][stage.out.off : stage.out.off + stage.n]
@@ -2500,9 +2621,9 @@ def routed_df_staged_reference(chain: RoutedDFChain, x: torch.Tensor) -> torch.T
 
 def routed_df_spmv(chain: RoutedDFChain, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """y = A @ x in double-float (f64 in and out, length m) over a prepared
-    df chain. CUDA tensors enqueue the chain's program (the split of x, then
-    K3, C-df per level, the output gather and D-df per domain) in one call of
-    csrc/df_spmv.cu;
+    df chain. CUDA tensors enqueue the chain's program (per domain C-df per
+    level, level 0 forming K3's products, the output gather and D-df) in one
+    call of csrc/df_spmv.cu;
     with plain=True, or for CPU tensors, every stage runs its plain version
     (routed_df_reference). Anything else raises."""
     _device_of(x)

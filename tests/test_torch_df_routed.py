@@ -26,10 +26,12 @@ import spmv_openmp_cuda_tpu as J
 from spmv_openmp_cuda_tpu.formats import routed as jr
 import spmv_openmp_cuda_tpu_torch as T
 from spmv_openmp_cuda_tpu_torch.formats import routed as tr
+from spmv_openmp_cuda_tpu_torch.ops import dfloat as tdf
 from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
 from spmv_openmp_cuda_tpu_torch.ops.oracle import serial_csr_spmv
 from spmv_openmp_cuda_tpu_torch.utils import synth as tsynth
 from torch_numpy_path import numpy_path
+import torch_df_cases as df_cases
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -75,6 +77,21 @@ def _jax_y(fn, *args):
     with jax.enable_x64(True):
         args = [jnp.asarray(a, jnp.float64) if isinstance(a, np.ndarray) else a for a in args]
         return np.asarray(fn(*args), np.float64)
+
+
+def _reduce_levels(chain):
+    """(imap, mask, runs, tree, stage) of every C-df level of the chain in
+    order: level 0 (its offsets into K3's products), the level its last CTA
+    closes, the later levels."""
+    out = []
+    for s in chain.stages:
+        if isinstance(s, trc.DFGatherReduceStage):
+            out.append((s.imap, None, s.runs, s.tree, s))
+            if s.tail is not None:
+                out.append((s.tail.imap, s.tail.mask, s.tail.runs, s.tail.tree, s.tail))
+        elif isinstance(s, trc.DFReduceStage):
+            out.append((s.imap, s.mask, s.runs, s.tree, s))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +188,8 @@ def test_routed_df_permutations_are_one_gather_per_plane(name):
     tcsr, tm, _ = _routed_prepared(name)
     mat = tm.mat
     chain = trc.build_df_chain(tm)
-    maps = [s.imap for s in chain.stages if isinstance(s, (trc.DFReduceStage, trc.DFPermuteStage))]
+    maps = [lv[0] for lv in _reduce_levels(chain)] + [
+        s.imap for s in chain.stages if isinstance(s, trc.DFPermuteStage)]
     plans = [mat.perm_products, *mat.lvl_perms, mat.perm_out]
     assert len(maps) == len(plans)
     rng = np.random.default_rng(6)
@@ -245,12 +263,11 @@ def test_routed_df_wrappers_check_on_the_cpu():
         trc.build_df_chain(dataclasses.replace(rm, vals_lo=rm.vals_lo[:-128]))
     z = torch.zeros(rcsr.shape[1])
     z64 = torch.zeros(rcsr.shape[1], dtype=torch.float64)
+    first = chain.stages[0]
+    assert isinstance(first, trc.DFGatherReduceStage) and first.tail is not None
     with pytest.raises(ValueError, match="CUDA"):
-        trc.routed_df_gather_cuda(rm.mat.vals, rm.vals_lo, rm.mat.pidx, rm.mat.widx,
-                                  rm.mat.perm_products.t, z64, z)
-    with pytest.raises(ValueError, match="CUDA"):
-        trc.routed_df_split_cuda(z64, z, z)
-    red = next(s for s in chain.stages if isinstance(s, trc.DFReduceStage))
+        trc.routed_df_gather_reduce_cuda(first.vals, first.cols, first.groups, first.chunks, z64, z)
+    red = first.tail
     with pytest.raises(ValueError, match="CUDA"):
         trc.routed_df_reduce_cuda(z, red.imap, red.mask, red.groups, red.chunks, z)
     with pytest.raises(ValueError, match="CUDA"):
@@ -258,7 +275,7 @@ def test_routed_df_wrappers_check_on_the_cpu():
     hh = torch.zeros(2, 256)
     with pytest.raises(ValueError, match="CUDA"):
         trc.routed_df_rowdot_cuda(hh, hh, torch.zeros(2, dtype=torch.int32), trc.rowdot_plan(256),
-                                  z, z, z64)
+                                  z64, z64)
     assert all(fn.launches == 0 for fn in trc._DF_COUNTERS.values())
 
 
@@ -350,29 +367,29 @@ def test_df_perm_reduce_plain_matches_the_staged_reduce_and_jax(name):
     _tcsr, tm, jm = _routed_prepared(name)
     mat = tm.mat
     chain = trc.build_df_chain(tm)
-    reds = [s for s in chain.stages if isinstance(s, trc.DFReduceStage)]
+    reds = _reduce_levels(chain)
     plans = [(mat.perm_products, jm.mat.perm_products, None, None)] + [
         (p, jp, mk, jmk) for p, jp, mk, jmk in zip(mat.lvl_perms, jm.mat.lvl_perms, mat.lvl_masks,
                                                   jm.mat.lvl_masks)]
-    assert len(reds) == len(plans) >= 2 and any(s.mask is not None for s in reds)
+    assert len(reds) == len(plans) >= 2 and any(lv[1] is not None for lv in reds)
     rng = np.random.default_rng(11)
-    for stage, (plan, jplan, mask, jmask) in zip(reds, plans):
-        src_rows = stage.imap.steps.src_rows
+    for (imap, smask, runs, tree, _stage), (plan, jplan, mask, jmask) in zip(reds, plans):
+        src_rows = imap.steps.src_rows
         sh, sl = _signed_planes(rng, src_rows)
         got = trc.df_perm_reduce_reference(torch.from_numpy(sh), torch.from_numpy(sl),
-                                           stage.imap.idx, stage.mask, stage.runs, stage.tree)
+                                           imap.idx, smask, runs, tree)
         pad = [torch.from_numpy(np.pad(a, ((0, plan.h - src_rows), (0, 0)))) for a in (sh, sl)]
         slab = [trc.staged_reference(trc.plan_steps(plan), a) for a in pad]
-        want = trc.reduce_runs_df(*slab, trc.df_reduce_plan(stage.runs, plan.h, torch.device("cpu")),
+        want = trc.reduce_runs_df(*slab, trc.df_reduce_plan(runs, plan.h, torch.device("cpu")),
                                   mask)
         for k in range(2):
             np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]))
         jslab = [np.asarray(jroute.apply_permutation(jplan, jnp.asarray(a.numpy()))) for a in pad]
         np.testing.assert_array_equal(jslab[0], slab[0].numpy())
-        jh, jl = _jax_df_reduce(*jslab, stage.runs, jmask)
+        jh, jl = _jax_df_reduce(*jslab, runs, jmask)
         assert torch.equal(got[0], torch.from_numpy(jh)) and torch.equal(got[1], torch.from_numpy(jl))
         kh, kl = _kernel_group_sums(*(a.numpy() for a in slab) if mask is None else
-                                    (a.numpy() * mask.numpy() for a in slab), stage.runs)
+                                    (a.numpy() * mask.numpy() for a in slab), runs)
         np.testing.assert_array_equal(_bits(kh), _bits(got[0]))
         np.testing.assert_array_equal(_bits(kl), _bits(got[1]))
 
@@ -437,14 +454,80 @@ def _kernel_rowdot(ph, pl, threads):
     return h[:, 0], lo[:, 0]
 
 
+def _rev(j, bits):
+    return int(format(j, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _halve(h, lo, axis):
+    """The halving tree over one axis (a power of two): index a with a +
+    half, half = size/2 .. 1, the lower on the left; drops the axis."""
+    while h.shape[axis] > 1:
+        half = h.shape[axis] // 2
+        a, b = np.split(h, 2, axis), np.split(lo, 2, axis)
+        h, lo = _np_df_add(a[0], b[0], a[1], b[1])
+    return h.squeeze(axis), lo.squeeze(axis)
+
+
+def _kernel_rowdot_ctas(ph, pl, plan):
+    """csrc/df_spmv.cu's D-df in its own index arithmetic on the padded
+    products (n_h, p2): thread (warp w, lane) of CTA g owns the quad of
+    residues 4*(lane + 32*(g + G*w)) + i and streams each one's columns p +
+    P*k in bit-reversed k order (a _Stack); the warps pair (w with w +
+    half); each CTA leaves its pairs at plane rev(m) * S + s (g = s + S*m,
+    M = min(G, 16)); the closer of each s streams each (row, residue)'s M
+    pairs in that order (a _Stack), the last of the S closers the S sums at
+    their bit-reversed planes (s with s + half), then lanes (l with l +
+    off, off = 16 .. 1) and the quad (0 with 2, 1 with 3, then 0 with 1).
+    The rows of a tile run one after the other, each the same steps."""
+    n_h, p2 = ph.shape
+    cta, G, K = plan.cta, plan.groups, 1 << plan.log_k
+    W, P = cta // 32, 4 * cta * G
+    assert P * K == p2
+    w = np.arange(W)[:, None, None, None]
+    g = np.arange(G)[None, :, None, None]
+    lane = np.arange(32)[None, None, :, None]
+    p = 4 * (lane + 32 * (g + G * w)) + np.arange(4)  # (W, G, 32, 4)
+    st = _Stack(16)
+    for j in range(K):
+        col = p + P * _rev(j, plan.log_k)
+        h, lo = st.push(j, ph[:, col], pl[:, col])
+    h, lo = _halve(h, lo, 1)  # the warps: (n_h, G, 32, 4)
+    M = min(G, 16)
+    S = G // M
+    st = _Stack(16)
+    for j in range(M):
+        m = _rev(j, M.bit_length() - 1)
+        sh, sl = st.push(j, h[:, S * m : S * m + S], lo[:, S * m : S * m + S])  # (n_h, S, 32, 4)
+    sh, sl = _halve(sh, sl, 1)  # g's low bits: (n_h, 32, 4)
+    for off in (16, 8, 4, 2, 1):
+        nh, nl = _np_df_add(sh[:, :off], sl[:, :off], sh[:, off : 2 * off], sl[:, off : 2 * off])
+        sh, sl = np.concatenate([nh, sh[:, off:]], 1), np.concatenate([nl, sl[:, off:]], 1)
+    qh, ql = sh[:, 0], sl[:, 0]  # (n_h, 4)
+    a0 = _np_df_add(qh[:, 0], ql[:, 0], qh[:, 2], ql[:, 2])
+    a1 = _np_df_add(qh[:, 1], ql[:, 1], qh[:, 3], ql[:, 3])
+    return _np_df_add(*a0, *a1)
+
+
+def _plans_of(p2):
+    """D-df plans of a padded width p2: other splits of p2 into CTAs of 32
+    .. 256 threads and 1 .. 256 CTAs a tile (one or two closing steps)."""
+    out = []
+    for cta in (32, 64, 256):
+        for groups in (1, 2, 32, 64, 256):
+            threads = 4 * cta * groups
+            if threads <= p2 and (p2 // threads).bit_length() - 1 <= 15:
+                out.append(trc.RowdotPlan(threads, cta, (p2 // threads).bit_length() - 1, groups))
+    return out
+
+
 @pytest.mark.parametrize("n", [1, 127, 128, 1000, 5000])
 def test_df_rowdot_plain_matches_the_dense_rowdot_and_jax(n):
     """Plain D-df against the parent's df_dense_rowdot (bit for bit) and the
-    JAX package's _df_dense_rowdot (equal values) for every thread count of
+    JAX package's _df_dense_rowdot (equal values) for every residue count of
     the kernel, on a sparse block (stored zeros times negative x: -0
-    products) with x shorter than the block; the kernel's order (its stack
-    over bit-reversed columns, then the halving over threads) gives the same
-    bits."""
+    products) with x shorter than the block; the kernel's order (its CTAs'
+    index arithmetic, warps, lanes and closing CTA: _kernel_rowdot_ctas)
+    gives the same bits for every plan that covers the width."""
     rng = np.random.default_rng(n)
     hh = rng.standard_normal((3, n)).astype(np.float32)
     hh[rng.random((3, n)) < 0.7] = np.float32(0.0)
@@ -466,29 +549,74 @@ def test_df_rowdot_plain_matches_the_dense_rowdot_and_jax(n):
         kh, kl = _kernel_rowdot(ph.numpy(), pl.numpy(), threads)
         np.testing.assert_array_equal(_bits(kh), _bits(want[0]))
         np.testing.assert_array_equal(_bits(kl), _bits(want[1]))
+    plans = _plans_of(p2)
     if n % 128 == 0:
+        plans.append(trc.rowdot_plan(n, 3))
         assert all(trc.rowdot_plan(n, n_h).threads in _kernel_threads(p2) for n_h in (1, 3, 8, 20))
+    for plan in plans:
+        kh, kl = _kernel_rowdot_ctas(ph.numpy(), pl.numpy(), plan)
+        np.testing.assert_array_equal(_bits(kh), _bits(want[0]), err_msg=str(plan))
+        np.testing.assert_array_equal(_bits(kl), _bits(want[1]), err_msg=str(plan))
+
+
+def test_df_rowdot_kernel_order_on_caida_shape():
+    """_kernel_rowdot_ctas on caida_like's heavy-block width (192,256
+    columns: p2 = 2^18) under rowdot_plan's launch for its 8 rows (tiles of
+    2 rows, 64 CTAs of 256 threads each, four columns per residue: four
+    closers, then one) and under its launch for one row (256 CTAs, one
+    column per residue: 16 closers of 16 CTAs each), on 2 rows:
+    df_dense_rowdot's bits."""
+    rng = np.random.default_rng(3)
+    n = 192_256
+    hh = rng.standard_normal((2, n)).astype(np.float32)
+    hh[rng.random((2, n)) < 0.9] = np.float32(0.0)
+    hl = (hh * np.float32(1e-8)).astype(np.float32)
+    xh = rng.standard_normal(n - 12).astype(np.float32)
+    xl = (xh * np.float32(3e-9)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (hh, hl, xh, xl)]
+    want = trc.df_dense_rowdot(*args)
+    ph, pl, _p2 = trc._rowdot_products(*args)
+    plan, one = trc.rowdot_plan(n, 8), trc.rowdot_plan(n, 1)
+    assert (plan.cta, plan.groups, plan.tile, plan.log_k, trc._rowdot_closers(plan)) == (256, 64, 2, 2, 4)
+    assert (one.cta, one.groups, one.tile, one.log_k, trc._rowdot_closers(one)) == (256, 256, 1, 0, 16)
+    for plan in (plan, one):
+        kh, kl = _kernel_rowdot_ctas(ph.numpy(), pl.numpy(), plan)
+        np.testing.assert_array_equal(_bits(kh), _bits(want[0]))
+        np.testing.assert_array_equal(_bits(kl), _bits(want[1]))
 
 
 def test_df_rowdot_plan():
-    """D-df's launch plan: four residues a thread, one CTA of up to 512
-    threads per row, more CTAs of 512 per row (up to 32) while all rows'
-    CTAs stay within 256, the block's padded width covered exactly."""
-    for n_pad, n_h, want in ((128, 8, (128, 32, 0, 1)), (256, 8, (256, 64, 0, 1)),
-                             (1024, 1, (1024, 256, 0, 1)), (2560, 1, (4096, 512, 0, 2)),
-                             (40_960, 8, (65536, 512, 0, 32)), (40_960, 200, (2048, 512, 5, 1)),
-                             (192_256, 8, (65536, 512, 2, 32)), (192_256, 1, (65536, 512, 2, 32)),
-                             (1_000_064, 4, (65536, 512, 4, 32)),
-                             (1_000_064, 7, (65536, 512, 4, 32)),
-                             (1_000_064, 40, (8192, 512, 7, 4))):
+    """D-df's launch plan: four residues a thread, CTAs of 256 threads
+    (fewer on a block narrower than 1024 padded columns), as many CTAs per
+    tile (up to 256) as leave a residue 4 columns, tiles of up to 4 rows, as
+    few as make about 256 CTAs in all, more CTAs per tile where tiles of
+    one row make fewer, the block's padded width covered exactly; its
+    scratch and tickets; the wrapper's check refuses any other plan."""
+    for n_pad, n_h, want in (
+            (128, 1, (128, 32, 0, 1, 1)), (256, 5, (256, 64, 0, 1, 1)),
+            (2560, 5, (4096, 256, 0, 4, 1)), (40_960, 1, (65536, 256, 0, 64, 1)),
+            (192_256, 8, (65536, 256, 2, 64, 2)), (192_256, 4, (65536, 256, 2, 64, 1)),
+            (192_256, 1, (262144, 256, 0, 256, 1)),
+            (1_000_064, 7, (262144, 256, 2, 256, 4)), (1_000_064, 3, (262144, 256, 2, 256, 3)),
+            (1_000_064, 40, (262144, 256, 2, 256, 4))):
         plan = trc.rowdot_plan(n_pad, n_h)
-        assert (plan.threads, plan.cta, plan.log_k, plan.groups) == want
+        assert (plan.threads, plan.cta, plan.log_k, plan.groups, plan.tile) == want
         assert plan.threads << plan.log_k == 1 << (n_pad - 1).bit_length()
         assert plan.cta * plan.groups * 4 == plan.threads
-        assert plan.groups == 1 or plan.cta == 512
-    for bad, n_h in ((0, 1), (100, 1), (2**30, 1000)):
+    for bad, n_h in ((0, 1), (100, 1), (2**40, 1), (256, 0)):
         with pytest.raises(ValueError):
             trc.rowdot_plan(bad, n_h)
+    plan = trc.rowdot_plan(192_256, 8)
+    assert trc._rowdot_part_elems(plan, 8) == 8 * 128 * (64 + 4) * 2
+    assert trc._rowdot_tickets(17, plan, "cpu").tolist() == [0] * (9 * 5)
+    hh = torch.zeros(8, 192_256)
+    args = (hh, hh, torch.arange(8, dtype=torch.int32))
+    x, y = torch.zeros(192_256, dtype=torch.float64), torch.zeros(8, dtype=torch.float64)
+    trc._check_rowdot(*args, plan, x, y)
+    for bad in (dataclasses.replace(plan, tile=1), dataclasses.replace(plan, tile=4),
+                trc.RowdotPlan(32768, 256, 3, 32, 1), trc.rowdot_plan(192_256, 4)):
+        with pytest.raises(ValueError, match="D-df plan"):
+            trc._check_rowdot(*args, bad, x, y)
 
 
 def _chunked_df():
@@ -516,39 +644,51 @@ def _op_words():
 
 @pytest.mark.parametrize("name", ["power_law", "heavy_row", "chunked"])
 def test_df_chain_launch_list(name):
-    """The planned program of a df product: the split of x where a domain
-    has dense heavy rows, then per domain K3, C-df per level, the output
-    gather, D-df for the dense heavy rows; the counts those make, the
+    """The planned program of a df product: per domain C-df level 0 (forming
+    K3's products; closing the level after it where that level is one
+    tile), C-df per later level, the output gather, D-df for the dense heavy
+    rows, one launch each (caida_like: 3); the counts those make, the
     program's words as csrc/df_spmv.cu reads them, every stage inside the
-    scratch (x's planes, then each domain's (hi, lo) pairs past them) or in
-    its domain's rows of y."""
+    scratch (the domain's (hi, lo) pairs, then D-df's CTA sums) or in its
+    domain's rows of y."""
     if name == "chunked":
         tcsr, mat = _chunked_df()
     else:
         tcsr, mat, _ = _routed_prepared(name)
     chain = trc.build_df_chain(mat)
-    heavy = any(mdf.heavy_rows_df for mdf in chain.domains)
-    want = ["df_split"] if heavy else []
+    want, closed = [], []
     for mdf in chain.domains:
-        want += ["df_gather"] + ["df_reduce"] * (1 + len(mdf.mat.lvl_perms)) + ["df_permute"]
-        want += ["df_rowdot"] if mdf.heavy_rows_df else []
+        tail = bool(mdf.mat.lvl_perms) and mdf.mat.lvl_perms[0].t == 1
+        closed.append(tail)
+        want += ["df_gather_reduce"] + ["df_reduce"] * (len(mdf.mat.lvl_perms) - tail)
+        want += ["df_permute"] + (["df_rowdot"] if mdf.heavy_rows_df else [])
     assert [s.kernel for s in chain.stages] == want
+    assert [s.tail is not None for s in chain.stages if isinstance(s, trc.DFGatherReduceStage)] == closed
     assert chain.counts == {k: want.count(k) for k in trc._DF_COUNTERS}
-    closes = [s for s in chain.stages if isinstance(s, trc.DFRowdotStage) and s.plan.groups > 1]
-    assert trc.df_chain_launches(chain) == len(want) + len(closes)
-    assert len(closes) == (name == "heavy_row")  # 16 CTAs for its one row of 30,080 columns
+    assert trc.df_chain_launches(chain) == len(want)
     assert len(chain.domains) == (3 if name == "chunked" else 1)
     assert (chain.counts["df_rowdot"] > 0) == (name == "heavy_row")
+    if name != "chunked":  # one level, one tile: closed by level 0's last CTA
+        assert closed == [name != "heavy_row"]
+        assert trc.df_chain_launches(chain) == (3 if name == "heavy_row" else 2)
     words = _op_words()
     for s in chain.stages:
         op = trc._df_stage_op(s)
         assert len(op) == words[op[0]]
-        if isinstance(s, (trc.DFGatherStage, trc.DFReduceStage)):
-            assert s.out.kind == "s" and s.out.off % 2 == 0
-            assert s.out.off + 2 * s.out_elems() <= chain.scratch_elems
-            assert s.out.off >= (2 * tcsr.shape[1] if heavy else 0)  # past x's planes
+        if isinstance(s, (trc.DFGatherReduceStage, trc.DFReduceStage)):
+            for st in (s, getattr(s, "tail", None)):
+                if st is not None:
+                    assert st.out.kind == "s" and st.out.off % 2 == 0
+                    assert st.out.off + 2 * st.out_elems() <= chain.scratch_elems
+        if isinstance(s, trc.DFGatherReduceStage):
+            rows = s.imap.idx.shape[0]
+            assert s.vals.shape == (rows, 128, 2) and s.cols.shape == (rows, 128)
+            assert s.cols.dtype == torch.int32 and not s.ticket.any()
         if isinstance(s, trc.DFRowdotStage):
-            assert (s.x.off, s.n_x, s.x_plane % 64) == (0, tcsr.shape[1], 0)
+            assert s.part.off % 2 == 0 and s.n_x == tcsr.shape[1]
+            assert s.part.off + trc._rowdot_part_elems(s.plan, s.hh.shape[0]) <= chain.scratch_elems
+            assert s.tickets.shape == (trc._rowdot_ticket_words(s.plan, s.hh.shape[0]),)
+            assert not s.tickets.any() and s.plan == trc.rowdot_plan(s.hh.shape[1], s.hh.shape[0])
     outs = [s for s in chain.stages if isinstance(s, trc.DFPermuteStage)]
     assert [s.out.off for s in outs] == list(chain.bounds[:-1])
     assert [s.out.off + s.n for s in outs] == list(chain.bounds[1:])
@@ -556,3 +696,269 @@ def test_df_chain_launch_list(name):
     y = trc.routed_df_spmv(chain, x)
     assert trc.bits_equal(y, trc.routed_df_staged_reference(chain, x))
     assert _rel(y, serial_csr_spmv(tcsr, x.numpy())) < (1e-10 if name == "chunked" else 1e-11)
+
+
+# ---------------------------------------------------------------------------
+# C-df level 0: K3's products formed where they are summed, and the
+# one-tile level its last CTA closes
+# ---------------------------------------------------------------------------
+
+
+def _parent_level0(d):
+    """The parent's plain K3 (products of the n_tiles tiles, pad tiles zero)
+    followed by plain C-df through the offsets."""
+    xh, xl = tdf.split_f64_t(d["x"])
+    ph, pl = trc.routed_df_gather_reference(d["vals"], d["vals_lo"], d["pidx"], d["widx"],
+                                            d["n_tiles"], xh, xl)
+    return trc.df_perm_reduce_reference(ph.reshape(-1), pl.reshape(-1), d["off"], None, d["runs"])
+
+
+@pytest.mark.parametrize("case", list(df_cases.LEVEL0_RUNS))
+def test_df_gather_reduce_plain_is_k3_then_c_df(case):
+    """Level 0's plain version over the composed operands (each slot's value
+    pair and x column) is bit for bit the parent's plain K3 followed by plain
+    C-df, on hand-made tiles holding both kinds of empty slot apart: offsets
+    -1 and offsets into pad tiles read (+0, +0), while real slots keep their
+    products, -0 words included (a -0 or negative value where x is a signed
+    zero, a column past x's end). A sentinel merging the two kinds (an empty
+    slot given a real column) changes the bits."""
+    d = df_cases.level0_case(df_cases.LEVEL0_RUNS[case])
+    vals, cols = trc.gather_reduce_operands(d["vals"], d["vals_lo"], d["pidx"], d["widx"], d["off"])
+    want = _parent_level0(d)
+    got = trc.df_gather_reduce_reference(vals, cols, d["x"], d["runs"])
+    for k in range(2):
+        np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]))
+    off = d["off"].long()
+    real = (off >= 0) & (off < d["vals"].numel())
+    assert ((off == -1).any() and (off >= d["vals"].numel()).any() and real.any())
+    assert (cols[~real] == -1).all() and (vals[~real] == 0).all()
+    assert not torch.signbit(vals[~real]).any()  # +0 pairs
+    n_x = d["x"].shape[0]
+    assert (cols[real] >= n_x).any()  # columns past x's end
+    ph, _pl = trc.gather_reduce_products(vals, cols, d["x"])
+    neg_zero = real & (ph == 0) & torch.signbit(ph)
+    assert neg_zero.any()  # real products with a -0 hi word
+    # a sentinel merging the kinds: real slots of a zero value or a column
+    # past x's end read as empty. Where a group of a power-of-two width
+    # sums to a -0 word (no +0 pad turns it +0), the bits change.
+    merge = real & ((vals[..., 0] == 0) | (cols >= n_x))
+    mvals = torch.where(merge[..., None], torch.zeros_like(vals), vals)
+    mcols = torch.where(merge, torch.full_like(cols, -1), cols)
+    merged = trc.df_gather_reduce_reference(mvals, mcols, d["x"], d["runs"])
+    signed = bool(torch.signbit(want[0][want[0] == 0]).any())
+    assert signed == (case == "mixed")
+    if signed:
+        assert not (trc.bits_equal(merged[0], want[0]) and trc.bits_equal(merged[1], want[1]))
+
+
+@pytest.mark.parametrize("name", ["power_law", "split_level", "heavy_row"])
+def test_df_gather_reduce_plain_on_the_chain(name):
+    """Level 0 of the df chain on synthetic routed matrices: its plain
+    version bit for bit the parent's plain K3 followed by plain C-df through
+    the products plan's composed offsets, and in value the JAX package's
+    _gather_products_df then _reduce_runs_df over its apply_permutation."""
+    from spmv_openmp_cuda_tpu.ops import route as jroute
+
+    tcsr, tm, jm = _routed_prepared(name)
+    chain = trc.build_df_chain(tm)
+    s = chain.stages[0]
+    assert isinstance(s, trc.DFGatherReduceStage)
+    x = torch.from_numpy(_x(tcsr.shape[1], seed=12))
+    mat = tm.mat
+    d = {"vals": mat.vals, "vals_lo": tm.vals_lo, "pidx": mat.pidx, "widx": mat.widx,
+         "n_tiles": mat.perm_products.t, "x": x, "off": s.imap.idx, "runs": s.runs}
+    want = _parent_level0(d)
+    got = trc.df_gather_reduce_reference(s.vals, s.cols, x, s.runs, s.tree)
+    for k in range(2):
+        np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]))
+    xh, xl = (jnp.asarray(a.numpy()) for a in tdf.split_f64_t(x))
+    jp = jr._gather_products_df(jm.mat, jm.vals_lo, jr._pack_xw(jm.mat, xh), jr._pack_xw(jm.mat, xl))
+    h1 = jm.mat.perm_products.h
+    jslab = [jroute.apply_permutation(jm.mat.perm_products, jnp.pad(a, ((0, h1 - a.shape[0]), (0, 0))))
+             for a in jp]
+    jh, jl = jr._reduce_runs_df(*jslab, jm.mat.runs)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(jh), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tdf.df_combine64(*got).numpy(),
+                               tdf.df_combine64(torch.from_numpy(np.array(jh)),
+                                                torch.from_numpy(np.array(jl))).numpy(),
+                               rtol=0, atol=1e-12 * float(np.abs(np.asarray(jh)).max()))
+
+
+def _reduce_warps():
+    """csrc/df_spmv.cu's warps per C-df CTA (kReduceWarps)."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(trc.__file__), "..", "csrc", "df_spmv.cu")).read()
+    return int(re.search(r"constexpr int kReduceWarps = (\d+);", src).group(1))
+
+
+def _kernel_task_sums(sh, sl, runs):
+    """C-df's order by its warp tasks (df_reduce_tasks, in CTA-sets of
+    kReduceWarps): a task of a chunk of at most 32 rows pushes the chunk's
+    rows through a _Stack and closes each group from the stack's levels
+    (_kernel_group_sums); a wider group's blocks of 32 rows are tasks of
+    their own, each closed as a group of its rows plus one +0 pair where it
+    has fewer than 32, and the group's sum is the adjacent-pair tree over its
+    p2/32 block sums, +0 pairs past its blocks. (n_groups, 128) per plane."""
+    chunks = trc.reduce_chunks(runs, "cpu")
+    tasks = trc.df_reduce_tasks(chunks).numpy().reshape(-1, _reduce_warps(), 4)
+    chunks = chunks.numpy()
+    table = trc.groups_table(runs, "cpu").numpy()
+    out_h = np.full((table.shape[0], 128), np.nan, np.float32)
+    out_l = out_h.copy()
+    zero = np.zeros(32, np.float32)
+    seen = set()
+    for tset in tasks:
+        blocks = {}
+        for c, band, j, nb in tset:
+            if c < 0:
+                continue
+            seen.add((int(c), int(band), int(j)))
+            row0, row1, g0, g1 = chunks[c]
+            lanes = slice(32 * band, 32 * band + 32)
+            if nb == 1:
+                sub = tuple((int(table[g, 0]), 1, int(table[g, 1]), g - g0) for g in range(g0, g1))
+                out_h[g0:g1, lanes], out_l[g0:g1, lanes] = _kernel_group_sums(
+                    sh[:, lanes], sl[:, lanes], sub)
+                continue
+            r0 = row0 + 32 * j
+            n = min(32, row1 - r0)
+            kh, kl = _kernel_group_sums(sh[:, lanes], sl[:, lanes], ((r0, 1, n, 0),))
+            kh, kl = kh[0], kl[0]
+            if n < 32:
+                kh, kl = _np_df_add(kh, kl, zero, zero)
+            blocks[(c, band, j)] = (kh, kl)
+        for c, band, j, nb in tset:
+            if c < 0 or nb == 1 or j != 0:
+                continue
+            row0, row1, g0, _g1 = chunks[c]
+            v = [blocks.get((c, band, jj), (zero, zero)) for jj in range(4)]
+            a = _np_df_add(*v[0], *v[1])
+            if row1 - row0 > 64:
+                a = _np_df_add(*a, *_np_df_add(*v[2], *v[3]))
+            out_h[g0, 32 * band : 32 * band + 32], out_l[g0, 32 * band : 32 * band + 32] = a
+    want = {(c, b, j) for c, (r0, r1, _g0, _g1) in enumerate(chunks) for b in range(4)
+            for j in range(1 if r1 - r0 <= 32 else -(-(r1 - r0) // 32))}
+    assert seen == want  # every task once
+    return out_h, out_l
+
+
+def _kernel_closed_level(src_h, src_l, off, mask, runs):
+    """The closing CTA's order over a one-tile level: its warps run the
+    level's CTA-sets in turn (_kernel_task_sums), each slot read through its
+    offset (-1: +0) and masked by a multiply."""
+    o = off.numpy().astype(np.int64)
+    sh = np.where(o >= 0, src_h[np.maximum(o, 0)], np.float32(0))
+    sl = np.where(o >= 0, src_l[np.maximum(o, 0)], np.float32(0))
+    if mask is not None:
+        sh, sl = sh * mask.numpy(), sl * mask.numpy()
+    return _kernel_task_sums(sh, sl, runs)
+
+
+def test_df_reduce_tasks():
+    """C-df's warp tasks: every (chunk, band) once, or once per block of 32
+    rows of a chunk wider than 32 rows (one group of up to 128 rows), those
+    blocks in consecutive warps of one CTA-set of kReduceWarps; idle warps
+    pad the sets."""
+    W = _reduce_warps()
+    assert W == trc._DF_REDUCE_WARPS
+    runs = df_cases.LEVEL0_RUNS["mixed"]
+    chunks = trc.reduce_chunks(runs, "cpu")
+    tasks = trc.df_reduce_tasks(chunks)
+    assert tasks.dtype == torch.int32 and tasks.shape[1] == 4 and tasks.shape[0] % W == 0
+    sets = tasks.numpy().reshape(-1, W, 4)
+    for tset in sets:
+        live = [t for t in tset if t[0] >= 0]
+        for t in live:
+            if t[3] > 1 and t[2] == 0:  # block 0 sits before the group's other blocks
+                k = [tuple(u) for u in tset].index(tuple(t))
+                assert [tuple(u[:3]) for u in tset[k : k + t[3]]] == [
+                    (t[0], t[1], j) for j in range(t[3])]
+    rows = (chunks[:, 1] - chunks[:, 0]).numpy()
+    assert sorted(int(t[3]) for t in tasks.numpy() if t[0] >= 0 and t[2] == 0) == sorted(
+        [1 if r <= 32 else -(-r // 32) for r in rows for _ in range(4)])
+    assert {int(r) for r in rows if r > 32} == {128, 100, 40}
+
+
+@pytest.mark.parametrize("case", ["w3", "w128", "mixed"])
+def test_df_kernel_task_order_is_the_plain_reduce(case):
+    """C-df's task order (_kernel_task_sums: wider groups split into blocks
+    of 32 rows, each block's sum padded to 32 leaves, then the tree over the
+    blocks) on signed zeros and -0 words: bit for bit reduce_runs_df, the
+    plain version."""
+    runs = df_cases.LEVEL0_RUNS[case]
+    rows = max(r0 + ng * w for r0, ng, w, _g0 in runs)
+    rng = np.random.default_rng(17)
+    sh, sl = _signed_planes(rng, rows)
+    sh[:, 7], sl[:, 7] = np.float32(-0.0), np.float32(-0.0)  # a lane of -0 pairs
+    want = trc.reduce_runs_df(torch.from_numpy(sh), torch.from_numpy(sl),
+                              trc.df_reduce_plan(runs, rows, torch.device("cpu")))
+    kh, kl = _kernel_task_sums(sh, sl, runs)
+    np.testing.assert_array_equal(_bits(kh), _bits(want[0]))
+    np.testing.assert_array_equal(_bits(kl), _bits(want[1]))
+
+
+@pytest.mark.parametrize("mask", [False, True])
+@pytest.mark.parametrize("case", ["w3", "mixed"])
+def test_df_closed_level_in_the_last_cta(case, mask):
+    """The one-tile level that level 0's last CTA closes, its units taken by
+    that CTA's warps in turn, emulated on numpy float32: bit for bit
+    reduce_runs_df over level 0's sums read through the level's offsets
+    (df_perm_reduce_reference, the level's own launch before), with and
+    without a mask."""
+    d = df_cases.level0_case(df_cases.LEVEL0_RUNS[case])
+    lh, ll = _parent_level0(d)
+    off1, mask1 = df_cases.closed_level_case(lh.shape[0], df_cases.CLOSED_RUNS)
+    mk = mask1 if mask else None
+    want = trc.df_perm_reduce_reference(lh.reshape(-1), ll.reshape(-1), off1, mk,
+                                        df_cases.CLOSED_RUNS)
+    kh, kl = _kernel_closed_level(lh.reshape(-1).numpy(), ll.reshape(-1).numpy(), off1, mk,
+                                  df_cases.CLOSED_RUNS)
+    np.testing.assert_array_equal(_bits(kh), _bits(want[0]))
+    np.testing.assert_array_equal(_bits(kl), _bits(want[1]))
+    rows = off1.shape[0]
+    slab = [trc.permute_reference(a.reshape(-1), off1, off1.numel()).reshape(rows, 128)
+            for a in (lh, ll)]
+    tree = trc.df_reduce_plan(df_cases.CLOSED_RUNS, rows, torch.device("cpu"))
+    again = trc.reduce_runs_df(*slab, tree, mk)
+    for k in range(2):
+        np.testing.assert_array_equal(_bits(again[k]), _bits(want[k]))
+
+
+@pytest.mark.parametrize("what", ["fits", "rows", "sets"])
+def test_df_closed_level_is_bounded(what):
+    """The level that level 0's last CTAs close is at most one tile of 128
+    slab rows in at most 32 CTA-sets (its closers wait at once, so they
+    must be few beside the card's CTA slots): the hand-made one-tile level
+    fits; one of 129 rows or of 33 sets is refused by the wrapper before any
+    launch; a chain closes only a level that fits."""
+    d = df_cases.level0_case(df_cases.LEVEL0_RUNS["w16"])
+    vals, cols = trc.gather_reduce_operands(d["vals"], d["vals_lo"], d["pidx"], d["widx"], d["off"])
+    runs = d["runs"]
+    groups, chunks = trc.groups_table(runs, "cpu"), trc.reduce_chunks(runs, "cpu")
+    n0 = groups.shape[0]
+    off1, _mask1 = df_cases.closed_level_case(n0, df_cases.CLOSED_RUNS)
+    tchunks = trc.reduce_chunks(df_cases.CLOSED_RUNS, "cpu")
+    ttasks = trc.df_reduce_tasks(tchunks)
+    if what == "rows":
+        off1 = torch.cat([off1, off1])[: trc.LANE + 1]
+    elif what == "sets":
+        ttasks = torch.cat([ttasks, torch.full((4 * 33 - ttasks.shape[0], 4), -1, dtype=torch.int32)])
+    imap1 = trc.IndexMap(None, off1, n0 * trc.LANE)
+    assert trc._closable(imap1, ttasks) == (what == "fits")
+    out = torch.zeros(2 * n0 * trc.LANE)
+    tout = torch.zeros(2 * trc.groups_table(df_cases.CLOSED_RUNS, "cpu").shape[0] * trc.LANE)
+    tail = (out, imap1, None, trc.groups_table(df_cases.CLOSED_RUNS, "cpu"), tchunks, tout, ttasks)
+    with pytest.raises(ValueError, match="CUDA" if what == "fits" else "closed level"):
+        trc.routed_df_gather_reduce_cuda(vals, cols, groups, chunks, d["x"], out, tail)
+    assert trc.routed_df_gather_reduce_cuda.launches == 0
+    if what == "fits":
+        for name in ROUTED:
+            chain = trc.build_df_chain(_routed_prepared(name)[1])
+            assert any(isinstance(s, trc.DFGatherReduceStage) for s in chain.stages)
+            for s in chain.stages:
+                if isinstance(s, trc.DFGatherReduceStage) and s.tail is not None:
+                    assert trc._closable(s.tail.imap, s.tail.tasks)
+                    assert s.tail.imap.idx.shape[0] <= trc.LANE
+                    assert s.imap.idx.device.type == "cpu"  # level 0's offsets stay on the host

@@ -774,13 +774,14 @@ def test_window_df_kernel_matches_plain(cuda, layout):
     _df_within(yk, twc.window_spmv_df_reference(mat, xd), csr, x)
 
 
-@pytest.mark.parametrize("layout", ["level", "spiked", "small"])
+@pytest.mark.parametrize("layout", ["level", "spiked", "heavy_many", "small"])
 def test_routed_df_kernel_matches_plain(cuda, layout):
-    """The routed df program (K3, C-df per level, the output gather, D-df)
-    stage by stage bit for bit against the plain versions, each launch rerun
-    bit for bit; the whole product one program (its planned launches) and
-    bit for bit its plain chain and the staged chain, within 1e-11 of the
-    exact oracle."""
+    """The routed df program (C-df per level, level 0 forming K3's products
+    and closing a one-tile level after it, the output gather, D-df) stage by
+    stage bit for bit against the plain versions, each launch rerun bit for
+    bit; the whole product one program (its planned launches), bit for bit
+    its plain chain and the staged chain, and in CUDA graph replays, within
+    1e-11 of the exact oracle."""
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
 
     coo, _thr = ROUTED_LAYOUTS[layout]()
@@ -801,71 +802,181 @@ def test_routed_df_kernel_matches_plain(cuda, layout):
     assert trc.bits_equal(yk, trc.routed_df_spmv(chain, xd, plain=True))
     assert trc.bits_equal(yk, trc.routed_df_staged_reference(chain, xd))
     _df_within(yk, trc.routed_df_spmv(chain, xd, plain=True), csr, x)
+    yg = torch.empty_like(yk)
+    _replays_equal(lambda: yg.copy_(trc.routed_df_spmv(chain, xd)), yg, yk)
 
 
-@pytest.mark.parametrize("n_pad,n_h", [(128, 5), (256, 5), (1024, 5), (2560, 5), (5120, 5),
-                                       (40_960, 5), (40_960, 1), (192_256, 5), (192_256, 1)])
+def _replays_equal(fn, out, want):
+    """fn (which writes out) captured in a CUDA graph: three replays, out
+    refilled with NaN before each, give want's bits."""
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    for _ in range(3):
+        out.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        assert trc.bits_equal(out, want)
+
+
+@pytest.mark.parametrize("n_pad,n_h", [
+    (128, 5), (256, 5), (1024, 5), (2560, 5), (5120, 5), (5120, 20), (40_960, 5), (40_960, 1),
+    (192_256, 8), (192_256, 4), (192_256, 1), (192_256, 13), (1_000_064, 7), (1_000_064, 3),
+    (1_000_064, 17)])
 def test_routed_df_rowdot_kernel_matches_plain(cuda, n_pad, n_h):
-    """D-df on sparse (hi, lo) blocks (stored zeros: -0 products) of every
-    launch shape (one CTA of 32 to 256 threads per row, 2 to 32 CTAs of 512
-    per row, 1 to 4 columns per residue), x shorter than the block: bit for
-    bit its plain version, which is df_dense_rowdot's bits; a rerun bit for
-    bit."""
+    """D-df, one launch, on sparse (hi, lo) blocks (stored zeros: -0
+    products) of every launch shape rowdot_plan makes (CTAs of 32 to 256
+    threads, 1 to 256 CTAs per tile of 1 to 4 rows, a last tile short, one
+    or two closing steps, 1 to 4 columns per residue; caida_like's 8 rows,
+    webbase_like's 7 and 3), x in f64 shorter than the block: bit for bit
+    its plain version, which is df_dense_rowdot's bits; a rerun and CUDA
+    graph replays bit for bit, its tickets back to zero; no other row of y
+    written."""
     from spmv_openmp_cuda_tpu_torch.ops import dfloat as tdf
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
 
-    rng = np.random.default_rng(n_pad)
+    rng = np.random.default_rng(n_pad + n_h)
     hh = rng.standard_normal((n_h, n_pad)).astype(np.float32)
     hh[rng.random((n_h, n_pad)) < 0.9] = 0.0
     hl = (hh * 1e-8 * rng.standard_normal((n_h, n_pad))).astype(np.float32)
     hh, hl = (torch.as_tensor(a, device=cuda) for a in (hh, hl))
     x = torch.as_tensor(rng.standard_normal(n_pad - 77), device=cuda)
-    rows = torch.as_tensor([4, 0, 7, 2, 9][:n_h], dtype=torch.int32, device=cuda)
+    n_y = n_h + 5
+    rows = torch.as_tensor(rng.permutation(n_y)[:n_h], dtype=torch.int32, device=cuda)
     plan = trc.rowdot_plan(n_pad, n_h)
-    xh, xl = tdf.split_f64_t(x)
-    planes = [torch.nn.functional.pad(a, (0, -(-a.shape[0] // 64) * 64 - a.shape[0]))
-              for a in (xh, xl)]
+    part = torch.empty(trc._rowdot_part_elems(plan, n_h), device=cuda)
+    tickets = trc._rowdot_tickets(n_h, plan, cuda)
+    before = trc.routed_df_rowdot_cuda.launches
     ys = []
     for _ in range(2):
-        y = torch.full((10,), float("nan"), dtype=torch.float64, device=cuda)
-        ys.append(trc.routed_df_rowdot_cuda(hh, hl, rows, plan, *planes, y))
+        y = torch.full((n_y,), float("nan"), dtype=torch.float64, device=cuda)
+        ys.append(trc.routed_df_rowdot_cuda(hh, hl, rows, plan, x, y, part, tickets))
     torch.cuda.synchronize()
+    assert trc.routed_df_rowdot_cuda.launches == before + 2
+    assert not tickets.any()  # set back to zero by each tile's closing CTA
+    xh, xl = tdf.split_f64_t(x)
     want = tdf.df_combine64(*trc.df_rowdot_reference(hh, hl, xh, xl, plan.threads))
     assert trc.bits_equal(ys[0][rows.long()], want) and trc.bits_equal(ys[0], ys[1])
     assert trc.bits_equal(want, tdf.df_combine64(*trc.df_dense_rowdot(hh, hl, xh, xl)))
-    others = [r for r in range(10) if r not in rows.tolist()]
+    others = [r for r in range(n_y) if r not in rows.tolist()]
     assert torch.isnan(ys[0][others]).all()  # no other row written
+    y = torch.full((n_y,), float("nan"), dtype=torch.float64, device=cuda)
+    _replays_equal(lambda: trc.routed_df_rowdot_cuda(hh, hl, rows, plan, x, y, part, tickets), y,
+                   ys[0])
 
 
-def test_routed_df_split_kernel_matches_plain(cuda):
-    """The split of x into its (hi, lo) planes, bit for bit split_f64_t's,
-    on values that round in either direction, zeros of both signs and
-    values past the f32 range's precision; +0 past x's end."""
-    from spmv_openmp_cuda_tpu_torch.ops import dfloat as tdf
+@pytest.mark.parametrize("closed", [None, "mask", "no mask"])
+@pytest.mark.parametrize("case", ["w3", "w16", "w128", "mixed"])
+def test_routed_df_gather_reduce_kernel_matches_plain(cuda, case, closed):
+    """C-df level 0 forming K3's products from hand-made gather tiles (zero
+    values of both signs times x of both signed zeros, columns past x's end,
+    offsets -1 and into pad tiles), and the one-tile level its last CTA
+    closes, with and without a mask: bit for bit its plain version (which is
+    plain K3 followed by plain C-df), a rerun and CUDA graph replays bit for
+    bit, one launch each."""
+    import torch_df_cases as cases
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
 
-    rng = np.random.default_rng(2)
-    x = np.r_[rng.standard_normal(100_000) * 10.0 ** rng.integers(-30, 30, 100_000), 0.0, -0.0,
-              1 + 2.0 ** -30, -(1 + 2.0 ** -25)]
-    xd = torch.as_tensor(x, device=cuda)
-    n_plane = -(-x.size // 64) * 64 + 64
-    xh = torch.full((n_plane,), float("nan"), device=cuda)
-    xl = torch.full((n_plane,), float("nan"), device=cuda)
-    trc.routed_df_split_cuda(xd, xh, xl)
-    torch.cuda.synchronize()
-    wh, wl = tdf.split_f64_t(xd)
-    assert trc.bits_equal(xh[: x.size], wh) and trc.bits_equal(xl[: x.size], wl)
-    assert trc.bits_equal(xh[x.size:], torch.zeros(n_plane - x.size, device=cuda))
-    assert trc.bits_equal(xl[x.size:], torch.zeros(n_plane - x.size, device=cuda))
+    runs = cases.LEVEL0_RUNS[case]
+    d = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in cases.level0_case(runs).items()}
+    vals, cols = trc.gather_reduce_operands(d["vals"], d["vals_lo"], d["pidx"], d["widx"], d["off"])
+    groups, chunks = trc.groups_table(runs, cuda), trc.reduce_chunks(runs, cuda)
+    tasks = trc.df_reduce_tasks(chunks)  # made once: no host copy inside a graph capture
+    n0, n1 = groups.shape[0], trc.groups_table(cases.CLOSED_RUNS, "cpu").shape[0]
+    out = torch.full((2 * (n0 + n1) * LANE,), float("nan"), device=cuda)
+    level0 = out[: 2 * n0 * LANE]
+    tail, ticket = None, torch.zeros(2, dtype=torch.int32, device=cuda)
+    if closed is not None:
+        off1, mask1 = (t.to(cuda) for t in cases.closed_level_case(n0, cases.CLOSED_RUNS))
+        imap1 = trc.IndexMap(None, off1, int(off1.max()) + 1)
+        chunks1 = trc.reduce_chunks(cases.CLOSED_RUNS, cuda)
+        tail = (level0, imap1, mask1 if closed == "mask" else None,
+                trc.groups_table(cases.CLOSED_RUNS, cuda), chunks1, out[2 * n0 * LANE :],
+                trc.df_reduce_tasks(chunks1))
+    before = trc.routed_df_gather_reduce_cuda.launches
+    outs = []
+    for _ in range(2):
+        out.fill_(float("nan"))
+        trc.routed_df_gather_reduce_cuda(vals, cols, groups, chunks, d["x"], level0, tail, ticket,
+                                         tasks)
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+    assert trc.routed_df_gather_reduce_cuda.launches == before + 2
+    assert not ticket.any()
+    ph, pl = trc.df_gather_reduce_reference(vals, cols, d["x"], runs)
+    want = [torch.stack([ph.reshape(-1), pl.reshape(-1)], -1).reshape(-1)]
+    assert trc.bits_equal(outs[0][: 2 * n0 * LANE], want[0]) and trc.bits_equal(outs[0], outs[1])
+    if tail is not None:
+        src = want[0]
+        th, tl = trc.df_perm_reduce_reference(src[0::2], src[1::2], tail[1].idx, tail[2],
+                                              cases.CLOSED_RUNS)
+        want.append(torch.stack([th.reshape(-1), tl.reshape(-1)], -1).reshape(-1))
+        assert trc.bits_equal(outs[0][2 * n0 * LANE :], want[1])
+    else:
+        assert torch.isnan(outs[0][2 * n0 * LANE :]).all()
+    _replays_equal(lambda: trc.routed_df_gather_reduce_cuda(vals, cols, groups, chunks, d["x"],
+                                                            level0, tail, ticket, tasks),
+                   out, outs[0])
+
+
+@pytest.mark.parametrize("what", ["rows", "sets"])
+def test_routed_df_closed_level_refused(cuda, what):
+    """A level for level 0's last CTAs to close that is larger than one
+    tile of 128 slab rows in 32 CTA-sets (its closers would wait at once on
+    more CTA slots than the bound keeps free) is refused: by the wrapper,
+    and by the kernel's launcher when a program names it (nothing
+    launched, the error raised)."""
+    import torch_df_cases as cases
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    runs = cases.LEVEL0_RUNS["w16"]
+    d = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in cases.level0_case(runs).items()}
+    vals, cols = trc.gather_reduce_operands(d["vals"], d["vals_lo"], d["pidx"], d["widx"], d["off"])
+    groups, chunks = trc.groups_table(runs, cuda), trc.reduce_chunks(runs, cuda)
+    tasks = trc.df_reduce_tasks(chunks)
+    n0 = groups.shape[0]
+    off1, _mask1 = (t.to(cuda) for t in cases.closed_level_case(n0, cases.CLOSED_RUNS))
+    tgroups, tchunks = trc.groups_table(cases.CLOSED_RUNS, cuda), trc.reduce_chunks(cases.CLOSED_RUNS, cuda)
+    ttasks = trc.df_reduce_tasks(tchunks)
+    if what == "rows":
+        off1 = torch.cat([off1, off1])[: LANE + 1]
+    else:
+        ttasks = torch.cat([ttasks, torch.full((4 * 33 - ttasks.shape[0], 4), -1, dtype=torch.int32,
+                                               device=cuda)])
+    imap1 = trc.IndexMap(None, off1, n0 * LANE)
+    out = torch.zeros(2 * (n0 + tgroups.shape[0]) * LANE, device=cuda)
+    tail = (out[: 2 * n0 * LANE], imap1, None, tgroups, tchunks, out[2 * n0 * LANE :], ttasks)
+    ticket = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = trc.routed_df_gather_reduce_cuda.launches
+    with pytest.raises(ValueError, match="closed level"):
+        trc.routed_df_gather_reduce_cuda(vals, cols, groups, chunks, d["x"], out[: 2 * n0 * LANE],
+                                         tail, ticket, tasks)
+    if what == "sets":  # the launcher's own bound on the sets (rows it cannot see)
+        prog = trc.DFProgram(trc._df_gather_reduce_op(vals, cols, groups, chunks, tasks,
+                                                      out[: 2 * n0 * LANE], tail[:5] + (ttasks, tail[5]),
+                                                      ticket))
+        with pytest.raises(RuntimeError):
+            prog.run(d["x"], 0, 0, cuda)
+        torch.cuda.synchronize()
+    assert trc.routed_df_gather_reduce_cuda.launches == before
+    assert not ticket.any()
 
 
 @pytest.mark.parametrize("width", [1, 2, 3, 5, 7, 70, 128])
 def test_routed_df_reduce_kernel_matches_plain(cuda, width):
-    """C-df on runs of one width (a group of 128 rows is a chunk of its own;
-    narrow groups pack into chunks) through scattered offsets with -1 among
-    them into (hi, lo) pairs side by side, signed zeros among the values,
-    with and without a mask: bit for bit its plain version, and a rerun bit
-    for bit."""
+    """C-df on runs of one width (a group wider than 32 rows is a chunk of
+    its own, its blocks of 32 rows warps of one CTA; narrow groups pack into
+    chunks) through scattered offsets with -1 among them into (hi, lo) pairs
+    side by side, signed zeros among the values, with and without a mask:
+    bit for bit its plain version, a rerun and CUDA graph replays bit for
+    bit."""
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
 
     rng = np.random.default_rng(width)
@@ -883,16 +994,20 @@ def test_routed_df_reduce_kernel_matches_plain(cuda, width):
     imap = trc.IndexMap(None, idx, int(off.max()) + 1)
     src = torch.as_tensor(np.stack([sh.reshape(-1), sl.reshape(-1)], -1).reshape(-1), device=cuda)
     groups, chunks = trc.groups_table(runs, cuda), trc.reduce_chunks(runs, cuda)
+    tasks = trc.df_reduce_tasks(chunks)
     mask = torch.as_tensor((rng.random((rows, LANE)) < 0.8).astype(np.float32), device=cuda)
     for mk in (None, mask):
         outs = []
         for _ in range(2):
             out = torch.full((2 * ng * LANE,), float("nan"), device=cuda)
-            outs.append(trc.routed_df_reduce_cuda(src, imap, mk, groups, chunks, out))
+            outs.append(trc.routed_df_reduce_cuda(src, imap, mk, groups, chunks, out, tasks))
         torch.cuda.synchronize()
         ph, pl = trc.df_perm_reduce_reference(src[0::2], src[1::2], idx, mk, runs)
         assert trc.bits_equal(outs[0], torch.stack([ph.reshape(-1), pl.reshape(-1)], -1).reshape(-1))
         assert trc.bits_equal(outs[0], outs[1])
+        out = torch.full((2 * ng * LANE,), float("nan"), device=cuda)
+        _replays_equal(lambda: trc.routed_df_reduce_cuda(src, imap, mk, groups, chunks, out, tasks),
+                       out, outs[0])
 
 
 # ---------------------------------------------------------------------------
