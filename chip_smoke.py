@@ -79,7 +79,9 @@ staged chain and timed beside it on delaunay_n12_like, west2021_like and a
 the CLI's AUTO run on a 200,000-row matrix whose heavy rows pool.
 
 Phase 1 also builds the native host library (io/native.py, g++) that the
-window and routed prepares use; phase 6 (solver_phase, last) drives the
+window and routed prepares use, and calls each public prepare, planner and
+converter of the port with no device, on a small band: every tensor they
+return must be on the card (the `defaults:` line); phase 6 (solver_phase, last) drives the
 solvers with their own counters from zero: CG over AutoSpMV on the 5-point
 Laplacian of a 1000 x 1000 grid in float32 (DIA) and float64 (df DIA), on
 caida_like and delaunay_n12_like made SPD (routed, window), and power
@@ -1617,6 +1619,101 @@ def cross_process_phase(dev, smi: str, refs: dict) -> list:
     return entries
 
 
+def _tensors_of(obj, seen=None):
+    """Every tensor reachable from obj through dataclasses, sequences and
+    dicts."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _tensors_of(getattr(obj, f.name), seen)
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from _tensors_of(v, seen)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors_of(v, seen)
+
+
+def defaults_step() -> str:
+    """Phase 1's defaults: each public prepare and planner of the port, then
+    each converter of the JAX package's prepared arrays (fed host copies),
+    called with no device on synth.banded(2048, 2048, 8); every tensor of
+    every result must be on the card. Returns the summary line."""
+    import spmv_openmp_cuda_tpu_torch as P
+    from spmv_openmp_cuda_tpu_torch.config import LANE
+    from spmv_openmp_cuda_tpu_torch.formats import binned, dia, lanes, matrix, routed, window
+    from spmv_openmp_cuda_tpu_torch.ops import ell_cuda, lanes_cuda, route, routed_cuda
+    from spmv_openmp_cuda_tpu_torch.ops import spmv_cuda, window_cuda
+    from spmv_openmp_cuda_tpu_torch.utils import synth
+
+    coo = synth.banded(2048, 2048, 8, fill=0.9, seed=0)
+    csr, ell = P.coo_to_csr(coo), P.coo_to_ell(coo)
+    rng = np.random.default_rng(0)
+
+    def fields(obj):
+        return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+    def host(obj):
+        """obj's tensors copied to numpy, as the JAX package hands them over."""
+        return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in fields(obj).items()}
+
+    cpu = {"device": "cpu"}
+    e = matrix.device_ell(ell, transposed=True, **cpu)
+    ln = lanes.prepare_lanes_small(csr, **cpu)
+    ch = routed.prepare_routed_chunked(csr, chunk_nnz=12_000, fit_domains=False, **cpu)
+    rdf = routed.prepare_routed_df(csr, **cpu)
+    dr, dplan = spmv_cuda.prepare_dia_resid(csr, **cpu)
+    w = host(window.prepare_window_auto(csr, **cpu))
+    calls = {
+        "prepare_binned_csr": lambda: binned.prepare_binned_csr(csr),
+        "prepare_dia_df": lambda: dia.prepare_dia_df(csr),
+        "device_csr": lambda: matrix.device_csr(csr),
+        "device_ell": lambda: matrix.device_ell(ell, transposed=True),
+        "prepare_routed": lambda: routed.prepare_routed(csr),
+        "prepare_routed_chunked": lambda: routed.prepare_routed_chunked(csr),
+        "prepare_window": lambda: window.prepare_window(csr, g=8),
+        "prepare_window_auto": lambda: window.prepare_window_auto(csr),
+        "prepare_dia_df_pallas": lambda: spmv_cuda.prepare_dia_df_pallas(csr),
+        "prepare_dia_resid": lambda: spmv_cuda.prepare_dia_resid(csr),
+        "plan_permutation": lambda: route.plan_permutation(rng.permutation(LANE * LANE), 1),
+        "plan_row_to_slot": lambda: route.plan_row_to_slot(
+            np.repeat(np.arange(2 * LANE), LANE), rng.permutation(2 * LANE * LANE), 2),
+        "ell_from_jax": lambda: ell_cuda.ell_from_jax(
+            e.data.numpy(), e.cols.numpy(), e.row_lens.numpy(), e.shape, e.nnz, e.max_row_nz,
+            e.transposed),
+        "lanes_from_jax": lambda: lanes_cuda.lanes_from_jax(
+            ln.vals.numpy(), ln.pidx.numpy(), ln.gid.numpy(), ln.window_tiles, ln.shape, ln.nnz,
+            ln.n_groups),
+        "routed_from_jax": lambda: routed_cuda.routed_from_jax(**host(ch.chunks[0])),
+        "routed_chunks_from_jax": lambda: routed_cuda.routed_chunks_from_jax(
+            [host(c) for c in ch.chunks], ch.bounds, ch.shape, ch.nnz),
+        "routed_df_from_jax": lambda: routed_cuda.routed_df_from_jax(
+            host(rdf.mat), rdf.vals_lo.numpy(), rdf.hdense_hi, rdf.hdense_lo, rdf.heavy_rows_df),
+        "from_jax_operands": lambda: spmv_cuda.from_jax_operands(
+            dr.mat.data.numpy(), dr.mat.offsets, dr.mat.shape, dr.mat.nnz, dr.mat.pad_sub,
+            dplan.bs, dplan.nblocks, dplan.s_pad),
+        "window_from_jax": lambda: window_cuda.window_from_jax(
+            *(w[k] for k in ("vals", "sidx", "gid", "rsrc", "shape", "nnz", "g", "k_pad", "wr",
+                             "nspecs", "nblocks", "k_c", "bps", "xdirect", "shared_w",
+                             "vals_lo"))),
+    }
+    places = set()
+    for name, call in calls.items():
+        found = list(_tensors_of(call()))
+        where = {str(t.device) for t in found}
+        if not found or any(t.device.type != "cuda" for t in found):
+            raise AssertionError(f"defaults: {name} with no device put its tensors on {where}")
+        places |= where
+    return f"defaults: {len(calls)}/{len(calls)} on {', '.join(sorted(places))} (12 prepares and " \
+        f"planners, 7 converters, each called with no device)"
+
+
 def main() -> int:
     import argparse
 
@@ -1669,6 +1766,10 @@ def main() -> int:
         for line in nvcc_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+    t = time.perf_counter()
+    defaults = defaults_step()
+    print(defaults)
+    log(f"phase 1: defaults checked in {time.perf_counter() - t:.1f}s")
 
     # -- host set-up: the proxies at their published size ------------------
     # csrs: the main path's proxies; extra: the other matrices checked here
@@ -2748,6 +2849,7 @@ def main() -> int:
     kernels.extend(md_entries)
     kernels.extend(cross_process_phase(dev, smi, md_refs))
     log("done")
+    print(defaults)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

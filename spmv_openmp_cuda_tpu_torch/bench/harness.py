@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..config import DOUBLE_DIFF_THRESH, Config
-from ..formats.matrix import CSRMatrix, ELLMatrix
+from ..formats.matrix import CSRMatrix, ELLMatrix, target_device
 from ..ops import registry
 from ..ops.oracle import serial_csr_spmv
 from ..utils.compare import stats_avg_var, vectors_diff
@@ -110,8 +110,9 @@ def run_kernel(
     """Time one mode with the reference's protocol (testSpMVImplOMP /
     testSpMVImplCuda analog, SpMV_test.cu:67-145): reps checked runs,
     avg/var over reps. The double-precision modes (spec.f64) take x in
-    float64, the others in cfg's dtype."""
-    device = torch.device(device)
+    float64, the others in cfg's dtype. On `device`: the card unless the
+    caller passes device="cpu"."""
+    device = target_device(device)
     nnz = csr.nnz
     m = csr.shape[0]
     if oracle is None:
@@ -188,9 +189,7 @@ def run_all(
     ELL modes are skipped when ell is None (the size-cap rejection path,
     reference SpMV_test.cu:173-178 tolerates MMtoELL failure). x_check, a
     second input (x ~ N(0, 1) say), gives each result its check_ratio."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device cuda requested but torch.cuda.is_available() is False")
+    device = target_device(device)
     oracle = serial_csr_spmv(csr, x)
     specs = [registry.get(k) for k in kernels] if kernels is not None else registry.all_kernels()
     report = MatrixReport(

@@ -123,7 +123,7 @@ def build(path: str, coo, csr, devices: List[torch.device], mesh_shape=None) -> 
         spmv = sh.make_dia_sharded(mesh, op)
         place = lambda x: sh.pad_x_for_dia_sharded(x, op, mesh, f32)  # noqa: E731
     elif path == "dia_halo_df":
-        op = sh.prepare_dia_sharded_df(prepare_dia_df(csr, max_fill_ratio=1e9), mesh)
+        op = sh.prepare_dia_sharded_df(prepare_dia_df(csr, max_fill_ratio=1e9, device="cpu"), mesh)
         spmv2 = sh.make_dia_sharded_df(mesh, op)
         # the df product consumes both x planes and returns both y planes
         return Path(path, op, lambda x: sh.pad_x_for_dia_sharded_df(x, op, mesh),
@@ -153,11 +153,13 @@ def measure(preset: str, device_counts: List[int], path: str, device=None, coo=N
     skipped; built, a dict, receives each shard count's Path."""
     from .. import coo_to_csr
     from ..contract import mesh_devices
+    from ..formats.matrix import target_device
     from ..io.vectors import fill_rnd_vector
     from ..ops.oracle import serial_csr_spmv
     from ..utils import synth
     from ..utils.compare import vectors_diff
 
+    target_device("cuda" if device is None else device)  # no card raises before the matrix is made
     if coo is None:
         coo = synth.preset(preset)
     csr = coo_to_csr(coo)

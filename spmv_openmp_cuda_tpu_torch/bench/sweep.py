@@ -23,6 +23,7 @@ import torch
 
 from ..config import Config
 from ..formats.convert import EllSizeError, coo_to_csr, coo_to_ell
+from ..formats.matrix import target_device
 from ..io.mmio import read_coo
 from ..io.vectors import fill_rnd_vector
 from ..utils import synth
@@ -49,7 +50,9 @@ def sweep(
     log_stream=None,
     device="cuda",
 ) -> Tuple[List[str], List[str]]:
-    """Returns (the logs, the failing matrices' names)."""
+    """Returns (the logs, the failing matrices' names). On `device`: the card
+    unless the caller passes device="cpu"."""
+    device = target_device(device)
     log_stream = log_stream or sys.stdout
     failures: List[str] = []
     logs: List[str] = []

@@ -22,7 +22,7 @@ import torch
 
 from ..config import LANE, SUBLANE
 from ..partition.partitioners import row_binning
-from .matrix import CSRMatrix, _ceil_to
+from .matrix import CSRMatrix, _ceil_to, target_device
 
 
 def width_classes(max_w: int) -> List[int]:
@@ -55,8 +55,11 @@ class BinnedCSR:
 
 
 def prepare_binned_csr(
-    csr: CSRMatrix, dtype: torch.dtype = torch.float32, device="cpu"
+    csr: CSRMatrix, dtype: torch.dtype = torch.float32, device="cuda"
 ) -> BinnedCSR:
+    """The rows binned by length into width classes, on `device` (the card
+    unless the caller passes device="cpu")."""
+    device = target_device(device)
     m, n = csr.shape
     rl = csr.compute_row_lens()
     order = row_binning(rl)  # descending length (chunk-balance analog)

@@ -136,11 +136,13 @@ def make_device_dia_df(
 
 
 def prepare_dia_df(
-    csr: CSRMatrix, max_fill_ratio: float = 3.0, device="cpu"
+    csr: CSRMatrix, max_fill_ratio: float = 3.0, device="cuda"
 ) -> DeviceDIADF:
-    """The JAX package's prepare_dia_df: the f64 slab split into (hi, lo)."""
+    """The JAX package's prepare_dia_df: the f64 slab split into (hi, lo),
+    on `device` (the card unless the caller passes device="cpu")."""
     from ..ops.dfloat import split_f64
 
+    device = target_device(device)
     m, n = csr.shape
     data, uniq, pad_sub = _dia_host_slab(csr, max_fill_ratio)
     d, m_pad = data.shape

@@ -201,11 +201,13 @@ def device_csr(
     csr: CSRMatrix,
     dtype: torch.dtype = torch.float32,
     nnz_align: int = LANE * SUBLANE,
-    device="cpu",
+    device="cuda",
 ) -> DeviceCSR:
     """Upload a host CSR to device form (spMatCpyCSR analog, reference
     cudaUtils.cu:20-55): expansion to per-nnz row ids plus alignment
-    padding, as in the JAX package."""
+    padding, as in the JAX package, on `device` (the card unless the caller
+    passes device="cpu")."""
+    device = target_device(device)
     m, _ = csr.shape
     nnz = csr.nnz
     nnz_pad = max(_ceil_to(max(nnz, 1), nnz_align), nnz_align)
@@ -231,13 +233,15 @@ def device_ell(
     dtype: torch.dtype = torch.float32,
     transposed: bool = False,
     lane_pad: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> DeviceELL:
     """Upload a host ELL to a padded device slab (spMatCpyELL analog,
     reference cudaUtils.cu:56-98), with the JAX package's padding:
     row-major (M, W): W to a multiple of 128 (unless lane_pad=False), M to
     a multiple of 8; transposed (W, M): W to a multiple of 8, M to a
-    multiple of 128. Takes the untransposed host ELL."""
+    multiple of 128. Takes the untransposed host ELL. On `device` (the card
+    unless the caller passes device="cpu")."""
+    device = target_device(device)
     if ell.slab_transposed:
         raise ValueError("pass the untransposed host ELL; device_ell transposes itself")
     m, _ = ell.shape

@@ -452,15 +452,17 @@ def prepare_routed(
     heavy_threshold: Optional[int] = None,
     vals_dtype=None,
     schema: Optional[dict] = None,
-    device="cpu",
+    device="cuda",
 ) -> RoutedCSR:
     """The JAX package's prepare_routed, numpy verbatim, with the arrays as
-    tensors on `device` (see _prepare_routed_placed). schema (from
-    merge_routed_schemas) forces the ladder runs, the padded gather rows,
-    the window count, the level count and the output domain, so that every
-    chunk sharing it has the same shapes; it takes no heavy split."""
+    tensors on `device` (the card unless the caller passes device="cpu";
+    see _prepare_routed_placed). schema (from merge_routed_schemas) forces
+    the ladder runs, the padded gather rows, the window count, the level
+    count and the output domain, so that every chunk sharing it has the same
+    shapes; it takes no heavy split."""
+    device = target_device(device)
     return _prepare_routed_placed(
-        csr, dtype, heavy_threshold, vals_dtype, schema, device
+        csr, dtype, heavy_threshold, vals_dtype, schema, device=device
     )[0]
 
 
@@ -470,7 +472,8 @@ def _prepare_routed_placed(
     heavy_threshold: Optional[int] = None,
     vals_dtype=None,
     schema: Optional[dict] = None,
-    device="cpu",
+    *,
+    device,
     probe: bool = False,
 ):
     """(RoutedCSR, row_a, lane_a): the prepare, and the gather slot (row_a,
@@ -977,13 +980,15 @@ def _split_rows(csr: CSRMatrix, bounds, prepare):
 
 def prepare_routed_chunked(
     csr: CSRMatrix, dtype: torch.dtype = torch.float32, chunk_nnz: int = 700_000,
-    vals_dtype=None, fit_domains: bool = True, device="cpu",
+    vals_dtype=None, fit_domains: bool = True, device="cuda",
 ) -> RoutedChunks:
     """Split rows into blocks whose routing domains fill a t <= 64 tile grid
     (fit_domains, the default: boundaries by bisection on the predicted
     domain size) and prepare a routed engine per block (recursive halving if
-    a block still exceeds its domain). fit_domains=False takes the greedy
+    a block still exceeds its domain), on `device` (the card unless the
+    caller passes device="cpu"). fit_domains=False takes the greedy
     <= chunk_nnz split."""
+    device = target_device(device)
     chunks, bounds = _split_rows(
         csr, _initial_bounds(csr, chunk_nnz, fit_domains),
         lambda sub: prepare_routed(sub, dtype=dtype, vals_dtype=vals_dtype, device=device),
@@ -998,7 +1003,8 @@ def routed_chunk_bounds(
     domain test alone, without building the blocks' layouts."""
     return _split_rows(
         csr, _initial_bounds(csr, chunk_nnz, fit_domains),
-        lambda sub: _prepare_routed_placed(sub, probe=True),
+        # the domain test places no tensor
+        lambda sub: _prepare_routed_placed(sub, device="cpu", probe=True),
     )[1]
 
 

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..config import LANE
-from .matrix import CSRMatrix
+from .matrix import CSRMatrix, target_device
 
 
 class WindowError(ValueError):
@@ -398,11 +398,13 @@ def prepare_window(
     csr: CSRMatrix, g: int = 8, dtype: torch.dtype = torch.float32,
     vals_dtype=None, max_pad: float = 4.5, cap="auto", bps: int = 1,
     xdirect: bool = False, base=None, shared_w: bool | None = None,
-    device="cpu", df: bool = False,
+    device="cuda", df: bool = False,
 ) -> WindowCSR:
     """Slot slabs and Q map for group size g, array for array the JAX
-    package's prepare_window; the slabs are uploaded to `device`. df=True
-    splits the slot values into the (hi, lo) f32 pair (dtype is ignored)."""
+    package's prepare_window, on `device` (the card unless the caller passes
+    device="cpu"). df=True splits the slot values into the (hi, lo) f32 pair
+    (dtype is ignored)."""
+    device = target_device(device)
     if vals_dtype is None:
         vals_dtype = dtype
     m, n = csr.shape
@@ -606,11 +608,13 @@ _AUTO_SHORTLIST = 5
 def prepare_window_auto(
     csr: CSRMatrix, dtype: torch.dtype = torch.float32, vals_dtype=None,
     max_pad: float = 4.5, bps: int | None = None, xdirect: bool | None = None,
-    device="cpu", df: bool = False,
+    device="cuda", df: bool = False,
 ) -> WindowCSR:
     """Pick group size g, packing cap and blocks-per-step by the cost model
-    (the JAX package's prepare_window_auto). bps=None follows the policy;
-    an explicit bps pins it. df=True prepares the double-float mode."""
+    (the JAX package's prepare_window_auto), on `device` (the card unless
+    the caller passes device="cpu"). bps=None follows the policy; an
+    explicit bps pins it. df=True prepares the double-float mode."""
+    device = target_device(device)
     policy = str(bps) if bps is not None else _bps_policy()
     base = _base_fields(csr)
     by_g = {}
@@ -659,7 +663,7 @@ def prepare_window_auto(
 
 def _try_prepare_auto(
     csr, g, cap, bps_pick, dtype, vals_dtype, max_pad, xdirect, base,
-    bps_auto=True, device="cpu", df=False,
+    bps_auto=True, *, device, df=False,
 ):
     # the exact peel can land just over the per-step row cap at the chosen
     # bps: halve bps until it fits, only when the auto policy chose bps (a

@@ -19,7 +19,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..formats.matrix import DeviceELL
+from ..formats.matrix import DeviceELL, target_device
 from . import cuda_lib
 from .dfloat import fma_f32
 from .spmv_cuda import _require, _to_tensor
@@ -147,10 +147,12 @@ ell_t_cuda.launches = 0
 
 
 def ell_from_jax(
-    data, cols, row_lens, shape, nnz: int, max_row_nz: int, transposed: bool, device="cpu"
+    data, cols, row_lens, shape, nnz: int, max_row_nz: int, transposed: bool, device="cuda"
 ) -> DeviceELL:
     """The port's DeviceELL from the JAX package's, given as numpy arrays and
-    its static fields. Validates the column range the kernel reads with."""
+    its static fields, on `device` (the card unless the caller passes
+    device="cpu"). Validates the column range the kernel reads with."""
+    device = target_device(device)
     cols_np = np.asarray(cols)
     if cols_np.min(initial=0) < 0 or cols_np.max(initial=0) >= int(shape[1]):
         raise ValueError("cols out of range")

@@ -23,6 +23,7 @@ import torch
 
 from ..config import LANE
 from ..formats.lanes import LanesError, LanesSmall, tile_windows
+from ..formats.matrix import target_device
 from ..formats.routed import pack_x_windows_flat
 from . import cuda_lib
 from .spmv_cuda import _require, _to_tensor
@@ -156,11 +157,12 @@ lanes_cuda.launches = 0
 
 
 def lanes_from_jax(
-    vals, pidx, gid, window_tiles, shape, nnz: int, n_groups: int, device="cpu"
+    vals, pidx, gid, window_tiles, shape, nnz: int, n_groups: int, device="cuda"
 ) -> LanesSmall:
     """The port's LanesSmall from the JAX package's, given as numpy arrays
-    and its static fields. Validates the index ranges the kernel reads
-    with."""
+    and its static fields, on `device` (the card unless the caller passes
+    device="cpu"). Validates the index ranges the kernel reads with."""
+    device = target_device(device)
     pidx_np, gid_np = np.asarray(pidx), np.asarray(gid)
     ks = pidx_np.shape[0]
     if pidx_np.min(initial=0) < 0 or pidx_np.max(initial=0) >= LANE:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import LANE
+from ..formats.matrix import target_device
 
 
 def _euler_split(left: np.ndarray, right: np.ndarray, cls: np.ndarray) -> np.ndarray:
@@ -129,7 +130,7 @@ class PlannedPermutation:
         return self.t * LANE
 
 
-def _stages_from_routing(hs, hd, ld, m, t: int, with_r1, ls=None, device="cpu"):
+def _stages_from_routing(hs, hd, ld, m, t: int, with_r1, ls=None, *, device):
     """Common stage-array construction given the big coloring m."""
     h = t * LANE
     ts, ss = hs // LANE, hs % LANE
@@ -176,14 +177,17 @@ def _stages_from_routing(hs, hd, ld, m, t: int, with_r1, ls=None, device="cpu"):
 
 
 def plan_permutation(
-    dst_of: np.ndarray, t: Optional[int] = None, device="cpu"
+    dst_of: np.ndarray, t: Optional[int] = None, device="cuda"
 ) -> PlannedPermutation:
-    """Plan the bijection slot -> dst_of[slot] on an (H=T*128, 128) domain.
+    """Plan the bijection slot -> dst_of[slot] on an (H=T*128, 128) domain,
+    the stage arrays on `device` (the card unless the caller passes
+    device="cpu").
 
     Slots are flat ids row*128 + lane; dst_of must be a permutation of
     arange(H*128). T (power of two <= 128) defaults to the smallest domain
     that fits.
     """
+    device = target_device(device)
     n = dst_of.shape[0]
     if t is None:
         t = pick_t(n // LANE)
@@ -199,7 +203,7 @@ def plan_permutation(
 
 
 def plan_row_to_slot(
-    src_row: np.ndarray, dst_of: np.ndarray, t: int, device="cpu"
+    src_row: np.ndarray, dst_of: np.ndarray, t: int, device="cuda"
 ) -> Tuple[PlannedPermutation, np.ndarray]:
     """Plan a routing where each element has a fixed source ROW but a free
     source lane (the producer can emit into any lane, e.g. the gather phase's
@@ -207,8 +211,10 @@ def plan_row_to_slot(
     the producer must place element i at (src_row[i], src_lane[i]).
 
     src_row must list each row of the (T*128)-row domain exactly 128 times;
-    dst_of must be a bijection onto the domain's slots.
+    dst_of must be a bijection onto the domain's slots. The plan's arrays are
+    on `device` (the card unless the caller passes device="cpu").
     """
+    device = target_device(device)
     h = t * LANE
     assert src_row.shape[0] == h * LANE
     hd, ld = dst_of // LANE, dst_of % LANE

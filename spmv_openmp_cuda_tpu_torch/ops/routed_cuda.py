@@ -60,6 +60,7 @@ from ..formats.routed import (
     prepare_routed_auto,
     prepare_routed_df_auto,
 )
+from ..formats.matrix import target_device
 from . import cuda_lib, dfloat
 from .route import PlannedPermutation
 from .spmv_cuda import _require, _to_tensor
@@ -1653,13 +1654,15 @@ def routed_from_jax(
     vals, pidx, widx, perm_products, lvl_perms, lvl_masks, perm_out, shape, nnz: int,
     n_windows: int, rows_a: int, runs, lvl_runs, out_t: int, hdense=None, heavy_rows=(),
     widx_t=(), heavy_lanes=(), hvals=None, hpidx=None, hwidx=None, hreduce=None, hlo=None,
-    hhi=None, device="cpu",
+    hhi=None, device="cuda",
 ) -> RoutedCSR:
     """The port's RoutedCSR from the JAX package's prepared RoutedCSR, given
-    as numpy arrays (bf16 bit for bit) and its static fields; each plan is a
-    dict (or object) of numpy stage arrays and t. Validates the index ranges
-    the kernels read with and the geometry (as build_chain does), the
-    pooled heavy tiles (hvals, hpidx, hwidx, hreduce, hlo, hhi) included."""
+    as numpy arrays (bf16 bit for bit) and its static fields, on `device`
+    (the card unless the caller passes device="cpu"); each plan is a dict
+    (or object) of numpy stage arrays and t. Validates the index ranges the
+    kernels read with and the geometry (as build_chain does), the pooled
+    heavy tiles (hvals, hpidx, hwidx, hreduce, hlo, hhi) included."""
+    device = target_device(device)
     pooled = {} if hvals is None else _pooled_from_jax(hvals, hpidx, hwidx, hreduce, hlo, hhi,
                                                          device)
     masks = []
@@ -1696,8 +1699,10 @@ def routed_from_jax(
 
 
 def routed_chunks_from_jax(chunks: Sequence[dict], bounds, shape, nnz: int,
-                           device="cpu") -> RoutedChunks:
-    """The chunked form: one routed_from_jax keyword set per chunk."""
+                           device="cuda") -> RoutedChunks:
+    """The chunked form: one routed_from_jax keyword set per chunk, on
+    `device` (the card unless the caller passes device="cpu")."""
+    device = target_device(device)
     out = RoutedChunks(
         chunks=tuple(routed_from_jax(**c, device=device) for c in chunks),
         bounds=tuple(int(b) for b in bounds), shape=tuple(int(d) for d in shape), nnz=int(nnz),
@@ -2644,10 +2649,12 @@ def prepare_routed_df_chain(csr, device="cuda") -> RoutedDFChain:
 
 
 def routed_df_from_jax(mat: dict, vals_lo, hdense_hi=None, hdense_lo=None,
-                       heavy_rows_df=(), device="cpu") -> RoutedDF:
+                       heavy_rows_df=(), device="cuda") -> RoutedDF:
     """The port's RoutedDF from the JAX package's: mat is the routed_from_jax
     keyword set of its RoutedCSR (the hi words), the rest its df fields as
-    numpy arrays. Validated as build_df_chain does."""
+    numpy arrays, on `device` (the card unless the caller passes
+    device="cpu"). Validated as build_df_chain does."""
+    device = target_device(device)
     def conv(a):
         return None if a is None else _to_tensor(a, device)
 

@@ -36,7 +36,7 @@ from ..formats.dia import (
     make_device_dia_df,
     prepare_dia_df,
 )
-from ..formats.matrix import CSRMatrix, _ceil_to
+from ..formats.matrix import CSRMatrix, _ceil_to, target_device
 from . import cuda_lib, dfloat
 
 _SLAB_DTYPES = (torch.float32, torch.bfloat16)
@@ -104,10 +104,12 @@ def pad_dia_df_for_pallas(mat: DeviceDIADF, plan: DiaPlan) -> DeviceDIADF:
 
 
 def prepare_dia_df_pallas(
-    csr: CSRMatrix, max_fill_ratio: float = 3.0, device="cpu"
+    csr: CSRMatrix, max_fill_ratio: float = 3.0, device="cuda"
 ) -> Tuple[DeviceDIADF, DiaPlan]:
     """(DeviceDIADF, plan) for PL_DIA_F64, the JAX package's
-    prepare_dia_df_pallas (the halved per-plane budget)."""
+    prepare_dia_df_pallas (the halved per-plane budget), on `device` (the
+    card unless the caller passes device="cpu")."""
+    device = target_device(device)
     mat = prepare_dia_df(csr, max_fill_ratio=max_fill_ratio, device=device)
     plan = plan_dia(mat.as_dia(), vmem_budget=DF_DIA_VMEM_BUDGET)
     return pad_dia_df_for_pallas(mat, plan), plan
@@ -186,11 +188,12 @@ def prepare_dia_resid(
     dtype: torch.dtype = torch.float32,
     dia_dtype: Optional[torch.dtype] = None,
     vals_dtype: Optional[torch.dtype] = None,
-    device="cpu",
+    device="cuda",
     df: bool = False,
 ) -> Tuple[DiaResid, DiaPlan]:
     """(DiaResid, plan): dense-offset DIA core + windowed residual fringe,
-    array for array the JAX package's prepare_dia_resid.
+    array for array the JAX package's prepare_dia_resid, on `device` (the
+    card unless the caller passes device="cpu").
 
     dia_dtype/vals_dtype default to dtype; bfloat16 halves the slab bytes
     (accumulation stays f32). df=True builds the double-float hybrid: a
@@ -198,6 +201,7 @@ def prepare_dia_resid(
     is then ignored."""
     from ..formats.dia import prepare_dia, split_offsets
 
+    device = target_device(device)
     dia_dtype = dia_dtype or dtype
     vals_dtype = vals_dtype or dtype
     m, n = csr.shape
@@ -827,7 +831,7 @@ def from_jax_operands(
     nnz_resid: Optional[int] = None,
     data_lo=None,
     rvals_lo=None,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[DeviceDIA, DiaPlan, Optional[DiaResid]]:
     """The port's (DeviceDIA, plan, DiaResid or None) from the JAX package's
     prepared DIA operands, given as numpy arrays and their static fields
@@ -835,7 +839,8 @@ def from_jax_operands(
     s_pad, and for the hybrid DiaResid rvals/rsidx/rgid/rsrc/k_pad/
     nnz_resid). The double-float operands (DeviceDIADF's data_lo, DiaResid's
     rvals_lo) give a DeviceDIADF core. Validates what the kernels index
-    with."""
+    with. On `device` (the card unless the caller passes device="cpu")."""
+    device = target_device(device)
     plan = DiaPlan(bs=int(bs), nblocks=int(nblocks), s_pad=int(s_pad))
     offsets = [int(o) for o in offsets]
     if offsets and max(abs(o) for o in offsets) > pad_sub * LANE:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import LANE
+from ..formats.matrix import target_device
 from ..formats.window import WindowCSR
 from . import cuda_lib, dfloat
 from .spmv_cuda import _require, _to_tensor
@@ -474,12 +475,14 @@ def window_spmv(mat: WindowCSR, x: torch.Tensor) -> torch.Tensor:
 def window_from_jax(
     vals, sidx, gid, rsrc, shape, nnz: int, g: int, k_pad: int, wr: int,
     nspecs: int, nblocks: int, k_c: int, bps: int, xdirect: bool,
-    shared_w: bool, vals_lo=None, device="cpu",
+    shared_w: bool, vals_lo=None, device="cuda",
 ) -> WindowCSR:
     """The port's WindowCSR from the JAX package's prepared WindowCSR, given
-    as numpy arrays (bf16 bit for bit) and its static fields; vals_lo (the
+    as numpy arrays (bf16 bit for bit) and its static fields, on `device`
+    (the card unless the caller passes device="cpu"); vals_lo (the
     double-float mode's lo words) gives a df layout. Validates the index
     ranges the kernels read with."""
+    device = target_device(device)
     sidx_np, gid_np, rsrc_np = (np.asarray(a) for a in (sidx, gid, rsrc))
     if sidx_np.min(initial=0) < 0 or rsrc_np.min(initial=0) < 0:
         raise ValueError("sidx/rsrc out of range")  # int8: max is < 128

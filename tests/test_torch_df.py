@@ -165,10 +165,10 @@ def _dia_prepared(name):
     def make():
         tcsr, jcsr = _pair(tsynth.preset(name))
         if name == "raefsky1_like":
-            tr_, tp = tsc.prepare_dia_resid(tcsr, df=True)
+            tr_, tp = tsc.prepare_dia_resid(tcsr, df=True, device="cpu")
             jr_, jp = jsp.prepare_dia_resid(jcsr, df=True)
             return tcsr, (tr_.mat, tp, tr_), (jr_.mat, jp, jr_)
-        tm, tp = tsc.prepare_dia_df_pallas(tcsr)
+        tm, tp = tsc.prepare_dia_df_pallas(tcsr, device="cpu")
         jm, jp = jsp.prepare_dia_df_pallas(jcsr)
         return tcsr, (tm, tp, None), (jm, jp, None)
 
@@ -239,14 +239,14 @@ def test_df_fringe_lists_and_their_sums(case):
     not on the past-clip matrix, whose far products it drops) and within
     1e-11 of the exact oracle."""
     tcsr, jcsr = _pair(DF_LIST_CASES[case]())
-    tres, tp = tsc.prepare_dia_resid(tcsr, df=True)
+    tres, tp = tsc.prepare_dia_resid(tcsr, df=True, device="cpu")
     jres, jp = jsp.prepare_dia_resid(jcsr, df=True)
     jm = jres.mat
     _, fp, fres = tsc.from_jax_operands(
         np.asarray(jm.data), jm.offsets, jm.shape, jm.nnz, jm.pad_sub, jp.bs, jp.nblocks, jp.s_pad,
         rvals=np.asarray(jres.rvals), rsidx=np.asarray(jres.rsidx), rgid=np.asarray(jres.rgid),
         rsrc=np.asarray(jres.rsrc), k_pad=jres.k_pad, nnz_resid=jres.nnz_resid,
-        data_lo=np.asarray(jm.data_lo), rvals_lo=np.asarray(jres.rvals_lo))
+        data_lo=np.asarray(jm.data_lo), rvals_lo=np.asarray(jres.rvals_lo), device="cpu")
     assert fp == tp and tres.fr_lo is not None
     for f in ("row_ptr", "fr_val", "fr_lo", "fr_col"):
         _equal(getattr(fres, f), getattr(tres, f).numpy(), f)
@@ -280,8 +280,9 @@ def _window_prepared(name):
         gen, kw = WINDOW[name]
         tcsr, jcsr = _pair(tsynth.fem_like(**gen))
         if kw is None:
-            return tcsr, tw.prepare_window_auto(tcsr, df=True), jw.prepare_window_auto(jcsr, df=True)
-        return tcsr, tw.prepare_window(tcsr, df=True, **kw), jw.prepare_window(jcsr, df=True, **kw)
+            return (tcsr, tw.prepare_window_auto(tcsr, df=True, device="cpu"),
+                    jw.prepare_window_auto(jcsr, df=True))
+        return tcsr, tw.prepare_window(tcsr, df=True, device="cpu", **kw), jw.prepare_window(jcsr, df=True, **kw)
 
     return _memo(("window", name), make)
 
@@ -323,7 +324,7 @@ def test_window_f32_layout_is_the_df_hi_plane():
     """prepare_window's dtype enters only the final cast, and the split's hi
     word is f32(v): the f32 operands are the df layout without vals_lo."""
     tcsr, tm, _ = _window_prepared("multi_block")
-    f32 = tw.prepare_window(tcsr, g=16)
+    f32 = tw.prepare_window(tcsr, g=16, device="cpu")
     assert f32.vals_lo is None and torch.equal(f32.vals, tm.vals)
     for f in ("sidx", "gid", "rsrc"):
         assert torch.equal(getattr(f32, f), getattr(tm, f))
@@ -351,7 +352,7 @@ def test_df_from_jax_round_trips(engine):
                       nnz_resid=jres.nnz_resid, rvals_lo=np.asarray(jres.rvals_lo))
         fm, fp, fres = tsc.from_jax_operands(
             np.asarray(jm.data), jm.offsets, jm.shape, jm.nnz, jm.pad_sub, jp.bs, jp.nblocks,
-            jp.s_pad, data_lo=np.asarray(jm.data_lo), **kw)
+            jp.s_pad, data_lo=np.asarray(jm.data_lo), device="cpu", **kw)
         assert isinstance(fm, tdia.DeviceDIADF) and (fres is None) == (jres is None)
         x = torch.from_numpy(_x(tcsr.shape[1]))
         if fres is None:
@@ -364,13 +365,13 @@ def test_df_from_jax_round_trips(engine):
                 tsc.from_jax_operands(
                     np.asarray(jm.data), jm.offsets, jm.shape, jm.nnz, jm.pad_sub, jp.bs,
                     jp.nblocks, jp.s_pad, data_lo=np.asarray(jm.data_lo),
-                    **dict(kw, rvals_lo=None))
+                    **dict(kw, rvals_lo=None), device="cpu")
     else:
         tcsr, tm, jm = _window_prepared("multi_block")
         fm = twc.window_from_jax(
             np.asarray(jm.vals), np.asarray(jm.sidx), np.asarray(jm.gid), np.asarray(jm.rsrc),
             jm.shape, jm.nnz, jm.g, jm.k_pad, jm.wr, jm.nspecs, jm.nblocks, jm.k_c, jm.bps,
-            jm.xdirect, jm.shared_w, vals_lo=np.asarray(jm.vals_lo))
+            jm.xdirect, jm.shared_w, vals_lo=np.asarray(jm.vals_lo), device="cpu")
         x = torch.from_numpy(_x(tcsr.shape[1]))
         assert torch.equal(twc.window_spmv(fm, x), twc.window_spmv(tm, x))
 # ---------------------------------------------------------------------------
@@ -439,7 +440,7 @@ def test_dia_df_plain_matches_jax_on_a_laplacian():
     17161 not a multiple of 4 (the kernel's four rows a thread end in a
     partial group). Tolerances: the module's."""
     tcsr, jcsr = _pair(tsynth.laplacian_2d(131))
-    tm, tp = tsc.prepare_dia_df_pallas(tcsr)
+    tm, tp = tsc.prepare_dia_df_pallas(tcsr, device="cpu")
     jm, jp = jsp.prepare_dia_df_pallas(jcsr)
     m = tcsr.shape[0]
     assert tm.offsets == jm.offsets == (-131, -1, 0, 1, 131) and m % 4 == 1

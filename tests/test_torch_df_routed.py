@@ -228,14 +228,14 @@ def test_routed_df_from_jax_round_trip():
     tcsr, tm, jm = _routed_prepared("heavy_row")
     fm = trc.routed_df_from_jax(
         _jax_mat_fields(jm.mat), np.asarray(jm.vals_lo), np.asarray(jm.hdense_hi),
-        np.asarray(jm.hdense_lo), jm.heavy_rows_df)
+        np.asarray(jm.hdense_lo), jm.heavy_rows_df, device="cpu")
     x = torch.from_numpy(_x(tcsr.shape[1]))
     assert torch.equal(trc.routed_df_spmv(trc.build_df_chain(fm), x),
                        trc.routed_df_spmv(trc.build_df_chain(tm), x))
     # heavy rows without their dense block
     with pytest.raises(ValueError, match="heavy"):
         trc.routed_df_from_jax(_jax_mat_fields(jm.mat), np.asarray(jm.vals_lo),
-                               heavy_rows_df=jm.heavy_rows_df)
+                               heavy_rows_df=jm.heavy_rows_df, device="cpu")
 
 
 @pytest.mark.parametrize("prepare", [

@@ -99,7 +99,7 @@ def _port_operands(jmat, jplan, jdr=None):
         )
     return tsc.from_jax_operands(
         np.asarray(jmat.data), jmat.offsets, jmat.shape, jmat.nnz, jmat.pad_sub,
-        jplan.bs, jplan.nblocks, jplan.s_pad, **kw,
+        jplan.bs, jplan.nblocks, jplan.s_pad, device="cpu", **kw,
     )
 
 
@@ -155,7 +155,7 @@ def test_plan_dia_rejects_band_too_wide_for_resid():
 def test_prepare_dia_resid_identical(case, dtype):
     tcsr, jcsr = _csrs(case)
     tdt, jdt = DTYPES[dtype]
-    tdr, tplan = tsc.prepare_dia_resid(tcsr, dia_dtype=tdt, vals_dtype=tdt)
+    tdr, tplan = tsc.prepare_dia_resid(tcsr, dia_dtype=tdt, vals_dtype=tdt, device="cpu")
     jdr, jplan = jsp.prepare_dia_resid(jcsr, dia_dtype=jdt, vals_dtype=jdt)
     assert (tplan.bs, tplan.nblocks, tplan.s_pad) == (jplan.bs, jplan.nblocks, jplan.s_pad)
     _assert_dia_equal(tdr.mat, jdr.mat)
@@ -219,7 +219,7 @@ def test_plain_version_matches_jax_pallas(resid, dtype):
 
 def test_fringe_reference_is_the_residual_part():
     tcsr = T.coo_to_csr(tsynth.banded(3000, 3000, 30, fill=1.0, exact_nnz=185000, seed=0))
-    dr, plan = tsc.prepare_dia_resid(tcsr)
+    dr, plan = tsc.prepare_dia_resid(tcsr, device="cpu")
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(3000).astype(np.float32))
     kept = tsc.dia_spmv_reference(dr.mat, x, plan)
     y = tsc.dia_resid_reference(dr, x, plan)  # the fringe alone, all s_pad*128 rows
@@ -266,6 +266,7 @@ def test_from_jax_operands_rejects_bad_indices():
             jdr.mat.pad_sub, jplan.bs, jplan.nblocks, jplan.s_pad,
             rvals=np.asarray(jdr.rvals), rsidx=np.asarray(jdr.rsidx), rgid=bad,
             rsrc=np.asarray(jdr.rsrc), k_pad=jdr.k_pad, nnz_resid=jdr.nnz_resid,
+            device="cpu",
         )
 
 
@@ -285,7 +286,7 @@ def test_resid_reads_x_past_the_clip_on_wide_matrices(dtype):
     # must not
     csr = _wide_band_with_far_fringe()
     tdt, _ = DTYPES[dtype]
-    dr, plan = tsc.prepare_dia_resid(csr, dia_dtype=tdt, vals_dtype=tdt)
+    dr, plan = tsc.prepare_dia_resid(csr, dia_dtype=tdt, vals_dtype=tdt, device="cpu")
     assert dr.nnz_resid == 2 and (plan.s_pad + dr.mat.pad_sub) * 128 < 4300
     x = np.random.default_rng(1).standard_normal(6000).astype(np.float32)
     y = tsc.dia_resid_spmv_cuda(dr, torch.from_numpy(x), plan).double().numpy()
@@ -322,7 +323,7 @@ def _list_case(case, dtype):
             tcsr, jcsr = _csrs(LIST_CASES[case])
         _LIST_MEMO[key] = (
             tcsr,
-            tsc.prepare_dia_resid(tcsr, dia_dtype=tdt, vals_dtype=tdt),
+            tsc.prepare_dia_resid(tcsr, dia_dtype=tdt, vals_dtype=tdt, device="cpu"),
             jsp.prepare_dia_resid(jcsr, dia_dtype=jdt, vals_dtype=jdt),
         )
     return _LIST_MEMO[key]

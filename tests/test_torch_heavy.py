@@ -105,7 +105,7 @@ def _prepared(case, bf16=False):
                 mp.setattr(tr, "_dense_heavy_ok", lambda *a: False)
             return (
                 tr.prepare_routed(tcsr, heavy_threshold=thr,
-                                  vals_dtype=torch.bfloat16 if bf16 else None),
+                                  vals_dtype=torch.bfloat16 if bf16 else None, device="cpu"),
                 jr.prepare_routed(jcsr, heavy_threshold=thr,
                                   vals_dtype=jnp.bfloat16 if bf16 else None),
             )
@@ -234,7 +234,7 @@ def test_pooled_routed_spmv_matches_jax_and_oracle(case, bf16):
 def test_routed_from_jax_pooled_round_trip(bf16):
     tcsr, _ = _csrs("pool10")
     tm, jm = _prepared("pool10", bf16)
-    mat = trc.routed_from_jax(**_fields(jm))
+    mat = trc.routed_from_jax(**_fields(jm), device="cpu")
     _pooled_equal(mat, jm)
     x = torch.as_tensor(_x(tcsr.shape[1], seed=6), dtype=torch.float32)
     # the port's own prepare gives the same operands, so the same y
@@ -244,13 +244,13 @@ def test_routed_from_jax_pooled_round_trip(bf16):
 def test_routed_from_jax_checks_pooled_ranges():
     _, jm = _prepared("pool10")
     ok = _fields(jm)
-    trc.routed_from_jax(**ok)
+    trc.routed_from_jax(device="cpu", **ok)
 
     def bad(field, edit):
         a = np.asarray(ok[field]).copy()
         edit(a)
         with pytest.raises(ValueError):
-            trc.routed_from_jax(**dict(ok, **{field: a}))
+            trc.routed_from_jax(**dict(ok, **{field: a}), device="cpu")
 
     bad("hpidx", lambda a: a.__setitem__((0, 0), -3))
     bad("hwidx", lambda a: a.__setitem__(0, ok["n_windows"]))
@@ -263,9 +263,9 @@ def test_routed_from_jax_checks_pooled_ranges():
     lo, hi = ok["hlo"].copy(), ok["hhi"].copy()
     lo[r, j2], hi[r, j2] = lo[r, j], hi[r, j]
     with pytest.raises(ValueError, match="overlap"):
-        trc.routed_from_jax(**dict(ok, hlo=lo, hhi=hi))
+        trc.routed_from_jax(**dict(ok, hlo=lo, hhi=hi), device="cpu")
     with pytest.raises(ValueError):
-        trc.routed_from_jax(**dict(ok, hhi=None))
+        trc.routed_from_jax(**dict(ok, hhi=None), device="cpu")
 
 
 def test_stored_csr_keeps_pooled_f32_rows_exact():
@@ -284,7 +284,7 @@ def test_stored_csr_keeps_pooled_f32_rows_exact():
         assert heavy.sum() == 40 * 17000
     # a dense heavy block still stores its rows in bf16 in the f32 mode
     spiked = T.coo_to_csr(_heavy_rows_matrix(3000, 30000, 1, 20000, 5000, 31, vals="normal"))
-    chain = trc.build_chain(tr.prepare_routed(spiked))
+    chain = trc.build_chain(tr.prepare_routed(spiked, device="cpu"))
     assert chain.mat.hdense is not None
     d = trc.stored_csr(spiked, chain).data
     i1 = spiked.indptr[1]
@@ -380,7 +380,7 @@ def _small_prepared(shape):
     def make():
         tcsr = T.coo_to_csr(SMALL_SHAPES[shape][0]())
         jcsr = J.CSRMatrix(shape=tcsr.shape, indptr=tcsr.indptr, indices=tcsr.indices, data=tcsr.data)
-        return tcsr, tr.prepare_routed(tcsr), jr.prepare_routed(jcsr)
+        return tcsr, tr.prepare_routed(tcsr, device="cpu"), jr.prepare_routed(jcsr)
 
     return _memo(("small", shape), make)
 

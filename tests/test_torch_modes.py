@@ -130,12 +130,12 @@ def test_registry_holds_the_jax_modes():
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_device_csr_array_equal(name):
     (_, tcsr, _), (_, jcsr, _) = _both(name)
-    t, j = tmatrix.device_csr(tcsr), jmatrix.device_csr(jcsr)
+    t, j = tmatrix.device_csr(tcsr, device="cpu"), jmatrix.device_csr(jcsr)
     for f in ("data", "cols", "row_ids", "indptr", "row_lens"):
         _eq(getattr(t, f), getattr(j, f))
     assert t.cols.dtype == t.row_ids.dtype == torch.int32
     assert (t.shape, t.nnz) == (tuple(j.shape), j.nnz)
-    t64 = tmatrix.device_csr(tcsr, dtype=torch.float64)
+    t64 = tmatrix.device_csr(tcsr, dtype=torch.float64, device="cpu")
     np.testing.assert_array_equal(t64.data.numpy()[: tcsr.nnz], tcsr.data)
 
 
@@ -144,13 +144,13 @@ def test_device_csr_array_equal(name):
                                     dict(transposed=False, lane_pad=False)])
 def test_device_ell_array_equal(name, layout):
     (_, _, tell), (_, _, jell) = _both(name)
-    t, j = tmatrix.device_ell(tell, **layout), jmatrix.device_ell(jell, **layout)
+    t, j = tmatrix.device_ell(tell, device="cpu", **layout), jmatrix.device_ell(jell, **layout)
     for f in ("data", "cols", "row_lens"):
         _eq(getattr(t, f), getattr(j, f))
     assert (t.shape, t.nnz, t.max_row_nz, t.transposed) == \
         (tuple(j.shape), j.nnz, j.max_row_nz, j.transposed)
     with pytest.raises(ValueError):
-        tmatrix.device_ell(tpart.ell_transpose(tell))
+        tmatrix.device_ell(tpart.ell_transpose(tell), device="cpu")
 
 
 def test_is_nnz_agrees():
@@ -165,7 +165,7 @@ def test_is_nnz_agrees():
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_prepare_binned_array_equal(name):
     (_, tcsr, _), (_, jcsr, _) = _both(name)
-    t, j = tbin.prepare_binned_csr(tcsr), jbin.prepare_binned_csr(jcsr)
+    t, j = tbin.prepare_binned_csr(tcsr, device="cpu"), jbin.prepare_binned_csr(jcsr)
     for f in ("slab_data", "slab_cols", "out_pos"):
         _eq(getattr(t, f), getattr(j, f))
     for f in ("class_offsets", "class_widths", "class_layouts", "nnz"):
@@ -277,7 +277,7 @@ def test_nosimd_sums_left_to_right():
             np.testing.assert_array_equal(got, want)
         else:  # in-chunk sums may take another tree order
             assert np.all(np.abs(got - want) <= 1e-6 * np.abs(p).sum(axis=1))
-    t = tmatrix.device_ell(_both("ragged")[0][2], transposed=True)
+    t = tmatrix.device_ell(_both("ragged")[0][2], transposed=True, device="cpu")
     x = torch.as_tensor(_x(700), dtype=torch.float32)
     _close(tst.ell_rows_transposed(t, x, simd=False), tst.ell_rows_transposed(t, x))
 
@@ -286,7 +286,7 @@ def test_row_lens_mask_matters():
     """ELL_ROWS masks slots past each row's length; ELL_ROWS_NORL does not:
     non-zero filler shows the difference (both agree on zero filler)."""
     (_, tcsr, tell), _ = _both("ragged")
-    mat = tmatrix.device_ell(tell)
+    mat = tmatrix.device_ell(tell, device="cpu")
     filled = dataclasses.replace(mat, data=torch.where(mat.data == 0, 1.0, mat.data))
     x = torch.as_tensor(_x(700), dtype=torch.float32)
     _close(tst.ell_rows(filled, x), serial_csr_spmv(tcsr, x.double().numpy()))
@@ -305,14 +305,14 @@ def test_lanes_from_jax(name):
     x = _x(jcsr.shape[1])
     y_j = np.asarray(jlanes.lanes_small_spmv(j, jnp.asarray(x, jnp.float32)))
     t = tlc.lanes_from_jax(np.asarray(j.vals), np.asarray(j.pidx), np.asarray(j.gid),
-                           j.window_tiles, j.shape, j.nnz, j.n_groups)
+                           j.window_tiles, j.shape, j.nnz, j.n_groups, device="cpu")
     y_t = tlc.lanes_cuda(t, torch.as_tensor(x, dtype=torch.float32))
     _close(y_t, y_j)
     bad = np.asarray(j.gid).copy()
     bad[0, 0] = j.n_groups
     with pytest.raises(ValueError):
         tlc.lanes_from_jax(np.asarray(j.vals), np.asarray(j.pidx), bad, j.window_tiles,
-                           j.shape, j.nnz, j.n_groups)
+                           j.shape, j.nnz, j.n_groups, device="cpu")
 
 
 #: lane-gather layouts of G = 1, 32 and 64 row groups, each over one x
@@ -398,19 +398,19 @@ def test_ell_from_jax(name):
 
     y_j = np.asarray(ell_t_slab_pallas(j, jnp.asarray(x, jnp.float32)))
     t = tec.ell_from_jax(np.asarray(j.data), np.asarray(j.cols), np.asarray(j.row_lens),
-                         j.shape, j.nnz, j.max_row_nz, j.transposed)
+                         j.shape, j.nnz, j.max_row_nz, j.transposed, device="cpu")
     _close(tec.ell_t_cuda(t, torch.as_tensor(x, dtype=torch.float32)), y_j)
     with pytest.raises(ValueError):
         tec.ell_from_jax(np.asarray(j.data), np.asarray(j.cols) + jcsr.shape[1],
-                         np.asarray(j.row_lens), j.shape, j.nnz, j.max_row_nz, True)
+                         np.asarray(j.row_lens), j.shape, j.nnz, j.max_row_nz, True, device="cpu")
 
 
 def test_kernel_wrappers_check_on_the_cpu():
     (_, tcsr, tell), _ = _both("ragged")
     x = torch.as_tensor(_x(700), dtype=torch.float32)
-    ell = tmatrix.device_ell(tell, transposed=True)
+    ell = tmatrix.device_ell(tell, transposed=True, device="cpu")
     with pytest.raises(ValueError):
-        tec.ell_t_cuda(tmatrix.device_ell(tell), x)  # row-major slab
+        tec.ell_t_cuda(tmatrix.device_ell(tell, device="cpu"), x)  # row-major slab
     with pytest.raises(TypeError):
         tec.ell_t_cuda(ell, x.double())
     with pytest.raises(ValueError):
@@ -442,7 +442,7 @@ def test_ell_t_walk_table(name, lens):
     (_, _, tell), _ = _both(name)
     if lens == "none":
         tell = dataclasses.replace(tell, row_lens=None)
-    mat = tmatrix.device_ell(tell, transposed=True)
+    mat = tmatrix.device_ell(tell, transposed=True, device="cpu")
     walk = tec._plan(mat, torch.device("cpu"))
     m = mat.shape[0]
     assert walk.dtype == torch.int32 and walk.tolist() == _np_walk(tell, m, tec.GROUP_ROWS)
@@ -457,7 +457,7 @@ def test_ell_t_walk_table(name, lens):
 
 def test_ell_t_layout_is_checked_once(monkeypatch):
     (_, _, tell), _ = _both("ragged")
-    mat = tmatrix.device_ell(tell, transposed=True)
+    mat = tmatrix.device_ell(tell, transposed=True, device="cpu")
     x = torch.as_tensor(_x(700), dtype=torch.float32)
     checks = []
     real = tec._check_layout
@@ -496,7 +496,7 @@ def test_ell_t_walk_bounded_sum(name):
     from spmv_openmp_cuda_tpu.ops.spmv_pallas import ell_t_slab_pallas
 
     (_, tcsr, tell), (_, _, jell) = _both(name)
-    mat = tmatrix.device_ell(tell, transposed=True)
+    mat = tmatrix.device_ell(tell, transposed=True, device="cpu")
     x = _x(tcsr.shape[1], seed=3)
     xt = torch.as_tensor(x, dtype=torch.float32)
     walk = tec._plan(mat, torch.device("cpu"))

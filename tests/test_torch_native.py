@@ -124,11 +124,11 @@ def test_scan_rank_fill_match_numpy(lib, monkeypatch):
         if kw.get("xdirect"):
             small = T.coo_to_csr(synth.fem_like(m=1000, n=1000, nnz=8000, spread=200, lo=4, hi=10,
                                                 seed=1))
-            m_nat, m_py = tw.prepare_window(small, **kw), _numpy(monkeypatch, tw.prepare_window,
-                                                                  small, **kw)
+            m_nat, m_py = (tw.prepare_window(small, device="cpu", **kw),
+                           _numpy(monkeypatch, tw.prepare_window, small, device="cpu", **kw))
         else:
-            m_nat, m_py = tw.prepare_window(csr, **kw), _numpy(monkeypatch, tw.prepare_window,
-                                                                csr, **kw)
+            m_nat, m_py = (tw.prepare_window(csr, device="cpu", **kw),
+                           _numpy(monkeypatch, tw.prepare_window, csr, device="cpu", **kw))
         for f in ("vals", "sidx", "gid", "rsrc"):
             assert torch.equal(getattr(m_nat, f), getattr(m_py, f)), (kw, f)
 
@@ -156,8 +156,8 @@ def test_native_layouts_and_auto_spmv(lib, monkeypatch, case):
     coo = (synth.preset("delaunay_n12_like") if case == "delaunay"
            else synth.power_law(3000, 3000, 5.0, seed=5))
     csr = T.coo_to_csr(coo)
-    nat = tr.prepare_routed(csr)
-    py = _numpy(monkeypatch, tr.prepare_routed, csr)
+    nat = tr.prepare_routed(csr, device="cpu")
+    py = _numpy(monkeypatch, tr.prepare_routed, csr, device="cpu")
     for f in ("vals", "pidx", "widx"):
         assert torch.equal(getattr(nat, f), getattr(py, f)), f
     for a, b in ((nat.perm_products, py.perm_products), (nat.perm_out, py.perm_out)):
@@ -182,8 +182,8 @@ def test_native_schemad_prepare_equals_numpy(lib, monkeypatch):
     chunks = [tr._sub_csr(csr, b[i], b[i + 1]) for i in range(4)]
     schema = tr.merge_routed_schemas([tr.routed_schema_stats(c) for c in chunks])
     for c in chunks:
-        nat = tr.prepare_routed(c, schema=schema)
-        py = _numpy(monkeypatch, tr.prepare_routed, c, schema=schema)
+        nat = tr.prepare_routed(c, schema=schema, device="cpu")
+        py = _numpy(monkeypatch, tr.prepare_routed, c, schema=schema, device="cpu")
         for f in ("vals", "pidx", "widx"):
             assert torch.equal(getattr(nat, f), getattr(py, f)), f
         for a, p in zip((nat.perm_products, nat.perm_out, *nat.lvl_perms),

@@ -127,12 +127,12 @@ def _prepared(name, bf16=False):
         if name == "chunked":
             kw = dict(chunk_nnz=3000, fit_domains=False)
             return (
-                tr.prepare_routed_chunked(tcsr, vals_dtype=torch.bfloat16 if bf16 else None, **kw),
+                tr.prepare_routed_chunked(tcsr, vals_dtype=torch.bfloat16 if bf16 else None, device="cpu", **kw),
                 jr.prepare_routed_chunked(jcsr, vals_dtype=jnp.bfloat16 if bf16 else None, **kw),
             )
         kw = PREPARE_KW.get(name, {})
         return (
-            tr.prepare_routed(tcsr, vals_dtype=torch.bfloat16 if bf16 else None, **kw),
+            tr.prepare_routed(tcsr, vals_dtype=torch.bfloat16 if bf16 else None, device="cpu", **kw),
             jr.prepare_routed(jcsr, vals_dtype=jnp.bfloat16 if bf16 else None, **kw),
         )
 
@@ -222,9 +222,9 @@ def _layout_equal(tm, jm):
 def test_plan_permutation_matches_jax(t):
     rng = np.random.default_rng(t)
     perm = rng.permutation(t * LANE * LANE)
-    _plan_equal(troute.plan_permutation(perm, t), jroute.plan_permutation(perm, t), "plan")
+    _plan_equal(troute.plan_permutation(perm, t, device="cpu"), jroute.plan_permutation(perm, t), "plan")
     src_row = rng.permutation(np.repeat(np.arange(t * LANE), LANE))
-    tp, tm = troute.plan_row_to_slot(src_row, perm, t)
+    tp, tm = troute.plan_row_to_slot(src_row, perm, t, device="cpu")
     jp, jm = jroute.plan_row_to_slot(src_row, perm, t)
     _plan_equal(tp, jp, "row_to_slot")
     np.testing.assert_array_equal(tm, jm)
@@ -276,7 +276,7 @@ def test_prepare_raises_what_the_port_lacks(monkeypatch):
     # JAX package: shrink both caps
     monkeypatch.setattr(tr, "_DENSE_HEAVY_MAX_BYTES", 1000)
     monkeypatch.setattr(jr, "_DENSE_HEAVY_MAX_BYTES", 1000)
-    tm = tr.prepare_routed(tcsr, heavy_threshold=512)
+    tm = tr.prepare_routed(tcsr, heavy_threshold=512, device="cpu")
     jm = jr.prepare_routed(jcsr, heavy_threshold=512)
     assert tm.hdense is None and tm.hvals is not None and len(tm.heavy_rows) == 70
     _routed_equal(tm, jm)
@@ -287,14 +287,14 @@ def test_prepare_raises_what_the_port_lacks(monkeypatch):
     # a schema (the multi-device path's) too small for the chunk raises in both
     schema = dict(tr.merge_routed_schemas([tr.routed_schema_stats(tcsr)]), rows_a=128)
     with pytest.raises(tr.RoutedError, match="exceed schema"):
-        tr.prepare_routed(tcsr, schema=schema)
+        tr.prepare_routed(tcsr, schema=schema, device="cpu")
     with pytest.raises(jr.RoutedError, match="exceed schema"):
         jr.prepare_routed(jcsr, schema=schema)
     with pytest.raises(NotImplementedError, match="float32"):
-        tr.prepare_routed(tcsr, dtype=torch.float64)
+        tr.prepare_routed(tcsr, dtype=torch.float64, device="cpu")
     empty = T.CSRMatrix((5, 5), np.zeros(6, np.int64), np.zeros(0, np.int64), np.zeros(0))
     with pytest.raises(tr.RoutedError):
-        tr.prepare_routed(empty)
+        tr.prepare_routed(empty, device="cpu")
     with pytest.raises(jr.RoutedError):
         jr.prepare_routed(J.CSRMatrix((5, 5), np.zeros(6, np.int64), np.zeros(0, np.int64), np.zeros(0)))
 
@@ -306,8 +306,9 @@ def test_prepare_raises_what_the_port_lacks(monkeypatch):
 
 def _from_jax(jm):
     if isinstance(jm, jr.RoutedChunks):
-        return trc.routed_chunks_from_jax([_fields(c) for c in jm.chunks], jm.bounds, jm.shape, jm.nnz)
-    return trc.routed_from_jax(**_fields(jm))
+        return trc.routed_chunks_from_jax([_fields(c) for c in jm.chunks], jm.bounds, jm.shape, jm.nnz,
+                                          device="cpu")
+    return trc.routed_from_jax(**_fields(jm), device="cpu")
 
 
 def _fields(jm):
@@ -341,7 +342,7 @@ def test_gather_matches_jax(name, bf16):
 
 def _random_plan(t, seed):
     perm = np.random.default_rng(seed).permutation(t * LANE * LANE)
-    return troute.plan_permutation(perm, t), jroute.plan_permutation(perm, t)
+    return troute.plan_permutation(perm, t, device="cpu"), jroute.plan_permutation(perm, t)
 
 
 @pytest.mark.parametrize("t", [1, 4])
@@ -677,7 +678,7 @@ def test_program_encoding_matches_the_interpreter():
             trc._gather_op(*a, g.n_tiles, g.out)
     with pytest.MonkeyPatch.context() as mp:  # the heavy row in pooled tiles
         mp.setattr(tr, "_dense_heavy_ok", lambda *a: False)
-        pchain = trc.build_chain(tr.prepare_routed(_csrs("spiked_dense")[0]))
+        pchain = trc.build_chain(tr.prepare_routed(_csrs("spiked_dense")[0], device="cpu"))
     (pprog,) = trc._encode(pchain.stages)
     h = pchain.stages[-1]
     assert isinstance(h, trc.HeavyStage) and int(pprog[-words[6]]) == 6
@@ -735,7 +736,7 @@ def _synthetic_levels(seed=11):
 
     def row_to_slot(t):
         src_row = rng.permutation(np.repeat(np.arange(t * LANE), LANE))
-        return troute.plan_row_to_slot(src_row, rng.permutation(t * LANE * LANE), t)[0]
+        return troute.plan_row_to_slot(src_row, rng.permutation(t * LANE * LANE), t, device="cpu")[0]
 
     def mask(t):
         return torch.from_numpy((rng.random((t * LANE, LANE)) < 0.7).astype(np.float32))
@@ -746,7 +747,8 @@ def _synthetic_levels(seed=11):
         pidx=torch.from_numpy(rng.integers(0, LANE, (rows_a, LANE)).astype(np.int8)),
         widx=torch.from_numpy(rng.integers(0, 2, rows_a // LANE).astype(np.int32)),
         perm_products=row_to_slot(4),
-        lvl_perms=tuple(troute.plan_permutation(rng.permutation(t * LANE * LANE), t) for t in (2, 1)),
+        lvl_perms=tuple(troute.plan_permutation(rng.permutation(t * LANE * LANE), t, device="cpu")
+                        for t in (2, 1)),
         lvl_masks=(mask(2), mask(1)), perm_out=row_to_slot(2), shape=(30000, 20000), nnz=0,
         n_windows=2, rows_a=rows_a, runs=((0, 2, 128, 0), (256, 140, 1, 2)),
         lvl_runs=(((0, 1, 100, 0), (100, 50, 2, 1)), ((0, 2, 60, 0),)), out_t=2,
@@ -846,7 +848,7 @@ def test_maps_compose_on_integer_ids():
     t = 4
     n = t * LANE * LANE
     perm = np.random.default_rng(5).permutation(n)
-    plan = troute.plan_permutation(perm, t)
+    plan = troute.plan_permutation(perm, t, device="cpu")
     base = 2**24 + 1
     ids = torch.arange(n, dtype=torch.int64).reshape(-1, LANE) + base
     want = np.empty(n, np.int64)
@@ -913,25 +915,25 @@ def test_one_stage_map_is_the_w_stage(case):
 def test_routed_from_jax_checks_ranges():
     _, jm = _prepared("split_level")
     ok = _fields(jm)
-    assert trc.routed_from_jax(**ok).vals.dtype == torch.float32
+    assert trc.routed_from_jax(device="cpu", **ok).vals.dtype == torch.float32
     bad = dict(ok, pidx=np.asarray(ok["pidx"]).copy())
     bad["pidx"][0, 0] = -1
     with pytest.raises(ValueError):
-        trc.routed_from_jax(**bad)
+        trc.routed_from_jax(device="cpu", **bad)
     with pytest.raises(ValueError):
-        trc.routed_from_jax(**dict(ok, widx=np.asarray(ok["widx"]) + ok["n_windows"]))
+        trc.routed_from_jax(**dict(ok, widx=np.asarray(ok["widx"]) + ok["n_windows"]), device="cpu")
     w2 = np.asarray(jm.perm_products.w2).copy()
     w2[3, 3] = -5
     with pytest.raises(ValueError):
         trc.routed_from_jax(**dict(ok, perm_products=dict(
-            {f: getattr(jm.perm_products, f) for f in PLAN_FIELDS}, w2=w2, t=jm.perm_products.t)))
+            {f: getattr(jm.perm_products, f) for f in PLAN_FIELDS}, w2=w2, t=jm.perm_products.t)), device="cpu")
     with pytest.raises(ValueError):
-        trc.routed_from_jax(**dict(ok, runs=ok["runs"] + ((10**6, 1, 1, 10**6),)))
+        trc.routed_from_jax(**dict(ok, runs=ok["runs"] + ((10**6, 1, 1, 10**6),)), device="cpu")
     with pytest.raises(ValueError):
-        trc.routed_from_jax(**dict(ok, lvl_masks=(np.full((LANE, LANE), 2.0, np.float32),)))
+        trc.routed_from_jax(**dict(ok, lvl_masks=(np.full((LANE, LANE), 2.0, np.float32),)), device="cpu")
     # pooled heavy tiles without hlo/hhi: the JAX package's legacy layout
     with pytest.raises(ValueError, match="do-not-port"):
-        trc.routed_from_jax(**dict(ok, hvals=np.zeros((LANE, LANE), np.float32)))
+        trc.routed_from_jax(**dict(ok, hvals=np.zeros((LANE, LANE), np.float32)), device="cpu")
 
 
 def test_wrapper_checks_on_the_cpu():

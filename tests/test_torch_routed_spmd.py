@@ -123,7 +123,7 @@ def test_schemad_prepare_matches_jax(name, nd, pads, degenerate):
     assert tstats == [jr.routed_schema_stats(c) for c in jch]
     schema = tr.merge_routed_schemas(tstats)
     assert schema == jr.merge_routed_schemas(tstats)
-    tmats = [tr.prepare_routed(c, schema=schema) for c in tch]
+    tmats = [tr.prepare_routed(c, schema=schema, device="cpu") for c in tch]
     if name == "spmd":
         # JAX's chunks as its SPMD prepare stacked them (prepare_routed with
         # this schema; shape and nnz canonicalised for the stack)

@@ -189,7 +189,7 @@ def test_pooled_heavy_tiles_round_trip(tmp_path, monkeypatch):
     jcsr = J.CSRMatrix(shape=tcsr.shape, indptr=tcsr.indptr, indices=tcsr.indices, data=tcsr.data)
     monkeypatch.setenv("SPMV_DENSE_HEAVY", "0")
     monkeypatch.setattr(tr, "_dense_heavy_ok", lambda *a: False)
-    tchain = trc.build_chain(tr.prepare_routed(tcsr, heavy_threshold=4096))
+    tchain = trc.build_chain(tr.prepare_routed(tcsr, heavy_threshold=4096, device="cpu"))
     jmat = jr.prepare_routed(jcsr, heavy_threshold=4096)
     assert jmat.hvals is not None and tchain.mat.hvals is not None
     p_j, p_t = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
@@ -212,7 +212,7 @@ def test_unwritable_kinds_raise_type_error(tmp_path):
         with pytest.raises(TypeError):
             tser.save_prepared(str(tmp_path / "t.npz"),
                                treg.get(mode).prepare(tcsr, tell, cfg, torch.device("cpu")))
-    chunks = tr.prepare_routed_chunked(tcsr, chunk_nnz=600, fit_domains=False)
+    chunks = tr.prepare_routed_chunked(tcsr, chunk_nnz=600, fit_domains=False, device="cpu")
     assert len(chunks.chunks) > 1
     with pytest.raises(TypeError):
         tser.save_prepared(str(tmp_path / "c.npz"), trc.build_chain(chunks))

@@ -214,7 +214,7 @@ def test_dia_sharded_halo_df(case):
         tcsr, jcsr = _csr_pair(synth.banded(5000, 5000, 20, fill=0.3, seed=7))
     jm, tm = _meshes((8, 1))
     jop = jsh.prepare_dia_sharded_df(jdia.prepare_dia_df(jcsr, max_fill_ratio=1e9), jm)
-    top = tsh.prepare_dia_sharded_df(tdia.prepare_dia_df(tcsr, max_fill_ratio=1e9), tm)
+    top = tsh.prepare_dia_sharded_df(tdia.prepare_dia_df(tcsr, max_fill_ratio=1e9, device="cpu"), tm)
     np.testing.assert_array_equal(_join(top.data, dim=1), np.asarray(jop.data))
     np.testing.assert_array_equal(_join(top.data_lo, dim=1), np.asarray(jop.data_lo))
     tf = tsh.make_dia_sharded_df(tm, top)

@@ -161,7 +161,7 @@ def test_prepare_window_array_equal(name):
     tkw, jkw = dict(kw), dict(kw)
     if kw.get("vals_dtype") == "bf16":
         tkw["vals_dtype"], jkw["vals_dtype"] = torch.bfloat16, jnp.bfloat16
-    tmat = tw.prepare_window(tcsr, **tkw)
+    tmat = tw.prepare_window(tcsr, device="cpu", **tkw)
     jmat = jw.prepare_window(jcsr, **jkw)
     _assert_window_equal(tmat, jmat)
     if name == "multiband_tuple":
@@ -177,7 +177,7 @@ def test_prepare_window_refusals_agree():
         with pytest.raises(jw.WindowError):
             jw.prepare_window(jcsr, **kw)
         with pytest.raises(tw.WindowError):
-            tw.prepare_window(tcsr, **kw)
+            tw.prepare_window(tcsr, device="cpu", **kw)
     assert tw._cap_bands(28) == jw._cap_bands(28) == (16, 8, 4)
 
 
@@ -189,7 +189,7 @@ def test_prepare_window_auto_agrees(name):
     assert tw.window_cost_scan(tcsr) == jw.window_cost_scan(jcsr)
     for g in (8, 16):
         assert tw.window_cost(tcsr, g) == jw.window_cost(jcsr, g)
-    tmat = tw.prepare_window_auto(tcsr)
+    tmat = tw.prepare_window_auto(tcsr, device="cpu")
     _assert_window_equal(tmat, jw.prepare_window_auto(jcsr))
     if name == "delaunay":
         assert tmat.xdirect and tmat.nblocks == 1
@@ -197,30 +197,32 @@ def test_prepare_window_auto_agrees(name):
 
 def test_prepare_window_auto_pins_agree(monkeypatch):
     tcsr, jcsr = _csrs(FEM_BIG)
-    _assert_window_equal(tw.prepare_window_auto(tcsr, bps=2), jw.prepare_window_auto(jcsr, bps=2))
+    _assert_window_equal(tw.prepare_window_auto(tcsr, bps=2, device="cpu"),
+                         jw.prepare_window_auto(jcsr, bps=2))
     monkeypatch.setenv("SPMV_WINDOW_BPS", "1")
-    _assert_window_equal(tw.prepare_window_auto(tcsr), jw.prepare_window_auto(jcsr))
+    _assert_window_equal(tw.prepare_window_auto(tcsr, device="cpu"), jw.prepare_window_auto(jcsr))
 
 
 @pytest.mark.parametrize("name", ["scattered", "xdirect_multiblock"])
 def test_window_error_on_the_same_inputs(name):
     if name == "scattered":
         tcsr, jcsr = _csrs(SCATTERED)
-        calls = [lambda w, c: w.prepare_window_auto(c), lambda w, c: w.window_cost_scan(c)]
+        calls = [lambda w, c, **d: w.prepare_window_auto(c, **d),
+                 lambda w, c, **d: w.window_cost_scan(c)]
     else:
         tcsr, jcsr = _csrs(FEM_BANDS)  # 12000 rows: more than one block at any g
-        calls = [lambda w, c: w.prepare_window_auto(c, xdirect=True)]
+        calls = [lambda w, c, **d: w.prepare_window_auto(c, xdirect=True, **d)]
     for call in calls:
         with pytest.raises(jw.WindowError):
             call(jw, jcsr)
         with pytest.raises(tw.WindowError):
-            call(tw, tcsr)
+            call(tw, tcsr, device="cpu")
 
 
 def test_bf16_operands_by_cast_equal_a_bf16_prepare():
     tcsr, jcsr = _csrs(FEM)
-    f32 = tw.prepare_window_auto(tcsr)
-    b16 = tw.prepare_window_auto(tcsr, vals_dtype=torch.bfloat16)
+    f32 = tw.prepare_window_auto(tcsr, device="cpu")
+    b16 = tw.prepare_window_auto(tcsr, vals_dtype=torch.bfloat16, device="cpu")
     cast = dataclasses.replace(f32, vals=f32.vals.to(torch.bfloat16))
     _assert_window_equal(cast, b16)
     _assert_window_equal(cast, jw.prepare_window_auto(jcsr, vals_dtype=jnp.bfloat16))
@@ -255,7 +257,7 @@ def test_reference_matches_jax_kernel(name):
     # the port's own prepare gives the same operands, so the same y
     if kw.get("vals_dtype") == "bf16":
         kw = dict(kw, vals_dtype=torch.bfloat16)
-    y_p = twc.window_spmv(tw.prepare_window(tcsr, **kw), torch.as_tensor(x, dtype=torch.float32))
+    y_p = twc.window_spmv(tw.prepare_window(tcsr, device="cpu", **kw), torch.as_tensor(x, dtype=torch.float32))
     assert torch.equal(y_p, y_t)
 
 
@@ -265,24 +267,24 @@ def test_window_from_jax_checks_ranges():
     ok = dict(vals=np.asarray(jmat.vals), sidx=np.asarray(jmat.sidx),
               gid=np.asarray(jmat.gid), rsrc=np.asarray(jmat.rsrc))
     static = {f: getattr(jmat, f) for f in STATIC}
-    mat = twc.window_from_jax(**ok, **static)
+    mat = twc.window_from_jax(**ok, device="cpu", **static)
     assert mat.g == 16 and mat.vals.dtype == torch.float32
     for field, bad in (("sidx", -1), ("rsrc", -3), ("gid", 16)):
         arr = ok[field].copy()
         arr[-1, 0] = bad
         with pytest.raises(ValueError):
-            twc.window_from_jax(**dict(ok, **{field: arr}), **static)
+            twc.window_from_jax(**dict(ok, **{field: arr}), device="cpu", **static)
     gid = ok["gid"].copy()
     gid[0, 0] = 2  # a fold row holds gid // 8 < ceil(16/8)
     with pytest.raises(ValueError):
-        twc.window_from_jax(**dict(ok, gid=gid), **static)
+        twc.window_from_jax(**dict(ok, gid=gid), device="cpu", **static)
     with pytest.raises(ValueError):
-        twc.window_from_jax(**ok, **dict(static, nblocks=static["nblocks"] + 1))
+        twc.window_from_jax(**ok, **dict(static, nblocks=static["nblocks"] + 1), device="cpu")
 
 
 def test_wrapper_checks_on_the_cpu():
     tcsr, _ = _csrs(FEM)
-    mat = tw.prepare_window(tcsr, g=8)
+    mat = tw.prepare_window(tcsr, g=8, device="cpu")
     x = torch.as_tensor(_x(4000), dtype=torch.float32)
     with pytest.raises(TypeError):
         twc.window_spmv(mat, x.double())
@@ -360,7 +362,7 @@ def test_auto_spmv_window_refusal_names_routed():
     with pytest.raises(jw.WindowError):
         jw.prepare_window_auto(jcsr)  # the JAX package falls back to routed
     with pytest.raises(tw.WindowError):
-        tw.prepare_window_auto(tcsr)
+        tw.prepare_window_auto(tcsr, device="cpu")
     # and so does the port, with the routed engine
     tm = tauto.AutoSpMV.from_csr(tcsr, format="window", device="cpu")
     jm = jauto.AutoSpMV.from_csr(jcsr, format="window")
@@ -459,7 +461,7 @@ def test_launch_plan_fits_shared_memory(kind):
 @pytest.mark.parametrize("proxy", list(PROXY_SMALL))
 def test_launch_plan_covers_every_slot_row_once(proxy, kind):
     tcsr, _ = _csrs(PROXY_SMALL[proxy])
-    mat = tw.prepare_window_auto(tcsr)
+    mat = tw.prepare_window_auto(tcsr, device="cpu")
     # the plan at this layout's shape, and at the full-size proxies' (the
     # shapes of the main path: thermal2 400 blocks of k_pad 256, fem 29 of
     # 1088, delaunay one of 288)
@@ -497,7 +499,7 @@ def test_mod8_groups_write_disjoint_rows(proxy):
     the eight warps' target rows are disjoint, and every tile cell has one
     writer."""
     tcsr, _ = _csrs(PROXY_SMALL[proxy])
-    mat = tw.prepare_window_auto(tcsr)
+    mat = tw.prepare_window_auto(tcsr, device="cpu")
     nb, kp, kc = mat.nblocks, mat.k_pad, mat.k_c
     g_pad = -(-mat.g // 8) * 8
     gid = mat.gid.reshape(nb, kp, 128).long()
