@@ -63,15 +63,17 @@ heavy rows) is one launch whose last CTA closes the product: phase 2 holds
 it bit for bit against hdense_in_order on caida_like, phase 5 prints it
 alone in a CUDA graph with its share of its bound.
 The routed df product (PL_CSR_ROUTED_F64) is one program of csrc/df_spmv.cu
-per product, enqueued from one host call: K3, C-df per level, the output
-gather of both planes into f64 y and D-df for the dense heavy rows (five
-launches on caida_like); phase 2 holds each launch bit for bit against its
-plain version, and a rerun against itself, on caida_like and sg_rand_like's
-three chunks, and the whole product bit for bit against its plain chain and
-the staged chain (the W stages one by one); phase 3 holds the counted
-launches to the planned ones; phase 5 times each launch alone in a CUDA
-graph with its bound, and the product per call and graphed against cuSPARSE
-f64.
+per product, enqueued from one host call: per domain C-df per level (level
+0 forming K3's products), one output gather of every domain's (hi, lo) sums
+into f64 y, per domain D-df for the dense heavy rows (three launches on
+caida_like); phase 2 holds each launch bit for bit against its plain
+version, and a rerun against itself, on caida_like and sg_rand_like's three
+chunks (their one gather included), and the whole product bit for bit
+against its plain chain and the staged chain (the W stages one by one); phase 3
+holds the counted launches to the planned ones, caida_like's to 3 and
+sg_rand_like's to one gather; phase 5 times each launch alone in a CUDA
+graph with its bound (the gather on sg_rand_like too, beside one f64
+torch.take), and the product per call and graphed against cuSPARSE f64.
 The small kernel (one launch per product of a routed domain of t <= 4
 tiles, over per-row slot lists, no scratch) is held bit for bit against the
 staged chain and timed beside it on delaunay_n12_like, west2021_like and a
@@ -513,6 +515,22 @@ def heavy_cost(stage, n_x: int, cols=None):
     return nbytes(stage.hvals, stage.hpidx, stage.hlo, stage.hhi, stage.hwidx, stage.slot_ptr,
                   stage.slot_idx, stage.rows) + x_bytes + 4 * stage.rows.numel(), \
         2 * stage.hvals.numel()
+
+
+def df_gather_take_us(stage, bufs) -> float:
+    """The library yardstick of the df output gather, in us in a CUDA graph
+    (as the kernel is timed): one f64 torch.take through the stage's map
+    (its -1 pointed at a zero appended to the source), the pairs combined
+    into f64 beforehand (not timed): the movement alone."""
+    from spmv_openmp_cuda_tpu_torch.ops import dfloat as DF
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
+
+    src = RC._pairs(bufs, stage.src)
+    src = DF.df_combine64(src[:, 0], src[:, 1])
+    srcz = torch.cat([src, src.new_zeros(1)])
+    idx = stage.imap.idx.reshape(-1)[:stage.n].long()
+    idx = torch.where(idx >= 0, idx, src.numel())
+    return graph_ms(lambda: torch.take(srcz, idx)) * 1e3
 
 
 def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
@@ -2207,6 +2225,18 @@ def main() -> int:
     if caida_launches != 3:
         raise AssertionError(f"{ROUTED_CHECK}: {caida_launches} launches per df product, not 3 "
                              "(C-df, the output gather, D-df)")
+    # one output gather per product, whatever the number of domains:
+    # sg_rand_like's three domains' C-df launches, one gather, their D-df
+    sg = models64["sg_rand_like"]._operands
+    sg_planned = sum(1 + len(d.mat.lvl_perms) - bool(s.tail is not None)
+                     for d, s in zip(sg.domains, (t for t in sg.stages
+                                                  if isinstance(t, RC.DFGatherReduceStage)))) \
+        + 1 + sum(bool(d.heavy_rows_df) for d in sg.domains)
+    log(f"phase 3 (float64): sg_rand_like: {len(sg.domains)} domains, {RC.df_chain_launches(sg)} "
+        f"launches per df product, {sg.counts['df_permute']} output gather (planned: {sg_planned})")
+    if sg.counts["df_permute"] != 1 or RC.df_chain_launches(sg) != sg_planned:
+        raise AssertionError(f"sg_rand_like: {sg.counts} per df product, not one output gather "
+                             f"among {sg_planned} launches")
     for name, (fmt, y_ref, y_n, x_ref, x_n, prep_s) in outputs64.items():
         csr = csrs[name]
         if fmt != EXPECTED_FORMAT[name]:
@@ -2678,10 +2708,13 @@ def main() -> int:
         RC.run_df_stage(stage, bufs, plain=True)
     df_kernel = {k: [0.0, 0.0, 0, 0] for k in RC._DF_COUNTERS}  # us graphed, plain ms, bytes, flops
     labels = df_stage_labels(dchain)
+    permute_lib = {}
     for i, stage in enumerate(dchain.stages):
         ms = graph_ms(lambda s=stage: RC.run_df_stage(s, bufs, plain=False))
         pms = time_per_call(lambda v, s=stage: RC.run_df_stage(s, bufs, plain=True), x64) * 1e3
         b, f = df_stage_cost(stage, csr.shape[1])
+        if isinstance(stage, RC.DFPermuteStage):
+            permute_lib[ROUTED_CHECK] = df_gather_take_us(stage, bufs)
         acc = df_kernel[stage.kernel]
         acc[0] += ms * 1e3
         acc[1] += pms
@@ -2689,12 +2722,30 @@ def main() -> int:
         acc[3] += f
         print(f"  {ROUTED_CHECK} df stage {i} {labels[stage]:60s} {ms * 1e3:8.2f} us in a graph | "
               f"plain {pms:.4f} ms | {b / 1e6:7.3f} MB, bound {least_ms(b, f)[0] * 1e3:6.2f} us "
-              f"({least_ms(b, f)[1]})")
+              f"({least_ms(b, f)[1]})"
+              + (f" | torch.take f64 {permute_lib[ROUTED_CHECK]:.2f} us"
+                 if isinstance(stage, RC.DFPermuteStage) else ""))
     rd = next(s for s in dchain.stages if isinstance(s, RC.DFRowdotStage))
     hd64 = DF.df_combine64(rd.hh, rd.hl)
     xpad = torch.nn.functional.pad(x64, (0, hd64.shape[1] - x64.shape[0]))
     rowdot_lib = graph_ms(lambda: torch.mv(hd64, xpad)) * 1e3
     del hd64, xpad, bufs
+    # the one output gather of sg_rand_like's three domains, alone in a graph
+    sg = prepared_df["sg_rand_like"]
+    xs = normal_x64(csrs["sg_rand_like"].shape[1], dev, seed=4)
+    bufs = RC._df_buffers(sg, xs)
+    for stage in sg.stages:
+        RC.run_df_stage(stage, bufs, plain=True)
+    (stage,) = [s for s in sg.stages if isinstance(s, RC.DFPermuteStage)]
+    ms = graph_ms(lambda: RC.run_df_stage(stage, bufs, plain=False))
+    pms = time_per_call(lambda v: RC.run_df_stage(stage, bufs, plain=True), xs) * 1e3
+    permute_lib["sg_rand_like"] = df_gather_take_us(stage, bufs)
+    b, f = df_stage_cost(stage, csrs["sg_rand_like"].shape[1])
+    print(f"  sg_rand_like {DF_KERNEL_LABELS['df_permute']}, one launch for its {len(sg.domains)} "
+          f"domains: {ms * 1e3:.2f} us in a graph | plain {pms:.4f} ms | torch.take f64 "
+          f"{permute_lib['sg_rand_like']:.2f} us | {b / 1e6:.3f} MB, bound "
+          f"{least_ms(b, f)[0] * 1e3:.2f} us ({least_ms(b, f)[1]})")
+    del bufs
     # row 16b is every C-df launch: level 0's (with its closed level) and
     # the later levels'
     df_kernel["df_reduce_all"] = [a + b for a, b in zip(df_kernel["df_gather_reduce"],
@@ -2703,13 +2754,15 @@ def main() -> int:
         if not us:
             continue  # no such launch on this matrix
         b_ms, by = least_ms(b, f)
-        lib = rowdot_lib * 1e-3 if k == "df_rowdot" else None
+        lib = {"df_rowdot": rowdot_lib * 1e-3,
+               "df_permute": permute_lib[ROUTED_CHECK] * 1e-3}.get(k)
         df_times[f"routed_{k}"] = (us * 1e-3, pms, b_ms, by, lib)
         label = DF_KERNEL_LABELS.get(k, "routed_df_reduce_kernel (C-df, every level)")
         print(f"  {ROUTED_CHECK} {label}: {us:.2f} us per product in a graph | plain {pms:.4f} ms | "
               f"bound {b_ms * 1e3:.2f} us ({by}, {b / 1e6:.3f} MB); graphed at "
               f"{100 * b_ms * 1e3 / us:.1f} % of it"
-              + (f" | library (torch.mv, f64 block) {rowdot_lib:.2f} us" if lib is not None else ""))
+              + (f" | library (torch.mv, f64 block) {rowdot_lib:.2f} us" if k == "df_rowdot" else "")
+              + (f" | library (torch.take, f64) {lib * 1e3:.2f} us" if k == "df_permute" else ""))
     del df_kernel["df_reduce_all"]
     df_bytes = sum(v[2] for v in df_kernel.values())
     df_bound = least_ms(df_bytes, sum(v[3] for v in df_kernel.values()))

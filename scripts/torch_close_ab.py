@@ -317,7 +317,8 @@ def routed_stage_times(name: str, chain, x) -> dict:
 
 def df_routed_products(dev, cache) -> dict:
     """The double-float routed products (PL_CSR_ROUTED_F64) on caida_like,
-    sg_rand_like and webbase_like, hashed, with the kernels and memsets one
+    sg_rand_like and webbase_like, hashed (y for x ~ N(0, 1) and for the
+    reference's x), with the scratch a call takes, the kernels and memsets one
     product enqueues (a torch.profiler trace); on caida_like and
     webbase_like each kernel's launches alone in a CUDA graph, summed per
     kernel name (the chain's stages run with their plain versions first, so
@@ -326,6 +327,7 @@ def df_routed_products(dev, cache) -> dict:
     import numpy as np
     import torch
 
+    from spmv_openmp_cuda_tpu_torch.io.vectors import fill_rnd_vector
     from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as RC
     from spmv_openmp_cuda_tpu_torch.utils.profiling import time_per_call
 
@@ -335,14 +337,20 @@ def df_routed_products(dev, cache) -> dict:
         c = RC.prepare_routed_df_chain(csr, device=dev)
         xd = torch.as_tensor(np.random.default_rng(4).standard_normal(csr.shape[1]),
                              dtype=torch.float64, device=dev)
+        xr = torch.as_tensor(fill_rnd_vector(csr.shape[1], seed=2), dtype=torch.float64,
+                             device=dev)
         a, b = RC.routed_df_spmv(c, xd), RC.routed_df_spmv(c, xd)
+        ar = RC.routed_df_spmv(c, xr)
         torch.cuda.synchronize()
         out[f"{name} PL_CSR_ROUTED_F64 product"] = {
             "ms": time_per_call(lambda v, c=c: RC.routed_df_spmv(c, v), xd) * 1e3,
             "graph_ms": graph_ms(lambda c=c, xd=xd: RC.routed_df_spmv(c, xd), reps=10),
             "rerun_equal": bool(torch.equal(a, b)),
             "launches": device_ops_per_call(lambda c=c, xd=xd: RC.routed_df_spmv(c, xd)),
-            "hash": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]}
+            "scratch_mb": 4 * c.scratch_elems / 1e6,
+            # y for x ~ N(0, 1) and for the reference's x (fill_rnd_vector)
+            "hash": hashlib.sha256(a.cpu().numpy().tobytes()
+                                   + ar.cpu().numpy().tobytes()).hexdigest()[:16]}
         if name != "sg_rand_like":
             bufs = RC._df_buffers(c, xd)
             for st in c.stages:

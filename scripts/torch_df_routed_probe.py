@@ -17,7 +17,8 @@ cuSPARSE's f64 CSR product (torch.sparse, the yardstick; the port never
 calls it), and each launch alone in a CUDA graph with its bound (the bytes
 of its inputs and outputs, once, over 3.35 TB/s), each D-df launch beside
 torch.mv on its f64 block (the one PyTorch call of the same function; the
-port never calls it). Prints the card's name and
+port never calls it), the output gather beside one f64 torch.take through
+its map (the movement alone). Prints the card's name and
 power limit first and one JSON line last. Needs a CUDA device; any failure
 raises and exits non-zero.
 """
@@ -190,6 +191,16 @@ def probe(name: str, dev, smi: str) -> dict:
             row["library_us"] = graph_ms(lambda: torch.mv(block, xpad)) * 1e3
             extra = f" | torch.mv (f64 block) {row['library_us']:.2f} us"
             del block, xpad
+        if isinstance(st, RC.DFPermuteStage):
+            # the movement alone: one f64 torch.take through the same map
+            # (its -1 pointed at a zero appended), the pairs combined first
+            src = RC._pairs(bufs, st.src)
+            src = torch.cat([src[:, 0].double() + src[:, 1].double(), src.new_zeros(1).double()])
+            idx = st.imap.idx.reshape(-1)[:st.n].long()
+            idx = torch.where(idx >= 0, idx, src.numel() - 1)
+            row["library_us"] = graph_ms(lambda: torch.take(src, idx)) * 1e3
+            extra = f" | torch.take (f64) {row['library_us']:.2f} us"
+            del src, idx
         stages.append(row)
         print(f"  stage {i:2d} {label:28s} {us:8.2f} us in a graph | {b / 1e6:8.3f} MB, bound "
               f"{b / HBM_BYTES_PER_S * 1e6:7.2f} us{extra}", flush=True)

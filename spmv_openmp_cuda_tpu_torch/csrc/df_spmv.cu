@@ -21,7 +21,8 @@
 //                              apply_permutation's slab (ops/route.py)
 //   routed_df_permute_kernel        <- the output permutation of both planes
 //                              (ops/route.py::_whole_w_call :347 per plane)
-//                              and df_combine64
+//                              and df_combine64, of every domain
+//                              (routed_df_auto_spmv's chunks) at once
 //   routed_df_rowdot_kernel  (D-df) <- _df_dense_rowdot (:1962), with
 //                              ops/dfloat.py::split_f64_jnp (:101) of x.
 //
@@ -83,8 +84,11 @@
 //     (each single-kernel wrapper runs a one-op program; it counts the
 //     launches it made): per domain C-df per level (level 0 forming K3's
 //     products, and closing the one-tile level after it in its last CTAs),
-//     the output gather, D-df for the dense heavy rows: 3 launches on
-//     caida_like. The sums are (hi, lo) pairs side by side in the scratch, so
+//     each domain's sums in a region of the scratch of its own; then one
+//     output gather for the whole product, whatever the number of domains;
+//     then per domain D-df for the dense heavy rows (after the gather: it
+//     overwrites those rows of y). 3 launches on caida_like, 11 on
+//     webbase_like's five domains. The sums are (hi, lo) pairs side by side in the scratch, so
 //     that a scattered read of a pair is one 8-byte load (one L2 sector, not
 //     one per plane). Every permutation is composed at build time into int32
 //     offsets (routed_cuda.py::plan_map), read once per slab slot, as
@@ -114,8 +118,10 @@
 //     after the last ticket (self-resetting counters); such a level is at
 //     most 32 CTA-sets, so that its waiting closers stay few beside the
 //     card's CTA slots (a larger one is refused).
-//   - routed_df_permute_kernel: routed_spmv.cu's B over the pairs, writing
-//     y in f64 as hi + lo (df_combine64).
+//   - routed_df_permute_kernel: the output gather of every domain in one
+//     launch, through one map composed at build time, writing y in f64 as
+//     hi + lo (df_combine64): four adjacent rows a thread, 16-byte offset
+//     loads and streaming 16-byte y stores.
 //   - routed_df_rowdot_kernel (D-df): one launch per heavy block: CTAs of
 //     256 threads over sets of residues (4 columns each where the width
 //     allows) of a tile of up to 4 rows, a warp reading 512 contiguous
@@ -551,7 +557,7 @@ constexpr int kCloseBatch = 32;    // C-df's closed level: the same (a tile of 1
 constexpr int kMaxCloseSets = 32;  // C-df's closed level: CTA-sets at most (its closers wait at once)
 constexpr int kChunkGroups = 128;  // C-df: at most this many groups per chunk (routed_cuda.py)
 constexpr int kBlockRows = 32;     // C-df: rows of a block of a wider group (one warp's task)
-constexpr int kPermBatch = 4;      // the output gather: elements whose loads a thread issues together
+constexpr int kPermBatch = 4;      // the output gather: adjacent rows a thread owns
 constexpr int kReduceLevels = 7;   // C-df: groups of at most 128 = 2^7 rows
 constexpr int kRowdotCta = 256;    // D-df: threads per CTA at most
 constexpr int kRowdotVec = 4;      // D-df: adjacent residues a thread owns (a float4 per array)
@@ -928,27 +934,50 @@ routed_df_reduce_kernel(DfReduceArgs a) {
 }
 
 // The output gather: y[i] = (double)hi + (double)lo of the pair src[map[i]]
-// (+0 where map[i] is -1) for i < n: a domain's output permutation of the
-// (hi, lo) sums in one gather, combined into f64 as df_combine64 does.
-// Thread t of CTA b takes i = b*kThreads*kPermBatch + u*kThreads + t, its map
-// loads, then its value loads, then its stores (routed_spmv.cu's B).
+// (+0 where map[i] is -1) for i < n, combined into f64 as df_combine64
+// does. One launch per product: map is every domain's output permutation of
+// its (hi, lo) level sums composed at build time, shifted to the domain's
+// region of the scratch and placed at its row bound
+// (routed_cuda.py::_output_map). What bounds it is bytes: 4 of offset, 8 of
+// pair and 8 of y a row (webbase_like's 1,000,005 rows: ~6.0 us at
+// 3.35 TB/s). A thread owns kPermBatch = 4 adjacent rows: one 16-byte load
+// of their offsets, their four 8-byte pair loads through the read-only path
+// issued together, two 16-byte streaming stores of y (nothing in the
+// product reads y again). The rows past a multiple of 4, and every row where
+// map or y is not 16-byte aligned (vec false), take 4-byte and 8-byte
+// accesses. Programmatic dependent launch (the offsets loaded before a wait
+// on C-df) made a graphed product no faster on one H100 (PERF.md, row 16c),
+// so it launches plainly.
 __global__ void __launch_bounds__(kThreads)
 routed_df_permute_kernel(const float2* __restrict__ src, const int32_t* __restrict__ map,
-                         long long n, double* __restrict__ y) {
-  const long long i0 = (long long)blockIdx.x * (kThreads * kPermBatch) + threadIdx.x;
+                         long long n, bool vec, double* __restrict__ y) {
+  static_assert(kPermBatch == 4, "a thread's offsets are one int4");
+  const long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) * kPermBatch;
+  const bool whole = vec && i + kPermBatch <= n;
   int o[kPermBatch];
+  if (whole) {
+    const int4 m4 = __ldg(reinterpret_cast<const int4*>(map + i));
+    o[0] = m4.x;
+    o[1] = m4.y;
+    o[2] = m4.z;
+    o[3] = m4.w;
+  } else {
 #pragma unroll
-  for (int u = 0; u < kPermBatch; ++u) {
-    const long long i = i0 + (long long)u * kThreads;
-    o[u] = i < n ? __ldg(map + i) : -1;
+    for (int u = 0; u < kPermBatch; ++u) o[u] = i + u < n ? __ldg(map + i + u) : -1;
   }
   float2 v[kPermBatch];
 #pragma unroll
   for (int u = 0; u < kPermBatch; ++u) v[u] = o[u] >= 0 ? __ldg(src + o[u]) : make_float2(0.f, 0.f);
+  double r[kPermBatch];
 #pragma unroll
-  for (int u = 0; u < kPermBatch; ++u) {
-    const long long i = i0 + (long long)u * kThreads;
-    if (i < n) y[i] = (double)v[u].x + (double)v[u].y;
+  for (int u = 0; u < kPermBatch; ++u) r[u] = (double)v[u].x + (double)v[u].y;
+  if (whole) {
+    __stcs(reinterpret_cast<double2*>(y + i), make_double2(r[0], r[1]));
+    __stcs(reinterpret_cast<double2*>(y + i + 2), make_double2(r[2], r[3]));
+  } else {
+#pragma unroll
+    for (int u = 0; u < kPermBatch; ++u)
+      if (i + u < n) __stcs(y + i + u, r[u]);
   }
 }
 
@@ -1256,8 +1285,9 @@ int df_reduce_launch(const DfReduceArgs& a, bool products, cudaStream_t st) {
 int df_permute_launch(const float2* src, const int32_t* map, long long n, double* y,
                       cudaStream_t st) {
   const long long per_cta = (long long)kThreads * kPermBatch;
+  const bool vec = (((uintptr_t)map | (uintptr_t)y) & 15) == 0;
   routed_df_permute_kernel<<<(unsigned)((n + per_cta - 1) / per_cta), kThreads, 0, st>>>(
-      src, map, n, y);
+      src, map, n, vec, y);
   return (int)cudaGetLastError();
 }
 

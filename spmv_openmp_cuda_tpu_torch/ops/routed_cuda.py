@@ -209,9 +209,10 @@ def staged_reference(steps: Steps, src: torch.Tensor) -> torch.Tensor:
 class IndexMap:
     """A chain of W stages composed: element i of the chain's result (h, 128)
     is element idx[i] of its source (f32 offsets, -1: reads as zero);
-    span = 1 + the largest offset, what the source must hold."""
+    span = 1 + the largest offset, what the source must hold. steps is None
+    for the df output map composed over several domains (_output_map)."""
 
-    steps: Steps
+    steps: Optional[Steps]
     idx: torch.Tensor  # (h, 128) int32
     span: int
 
@@ -1721,9 +1722,10 @@ def routed_chunks_from_jax(chunks: Sequence[dict], bounds, shape, nnz: int,
 # the gather tiles where it sums them, from each slab slot's value pair and
 # x column composed at build time, and closes a one-tile level after it in
 # its last CTAs; a later level reads each slab slot through one composed
-# offset), the output gather into f64 y, and D-df for the dense heavy rows
-# (x split in it). The scratch (f32) holds a domain's level sums as (hi, lo)
-# pairs side by side, then D-df's CTA sums; y is f64. Every step adds the
+# offset); then one output gather of every domain into f64 y; then per
+# domain D-df for the dense heavy rows (x split in it). The scratch (f32)
+# holds each domain's level sums as (hi, lo) pairs side by side in a region
+# of its own, then D-df's CTA sums; y is f64. Every step adds the
 # plain versions' pairs in their order, so y is bit for bit the staged plain
 # chain's (routed_df_staged_reference: the W stages one by one,
 # reduce_runs_df, df_dense_rowdot).
@@ -2070,11 +2072,11 @@ class DFReduceStage:  # C-df of a later level
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class DFPermuteStage:  # the output gather: the pairs into f64 y
-    src: Buf  # (hi, lo) pairs
-    imap: IndexMap
-    n: int  # the first n elements of the map's result: the domain's rows
-    out: Buf  # y at the domain's first row
+class DFPermuteStage:  # the output gather: every domain's pairs into f64 y
+    src: Buf  # (hi, lo) pairs: the scratch from its start
+    imap: IndexMap  # every domain's output map composed (_output_map)
+    n: int  # the first n elements of the map's result: y's rows
+    out: Buf  # y at row 0
 
     kernel = "df_permute"
 
@@ -2377,22 +2379,21 @@ def _df_reduce_stage(src: Buf, imap: IndexMap, mask, runs, out: Buf, dev) -> DFR
                          runs, df_reduce_plan(runs, rows, dev), out)
 
 
-def _df_domain_stages(mdf: RoutedDF, y: Buf) -> Tuple[List[DFStage], int]:
-    """One domain's stages, y[0:m] written at y, its (hi, lo) pairs in the
-    scratch; and the scratch it uses. C-df level 0
-    reads K3's operands composed through the products plan's whole
-    permutation (gather_reduce_operands: rows past the real gather tiles
-    read nothing, the +0 the pad tiles held) and, where the level after it
-    is one tile, closes that level in its last CTAs; each later C-df reads
-    the sums of the level before through its plan's whole permutation
-    composed (rows past them reading +0); the output gather reads the level
-    sums through the output plan (the assembly tail past them reading +0);
-    D-df then writes the dense heavy rows."""
+def _df_domain_stages(mdf: RoutedDF, dom: Buf) -> Tuple[List[DFStage], IndexMap, int]:
+    """One domain's C-df stages, its (hi, lo) level sums in the scratch from
+    dom on; its output map (offsets in pairs from dom); and the scratch its
+    sums take. C-df level 0 reads K3's operands composed through the
+    products plan's whole permutation (gather_reduce_operands: rows past the
+    real gather tiles read nothing, the +0 the pad tiles held) and, where
+    the level after it is one tile, closes that level in its last CTAs; each
+    later C-df reads the sums of the level before through its plan's whole
+    permutation composed (rows past them reading +0); the output map reads
+    the level sums through the output plan (the assembly tail past them
+    reading +0)."""
     mat = mdf.mat
     dev = mat.vals.device
     pp, po = mat.perm_products, mat.perm_out
     n_real = mat.vals.shape[0] // LANE
-    dom = Buf("s", 0)
     level_groups = [_n_groups(mat.runs)] + [_n_groups(r) for r in mat.lvl_runs]
     offs = np.r_[0, np.cumsum(level_groups)]
     levels = [
@@ -2409,38 +2410,69 @@ def _df_domain_stages(mdf: RoutedDF, y: Buf) -> Tuple[List[DFStage], int]:
         vals, cols, host, first.groups, first.chunks, first.tasks, first.runs, first.tree,
         dom, tail, torch.zeros(2, dtype=torch.int32, device=dev))]
     stages += levels
-    stages.append(DFPermuteStage(dom, plan_map(po, src_rows=int(offs[-1])), mat.shape[0], y))
-    used = 2 * po.h * LANE
-    if mdf.heavy_rows_df:
-        n_h = len(mdf.heavy_rows_df)
-        rows = torch.tensor(mdf.heavy_rows_df, dtype=torch.int32, device=dev)
-        plan = rowdot_plan(mdf.hdense_hi.shape[1], n_h)
-        stages.append(DFRowdotStage(mdf.hdense_hi, mdf.hdense_lo, rows, plan, mat.shape[1],
-                                    Buf("s", used), _rowdot_tickets(n_h, plan, dev), y))
-        used += _rowdot_part_elems(plan, n_h)
-    return stages, used
+    return stages, plan_map(po, src_rows=int(offs[-1])), 2 * po.h * LANE
+
+
+def _output_map(parts: Sequence[Tuple[IndexMap, int, int, int]]) -> IndexMap:
+    """The domains' output maps composed into one over y's rows: each part
+    (its map, its region's offset in pairs, its rows r0 .. r1) shifted by
+    the offset and placed at row r0; -1 stays -1 (reads +0). One domain
+    keeps its map (its region is at 0); the rows past the last bound are
+    -1 up to a whole row of 128."""
+    if len(parts) == 1:
+        return parts[0][0]
+    ids = []
+    for imap, shift, r0, r1 in parts:
+        idx = imap.idx.reshape(-1)[: r1 - r0].long()
+        ids.append(torch.where(idx >= 0, idx + shift, idx))
+    flat = torch.cat(ids)
+    flat = torch.cat([flat, flat.new_full((-flat.numel() % LANE,), -1)])
+    idx, span = _int32_offsets(flat.reshape(-1, LANE))
+    return IndexMap(None, idx, span)
+
+
+def _df_rowdot_stage(mdf: RoutedDF, part: Buf, y: Buf) -> DFRowdotStage:
+    """D-df for a domain's dense heavy rows, written into y at the domain's
+    first row; its CTA sums in the scratch at part."""
+    n_h = len(mdf.heavy_rows_df)
+    dev = mdf.hdense_hi.device
+    rows = torch.tensor(mdf.heavy_rows_df, dtype=torch.int32, device=dev)
+    plan = rowdot_plan(mdf.hdense_hi.shape[1], n_h)
+    return DFRowdotStage(mdf.hdense_hi, mdf.hdense_lo, rows, plan, mdf.mat.shape[1], part,
+                         _rowdot_tickets(n_h, plan, dev), y)
 
 
 def build_df_chain(mat: Union[RoutedDF, RoutedChunks]) -> RoutedDFChain:
     """Check a prepared df layout once and plan its product: every domain's
-    stages, chunk after chunk into y at its row bound, over one scratch
-    buffer that the chunks reuse in turn; on a CUDA device, one program."""
+    C-df stages, each domain's sums in a region of the scratch of its own;
+    one output gather of every domain into y through their output maps
+    composed (_output_map); then every domain's D-df, which overwrites its
+    dense heavy rows of y, its CTA sums in one region past the domains'
+    that the domains reuse in turn. On a CUDA device, one program."""
     domains = mat.chunks if isinstance(mat, RoutedChunks) else (mat,)
     bounds = mat.bounds if isinstance(mat, RoutedChunks) else (0, mat.shape[0])
     if len(bounds) != len(domains) + 1 or bounds[0] != 0 or bounds[-1] != mat.shape[0]:
         raise ValueError(f"chunk bounds {bounds} do not cover {mat.shape[0]} rows")
     stages: List[DFStage] = []
-    scratch = 0
+    parts = []
+    off = 0
     for mdf, r0, r1 in zip(domains, bounds[:-1], bounds[1:]):
         if not isinstance(mdf, RoutedDF) or mdf.shape != (r1 - r0, mat.shape[1]):
             raise ValueError(f"the chunk between rows {r0} and {r1} is no RoutedDF of that shape")
         _check_df(mdf)
-        dstages, used = _df_domain_stages(mdf, Buf("y", r0))
+        dstages, omap, used = _df_domain_stages(mdf, Buf("s", off))
         stages += dstages
-        scratch = max(scratch, used)
+        parts.append((omap, off // 2, r0, r1))
+        off += used
+    stages.append(DFPermuteStage(Buf("s", 0), _output_map(parts), mat.shape[0], Buf("y", 0)))
+    rowdot = [_df_rowdot_stage(mdf, Buf("s", off), Buf("y", r0))
+              for mdf, r0 in zip(domains, bounds) if mdf.heavy_rows_df]
+    stages += rowdot
     dev = domains[0].mat.vals.device
     chain = RoutedDFChain(
-        mat=mat, domains=tuple(domains), stages=tuple(stages), scratch_elems=scratch,
+        mat=mat, domains=tuple(domains), stages=tuple(stages),
+        scratch_elems=off + max((_rowdot_part_elems(s.plan, s.hh.shape[0]) for s in rowdot),
+                                default=0),
         bounds=tuple(bounds), shape=tuple(mat.shape), device=dev,
         counts={k: sum(s.kernel == k for s in stages) for k in _DF_COUNTERS},
     )
@@ -2528,8 +2560,8 @@ def run_df_stage(stage: DFStage, bufs: Dict[str, torch.Tensor], plain: bool) -> 
 
 def df_stage_output(stage: DFStage, bufs: Dict[str, torch.Tensor]) -> torch.Tensor:
     """What a df stage wrote: the (hi, lo) pairs (C-df; level 0's, then
-    the closed level's), the domain's rows of y (the output gather), y at
-    the heavy rows (D-df)."""
+    the closed level's), y's rows (the output gather), y at the heavy rows
+    (D-df)."""
     if isinstance(stage, DFGatherReduceStage):
         out = [_pairs(bufs, stage.out, stage.out_elems()).reshape(-1)]
         if stage.tail is not None:
@@ -2627,8 +2659,8 @@ def routed_df_staged_reference(chain: RoutedDFChain, x: torch.Tensor) -> torch.T
 def routed_df_spmv(chain: RoutedDFChain, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """y = A @ x in double-float (f64 in and out, length m) over a prepared
     df chain. CUDA tensors enqueue the chain's program (per domain C-df per
-    level, level 0 forming K3's products, the output gather and D-df) in one
-    call of csrc/df_spmv.cu;
+    level, level 0 forming K3's products; one output gather of every
+    domain; per domain D-df) in one call of csrc/df_spmv.cu;
     with plain=True, or for CPU tensors, every stage runs its plain version
     (routed_df_reference). Anything else raises."""
     _device_of(x)

@@ -646,11 +646,12 @@ def _op_words():
 def test_df_chain_launch_list(name):
     """The planned program of a df product: per domain C-df level 0 (forming
     K3's products; closing the level after it where that level is one
-    tile), C-df per later level, the output gather, D-df for the dense heavy
-    rows, one launch each (caida_like: 3); the counts those make, the
-    program's words as csrc/df_spmv.cu reads them, every stage inside the
-    scratch (the domain's (hi, lo) pairs, then D-df's CTA sums) or in its
-    domain's rows of y."""
+    tile) and C-df per later level; then one output gather of every domain;
+    then per domain D-df for the dense heavy rows; one launch each
+    (caida_like: 3); the counts those make, the program's words as
+    csrc/df_spmv.cu reads them, every stage inside the scratch (the
+    domains' (hi, lo) pairs, then D-df's CTA sums) or in y: the gather
+    over all of y's rows."""
     if name == "chunked":
         tcsr, mat = _chunked_df()
     else:
@@ -661,7 +662,7 @@ def test_df_chain_launch_list(name):
         tail = bool(mdf.mat.lvl_perms) and mdf.mat.lvl_perms[0].t == 1
         closed.append(tail)
         want += ["df_gather_reduce"] + ["df_reduce"] * (len(mdf.mat.lvl_perms) - tail)
-        want += ["df_permute"] + (["df_rowdot"] if mdf.heavy_rows_df else [])
+    want += ["df_permute"] + ["df_rowdot" for mdf in chain.domains if mdf.heavy_rows_df]
     assert [s.kernel for s in chain.stages] == want
     assert [s.tail is not None for s in chain.stages if isinstance(s, trc.DFGatherReduceStage)] == closed
     assert chain.counts == {k: want.count(k) for k in trc._DF_COUNTERS}
@@ -689,13 +690,66 @@ def test_df_chain_launch_list(name):
             assert s.part.off + trc._rowdot_part_elems(s.plan, s.hh.shape[0]) <= chain.scratch_elems
             assert s.tickets.shape == (trc._rowdot_ticket_words(s.plan, s.hh.shape[0]),)
             assert not s.tickets.any() and s.plan == trc.rowdot_plan(s.hh.shape[1], s.hh.shape[0])
-    outs = [s for s in chain.stages if isinstance(s, trc.DFPermuteStage)]
-    assert [s.out.off for s in outs] == list(chain.bounds[:-1])
-    assert [s.out.off + s.n for s in outs] == list(chain.bounds[1:])
+    (out,) = [s for s in chain.stages if isinstance(s, trc.DFPermuteStage)]
+    assert (out.src, out.out, out.n) == (trc.Buf("s", 0), trc.Buf("y", 0), tcsr.shape[0])
+    assert out.imap.idx.numel() >= out.n and 2 * out.imap.span <= chain.scratch_elems
     x = torch.from_numpy(_x(tcsr.shape[1], seed=9))
     y = trc.routed_df_spmv(chain, x)
     assert trc.bits_equal(y, trc.routed_df_staged_reference(chain, x))
     assert _rel(y, serial_csr_spmv(tcsr, x.numpy())) < (1e-10 if name == "chunked" else 1e-11)
+
+
+def _level_rows(mdf) -> int:
+    """Rows of a domain's level sums: every level's groups (the output
+    plan's source rows)."""
+    return trc._n_groups(mdf.mat.runs) + sum(trc._n_groups(r) for r in mdf.mat.lvl_runs)
+
+
+@pytest.mark.parametrize("name", ["chunked", "heavy_row"])
+def test_df_output_gather_is_one_map(name):
+    """The one output gather of a df product: its map is each domain's
+    output plan's map shifted by the domain's region of the scratch (in
+    pairs) and placed at its row bound, -1 kept, the rows past m -1; the
+    domains' regions and D-df's CTA sums are disjoint and inside the
+    scratch; the plain product is bit for bit the staged chain, and within
+    1e-12 * max|y| of the JAX package's routed_df_auto_spmv."""
+    if name == "chunked":
+        # the JAX package's RoutedChunks as its prepare_routed_df_auto makes
+        # it, from the bounds test_routed_df_chunked holds equal to its fit
+        tcsr, mat = _chunked_df()
+        jcsr = J.CSRMatrix(shape=tcsr.shape, indptr=tcsr.indptr, indices=tcsr.indices,
+                           data=tcsr.data)
+        b = mat.bounds
+        jmat = jr.RoutedChunks(
+            chunks=tuple(jr.prepare_routed_df(jr._sub_csr(jcsr, r0, r1))
+                         for r0, r1 in zip(b[:-1], b[1:])),
+            bounds=tuple(b), shape=tcsr.shape, nnz=tcsr.nnz)
+    else:
+        tcsr, mat, jmat = _routed_prepared(name)
+    chain = trc.build_df_chain(mat)
+    starts = [s.out.off for s in chain.stages if isinstance(s, trc.DFGatherReduceStage)]
+    sizes = [2 * mdf.mat.perm_out.h * 128 for mdf in chain.domains]
+    assert starts == list(np.r_[0, np.cumsum(sizes)[:-1]])
+    (out,) = [s for s in chain.stages if isinstance(s, trc.DFPermuteStage)]
+    flat = out.imap.idx.reshape(-1)
+    for mdf, start, r0, r1 in zip(chain.domains, starts, chain.bounds[:-1], chain.bounds[1:]):
+        dom = trc.plan_map(mdf.mat.perm_out, src_rows=_level_rows(mdf)).idx.reshape(-1)[: r1 - r0]
+        want = torch.where(dom >= 0, dom + start // 2, dom)
+        assert torch.equal(flat[r0:r1], want)
+    assert out.imap.span <= sum(sizes) // 2
+    if len(chain.domains) > 1:
+        assert out.imap.steps is None and (flat[tcsr.shape[0]:] == -1).all()
+    rowdot = [s for s in chain.stages if isinstance(s, trc.DFRowdotStage)]
+    assert bool(rowdot) == (name == "heavy_row")
+    for s in rowdot:
+        assert s.part.off == sum(sizes)
+        assert s.part.off + trc._rowdot_part_elems(s.plan, s.hh.shape[0]) <= chain.scratch_elems
+    assert chain.scratch_elems >= sum(sizes)
+    x = _x(tcsr.shape[1], seed=12)
+    xt = torch.from_numpy(x)
+    y = trc.routed_df_spmv(chain, xt, plain=True)
+    assert trc.bits_equal(y, trc.routed_df_staged_reference(chain, xt))
+    assert _rel(y, _jax_y(lambda xv: jr.routed_df_auto_spmv(jmat, xv), x)) <= 1e-12
 
 
 # ---------------------------------------------------------------------------

@@ -826,6 +826,45 @@ def _replays_equal(fn, out, want):
         assert trc.bits_equal(out, want)
 
 
+def test_routed_df_output_gather_is_one_launch(cuda):
+    """The output gather of a df product over three domains (a chunked
+    matrix) is one launch: bit for bit its plain version over the composed
+    map, eager (with y 16-byte aligned, y not aligned, and a ragged tail of
+    rows) and in CUDA graph replays; the product bit for bit its plain
+    chain, eager and in CUDA graph replays."""
+    from spmv_openmp_cuda_tpu_torch.ops import routed_cuda as trc
+
+    rng = np.random.default_rng(21)
+    rows = np.repeat(np.arange(8000), 3)
+    cols = rng.integers(0, 128, rows.size) * 128
+    rows, cols = np.unique(np.stack([rows, cols]), axis=1)
+    csr = T.coo_to_csr(T.sort_coo(T.COOMatrix((8000, 16384), rows, cols,
+                                              rng.standard_normal(rows.size))))
+    chain = trc.prepare_routed_df_chain(csr, device=cuda)
+    assert len(chain.domains) == 3 and chain.counts["df_permute"] == 1
+    x = torch.as_tensor(rng.standard_normal(16384), device=cuda)
+    bufs = trc._df_buffers(chain, x)
+    for st in chain.stages:  # the sums the gather reads
+        trc.run_df_stage(st, bufs, plain=True)
+    (gather,) = [s for s in chain.stages if isinstance(s, trc.DFPermuteStage)]
+    src = trc._pairs(bufs, gather.src)
+    want = trc.df_permute_reference(src[:, 0], src[:, 1], gather.imap.idx, gather.n)
+    before = trc.routed_df_permute_cuda.launches
+    for n, lead in ((gather.n, 0), (gather.n, 1), (gather.n - 3, 0)):
+        y = torch.full((n + lead,), float("nan"), dtype=torch.float64, device=cuda)
+        trc.routed_df_permute_cuda(src.view(-1), gather.imap, n, y[lead:])
+        torch.cuda.synchronize()
+        assert trc.bits_equal(y[lead:], want[:n]), (n, lead)
+    assert trc.routed_df_permute_cuda.launches == before + 3
+    y = torch.empty(gather.n, dtype=torch.float64, device=cuda)
+    _replays_equal(lambda: trc.routed_df_permute_cuda(src.view(-1), gather.imap, gather.n, y), y,
+                   want)
+    yk = trc.routed_df_spmv(chain, x)
+    assert trc.bits_equal(yk, trc.routed_df_spmv(chain, x, plain=True))
+    yg = torch.empty_like(yk)
+    _replays_equal(lambda: yg.copy_(trc.routed_df_spmv(chain, x)), yg, yk)
+
+
 @pytest.mark.parametrize("n_pad,n_h", [
     (128, 5), (256, 5), (1024, 5), (2560, 5), (5120, 5), (5120, 20), (40_960, 5), (40_960, 1),
     (192_256, 8), (192_256, 4), (192_256, 1), (192_256, 13), (1_000_064, 7), (1_000_064, 3),
